@@ -1,0 +1,467 @@
+"""Decoder-only transformer LM of the GPT-2 family, for serving (counterpart
+of ``deepspeed_tpu/models/transformer_lm.py``).
+
+The same config, the same math and the same parameter names as the flax
+model, in PyTorch idiom: ``nn.Module``s, a layer loop over an
+``nn.ModuleList`` in place of ``nn.scan``, and the decode KV cache as an
+explicit ``KVCache`` passed in and returned in place of flax's mutable
+``cache`` collection. Parameters are stored in ``param_dtype`` and every
+op computes in ``dtype``, as flax's ``Dense``/``Embed``/``LayerNorm`` do.
+
+This slice ports the logits path (no labels) of learned-position, tied-head,
+pre-LN GPT-2: the einsum and flash attention paths of full forwards and the
+dense-cache decode path. Config fields of features not ported yet raise
+``NotImplementedError`` when set away from their defaults.
+"""
+
+import dataclasses
+import math
+from typing import Any, List, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+# field -> (default, feature) for GPTConfig fields whose feature this port
+# does not have yet
+_UNPORTED = {
+    "norm": ("layernorm", "RMSNorm"),
+    "gated_mlp": (False, "the gated (SwiGLU) MLP"),
+    "use_bias": (True, "bias-free layers"),
+    "attn_bias": (None, "a separate attention-bias switch"),
+    "alibi": (False, "ALiBi"),
+    "embed_layernorm": (False, "the embedding LayerNorm"),
+    "rotary": (False, "rotary embeddings"),
+    "rotary_pct": (1.0, "rotary embeddings"),
+    "rotary_interleaved": (False, "rotary embeddings"),
+    "rope_theta": (10000.0, "rotary embeddings"),
+    "learned_positions": (True, "models without a learned position table"),
+    "tie_word_embeddings": (True, "an untied LM head"),
+    "lm_head_bias": (False, "an LM-head bias"),
+    "parallel_residual": (False, "the parallel residual"),
+    "n_kv_head": (None, "grouped-query attention"),
+    "remat": (False, "activation recomputation (training)"),
+    "remat_policy": ("full", "activation recomputation (training)"),
+    "flash_autotune": (False, "the flash block autotuner"),
+    "attention_chunk": (None, "chunked attention"),
+    "param_offload": (False, "parameter offload"),
+    "sequence_parallel": ("none", "sequence parallelism"),
+    "fused_head_ce": ("auto", "the fused LM-head cross entropy (training)"),
+    "sparse_attention": (None, "block-sparse attention"),
+    "sparse_kv_cache": ("auto", "the ring KV cache"),
+    "quantized_weights": (False, "int8 weights"),
+    "kv_cache_dtype": (None, "the int8 KV cache"),
+    "kv_cache_slack_blocks": (0, "the ring KV cache"),
+    "stochastic_mode": (False, "stochastic depth (training)"),
+    "moe_num_experts": (0, "mixture of experts"),
+    "moe_top_k": (1, "mixture of experts"),
+    "moe_capacity_factor": (1.0, "mixture of experts"),
+    "moe_eval_capacity_factor": (1.0, "mixture of experts"),
+    "moe_min_capacity": (4, "mixture of experts"),
+    "moe_drop_tokens": (True, "mixture of experts"),
+    "moe_aux_loss_coef": (0.01, "mixture of experts"),
+    "moe_noisy_gate_policy": (None, "mixture of experts"),
+    "moe_use_rts": (True, "mixture of experts"),
+    "moe_gated_experts": (False, "mixture of experts"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    """The fields and defaults of ``deepspeed_tpu``'s ``GPTConfig``, with
+    torch dtypes. ``dropout`` is accepted and inert: the port's modules run
+    in eval mode only, as the JAX engine serves with ``deterministic=True``."""
+
+    vocab_size: int = 50257
+    n_positions: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    mlp_ratio: int = 4
+    layer_norm_epsilon: float = 1e-5
+    dropout: float = 0.0
+    dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.float32
+    intermediate_size: Optional[int] = None
+    norm: str = "layernorm"
+    activation: str = "gelu_tanh"
+    causal: bool = True
+    gated_mlp: bool = False
+    use_bias: bool = True
+    attn_bias: Optional[bool] = None
+    alibi: bool = False
+    embed_layernorm: bool = False
+    rotary: bool = False
+    rotary_pct: float = 1.0
+    rotary_interleaved: bool = False
+    rope_theta: float = 10000.0
+    learned_positions: bool = True
+    tie_word_embeddings: bool = True
+    lm_head_bias: bool = False
+    parallel_residual: bool = False
+    n_kv_head: Optional[int] = None
+    remat: bool = False
+    remat_policy: str = "full"
+    # the layout of the JAX parameter tree this config pairs with (one
+    # stacked "h/block" or "h_0".."h_{n-1}"); the port always loops
+    scan_layers: bool = True
+    # True routes full forwards (no mask, T % 128 == 0) through the flash
+    # kernel. "auto" picks by a crossover measured on a TPU; the card's own
+    # crossover is not measured yet, so it is refused
+    use_flash_attention: Any = False
+    flash_autotune: bool = False
+    attention_chunk: Optional[int] = None
+    param_offload: bool = False
+    sequence_parallel: str = "none"
+    fused_head_ce: Any = "auto"
+    sparse_attention: Any = None
+    sparse_kv_cache: Any = "auto"
+    quantized_weights: bool = False
+    kv_cache_dtype: Any = None
+    kv_cache_slack_blocks: int = 0
+    stochastic_mode: bool = False
+    moe_num_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.0
+    moe_eval_capacity_factor: float = 1.0
+    moe_min_capacity: int = 4
+    moe_drop_tokens: bool = True
+    moe_aux_loss_coef: float = 0.01
+    moe_noisy_gate_policy: Optional[str] = None
+    moe_use_rts: bool = True
+    moe_gated_experts: bool = False
+
+    def __post_init__(self):
+        for name, (default, feature) in _UNPORTED.items():
+            value = getattr(self, name)
+            if value is not default and value != default:
+                raise NotImplementedError(
+                    f"GPTConfig.{name}={value!r}: {feature} is not ported to "
+                    "deepspeed_tpu_torch yet")
+        if self.use_flash_attention == "auto":
+            raise NotImplementedError(
+                "use_flash_attention='auto' selects by a flash/einsum "
+                "crossover that has not been measured on the GPU yet; pass "
+                "True or False")
+        if self.use_flash_attention not in (True, False):
+            raise ValueError(
+                f"use_flash_attention must be True or False; got "
+                f"{self.use_flash_attention!r}")
+        if self.activation not in _ACTIVATIONS:
+            raise ValueError(f"unknown activation {self.activation!r}")
+        if self.n_embd % self.n_head:
+            raise ValueError(
+                f"n_embd ({self.n_embd}) must be divisible by n_head "
+                f"({self.n_head})")
+
+    @property
+    def head_dim(self) -> int:
+        return self.n_embd // self.n_head
+
+    @property
+    def ffn_dim(self) -> int:
+        return self.intermediate_size or self.mlp_ratio * self.n_embd
+
+
+GPT2_SIZES = {
+    "gpt2-125m": dict(n_embd=768, n_layer=12, n_head=12),
+    "gpt2-350m": dict(n_embd=1024, n_layer=24, n_head=16),
+    "gpt2-760m": dict(n_embd=1536, n_layer=24, n_head=16),
+    "gpt2-1.3b": dict(n_embd=2048, n_layer=24, n_head=16),
+    "gpt2-2.7b": dict(n_embd=2560, n_layer=32, n_head=32),
+    "gpt2-6.7b": dict(n_embd=4096, n_layer=32, n_head=32),
+}
+
+
+def gpt2_config(name: str, **overrides) -> GPTConfig:
+    base = dict(GPT2_SIZES[name])
+    base.update(overrides)
+    return GPTConfig(**base)
+
+
+_ACTIVATIONS = {
+    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu": lambda x: F.gelu(x, approximate="none"),
+    "relu": F.relu,
+    "silu": F.silu,
+    "quick_gelu": lambda x: x * torch.sigmoid(1.702 * x),
+}
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense``: weight and bias cast to the compute dtype at use.
+    The weight is torch's ``[out, in]``; the JAX kernel is its transpose."""
+
+    def __init__(self, in_features, out_features, cfg):
+        super().__init__(in_features, out_features, dtype=cfg.param_dtype)
+        self.compute_dtype = cfg.dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` (the ``_norm`` layernorm branch): statistics and
+    the affine map in f32, the result cast to the compute dtype."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(cfg.n_embd, dtype=cfg.param_dtype))
+        self.bias = nn.Parameter(torch.zeros(cfg.n_embd, dtype=cfg.param_dtype))
+        self.eps = cfg.layer_norm_epsilon
+        self.compute_dtype = cfg.dtype
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(self.compute_dtype)
+
+
+class VocabEmbed(nn.Embedding):
+    """flax ``nn.Embed`` gather (``VocabEmbed``'s tp == 1 branch): the table
+    is cast to the compute dtype, then rows are taken."""
+
+    def __init__(self, num, features, cfg):
+        super().__init__(num, features, dtype=cfg.param_dtype)
+        self.compute_dtype = cfg.dtype
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight.to(self.compute_dtype))
+
+
+@dataclasses.dataclass
+class KVCache:
+    """The dense decode cache (flax's ``cache`` collection,
+    ``transformer_lm.py:565-612``, plus the position counter at :1114).
+
+    ``key``/``value`` hold one ``[B, n_positions, H, D]`` buffer per layer.
+    ``valid`` ([B, n_positions]) marks written real tokens, ``index`` ([B])
+    is each row's next write slot and ``position`` ([B]) each row's next
+    learned position. The flax model keeps a copy of ``valid`` and ``index``
+    in every layer; all copies are equal, so one serves here. The buffers are
+    updated in place.
+
+    Every call appends its T columns to every row, so ``length``, a host
+    int, bounds all rows' ``index``: a call that would write past the cache
+    raises, where flax's ``mode="drop"`` writes would silently drop tokens.
+    Knowing that on the host keeps the writes free of device syncs.
+    """
+
+    key: List[torch.Tensor]
+    value: List[torch.Tensor]
+    valid: torch.Tensor
+    index: torch.Tensor
+    position: torch.Tensor
+    length: int = 0
+
+    @classmethod
+    def empty(cls, cfg: GPTConfig, batch: int, device) -> "KVCache":
+        shape = (batch, cfg.n_positions, cfg.n_head, cfg.head_dim)
+
+        def zeros():
+            return torch.zeros(shape, dtype=cfg.dtype, device=device)
+
+        return cls(
+            key=[zeros() for _ in range(cfg.n_layer)],
+            value=[zeros() for _ in range(cfg.n_layer)],
+            valid=torch.zeros((batch, cfg.n_positions), dtype=torch.bool,
+                              device=device),
+            index=torch.zeros(batch, dtype=torch.long, device=device),
+            position=torch.zeros(batch, dtype=torch.long, device=device))
+
+
+@dataclasses.dataclass
+class _DecodeStep:
+    """What every layer of one decode call shares: the cache, the slots
+    ([B, T]) this call writes, and the cache entries each query may not see
+    ([B, 1, T, S]: later slots, and slots holding no real token)."""
+
+    cache: KVCache
+    rows: torch.Tensor
+    slots: torch.Tensor
+    hidden: torch.Tensor
+
+    def write(self, buf, vals):
+        """``buf[b, slots[b, t]] = vals[b, t]`` (``.at[rows, pos].set``)."""
+        buf[self.rows, self.slots] = vals.to(buf.dtype)
+
+
+class CausalSelfAttention(nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.c_attn = Dense(cfg.n_embd, 3 * cfg.n_embd, cfg)
+        self.c_proj = Dense(cfg.n_embd, cfg.n_embd, cfg)
+
+    def forward(self, x, mask=None, step=None, layer=0):
+        """Full forward when ``step`` is None; otherwise the decode path:
+        write this call's keys and values into the layer's cache buffers and
+        attend over the whole cache."""
+        cfg = self.cfg
+        B, T, C = x.shape
+        H, D = cfg.n_head, cfg.head_dim
+        qkv = self.c_attn(x)
+        # views into the fused projection: the flash kernel reads them
+        # through their strides
+        q, k, v = (t.view(B, T, H, D) for t in qkv.split(C, dim=-1))
+        scale = 1.0 / math.sqrt(D)
+
+        if step is not None:
+            k_all, v_all = step.cache.key[layer], step.cache.value[layer]
+            step.write(k_all, k)
+            step.write(v_all, v)
+            att = torch.matmul(q.transpose(1, 2),
+                               k_all.permute(0, 2, 3, 1)) * scale  # [B,H,T,S]
+            att = att.masked_fill(step.hidden, torch.finfo(att.dtype).min)
+            att = torch.softmax(att.float(), dim=-1).to(cfg.dtype)
+            y = torch.matmul(att, v_all.transpose(1, 2))           # [B,H,T,D]
+            return self.c_proj(y.transpose(1, 2).reshape(B, T, C))
+
+        # the flax model's gate (transformer_lm.py:720-725) unchanged, so
+        # both packages route the same shapes; the kernel itself takes any T
+        use_flash = cfg.use_flash_attention and mask is None and T % 128 == 0
+        if use_flash:
+            from deepspeed_tpu_torch.ops.cuda.flash_attention import \
+                flash_attention
+
+            y = flash_attention(q, k, v, causal=cfg.causal)
+        else:
+            att = torch.matmul(q.transpose(1, 2),
+                               k.permute(0, 2, 3, 1)) * scale      # [B,H,T,T]
+            if cfg.causal:
+                tri = torch.ones((T, T), dtype=torch.bool,
+                                 device=x.device).tril()
+                att = att.masked_fill(~tri, torch.finfo(att.dtype).min)
+            if mask is not None:
+                att = att.masked_fill(~mask.bool()[:, None, None, :],
+                                      torch.finfo(att.dtype).min)
+            att = torch.softmax(att.float(), dim=-1).to(cfg.dtype)
+            y = torch.matmul(att, v.transpose(1, 2)).transpose(1, 2)
+        return self.c_proj(y.reshape(B, T, C))
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.c_fc = Dense(cfg.n_embd, cfg.ffn_dim, cfg)
+        self.c_proj = Dense(cfg.ffn_dim, cfg.n_embd, cfg)
+        self.act = _ACTIVATIONS[cfg.activation]
+
+    def forward(self, x):
+        return self.c_proj(self.act(self.c_fc(x)))
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block (dense MLP)."""
+
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.ln_1 = LayerNorm(cfg)
+        self.attn = CausalSelfAttention(cfg)
+        self.ln_2 = LayerNorm(cfg)
+        self.mlp = MLP(cfg)
+
+    def forward(self, x, mask=None, step=None, layer=0):
+        x = x + self.attn(self.ln_1(x), mask=mask, step=step, layer=layer)
+        return x + self.mlp(self.ln_2(x))
+
+
+class GPT(nn.Module):
+    """Decoder-only LM returning f32 logits ``[B, T, vocab]``.
+
+    Like a flax module, ``GPT(config)`` describes the model without
+    allocating it: its parameters live on the meta device until
+    ``init_inference`` materializes them on the card (or ``load_state_dict(
+    ..., assign=True)`` supplies them)."""
+
+    def __init__(self, config: GPTConfig):
+        super().__init__()
+        self.config = config
+        with torch.device("meta"):
+            self.wte = VocabEmbed(config.vocab_size, config.n_embd, config)
+            self.wpe = VocabEmbed(config.n_positions, config.n_embd, config)
+            self.h = nn.ModuleList(Block(config)
+                                   for _ in range(config.n_layer))
+            self.ln_f = LayerNorm(config)
+
+    def forward(self, input_ids, attention_mask=None, *, decode=False,
+                cache: Optional[KVCache] = None):
+        """Logits of ``input_ids`` ([B, T]).
+
+        With ``decode=True`` the call appends to a KV cache and returns
+        ``(logits, cache)``: a new cache when ``cache`` is None (prefill),
+        else ``cache`` itself, updated in place. ``attention_mask`` marks the
+        real tokens of LEFT-padded prompts."""
+        cfg = self.config
+        B, T = input_ids.shape
+        dev = input_ids.device
+        step = None
+        if decode and not cfg.causal:
+            raise NotImplementedError("decode path requires a causal model")
+        if decode and cache is None:
+            cache = KVCache.empty(cfg, B, dev)
+        if decode:
+            if cache.length + T > cfg.n_positions:
+                raise ValueError(
+                    f"{T} more tokens overflow the KV cache ({cache.length} "
+                    f"of n_positions={cfg.n_positions} written)")
+            # a token's learned position is its count of real predecessors,
+            # not its cache slot (left-padded ragged prompts)
+            if attention_mask is not None:
+                am = attention_mask.long()
+                pos = cache.position[:, None] + (am.cumsum(1) - 1).clamp_min(0)
+                cache.position += am.sum(1)
+            else:
+                pos = cache.position[:, None] + torch.arange(T, device=dev)
+                cache.position += T
+            slots = cache.index[:, None] + torch.arange(T, device=dev)
+            rows = torch.arange(B, device=dev)[:, None]
+            cache.valid[rows, slots] = (
+                attention_mask.bool() if attention_mask is not None
+                else torch.ones((B, T), dtype=torch.bool, device=dev))
+            k_pos = torch.arange(cfg.n_positions, device=dev)
+            visible = (k_pos[None, None, :] <= slots[:, :, None]) \
+                & cache.valid[:, None, :]                           # [B,T,S]
+            step = _DecodeStep(cache, rows, slots, ~visible[:, None])
+        else:
+            pos = torch.arange(T, device=dev)[None, :]
+        x = self.wte(input_ids) + self.wpe(pos)
+        for i, block in enumerate(self.h):
+            x = block(x, mask=attention_mask, step=step, layer=i)
+        x = self.ln_f(x)
+        logits = _tied_head(x, self.wte.weight.to(cfg.dtype))
+        if decode:
+            cache.index += T
+            cache.length += T
+            return logits, cache
+        return logits
+
+
+def _tied_head(x, w):
+    """``x @ w.T`` with compute-dtype operands and f32 accumulation and
+    output (``lax.dot_general(..., preferred_element_type=f32)``)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.dtype == torch.float32:
+        out = torch.mm(x2, w.t())
+    elif x.is_cuda:
+        # as [V, N] = w @ x^T every leading dimension stays a multiple of 8
+        # for an odd vocab (GPT-2's 50257), so cuBLAS can take a Hopper
+        # kernel; [N, V] directly leaves the f32 rows unaligned
+        out = torch.mm(w, x2.t(), out_dtype=torch.float32).t()
+    else:
+        # the CPU has no mixed-dtype mm: the upcast operands hold the same
+        # values, and the f32 product accumulates in f32
+        out = torch.mm(x2.float(), w.float().t())
+    return out.reshape(*x.shape[:-1], w.shape[0])
+
+
+def num_params(config: GPTConfig) -> int:
+    """Parameter count of the ported architecture (counterpart of
+    ``transformer_lm.py:1273`` for GPT-2's knobs)."""
+    C, L, V, F_ = config.n_embd, config.n_layer, config.vocab_size, \
+        config.ffn_dim
+    attn = C * 3 * C + 3 * C + C * C + C
+    mlp = 2 * C * F_ + F_ + C
+    per_layer = attn + mlp + 2 * 2 * C
+    return V * C + L * per_layer + 2 * C + config.n_positions * C
