@@ -12,17 +12,30 @@ Phases, each printing one JSON line:
 * ``build``: compiles every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc, one
   process per source, all started together.
 * ``kernel``: holds each kernel against its plain PyTorch version on the
-  card, at the serving shape and at edge cases, and times the kernel, the
-  plain version and one PyTorch library call that computes the same function.
+  card, at the 1.3B shapes and at edge cases, and times the kernel, the
+  plain version and one PyTorch library call that computes the same
+  function: B1 (flash forward), B2/B3 (flash backward: dq, dk/dv; also the
+  full autograd gradient, bit-reproducibility and segment isolation) and
+  B4 (fused AdamW over GPT-2 1.3B's parameter shapes, 3 steps).
 * ``serve``: GPT-2 1.3B at full width and depth (random weights, seed 0)
   through ``init_inference``: ``forward`` on [4, 1024] ids through the flash
   kernel, checked against the einsum path on the same weights, then
   ``generate`` of 32 greedy tokens for 4 ragged prompts. The kernels' launch
   counts are set to 0 just before this phase and read just after it.
 * ``profile``: the card's time by kernel in one traced forward and one
-  traced generate (torch.profiler).
+  traced generate (torch.profiler), and in ``train``, one traced step.
 * ``small``: a small fp32 GPT on the card, whose greedy ``generate`` must
   equal an argmax rollout of the full forward, token for token.
+* ``train`` (the training slice's main path): GPT-2 1.3B at full width and
+  depth through ``initialize`` with ``benchmarks/gpt_pretrain.py``'s
+  config (bf16, full remat, flash, FusedAdam on B4, micro batch 4 x 1024),
+  one step checked against the einsum path on the same weights, then 2
+  warm-up and 8 measured steps on one repeated batch: the loss must fall,
+  and each step must launch B1 48, B2 24, B3 24 and B4 1 times (counts set
+  to 0 just before the 10 steps and read just after).
+* ``small_train``: a small fp32 GPT trained 3 steps on the card (B1-B4) and
+  on the CPU (plain versions) from the same weights and batches; losses and
+  parameters must agree.
 
 Then the kernels line, nvidia-smi's line and, last, ``{"ok": true, ...}``.
 A failed check raises, and the script exits nonzero. It imports neither jax
@@ -53,6 +66,42 @@ TOLERANCE = {"bfloat16": {"o": 2e-2, "lse": 1e-3},
 # near-ties among 50257 logits
 SERVE_TOP1_MIN = 0.9
 SERVE_MAX_ABS_LOGIT_DIFF = 1.0
+
+# B2/B3 against the plain backward, as max-abs error over the largest
+# reference gradient: with 16-bit inputs P and dS are rounded to the input
+# dtype before the second products (as in the TPU kernels), so errors reach
+# a few ulps of the largest entries (bf16 ulp 2^-8, f16 2^-11); f32 runs in
+# f32 FMA and differs only in the order of sums
+GRAD_REL_TOL = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-5}
+# B4 against its plain version: each op is one IEEE f32 rounding on both
+# sides, in the same order, so p, m and v must be bit-identical. The
+# parameters are drawn at GPT-2's init scale (std 0.02), where one bf16 ulp
+# is at most 2^-13 and Adam's first steps (about lr = 2e-4 each) move p; at
+# least this share of p's entries must have moved, so that the comparison
+# sees the update and not only the rounding back to bf16
+ADAMW_MIN_MOVED = 0.9
+
+# GPT-2 1.3B train step, flash against einsum on the same weights and batch
+# (bf16): the paths round scores and probabilities at different points, so
+# the loss (about ln 50257 = 10.8) agrees to 1e-3 relative and the global
+# grad norm (bf16 gradients, each rounded at 2^-8) to 1e-2 relative
+TRAIN_LOSS_REL_TOL = 1e-3
+TRAIN_GNORM_REL_TOL = 1e-2
+# one batch repeated 10 times is memorized: the loss must fall by at least
+# 1 nat from the first step to the last
+TRAIN_MIN_LOSS_DROP = 1.0
+# small f32 model, card against CPU: losses to 1e-5 relative. Parameters
+# are compared through their updates (final minus initial weights): Adam
+# divides by sqrt(v), so an entry whose gradient is near zero turns f32
+# rounding differences into update differences of up to lr; a max-abs bound
+# would measure those few entries, so the updates are held to 1e-3 in
+# relative L2 norm (the max-abs error is reported beside it). The key part
+# of the c_attn bias is left out of the comparison: its gradient is zero in
+# exact arithmetic (softmax ignores a per-row shift), so both sides hold only
+# rounding noise there, which Adam normalizes to steps of +-lr
+SMALL_LR = 1e-3
+SMALL_LOSS_REL_TOL = 1e-5
+SMALL_UPDATE_REL_L2 = 1e-3
 
 
 def emit(obj):
@@ -173,7 +222,7 @@ def phase_kernel():
         ("fp32_full_segments", 1, 130, 2, 128, False, f32, True),
     ]
     serving = None
-    for name, b, t, h, d, causal, dtype, packed in cases:
+    for name, b, t, h, d, causal, dtype, packed in cases:  # B1
         # q, k, v as the model hands them over: views into one fused
         # [B, T, 3*H*D] projection, read through their strides
         qkv = torch.randn((b, t, 3 * h * d), generator=gen).to(dev, dtype)
@@ -227,18 +276,217 @@ def phase_kernel():
         qt, kt, vt, is_causal=causal))
     flops, nbytes = attention_flops_bytes(b, t, h, d, causal,
                                           q.element_size())
-    t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = _bound(flops, nbytes, str(q.dtype).split(".")[-1])
     entry = {"name": "flash_attention_fwd", "route": "cuda",
              "source": "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
              "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:53",
              "launches": None, "max_abs_err": o_err, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-             "library_ms": library_ms}
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": library_ms}
     emit({"phase": "kernel", "kernel": "flash_attention_fwd",
           "case": "serving_1p3b", "timing": entry, "flops": flops,
           "bytes": nbytes, "tflops_per_s": flops / ms / 1e9})
+    return [entry] + check_flash_backward(cases) + check_fused_adamw()
+
+
+def _bound(flops, nbytes, dtype_name):
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _rel_err(got, want):
+    """Max-abs error of ``got`` over the largest entry of ``want``."""
+    scale = max(float(want.float().abs().max()), 1e-30)
+    return float((got.float() - want.float()).abs().max()) / scale
+
+
+def check_flash_backward(cases):
+    """B2 and B3 against the plain backward at every B1 case; the full
+    autograd gradient against autograd through the plain forward;
+    bit-reproducibility; segment isolation. Then times both kernels at the
+    1.3B training shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(10)
+    worst = {}
+    for name, b, t, h, d, causal, dtype, packed in cases:
+        qkv = torch.randn((b, t, 3 * h * d), generator=gen).to(dev, dtype)
+        q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+        seg = _segments(b, t, gen, dev) if packed else None
+        do = torch.randn((b, t, h, d), generator=gen).to(dev, dtype)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                     segment_ids=seg)
+        want = fa.flash_attention_backward_reference(
+            q, k, v, o, lse, do, causal=causal, segment_ids=seg)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                       segment_ids=seg)
+        # the whole gradient: the autograd Function against autograd
+        # through the plain forward, for the same cotangent
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        fa.flash_attention(*leaves, causal=causal,
+                           segment_ids=seg).backward(do)
+        ref_leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        o_ref, _ = fa.flash_attention_reference(*ref_leaves, causal=causal,
+                                                segment_ids=seg)
+        o_ref.backward(do)
+        torch.cuda.synchronize()
+        dname = str(dtype).split(".")[-1]
+        tol = GRAD_REL_TOL[dname]
+        line = {"phase": "kernel", "kernel": "flash_attention_bwd",
+                "case": name, "shape": [b, t, h, d], "causal": causal,
+                "dtype": str(dtype), "segments": packed, "rel_tol": tol,
+                "rel_err": {n: _rel_err(g, w)
+                            for n, g, w in zip(("dq", "dk", "dv"), got, want)},
+                "autograd_rel_err": {
+                    n: _rel_err(a.grad, r.grad) for n, a, r in
+                    zip(("dq", "dk", "dv"), leaves, ref_leaves)},
+                "max_abs_err": {n: float((g.float() - w.float()).abs().max())
+                                for n, g, w in zip(("dq", "dk", "dv"), got, want)},
+                "bit_reproducible": all(torch.equal(x, y)
+                                        for x, y in zip(got, again)),
+                "finite": all(bool(torch.isfinite(x).all()) for x in got)}
+        errs = list(line["rel_err"].values()) + list(line["autograd_rel_err"].values())
+        ok = max(errs) <= tol and line["bit_reproducible"] and line["finite"]
+        if packed:
+            # another segment's keys and values must not touch a row's dq
+            target = seg[0, t // 2].item()
+            hit = (seg == target)[:, :, None, None]
+            k2 = k + 5 * torch.randn(k.shape, generator=gen).to(dev, dtype) * hit
+            v2 = v - 3 * torch.randn(v.shape, generator=gen).to(dev, dtype) * hit
+            o2, lse2 = fa.flash_attention_fwd(q, k2, v2, causal=causal,
+                                              segment_ids=seg)
+            dq2, _, _ = fa.flash_attention_bwd(q, k2, v2, o2, lse2, do,
+                                               causal=causal, segment_ids=seg)
+            keep = ~hit[..., 0, 0]
+            line["isolated_dq_bit_exact"] = bool(torch.equal(dq2[keep],
+                                                             got[0][keep]))
+            ok = ok and line["isolated_dq_bit_exact"]
+        emit(line)
+        if not ok:
+            raise AssertionError(f"flash_attention_bwd {name}: {line}")
+        for n, e in line["max_abs_err"].items():
+            worst[n] = max(worst.get(n, 0.0), e)
+
+    # timing at the 1.3B training shape
+    b, t, h, d = 4, 1024, 16, 128
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen).to(dev, torch.bfloat16)
+    q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+    do = torch.randn((b, t, h, d), generator=gen).to(dev, torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    scale = d ** -0.5
+    delta = fa.bwd_delta(o, do)
+    args = (q, k, v, lse, delta, do, None, True, scale)
+    dq_ms = cuda_ms(lambda: fa._launch_dq(*args))
+    dkv_ms = cuda_ms(lambda: fa._launch_dkv(*args))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_backward_reference(
+        q, k, v, o, lse, do), iters=5)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                     retain_graph=True))
+    pairs = b * t * (t + 1) // 2
+    bthd, bht = b * t * h * d * 2, b * h * t * 4
+    entries = []
+    for name, replaces, ms, n_ops, nbytes, err in (
+            ("flash_attention_bwd_dq", "flash_attention.py:157", dq_ms,
+             6 * pairs * h * d, 5 * bthd + 2 * bht, worst["dq"]),
+            ("flash_attention_bwd_dkv", "flash_attention.py:207", dkv_ms,
+             8 * pairs * h * d, 6 * bthd + 2 * bht,
+             max(worst["dk"], worst["dv"]))):
+        bound_ms, bound_by = _bound(n_ops, nbytes, "bfloat16")
+        entry = {"name": name, "route": "cuda",
+                 "source": "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
+                 "replaces": "deepspeed_tpu/ops/pallas/" + replaces,
+                 "launches": None, "max_abs_err": err, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": library_ms}
+        entries.append(entry)
+        emit({"phase": "kernel", "kernel": name, "case": "train_1p3b",
+              "timing": entry, "flops": n_ops, "bytes": nbytes,
+              "tflops_per_s": n_ops / ms / 1e9,
+              "note": "plain_ms and library_ms (F.scaled_dot_product_attention "
+                      "backward) compute dq, dk and dv together"})
+    return entries
+
+
+def check_fused_adamw():
+    """B4 against its plain version over GPT-2 1.3B's parameter shapes (bf16
+    p and g, f32 m and v) for 3 steps; then times the kernel, the plain
+    version and torch.optim.AdamW(fused=True) on f32 copies."""
+    import torch
+
+    from deepspeed_tpu_torch.models.transformer_lm import GPT, gpt2_config
+    from deepspeed_tpu_torch.ops.cuda import fused_adam as fadam
+
+    dev = torch.device("cuda")
+    shapes = [p.shape for p in GPT(gpt2_config("gpt2-1.3b")).parameters()]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf16 = torch.bfloat16
+    ps = [(torch.randn(s, generator=gen, device=dev) * 0.02).to(bf16)
+          for s in shapes]
+    gs = [(torch.randn(s, generator=gen, device=dev) * 1e-2).to(bf16)
+          for s in shapes]
+    ms = [torch.zeros(s, device=dev) for s in shapes]
+    vs = [torch.zeros(s, device=dev) for s in shapes]
+    p0 = [p.clone() for p in ps]
+    refs = [[x.clone() for x in xs] for xs in (ps, ms, vs)]
+    hyper = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    for step in (1, 2, 3):
+        fadam.fused_adamw_update(ps, gs, ms, vs, 2e-4, step, **hyper)
+        fadam.fused_adamw_reference(*refs[:1], gs, *refs[1:], 2e-4, step,
+                                    **hyper)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in ps)
+    moved = sum(int((b != a).sum()) for a, b in zip(p0, refs[0])) / n
+    identical = {name: all(torch.equal(a, b) for a, b in zip(xs, ys))
+                 for name, xs, ys in (("p", ps, refs[0]), ("m", ms, refs[1]),
+                                      ("v", vs, refs[2]))}
+    max_abs = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(ps, refs[0]))
+    line = {"phase": "kernel", "kernel": "fused_adamw", "case": "gpt2_1p3b_leaves",
+            "tensors": len(shapes), "elements": n, "steps": 3,
+            "bit_identical": identical, "p_max_abs_err": max_abs,
+            "p_moved_share": moved, "min_moved_share": ADAMW_MIN_MOVED}
+    emit(line)
+    if not (all(identical.values()) and moved >= ADAMW_MIN_MOVED):
+        raise AssertionError(f"fused_adamw: {line}")
+    del refs, p0
+    ms_ = cuda_ms(lambda: fadam.fused_adamw_update(ps, gs, ms, vs, 2e-4, 4,
+                                                   **hyper),
+                  iters=10)
+    plain_ms = cuda_ms(lambda: fadam.fused_adamw_reference(
+        ps, gs, ms, vs, 2e-4, 4, **hyper), iters=3, warmup=1)
+    del ms, vs
+    # the yardstick: torch's fused AdamW needs one dtype for p, g, m and v
+    p32 = [torch.nn.Parameter(p.float()) for p in ps]
+    del ps
+    for p, g in zip(p32, gs):
+        p.grad = g.float()
+    del gs
+    opt = torch.optim.AdamW(p32, lr=2e-4, betas=(0.9, 0.95), eps=1e-8,
+                            weight_decay=0.1, fused=True)
+    library_ms = cuda_ms(opt.step, iters=5, warmup=2)
+    del opt, p32
+    torch.cuda.empty_cache()
+    nbytes = 22 * n  # bf16 p read+written, bf16 g read, f32 m, v read+written
+    bound_ms, bound_by = _bound(16 * n, nbytes, "float32")
+    entry = {"name": "fused_adamw", "route": "cuda",
+             "source": "deepspeed_tpu_torch/csrc/fused_adamw.cu",
+             "replaces": "deepspeed_tpu/ops/pallas/fused_adam.py:26",
+             "launches": None, "max_abs_err": max_abs, "ms": ms_,
+             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": library_ms}
+    emit({"phase": "kernel", "kernel": "fused_adamw", "case": "gpt2_1p3b_leaves",
+          "timing": entry, "bytes": nbytes, "gb_per_s": nbytes / ms_ / 1e6,
+          "note": "library_ms is torch.optim.AdamW(fused=True) on float32 "
+                  "copies (p, g, m, v all f32: 32 bytes per element)"})
     return [entry]
 
 
@@ -252,6 +500,8 @@ def phase_serve():
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 
     cfg = gpt2_config("gpt2-1.3b", use_flash_attention=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = init_inference(GPT(cfg), dtype="bf16", seed=0)
     torch.cuda.synchronize()
@@ -263,13 +513,13 @@ def phase_serve():
     mask = torch.arange(128)[None, :] < torch.tensor(lengths)[:, None]
     prompts = prompts * mask
 
-    fa.launches = 0
+    reset_launches()
     logits = engine(ids)
     torch.cuda.synchronize()
     forward_launches = fa.launches
     toks = engine.generate(prompts, max_new_tokens=32, attention_mask=mask)
     torch.cuda.synchronize()
-    launches = {"flash_attention_fwd": fa.launches}
+    launches = read_launches()
 
     if forward_launches != cfg.n_layer:
         raise AssertionError(f"forward launched flash_attention_fwd "
@@ -388,6 +638,214 @@ def phase_small():
                              f"{expect.tolist()}")
 
 
+def _counters():
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import fused_adam as fadam
+
+    return {"flash_attention_fwd": (fa, "launches"),
+            "flash_attention_bwd_dq": (fa, "launches_dq"),
+            "flash_attention_bwd_dkv": (fa, "launches_dkv"),
+            "fused_adamw": (fadam, "launches")}
+
+
+def reset_launches():
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_launches():
+    return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
+
+
+def gpt_flops_per_token(cfg, seq):
+    """Model training FLOPs per token of a causal GPT: 6N for the
+    non-embedding parameters plus the attention term (the formula of
+    benchmarks/_util.py:11-18)."""
+    from deepspeed_tpu_torch.models.transformer_lm import num_params
+
+    embed = cfg.vocab_size * cfg.n_embd
+    attn = 6 * cfg.n_layer * cfg.n_embd * seq
+    return 6.0 * (num_params(cfg) - embed) + attn
+
+
+# benchmarks/gpt_pretrain.py:51-61 with its CLI micro batch (:92), plus the
+# device block that routes FusedAdam to the fused kernel (B4)
+GPT_PRETRAIN_CONFIG = {
+    "train_micro_batch_size_per_gpu": 4,
+    "gradient_accumulation_steps": 1,
+    "bf16": {"enabled": True},
+    "gradient_clipping": 1.0,
+    "optimizer": {"type": "FusedAdam",
+                  "params": {"lr": 2e-4, "betas": [0.9, 0.95],
+                             "weight_decay": 0.1}},
+    "zero_optimization": {"stage": 1},
+    "steps_per_print": 10 ** 9,
+    "tpu": {"use_pallas_optimizer": True},
+}
+WARMUP_STEPS, MEASURED_STEPS = 2, 8
+PER_STEP = {"flash_attention_fwd": 48, "flash_attention_bwd_dq": 24,
+            "flash_attention_bwd_dkv": 24, "fused_adamw": 1}
+
+
+def phase_train():
+    """GPT-2 1.3B through initialize -> train_batch, the training slice's
+    main path. Returns the kernels' launch counts on it."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import (
+        GPT, gpt2_config, num_params)
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    def model(flash):
+        return GPT(gpt2_config(
+            "gpt2-1.3b", n_positions=1024, dtype=torch.bfloat16,
+            param_dtype=torch.bfloat16, remat=True, remat_policy="full",
+            use_flash_attention=flash))
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model(True), config=GPT_PRETRAIN_CONFIG, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = engine.module.config
+    rng = np.random.RandomState(1)
+    ids = rng.randint(0, cfg.vocab_size, size=(4, 1024)).astype(np.int64)
+    batch = {"input_ids": ids, "labels": ids}
+    it = iter(RepeatingLoader([batch]))
+
+    # one step on the einsum path from the same weights and batch
+    weights = {k: v.clone() for k, v in engine.module.state_dict().items()}
+    einsum, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model(False), config=GPT_PRETRAIN_CONFIG,
+        model_parameters=weights)
+    loss_e = float(einsum.train_batch(iter([batch])))
+    gnorm_e = einsum.get_global_grad_norm()
+    del einsum, weights
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, times = [], []
+    for step in range(WARMUP_STEPS + MEASURED_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = engine.train_batch(it)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(loss))
+        if step == 0:
+            loss_f, gnorm_f = losses[0], engine.get_global_grad_norm()
+    launches = read_launches()
+    steps = WARMUP_STEPS + MEASURED_STEPS
+    ms = statistics.median(times[WARMUP_STEPS:])
+    fpt = gpt_flops_per_token(cfg, 1024)
+    tflops = 4 * 1024 * fpt / ms / 1e9
+    line = {"phase": "train", "model": "gpt2-1.3b", "params": num_params(cfg),
+            "config": GPT_PRETRAIN_CONFIG, "batch": [4, 1024],
+            "init_s": init_s, "losses": losses,
+            "flash_vs_einsum": {"loss": [loss_f, loss_e],
+                                "grad_norm": [gnorm_f, gnorm_e]},
+            "launches": launches, "steps": steps,
+            "step_ms_median": ms, "step_ms": times,
+            "tokens_per_s": 4 * 1024 / ms * 1e3,
+            "model_flops_per_token": fpt, "model_tflops_per_s": tflops,
+            "mfu_vs_989": tflops / 989.0,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(line)
+    problems = []
+    if not all(np.isfinite(losses)):
+        problems.append("non-finite loss")
+    if not losses[-1] <= losses[0] - TRAIN_MIN_LOSS_DROP:
+        problems.append(f"loss did not fall by {TRAIN_MIN_LOSS_DROP}")
+    for name, per in PER_STEP.items():
+        if launches[name] != per * steps:
+            problems.append(f"{name}: {launches[name]} launches, want "
+                            f"{per} x {steps}")
+    if abs(loss_f - loss_e) > TRAIN_LOSS_REL_TOL * abs(loss_e):
+        problems.append("flash and einsum losses disagree")
+    if abs(gnorm_f - gnorm_e) > TRAIN_GNORM_REL_TOL * abs(gnorm_e):
+        problems.append("flash and einsum grad norms disagree")
+    if problems:
+        raise AssertionError(f"train: {problems}")
+    profile_train(engine, it)
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_train(engine, it):
+    """Where the card's time goes in one traced train step."""
+    step, by_name = _trace(lambda: engine.train_batch(it))
+    marks = {"B1": "fwd_mma_kernel", "B2": "bwd_dq_mma_kernel",
+             "B3": "bwd_dkv_mma_kernel", "B4": "adamw_kernel"}
+    step["kernel_ms"] = {k: sum(ms for name, ms in by_name.items() if mark in name)
+                         for k, mark in marks.items()}
+    step["kernel_share_of_device"] = {
+        k: v / step["device_ms"] for k, v in step["kernel_ms"].items()}
+    step["copy_kernels_ms"] = sum(ms for name, ms in by_name.items()
+                                  if "copy" in name)
+    emit({"phase": "profile", "train_step_1p3b": step})
+
+
+def phase_small_train():
+    """A small f32 GPT trained 3 steps on the card (the kernels) and on the
+    CPU (their plain versions) from the same weights and batches."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import GPT, GPTConfig
+
+    cfg = GPTConfig(vocab_size=512, n_positions=128, n_embd=256, n_layer=2,
+                    n_head=4, dtype=torch.float32, use_flash_attention=True)
+    config = {"train_micro_batch_size_per_gpu": 2, "gradient_clipping": 1.0,
+              "optimizer": {"type": "FusedAdam",
+                            "params": {"lr": SMALL_LR, "weight_decay": 0.1}},
+              "steps_per_print": 10 ** 9, "tpu": {"use_pallas_optimizer": True}}
+    rng = np.random.RandomState(4)
+    batches = [{"input_ids": x, "labels": x}
+               for x in rng.randint(0, 512, size=(3, 2, 128))]
+    cpu, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=GPT(cfg), config=config, seed=5, device="cpu")
+    start = {k: v.clone() for k, v in cpu.module.state_dict().items()}
+    card, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=GPT(cfg), config=config,
+        model_parameters={k: v.clone() for k, v in start.items()})
+    reset_launches()
+    card_losses = [float(card.train_batch(iter([b]))) for b in batches]
+    launches = read_launches()
+    cpu_losses = [float(cpu.train_batch(iter([b]))) for b in batches]
+    got = {k: v.cpu() for k, v in card.module.state_dict().items()}
+    want = cpu.module.state_dict()
+    C = cfg.n_embd
+    param_err, diff_sq, upd_sq = 0.0, 0.0, 0.0
+    for name, w in want.items():
+        g, w0 = got[name], start[name]
+        if name.endswith("attn.c_attn.bias"):  # without the key part
+            g, w, w0 = (torch.cat([x[:C], x[2 * C:]]) for x in (g, w, w0))
+        param_err = max(param_err, float((g - w).abs().max()))
+        diff_sq += float(((g - w) ** 2).sum())
+        upd_sq += float(((w - w0) ** 2).sum())
+    update_err = (diff_sq / upd_sq) ** 0.5
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    line = {"phase": "small_train", "card_losses": card_losses,
+            "cpu_losses": cpu_losses, "loss_rel_err": loss_err,
+            "update_rel_l2_err": update_err, "param_max_abs_err": param_err,
+            "launches": launches}
+    emit(line)
+    # no remat here: one B1, B2 and B3 launch per layer and step
+    want_launches = {"flash_attention_fwd": 3 * cfg.n_layer,
+                     "flash_attention_bwd_dq": 3 * cfg.n_layer,
+                     "flash_attention_bwd_dkv": 3 * cfg.n_layer,
+                     "fused_adamw": 3}
+    if not (loss_err <= SMALL_LOSS_REL_TOL and update_err <= SMALL_UPDATE_REL_L2
+            and launches == want_launches):
+        raise AssertionError(f"small_train: {line}")
+
+
 def main():
     import torch
 
@@ -404,10 +862,16 @@ def main():
     smi = phase_device()
     phase_build()
     kernels = phase_kernel()
-    launches = phase_serve()
+    serve_launches = phase_serve()
     phase_small()
+    launches = phase_train()
+    phase_small_train()
     for entry in kernels:
+        # the training step is this slice's main path; serving, the first
+        # slice's, still runs B1 (checked in phase_serve)
         entry["launches"] = launches[entry["name"]]
+        entry["launches_by_path"] = {"train": launches[entry["name"]],
+                                     "serve": serve_launches[entry["name"]]}
         if not entry["launches"]:
             raise AssertionError(f"{entry['name']} never ran on the main path")
     emit({"kernels": kernels})

@@ -30,14 +30,18 @@
 //   segment-0 pad row still sees its own diagonal. Any T works: rows and keys
 //   past T are zero-filled in shared memory and masked.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sm80.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -1e30f;
+using ds_mma::Bf16;
+using ds_mma::Fp16;
+using ds_mma::ld32;
+using ds_mma::load_tile16;
+using ds_mma::NEG_INF;
 
 struct Params {
   const void* q;
@@ -60,57 +64,6 @@ struct Params {
 constexpr int BM = 64;  // query rows per block
 constexpr int BN = 64;  // keys per K/V tile
 constexpr int MMA_THREADS = 128;
-
-struct Bf16 {
-  __device__ static void mma(float c[4], const uint32_t a[4],
-                             const uint32_t b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  __device__ static uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-struct Fp16 {
-  __device__ static void mma(float c[4], const uint32_t a[4],
-                             const uint32_t b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  __device__ static uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Stage `rows` rows of a [.., T, .., D] operand into shared memory with
-// 16-byte loads; rows at or past T are zero-filled.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile16(uint16_t* dst, const uint16_t* src,
-                                            long long st, int t0, int T,
-                                            int rows) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < rows * CH; i += blockDim.x) {
-    const int r = i / CH, c = i % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t0 + r < T) {
-      val = *reinterpret_cast<const uint4*>(src + (t0 + r) * st + c * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
-  }
-}
 
 template <typename Op, int D>
 __global__ void __launch_bounds__(MMA_THREADS)

@@ -15,8 +15,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.models.transformer_lm import (GPT, Dense, LayerNorm,
-                                                       VocabEmbed)
+from deepspeed_tpu_torch.models.transformer_lm import GPT, materialize_gpt
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 _DTYPES = {None: None, "fp16": torch.float16, "float16": torch.float16,
@@ -92,39 +91,13 @@ class InferenceEngine:
                  ranks=[0])
 
     def _materialize(self, state_dict):
-        """Place the weights on the device in the serving dtype: the given
-        ``state_dict``, or a random init drawn from the engine's generator in
-        flax's distributions (truncated-normal lecun Dense kernels, normal
-        1/sqrt(C) embeddings, zero biases, unit LayerNorm scales). ``GPT``
-        builds its parameters on the meta device, so random weights are
-        never allocated on the host."""
-        model = self.module
-        if state_dict is not None:
-            model.load_state_dict(state_dict, assign=True)
-            if self.dtype in (torch.float16, torch.bfloat16):
-                model.to(self.dtype)  # on the host: full precision never moves
-            model.to(self.device)
-        else:
-            model.to_empty(device=self.device)
-            gen = self._generator
-            with torch.no_grad():
-                for mod in model.modules():
-                    if isinstance(mod, LayerNorm):
-                        mod.weight.fill_(1.0)
-                        mod.bias.zero_()
-                    elif isinstance(mod, VocabEmbed):
-                        mod.weight.normal_(0.0, mod.weight.shape[1] ** -0.5,
-                                           generator=gen)
-                    elif isinstance(mod, Dense):
-                        # lecun_normal: cut at 2 std, std corrected for the cut
-                        std = mod.in_features ** -0.5 / 0.87962566103423978
-                        torch.nn.init.trunc_normal_(mod.weight, 0.0, std,
-                                                    -2 * std, 2 * std,
-                                                    generator=gen)
-                        mod.bias.zero_()
-            if self.dtype in (torch.float16, torch.bfloat16):
-                model.to(self.dtype)
-        model.eval()
+        """Place the weights on the device in the serving dtype (the model's
+        ``param_dtype`` unless fp16/bf16 serving asks to cast)."""
+        half = self.dtype in (torch.float16, torch.bfloat16)
+        materialize_gpt(self.module, self.device, self._generator,
+                        state_dict=state_dict,
+                        dtype=self.dtype if half else None)
+        self.module.eval()
 
     def _ids(self, input_ids):
         return torch.as_tensor(input_ids).to(self.device, torch.long)
@@ -182,7 +155,8 @@ class InferenceEngine:
             attention_mask = torch.ones(ids.shape, dtype=torch.bool,
                                         device=self.device)
 
-        logits, cache = self.module(ids, attention_mask, decode=True)
+        logits, cache = self.module(ids, attention_mask=attention_mask,
+                                    decode=True)
         tok = self._next_token(logits[:, -1], temperature)
         out = [tok]
         for _ in range(max_new_tokens - 1):

@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM of the GPT-2 family, for serving (counterpart
-of ``deepspeed_tpu/models/transformer_lm.py``).
+"""Decoder-only transformer LM of the GPT-2 family (counterpart of
+``deepspeed_tpu/models/transformer_lm.py``).
 
 The same config, the same math and the same parameter names as the flax
 model, in PyTorch idiom: ``nn.Module``s, a layer loop over an
@@ -8,10 +8,12 @@ explicit ``KVCache`` passed in and returned in place of flax's mutable
 ``cache`` collection. Parameters are stored in ``param_dtype`` and every
 op computes in ``dtype``, as flax's ``Dense``/``Embed``/``LayerNorm`` do.
 
-This slice ports the logits path (no labels) of learned-position, tied-head,
-pre-LN GPT-2: the einsum and flash attention paths of full forwards and the
-dense-cache decode path. Config fields of features not ported yet raise
-``NotImplementedError`` when set away from their defaults.
+The port covers learned-position, tied-head, pre-LN GPT-2: the logits path
+(einsum and flash attention for full forwards, the dense-cache decode path)
+and the training path (``labels`` -> mean next-token cross entropy, packed
+``segment_ids``/``positions``, full activation recomputation). Config fields
+of features not ported yet raise ``NotImplementedError`` when set away from
+their defaults.
 """
 
 import dataclasses
@@ -21,6 +23,7 @@ from typing import Any, List, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 # field -> (default, feature) for GPTConfig fields whose feature this port
 # does not have yet
@@ -40,13 +43,10 @@ _UNPORTED = {
     "lm_head_bias": (False, "an LM-head bias"),
     "parallel_residual": (False, "the parallel residual"),
     "n_kv_head": (None, "grouped-query attention"),
-    "remat": (False, "activation recomputation (training)"),
-    "remat_policy": ("full", "activation recomputation (training)"),
     "flash_autotune": (False, "the flash block autotuner"),
     "attention_chunk": (None, "chunked attention"),
     "param_offload": (False, "parameter offload"),
     "sequence_parallel": ("none", "sequence parallelism"),
-    "fused_head_ce": ("auto", "the fused LM-head cross entropy (training)"),
     "sparse_attention": (None, "block-sparse attention"),
     "sparse_kv_cache": ("auto", "the ring KV cache"),
     "quantized_weights": (False, "int8 weights"),
@@ -69,8 +69,9 @@ _UNPORTED = {
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
     """The fields and defaults of ``deepspeed_tpu``'s ``GPTConfig``, with
-    torch dtypes. ``dropout`` is accepted and inert: the port's modules run
-    in eval mode only, as the JAX engine serves with ``deterministic=True``."""
+    torch dtypes. ``dropout`` is inert in eval mode (serving, as the JAX
+    engine serves with ``deterministic=True``); a model with ``dropout > 0``
+    raises ``NotImplementedError`` when it runs in training mode."""
 
     vocab_size: int = 50257
     n_positions: int = 1024
@@ -147,6 +148,23 @@ class GPTConfig:
             raise ValueError(
                 f"use_flash_attention must be True or False; got "
                 f"{self.use_flash_attention!r}")
+        if self.remat_policy in _UNPORTED_REMAT:
+            raise NotImplementedError(
+                f"remat_policy={self.remat_policy!r} is not ported yet: "
+                "PyTorch's selective checkpointing does not see the flash "
+                "kernel's outputs the way checkpoint_name tags do; use 'full'")
+        if self.remat_policy != "full":
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
+        # bool first: True is an int. "auto", False and 0 keep the unfused
+        # head; True or a chunk size asks for the fused head + CE
+        fused = self.fused_head_ce
+        if fused is True or (isinstance(fused, int) and not isinstance(
+                fused, bool) and fused != 0):
+            raise NotImplementedError(
+                f"fused_head_ce={fused!r}: fused_linear_cross_entropy is not "
+                "ported yet")
+        if fused not in ("auto", False, 0):
+            raise ValueError(f"unknown fused_head_ce {fused!r}")
         if self.activation not in _ACTIVATIONS:
             raise ValueError(f"unknown activation {self.activation!r}")
         if self.n_embd % self.n_head:
@@ -178,6 +196,12 @@ def gpt2_config(name: str, **overrides) -> GPTConfig:
     base.update(overrides)
     return GPTConfig(**base)
 
+
+# the JAX package's remat policies other than "full" (_remat_policy, :954)
+_UNPORTED_REMAT = ("selective", "save_dots", "save_nothing_but_flash")
+# fused_head_ce="auto" engages the fused head once the [B, T, V] logits
+# would take this many bytes (transformer_lm.py:1196-1198)
+FUSED_HEAD_CE_AUTO_BYTES = 4 << 30
 
 _ACTIVATIONS = {
     "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
@@ -294,10 +318,11 @@ class CausalSelfAttention(nn.Module):
         self.c_attn = Dense(cfg.n_embd, 3 * cfg.n_embd, cfg)
         self.c_proj = Dense(cfg.n_embd, cfg.n_embd, cfg)
 
-    def forward(self, x, mask=None, step=None, layer=0):
+    def forward(self, x, mask=None, step=None, layer=0, segment_ids=None):
         """Full forward when ``step`` is None; otherwise the decode path:
         write this call's keys and values into the layer's cache buffers and
-        attend over the whole cache."""
+        attend over the whole cache. ``segment_ids`` ([B, T], packed
+        batches) restricts each query to keys of its own segment."""
         cfg = self.cfg
         B, T, C = x.shape
         H, D = cfg.n_head, cfg.head_dim
@@ -325,7 +350,8 @@ class CausalSelfAttention(nn.Module):
             from deepspeed_tpu_torch.ops.cuda.flash_attention import \
                 flash_attention
 
-            y = flash_attention(q, k, v, causal=cfg.causal)
+            y = flash_attention(q, k, v, causal=cfg.causal,
+                                segment_ids=segment_ids)
         else:
             att = torch.matmul(q.transpose(1, 2),
                                k.permute(0, 2, 3, 1)) * scale      # [B,H,T,T]
@@ -336,6 +362,11 @@ class CausalSelfAttention(nn.Module):
             if mask is not None:
                 att = att.masked_fill(~mask.bool()[:, None, None, :],
                                       torch.finfo(att.dtype).min)
+            if segment_ids is not None:
+                # NaN-safe: the causal diagonal is always same-segment
+                same = (segment_ids[:, None, :, None]
+                        == segment_ids[:, None, None, :])
+                att = att.masked_fill(~same, torch.finfo(att.dtype).min)
             att = torch.softmax(att.float(), dim=-1).to(cfg.dtype)
             y = torch.matmul(att, v.transpose(1, 2)).transpose(1, 2)
         return self.c_proj(y.reshape(B, T, C))
@@ -362,13 +393,16 @@ class Block(nn.Module):
         self.ln_2 = LayerNorm(cfg)
         self.mlp = MLP(cfg)
 
-    def forward(self, x, mask=None, step=None, layer=0):
-        x = x + self.attn(self.ln_1(x), mask=mask, step=step, layer=layer)
+    def forward(self, x, mask=None, step=None, layer=0, segment_ids=None):
+        x = x + self.attn(self.ln_1(x), mask=mask, step=step, layer=layer,
+                          segment_ids=segment_ids)
         return x + self.mlp(self.ln_2(x))
 
 
 class GPT(nn.Module):
-    """Decoder-only LM returning f32 logits ``[B, T, vocab]``.
+    """Decoder-only LM: f32 logits ``[B, T, vocab]``, or with ``labels`` the
+    mean next-token cross entropy (the model contract the engine trains
+    against).
 
     Like a flax module, ``GPT(config)`` describes the model without
     allocating it: its parameters live on the meta device until
@@ -385,20 +419,32 @@ class GPT(nn.Module):
                                    for _ in range(config.n_layer))
             self.ln_f = LayerNorm(config)
 
-    def forward(self, input_ids, attention_mask=None, *, decode=False,
+    def forward(self, input_ids, labels=None, attention_mask=None,
+                segment_ids=None, positions=None, *, decode=False,
                 cache: Optional[KVCache] = None):
-        """Logits of ``input_ids`` ([B, T]).
+        """Logits of ``input_ids`` ([B, T]), or the mean loss with ``labels``.
 
         With ``decode=True`` the call appends to a KV cache and returns
         ``(logits, cache)``: a new cache when ``cache`` is None (prefill),
         else ``cache`` itself, updated in place. ``attention_mask`` marks the
-        real tokens of LEFT-padded prompts."""
+        real tokens (of LEFT-padded prompts when decoding). Packed training
+        batches pass ``segment_ids`` (attention stays within a segment, and
+        the loss skips cross-segment and pad targets) and ``positions``
+        (learned positions that restart at each document)."""
         cfg = self.config
         B, T = input_ids.shape
         dev = input_ids.device
         step = None
+        if self.training and cfg.dropout > 0:
+            raise NotImplementedError(
+                f"dropout={cfg.dropout} in training: dropout is not ported "
+                "yet (serving in eval mode ignores it)")
         if decode and not cfg.causal:
             raise NotImplementedError("decode path requires a causal model")
+        if decode and segment_ids is not None:
+            raise NotImplementedError(
+                "packed-sequence segment_ids are a training-path feature; "
+                "decode caches are per-sequence")
         if decode and cache is None:
             cache = KVCache.empty(cfg, B, dev)
         if decode:
@@ -425,17 +471,75 @@ class GPT(nn.Module):
                 & cache.valid[:, None, :]                           # [B,T,S]
             step = _DecodeStep(cache, rows, slots, ~visible[:, None])
         else:
-            pos = torch.arange(T, device=dev)[None, :]
+            pos = (positions if positions is not None
+                   else torch.arange(T, device=dev)[None, :])
         x = self.wte(input_ids) + self.wpe(pos)
+        # full recomputation: each block keeps only its input for the
+        # backward (nn.remat with no policy)
+        remat = cfg.remat and step is None and torch.is_grad_enabled()
         for i, block in enumerate(self.h):
-            x = block(x, mask=attention_mask, step=step, layer=i)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    block, x, attention_mask, None, i, segment_ids,
+                    use_reentrant=False)
+            else:
+                x = block(x, mask=attention_mask, step=step, layer=i,
+                          segment_ids=segment_ids)
         x = self.ln_f(x)
+        if labels is not None:
+            if decode:
+                raise ValueError("labels and decode=True do not combine")
+            itemsize = torch.finfo(cfg.dtype).bits // 8
+            if cfg.fused_head_ce == "auto" and (
+                    B * T * cfg.vocab_size * itemsize
+                    >= FUSED_HEAD_CE_AUTO_BYTES):
+                raise NotImplementedError(
+                    f"fused_head_ce='auto' picks the fused head + CE for "
+                    f"[{B}, {T}, {cfg.vocab_size}] logits (>= 4 GB), and "
+                    "fused_linear_cross_entropy is not ported yet")
+            # compute-dtype logits (the unfused training head, :1217-1218)
+            logits = F.linear(x.to(cfg.dtype), self.wte.weight.to(cfg.dtype))
+            return cross_entropy_loss(logits, labels, attention_mask,
+                                      segment_ids)
         logits = _tied_head(x, self.wte.weight.to(cfg.dtype))
         if decode:
             cache.index += T
             cache.length += T
             return logits, cache
         return logits
+
+
+def materialize_gpt(model: GPT, device, generator: torch.Generator,
+                    state_dict=None, dtype=None):
+    """Give a meta-device ``GPT`` real weights on ``device``, in ``dtype``
+    (default: the config's ``param_dtype``): the given ``state_dict``, or a
+    random init drawn from ``generator`` in flax's distributions
+    (truncated-normal lecun Dense kernels, normal 1/sqrt(C) embeddings, zero
+    biases, unit LayerNorm scales). Random weights are drawn on the device,
+    never allocated on the host; a ``state_dict`` is cast on the host, so
+    full precision never moves."""
+    dtype = dtype or model.config.param_dtype
+    if state_dict is not None:
+        model.load_state_dict(state_dict, assign=True)
+        model.to(dtype)
+        model.to(device)
+        return
+    model.to_empty(device=device)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            elif isinstance(mod, VocabEmbed):
+                mod.weight.normal_(0.0, mod.weight.shape[1] ** -0.5,
+                                   generator=generator)
+            elif isinstance(mod, Dense):
+                # lecun_normal: cut at 2 std, std corrected for the cut
+                std = mod.in_features ** -0.5 / 0.87962566103423978
+                torch.nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std,
+                                            2 * std, generator=generator)
+                mod.bias.zero_()
+    model.to(dtype)
 
 
 def _tied_head(x, w):
@@ -454,6 +558,39 @@ def _tied_head(x, w):
         # values, and the f32 product accumulates in f32
         out = torch.mm(x2.float(), w.float().t())
     return out.reshape(*x.shape[:-1], w.shape[0])
+
+
+def _shifted_targets(labels, mask=None, segment_ids=None):
+    """Next-token targets and f32 weights (``transformer_lm.py:1230``): the
+    target of position i is labels[i + 1]; the last position gets a dummy
+    target of weight 0, and so do positions whose next token is masked out,
+    lies in another segment, or whose own segment is padding (0)."""
+    b, t = labels.shape
+    zero = labels.new_zeros((b, 1))
+    targets = torch.cat([labels[:, 1:], zero], dim=1)
+    if mask is not None:
+        w = torch.cat([mask[:, 1:].float(),
+                       torch.zeros((b, 1), device=labels.device)], dim=1)
+    else:
+        w = torch.cat([torch.ones((b, t - 1), device=labels.device),
+                       torch.zeros((b, 1), device=labels.device)], dim=1)
+    if segment_ids is not None:
+        seg_next = torch.cat([segment_ids[:, 1:],
+                              segment_ids.new_zeros((b, 1))], dim=1)
+        w = w * ((segment_ids == seg_next) & (segment_ids != 0)).float()
+    return targets, w
+
+
+def cross_entropy_loss(logits, labels, mask=None, segment_ids=None):
+    """Mean next-token cross entropy with the shift (``transformer_lm.py:1261``),
+    f32 reductions over compute-dtype logits."""
+    from deepspeed_tpu_torch.ops.cross_entropy import softmax_cross_entropy
+
+    b, t = labels.shape
+    targets, w = _shifted_targets(labels, mask, segment_ids)
+    flat = logits.reshape(b * t, logits.shape[-1])
+    return softmax_cross_entropy(flat, targets.reshape(b * t).long(),
+                                 w.reshape(b * t))
 
 
 def num_params(config: GPTConfig) -> int:

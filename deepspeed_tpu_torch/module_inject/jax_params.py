@@ -5,6 +5,11 @@ Counterpart of the GPT-2 mapping in ``deepspeed_tpu/module_inject/hf.py``
 flax tree straight to this package's ``state_dict``. The tree arrives as
 nested dicts of numpy arrays (``jax.device_get(params)`` gives one), so
 nothing here imports jax.
+
+The mapping only renames and transposes leaves, so it carries any tree
+shaped like the parameters: the parity tests also pass ``jax.grad``'s
+gradient trees (and trained parameter trees) through it to compare
+gradients leaf by leaf with the port's ``param.grad``.
 """
 
 from typing import Any, Dict

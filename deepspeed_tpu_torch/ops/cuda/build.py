@@ -3,7 +3,8 @@
 No counterpart in ``deepspeed_tpu``: Pallas kernels compile inside jax. Here
 each ``deepspeed_tpu_torch/csrc/<name>.cu`` is compiled on first use into
 ``build/deepspeed_tpu_torch/<name>-<hash>.so`` beside the package, where the
-hash covers the source and the flags, so an edited source rebuilds and an
+hash covers the source, the shared ``csrc/*.cuh`` headers and the flags, so
+an edited source rebuilds and an
 unchanged one loads at once. Every source exports a plain C interface:
 compiling against PyTorch's headers takes minutes per file, nvcc on a plain
 ``.cu`` takes seconds.
@@ -40,7 +41,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers count too: an edited header rebuilds every source
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

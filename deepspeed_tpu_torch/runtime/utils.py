@@ -1,0 +1,40 @@
+"""Gradient-norm helpers (counterpart of
+``deepspeed_tpu/runtime/utils.py:23-70``), over lists of tensors. The
+norm is taken in f32 over all gradients; clipping scales in place. The
+overflow check is ``runtime/loss_scaler.has_overflow``."""
+
+from typing import Sequence
+
+import torch
+
+
+def get_global_norm(tensors: Sequence[torch.Tensor], norm_type: float = 2.0
+                    ) -> torch.Tensor:
+    """The f32 ``norm_type``-norm over every element of ``tensors`` (a
+    0-dim device tensor)."""
+    tensors = [t for t in tensors if t is not None]
+    if not tensors:
+        return torch.tensor(0.0)
+    if norm_type == float("inf"):
+        return torch.stack([t.abs().max().float() for t in tensors]).max()
+    # accumulates in f32 whatever the tensors' dtype, without an f32 copy
+    norms = torch._foreach_norm(tensors, norm_type, dtype=torch.float32)
+    return torch.linalg.vector_norm(torch.stack(norms), norm_type)
+
+
+def clip_factor(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """``min(1, max_norm / (norm + 1e-6))`` in f32, on the norm's device."""
+    return torch.clamp(norm.new_tensor(max_norm) / (norm + 1e-6), max=1.0)
+
+
+def clip_grad_norm_(grads: Sequence[torch.Tensor], max_norm: float,
+                    norm_type: float = 2.0) -> torch.Tensor:
+    """Scale ``grads`` in place so their global norm is at most
+    ``max_norm``; returns the norm before clipping."""
+    grads = [g for g in grads if g is not None]
+    norm = get_global_norm(grads, norm_type)
+    if grads:
+        # an f32 factor: each grad is scaled in f32 and rounded once
+        torch._foreach_mul_(grads, clip_factor(norm, max_norm))
+    return norm
+

@@ -1,0 +1,259 @@
+"""The port's training engine against the JAX package's.
+
+Both engines start from the same weights (the JAX init, carried over by
+``gpt_state_dict_from_jax``), read the same DeepSpeed JSON and take the same
+numpy batches; the JAX engine runs on one CPU device. Losses agree to the
+order of sums (f32, 1e-5 relative). Parameters after K steps are held to
+2e-5 absolute: Adam divides by sqrt(v), so a gradient entry near zero turns
+f32 rounding differences into update differences of up to lr (1e-3); 2e-5 is
+2% of one such step. The key part of ``c_attn.bias`` is the exception: its
+gradient is zero in exact arithmetic (softmax ignores a per-row shift), both
+sides hold only rounding noise there, and Adam normalizes that noise to
+steps of +-lr, so it is held to K * 2 * lr.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import deepspeed_tpu
+import deepspeed_tpu_torch
+from deepspeed_tpu.models import transformer_lm as jlm
+from deepspeed_tpu.parallel.mesh import MeshTopology
+from deepspeed_tpu.runtime.config import DeepSpeedConfig as JaxDeepSpeedConfig
+from deepspeed_tpu.runtime.dataloader import \
+    DeepSpeedDataLoader as JaxDeepSpeedDataLoader
+from deepspeed_tpu_torch.models import transformer_lm as tlm
+from deepspeed_tpu_torch.module_inject.jax_params import gpt_state_dict_from_jax
+from deepspeed_tpu_torch.ops.cuda import fused_adam as fadam
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
+                                                    RepeatingLoader)
+
+torch.set_num_threads(2)
+
+SMALL = dict(vocab_size=128, n_positions=128, n_embd=64, n_layer=2, n_head=2)
+LR = 1e-3
+K = 3
+# benchmarks/gpt_pretrain.py:51-61 with the script's CLI micro batch (:92)
+GPT_PRETRAIN = {
+    "train_micro_batch_size_per_gpu": 4,
+    "gradient_accumulation_steps": 1,
+    "bf16": {"enabled": True},
+    "gradient_clipping": 1.0,
+    "optimizer": {"type": "FusedAdam",
+                  "params": {"lr": 2e-4, "betas": [0.9, 0.95],
+                             "weight_decay": 0.1}},
+    "zero_optimization": {"stage": 1},
+    "steps_per_print": 10 ** 9,
+    "tpu": {"use_pallas_optimizer": True},
+}
+
+
+def _config(**over):
+    ds = {"train_micro_batch_size_per_gpu": 2,
+          "optimizer": {"type": "FusedAdam",
+                        "params": {"lr": LR, "betas": [0.9, 0.95],
+                                   "weight_decay": 0.1}},
+          "steps_per_print": 10 ** 9}
+    ds.update(over)
+    return ds
+
+
+def _batches(n, t=128, seed=1):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.randint(0, SMALL["vocab_size"], size=(2, t)).astype(np.int32)
+        out.append({"input_ids": ids, "labels": ids})
+    return out
+
+
+def _train_both(ds, *, flash=False, dtype="f32", gas=1):
+    """K train_batch steps on each engine; returns both engines and their
+    losses."""
+    jdt = {"f32": jnp.float32, "f16": jnp.float16}[dtype]
+    tdt = {"f32": torch.float32, "f16": torch.float16}[dtype]
+    batches = _batches(K * gas)
+    jmodel = jlm.GPT(jlm.GPTConfig(**SMALL, dtype=jdt, use_flash_attention=flash))
+    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+                         deterministic=True)["params"]
+    jeng, *_ = deepspeed_tpu.initialize(
+        model=jmodel, config=ds, model_parameters=params,
+        topology=MeshTopology(dp=1, devices=jax.devices()[:1]))
+    tcfg = tlm.GPTConfig(**SMALL, dtype=tdt, use_flash_attention=flash)
+    teng, *_ = deepspeed_tpu_torch.initialize(
+        model=tlm.GPT(tcfg), config=ds, device="cpu",
+        model_parameters=gpt_state_dict_from_jax(jax.device_get(params), tcfg))
+    jl, tl = [], []
+    for i in range(K):
+        chunk = batches[i * gas:(i + 1) * gas]
+        jl.append(float(jeng.train_batch(iter(chunk))))
+        tl.append(float(teng.train_batch(iter(chunk))))
+    return jeng, teng, np.array(jl), np.array(tl)
+
+
+def _assert_params_close(jeng, teng):
+    want = gpt_state_dict_from_jax(jax.device_get(jeng.params),
+                                   teng.module.config)
+    got = teng.module.state_dict()
+    C = SMALL["n_embd"]
+    for name, w in want.items():
+        g = got[name].float()
+        if name.endswith("attn.c_attn.bias"):
+            key = slice(C, 2 * C)
+            torch.testing.assert_close(g[key], w[key], rtol=0,
+                                       atol=K * 2 * LR, msg=name)
+            g, w = torch.cat([g[:C], g[2 * C:]]), torch.cat([w[:C], w[2 * C:]])
+        torch.testing.assert_close(g, w, rtol=0, atol=2e-5, msg=name)
+
+
+@pytest.mark.parametrize("case", ["adamw", "fused_kernel", "flash_fused_kernel",
+                                  "gas2_clip", "warmup_lr"])
+def test_training_matches_jax(case):
+    over, kw = {}, {}
+    if "fused_kernel" in case:
+        over["tpu"] = {"use_pallas_optimizer": True}
+    if case.startswith("flash"):
+        kw["flash"] = True
+    if case == "gas2_clip":
+        over.update(gradient_accumulation_steps=2, gradient_clipping=0.05)
+        kw["gas"] = 2
+    if case == "warmup_lr":
+        over["scheduler"] = {"type": "WarmupLR", "params": {
+            "warmup_min_lr": 0.0, "warmup_max_lr": LR, "warmup_num_steps": 3}}
+    fadam.launches = 0
+    jeng, teng, jl, tl = _train_both(_config(**over), **kw)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    assert type(teng.optimizer).__name__ == (
+        "FusedAdamW" if "fused_kernel" in case else "AdamW")
+    assert fadam.launches == 0, "a CPU tensor must not count as a kernel launch"
+    assert teng.global_steps == jeng.global_steps == K
+    assert teng.micro_steps == jeng.micro_steps
+    np.testing.assert_allclose(teng.get_global_grad_norm(),
+                               jeng.get_global_grad_norm(), rtol=1e-5)
+    if case == "gas2_clip":
+        assert jeng.get_global_grad_norm() > 0.05, "the clip must bite"
+    if case == "warmup_lr":
+        np.testing.assert_allclose(teng.get_lr(), jeng.get_lr(), rtol=1e-6)
+    _assert_params_close(jeng, teng)
+
+
+def test_fp16_overflow_skips_and_halves_the_scale():
+    """fp16 compute with dynamic loss scaling from 2^20 (hysteresis 1): the
+    first two steps overflow in both engines, are skipped and halve the
+    scale; the third updates. Losses are held to 1e-3 relative (fp16
+    rounds at different points on the two sides)."""
+    ds = _config(fp16={"enabled": True, "initial_scale_power": 20,
+                       "hysteresis": 1})
+    jeng, teng, jl, tl = _train_both(ds, dtype="f16")
+    np.testing.assert_allclose(tl, jl, rtol=1e-3)
+    assert teng.skipped_steps == jeng.skipped_steps == 2
+    assert teng.loss_scale == float(jeng.loss_scale) == 2.0 ** 18
+    np.testing.assert_allclose(teng.get_global_grad_norm(),
+                               jeng.get_global_grad_norm(), rtol=1e-3)
+    assert teng.optimizer.count == 1
+
+
+def test_gpt_pretrain_config_parses_as_in_jax():
+    t, j = DeepSpeedConfig(GPT_PRETRAIN), JaxDeepSpeedConfig(GPT_PRETRAIN)
+    t._resolve_batch_triad(1)
+    j._resolve_batch_triad(1)
+    for attr in ("train_batch_size", "train_micro_batch_size_per_gpu",
+                 "gradient_accumulation_steps", "gradient_clipping",
+                 "steps_per_print", "precision_dtype"):
+        assert getattr(t, attr) == getattr(j, attr), attr
+    assert t.zero_config.stage == j.zero_config.stage == 1
+    assert t.optimizer.to_dict() == j.optimizer.to_dict()
+    assert t.tpu.use_pallas_optimizer and j.tpu.use_pallas_optimizer
+    assert t.unported_features() == []
+
+
+@pytest.mark.parametrize("block", [
+    {"data_pipeline": {"enabled": True}},
+    {"sentinel": {"enabled": True}},
+    {"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}},
+    {"tensorboard": {"enabled": True}},
+    {"tpu": {"grad_exchange": {"deferred": True}}},
+    {"optimizer": {"type": "OneBitAdam", "params": {}}},
+    {"tpu": {"mesh": {"tp": 2}}},
+    {"activation_checkpointing": {"partition_activations": True}},
+    {"flops_profiler": {"enabled": True}},
+    {"graceful_shutdown": {"enabled": True, "save_dir": "ckpt"}},
+])
+def test_enabled_unported_block_raises(block):
+    cfg = tlm.GPTConfig(**SMALL, dtype=torch.float32)
+    with pytest.raises(NotImplementedError):
+        deepspeed_tpu_torch.initialize(model=tlm.GPT(cfg),
+                                       config=_config(**block), device="cpu")
+
+
+def test_initialize_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepspeed_tpu_torch.initialize(
+            model=tlm.GPT(tlm.GPTConfig(**SMALL)), config=_config())
+
+
+def test_unported_engine_paths_raise():
+    cfg = tlm.GPTConfig(**SMALL, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="client optimizer"):
+        deepspeed_tpu_torch.initialize(model=tlm.GPT(cfg), config=_config(),
+                                       optimizer=object(), device="cpu")
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=tlm.GPT(cfg), config=_config(), device="cpu")
+    for call in (lambda: engine.set_lr(1e-3),
+                 lambda: engine.save_checkpoint("ckpt"),
+                 lambda: engine.load_checkpoint("ckpt")):
+        with pytest.raises(NotImplementedError):
+            call()
+
+
+def test_eval_batch_and_padded_loader_match_jax():
+    """A ragged dataset with dataloader_drop_last=False: both loaders pad
+    the tail and add an attention_mask (so the batch leaves the flash
+    path), and eval_batch on a fresh engine gives the JAX loss."""
+    rng = np.random.RandomState(7)
+    data = [{"input_ids": x, "labels": x}
+            for x in rng.randint(0, 128, size=(5, 32)).astype(np.int32)]
+    tb = list(DeepSpeedDataLoader(data, batch_size=2, drop_last=False))
+    jb = list(JaxDeepSpeedDataLoader(data, batch_size=2, drop_last=False))
+    assert len(tb) == len(jb) == 3
+    for a, b in zip(tb, jb):
+        assert set(a) == set(b) == {"input_ids", "labels", "attention_mask"}
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key])
+    jmodel = jlm.GPT(jlm.GPTConfig(**SMALL, dtype=jnp.float32))
+    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+                         deterministic=True)["params"]
+    want = jmodel.apply({"params": params},
+                        **{k: jnp.asarray(v) for k, v in tb[-1].items()})
+    tcfg = tlm.GPTConfig(**SMALL, dtype=torch.float32)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=tlm.GPT(tcfg), config=_config(), device="cpu",
+        model_parameters=gpt_state_dict_from_jax(jax.device_get(params), tcfg))
+    got = engine.eval_batch(next(RepeatingLoader(tb[-1:])))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+def test_package_exports_match_jax(tmp_path):
+    """``initialize``, ``DeepSpeedConfig`` and ``add_config_arguments`` at
+    the package root, as in ``deepspeed_tpu``; a JSON path parses as the
+    dict does."""
+    import argparse
+    import json
+
+    assert deepspeed_tpu_torch.DeepSpeedConfig is DeepSpeedConfig
+    path = tmp_path / "ds.json"
+    path.write_text(json.dumps(GPT_PRETRAIN))
+    assert DeepSpeedConfig(str(path)).optimizer.to_dict() == \
+        DeepSpeedConfig(GPT_PRETRAIN).optimizer.to_dict()
+    args = ["--deepspeed", "--deepspeed_config", str(path)]
+    got = deepspeed_tpu_torch.add_config_arguments(
+        argparse.ArgumentParser()).parse_args(args)
+    want = deepspeed_tpu.add_config_arguments(
+        argparse.ArgumentParser()).parse_args(args)
+    assert vars(got) == vars(want)

@@ -1,11 +1,14 @@
-"""The port's flash-attention forward against the JAX package's.
+"""The port's flash attention, forward and backward, against the JAX
+package's.
 
 ``deepspeed_tpu_torch.ops.cuda.flash_attention`` on CPU tensors runs its plain
-PyTorch version; the JAX side runs the Pallas kernel in interpret mode, as
+PyTorch versions; the JAX side runs the Pallas kernels in interpret mode, as
 ``tests/unit/test_ops.py`` does. Both see the same numpy inputs in f32, so
-only the order of the sums differs (atol 1e-5).
+only the order of the sums differs (atol 1e-5 on o, lse and on gradients of
+order 1).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +16,8 @@ import torch
 
 from deepspeed_tpu.ops.pallas.common import LSE_LANES
 from deepspeed_tpu.ops.pallas.flash_attention import _fwd
+from deepspeed_tpu.ops.pallas.flash_attention import \
+    flash_attention as jax_flash_attention
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 
 torch.set_num_threads(2)
@@ -74,9 +79,86 @@ def test_flash_attention_returns_o_of_fwd():
 
 
 def test_requires_grad_is_refused():
-    q = torch.zeros(1, 8, 2, 32, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        fa.flash_attention(q, q.detach(), q.detach())
+    """The refusal of inputs that require grad is gone: flash_attention
+    records its FlashAttentionFunction node and gradients flow to q, k, v."""
+    q = torch.randn(1, 8, 2, 32, requires_grad=True)
+    o = fa.flash_attention(q, q.detach(), q.detach())
+    assert o.grad_fn is not None and "FlashAttention" in type(o.grad_fn).__name__
+    o.sum().backward()
+    assert q.grad is not None and q.grad.shape == q.shape
+
+
+@pytest.mark.parametrize("with_segments", [False, True])
+@pytest.mark.parametrize("t", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_gradients_match_jax(causal, t, with_segments):
+    """dq, dk, dv of the port's autograd against jax.grad of the JAX
+    flash_attention (Pallas backward kernels in interpret mode) for the
+    same cotangent."""
+    q, k, v, seg = _inputs(t, seed=100 + t + causal, with_segments=with_segments)
+    g = np.random.RandomState(t).randn(*q.shape).astype(np.float32)
+
+    def jloss(q, k, v):
+        o = jax_flash_attention(
+            q, k, v, causal=causal, block_q=32, block_k=32,
+            segment_ids=None if seg is None else jnp.asarray(seg))
+        return jnp.sum(o * jnp.asarray(g))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    o = fa.flash_attention(tq, tk, tv, causal=causal,
+                           segment_ids=None if seg is None
+                           else torch.from_numpy(seg))
+    o.backward(torch.from_numpy(g))
+    for got, ref, name in zip((tq.grad, tk.grad, tv.grad), want, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL,
+                                   rtol=0, err_msg=f"d{name}")
+    assert (fa.launches, fa.launches_dq, fa.launches_dkv) == (0, 0, 0), \
+        "a CPU tensor must not count as a kernel launch"
+
+
+@pytest.mark.parametrize("causal,with_segments", [(True, False), (True, True),
+                                                  (False, True)])
+def test_backward_reference_matches_autograd(causal, with_segments):
+    """flash_attention_backward_reference (P recomputed from lse) against
+    autograd through flash_attention_reference, both in f32: only the order
+    of the sums differs (atol 1e-5)."""
+    q, k, v, seg = (None if x is None else torch.from_numpy(x)
+                    for x in _inputs(64, seed=5, with_segments=with_segments))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(0))
+    o, lse = fa.flash_attention_reference(q, k, v, causal=causal,
+                                          segment_ids=seg)
+    want = torch.autograd.grad(o, (q, k, v), do)
+    got = fa.flash_attention_backward_reference(
+        q.detach(), k.detach(), v.detach(), o.detach(), lse.detach(), do,
+        causal=causal, segment_ids=seg)
+    for a, b, name in zip(got, want, "qkv"):
+        torch.testing.assert_close(a, b, rtol=0, atol=ATOL, msg=f"d{name}")
+
+
+def test_other_segments_leave_gradients_alone():
+    """Perturbing another segment's k and v leaves a row's dq unchanged
+    (the backward's segment mask), and a fully masked pad row gets finite
+    zeros where nothing reaches it."""
+    q, k, v, seg = (torch.from_numpy(x) for x in _inputs(64, seed=9,
+                                                         with_segments=True))
+    do = torch.ones_like(q)
+
+    def dq_of(k, v):
+        tq = q.clone().requires_grad_()
+        o = fa.flash_attention(tq, k, v, causal=True,
+                               segment_ids=torch.from_numpy(seg.numpy()))
+        o.backward(do)
+        return tq.grad
+
+    base = dq_of(k, v)
+    hit = (seg == 2)[:, :, None, None]
+    moved = dq_of(k + 3.0 * hit, v - 2.0 * hit)
+    keep = ~hit[:, :, 0, 0]
+    assert torch.equal(moved[keep], base[keep])
+    assert bool(torch.isfinite(base).all())
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "shape", "dtype", "segments"])

@@ -23,6 +23,18 @@ engine = deepspeed_tpu_torch.init_inference(GPT(cfg), dtype="fp32",
 ids = torch.randint(0, 64, (1, 128))
 assert engine(ids).shape == (1, 128, 64)
 assert engine.generate(ids[:, :9], max_new_tokens=3).shape == (1, 3)
+from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+tcfg = GPTConfig(vocab_size=64, n_positions=256, n_embd=64, n_layer=1,
+                 n_head=2, dtype=torch.float32, use_flash_attention=True,
+                 remat=True)
+trainer, _, _, _ = deepspeed_tpu_torch.initialize(
+    model=GPT(tcfg), device="cpu", config=dict(
+        train_micro_batch_size_per_gpu=1, gradient_clipping=1.0,
+        optimizer=dict(type="FusedAdam", params=dict(lr=1e-3)),
+        tpu=dict(use_pallas_optimizer=True)))
+batch = dict(input_ids=ids.numpy(), labels=ids.numpy())
+loss = trainer.train_batch(iter(RepeatingLoader([batch])))
+assert bool(torch.isfinite(loss)) and trainer.global_steps == 1
 print("loaded:" + ",".join(sorted(m for m in sys.modules
                                   if m.split(".")[0] in {forbidden!r})))
 """

@@ -4,7 +4,9 @@ The flax model is initialised by jax, its parameter tree is carried over by
 ``gpt_state_dict_from_jax``, and both models see the same numpy token ids.
 In f32 the two differ only in the order of sums (atol 1e-4 on logits of
 order 1). On the flash path (T = 128) the JAX side runs the Pallas kernel in
-interpret mode and the port its plain PyTorch version.
+interpret mode and the port its plain PyTorch version. The training path
+(``labels``) is held to the loss and to every parameter gradient, the JAX
+gradient tree carried over by the same bridge.
 """
 
 import dataclasses
@@ -93,7 +95,8 @@ def test_prefill_and_decode_match_jax(ragged):
     jcache = jcache["cache"]
     with torch.no_grad():
         tpre, cache = tmodel(torch.from_numpy(ids[:, :6]).long(),
-                             torch.from_numpy(mask), decode=True)
+                             attention_mask=torch.from_numpy(mask),
+                             decode=True)
     # pad rows attend to nothing real in either model; compare real tokens
     np.testing.assert_allclose(tpre.numpy()[mask], np.asarray(jpre)[mask],
                                atol=ATOL, rtol=0)
@@ -140,8 +143,10 @@ def test_bf16_logits_track_jax(flash):
     ("rotary", True), ("alibi", True), ("n_kv_head", 1), ("norm", "rmsnorm"),
     ("gated_mlp", True), ("moe_num_experts", 2), ("attention_chunk", 64),
     ("sequence_parallel", "ring"), ("quantized_weights", True),
-    ("kv_cache_dtype", "int8"), ("param_offload", True), ("remat", True),
-    ("sparse_attention", object()), ("use_flash_attention", "auto"),
+    ("kv_cache_dtype", "int8"), ("param_offload", True),
+    ("remat_policy", "selective"), ("sparse_attention", object()),
+    ("use_flash_attention", "auto"), ("fused_head_ce", True),
+    ("fused_head_ce", 2048),
 ])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError):
@@ -155,3 +160,135 @@ def test_config_fields_mirror_jax():
     for name, default in jfields.items():
         if name not in ("dtype", "param_dtype"):
             assert tfields[name] == default, name
+
+
+def _train_pair(flash=False, remat=False, bf16=False, seed=0):
+    """(jax model, jax params, port model in training mode) on one set of
+    weights, with the port's parameters requiring grad."""
+    dt = dict(dtype=jnp.bfloat16 if bf16 else jnp.float32)
+    jmodel = jlm.GPT(jlm.GPTConfig(**SMALL, use_flash_attention=flash,
+                                   remat=remat, **dt))
+    params = jmodel.init(jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32),
+                         deterministic=True)["params"]
+    tcfg = tlm.GPTConfig(**SMALL, use_flash_attention=flash, remat=remat,
+                         dtype=torch.bfloat16 if bf16 else torch.float32)
+    tmodel = tlm.GPT(tcfg)
+    tmodel.load_state_dict(
+        gpt_state_dict_from_jax(jax.device_get(params), tcfg), assign=True)
+    tmodel.train()
+    for prm in tmodel.parameters():
+        prm.requires_grad_(True)
+    return jmodel, params, tmodel
+
+
+def _packed(b, t):
+    """Three documents per row and a padded tail: segment ids and the
+    positions that restart at each document."""
+    seg = np.zeros((b, t), np.int32)
+    pos = np.zeros((b, t), np.int32)
+    for row, cuts in enumerate(([0, 40, 90, t - 10], [0, 70, 100, t - 3])):
+        for doc, (a, e) in enumerate(zip(cuts[:-1], cuts[1:]), start=1):
+            seg[row, a:e] = doc
+            pos[row, a:e] = np.arange(e - a)
+    return seg, pos
+
+
+def _loss_and_grads(jmodel, params, tmodel, ids, **extra):
+    """Both sides' loss and gradients; the JAX grads mapped to the port's
+    parameter names."""
+    jextra = {k: jnp.asarray(v) for k, v in extra.items()}
+
+    def jloss(p):
+        return jmodel.apply({"params": p}, jnp.asarray(ids),
+                            labels=jnp.asarray(ids), deterministic=False,
+                            **jextra)
+
+    jl, jg = jax.value_and_grad(jloss)(params)
+    tl = tmodel(torch.from_numpy(ids).long(),
+                labels=torch.from_numpy(ids).long(),
+                **{k: torch.from_numpy(v).long() for k, v in extra.items()})
+    tl.backward()
+    want = gpt_state_dict_from_jax(jax.device_get(jg), tmodel.config)
+    got = {n: prm.grad for n, prm in tmodel.named_parameters()}
+    return float(tl), float(jl), got, want
+
+
+@pytest.mark.parametrize("case", ["einsum", "flash", "mask", "segments",
+                                  "flash_segments", "remat", "flash_remat"])
+def test_loss_and_every_gradient_match_jax(case):
+    """f32 loss and every parameter gradient, relative to each gradient's
+    largest entry: 1e-5 (the sides differ in the order of sums only)."""
+    flash = case.startswith("flash")
+    jmodel, params, tmodel = _train_pair(flash=flash, remat="remat" in case)
+    ids = _ids(2, 128, seed=3)
+    extra = {}
+    if case == "mask":
+        mask = np.ones((2, 128), np.int32)
+        mask[1, -20:] = 0
+        extra["attention_mask"] = mask
+    if "segments" in case:
+        extra["segment_ids"], extra["positions"] = _packed(2, 128)
+    tl, jl, got, want = _loss_and_grads(jmodel, params, tmodel, ids, **extra)
+    assert abs(tl - jl) <= 1e-5 * abs(jl)
+    assert set(got) == set(want)
+    for name, g in got.items():
+        scale = float(want[name].abs().max())
+        err = float((g - want[name]).abs().max())
+        assert err <= 1e-5 * scale + 1e-9, f"{name}: {err} of {scale}"
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_full_remat_leaves_gradients_unchanged(flash):
+    """remat=True with the "full" policy recomputes each block in the
+    backward; the gradients are those of the model without remat."""
+    ids = torch.from_numpy(_ids(2, 128, seed=4)).long()
+    grads = []
+    for remat in (False, True):
+        _, _, tmodel = _train_pair(flash=flash, remat=remat)
+        tmodel(ids, labels=ids).backward()
+        grads.append({n: prm.grad for n, prm in tmodel.named_parameters()})
+    for name, g in grads[0].items():
+        torch.testing.assert_close(grads[1][name], g, rtol=0, atol=1e-7,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_bf16_loss_tracks_jax(flash):
+    """bf16 compute on both sides: the frameworks round to bf16 at different
+    points, so the loss (~ln 128) is held to 1e-2 relative instead of the
+    f32 bound."""
+    jmodel, params, tmodel = _train_pair(flash=flash, bf16=True)
+    ids = _ids(2, 128, seed=5)
+    tl, jl, got, _ = _loss_and_grads(jmodel, params, tmodel, ids)
+    assert abs(tl - jl) <= 1e-2 * abs(jl), (tl, jl)
+    assert all(bool(torch.isfinite(g).all()) for g in got.values())
+
+
+def test_dropout_raises_in_training_only():
+    cfg = tlm.GPTConfig(**SMALL, dtype=torch.float32, dropout=0.1)
+    tmodel = tlm.GPT(cfg)
+    sd = gpt_state_dict_from_jax(jax.device_get(_pair()[1]), cfg)
+    tmodel.load_state_dict(sd, assign=True)
+    ids = torch.from_numpy(_ids(1, 16)).long()
+    with torch.no_grad():
+        assert tmodel.eval()(ids).shape == (1, 16, SMALL["vocab_size"])
+    with pytest.raises(NotImplementedError, match="dropout"):
+        tmodel.train()(ids, labels=ids)
+
+
+@pytest.mark.parametrize("policy", ["selective", "save_dots",
+                                    "save_nothing_but_flash"])
+def test_remat_policies_other_than_full_raise(policy):
+    with pytest.raises(NotImplementedError, match="remat_policy"):
+        tlm.GPTConfig(remat=True, remat_policy=policy)
+
+
+def test_fused_head_auto_raises_only_past_4gb():
+    """fused_head_ce="auto" keeps the unfused head below 4 GB of logits
+    (transformer_lm.py:1189-1198) and raises where JAX would fuse."""
+    cfg = tlm.GPTConfig(vocab_size=2 ** 20, n_positions=2048, n_embd=32,
+                        n_layer=0, n_head=1, dtype=torch.bfloat16)
+    tmodel = tlm.GPT(cfg).to_empty(device="meta").train()
+    ids = torch.zeros((1, 2048), dtype=torch.long, device="meta")
+    with pytest.raises(NotImplementedError, match="fused_linear_cross_entropy"):
+        tmodel(ids, labels=ids)
