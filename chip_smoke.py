@@ -15,15 +15,20 @@ Phases, each printing one JSON line:
   card, at the 1.3B shapes and at edge cases, and times the kernel, the
   plain version and one PyTorch library call that computes the same
   function: B1 (flash forward), B2/B3 (flash backward: dq, dk/dv; also the
-  full autograd gradient, bit-reproducibility and segment isolation) and
-  B4 (fused AdamW over GPT-2 1.3B's parameter shapes, 3 steps).
+  full autograd gradient, bit-reproducibility and segment isolation), B4
+  (fused AdamW over GPT-2 1.3B's parameter shapes, 3 steps) and B5/B6/B7
+  (block-sparse forward, dq, dk/dv: every sparsity family, blocks 16-128, D
+  64 and 128, bf16 and f32, causal and not, a per-head layout, rows that see
+  no key, and BERT-Large's BigBird shape, where they are timed against SDPA
+  under the expanded mask).
 * ``serve``: GPT-2 1.3B at full width and depth (random weights, seed 0)
   through ``init_inference``: ``forward`` on [4, 1024] ids through the flash
   kernel, checked against the einsum path on the same weights, then
   ``generate`` of 32 greedy tokens for 4 ragged prompts. The kernels' launch
   counts are set to 0 just before this phase and read just after it.
 * ``profile``: the card's time by kernel in one traced forward and one
-  traced generate (torch.profiler), and in ``train``, one traced step.
+  traced generate (torch.profiler), and in ``train`` and ``sparse_train``,
+  one traced step.
 * ``small``: a small fp32 GPT on the card, whose greedy ``generate`` must
   equal an argmax rollout of the full forward, token for token.
 * ``train`` (the training slice's main path): GPT-2 1.3B at full width and
@@ -33,6 +38,16 @@ Phases, each printing one JSON line:
   warm-up and 8 measured steps on one repeated batch: the loss must fall,
   and each step must launch B1 48, B2 24, B3 24 and B4 1 times (counts set
   to 0 just before the 10 steps and read just after).
+* ``sparse_train`` (the block-sparse slice's main path): BERT-Large at full
+  width and depth, max positions 4096, through ``initialize`` with
+  ``benchmarks/sparse_attention_bench.py``'s config and its BigBird block
+  with ``"kernel": "pallas"`` (bf16, full remat, FusedAdam on B4, micro
+  batch 1 x 4096, no attention mask): one step on each of the gather and
+  dense implementations from the same weights must agree with the kernels'
+  step in loss, global gradient norm and the attention ``qkv`` weights'
+  gradients, then 2 warm-up and 8 measured steps: the loss must fall, and each
+  step must launch B5 48, B6 24, B7 24 and B4 1 times; then a traced step.
+  The gather and dense steps are timed too (median of 3 after the first).
 * ``small_train``: a small fp32 GPT trained 3 steps on the card (B1-B4) and
   on the CPU (plain versions) from the same weights and batches; losses and
   parameters must agree.
@@ -286,7 +301,8 @@ def phase_kernel():
     emit({"phase": "kernel", "kernel": "flash_attention_fwd",
           "case": "serving_1p3b", "timing": entry, "flops": flops,
           "bytes": nbytes, "tflops_per_s": flops / ms / 1e9})
-    return [entry] + check_flash_backward(cases) + check_fused_adamw()
+    return ([entry] + check_flash_backward(cases) + check_fused_adamw()
+            + check_block_sparse())
 
 
 def _bound(flops, nbytes, dtype_name):
@@ -490,6 +506,210 @@ def check_fused_adamw():
     return [entry]
 
 
+def _sparse_config(family, heads, block, **kw):
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    return getattr(sa, family)(num_heads=heads, block=block, **kw)
+
+
+def visible_pairs(layout, block, heads):
+    """(query, key) pairs the block-sparse kernels compute for one batch row
+    of bidirectional attention, summed over heads: every active tile."""
+    import numpy as np
+
+    active = np.broadcast_to(layout != 0, (heads,) + layout.shape[1:])
+    return int(active.sum()) * block * block
+
+
+def check_block_sparse():
+    """B5 (forward), B6 (dq) and B7 (dk, dv) against their plain versions at
+    every sparsity family, blocks 16-128, D 64 and 128, bf16 and f32, causal
+    and bidirectional, a per-head layout, layouts with a row that sees no
+    key, and the path's own shape (BERT-Large under BigBird at 4096); the
+    backward must be bit-reproducible and finite. Then times the three
+    kernels at the path's shape against their bounds, their plain versions,
+    F.scaled_dot_product_attention under the expanded boolean mask (the
+    library call: dense work under a mask) and the port's gather path."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.cuda.common import NEG_INF
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(20)
+    bf16, f32 = torch.bfloat16, torch.float32
+    empty = np.ones((1, 8, 8), np.int64)
+    empty[0, 3] = 0                          # q-block 3 sees no key
+    empty_causal = np.tril(np.ones((1, 16, 16), np.int64))
+    empty_causal[0, 0, 0] = 0                # q-block 0 sees only the future
+    empty_causal[0, 0, 5] = 1
+    # name, layout (or config), block, B, T, H, D, dtype, causal
+    cases = [
+        ("dense_b16_d64", ("DenseSparsityConfig", {}), 16, 2, 256, 4, 64, bf16, False),
+        ("fixed_causal_b16_d128_f32", ("FixedSparsityConfig", dict(
+            num_local_blocks=4, attention="unidirectional")), 16, 2, 256, 4, 128, f32, True),
+        ("variable_b32_d64", ("VariableSparsityConfig", dict(
+            num_random_blocks=1, local_window_blocks=[1, 2], global_block_indices=[0])),
+         32, 2, 512, 4, 64, bf16, False),
+        ("bigbird_causal_b128_d128", ("BigBirdSparsityConfig", dict(
+            attention="unidirectional")), 128, 1, 1024, 4, 128, bf16, True),
+        ("bigbird_b128_d64_f32", ("BigBirdSparsityConfig", {}), 128, 1, 1024, 2, 64, f32, False),
+        ("bslongformer_b64_d64_f32", ("BSLongformerSparsityConfig", dict(
+            global_block_indices=[0, 5])), 64, 2, 512, 2, 64, f32, False),
+        ("local_window_causal_b16_d128", ("LocalSlidingWindowSparsityConfig", {}),
+         16, 2, 512, 4, 128, bf16, True),
+        ("bigbird_per_head_b32_d64", ("BigBirdSparsityConfig", dict(
+            different_layout_per_head=True, seed=4)), 32, 2, 512, 4, 64, bf16, False),
+        ("empty_row_b128_d64", empty, 128, 1, 1024, 2, 64, bf16, False),
+        ("empty_row_causal_b16_d64_f32", empty_causal, 16, 1, 256, 2, 64, f32, True),
+        ("bert_large_bigbird_4096", ("BigBirdSparsityConfig", dict(
+            num_random_blocks=1, num_sliding_window_blocks=3, num_global_blocks=1)),
+         128, 1, 4096, 16, 64, bf16, False),
+    ]
+    worst = {}
+    path = None
+    for name, lay, block, b, t, h, d, dtype, causal in cases:
+        layout = (lay if isinstance(lay, np.ndarray)
+                  else _sparse_config(lay[0], h, block, **lay[1]).make_layout(t))
+        tables = bsa.build_index_tables(layout, dev)
+        qkv = torch.randn((b, t, 3 * h * d), generator=gen).to(dev, dtype)
+        q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+        do = torch.randn((b, t, h, d), generator=gen).to(dev, dtype)
+        kw = dict(block=block, causal=causal)
+        o, lse = bsa.block_sparse_fwd(q, k, v, tables, **kw)
+        o_ref, lse_ref = bsa.block_sparse_attention_reference(q, k, v, layout, **kw)
+        got = bsa.block_sparse_bwd(q, k, v, o, lse, do, tables, **kw)
+        again = bsa.block_sparse_bwd(q, k, v, o, lse, do, tables, **kw)
+        want = bsa.block_sparse_attention_backward_reference(
+            q, k, v, o, lse, do, layout, **kw)
+        torch.cuda.synchronize()
+        dname = str(dtype).split(".")[-1]
+        tol = TOLERANCE[dname]
+        line = {"phase": "kernel", "kernel": "block_sparse_attention", "case": name,
+                "shape": [b, t, h, d], "block": block, "causal": causal,
+                "dtype": str(dtype), "layout_heads": int(layout.shape[0]),
+                "active_tiles": int((layout != 0).sum()),
+                "o_max_abs_err": float((o.float() - o_ref.float()).abs().max()),
+                "lse_max_abs_err": float((lse - lse_ref).abs().max()), "tol": tol,
+                "grad_rel_tol": GRAD_REL_TOL[dname],
+                "grad_rel_err": {n: _rel_err(g, w) for n, g, w in
+                                 zip(("dq", "dk", "dv"), got, want)},
+                "grad_max_abs_err": {n: float((g.float() - w.float()).abs().max())
+                                     for n, g, w in zip(("dq", "dk", "dv"), got, want)},
+                "ref_grad_abs_max": {n: float(w.float().abs().max())
+                                     for n, w in zip(("dq", "dk", "dv"), want)},
+                "bit_reproducible": all(torch.equal(x, y) for x, y in zip(got, again)),
+                "finite": all(bool(torch.isfinite(x).all()) for x in (o, *got))}
+        ok = (min(line["ref_grad_abs_max"].values()) > 0
+              and line["o_max_abs_err"] <= tol["o"] and line["lse_max_abs_err"] <= tol["lse"]
+              and max(line["grad_rel_err"].values()) <= GRAD_REL_TOL[dname]
+              and line["bit_reproducible"] and line["finite"])
+        if name.startswith("empty_row"):
+            seen = lse_ref > 0.5 * NEG_INF
+            line["empty_rows_zero"] = bool((o.float().transpose(1, 2)[~seen] == 0).all()
+                                           and (lse[~seen] == lse_ref[~seen]).all()
+                                           and bool((~seen).any()))
+            ok = ok and line["empty_rows_zero"]
+        emit(line)
+        if not ok:
+            raise AssertionError(f"block_sparse_attention {name}: {line}")
+        worst["fwd"] = max(worst.get("fwd", 0.0), line["o_max_abs_err"])
+        for n, e in line["grad_max_abs_err"].items():
+            worst[n] = max(worst.get(n, 0.0), e)
+        if name == "bert_large_bigbird_4096":
+            path = (q, k, v, do, o, lse, layout, tables, block)
+        del o_ref, lse_ref, want, got, again
+    torch.cuda.empty_cache()
+    return time_block_sparse(path, worst)
+
+
+def time_block_sparse(path, worst):
+    """B5, B6 and B7 at the path's shape against their bounds, plain
+    versions, SDPA under the expanded mask and the gather path."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import bwd_delta
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        gathered_blocksparse_attention)
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import (
+        _build_index_tables)
+
+    q, k, v, do, o, lse, layout, tables, block = path
+    b, t, h, d = q.shape
+    scale = d ** -0.5
+    fwd_ms = cuda_ms(lambda: bsa.block_sparse_fwd(q, k, v, tables, block=block))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        bsa.block_sparse_fwd(q, k, v, tables, block=block)
+    host_us = (time.perf_counter() - t0) / 20 * 1e6  # enqueue only, no sync
+    torch.cuda.synchronize()
+    # what SparseSelfAttention pays per call to find its tables: a hit in
+    # the bounded cache, keyed by the layout's bytes
+    _build_index_tables(layout, h, block, q.device)
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        _build_index_tables(layout, h, block, q.device)
+    lookup_us = (time.perf_counter() - t0) / 1000 * 1e6
+    fwd_plain_ms = cuda_ms(lambda: bsa.block_sparse_attention_reference(
+        q, k, v, layout, block=block), iters=5)
+    delta = bwd_delta(o, do)
+    args = (q, k, v, lse, delta, do, tables, block, False, scale)
+    dq_ms = cuda_ms(lambda: bsa._launch_dq(*args))
+    dkv_ms = cuda_ms(lambda: bsa._launch_dkv(*args))
+    bwd_plain_ms = cuda_ms(lambda: bsa.block_sparse_attention_backward_reference(
+        q, k, v, o, lse, do, layout, block=block), iters=3)
+    gather_ms = cuda_ms(lambda: gathered_blocksparse_attention(
+        q, k, v, layout, block=block), iters=5)
+    # the library call: SDPA over [B, H, T, D] with the boolean [T, T] mask
+    mask = bsa.keep_mask(layout, block, False, q.device)[0, 0]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    dot = do.transpose(1, 2)
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                      retain_graph=True))
+    sdpa_fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), (qt, kt, vt), dot))
+    del out, mask
+    pairs = visible_pairs(layout, block, h) * b
+    bthd, bht = b * t * h * d * q.element_size(), b * h * t * 4
+    source = "deepspeed_tpu_torch/csrc/block_sparse_attention.cu"
+    replaces = "deepspeed_tpu/ops/sparse_attention/sparse_self_attention.py:"
+    entries = []
+    for name, line_no, ms, n_ops, nbytes, err, plain, lib in (
+            ("block_sparse_fwd", 84, fwd_ms, 4 * pairs * d, 4 * bthd + bht,
+             worst["fwd"], fwd_plain_ms, sdpa_fwd_ms),
+            ("block_sparse_dq", 129, dq_ms, 6 * pairs * d, 5 * bthd + 2 * bht,
+             worst["dq"], bwd_plain_ms, sdpa_bwd_ms),
+            ("block_sparse_dkv", 168, dkv_ms, 8 * pairs * d, 6 * bthd + 2 * bht,
+             max(worst["dk"], worst["dv"]), bwd_plain_ms, sdpa_bwd_ms)):
+        bound_ms, bound_by = _bound(n_ops, nbytes, "bfloat16")
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces + str(line_no), "launches": None,
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib}
+        entries.append(entry)
+        emit({"phase": "kernel", "kernel": name, "case": "bert_large_bigbird_4096",
+              "timing": entry, "flops": n_ops, "bytes": nbytes,
+              "visible_pairs": pairs, "tflops_per_s": n_ops / ms / 1e9})
+    emit({"phase": "kernel", "kernel": "block_sparse_attention",
+          "case": "bert_large_bigbird_4096",
+          "sdpa_masked_ms": {"fwd": sdpa_fwd_ms, "bwd": sdpa_bwd_ms,
+                             "fwd_bwd": sdpa_fwd_bwd_ms},
+          "kernels_fwd_bwd_ms": fwd_ms + dq_ms + dkv_ms,
+          "fwd_wrapper_host_us_per_call": host_us,
+          "tables_lookup_host_us_per_call": lookup_us,
+          "gather_fwd_ms": gather_ms,
+          "note": "plain and SDPA backward times compute dq, dk and dv together; "
+                  "delta's rowsum is not in the kernel times"})
+    return entries
+
+
 def phase_serve():
     """GPT-2 1.3B through init_inference, the port's serving path."""
     import torch
@@ -591,9 +811,13 @@ def _trace(fn):
             n += 1
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # the host side: operators by their own CPU time (tracing inflates it)
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:8]
     return {"wall_ms": wall_ms_, "device_ms": device_ms, "kernels": n,
             "device_busy_share": device_ms / wall_ms_,
-            "top_ms": [[name[:90], ms] for name, ms in top]}, by_name
+            "top_ms": [[name[:90], ms] for name, ms in top],
+            "host_top_self_ms": [[a.key[:60], a.self_cpu_time_total / 1e3, a.count]
+                                 for a in host]}, by_name
 
 
 def phase_profile(engine, ids, prompts, mask):
@@ -639,13 +863,17 @@ def phase_small():
 
 
 def _counters():
+    from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import fused_adam as fadam
 
     return {"flash_attention_fwd": (fa, "launches"),
             "flash_attention_bwd_dq": (fa, "launches_dq"),
             "flash_attention_bwd_dkv": (fa, "launches_dkv"),
-            "fused_adamw": (fadam, "launches")}
+            "fused_adamw": (fadam, "launches"),
+            "block_sparse_fwd": (bsa, "launches_sparse_fwd"),
+            "block_sparse_dq": (bsa, "launches_sparse_dq"),
+            "block_sparse_dkv": (bsa, "launches_sparse_dkv")}
 
 
 def reset_launches():
@@ -770,24 +998,219 @@ def phase_train():
         problems.append("flash and einsum grad norms disagree")
     if problems:
         raise AssertionError(f"train: {problems}")
-    profile_train(engine, it)
+    profile_step(engine, it, "train_step_1p3b",
+                 {"B1": "fwd_mma_kernel", "B2": "bwd_dq_mma_kernel",
+                  "B3": "bwd_dkv_mma_kernel", "B4": "adamw_kernel"})
     del engine
     torch.cuda.empty_cache()
     return launches
 
 
-def profile_train(engine, it):
-    """Where the card's time goes in one traced train step."""
+def profile_step(engine, it, name, marks):
+    """Where the card's time goes in one traced train step; ``marks`` maps
+    each kernel to a substring of its name."""
     step, by_name = _trace(lambda: engine.train_batch(it))
-    marks = {"B1": "fwd_mma_kernel", "B2": "bwd_dq_mma_kernel",
-             "B3": "bwd_dkv_mma_kernel", "B4": "adamw_kernel"}
     step["kernel_ms"] = {k: sum(ms for name, ms in by_name.items() if mark in name)
                          for k, mark in marks.items()}
     step["kernel_share_of_device"] = {
         k: v / step["device_ms"] for k, v in step["kernel_ms"].items()}
     step["copy_kernels_ms"] = sum(ms for name, ms in by_name.items()
                                   if "copy" in name)
-    emit({"phase": "profile", "train_step_1p3b": step})
+    emit({"phase": "profile", name: step})
+
+
+# benchmarks/sparse_attention_bench.py:30-41 at its defaults (seq 4096,
+# micro batch 1, :64-65), plus the device block that routes FusedAdam to B4
+# (as GPT_PRETRAIN_CONFIG has) and the kernel selector that routes attention
+# to B5-B7
+BIGBIRD_BLOCK = {"mode": "bigbird", "block": 128, "num_random_blocks": 1,
+                 "num_sliding_window_blocks": 3, "num_global_blocks": 1}
+SPARSE_SEQ = 4096
+BERT_SPARSE_CONFIG = {
+    "train_micro_batch_size_per_gpu": 1,
+    "gradient_accumulation_steps": 1,
+    "bf16": {"enabled": True},
+    "gradient_clipping": 1.0,
+    "optimizer": {"type": "FusedAdam", "params": {"lr": 1e-4}},
+    "steps_per_print": 10 ** 9,
+    "tpu": {"use_pallas_optimizer": True},
+    "sparse_attention": dict(BIGBIRD_BLOCK, kernel="pallas"),
+}
+SPARSE_PER_STEP = {"block_sparse_fwd": 48, "block_sparse_dq": 24,
+                   "block_sparse_dkv": 24, "fused_adamw": 1}
+# the kernels against the gather and dense implementations on one step from
+# the same weights and batch: the tolerances of the GPT flash/einsum check
+# (bf16; the three round scores and probabilities at different points)
+SPARSE_LOSS_REL_TOL = TRAIN_LOSS_REL_TOL
+SPARSE_GNORM_REL_TOL = TRAIN_GNORM_REL_TOL
+# the attention qkv weights' gradients, q, k and v rows apart, against the
+# other implementations' (relative L2 over the 24 layers): the loss and the
+# global norm barely see attention at random init, these rows see nothing
+# else. A zeroed gradient (B6's dq, B7's dk or dv) reads 1.0. The kernels'
+# q and k rows lie ~0.06 from dense and gather in bf16, against gather's
+# ~0.013 from dense: the backward's delta = rowsum(o * do) from the rounded
+# o (the flash formulation, as in the TPU kernels) accounts for ~0.055 of
+# it on the plain f32 versions, and in f32 the routes agree to ~1e-5
+# (sparse_grad_spread.py)
+SPARSE_QKV_GRAD_REL_TOL = 0.15
+# one repeated batch of 4096 tokens (about 600 labelled): the MLM loss must
+# fall by at least 0.5 nat over the 10 steps at lr 1e-4
+SPARSE_MIN_LOSS_DROP = 0.5
+# timed steps of the gather and dense implementations, after their first
+SPARSE_OTHER_STEPS = 3
+
+
+def bert_flops_per_token(model, layout, block):
+    """Training FLOPs per token of BERT under a block-sparse layout: 6 per
+    weight of every matrix product (the Dense layers and the tied decoder)
+    plus 3 x 4 per visible (query, key) pair per head dimension."""
+    from deepspeed_tpu_torch.models.transformer_lm import Dense
+
+    cfg = model.config
+    weights = sum(m.weight.numel() for m in model.modules() if isinstance(m, Dense))
+    weights += cfg.vocab_size * cfg.hidden_size
+    pairs = visible_pairs(layout, block, cfg.num_attention_heads)
+    attn = 12 * cfg.num_hidden_layers * pairs * cfg.head_dim / SPARSE_SEQ
+    return 6.0 * weights + attn
+
+
+def qkv_grads(model, batch):
+    """The gradients of every attention ``qkv`` weight from one forward and
+    backward of ``batch`` (no optimizer step), split into their q, k and v
+    rows and concatenated over the layers, in f32."""
+    import torch
+
+    model.train()
+    dev = next(model.parameters()).device
+    loss = model(**{k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+    loss.backward()
+    rows = {"q": [], "k": [], "v": []}
+    for name, p in model.named_parameters():
+        if name.endswith("qkv.weight"):
+            for part, g in zip(rows.values(), p.grad.float().chunk(3, dim=0)):
+                part.append(g.flatten())
+    model.zero_grad(set_to_none=True)
+    return {n: torch.cat(parts) for n, parts in rows.items()}
+
+
+def phase_sparse_train():
+    """BERT-Large under BigBird at 4096 through initialize -> train_batch,
+    this slice's main path: one step each on the gather and dense
+    implementations from the same weights (then the median of 3 more as
+    their step time), then 2 warm-up and 8 measured steps on the kernels
+    (B5-B7, B4). Returns the kernels' launch counts."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.bert import BertForPreTraining, bert_config
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    cfg = bert_config("bert-large", dtype=torch.bfloat16, scan_layers=True,
+                      remat=True, remat_policy="full",
+                      max_position_embeddings=SPARSE_SEQ)
+
+    def config(kernel):
+        return dict(BERT_SPARSE_CONFIG,
+                    sparse_attention=dict(BIGBIRD_BLOCK, kernel=kernel))
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=BertForPreTraining(cfg), config=config("pallas"), seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sc = engine.module.config.sparse_attention
+    rng = np.random.RandomState(1)
+    ids = rng.randint(0, cfg.vocab_size, size=(1, SPARSE_SEQ)).astype(np.int64)
+    labels = np.where(rng.rand(1, SPARSE_SEQ) < 0.15, ids, -100).astype(np.int64)
+    # no attention_mask: with one, the kernel route takes the dense path
+    batch = {"input_ids": ids, "labels": labels}
+    it = iter(RepeatingLoader([batch]))
+
+    weights = {k: v.clone() for k, v in engine.module.state_dict().items()}
+    grads = qkv_grads(engine.module, batch)
+    others, other_ms, qkv_err = {}, {}, {}
+    for kernel in ("gather", "dense"):
+        # a copy each: the engine takes the tensors it is given as its
+        # parameters and trains them in place
+        other, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=BertForPreTraining(cfg), config=config(kernel),
+            model_parameters={k: v.clone() for k, v in weights.items()})
+        qkv_err[kernel] = {n: float((grads[n] - g).norm() / g.norm())
+                           for n, g in qkv_grads(other.module, batch).items()}
+        others[kernel] = [float(other.train_batch(iter([batch]))),
+                          other.get_global_grad_norm()]
+        # then the implementation's step time (the first step above warmed it)
+        other_ms[kernel] = wall_ms(lambda: other.train_batch(iter([batch])),
+                                   reps=SPARSE_OTHER_STEPS)
+        del other
+        torch.cuda.empty_cache()
+    del weights, grads
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, times = [], []
+    for step in range(WARMUP_STEPS + MEASURED_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = engine.train_batch(it)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(loss))
+        if step == 0:
+            gnorm = engine.get_global_grad_norm()
+    launches = read_launches()
+    steps = WARMUP_STEPS + MEASURED_STEPS
+    ms = statistics.median(times[WARMUP_STEPS:])
+    layout = sc.make_layout(SPARSE_SEQ)
+    fpt = bert_flops_per_token(engine.module, layout, sc.block)
+    tflops = SPARSE_SEQ * fpt / ms / 1e9
+    line = {"phase": "sparse_train", "model": "bert-large",
+            "params": sum(p.numel() for p in engine.module.parameters()),
+            "config": BERT_SPARSE_CONFIG, "batch": [1, SPARSE_SEQ],
+            "layout": type(sc).__name__, "active_tiles": int((layout[0] != 0).sum()),
+            "labelled_tokens": int((labels != -100).sum()),
+            "init_s": init_s, "losses": losses,
+            "kernels_vs_gather_vs_dense": {
+                "loss": [losses[0], others["gather"][0], others["dense"][0]],
+                "grad_norm": [gnorm, others["gather"][1], others["dense"][1]],
+                "qkv_grad_rel_l2": qkv_err,
+                "qkv_grad_rel_tol": SPARSE_QKV_GRAD_REL_TOL},
+            "launches": launches, "steps": steps,
+            "step_ms_median": ms, "step_ms": times,
+            "gather_step_ms_median": other_ms["gather"],
+            "dense_step_ms_median": other_ms["dense"],
+            "tokens_per_s": SPARSE_SEQ / ms * 1e3,
+            "model_flops_per_token": fpt, "model_tflops_per_s": tflops,
+            "mfu_vs_989": tflops / 989.0,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(line)
+    problems = []
+    if not all(np.isfinite(losses)):
+        problems.append("non-finite loss")
+    if not losses[-1] <= losses[0] - SPARSE_MIN_LOSS_DROP:
+        problems.append(f"loss did not fall by {SPARSE_MIN_LOSS_DROP}")
+    for name, per in SPARSE_PER_STEP.items():
+        if launches[name] != per * steps:
+            problems.append(f"{name}: {launches[name]} launches, want "
+                            f"{per} x {steps}")
+    for kernel, (loss_o, gnorm_o) in others.items():
+        if abs(losses[0] - loss_o) > SPARSE_LOSS_REL_TOL * abs(loss_o):
+            problems.append(f"kernel and {kernel} losses disagree")
+        if abs(gnorm - gnorm_o) > SPARSE_GNORM_REL_TOL * abs(gnorm_o):
+            problems.append(f"kernel and {kernel} grad norms disagree")
+        for n, err in qkv_err[kernel].items():
+            if not err <= SPARSE_QKV_GRAD_REL_TOL:
+                problems.append(f"kernel and {kernel} {n} gradients disagree")
+    if problems:
+        raise AssertionError(f"sparse_train: {problems}")
+    profile_step(engine, it, "sparse_train_step_bert_large",
+                 {"B5": "sparse_fwd_", "B6": "sparse_dq_", "B7": "sparse_dkv_",
+                  "B4": "adamw_kernel"})
+    del engine
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_small_train():
@@ -840,7 +1263,8 @@ def phase_small_train():
     want_launches = {"flash_attention_fwd": 3 * cfg.n_layer,
                      "flash_attention_bwd_dq": 3 * cfg.n_layer,
                      "flash_attention_bwd_dkv": 3 * cfg.n_layer,
-                     "fused_adamw": 3}
+                     "fused_adamw": 3, "block_sparse_fwd": 0,
+                     "block_sparse_dq": 0, "block_sparse_dkv": 0}
     if not (loss_err <= SMALL_LOSS_REL_TOL and update_err <= SMALL_UPDATE_REL_L2
             and launches == want_launches):
         raise AssertionError(f"small_train: {line}")
@@ -865,15 +1289,19 @@ def main():
     serve_launches = phase_serve()
     phase_small()
     launches = phase_train()
+    sparse_launches = phase_sparse_train()
     phase_small_train()
+    paths = {"serve": serve_launches, "train": launches,
+             "sparse_train": sparse_launches}
     for entry in kernels:
-        # the training step is this slice's main path; serving, the first
-        # slice's, still runs B1 (checked in phase_serve)
-        entry["launches"] = launches[entry["name"]]
-        entry["launches_by_path"] = {"train": launches[entry["name"]],
-                                     "serve": serve_launches[entry["name"]]}
+        # each slice's main path, its counts set to 0 just before it: serving
+        # runs B1, GPT training B1-B4, BERT training under BigBird B4-B7.
+        # "launches" is the count on the newest path that runs the kernel
+        name = entry["name"]
+        entry["launches_by_path"] = {p: counts[name] for p, counts in paths.items()}
+        entry["launches"] = sparse_launches[name] or launches[name]
         if not entry["launches"]:
-            raise AssertionError(f"{entry['name']} never ran on the main path")
+            raise AssertionError(f"{name} never ran on a main path")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -227,13 +227,14 @@ class Dense(nn.Linear):
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm`` (the ``_norm`` layernorm branch): statistics and
-    the affine map in f32, the result cast to the compute dtype."""
+    the affine map in f32, the result cast to the compute dtype. ``width``
+    features, ``eps`` as the model's config names it."""
 
-    def __init__(self, cfg):
+    def __init__(self, width, eps, cfg):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(cfg.n_embd, dtype=cfg.param_dtype))
-        self.bias = nn.Parameter(torch.zeros(cfg.n_embd, dtype=cfg.param_dtype))
-        self.eps = cfg.layer_norm_epsilon
+        self.weight = nn.Parameter(torch.ones(width, dtype=cfg.param_dtype))
+        self.bias = nn.Parameter(torch.zeros(width, dtype=cfg.param_dtype))
+        self.eps = eps
         self.compute_dtype = cfg.dtype
 
     def forward(self, x):
@@ -388,9 +389,9 @@ class Block(nn.Module):
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
-        self.ln_1 = LayerNorm(cfg)
+        self.ln_1 = LayerNorm(cfg.n_embd, cfg.layer_norm_epsilon, cfg)
         self.attn = CausalSelfAttention(cfg)
-        self.ln_2 = LayerNorm(cfg)
+        self.ln_2 = LayerNorm(cfg.n_embd, cfg.layer_norm_epsilon, cfg)
         self.mlp = MLP(cfg)
 
     def forward(self, x, mask=None, step=None, layer=0, segment_ids=None):
@@ -417,7 +418,8 @@ class GPT(nn.Module):
             self.wpe = VocabEmbed(config.n_positions, config.n_embd, config)
             self.h = nn.ModuleList(Block(config)
                                    for _ in range(config.n_layer))
-            self.ln_f = LayerNorm(config)
+            self.ln_f = LayerNorm(config.n_embd, config.layer_norm_epsilon,
+                                  config)
 
     def forward(self, input_ids, labels=None, attention_mask=None,
                 segment_ids=None, positions=None, *, decode=False,

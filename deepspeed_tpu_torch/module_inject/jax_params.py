@@ -1,8 +1,10 @@
-"""Carry GPT weights from the JAX package's parameter tree into the port.
+"""Carry GPT and BERT weights from the JAX package's parameter trees into
+the port.
 
 Counterpart of the GPT-2 mapping in ``deepspeed_tpu/module_inject/hf.py``
 (``gpt2_params_from_hf`` :92 and ``gpt2_to_hf_state_dict`` :988), from the
-flax tree straight to this package's ``state_dict``. The tree arrives as
+flax tree straight to this package's ``state_dict``; the BERT mapping
+follows ``deepspeed_tpu/models/bert.py``'s parameter names. The tree arrives as
 nested dicts of numpy arrays (``jax.device_get(params)`` gives one), so
 nothing here imports jax.
 
@@ -58,6 +60,53 @@ def gpt_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tens
             dense = lp[mod][name]
             sd[f"{p}.{mod}.{name}.weight"] = _tensor(dense["kernel"]).T.contiguous()
             sd[f"{p}.{mod}.{name}.bias"] = _tensor(dense["bias"])
+    return sd
+
+
+def _dense(sd, name, dense):
+    sd[f"{name}.weight"] = _tensor(dense["kernel"]).T.contiguous()
+    sd[f"{name}.bias"] = _tensor(dense["bias"])
+
+
+def _layer_norm(sd, name, ln):
+    sd[f"{name}.weight"] = _tensor(ln["scale"])
+    sd[f"{name}.bias"] = _tensor(ln["bias"])
+
+
+def bert_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """flax ``BertForPreTraining`` params (scanned ``encoder/layer`` with a
+    leading layer axis, or unscanned ``encoder/layer_0``..) ->
+    ``deepspeed_tpu_torch`` ``BertForPreTraining`` state dict in f32.
+
+    Dense kernels are transposed into ``nn.Linear`` weights; the attention's
+    ``qkv`` stays fused, its output columns ordered q | k | v. The MLM
+    decoder is tied to ``word_embeddings``; ``mlm_bias`` is carried when the
+    tree has one."""
+    enc = params["encoder"]
+    if "layer" in enc:
+        def layer(i):
+            return _index_tree(enc["layer"], i)
+    else:
+        def layer(i):
+            return enc[f"layer_{i}"]
+
+    sd = {}
+    for name in ("word_embeddings", "position_embeddings",
+                 "token_type_embeddings"):
+        sd[f"{name}.weight"] = _tensor(params[name]["embedding"])
+    _layer_norm(sd, "embeddings_ln", params["embeddings_ln"])
+    for i in range(cfg.num_hidden_layers):
+        lp, p = layer(i), f"encoder.layer.{i}"
+        _dense(sd, f"{p}.attention.qkv", lp["attention"]["qkv"])
+        _dense(sd, f"{p}.attention.output", lp["attention"]["output"])
+        _dense(sd, f"{p}.intermediate", lp["intermediate"])
+        _dense(sd, f"{p}.output", lp["output"])
+        _layer_norm(sd, f"{p}.ln_attn", lp["ln_attn"])
+        _layer_norm(sd, f"{p}.ln_out", lp["ln_out"])
+    _dense(sd, "mlm_dense", params["mlm_dense"])
+    _layer_norm(sd, "mlm_ln", params["mlm_ln"])
+    if "mlm_bias" in params:
+        sd["mlm_bias"] = _tensor(params["mlm_bias"])
     return sd
 
 

@@ -7,8 +7,9 @@ under its JAX name ``tpu``. The training slice honours the batch triad
 (resolved at world size 1), ``fp16`` with its loss-scale keys, ``bf16``,
 ``gradient_clipping``, ``optimizer``, ``scheduler``, ``steps_per_print``,
 ``zero_optimization.stage`` 0-3 (at world size 1 every stage is the
-unsharded update, as on the JAX package's dp=1 mesh) and
-``tpu.use_pallas_optimizer``. ``unported_features()`` names every other
+unsharded update, as on the JAX package's dp=1 mesh),
+``tpu.use_pallas_optimizer`` and ``sparse_attention`` (applied by the
+engine). ``unported_features()`` names every other
 block that is enabled; the engine refuses to train with any of them.
 """
 
@@ -560,7 +561,6 @@ class DeepSpeedConfig:
              self.tpu.cluster_health_config.enabled is True),
             ("amp", self.amp.enabled),
             ("eigenvalue", self.eigenvalue.enabled),
-            ("sparse_attention", self.sparse_attention is not None),
             ("compression_training", bool(self.compression_training)),
             ("quantize_training",
              bool(self.quantize_training.get("enabled", False))),

@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.models.bert import BertForPreTraining, materialize_bert
 from deepspeed_tpu_torch.models.transformer_lm import GPT, materialize_gpt
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
@@ -44,11 +45,15 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     """Build the engine; returns ``(engine, optimizer, dataloader,
     lr_scheduler)`` as ``deepspeed_tpu.initialize`` does.
 
-    ``model`` is a ``GPT`` whose forward with ``labels`` returns the mean
-    loss. ``model_parameters`` is an initial ``state_dict`` (for example
+    ``model`` is a ``GPT`` or a ``BertForPreTraining``, whose forward with
+    ``labels`` returns the mean loss. A ``sparse_attention`` block in the
+    config rebuilds the model with block-sparse attention, as the JAX engine
+    does (a ``GPT`` refuses it: its sparse route is not ported yet).
+    ``model_parameters`` is an initial ``state_dict`` (for example
     ``module_inject.jax_params.gpt_state_dict_from_jax`` of a flax tree),
-    the counterpart of the JAX package's initial parameter tree; without
-    it the weights are drawn from ``seed``. ``config`` is a dict or a JSON
+    taken as the model's parameters and trained in place: the counterpart
+    of the JAX package's initial parameter tree. Without it the weights are
+    drawn from ``seed``. ``config`` is a dict or a JSON
     path (or ``config_params``, or ``args.deepspeed_config``)."""
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize: model is required")
@@ -74,11 +79,11 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 class DeepSpeedEngine:
     def __init__(self, model, config, lr_scheduler=None,
                  initial_state_dict=None, seed: int = 0, device=None):
-        if not isinstance(model, GPT):
+        if not isinstance(model, (GPT, BertForPreTraining)):
             raise NotImplementedError(
-                f"the port trains deepspeed_tpu_torch GPT models; "
-                f"{type(model).__name__} (PipelineModule included) is not "
-                "ported")
+                f"the port trains deepspeed_tpu_torch GPT and "
+                f"BertForPreTraining models; {type(model).__name__} "
+                "(PipelineModule included) is not ported")
         if not isinstance(config, DeepSpeedConfig):
             config = DeepSpeedConfig(config)
         config._resolve_batch_triad(1)  # one card
@@ -88,6 +93,16 @@ class DeepSpeedEngine:
                 f"config blocks not ported to deepspeed_tpu_torch yet: "
                 f"{', '.join(unported)}")
         self._config = config
+        if config.sparse_attention is not None:
+            # block-sparse attention from the config alone, as
+            # deepspeed_tpu/runtime/engine.py:267-277 applies it
+            from deepspeed_tpu_torch.ops.sparse_attention.sparse_attention_utils \
+                import apply_sparse_attention
+
+            model = apply_sparse_attention(model, config.sparse_attention)
+            log_dist(f"sparse attention enabled: "
+                     f"{type(model.config.sparse_attention).__name__}",
+                     ranks=[0])
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -99,8 +114,9 @@ class DeepSpeedEngine:
         self.module = model
         t0 = time.perf_counter()
         generator = torch.Generator(device=self.device).manual_seed(seed)
-        materialize_gpt(model, self.device, generator,
-                        state_dict=initial_state_dict)
+        materialize = (materialize_bert if isinstance(model, BertForPreTraining)
+                       else materialize_gpt)
+        materialize(model, self.device, generator, state_dict=initial_state_dict)
         model.train()
         self._params = list(model.parameters())
         for p in self._params:

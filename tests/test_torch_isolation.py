@@ -35,6 +35,19 @@ trainer, _, _, _ = deepspeed_tpu_torch.initialize(
 batch = dict(input_ids=ids.numpy(), labels=ids.numpy())
 loss = trainer.train_batch(iter(RepeatingLoader([batch])))
 assert bool(torch.isfinite(loss)) and trainer.global_steps == 1
+from deepspeed_tpu_torch.models.bert import BertConfig, BertForPreTraining
+bcfg = BertConfig(vocab_size=64, hidden_size=32, num_hidden_layers=1,
+                  num_attention_heads=2, intermediate_size=64,
+                  max_position_embeddings=64, dtype=torch.float32, remat=True)
+bert, _, _, _ = deepspeed_tpu_torch.initialize(
+    model=BertForPreTraining(bcfg), device="cpu", config=dict(
+        train_micro_batch_size_per_gpu=1,
+        optimizer=dict(type="FusedAdam", params=dict(lr=1e-3)),
+        tpu=dict(use_pallas_optimizer=True),
+        sparse_attention=dict(mode="bigbird", block=16, kernel="pallas")))
+mlm = dict(input_ids=ids[:, :64].numpy(), labels=ids[:, :64].numpy())
+loss = bert.train_batch(iter(RepeatingLoader([mlm])))
+assert bool(torch.isfinite(loss)) and bert.global_steps == 1
 print("loaded:" + ",".join(sorted(m for m in sys.modules
                                   if m.split(".")[0] in {forbidden!r})))
 """
@@ -55,7 +68,7 @@ def test_running_the_port_loads_no_jax():
 
 def test_sources_import_no_jax():
     files = sorted((ROOT / "deepspeed_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "sparse_grad_spread.py"]
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
