@@ -14,7 +14,10 @@ Phases, each printing one JSON line:
 * ``kernel``: holds each kernel against its plain PyTorch version on the
   card, at the 1.3B shapes and at edge cases, and times the kernel, the
   plain version and one PyTorch library call that computes the same
-  function: B1 (flash forward), B2/B3 (flash backward: dq, dk/dv; also the
+  function, each by the card's own time (``device_ms``; the CUDA-event mean
+  over back-to-back calls stays beside it as ``event_ms``): B1 (flash
+  forward; the library call is SDPA under the fastest of its flash, cuDNN
+  and efficient backends), B2/B3 (flash backward: dq, dk/dv; also the
   full autograd gradient, bit-reproducibility and segment isolation), B4
   (fused AdamW over GPT-2 1.3B's parameter shapes, 3 steps) and B5/B6/B7
   (block-sparse forward, dq, dk/dv: every sparsity family, blocks 16-128, D
@@ -132,8 +135,9 @@ def nvidia_smi_line():
 
 
 def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device time of one call, from CUDA events around ``iters``
-    back-to-back calls."""
+    """Mean time of one call from CUDA events around ``iters`` back-to-back
+    calls: the card's time plus any gap while the host launches the next
+    call (the "event_ms" beside each kernel's device time)."""
     import torch
 
     for _ in range(warmup):
@@ -147,6 +151,80 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """The card's own time for one call of ``fn``, without the host's launch
+    gaps: a spin kernel (``torch.cuda._sleep``) holds the card while the
+    host enqueues ``iters`` calls, each followed by a CUDA event, so the
+    card then runs them back to back and the events time each call.
+    Returns ``{"ms": median per call, "min_ms", "max_ms", "mean_ms",
+    "host_ahead"}``; ``host_ahead`` is False when the host had not finished
+    enqueueing when the spin ended (a call that waits for the card, such as
+    a copy from pageable memory), so the times may hold host gaps."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    hold_s = min(2.0, 2 * iters * (time.perf_counter() - t0) + 2e-3)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 2)]
+    ev[0].record()
+    torch.cuda._sleep(int(hold_s * 2e9))  # >= hold_s at an SM clock <= 2 GHz
+    ev[1].record()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn()
+        ev[i + 2].record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev[-1].synchronize()
+    per_call = [ev[i + 1].elapsed_time(ev[i + 2]) for i in range(iters)]
+    return {"ms": statistics.median(per_call), "min_ms": min(per_call),
+            "max_ms": max(per_call), "mean_ms": sum(per_call) / iters,
+            "host_ahead": host_ms < ev[0].elapsed_time(ev[1])}
+
+
+def sdpa_yardstick(q, k, v, do, causal=True):
+    """F.scaled_dot_product_attention forward and backward on contiguous
+    [B, H, T, D] copies of q, k, v and the cotangent, under each backend that
+    accepts the shape (flash, cuDNN, memory-efficient), by device time.
+    Returns ``{backend: {"fwd": device_ms(...), "bwd": device_ms(...)}}``
+    and the fastest backend's forward and backward."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous().detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    found = {}
+    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
+                          ("cudnn", SDPBackend.CUDNN_ATTENTION),
+                          ("efficient", SDPBackend.EFFICIENT_ATTENTION)):
+        with sdpa_kernel(backend):
+            try:
+                out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+                torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+                torch.cuda.synchronize()
+            except RuntimeError as e:  # the backend refuses this shape
+                found[name] = {"unsupported": str(e).splitlines()[0][:120]}
+                continue
+            fwd = device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal))
+            bwd = device_ms(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True))
+            found[name] = {"fwd": fwd, "bwd": bwd}
+            del out
+    ok = {n: r for n, r in found.items() if "fwd" in r}
+    if not ok:
+        raise AssertionError(f"no SDPA backend accepts the shape: {found}")
+    best_fwd = min(ok, key=lambda n: ok[n]["fwd"]["ms"])
+    best_bwd = min(ok, key=lambda n: ok[n]["bwd"]["ms"])
+    return found, (best_fwd, ok[best_fwd]["fwd"]["ms"]), \
+        (best_bwd, ok[best_bwd]["bwd"]["ms"])
 
 
 def wall_ms(fn, reps=5):
@@ -219,7 +297,6 @@ def attention_flops_bytes(b, t, h, d, causal, itemsize):
 def phase_kernel():
     """B1, the flash-attention forward, against its plain version."""
     import torch
-    import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 
@@ -235,6 +312,8 @@ def phase_kernel():
         ("fp16_ragged", 1, 333, 4, 128, True, f16, False),
         ("fp32", 1, 256, 4, 64, True, f32, False),
         ("fp32_full_segments", 1, 130, 2, 128, False, f32, True),
+        ("long_t4096", 1, 4096, 16, 128, True, bf16, False),
+        ("d64_causal_ragged", 2, 1000, 12, 64, True, bf16, False),
     ]
     serving = None
     for name, b, t, h, d, causal, dtype, packed in cases:  # B1
@@ -283,12 +362,13 @@ def phase_kernel():
 
     q, k, v, o_err, causal = serving
     b, t, h, d = q.shape
-    ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal))
-    plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v,
-                                                            causal=causal))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal))
+    # the library yardstick for B1-B3: SDPA under each backend, fastest kept
+    do = torch.randn((b, t, h, d), generator=gen).to(dev, q.dtype)
+    sdpa, sdpa_fwd, sdpa_bwd = sdpa_yardstick(q, k, v, do, causal)
+    dev_t = device_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal))
+    ms = dev_t["ms"]
+    plain_ms = device_ms(lambda: fa.flash_attention_reference(
+        q, k, v, causal=causal), iters=5)["ms"]
     flops, nbytes = attention_flops_bytes(b, t, h, d, causal,
                                           q.element_size())
     bound_ms, bound_by = _bound(flops, nbytes, str(q.dtype).split(".")[-1])
@@ -297,12 +377,16 @@ def phase_kernel():
              "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:53",
              "launches": None, "max_abs_err": o_err, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": library_ms}
+             "bound_by": bound_by, "library_ms": sdpa_fwd[1],
+             "event_ms": cuda_ms(lambda: fa.flash_attention_fwd(
+                 q, k, v, causal=causal))}
     emit({"phase": "kernel", "kernel": "flash_attention_fwd",
-          "case": "serving_1p3b", "timing": entry, "flops": flops,
-          "bytes": nbytes, "tflops_per_s": flops / ms / 1e9})
-    return ([entry] + check_flash_backward(cases) + check_fused_adamw()
-            + check_block_sparse())
+          "case": "serving_1p3b", "timing": entry, "device_time": dev_t,
+          "library": f"F.scaled_dot_product_attention, {sdpa_fwd[0]} backend",
+          "sdpa_by_backend": sdpa, "flops": flops, "bytes": nbytes,
+          "tflops_per_s": flops / ms / 1e9})
+    return ([entry] + check_flash_backward(cases, sdpa_bwd)
+            + check_fused_adamw() + check_block_sparse())
 
 
 def _bound(flops, nbytes, dtype_name):
@@ -317,13 +401,13 @@ def _rel_err(got, want):
     return float((got.float() - want.float()).abs().max()) / scale
 
 
-def check_flash_backward(cases):
+def check_flash_backward(cases, sdpa_bwd):
     """B2 and B3 against the plain backward at every B1 case; the full
     autograd gradient against autograd through the plain forward;
     bit-reproducibility; segment isolation. Then times both kernels at the
-    1.3B training shape."""
+    1.3B training shape, against ``sdpa_bwd`` = (backend, device ms) of the
+    fastest SDPA backward there."""
     import torch
-    import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 
@@ -398,37 +482,37 @@ def check_flash_backward(cases):
     scale = d ** -0.5
     delta = fa.bwd_delta(o, do)
     args = (q, k, v, lse, delta, do, None, True, scale)
-    dq_ms = cuda_ms(lambda: fa._launch_dq(*args))
-    dkv_ms = cuda_ms(lambda: fa._launch_dkv(*args))
-    plain_ms = cuda_ms(lambda: fa.flash_attention_backward_reference(
-        q, k, v, o, lse, do), iters=5)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    dot = do.transpose(1, 2)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                                     retain_graph=True))
+    dq_t = device_ms(lambda: fa._launch_dq(*args))
+    dkv_t = device_ms(lambda: fa._launch_dkv(*args))
+    event = {"dq": cuda_ms(lambda: fa._launch_dq(*args)),
+             "dkv": cuda_ms(lambda: fa._launch_dkv(*args))}
+    plain_ms = device_ms(lambda: fa.flash_attention_backward_reference(
+        q, k, v, o, lse, do), iters=5)["ms"]
     pairs = b * t * (t + 1) // 2
     bthd, bht = b * t * h * d * 2, b * h * t * 4
     entries = []
-    for name, replaces, ms, n_ops, nbytes, err in (
-            ("flash_attention_bwd_dq", "flash_attention.py:157", dq_ms,
+    for name, key, replaces, dev_t, n_ops, nbytes, err in (
+            ("flash_attention_bwd_dq", "dq", "flash_attention.py:157", dq_t,
              6 * pairs * h * d, 5 * bthd + 2 * bht, worst["dq"]),
-            ("flash_attention_bwd_dkv", "flash_attention.py:207", dkv_ms,
+            ("flash_attention_bwd_dkv", "dkv", "flash_attention.py:207", dkv_t,
              8 * pairs * h * d, 6 * bthd + 2 * bht,
              max(worst["dk"], worst["dv"]))):
         bound_ms, bound_by = _bound(n_ops, nbytes, "bfloat16")
+        ms = dev_t["ms"]
         entry = {"name": name, "route": "cuda",
                  "source": "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
                  "replaces": "deepspeed_tpu/ops/pallas/" + replaces,
                  "launches": None, "max_abs_err": err, "ms": ms,
                  "plain_ms": plain_ms, "bound_ms": bound_ms,
-                 "bound_by": bound_by, "library_ms": library_ms}
+                 "bound_by": bound_by, "library_ms": sdpa_bwd[1],
+                 "event_ms": event[key]}
         entries.append(entry)
         emit({"phase": "kernel", "kernel": name, "case": "train_1p3b",
-              "timing": entry, "flops": n_ops, "bytes": nbytes,
-              "tflops_per_s": n_ops / ms / 1e9,
-              "note": "plain_ms and library_ms (F.scaled_dot_product_attention "
-                      "backward) compute dq, dk and dv together"})
+              "timing": entry, "device_time": dev_t, "flops": n_ops,
+              "bytes": nbytes, "tflops_per_s": n_ops / ms / 1e9,
+              "library": f"F.scaled_dot_product_attention backward, "
+                         f"{sdpa_bwd[0]} backend",
+              "note": "plain_ms and library_ms compute dq, dk and dv together"})
     return entries
 
 
@@ -474,11 +558,13 @@ def check_fused_adamw():
     if not (all(identical.values()) and moved >= ADAMW_MIN_MOVED):
         raise AssertionError(f"fused_adamw: {line}")
     del refs, p0
-    ms_ = cuda_ms(lambda: fadam.fused_adamw_update(ps, gs, ms, vs, 2e-4, 4,
-                                                   **hyper),
-                  iters=10)
-    plain_ms = cuda_ms(lambda: fadam.fused_adamw_reference(
-        ps, gs, ms, vs, 2e-4, 4, **hyper), iters=3, warmup=1)
+    def step():
+        fadam.fused_adamw_update(ps, gs, ms, vs, 2e-4, 4, **hyper)
+
+    dev_t = device_ms(step, iters=10)
+    ms_, event_ms = dev_t["ms"], cuda_ms(step, iters=10)
+    plain_ms = device_ms(lambda: fadam.fused_adamw_reference(
+        ps, gs, ms, vs, 2e-4, 4, **hyper), iters=3, warmup=1)["ms"]
     del ms, vs
     # the yardstick: torch's fused AdamW needs one dtype for p, g, m and v
     p32 = [torch.nn.Parameter(p.float()) for p in ps]
@@ -488,7 +574,7 @@ def check_fused_adamw():
     del gs
     opt = torch.optim.AdamW(p32, lr=2e-4, betas=(0.9, 0.95), eps=1e-8,
                             weight_decay=0.1, fused=True)
-    library_ms = cuda_ms(opt.step, iters=5, warmup=2)
+    library_ms = device_ms(opt.step, iters=5, warmup=2)["ms"]
     del opt, p32
     torch.cuda.empty_cache()
     nbytes = 22 * n  # bf16 p read+written, bf16 g read, f32 m, v read+written
@@ -498,9 +584,10 @@ def check_fused_adamw():
              "replaces": "deepspeed_tpu/ops/pallas/fused_adam.py:26",
              "launches": None, "max_abs_err": max_abs, "ms": ms_,
              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-             "library_ms": library_ms}
+             "library_ms": library_ms, "event_ms": event_ms}
     emit({"phase": "kernel", "kernel": "fused_adamw", "case": "gpt2_1p3b_leaves",
-          "timing": entry, "bytes": nbytes, "gb_per_s": nbytes / ms_ / 1e6,
+          "timing": entry, "device_time": dev_t, "bytes": nbytes,
+          "gb_per_s": nbytes / ms_ / 1e6,
           "note": "library_ms is torch.optim.AdamW(fused=True) on float32 "
                   "copies (p, g, m, v all f32: 32 bytes per element)"})
     return [entry]
@@ -640,7 +727,11 @@ def time_block_sparse(path, worst):
     q, k, v, do, o, lse, layout, tables, block = path
     b, t, h, d = q.shape
     scale = d ** -0.5
-    fwd_ms = cuda_ms(lambda: bsa.block_sparse_fwd(q, k, v, tables, block=block))
+    def fwd():
+        bsa.block_sparse_fwd(q, k, v, tables, block=block)
+
+    dev_t = {"fwd": device_ms(fwd)}
+    event = {"fwd": cuda_ms(fwd)}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(20):
@@ -654,48 +745,53 @@ def time_block_sparse(path, worst):
     for _ in range(1000):
         _build_index_tables(layout, h, block, q.device)
     lookup_us = (time.perf_counter() - t0) / 1000 * 1e6
-    fwd_plain_ms = cuda_ms(lambda: bsa.block_sparse_attention_reference(
-        q, k, v, layout, block=block), iters=5)
+    fwd_plain_ms = device_ms(lambda: bsa.block_sparse_attention_reference(
+        q, k, v, layout, block=block), iters=5)["ms"]
     delta = bwd_delta(o, do)
     args = (q, k, v, lse, delta, do, tables, block, False, scale)
-    dq_ms = cuda_ms(lambda: bsa._launch_dq(*args))
-    dkv_ms = cuda_ms(lambda: bsa._launch_dkv(*args))
-    bwd_plain_ms = cuda_ms(lambda: bsa.block_sparse_attention_backward_reference(
-        q, k, v, o, lse, do, layout, block=block), iters=3)
-    gather_ms = cuda_ms(lambda: gathered_blocksparse_attention(
-        q, k, v, layout, block=block), iters=5)
+    for key, fn in (("dq", lambda: bsa._launch_dq(*args)),
+                    ("dkv", lambda: bsa._launch_dkv(*args))):
+        dev_t[key], event[key] = device_ms(fn), cuda_ms(fn)
+    fwd_ms, dq_ms, dkv_ms = (dev_t[k]["ms"] for k in ("fwd", "dq", "dkv"))
+    bwd_plain_ms = device_ms(lambda: bsa.block_sparse_attention_backward_reference(
+        q, k, v, o, lse, do, layout, block=block), iters=3)["ms"]
+    gather_ms = device_ms(lambda: gathered_blocksparse_attention(
+        q, k, v, layout, block=block), iters=5)["ms"]
     # the library call: SDPA over [B, H, T, D] with the boolean [T, T] mask
     mask = bsa.keep_mask(layout, block, False, q.device)[0, 0]
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask))
+    sdpa_fwd_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))["ms"]
     out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     dot = do.transpose(1, 2)
-    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                                      retain_graph=True))
-    sdpa_fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), (qt, kt, vt), dot))
+    sdpa_bwd_ms = device_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                        retain_graph=True))["ms"]
+    sdpa_fwd_bwd_ms = device_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), (qt, kt, vt),
+        dot))["ms"]
     del out, mask
     pairs = visible_pairs(layout, block, h) * b
     bthd, bht = b * t * h * d * q.element_size(), b * h * t * 4
     source = "deepspeed_tpu_torch/csrc/block_sparse_attention.cu"
     replaces = "deepspeed_tpu/ops/sparse_attention/sparse_self_attention.py:"
     entries = []
-    for name, line_no, ms, n_ops, nbytes, err, plain, lib in (
-            ("block_sparse_fwd", 84, fwd_ms, 4 * pairs * d, 4 * bthd + bht,
+    for name, key, line_no, ms, n_ops, nbytes, err, plain, lib in (
+            ("block_sparse_fwd", "fwd", 84, fwd_ms, 4 * pairs * d, 4 * bthd + bht,
              worst["fwd"], fwd_plain_ms, sdpa_fwd_ms),
-            ("block_sparse_dq", 129, dq_ms, 6 * pairs * d, 5 * bthd + 2 * bht,
+            ("block_sparse_dq", "dq", 129, dq_ms, 6 * pairs * d, 5 * bthd + 2 * bht,
              worst["dq"], bwd_plain_ms, sdpa_bwd_ms),
-            ("block_sparse_dkv", 168, dkv_ms, 8 * pairs * d, 6 * bthd + 2 * bht,
+            ("block_sparse_dkv", "dkv", 168, dkv_ms, 8 * pairs * d, 6 * bthd + 2 * bht,
              max(worst["dk"], worst["dv"]), bwd_plain_ms, sdpa_bwd_ms)):
         bound_ms, bound_by = _bound(n_ops, nbytes, "bfloat16")
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces + str(line_no), "launches": None,
                  "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib}
+                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
+                 "event_ms": event[key]}
         entries.append(entry)
         emit({"phase": "kernel", "kernel": name, "case": "bert_large_bigbird_4096",
-              "timing": entry, "flops": n_ops, "bytes": nbytes,
+              "timing": entry, "device_time": dev_t[key], "flops": n_ops,
+              "bytes": nbytes,
               "visible_pairs": pairs, "tflops_per_s": n_ops / ms / 1e9})
     emit({"phase": "kernel", "kernel": "block_sparse_attention",
           "case": "bert_large_bigbird_4096",
@@ -825,7 +921,7 @@ def phase_profile(engine, ids, prompts, mask):
     8-token generate (tracing slows the host, so wall times here read high)."""
     fwd, by_name = _trace(lambda: engine(ids))
     flash_ms = sum(ms for name, ms in by_name.items()
-                   if "fwd_mma_kernel" in name)
+                   if "flash_fwd_" in name)
     fwd["flash_ms"] = flash_ms
     fwd["flash_share_of_device"] = (flash_ms / fwd["device_ms"]
                                     if fwd["device_ms"] else None)
@@ -999,8 +1095,8 @@ def phase_train():
     if problems:
         raise AssertionError(f"train: {problems}")
     profile_step(engine, it, "train_step_1p3b",
-                 {"B1": "fwd_mma_kernel", "B2": "bwd_dq_mma_kernel",
-                  "B3": "bwd_dkv_mma_kernel", "B4": "adamw_kernel"})
+                 {"B1": "flash_fwd_", "B2": "bwd_dq_", "B3": "bwd_dkv_",
+                  "B4": "adamw_kernel"})
     del engine
     torch.cuda.empty_cache()
     return launches

@@ -14,35 +14,56 @@
 // (query, key) pairs (6 * pairs * H * D = 25.8 GFLOP) and B3 four (34.4
 // GFLOP), while they move 84 and 101 MB (each input read once, each output
 // written once), so both are bound by the tensor cores (26 and 35 us at 989
-// TFLOP/s) rather than by HBM (25 and 30 us at 3.35 TB/s). The design keeps every product on
-// mma.sync with f32 accumulation and keeps P and dS out of device memory.
+// TFLOP/s) rather than by HBM (25 and 30 us at 3.35 TB/s). P and dS never
+// leave the chip.
 //
-// Design (simple and correct first; ldmatrix, cp.async/TMA pipelining and
-// wgmma are later work):
-// * Two kernels, no atomics: B2 owns a 64-row q-tile and loops over the K/V
-//   tiles up to the diagonal; B3 owns a 64-key tile and loops over the q
-//   tiles from the diagonal to the end. Every output element is written by
-//   exactly one block in a fixed order, so gradients are bit-reproducible.
-// * 16-bit inputs: 4 warps per block, 16 rows (B2) or 16 keys (B3) per warp,
-//   m16n8k16 bf16/f16 products with f32 accumulators. P and dS are built 16
-//   columns at a time from C fragments and re-packed in registers as the A
-//   fragment of the next product (the forward kernel's trick), so the only
-//   f32 arrays a thread carries are its accumulators. In B3 that is dK and dV
-//   (2 x 64 floats at D = 128); to leave room for them K and V stay in shared
-//   memory and their A fragments are re-read per k-step instead of being
-//   held in registers.
-// * f32 inputs: plain FMA kernels over 16 x 16 tiles with scores in shared
-//   memory, since TF32 tensor cores would not hold the f32 tolerance.
-// * q, k, v are read in [B, T, H, D] through their strides (views into the
-//   fused projection); dO, dQ, dK and dV are [B, T, H, D] contiguous and lse
-//   and delta [B, H, T] f32. Masks are those of the forward: causal,
-//   same-segment, and positions past T. A masked pair contributes exactly 0
-//   (P is set to 0, never exp of a huge negative), so fully masked tiles and
-//   ragged tails give 0 and never NaN.
+// Two kernels, no atomics: B2 owns a q-tile and loops over the K/V tiles up
+// to the diagonal; B3 owns a key tile and loops over the q tiles from the
+// diagonal to the end. Every output element is written by exactly one block
+// in a fixed order, so gradients are bit-reproducible.
+//
+// B3, 16-bit inputs at D = 64 and 128 (`flash_bwd_dkv_wgmma_kernel`):
+// * One block = 128 keys of one (batch, head) and three warpgroups. K and V
+//   come in once by TMA and stay in shared memory. A producer warp
+//   (setmaxnreg 24) streams 64-row Q and dO tiles by TMA through a two-stage
+//   ring (full/empty mbarriers), and stages each tile's lse (times log2 e),
+//   delta and query segment ids beside them. Two consumer warpgroups
+//   (setmaxnreg 240) own 64 keys each, so the dK and dV accumulators (2 x
+//   D / 2 f32 per thread) stay in registers for the whole loop.
+// * Per q-tile, in two passes of 32 queries (so that a pass's S^T, dP^T,
+//   P^T and dS^T fit beside the accumulators): S^T = K Q^T and dP^T = V dO^T
+//   as SS wgmma (m64n32k16, all operands K-major in shared memory);
+//   P^T = exp2(S^T scale log2 e - lse log2 e) and dS^T = P^T * (dP^T -
+//   delta) in registers; then dV += P^T dO and dK += dS^T Q as RS wgmma,
+//   P^T and dS^T re-packed from the accumulators as register A operands
+//   (rounded to the input type, as in the TPU kernel) and dO, Q read from
+//   shared memory with the transpose bit. The second pass's S^T and dP^T
+//   products queue behind the first pass's dV and dK products, without a
+//   wait between them.
+// * Causal: the loop starts at the diagonal q-tile; a warpgroup skips a tile
+//   wholly before its keys, and only tiles that cross its diagonal (or the
+//   end of T, or any tile under segments) run the compare/select. A masked
+//   pair contributes exactly 0 (P is set to 0, never exp of a huge negative),
+//   so fully masked tiles and ragged tails give 0 and never NaN.
+// * The epilogue writes scale * dK and dV through the block's own K and V
+//   tiles in shared memory and out with 16-byte stores.
+// B2, and B3 at the other head dims (32, 80, 96), keep the first design of
+// this port: 4 warps per block, 16 rows (B2) or 16 keys (B3) per warp,
+// mma.sync m16n8k16 with f32 accumulators, tiles staged by plain 16-byte
+// loads; P and dS re-pack from C fragments as the A fragment of the next
+// product. f32 inputs take plain FMA kernels over 16 x 16 tiles with scores
+// in shared memory, since TF32 tensor cores would not hold the f32
+// tolerance.
+//
+// q, k, v are read in [B, T, H, D] through their strides (views into the
+// fused projection); dO, dQ, dK and dV are [B, T, H, D] contiguous and lse
+// and delta [B, H, T] f32. Masks are those of the forward: causal,
+// same-segment, and positions past T.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_sm80.cuh"
 
 namespace {
@@ -52,6 +73,9 @@ using ds_mma::Fp16;
 using ds_mma::ld32;
 using ds_mma::ld_col2;
 using ds_mma::load_tile16;
+using namespace ds_hopper;
+
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
   const void* q;
@@ -222,8 +246,229 @@ __global__ void __launch_bounds__(MMA_THREADS)
   }
 }
 
-// B3: one block = one (batch*head, 64-key tile); each warp owns 16 keys and
-// computes the transposed scores S^T = K Q^T, so keys are the M dimension.
+// B3 at D = 64 and 128: wgmma + TMA, warp-specialised (see the top note).
+constexpr int WG_BK = 128;       // keys per block: two consumers x 64
+constexpr int WG_BQ = 64;        // query rows per streamed tile
+constexpr int WG_QH = 32;        // query columns per pass over a tile
+constexpr int WG_STAGES = 2;     // Q/dO tiles in flight
+constexpr int WG_THREADS = 384;  // producer warpgroup + two consumer warpgroups
+
+// byte offsets from the 1024-aligned start of dynamic shared memory
+template <int D>
+struct DkvLayout {
+  static constexpr int kKV = WG_BK * D * 2;  // the K (and the V) tile
+  static constexpr int kQ = WG_BQ * D * 2;   // one Q (and one dO) tile
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kKV;
+  static constexpr int kStage = kV + kKV;    // stage s: Q, then dO
+  // [stage][lse * log2 e, delta, segment id][row]
+  static constexpr int kRows = kStage + WG_STAGES * 2 * kQ;
+  static constexpr int kBar = kRows + WG_STAGES * 3 * WG_BQ * 4;  // kv, full[], empty[]
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * WG_STAGES) + 1024;  // + align
+};
+
+template <typename Op, int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v,
+                               const __grid_constant__ CUtensorMap map_do,
+                               const Params p) {
+  using L = DkvLayout<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];  // aligned below
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar_kv = base + L::kBar;
+  const uint32_t bar_full = bar_kv + 8, bar_empty = bar_full + 8 * WG_STAGES;
+
+  const int T = p.T, bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  // the first key tiles see the most q-tiles under the causal mask: issue
+  // them first
+  const int k0 = blockIdx.y * WG_BK;
+  // q-tiles wholly before this key tile's diagonal see none of its keys
+  const int j0 = p.causal ? k0 / WG_BQ : 0;
+  const int n_it = (T + WG_BQ - 1) / WG_BQ - j0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  float* rows = reinterpret_cast<float*>(smem + L::kRows);
+  // the warpgroup's role, warp-uniform; the shuffle lets the compiler see
+  // that (as CUTLASS's canonical_warp_group_idx does)
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 0) {
+    // producer: warp 0 loads K and V, then walks the Q/dO tiles through the
+    // ring with their per-row values
+    setmaxnreg_dec<24>();
+    const int lane = threadIdx.x;
+    if (lane < 32) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(bar_kv, 2 * L::kKV);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(base + L::kK + c * WG_BK * 128, &map_k, bar_kv, c * 64, h, k0, b);
+          tma_load_4d(base + L::kV + c * WG_BK * 128, &map_v, bar_kv, c * 64, h, k0, b);
+        }
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % WG_STAGES, q0 = (j0 + it) * WG_BQ;
+        mbar_wait(bar_empty + 8 * s, ((it / WG_STAGES) & 1) ^ 1);
+        float* r = rows + s * 3 * WG_BQ;
+        for (int i = lane; i < WG_BQ; i += 32) {
+          const int row = q0 + i;
+          const bool in = row < T;
+          const long long at = static_cast<long long>(bh) * T + row;
+          r[i] = in ? p.lse[at] * LOG2E : 0.f;
+          r[WG_BQ + i] = in ? p.delta[at] : 0.f;
+          reinterpret_cast<int*>(r)[2 * WG_BQ + i] =
+              (p.seg != nullptr && in) ? p.seg[b * T + row] : -1;
+        }
+        __syncwarp();  // the rows are written before lane 0 arrives
+        if (lane == 0) {
+          const uint32_t full = bar_full + 8 * s;
+          const uint32_t dst = base + L::kStage + s * 2 * L::kQ;
+          mbar_arrive_expect_tx(full, 2 * L::kQ);
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load_4d(dst + c * WG_BQ * 128, &map_q, full, c * 64, h, q0, b);
+            tma_load_4d(dst + L::kQ + c * WG_BQ * 128, &map_do, full, c * 64, h, q0, b);
+          }
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup c owns keys k0 + 64c .. k0 + 64c + 63
+    setmaxnreg_inc<240>();
+    const int c = wg - 1;
+    const int t = threadIdx.x & 127, lane = t & 31;
+    const int g = lane >> 2, tq = lane & 3;
+    const int kc0 = k0 + 64 * c;
+    const int kr = kc0 + 16 * (t >> 5) + g;  // this thread's keys kr, kr + 8
+    int kseg[2] = {0, 0};
+    if (p.seg != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) kseg[i] = kr + 8 * i < T ? p.seg[b * T + kr + 8 * i] : -2;
+    }
+    const float sl2 = p.scale * LOG2E;
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    const uint64_t k_desc = desc_sw128(base + L::kK + 64 * c * 128, 16, 1024);
+    const uint64_t v_desc = desc_sw128(base + L::kV + 64 * c * 128, 16, 1024);
+
+    mbar_wait(bar_kv, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % WG_STAGES, q0 = (j0 + it) * WG_BQ;
+      mbar_wait(bar_full + 8 * s, (it / WG_STAGES) & 1);
+      if (p.causal && q0 + WG_BQ - 1 < kc0) {  // every query before every key
+        if (t == 0) mbar_arrive(bar_empty + 8 * s);
+        continue;
+      }
+      const uint32_t qs = base + L::kStage + s * 2 * L::kQ;
+      const float* lse2 = rows + s * 3 * WG_BQ;
+      const float* delta = lse2 + WG_BQ;
+      const int* qseg = reinterpret_cast<const int*>(lse2 + 2 * WG_BQ);
+      const bool masked = p.seg != nullptr || q0 + WG_BQ > T || kc0 + 64 > T ||
+                          (p.causal && q0 < kc0 + 63);
+      // the tile's queries in halves: a half's S^T, dP^T and their packed
+      // P^T, dS^T are all a thread holds beside the dK and dV accumulators
+#pragma unroll
+      for (int hq = 0; hq < WG_BQ / WG_QH; ++hq) {
+        // S^T and dP^T: keys are the M dimension, the half's queries N
+        const uint64_t first = (hq * WG_QH * 128) >> 4;  // its first query row
+        const uint64_t kd = opaque(k_desc), vd = opaque(v_desc);
+        const uint64_t qd = opaque(desc_sw128(qs, 16, 1024)) + first;
+        const uint64_t dod = opaque(desc_sw128(qs + L::kQ, 16, 1024)) + first;
+        float st[WG_QH / 2], dp[WG_QH / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wgmma_ss<WG_QH, Op::kF16>(st, kd + kmajor_step(WG_BK, kk),
+                                    qd + kmajor_step(WG_BQ, kk), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wgmma_ss<WG_QH, Op::kF16>(dp, vd + kmajor_step(WG_BK, kk),
+                                    dod + kmajor_step(WG_BQ, kk), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();  // also retires the previous half's dV, dK products
+        fence_regs(st);
+        fence_regs(dp);
+
+        // element 4 jn + e sits at key kr + 8 (e >> 1), query column ql
+#pragma unroll
+        for (int jn = 0; jn < WG_QH / 8; ++jn) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * jn + e, ql = hq * WG_QH + jn * 8 + tq * 2 + (e & 1);
+            float pr = exp2f(st[i] * sl2 - lse2[ql]);
+            if (masked) {
+              const int q = q0 + ql, key = kr + 8 * (e >> 1);
+              bool ok = q < T && key < T;
+              if (p.causal) ok = ok && key <= q;
+              if (p.seg != nullptr) ok = ok && qseg[ql] == kseg[e >> 1];
+              pr = ok ? pr : 0.f;
+            }
+            st[i] = pr;
+            dp[i] = pr * (dp[i] - delta[ql]);
+          }
+        }
+        // the accumulators of query columns 16kk..16kk+15 are the A fragment
+        // of k-step kk; dO and Q are read with the transpose bit
+        uint32_t pa[WG_QH / 16][4], dsa[WG_QH / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < WG_QH / 16; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            pa[kk][r] = Op::pack(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+            dsa[kk][r] = Op::pack(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+          }
+        }
+        const uint64_t dov = opaque(desc_sw128(qs + L::kQ, WG_BQ * 128, 1024));
+        const uint64_t qv = opaque(desc_sw128(qs, WG_BQ * 128, 1024));
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < WG_QH / 16; ++kk) {
+          wgmma_rs<D, Op::kF16>(dv, pa[kk], dov + mnmajor_step(hq * WG_QH / 16 + kk));
+        }
+#pragma unroll
+        for (int kk = 0; kk < WG_QH / 16; ++kk) {
+          wgmma_rs<D, Op::kF16>(dk, dsa[kk], qv + mnmajor_step(hq * WG_QH / 16 + kk));
+        }
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+      if (t == 0) mbar_arrive(bar_empty + 8 * s);
+    }
+
+    // scale * dK and dV through this warpgroup's own rows of the K and V
+    // tiles, then 16-byte stores
+    const float mul_k[2] = {p.scale, p.scale}, mul_v[2] = {1.f, 1.f};
+    stage_acc<Op, D>(smem + L::kK, WG_BK, 64 * c, dk, mul_k);
+    stage_acc<Op, D>(smem + L::kV, WG_BK, 64 * c, dv, mul_v);
+    named_bar_sync(1 + c, 128);
+    const long long off = (static_cast<long long>(b) * T + kc0) * p.H * D + h * D;
+    const long long stride = static_cast<long long>(p.H) * D;
+    const int valid = min(64, T - kc0);
+    copy_rows_out<D>(smem + L::kK, WG_BK, 64 * c, static_cast<uint16_t*>(p.dk) + off,
+                     stride, valid);
+    copy_rows_out<D>(smem + L::kV, WG_BK, 64 * c, static_cast<uint16_t*>(p.dv) + off,
+                     stride, valid);
+  }
+}
+
+// B3 at D = 32, 80, 96: one block = one (batch*head, 64-key tile); each warp
+// owns 16 keys and computes the transposed scores S^T = K Q^T, so keys are
+// the M dimension.
 template <typename Op, int D>
 __global__ void __launch_bounds__(MMA_THREADS)
     bwd_dkv_mma_kernel(const Params p) {
@@ -569,6 +814,34 @@ __global__ void __launch_bounds__(F32_THREADS) bwd_dkv_f32_kernel(const Params p
 enum Which { DQ = 0, DKV = 1 };
 
 template <typename Op, int D>
+cudaError_t launch_dkv_wgmma(const Params& p, cudaStream_t stream) {
+  const long long HD = static_cast<long long>(p.H) * D;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  cudaError_t err = make_tile_map(&map_q, p.q, Op::kF16, p.B, p.T, p.H, D, p.q_sb,
+                                  p.q_st, p.q_sh, WG_BQ);
+  if (err == cudaSuccess) {
+    err = make_tile_map(&map_k, p.k, Op::kF16, p.B, p.T, p.H, D, p.k_sb, p.k_st, p.k_sh,
+                        WG_BK);
+  }
+  if (err == cudaSuccess) {
+    err = make_tile_map(&map_v, p.v, Op::kF16, p.B, p.T, p.H, D, p.v_sb, p.v_st, p.v_sh,
+                        WG_BK);
+  }
+  if (err == cudaSuccess) {
+    err = make_tile_map(&map_do, p.dout, Op::kF16, p.B, p.T, p.H, D, p.T * HD, HD, D,
+                        WG_BQ);
+  }
+  if (err != cudaSuccess) return err;
+  constexpr int smem = DkvLayout<D>::kBytes;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<Op, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.B * p.H, (p.T + WG_BK - 1) / WG_BK);
+  flash_bwd_dkv_wgmma_kernel<Op, D><<<grid, WG_THREADS, smem, stream>>>(map_q, map_k, map_v, map_do, p);
+  return cudaGetLastError();
+}
+
+template <typename Op, int D>
 cudaError_t launch_mma(const Params& p, Which which, cudaStream_t stream) {
   const int smem = static_cast<int>(mma_smem_bytes<D>());
   const dim3 grid(p.B * p.H, (p.T + BM - 1) / BM);
@@ -577,6 +850,8 @@ cudaError_t launch_mma(const Params& p, Which which, cudaStream_t stream) {
         bwd_dq_mma_kernel<Op, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     bwd_dq_mma_kernel<Op, D><<<grid, MMA_THREADS, smem, stream>>>(p);
+  } else if constexpr (D == 64 || D == 128) {
+    return launch_dkv_wgmma<Op, D>(p, stream);
   } else {
     cudaError_t err = cudaFuncSetAttribute(
         bwd_dkv_mma_kernel<Op, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

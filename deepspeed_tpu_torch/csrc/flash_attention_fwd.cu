@@ -10,29 +10,52 @@
 // work (QK^T and PV over the causal half) and must move ~67 MB (q, k, v read
 // once, O written once). At 989 TFLOP/s and 3.35 TB/s both bounds are near
 // 20 us, so neither the tensor cores nor HBM can be left idle: the [T, T]
-// score matrix never leaves the chip, and each K/V tile is reused by the 64
+// score matrix never leaves the chip, and each K/V tile is reused by the 128
 // query rows of its block.
 //
-// Design (simple and correct first; wgmma, TMA and warp specialisation are
-// later work):
-// * 16-bit inputs: one block = 4 warps = 64 query rows of one (batch, head),
-//   16 rows per warp. Q lives in registers as mma.sync A fragments; a loop
-//   walks 64-key K/V tiles staged in shared memory (the TPU's sequential grid
-//   axis becomes this loop). S = Q K^T and O += P V use
-//   mma.sync.m16n8k16 with f32 accumulators; the running max m, sum l and the
-//   O accumulator stay in registers, in f32.
-// * f32 inputs: a plain FMA kernel (16 query rows, 32-key tiles, scores in
-//   shared memory) that keeps full f32 arithmetic.
-// * q, k, v are read in [B, T, H, D] through their strides (no transposes);
-//   O is written [B, T, H, D] in the input dtype and lse [B, H, T] in f32.
-// * Causal: the key loop stops at the diagonal tile. Masked scores take the
-//   finite NEG_INF = -1e30, so a masked key gets exactly zero weight and a
-//   segment-0 pad row still sees its own diagonal. Any T works: rows and keys
-//   past T are zero-filled in shared memory and masked.
+// Design, 16-bit inputs at D = 64 and 128 (`flash_fwd_wgmma_kernel`):
+// * One block = 128 query rows of one (batch, head) and three warpgroups. A
+//   producer warp (registers cut to 24 with setmaxnreg) issues the TMA loads:
+//   Q once, then 128-key K/V tiles into a two-stage ring in shared memory
+//   (128-byte swizzle), each stage with a full mbarrier (transaction bytes)
+//   and an empty mbarrier (one arrival per consumer), so the next tile lands
+//   while the current one is used. Two consumer warpgroups (setmaxnreg
+//   240) own 64 rows each.
+// * A tile is used in two passes of 64 keys, so that a pass's scores (32
+//   f32 per thread) and packed P fit beside the O accumulator (D / 2 f32)
+//   without spilling (one 128-key pass spilled and was 12% slower). S = Q K^T
+//   is one wgmma.m64n64k16 per 16 columns of D, both operands K-major in
+//   shared memory. The online softmax stays in registers in f32, in log2
+//   units (exp2 of scale * log2(e) * s). P is rounded to the input type and
+//   re-packed from the accumulator as the register A operand of O += P V,
+//   an RS wgmma that reads V from shared memory with the transpose bit (V's
+//   contraction dimension is the key), so V is never transposed.
+// * Causal: the key loop stops at the diagonal tile; a pass whose keys all
+//   lie after the warpgroup's rows is skipped (it would add exactly
+//   nothing), and only passes that cross the diagonal (or the end of T, or
+//   any pass when segment ids are given; the producer stages the tile's key
+//   segment ids) run the compare/select; the others only scale. Masked
+//   scores take the finite NEG_INF = -1e30, so a masked key gets exactly
+//   zero weight and a segment-0 pad row still sees its own diagonal. Rows
+//   and keys past T arrive zero-filled from TMA and are masked; no row past
+//   T is written.
+// * q, k, v are read as [B, T, H, D] through their strides by 4-D tensor maps
+//   (D, H, T, B), so the fused-qkv views need no copy. The epilogue writes
+//   O / l through the block's own Q tile in shared memory and out with
+//   16-byte stores; lse [B, H, T] is f32.
+// * Not yet: overlapping one tile's softmax with the next tile's QK^T
+//   (intra-warpgroup pipelining, consumer ping-pong), a deeper ring, a
+//   persistent grid.
+// Other 16-bit head dims (32, 80, 96) keep the first design of this port,
+// `flash_fwd_mma_kernel` (mma.sync m16n8k16, 64 rows per block, K/V tiles
+// staged by plain 16-byte loads): the entry point switches on D. f32 inputs
+// take a plain FMA kernel (16 query rows, 32-key tiles, scores in shared
+// memory) that keeps full f32 arithmetic; TF32 would not hold its tolerance.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_sm80.cuh"
 
 namespace {
@@ -42,6 +65,10 @@ using ds_mma::Fp16;
 using ds_mma::ld32;
 using ds_mma::load_tile16;
 using ds_mma::NEG_INF;
+using namespace ds_hopper;
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -59,7 +86,230 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// 16-bit path: mma.sync m16n8k16, f32 accumulate
+// 16-bit path, D = 64 and 128: wgmma + TMA, warp-specialised
+// ---------------------------------------------------------------------------
+constexpr int WG_BM = 128;       // query rows per block: two consumers x 64
+constexpr int WG_BN = 128;       // keys per K/V tile
+constexpr int WG_KH = 64;        // keys per softmax pass over a tile
+constexpr int WG_STAGES = 2;     // K/V tiles in flight
+constexpr int WG_THREADS = 384;  // producer warpgroup + two consumer warpgroups
+
+// byte offsets from the 1024-aligned start of dynamic shared memory
+template <int D>
+struct FwdLayout {
+  static constexpr int kTile = WG_BN * D * 2;  // one K or V tile (and the Q tile)
+  static constexpr int kQ = 0;
+  static constexpr int kKV = kQ + WG_BM * D * 2;  // stage s: K, then V
+  static constexpr int kSeg = kKV + WG_STAGES * 2 * kTile;  // [stage][key] ids
+  static constexpr int kBar = kSeg + WG_STAGES * WG_BN * 4;  // q, full[], empty[]
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * WG_STAGES) + 1024;  // + align
+};
+
+template <typename Op, int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v, const Params p) {
+  using L = FwdLayout<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];  // aligned below
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar_q = base + L::kBar;
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_full + 8 * WG_STAGES;
+
+  const int T = p.T, bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  // longest causal rows first, so the short tiles fill the tail of the grid
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * WG_BM;
+  int n_kv = (T + WG_BN - 1) / WG_BN;
+  if (p.causal) n_kv = min(n_kv, (q0 + WG_BM + WG_BN - 1) / WG_BN);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  int* sseg = reinterpret_cast<int*>(smem + L::kSeg);
+  // the warpgroup's role, warp-uniform; the shuffle lets the compiler see
+  // that (as CUTLASS's canonical_warp_group_idx does)
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 0) {
+    // producer: warp 0 loads Q, then walks the K/V tiles through the ring
+    setmaxnreg_dec<24>();
+    const int lane = threadIdx.x;
+    if (lane < 32) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(bar_q, WG_BM * D * 2);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(base + L::kQ + c * WG_BM * 128, &map_q, bar_q, c * 64, h, q0, b);
+        }
+      }
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % WG_STAGES;
+        mbar_wait(bar_empty + 8 * s, ((j / WG_STAGES) & 1) ^ 1);
+        if (p.seg != nullptr) {
+          for (int i = lane; i < WG_BN; i += 32) {
+            const int key = j * WG_BN + i;
+            sseg[s * WG_BN + i] = key < T ? p.seg[b * T + key] : -1;
+          }
+          __syncwarp();  // the ids are written before lane 0 arrives
+        }
+        if (lane == 0) {
+          const uint32_t full = bar_full + 8 * s;
+          const uint32_t dst = base + L::kKV + s * 2 * L::kTile;
+          mbar_arrive_expect_tx(full, 2 * L::kTile);
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load_4d(dst + c * WG_BN * 128, &map_k, full, c * 64, h, j * WG_BN, b);
+            tma_load_4d(dst + L::kTile + c * WG_BN * 128, &map_v, full, c * 64, h,
+                        j * WG_BN, b);
+          }
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup c owns rows q0 + 64c .. q0 + 64c + 63
+    setmaxnreg_inc<240>();
+    const int c = wg - 1;
+    const int t = threadIdx.x & 127, lane = t & 31;
+    const int g = lane >> 2, tq = lane & 3;
+    const int r0 = q0 + 64 * c + 16 * (t >> 5) + g;  // this thread's rows r0, r0 + 8
+    int qseg[2] = {0, 0};
+    if (p.seg != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) qseg[i] = r0 + 8 * i < T ? p.seg[b * T + r0 + 8 * i] : -2;
+    }
+    const float sl2 = p.scale * LOG2E;  // scores in log2 units
+    float m[2] = {NEG_INF, NEG_INF};
+    float l[2] = {0.f, 0.f};  // this thread's partial row sums
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    const uint64_t q_desc = desc_sw128(base + L::kQ + 64 * c * 128, 16, 1024);
+    // a tile needs the compare/select only if it crosses the diagonal of this
+    // warpgroup's rows, the end of T, or segments are given
+    const int first_row = q0 + 64 * c;
+
+    mbar_wait(bar_q, 0);
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % WG_STAGES, k0 = j * WG_BN;
+      mbar_wait(bar_full + 8 * s, (j / WG_STAGES) & 1);
+      const uint32_t ka = base + L::kKV + s * 2 * L::kTile, va = ka + L::kTile;
+
+      // the tile's keys in passes of WG_KH: a pass's scores and packed P
+      // are all a thread holds beside the O accumulator
+#pragma unroll
+      for (int hk = 0; hk < WG_BN / WG_KH; ++hk) {
+        const int kp = k0 + hk * WG_KH;  // the pass's first key
+        // every key after every row: exactly nothing to add (P = 0, alpha =
+        // 1), since each row has seen its own key by now
+        if (p.causal && kp > first_row + 63) continue;
+        const uint64_t qd = opaque(q_desc);
+        const uint64_t kd = opaque(desc_sw128(ka, 16, 1024)) + ((hk * WG_KH * 128) >> 4);
+        float sc[WG_KH / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wgmma_ss<WG_KH, Op::kF16>(sc, qd + kmajor_step(WG_BM, kk),
+                                    kd + kmajor_step(WG_BN, kk), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+
+        if (p.seg != nullptr || kp + WG_KH > T || (p.causal && kp + WG_KH - 1 > first_row)) {
+#pragma unroll
+          for (int jn = 0; jn < WG_KH / 8; ++jn) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int kl = hk * WG_KH + jn * 8 + tq * 2 + (e & 1), key = k0 + kl;
+              bool ok = key < T;
+              if (p.causal) ok = ok && key <= r0 + 8 * (e >> 1);
+              if (p.seg != nullptr) ok = ok && sseg[s * WG_BN + kl] == qseg[e >> 1];
+              sc[4 * jn + e] = ok ? sc[4 * jn + e] * sl2 : NEG_INF;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < WG_KH / 2; ++i) sc[i] *= sl2;
+        }
+
+        // online softmax; element 4 jn + e sits at row r0 + 8 (e >> 1)
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int jn = 0; jn < WG_KH / 8; ++jn) {
+          mx[0] = fmaxf(mx[0], fmaxf(sc[4 * jn], sc[4 * jn + 1]));
+          mx[1] = fmaxf(mx[1], fmaxf(sc[4 * jn + 2], sc[4 * jn + 3]));
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        }
+        const float alpha[2] = {exp2f(m[0] - mx[0]), exp2f(m[1] - mx[1])};
+        m[0] = mx[0];
+        m[1] = mx[1];
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < WG_KH / 2; ++i) {
+          sc[i] = exp2f(sc[i] - mx[(i >> 1) & 1]);
+          rs[(i >> 1) & 1] += sc[i];
+        }
+        l[0] = l[0] * alpha[0] + rs[0];
+        l[1] = l[1] * alpha[1] + rs[1];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+        // O += P V: the accumulators of key columns 16kk..16kk+15 are the A
+        // fragment of k-step kk
+        uint32_t pa[WG_KH / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < WG_KH / 16; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) pa[kk][r] = Op::pack(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+        }
+        const uint64_t vd = opaque(desc_sw128(va, WG_BN * 128, 1024));
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < WG_KH / 16; ++kk) {
+          wgmma_rs<D, Op::kF16>(o, pa[kk], vd + mnmajor_step(hk * WG_KH / 16 + kk));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+      }
+      if (t == 0) mbar_arrive(bar_empty + 8 * s);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    }
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+    // O / l through this warpgroup's own rows of the Q tile, then 16-byte stores
+    stage_acc<Op, D>(smem + L::kQ, WG_BM, 64 * c, o, inv);
+    named_bar_sync(1 + c, 128);
+    copy_rows_out<D>(smem + L::kQ, WG_BM, 64 * c,
+                     static_cast<uint16_t*>(p.o) +
+                         (static_cast<long long>(b) * T + first_row) * p.H * D + h * D,
+                     static_cast<long long>(p.H) * D, min(64, T - first_row));
+    if (tq == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r0 + 8 * i;
+        if (row < T) p.lse[static_cast<long long>(bh) * T + row] = m[i] * LN2 + logf(l[i]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 16-bit path, other head dims: mma.sync m16n8k16, f32 accumulate
 // ---------------------------------------------------------------------------
 constexpr int BM = 64;  // query rows per block
 constexpr int BN = 64;  // keys per K/V tile
@@ -67,7 +317,7 @@ constexpr int MMA_THREADS = 128;
 
 template <typename Op, int D>
 __global__ void __launch_bounds__(MMA_THREADS)
-    fwd_mma_kernel(const Params p) {
+    flash_fwd_mma_kernel(const Params p) {
   constexpr int LD = D + 8;  // padded row: 16-byte aligned, staggers banks
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* sQ = reinterpret_cast<uint16_t*>(smem_raw);
@@ -241,7 +491,7 @@ constexpr int FBN = 32;  // keys per tile
 constexpr int F32_THREADS = 128;
 
 template <int D>
-__global__ void __launch_bounds__(F32_THREADS) fwd_f32_kernel(const Params p) {
+__global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32_kernel(const Params p) {
   __shared__ float sQ[FBM][D];
   __shared__ float sK[FBN][D + 1];  // +1: a warp reads 32 keys at one column
   __shared__ float sV[FBN][D];
@@ -347,18 +597,51 @@ cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
   constexpr int LD = D + 8;
   const size_t smem = (BM + 2 * BN) * LD * sizeof(uint16_t) + BN * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_mma_kernel<Op, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_mma_kernel<Op, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(p.B * p.H, (p.T + BM - 1) / BM);
-  fwd_mma_kernel<Op, D><<<grid, MMA_THREADS, smem, stream>>>(p);
+  flash_fwd_mma_kernel<Op, D><<<grid, MMA_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename Op, int D>
+cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
+  CUtensorMap map_q, map_k, map_v;
+  cudaError_t err = make_tile_map(&map_q, p.q, Op::kF16, p.B, p.T, p.H, D, p.q_sb,
+                                  p.q_st, p.q_sh, WG_BM);
+  if (err == cudaSuccess) {
+    err = make_tile_map(&map_k, p.k, Op::kF16, p.B, p.T, p.H, D, p.k_sb, p.k_st, p.k_sh,
+                        WG_BN);
+  }
+  if (err == cudaSuccess) {
+    err = make_tile_map(&map_v, p.v, Op::kF16, p.B, p.T, p.H, D, p.v_sb, p.v_st, p.v_sh,
+                        WG_BN);
+  }
+  if (err != cudaSuccess) return err;
+  constexpr int smem = FwdLayout<D>::kBytes;
+  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<Op, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.B * p.H, (p.T + WG_BM - 1) / WG_BM);
+  flash_fwd_wgmma_kernel<Op, D><<<grid, WG_THREADS, smem, stream>>>(map_q, map_k, map_v, p);
+  return cudaGetLastError();
+}
+
+// 16-bit inputs: the wgmma kernel at D = 64 and 128, mma.sync at the others
+template <typename Op, int D>
+cudaError_t launch_16(const Params& p, cudaStream_t stream) {
+  if constexpr (D == 64 || D == 128) {
+    return launch_wgmma<Op, D>(p, stream);
+  } else {
+    return launch_mma<Op, D>(p, stream);
+  }
 }
 
 template <int D>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   const dim3 grid(p.B * p.H, (p.T + FBM - 1) / FBM);
-  fwd_f32_kernel<D><<<grid, F32_THREADS, 0, stream>>>(p);
+  flash_fwd_f32_kernel<D><<<grid, F32_THREADS, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -366,8 +649,8 @@ template <int D>
 cudaError_t dispatch_dtype(const Params& p, int dtype, cudaStream_t stream) {
   switch (dtype) {
     case 0: return launch_f32<D>(p, stream);
-    case 1: return launch_mma<Bf16, D>(p, stream);
-    case 2: return launch_mma<Fp16, D>(p, stream);
+    case 1: return launch_16<Bf16, D>(p, stream);
+    case 2: return launch_16<Fp16, D>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }

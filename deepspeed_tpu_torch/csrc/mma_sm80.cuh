@@ -22,6 +22,7 @@ namespace ds_mma {
 constexpr float NEG_INF = -1e30f;
 
 struct Bf16 {
+  static constexpr bool kF16 = false;  // picks the wgmma operand type
   __device__ static void mma(float c[4], const uint32_t a[4],
                              const uint32_t b[2]) {
     asm volatile(
@@ -37,6 +38,7 @@ struct Bf16 {
 };
 
 struct Fp16 {
+  static constexpr bool kF16 = true;
   __device__ static void mma(float c[4], const uint32_t a[4],
                              const uint32_t b[2]) {
     asm volatile(

@@ -3,9 +3,14 @@ package's.
 
 ``deepspeed_tpu_torch.ops.cuda.flash_attention`` on CPU tensors runs its plain
 PyTorch versions; the JAX side runs the Pallas kernels in interpret mode, as
-``tests/unit/test_ops.py`` does. Both see the same numpy inputs in f32, so
-only the order of the sums differs (atol 1e-5 on o, lse and on gradients of
-order 1).
+``tests/unit/test_ops.py`` does. Both see the same numpy inputs. In f32 only
+the order of the sums differs (atol 1e-5 on o, lse and on gradients of order
+1). In fp16 the JAX kernels round P (and, backward, dS) to fp16 before the
+second products and both sides round o and the gradients to fp16 (11
+significant bits): o may differ by two fp16 ulps at |o| < 4 (atol 4e-3),
+gradients by 2e-3 of their largest entry; lse is f32 on both sides (1e-5).
+The cases cover the head dims of the models the card runs (D 64 and 128)
+and a T that is not a multiple of 128 (192).
 """
 
 import jax
@@ -23,11 +28,30 @@ from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 torch.set_num_threads(2)
 
 ATOL = 1e-5
+# per input dtype: o, lse (absolute) and gradients (f32 absolute, fp16 over
+# their largest entry); the module note gives the reasons
+TOL = {"float32": (ATOL, ATOL, ATOL), "float16": (4e-3, ATOL, 2e-3)}
 
 
-def _inputs(t, seed, with_segments):
+def _cases():
+    """(causal, t, with_segments, head_dim, dtype) with their test ids: the
+    D 32 f32 grid keeps its ids; D 64 / 128, fp16 and T 192 are added."""
+    cases = [pytest.param(c, t, s, 32, "float32", id=f"{c}-{t}-{s}")
+             for s in (False, True) for t in (64, 128) for c in (True, False)]
+    for c, t, s, d, dt in [(True, 192, False, 64, "float32"),
+                           (False, 192, True, 64, "float16"),
+                           (True, 128, False, 64, "float16"),
+                           (True, 192, True, 128, "float32"),
+                           (False, 192, False, 128, "float32"),
+                           (True, 192, False, 128, "float16"),
+                           (False, 128, True, 128, "float16")]:
+        cases.append(pytest.param(c, t, s, d, dt, id=f"{c}-{t}-{s}-d{d}-{dt}"))
+    return cases
+
+
+def _inputs(t, seed, with_segments, d=32, dtype="float32"):
     rng = np.random.RandomState(seed)
-    q, k, v = (rng.randn(2, t, 4, 32).astype(np.float32) for _ in range(3))
+    q, k, v = (rng.randn(2, t, 4, d).astype(dtype) for _ in range(3))
     seg = None
     if with_segments:
         # three documents per row and a padded tail (segment 0)
@@ -54,19 +78,21 @@ def _jax_fwd(q, k, v, seg, causal):
     return o, np.asarray(lse)[..., 0].reshape(b, h, t)
 
 
-@pytest.mark.parametrize("with_segments", [False, True])
-@pytest.mark.parametrize("t", [64, 128])
-@pytest.mark.parametrize("causal", [True, False])
-def test_reference_matches_pallas_forward(causal, t, with_segments):
-    q, k, v, seg = _inputs(t, seed=t + causal, with_segments=with_segments)
+@pytest.mark.parametrize("causal,t,with_segments,d,dtype", _cases())
+def test_reference_matches_pallas_forward(causal, t, with_segments, d, dtype):
+    q, k, v, seg = _inputs(t, seed=t + causal, with_segments=with_segments,
+                           d=d, dtype=dtype)
     o_jax, lse_jax = _jax_fwd(q, k, v, seg, causal)
     fa.launches = 0
     o, lse = fa.flash_attention_fwd(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         causal=causal,
         segment_ids=None if seg is None else torch.from_numpy(seg))
-    np.testing.assert_allclose(o.numpy(), o_jax, atol=ATOL, rtol=0)
-    np.testing.assert_allclose(lse.numpy(), lse_jax, atol=ATOL, rtol=0)
+    assert o.dtype == getattr(torch, dtype) and lse.dtype == torch.float32
+    o_tol, lse_tol, _ = TOL[dtype]
+    np.testing.assert_allclose(o.float().numpy(), o_jax.astype(np.float32),
+                               atol=o_tol, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), lse_jax, atol=lse_tol, rtol=0)
     assert fa.launches == 0, "a CPU tensor must not count as a kernel launch"
 
 
@@ -88,21 +114,20 @@ def test_requires_grad_is_refused():
     assert q.grad is not None and q.grad.shape == q.shape
 
 
-@pytest.mark.parametrize("with_segments", [False, True])
-@pytest.mark.parametrize("t", [64, 128])
-@pytest.mark.parametrize("causal", [True, False])
-def test_gradients_match_jax(causal, t, with_segments):
+@pytest.mark.parametrize("causal,t,with_segments,d,dtype", _cases())
+def test_gradients_match_jax(causal, t, with_segments, d, dtype):
     """dq, dk, dv of the port's autograd against jax.grad of the JAX
     flash_attention (Pallas backward kernels in interpret mode) for the
     same cotangent."""
-    q, k, v, seg = _inputs(t, seed=100 + t + causal, with_segments=with_segments)
-    g = np.random.RandomState(t).randn(*q.shape).astype(np.float32)
+    q, k, v, seg = _inputs(t, seed=100 + t + causal, with_segments=with_segments,
+                           d=d, dtype=dtype)
+    g = np.random.RandomState(t).randn(*q.shape).astype(dtype)
 
     def jloss(q, k, v):
         o = jax_flash_attention(
             q, k, v, causal=causal, block_q=32, block_k=32,
             segment_ids=None if seg is None else jnp.asarray(seg))
-        return jnp.sum(o * jnp.asarray(g))
+        return jnp.sum(o.astype(jnp.float32) * jnp.asarray(g, jnp.float32))
 
     want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
@@ -112,7 +137,11 @@ def test_gradients_match_jax(causal, t, with_segments):
                            else torch.from_numpy(seg))
     o.backward(torch.from_numpy(g))
     for got, ref, name in zip((tq.grad, tk.grad, tv.grad), want, "qkv"):
-        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL,
+        ref = np.asarray(ref, np.float32)
+        assert got.dtype == getattr(torch, dtype)
+        # f32: absolute; fp16: relative to the largest entry (module note)
+        atol = ATOL if dtype == "float32" else TOL[dtype][2] * np.abs(ref).max()
+        np.testing.assert_allclose(got.float().numpy(), ref, atol=atol,
                                    rtol=0, err_msg=f"d{name}")
     assert (fa.launches, fa.launches_dq, fa.launches_dkv) == (0, 0, 0), \
         "a CPU tensor must not count as a kernel launch"
