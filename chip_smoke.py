@@ -10,7 +10,10 @@ Phases, each printing one JSON line:
 * ``device``: ``torch.cuda`` must see a card (else the script exits 1 and
   prints no result); nvidia-smi's name and power limit.
 * ``build``: compiles every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc, one
-  process per source, all started together.
+  process per source, all started together; reports ptxas's registers and
+  spill bytes per kernel, and reads ``cuobjdump -sass`` of the built
+  libraries: each wgmma kernel (B1, B2, B3, B5) must hold HGMMA (wgmma) and
+  UTMALDG (TMA loads) instructions, or the script fails.
 * ``kernel``: holds each kernel against its plain PyTorch version on the
   card, at the 1.3B shapes and at edge cases, and times the kernel, the
   plain version and one PyTorch library call that computes the same
@@ -21,9 +24,11 @@ Phases, each printing one JSON line:
   full autograd gradient, bit-reproducibility and segment isolation), B4
   (fused AdamW over GPT-2 1.3B's parameter shapes, 3 steps) and B5/B6/B7
   (block-sparse forward, dq, dk/dv: every sparsity family, blocks 16-128, D
-  64 and 128, bf16 and f32, causal and not, a per-head layout, rows that see
-  no key, and BERT-Large's BigBird shape, where they are timed against SDPA
-  under the expanded mask).
+  64 and 128, bf16 and f32, causal and not, per-head layouts, rows that see
+  no key, layouts with several long rows (also under causal),
+  and BERT-Large's BigBird shape, where they are timed against SDPA under
+  the expanded mask, B5 also with its query blocks in row order instead of
+  longest first; the forward and the backward must be bit-reproducible).
 * ``serve``: GPT-2 1.3B at full width and depth (random weights, seed 0)
   through ``init_inference``: ``forward`` on [4, 1024] ids through the flash
   kernel, checked against the einsum path on the same weights, then
@@ -60,8 +65,11 @@ A failed check raises, and the script exits nonzero. It imports neither jax
 nor ``deepspeed_tpu``.
 """
 
+import dataclasses
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -255,18 +263,68 @@ def phase_device():
     return smi
 
 
+# the wgmma kernels of each library: their SASS must hold HGMMA (wgmma) and
+# UTMALDG (TMA tile loads)
+WGMMA_KERNELS = {"flash_attention_fwd": ("flash_fwd_wgmma_kernel",),
+                 "flash_attention_bwd": ("bwd_dq_wgmma_kernel",
+                                         "flash_bwd_dkv_wgmma_kernel"),
+                 "block_sparse_attention": ("sparse_fwd_wgmma_kernel",)}
+
+
+def ptxas_by_kernel(log):
+    """ptxas -v lines per compiled function: registers and spill bytes."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", ln)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def check_sass():
+    """Reads ``cuobjdump -sass`` of each built library and requires HGMMA and
+    UTMALDG in every instance of its wgmma kernels."""
+    from deepspeed_tpu_torch.ops.cuda import build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    found = {}
+    for lib, kernels in WGMMA_KERNELS.items():
+        sass = subprocess.run([tool, "-sass", str(build.library_path(lib))],
+                              capture_output=True, text=True, timeout=600,
+                              check=True).stdout
+        sections = re.split(r"\n\s*Function : ", sass)[1:]
+        for name in kernels:
+            bodies = [sec for sec in sections if name in sec.split("\n", 1)[0]]
+            found[name] = {"instances": len(bodies),
+                           "HGMMA": [sec.count("HGMMA") for sec in bodies],
+                           "UTMALDG": [sec.count("UTMALDG") for sec in bodies]}
+            if not bodies or not all(found[name]["HGMMA"]) or \
+                    not all(found[name]["UTMALDG"]):
+                emit({"phase": "sass", "kernels": found})
+                raise AssertionError(f"{name}: no HGMMA or UTMALDG in its SASS")
+    emit({"phase": "sass", "kernels": found})
+
+
 def phase_build():
     from deepspeed_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
     built = build.build()
     seconds = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in info["log"].splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, info in built.items()}
     emit({"phase": "build", "seconds": seconds, "sources": build.sources(),
           "compiled": {n: i["seconds"] for n, i in built.items()},
-          "ptxas": ptxas})
+          "ptxas": {name: ptxas_by_kernel(info["log"])
+                    for name, info in built.items()}})
+    check_sass()
 
 
 def _segments(b, t, gen, device):
@@ -372,12 +430,13 @@ def phase_kernel():
     flops, nbytes = attention_flops_bytes(b, t, h, d, causal,
                                           q.element_size())
     bound_ms, bound_by = _bound(flops, nbytes, str(q.dtype).split(".")[-1])
-    entry = {"name": "flash_attention_fwd", "route": "cuda",
+    entry = {"name": "flash_attention_fwd", "route": "cuda", "variant": "wgmma",
              "source": "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
              "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:53",
              "launches": None, "max_abs_err": o_err, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": sdpa_fwd[1],
+             "tflops_per_s": flops / ms / 1e9,
              "event_ms": cuda_ms(lambda: fa.flash_attention_fwd(
                  q, k, v, causal=causal))}
     emit({"phase": "kernel", "kernel": "flash_attention_fwd",
@@ -499,13 +558,13 @@ def check_flash_backward(cases, sdpa_bwd):
              max(worst["dk"], worst["dv"]))):
         bound_ms, bound_by = _bound(n_ops, nbytes, "bfloat16")
         ms = dev_t["ms"]
-        entry = {"name": name, "route": "cuda",
+        entry = {"name": name, "route": "cuda", "variant": "wgmma",
                  "source": "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
                  "replaces": "deepspeed_tpu/ops/pallas/" + replaces,
                  "launches": None, "max_abs_err": err, "ms": ms,
                  "plain_ms": plain_ms, "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": sdpa_bwd[1],
-                 "event_ms": event[key]}
+                 "tflops_per_s": n_ops / ms / 1e9, "event_ms": event[key]}
         entries.append(entry)
         emit({"phase": "kernel", "kernel": name, "case": "train_1p3b",
               "timing": entry, "device_time": dev_t, "flops": n_ops,
@@ -579,7 +638,7 @@ def check_fused_adamw():
     torch.cuda.empty_cache()
     nbytes = 22 * n  # bf16 p read+written, bf16 g read, f32 m, v read+written
     bound_ms, bound_by = _bound(16 * n, nbytes, "float32")
-    entry = {"name": "fused_adamw", "route": "cuda",
+    entry = {"name": "fused_adamw", "route": "cuda", "variant": "multi-tensor",
              "source": "deepspeed_tpu_torch/csrc/fused_adamw.cu",
              "replaces": "deepspeed_tpu/ops/pallas/fused_adam.py:26",
              "launches": None, "max_abs_err": max_abs, "ms": ms_,
@@ -631,6 +690,13 @@ def check_block_sparse():
     empty_causal = np.tril(np.ones((1, 16, 16), np.int64))
     empty_causal[0, 0, 0] = 0                # q-block 0 sees only the future
     empty_causal[0, 0, 5] = 1
+    # a band with two full rows and an empty one, attended causally: the
+    # full rows' walks end at the diagonal, and row 5 sees no key at all
+    band_full_rows = np.zeros((1, 16, 16), np.int64)
+    for r in range(16):
+        band_full_rows[0, r, max(r - 1, 0):r + 2] = 1
+    band_full_rows[0, [2, 9]] = 1
+    band_full_rows[0, 5] = 0
     # name, layout (or config), block, B, T, H, D, dtype, causal
     cases = [
         ("dense_b16_d64", ("DenseSparsityConfig", {}), 16, 2, 256, 4, 64, bf16, False),
@@ -653,6 +719,16 @@ def check_block_sparse():
         ("bert_large_bigbird_4096", ("BigBirdSparsityConfig", dict(
             num_random_blocks=1, num_sliding_window_blocks=3, num_global_blocks=1)),
          128, 1, 4096, 16, 64, bf16, False),
+        # several long rows per head, a layout per head: B5's row order
+        # across heads
+        ("long_rows_per_head_b128_d128", ("VariableSparsityConfig", dict(
+            num_random_blocks=1, local_window_blocks=[2], global_block_indices=[0, 5, 9],
+            horizontal_global_attention=True, different_layout_per_head=True, seed=7)),
+         128, 2, 2048, 4, 128, bf16, False),
+        ("bigbird_causal_b128_d64", ("BigBirdSparsityConfig", dict(
+            attention="unidirectional")), 128, 2, 2048, 4, 64, bf16, True),
+        ("band_full_rows_causal_b128_d64", band_full_rows, 128, 1, 2048, 4, 64, bf16,
+         True),
     ]
     worst = {}
     path = None
@@ -665,6 +741,7 @@ def check_block_sparse():
         do = torch.randn((b, t, h, d), generator=gen).to(dev, dtype)
         kw = dict(block=block, causal=causal)
         o, lse = bsa.block_sparse_fwd(q, k, v, tables, **kw)
+        o2, lse2 = bsa.block_sparse_fwd(q, k, v, tables, **kw)
         o_ref, lse_ref = bsa.block_sparse_attention_reference(q, k, v, layout, **kw)
         got = bsa.block_sparse_bwd(q, k, v, o, lse, do, tables, **kw)
         again = bsa.block_sparse_bwd(q, k, v, o, lse, do, tables, **kw)
@@ -677,6 +754,7 @@ def check_block_sparse():
                 "shape": [b, t, h, d], "block": block, "causal": causal,
                 "dtype": str(dtype), "layout_heads": int(layout.shape[0]),
                 "active_tiles": int((layout != 0).sum()),
+                "fwd_bit_reproducible": bool(torch.equal(o, o2) and torch.equal(lse, lse2)),
                 "o_max_abs_err": float((o.float() - o_ref.float()).abs().max()),
                 "lse_max_abs_err": float((lse - lse_ref).abs().max()), "tol": tol,
                 "grad_rel_tol": GRAD_REL_TOL[dname],
@@ -691,8 +769,9 @@ def check_block_sparse():
         ok = (min(line["ref_grad_abs_max"].values()) > 0
               and line["o_max_abs_err"] <= tol["o"] and line["lse_max_abs_err"] <= tol["lse"]
               and max(line["grad_rel_err"].values()) <= GRAD_REL_TOL[dname]
-              and line["bit_reproducible"] and line["finite"])
-        if name.startswith("empty_row"):
+              and line["bit_reproducible"] and line["fwd_bit_reproducible"]
+              and line["finite"])
+        if name.startswith("empty_row") or name.startswith("band_full_rows"):
             seen = lse_ref > 0.5 * NEG_INF
             line["empty_rows_zero"] = bool((o.float().transpose(1, 2)[~seen] == 0).all()
                                            and (lse[~seen] == lse_ref[~seen]).all()
@@ -706,7 +785,7 @@ def check_block_sparse():
             worst[n] = max(worst.get(n, 0.0), e)
         if name == "bert_large_bigbird_4096":
             path = (q, k, v, do, o, lse, layout, tables, block)
-        del o_ref, lse_ref, want, got, again
+        del o_ref, lse_ref, want, got, again, o2, lse2
     torch.cuda.empty_cache()
     return time_block_sparse(path, worst)
 
@@ -727,6 +806,16 @@ def time_block_sparse(path, worst):
     q, k, v, do, o, lse, layout, tables, block = path
     b, t, h, d = q.shape
     scale = d ** -0.5
+    # B5 with its rows longest first (the path's tables) and in row order,
+    # in turns: longest, row order, row order, longest
+    in_order = dataclasses.replace(tables, korder=torch.arange(
+        tables.korder.numel(), dtype=torch.int32, device=q.device))
+    order_t = {"longest_first": [], "row_order": []}
+    for key in ("longest_first", "row_order", "row_order", "longest_first"):
+        tab = tables if key == "longest_first" else in_order
+        order_t[key].append(device_ms(
+            lambda: bsa.block_sparse_fwd(q, k, v, tab, block=block))["ms"])
+
     def fwd():
         bsa.block_sparse_fwd(q, k, v, tables, block=block)
 
@@ -783,11 +872,16 @@ def time_block_sparse(path, worst):
             ("block_sparse_dkv", "dkv", 168, dkv_ms, 8 * pairs * d, 6 * bthd + 2 * bht,
              max(worst["dk"], worst["dv"]), bwd_plain_ms, sdpa_bwd_ms)):
         bound_ms, bound_by = _bound(n_ops, nbytes, "bfloat16")
-        entry = {"name": name, "route": "cuda", "source": source,
+        entry = {"name": name, "route": "cuda",
+                 "variant": "wgmma" if key == "fwd" else "mma.sync", "source": source,
                  "replaces": replaces + str(line_no), "launches": None,
                  "max_abs_err": err, "ms": ms, "plain_ms": plain,
                  "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
-                 "event_ms": event[key]}
+                 "tflops_per_s": n_ops / ms / 1e9, "event_ms": event[key]}
+        if key == "fwd":
+            # rows stay whole (no global-row split); the longest go first
+            entry.update(split=False, longest_first_ms=order_t["longest_first"],
+                         row_order_ms=order_t["row_order"])
         entries.append(entry)
         emit({"phase": "kernel", "kernel": name, "case": "bert_large_bigbird_4096",
               "timing": entry, "device_time": dev_t[key], "flops": n_ops,

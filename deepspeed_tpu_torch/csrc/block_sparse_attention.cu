@@ -15,29 +15,50 @@
 // H=16, D=64, block 128, 183 of 1024 tiles active) B5 does 12.3 GFLOP of
 // tensor-core work against 33.8 MB of q, k, v, o and lse: 12.4 us at
 // 989 TFLOP/s, 10.1 us at 3.35 TB/s; B6 and B7 do 1.5x and 2x the products.
-// Neither bound is within reach of mma.sync at this size (the grid has only
-// 16 x 64 blocks and the work per block is uneven, see below), so the design
-// keeps what matters for any size: scores and probabilities never leave the
-// chip, and only active tiles are ever loaded or multiplied.
+// The grid is small (16 x 32 query blocks) and the work per block uneven
+// (a BigBird global row walks all 32 key blocks, a band row 4-5), so the
+// slowest row sets the time unless the long rows are cut up. Scores and
+// probabilities never leave the chip, and only active tiles are ever
+// loaded or multiplied.
 //
-// Design (simple and correct first; wgmma, TMA and warp specialisation are
-// later work):
-// * Index tables instead of the TPU's padded scalar-prefetch rows: `idx`
-//   [HL, n_blocks, width] lists each row's (B5, B6) or column's (B7) active
-//   blocks in ascending order and `cnt` [HL, n_blocks] their count; head h
-//   reads table h % HL. Each block loops over its own row's count, not the
-//   widest row's, so a BigBird band row costs 4-5 tiles while the global row
-//   and column cost all 32. That imbalance is left in place here.
-// * One CUDA block = TILE query rows (B5, B6) or TILE keys (B7) of one
-//   (batch, head), TILE = min(block, 64), one warp per 16 rows; each active
-//   block is walked in block / TILE sub-tiles. 16-bit inputs use
-//   mma.sync.m16n8k16 with f32 accumulators exactly as the flash kernels do
-//   (Q or K/V fragments held in registers, P and dS re-packed from C
-//   fragments into A fragments without touching shared memory); f32 inputs
-//   take plain FMA kernels over 16 x 16 tiles.
+// Index tables instead of the TPU's padded scalar-prefetch rows: `idx`
+// [HL, n_blocks, width] lists each row's (B5, B6) or column's (B7) active
+// blocks in ascending order and `cnt` [HL, n_blocks] their count; head h
+// reads table h % HL. Each block loops over its own row's count, not the
+// widest row's.
+//
+// B5 at block 128, bf16, D = 64 and 128 (`sparse_fwd_wgmma_kernel`): B1's
+// Hopper design (flash_fwd_pass.cuh) with the key loop walking the table.
+// * One block = 128 query rows of one (batch, head) and three warpgroups: a
+//   producer thread loads Q by TMA once, reads the row's active blocks from
+//   the table and TMA-loads each active K/V block at that block's coordinate
+//   through a two-stage ring; two consumer warpgroups own 64 rows each and
+//   use each block in two 64-key passes (S as SS wgmma, online softmax in
+//   log2 units, P rounded, O += P V as RS wgmma with V read by the
+//   transpose bit).
+// * The layout is the mask: bidirectional blocks run no compare at all;
+//   under causal only the diagonal block compares, and the walk ends at the
+//   first block past the diagonal.
+// * Grid order (`order`, built on the host per layout and cached with the
+//   tables): the query blocks with the most active blocks go first, so a
+//   BigBird global row starts at once and the band rows fill the tail.
+//   With that order, cutting the global rows into chunks merged by their
+//   last block gained at most 1% on an H100 at BERT-Large's BigBird layout
+//   (and lost 5-20% with 6-8 chunks), so every row stays whole.
+//
+// The other blocks (16, 32, 64), and B6 and B7 at every block, keep the
+// first design of this port: one CUDA block = TILE query rows (B5, B6) or
+// TILE keys (B7) of one (batch, head), TILE = min(block, 64), one warp per
+// 16 rows; each active block is walked in block / TILE sub-tiles.
+// mma.sync.m16n8k16 with f32 accumulators exactly as the flash kernels'
+// first design (Q or K/V fragments held in registers, P and dS re-packed
+// from C fragments into A fragments without touching shared memory); f32
+// inputs take plain FMA kernels over 16 x 16 tiles. B6 and B7 read B5's lse
+// in natural-log units.
 // * No atomics: B6 owns a q-tile and B7 owns a k-tile, and each walks its
-//   active tiles in a fixed order, so every gradient element is written once
-//   and the backward is bit-reproducible.
+//   active tiles in a fixed order, so every gradient element is written
+//   once and the backward is bit-reproducible; B5 writes each output row
+//   from one block too.
 // * Masks: the layout (inactive tiles are never visited), and with `causal`
 //   q_pos >= k_pos; sub-tiles wholly in the future are skipped, which is
 //   exact. A masked pair gets P = 0 exactly. A row with no visible key yet
@@ -50,10 +71,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_fwd_pass.cuh"
+#include "hopper.cuh"
 #include "mma_sm80.cuh"
 
 namespace {
 
+using namespace ds_hopper;
+using namespace ds_fwd;
 using ds_mma::Bf16;
 using ds_mma::ld32;
 using ds_mma::ld_col2;
@@ -75,6 +100,7 @@ struct Params {
   const int* idx;      // [HL, nb, width] active blocks, ascending
   const int* cnt;      // [HL, nb]
   int width, HL, block;
+  const int* order;    // [HL * nb] B5 at block 128: table rows, longest first
   int B, T, H;
   long long q_sb, q_st, q_sh;
   long long k_sb, k_st, k_sh;
@@ -246,6 +272,121 @@ __global__ void __launch_bounds__(TILE * 2) sparse_fwd_mma_kernel(const Params p
     }
     if (tq == 0) {
       lse[static_cast<long long>(bh) * T + row] = seen ? m_r[i] + logf(l_r[i]) : NEG_INF;
+    }
+  }
+}
+
+// B5 at block 128, D = 64 and 128: wgmma + TMA, warp-specialised, on the
+// consumer pass it shares with B1 (flash_fwd_pass.cuh). One block = one
+// query block of one (batch, head), taken from the row order table.
+template <typename Op, int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    sparse_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                            const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v, const Params p) {
+  using L = FwdLayout<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];  // aligned below
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar_q = base + L::kBar;
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_full + 8 * WG_STAGES;
+
+  // the table rows, longest first: each runs for every batch row and every
+  // head that shares its layout, one after another in the grid
+  const int T = p.T, nq = T / WG_BM, G = p.H / p.HL, per = p.B * G;
+  const int row = p.order[blockIdx.x / per];
+  const int b = (blockIdx.x % per) / G, g = blockIdx.x % G;
+  const int hl = row / nq, qb = row % nq, h = hl + p.HL * g;
+  const int q0 = qb * WG_BM;
+  const int* blocks = p.idx + static_cast<long long>(row) * p.width;
+  // causal: the walk ends at the first block past the diagonal (the entries
+  // ascend)
+  int n = p.cnt[row];
+  if (p.causal) {
+    int seen = 0;
+    while (seen < n && blocks[seen] <= qb) ++seen;
+    n = seen;
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 0) {
+    // producer: one thread loads Q, then the active K/V blocks through the
+    // ring, each at its own block's coordinate
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(bar_q, WG_BM * D * 2);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(base + L::kQ + c * WG_BM * 128, &map_q, bar_q, c * 64, h, q0, b);
+      }
+      for (int j = 0; j < n; ++j) {
+        const int s = j % WG_STAGES, k0 = blocks[j] * WG_BN;
+        mbar_wait(bar_empty + 8 * s, ((j / WG_STAGES) & 1) ^ 1);
+        const uint32_t full = bar_full + 8 * s;
+        const uint32_t dst = base + L::kKV + s * 2 * L::kTile;
+        mbar_arrive_expect_tx(full, 2 * L::kTile);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(dst + c * WG_BN * 128, &map_k, full, c * 64, h, k0, b);
+          tma_load_4d(dst + L::kTile + c * WG_BN * 128, &map_v, full, c * 64, h, k0, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup c owns rows q0 + 64c .. q0 + 64c + 63
+    setmaxnreg_inc<240>();
+    const int c = wg - 1;
+    const int t = threadIdx.x & 127, lane = t & 31;
+    const int r0 = q0 + 64 * c + 16 * (t >> 5) + (lane >> 2);  // rows r0, r0 + 8
+    const int first_row = q0 + 64 * c;
+    const float sl2 = p.scale * LOG2E;
+    const bool causal = p.causal;
+    FwdRows<D> st;
+    st.init();
+    const uint64_t q_desc = desc_sw128(base + L::kQ + 64 * c * 128, 16, 1024);
+
+    mbar_wait(bar_q, 0);
+    for (int j = 0; j < n; ++j) {
+      const int s = j % WG_STAGES, k0 = blocks[j] * WG_BN;
+      mbar_wait(bar_full + 8 * s, (j / WG_STAGES) & 1);
+      const uint32_t ka = base + L::kKV + s * 2 * L::kTile, va = ka + L::kTile;
+      // the layout is the mask: only the causal diagonal block compares,
+      // each row against its own position
+      const bool diag = causal && k0 == q0;
+      const int last[2] = {r0 - k0, r0 + 8 - k0};
+#pragma unroll
+      for (int hk = 0; hk < WG_BN / WG_KH; ++hk) {
+        const int kp = k0 + hk * WG_KH;
+        if (diag && kp > first_row + 63) continue;  // every key after every row
+        fwd_pass<Op, D>(st, q_desc, ka, va, hk, sl2, diag && kp + WG_KH - 1 > first_row,
+                        [&](int kl, int e) { return kl <= last[e >> 1]; });
+      }
+      if (t == 0) mbar_arrive(bar_empty + 8 * s);
+    }
+
+    // O / l through this warpgroup's own rows of the Q tile, then 16-byte
+    // stores; a row that saw no key gets O = 0 and lse = NEG_INF
+    float inv[2], lse[2];
+    st.finish(inv, lse);
+    stage_acc<Op, D>(smem + L::kQ, WG_BM, 64 * c, st.o, inv);
+    named_bar_sync(1 + c, 128);
+    copy_rows_out<D>(smem + L::kQ, WG_BM, 64 * c,
+                     static_cast<uint16_t*>(p.o) +
+                         (static_cast<long long>(b) * T + first_row) * p.H * D + h * D,
+                     static_cast<long long>(p.H) * D, 64);
+    if (st.tq == 0) {
+      float* out = const_cast<float*>(p.lse) + static_cast<long long>(b * p.H + h) * T;
+      out[r0] = lse[0];
+      out[r0 + 8] = lse[1];
     }
   }
 }
@@ -805,14 +946,37 @@ cudaError_t launch_f32(const Params& p, Which which, cudaStream_t stream) {
 }
 
 template <int D>
+cudaError_t launch_fwd_wgmma(const Params& p, cudaStream_t stream) {
+  if (p.order == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap map_q, map_k, map_v;
+  cudaError_t err = make_tile_map(&map_q, p.q, false, p.B, p.T, p.H, D, p.q_sb, p.q_st,
+                                  p.q_sh, WG_BM);
+  if (err == cudaSuccess) {
+    err = make_tile_map(&map_k, p.k, false, p.B, p.T, p.H, D, p.k_sb, p.k_st, p.k_sh, WG_BN);
+  }
+  if (err == cudaSuccess) {
+    err = make_tile_map(&map_v, p.v, false, p.B, p.T, p.H, D, p.v_sb, p.v_st, p.v_sh, WG_BN);
+  }
+  if (err != cudaSuccess) return err;
+  constexpr int smem = FwdLayout<D>::kBytes;
+  err = cudaFuncSetAttribute(sparse_fwd_wgmma_kernel<Bf16, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>(p.T / WG_BM) * p.B * p.H;
+  sparse_fwd_wgmma_kernel<Bf16, D><<<grid, WG_THREADS, smem, stream>>>(map_q, map_k, map_v, p);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t dispatch(const Params& p, Which which, int dtype, cudaStream_t stream) {
   if (dtype == 0) return launch_f32<D>(p, which, stream);
   if (dtype != 1) return cudaErrorInvalidValue;
   switch (p.block) {
     case 16: return launch_mma<D, 16>(p, which, stream);
     case 32: return launch_mma<D, 32>(p, which, stream);
-    case 64:
-    case 128: return launch_mma<D, 64>(p, which, stream);
+    case 64: return launch_mma<D, 64>(p, which, stream);
+    case 128:
+      return which == FWD ? launch_fwd_wgmma<D>(p, stream) : launch_mma<D, 64>(p, which, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -820,8 +984,10 @@ cudaError_t dispatch(const Params& p, Which which, int dtype, cudaStream_t strea
 int run(Which which, const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* out, void* out2, const void* idx,
         const void* cnt, int width, int HL, int block, int B, int T, int H, int D,
-        const long long* strides, float scale, int causal, int dtype, void* stream) {
-  Params p;
+        const long long* strides, float scale, int causal, int dtype, void* stream,
+        const void* order = nullptr) {
+  Params p = {};
+  p.order = static_cast<const int*>(order);
   p.q = q;
   p.k = k;
   p.v = v;
@@ -858,15 +1024,17 @@ int run(Which which, const void* q, const void* k, const void* v, const void* do
 // dtype: 0 = float32, 1 = bfloat16. `strides` holds the batch, sequence and
 // head strides of q, k and v (9 values, in elements). `idx`/`cnt` are the
 // row tables (key blocks of each q-block) for the forward and dq, the column
-// tables (q-blocks of each key block) for dkv. `lse` is written by the
-// forward and read by the backward. Each returns a cudaError_t.
+// tables (q-blocks of each key block) for dkv; `order` [HL * n_blocks] lists
+// the row tables' rows longest first (read by the forward at block 128).
+// `lse` is written by the forward and read by the backward. Each returns a
+// cudaError_t.
 extern "C" int ds_block_sparse_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, const void* idx, const void* cnt, int width,
                                    int HL, int block, int B, int T, int H, int D,
                                    const long long* strides, float scale, int causal,
-                                   int dtype, void* stream) {
+                                   int dtype, void* stream, const void* order) {
   return run(FWD, q, k, v, nullptr, lse, nullptr, o, nullptr, idx, cnt, width, HL, block,
-             B, T, H, D, strides, scale, causal, dtype, stream);
+             B, T, H, D, strides, scale, causal, dtype, stream, order);
 }
 
 extern "C" int ds_block_sparse_dq(const void* q, const void* k, const void* v,

@@ -22,6 +22,33 @@
 // diagonal to the end. Every output element is written by exactly one block
 // in a fixed order, so gradients are bit-reproducible.
 //
+// B2, 16-bit inputs at D = 64 and 128 (`bwd_dq_wgmma_kernel`), B3's design
+// turned around:
+// * One block = 128 query rows of one (batch, head) and three warpgroups. A
+//   producer warp (setmaxnreg 24) stages the block's lse (times log2 e) and
+//   delta, loads its Q and dO tiles once by TMA (Q through a map over the
+//   strided view, dO over the contiguous [B, T, H, D]), then streams 128-key
+//   K and V tiles through a two-stage ring (full/empty mbarriers), with each
+//   tile's key segment ids under segments. Two consumer warpgroups
+//   (setmaxnreg 240) own 64 rows each; the dQ accumulator (D / 2 f32 per
+//   thread) stays in registers for the whole loop.
+// * Per K/V tile, in two passes of 64 keys: S = Q K^T and dP = dO V^T as SS
+//   wgmma (m64n64k16, all operands K-major in shared memory);
+//   P = exp2(S scale log2 e - lse log2 e) and dS = P * (dP - delta) in f32
+//   registers; dS rounded to the input type (as in the TPU kernel) and
+//   re-packed from the accumulator as the register A operand of dQ += dS K,
+//   an RS wgmma that reads K from shared memory with the transpose bit. A
+//   pass's dQ product runs on while the next pass's S and dP products are
+//   issued; a stage goes back to the producer once the products that read
+//   it have retired.
+// * Causal: the key loop ends at the diagonal tile; a pass wholly after a
+//   warpgroup's rows is skipped, and only passes that cross the diagonal,
+//   the end of T, or any pass under segments run the compare/select. A
+//   masked pair gets P = 0 exactly, never exp of a huge negative. The
+//   longest causal rows go first in the grid.
+// * The epilogue writes scale * dQ through the consumer's own rows of the
+//   Q tile in shared memory and out with 16-byte stores.
+//
 // B3, 16-bit inputs at D = 64 and 128 (`flash_bwd_dkv_wgmma_kernel`):
 // * One block = 128 keys of one (batch, head) and three warpgroups. K and V
 //   come in once by TMA and stay in shared memory. A producer warp
@@ -47,13 +74,13 @@
 //   so fully masked tiles and ragged tails give 0 and never NaN.
 // * The epilogue writes scale * dK and dV through the block's own K and V
 //   tiles in shared memory and out with 16-byte stores.
-// B2, and B3 at the other head dims (32, 80, 96), keep the first design of
-// this port: 4 warps per block, 16 rows (B2) or 16 keys (B3) per warp,
-// mma.sync m16n8k16 with f32 accumulators, tiles staged by plain 16-byte
-// loads; P and dS re-pack from C fragments as the A fragment of the next
-// product. f32 inputs take plain FMA kernels over 16 x 16 tiles with scores
-// in shared memory, since TF32 tensor cores would not hold the f32
-// tolerance.
+// B2 and B3 at the other head dims (32, 80, 96) keep the first design of
+// this port (`bwd_dq_mma_kernel`, `bwd_dkv_mma_kernel`): 4 warps per block,
+// 16 rows (B2) or 16 keys (B3) per warp, mma.sync m16n8k16 with f32
+// accumulators, tiles staged by plain 16-byte loads; P and dS re-pack from C
+// fragments as the A fragment of the next product. f32 inputs take plain FMA
+// kernels over 16 x 16 tiles with scores in shared memory, since TF32 tensor
+// cores would not hold the f32 tolerance.
 //
 // q, k, v are read in [B, T, H, D] through their strides (views into the
 // fused projection); dO, dQ, dK and dV are [B, T, H, D] contiguous and lse
@@ -466,6 +493,224 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 }
 
+// B2 at D = 64 and 128: wgmma + TMA, warp-specialised (see the top note).
+constexpr int DQ_BM = 128;  // query rows per block: two consumers x 64
+constexpr int DQ_BN = 128;  // keys per K/V tile
+constexpr int DQ_KH = 64;   // keys per pass over a tile
+
+// byte offsets from the 1024-aligned start of dynamic shared memory
+template <int D>
+struct DqLayout {
+  static constexpr int kTile = DQ_BN * D * 2;  // one K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQ + DQ_BM * D * 2;
+  static constexpr int kKV = kDO + DQ_BM * D * 2;  // stage s: K, then V
+  // [lse * log2 e, delta][row]
+  static constexpr int kRows = kKV + WG_STAGES * 2 * kTile;
+  static constexpr int kSeg = kRows + 2 * DQ_BM * 4;  // [stage][key] ids
+  static constexpr int kBar = kSeg + WG_STAGES * DQ_BN * 4;  // q, full[], empty[]
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * WG_STAGES) + 1024;  // + align
+};
+
+template <typename Op, int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do, const Params p) {
+  using L = DqLayout<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];  // aligned below
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar_q = base + L::kBar;
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_full + 8 * WG_STAGES;
+
+  const int T = p.T, bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  // longest causal rows first, so the short tiles fill the tail of the grid
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * DQ_BM;
+  int n_kv = (T + DQ_BN - 1) / DQ_BN;
+  if (p.causal) n_kv = min(n_kv, (q0 + DQ_BM + DQ_BN - 1) / DQ_BN);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  float* rows = reinterpret_cast<float*>(smem + L::kRows);
+  int* sseg = reinterpret_cast<int*>(smem + L::kSeg);
+  // the warpgroup's role, warp-uniform; the shuffle lets the compiler see
+  // that (as CUTLASS's canonical_warp_group_idx does)
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 0) {
+    // producer: warp 0 stages the block's lse * log2 e and delta, loads Q
+    // and dO, then walks the K/V tiles through the ring
+    setmaxnreg_dec<24>();
+    const int lane = threadIdx.x;
+    if (lane < 32) {
+      for (int i = lane; i < DQ_BM; i += 32) {
+        const int row = q0 + i;
+        const bool in = row < T;
+        const long long at = static_cast<long long>(bh) * T + row;
+        rows[i] = in ? p.lse[at] * LOG2E : 0.f;
+        rows[DQ_BM + i] = in ? p.delta[at] : 0.f;
+      }
+      __syncwarp();  // the rows are written before lane 0 arrives
+      if (lane == 0) {
+        mbar_arrive_expect_tx(bar_q, 2 * DQ_BM * D * 2);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(base + L::kQ + c * DQ_BM * 128, &map_q, bar_q, c * 64, h, q0, b);
+          tma_load_4d(base + L::kDO + c * DQ_BM * 128, &map_do, bar_q, c * 64, h, q0, b);
+        }
+      }
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % WG_STAGES;
+        mbar_wait(bar_empty + 8 * s, ((j / WG_STAGES) & 1) ^ 1);
+        if (p.seg != nullptr) {
+          for (int i = lane; i < DQ_BN; i += 32) {
+            const int key = j * DQ_BN + i;
+            sseg[s * DQ_BN + i] = key < T ? p.seg[b * T + key] : -1;
+          }
+          __syncwarp();  // the ids are written before lane 0 arrives
+        }
+        if (lane == 0) {
+          const uint32_t full = bar_full + 8 * s;
+          const uint32_t dst = base + L::kKV + s * 2 * L::kTile;
+          mbar_arrive_expect_tx(full, 2 * L::kTile);
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load_4d(dst + c * DQ_BN * 128, &map_k, full, c * 64, h, j * DQ_BN, b);
+            tma_load_4d(dst + L::kTile + c * DQ_BN * 128, &map_v, full, c * 64, h,
+                        j * DQ_BN, b);
+          }
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup c owns rows q0 + 64c .. q0 + 64c + 63
+    setmaxnreg_inc<240>();
+    const int c = wg - 1;
+    const int t = threadIdx.x & 127, lane = t & 31;
+    const int tq = lane & 3;
+    const int lr = 64 * c + 16 * (t >> 5) + (lane >> 2);  // rows lr, lr + 8 of the block
+    const int r0 = q0 + lr;
+    int qseg[2] = {0, 0};
+    if (p.seg != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) qseg[i] = r0 + 8 * i < T ? p.seg[b * T + r0 + 8 * i] : -2;
+    }
+    const float sl2 = p.scale * LOG2E;
+    const bool causal = p.causal, has_seg = p.seg != nullptr;
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    const uint64_t q_desc = desc_sw128(base + L::kQ + 64 * c * 128, 16, 1024);
+    const uint64_t do_desc = desc_sw128(base + L::kDO + 64 * c * 128, 16, 1024);
+    const int first_row = q0 + 64 * c;
+
+    mbar_wait(bar_q, 0);
+    const float lse2[2] = {rows[lr], rows[lr + 8]};
+    const float delta[2] = {rows[DQ_BM + lr], rows[DQ_BM + lr + 8]};
+    // a stage is handed back once the dQ products that read its K have
+    // retired: at the next tile's first wait (each consumer runs at least
+    // one pass of every tile: only passes past the diagonal are skipped,
+    // and the diagonal tile's first pass always runs)
+    int release = -1;
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % WG_STAGES, k0 = j * DQ_BN;
+      mbar_wait(bar_full + 8 * s, (j / WG_STAGES) & 1);
+      const uint32_t ka = base + L::kKV + s * 2 * L::kTile, va = ka + L::kTile;
+      const int* tseg = sseg + s * DQ_BN;
+      // per row, the last key column of this tile it may see: before T,
+      // and under causal not after the row
+      const int last[2] = {(causal ? min(T - 1, r0) : T - 1) - k0,
+                           (causal ? min(T - 1, r0 + 8) : T - 1) - k0};
+#pragma unroll
+      for (int hk = 0; hk < DQ_BN / DQ_KH; ++hk) {
+        const int kp = k0 + hk * DQ_KH;  // the pass's first key
+        // every key after every row: P = 0, nothing to add
+        if (causal && kp > first_row + 63) continue;
+        const bool masked =
+            has_seg || kp + DQ_KH > T || (causal && kp + DQ_KH - 1 > first_row);
+        // S = Q K^T and dP = dO V^T over the pass's keys
+        const uint64_t first = (hk * DQ_KH * 128) >> 4;  // its first key row
+        const uint64_t qd = opaque(q_desc), dd = opaque(do_desc);
+        const uint64_t kd = opaque(desc_sw128(ka, 16, 1024)) + first;
+        const uint64_t vd = opaque(desc_sw128(va, 16, 1024)) + first;
+        float sc[DQ_KH / 2], dp[DQ_KH / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wgmma_ss<DQ_KH, Op::kF16>(sc, qd + kmajor_step(DQ_BM, kk),
+                                    kd + kmajor_step(DQ_BN, kk), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wgmma_ss<DQ_KH, Op::kF16>(dp, dd + kmajor_step(DQ_BM, kk),
+                                    vd + kmajor_step(DQ_BN, kk), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();  // also retires the previous pass's dQ products
+        fence_regs(sc);
+        fence_regs(dp);
+        if (release >= 0) {
+          if (t == 0) mbar_arrive(bar_empty + 8 * release);
+          release = -1;
+        }
+
+        // P = exp2(S scale log2 e - lse log2 e), exactly 0 where masked;
+        // dS = P (dP - delta). Element 4 jn + e sits at row r0 + 8 (e >> 1).
+#pragma unroll
+        for (int jn = 0; jn < DQ_KH / 8; ++jn) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * jn + e;
+            float pr = exp2f(sc[i] * sl2 - lse2[e >> 1]);
+            if (masked) {
+              const int kl = hk * DQ_KH + jn * 8 + tq * 2 + (e & 1);
+              const bool ok = kl <= last[e >> 1] && (!has_seg || tseg[kl] == qseg[e >> 1]);
+              pr = ok ? pr : 0.f;
+            }
+            sc[i] = pr * (dp[i] - delta[e >> 1]);
+          }
+        }
+        // dQ += dS K: dS rounded to the input type and re-packed from the
+        // accumulator as the A fragments; K read with the transpose bit
+        uint32_t dsa[DQ_KH / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < DQ_KH / 16; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) dsa[kk][r] = Op::pack(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+        }
+        const uint64_t kt = opaque(desc_sw128(ka, DQ_BN * 128, 1024));
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DQ_KH / 16; ++kk) {
+          wgmma_rs<D, Op::kF16>(dq, dsa[kk], kt + mnmajor_step(hk * DQ_KH / 16 + kk));
+        }
+        wgmma_commit();
+      }
+      release = s;
+    }
+    wgmma_wait<0>();
+    fence_regs(dq);
+
+    // scale * dQ through this warpgroup's own rows of the Q tile, then
+    // 16-byte stores
+    const float mul[2] = {p.scale, p.scale};
+    stage_acc<Op, D>(smem + L::kQ, DQ_BM, 64 * c, dq, mul);
+    named_bar_sync(1 + c, 128);
+    copy_rows_out<D>(smem + L::kQ, DQ_BM, 64 * c,
+                     static_cast<uint16_t*>(p.dq) +
+                         (static_cast<long long>(b) * T + first_row) * p.H * D + h * D,
+                     static_cast<long long>(p.H) * D, min(64, T - first_row));
+  }
+}
+
 // B3 at D = 32, 80, 96: one block = one (batch*head, 64-key tile); each warp
 // owns 16 keys and computes the transposed scores S^T = K Q^T, so keys are
 // the M dimension.
@@ -842,16 +1087,45 @@ cudaError_t launch_dkv_wgmma(const Params& p, cudaStream_t stream) {
 }
 
 template <typename Op, int D>
+cudaError_t launch_dq_wgmma(const Params& p, cudaStream_t stream) {
+  const long long HD = static_cast<long long>(p.H) * D;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  cudaError_t err = make_tile_map(&map_q, p.q, Op::kF16, p.B, p.T, p.H, D, p.q_sb,
+                                  p.q_st, p.q_sh, DQ_BM);
+  if (err == cudaSuccess) {
+    err = make_tile_map(&map_k, p.k, Op::kF16, p.B, p.T, p.H, D, p.k_sb, p.k_st, p.k_sh,
+                        DQ_BN);
+  }
+  if (err == cudaSuccess) {
+    err = make_tile_map(&map_v, p.v, Op::kF16, p.B, p.T, p.H, D, p.v_sb, p.v_st, p.v_sh,
+                        DQ_BN);
+  }
+  if (err == cudaSuccess) {
+    err = make_tile_map(&map_do, p.dout, Op::kF16, p.B, p.T, p.H, D, p.T * HD, HD, D,
+                        DQ_BM);
+  }
+  if (err != cudaSuccess) return err;
+  constexpr int smem = DqLayout<D>::kBytes;
+  err = cudaFuncSetAttribute(bwd_dq_wgmma_kernel<Op, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.B * p.H, (p.T + DQ_BM - 1) / DQ_BM);
+  bwd_dq_wgmma_kernel<Op, D><<<grid, WG_THREADS, smem, stream>>>(map_q, map_k, map_v, map_do, p);
+  return cudaGetLastError();
+}
+
+// 16-bit inputs: the wgmma kernels at D = 64 and 128, mma.sync at the others
+template <typename Op, int D>
 cudaError_t launch_mma(const Params& p, Which which, cudaStream_t stream) {
   const int smem = static_cast<int>(mma_smem_bytes<D>());
   const dim3 grid(p.B * p.H, (p.T + BM - 1) / BM);
-  if (which == DQ) {
+  if constexpr (D == 64 || D == 128) {
+    return which == DQ ? launch_dq_wgmma<Op, D>(p, stream) : launch_dkv_wgmma<Op, D>(p, stream);
+  } else if (which == DQ) {
     cudaError_t err = cudaFuncSetAttribute(
         bwd_dq_mma_kernel<Op, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     bwd_dq_mma_kernel<Op, D><<<grid, MMA_THREADS, smem, stream>>>(p);
-  } else if constexpr (D == 64 || D == 128) {
-    return launch_dkv_wgmma<Op, D>(p, stream);
   } else {
     cudaError_t err = cudaFuncSetAttribute(
         bwd_dkv_mma_kernel<Op, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

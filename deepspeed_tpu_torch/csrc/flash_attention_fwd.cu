@@ -13,7 +13,9 @@
 // score matrix never leaves the chip, and each K/V tile is reused by the 128
 // query rows of its block.
 //
-// Design, 16-bit inputs at D = 64 and 128 (`flash_fwd_wgmma_kernel`):
+// Design, 16-bit inputs at D = 64 and 128 (`flash_fwd_wgmma_kernel`; its
+// consumer pass, `ds_fwd::fwd_pass` in flash_fwd_pass.cuh, is shared with the
+// block-sparse forward B5, which walks a table instead of 0..diagonal):
 // * One block = 128 query rows of one (batch, head) and three warpgroups. A
 //   producer warp (registers cut to 24 with setmaxnreg) issues the TMA loads:
 //   Q once, then 128-key K/V tiles into a two-stage ring in shared memory
@@ -55,6 +57,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_fwd_pass.cuh"
 #include "hopper.cuh"
 #include "mma_sm80.cuh"
 
@@ -66,9 +69,7 @@ using ds_mma::ld32;
 using ds_mma::load_tile16;
 using ds_mma::NEG_INF;
 using namespace ds_hopper;
-
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
+using namespace ds_fwd;
 
 struct Params {
   const void* q;
@@ -86,25 +87,9 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// 16-bit path, D = 64 and 128: wgmma + TMA, warp-specialised
+// 16-bit path, D = 64 and 128: wgmma + TMA, warp-specialised; the consumer
+// pass is ds_fwd::fwd_pass (flash_fwd_pass.cuh), shared with B5
 // ---------------------------------------------------------------------------
-constexpr int WG_BM = 128;       // query rows per block: two consumers x 64
-constexpr int WG_BN = 128;       // keys per K/V tile
-constexpr int WG_KH = 64;        // keys per softmax pass over a tile
-constexpr int WG_STAGES = 2;     // K/V tiles in flight
-constexpr int WG_THREADS = 384;  // producer warpgroup + two consumer warpgroups
-
-// byte offsets from the 1024-aligned start of dynamic shared memory
-template <int D>
-struct FwdLayout {
-  static constexpr int kTile = WG_BN * D * 2;  // one K or V tile (and the Q tile)
-  static constexpr int kQ = 0;
-  static constexpr int kKV = kQ + WG_BM * D * 2;  // stage s: K, then V
-  static constexpr int kSeg = kKV + WG_STAGES * 2 * kTile;  // [stage][key] ids
-  static constexpr int kBar = kSeg + WG_STAGES * WG_BN * 4;  // q, full[], empty[]
-  static constexpr int kBytes = kBar + 8 * (1 + 2 * WG_STAGES) + 1024;  // + align
-};
-
 template <typename Op, int D>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -176,22 +161,19 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     setmaxnreg_inc<240>();
     const int c = wg - 1;
     const int t = threadIdx.x & 127, lane = t & 31;
-    const int g = lane >> 2, tq = lane & 3;
-    const int r0 = q0 + 64 * c + 16 * (t >> 5) + g;  // this thread's rows r0, r0 + 8
+    const int r0 = q0 + 64 * c + 16 * (t >> 5) + (lane >> 2);  // rows r0, r0 + 8
     int qseg[2] = {0, 0};
     if (p.seg != nullptr) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) qseg[i] = r0 + 8 * i < T ? p.seg[b * T + r0 + 8 * i] : -2;
     }
     const float sl2 = p.scale * LOG2E;  // scores in log2 units
-    float m[2] = {NEG_INF, NEG_INF};
-    float l[2] = {0.f, 0.f};  // this thread's partial row sums
-    float o[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    const bool causal = p.causal, has_seg = p.seg != nullptr;
+    FwdRows<D> st;
+    st.init();
     const uint64_t q_desc = desc_sw128(base + L::kQ + 64 * c * 128, 16, 1024);
-    // a tile needs the compare/select only if it crosses the diagonal of this
-    // warpgroup's rows, the end of T, or segments are given
+    // a pass needs the compare/select only if it crosses the diagonal of
+    // this warpgroup's rows, the end of T, or segments are given
     const int first_row = q0 + 64 * c;
 
     mbar_wait(bar_q, 0);
@@ -199,110 +181,40 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       const int s = j % WG_STAGES, k0 = j * WG_BN;
       mbar_wait(bar_full + 8 * s, (j / WG_STAGES) & 1);
       const uint32_t ka = base + L::kKV + s * 2 * L::kTile, va = ka + L::kTile;
-
-      // the tile's keys in passes of WG_KH: a pass's scores and packed P
-      // are all a thread holds beside the O accumulator
+      const int* tseg = sseg + s * WG_BN;
+      // per row, the last key column of this tile it may see: before T,
+      // and under causal not after the row
+      const int last[2] = {(causal ? min(T - 1, r0) : T - 1) - k0,
+                           (causal ? min(T - 1, r0 + 8) : T - 1) - k0};
 #pragma unroll
       for (int hk = 0; hk < WG_BN / WG_KH; ++hk) {
         const int kp = k0 + hk * WG_KH;  // the pass's first key
         // every key after every row: exactly nothing to add (P = 0, alpha =
         // 1), since each row has seen its own key by now
-        if (p.causal && kp > first_row + 63) continue;
-        const uint64_t qd = opaque(q_desc);
-        const uint64_t kd = opaque(desc_sw128(ka, 16, 1024)) + ((hk * WG_KH * 128) >> 4);
-        float sc[WG_KH / 2];
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          wgmma_ss<WG_KH, Op::kF16>(sc, qd + kmajor_step(WG_BM, kk),
-                                    kd + kmajor_step(WG_BN, kk), kk > 0);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(sc);
-
-        if (p.seg != nullptr || kp + WG_KH > T || (p.causal && kp + WG_KH - 1 > first_row)) {
-#pragma unroll
-          for (int jn = 0; jn < WG_KH / 8; ++jn) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int kl = hk * WG_KH + jn * 8 + tq * 2 + (e & 1), key = k0 + kl;
-              bool ok = key < T;
-              if (p.causal) ok = ok && key <= r0 + 8 * (e >> 1);
-              if (p.seg != nullptr) ok = ok && sseg[s * WG_BN + kl] == qseg[e >> 1];
-              sc[4 * jn + e] = ok ? sc[4 * jn + e] * sl2 : NEG_INF;
-            }
-          }
-        } else {
-#pragma unroll
-          for (int i = 0; i < WG_KH / 2; ++i) sc[i] *= sl2;
-        }
-
-        // online softmax; element 4 jn + e sits at row r0 + 8 (e >> 1)
-        float mx[2] = {m[0], m[1]};
-#pragma unroll
-        for (int jn = 0; jn < WG_KH / 8; ++jn) {
-          mx[0] = fmaxf(mx[0], fmaxf(sc[4 * jn], sc[4 * jn + 1]));
-          mx[1] = fmaxf(mx[1], fmaxf(sc[4 * jn + 2], sc[4 * jn + 3]));
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        }
-        const float alpha[2] = {exp2f(m[0] - mx[0]), exp2f(m[1] - mx[1])};
-        m[0] = mx[0];
-        m[1] = mx[1];
-        float rs[2] = {0.f, 0.f};
-#pragma unroll
-        for (int i = 0; i < WG_KH / 2; ++i) {
-          sc[i] = exp2f(sc[i] - mx[(i >> 1) & 1]);
-          rs[(i >> 1) & 1] += sc[i];
-        }
-        l[0] = l[0] * alpha[0] + rs[0];
-        l[1] = l[1] * alpha[1] + rs[1];
-#pragma unroll
-        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-
-        // O += P V: the accumulators of key columns 16kk..16kk+15 are the A
-        // fragment of k-step kk
-        uint32_t pa[WG_KH / 16][4];
-#pragma unroll
-        for (int kk = 0; kk < WG_KH / 16; ++kk) {
-#pragma unroll
-          for (int r = 0; r < 4; ++r) pa[kk][r] = Op::pack(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-        }
-        const uint64_t vd = opaque(desc_sw128(va, WG_BN * 128, 1024));
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < WG_KH / 16; ++kk) {
-          wgmma_rs<D, Op::kF16>(o, pa[kk], vd + mnmajor_step(hk * WG_KH / 16 + kk));
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(o);
+        if (causal && kp > first_row + 63) continue;
+        const bool masked =
+            has_seg || kp + WG_KH > T || (causal && kp + WG_KH - 1 > first_row);
+        fwd_pass<Op, D>(st, q_desc, ka, va, hk, sl2, masked, [&](int kl, int e) {
+          return kl <= last[e >> 1] && (!has_seg || tseg[kl] == qseg[e >> 1]);
+        });
       }
       if (t == 0) mbar_arrive(bar_empty + 8 * s);
     }
 
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    }
-    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+    float inv[2], lse[2];
+    st.finish(inv, lse);
     // O / l through this warpgroup's own rows of the Q tile, then 16-byte stores
-    stage_acc<Op, D>(smem + L::kQ, WG_BM, 64 * c, o, inv);
+    stage_acc<Op, D>(smem + L::kQ, WG_BM, 64 * c, st.o, inv);
     named_bar_sync(1 + c, 128);
     copy_rows_out<D>(smem + L::kQ, WG_BM, 64 * c,
                      static_cast<uint16_t*>(p.o) +
                          (static_cast<long long>(b) * T + first_row) * p.H * D + h * D,
                      static_cast<long long>(p.H) * D, min(64, T - first_row));
-    if (tq == 0) {
+    if (st.tq == 0) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int row = r0 + 8 * i;
-        if (row < T) p.lse[static_cast<long long>(bh) * T + row] = m[i] * LN2 + logf(l[i]);
+        if (row < T) p.lse[static_cast<long long>(bh) * T + row] = lse[i];
       }
     }
   }

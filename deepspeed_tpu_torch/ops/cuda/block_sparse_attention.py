@@ -9,9 +9,13 @@ CPU tensors they compute ``block_sparse_attention_reference`` and
 ``block_sparse_attention_backward_reference``, full-matrix f32 versions of
 the same functions under the block-expanded layout mask. The kernels read the
 layout through compact index tables (``IndexTables``, built once per layout
-and device by ``build_index_tables``). ``BlockSparseAttentionFunction`` ties
-them together; its forward saves q, k, v, o and lse. Layout is the model's
-``[batch, seq, heads, head_dim]``; lse is ``[batch, heads, seq]`` f32.
+and device by ``build_index_tables``). B5 at block 128 in bf16 is a Hopper
+kernel (wgmma, TMA, warp specialisation, the flash forward's pass) that
+takes the query blocks with the most active blocks first (``row_order``);
+the other blocks, f32, and B6/B7 keep the ``mma.sync`` and FMA kernels.
+``BlockSparseAttentionFunction`` ties them together; its forward saves q, k,
+v, o and lse. Layout is the model's ``[batch, seq, heads, head_dim]``; lse is
+``[batch, heads, seq]`` f32.
 """
 
 import ctypes
@@ -43,13 +47,16 @@ class IndexTables:
     """A layout ([1 or H, nq, nk] 0/1) and its kernel tables on one device:
     ``kidx`` [HL, nq, width] int32 holds each q-block row's active key blocks
     in ascending order (-1 past ``kcnt`` [HL, nq]), ``qidx``/``qcnt`` the same
-    for each key-block column. Head h reads table h % HL."""
+    for each key-block column. Head h reads table h % HL. ``korder``
+    [HL * nq] int32 lists the row tables' rows (hl * nq + q-block) longest
+    first: the order in which the forward at block 128 takes them."""
 
     layout: np.ndarray
     kidx: torch.Tensor
     kcnt: torch.Tensor
     qidx: torch.Tensor
     qcnt: torch.Tensor
+    korder: torch.Tensor
 
 
 def active_lists(rows: np.ndarray):
@@ -66,6 +73,15 @@ def active_lists(rows: np.ndarray):
     return idx, counts
 
 
+def row_order(counts):
+    """The rows of a [HL, nq] table of active counts, flattened to
+    hl * nq + q-block, most active first (ties in row order): launched in
+    this order, a BigBird global row starts at once and the band rows fill
+    the tail of the grid."""
+    flat = np.asarray(counts).reshape(-1)
+    return np.argsort(-flat, kind="stable").astype(np.int32)
+
+
 def build_index_tables(layout, device) -> IndexTables:
     """The tables of ``layout`` on ``device``: one host-to-device copy each,
     made here and never per call."""
@@ -79,7 +95,8 @@ def build_index_tables(layout, device) -> IndexTables:
     def put(x):
         return torch.from_numpy(x).to(device)
 
-    return IndexTables(layout, put(kidx), put(kcnt), put(qidx), put(qcnt))
+    return IndexTables(layout, put(kidx), put(kcnt), put(qidx), put(qcnt),
+                       put(row_order(kcnt)))
 
 
 @functools.cache
@@ -90,7 +107,7 @@ def _kernels():
     tail = [i32] * 7 + [ptr, f32, i32, i32, ptr]
     fwd, dq, dkv = (lib.ds_block_sparse_fwd, lib.ds_block_sparse_dq,
                     lib.ds_block_sparse_dkv)
-    fwd.argtypes = [ptr] * 7 + tail
+    fwd.argtypes = [ptr] * 7 + tail + [ptr]  # + the row order
     dq.argtypes = [ptr] * 9 + tail
     dkv.argtypes = [ptr] * 10 + tail
     for fn in (fwd, dq, dkv):
@@ -122,7 +139,9 @@ def _check(q, k, v, layout, block):
 
 
 def _check_card(q, block):
-    """What the kernels take; any other shape raises (no quiet fallback)."""
+    """What the kernels take; any other shape raises (no quiet fallback).
+    The grids: (B * H, T / min(block, 64)), and B5 at block 128 one
+    dimension of B * H * T / 128 blocks."""
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"the block-sparse kernels take {list(_DTYPE_CODES)}, "
                          f"not {q.dtype} (shape {tuple(q.shape)})")
@@ -132,7 +151,7 @@ def _check_card(q, block):
     if block not in BLOCKS:
         raise ValueError(f"block {block} is not one of {BLOCKS}")
     b, t, h, _ = q.shape
-    if b * h >= 2 ** 31 or t // min(block, 64) > 65535:
+    if b * h * (t // min(block, 64)) >= 2 ** 31 or t // min(block, 64) > 65535:
         raise ValueError(f"shape {tuple(q.shape)} exceeds the kernels' grid")
 
 
@@ -200,9 +219,10 @@ def block_sparse_attention_backward_reference(q, k, v, o, lse, do, layout, *,
     return tuple(x.transpose(1, 2).to(q.dtype) for x in (dq, dk, dv))
 
 
-def _call(fn, q, k, v, rows, block, causal, scale, *ptrs):
+def _call(fn, q, k, v, rows, block, causal, scale, *ptrs, tail=()):
     """One kernel over ``rows`` (kidx/kcnt or qidx/qcnt); ``ptrs`` are the
-    kernel's own pointer arguments between v and the tables."""
+    kernel's own pointer arguments between v and the tables, ``tail`` its
+    arguments after the stream."""
     b, t, h, d = q.shape
     idx, cnt = rows
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
@@ -212,7 +232,8 @@ def _call(fn, q, k, v, rows, block, causal, scale, *ptrs):
         return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs,
                   idx.data_ptr(), cnt.data_ptr(), idx.shape[-1], idx.shape[0],
                   block, b, t, h, d, ctypes.cast(strides, ctypes.c_void_p),
-                  float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype], stream)
+                  float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype], stream,
+                  *tail)
 
 
 def _launch_fwd(q, k, v, tables, block, causal, scale):
@@ -222,7 +243,8 @@ def _launch_fwd(q, k, v, tables, block, causal, scale):
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     err = _call(_kernels()[0], q, k, v, (tables.kidx, tables.kcnt),
-                block, causal, scale, o.data_ptr(), lse.data_ptr())
+                block, causal, scale, o.data_ptr(), lse.data_ptr(),
+                tail=(tables.korder.data_ptr(),))
     if err:
         raise RuntimeError(f"block-sparse forward kernel failed: CUDA error {err}")
     launches_sparse_fwd += 1

@@ -5,7 +5,11 @@ the public ``flash_attention`` :403).
 
 ``flash_attention_fwd`` launches ``csrc/flash_attention_fwd.cu`` (B1) and
 ``flash_attention_bwd`` the two kernels of ``csrc/flash_attention_bwd.cu``
-(B2: dq, B3: dk and dv) for CUDA tensors, or raises; for CPU tensors they
+(B2: dq, B3: dk and dv) for CUDA tensors, or raises. With 16-bit inputs at
+head dims 64 and 128 all three are Hopper kernels (wgmma, TMA loads, a
+producer warp and two consumer warpgroups); at 32, 80 and 96 they are the
+``mma.sync`` kernels, in f32 FMA kernels; the ``.cu`` entry points choose,
+and a refused launch raises. For CPU tensors they
 compute ``flash_attention_reference`` and ``flash_attention_backward_reference``,
 the plain PyTorch versions of the same functions. ``flash_attention`` ties
 them together in ``FlashAttentionFunction``, whose forward saves q, k, v, o

@@ -10,7 +10,8 @@ second products and both sides round o and the gradients to fp16 (11
 significant bits): o may differ by two fp16 ulps at |o| < 4 (atol 4e-3),
 gradients by 2e-3 of their largest entry; lse is f32 on both sides (1e-5).
 The cases cover the head dims of the models the card runs (D 64 and 128)
-and a T that is not a multiple of 128 (192).
+and T that are not a multiple of 128 (192, and 320 at D 128 with segments:
+the wgmma dq kernel's 128-row blocks end inside a block there).
 """
 
 import jax
@@ -35,7 +36,8 @@ TOL = {"float32": (ATOL, ATOL, ATOL), "float16": (4e-3, ATOL, 2e-3)}
 
 def _cases():
     """(causal, t, with_segments, head_dim, dtype) with their test ids: the
-    D 32 f32 grid keeps its ids; D 64 / 128, fp16 and T 192 are added."""
+    D 32 f32 grid keeps its ids; D 64 / 128, fp16 and T 192 and 320 are
+    added."""
     cases = [pytest.param(c, t, s, 32, "float32", id=f"{c}-{t}-{s}")
              for s in (False, True) for t in (64, 128) for c in (True, False)]
     for c, t, s, d, dt in [(True, 192, False, 64, "float32"),
@@ -44,7 +46,8 @@ def _cases():
                            (True, 192, True, 128, "float32"),
                            (False, 192, False, 128, "float32"),
                            (True, 192, False, 128, "float16"),
-                           (False, 128, True, 128, "float16")]:
+                           (False, 128, True, 128, "float16"),
+                           (True, 320, True, 128, "float16")]:
         cases.append(pytest.param(c, t, s, d, dt, id=f"{c}-{t}-{s}-d{d}-{dt}"))
     return cases
 

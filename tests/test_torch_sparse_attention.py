@@ -5,9 +5,19 @@ The same numpy inputs (B=2, T=64, H=2, D=16, block 16, as in
 port's kernel wrappers run their plain versions; the JAX side runs the
 Pallas kernels in interpret mode, as its own tests do. Layouts must be
 bit-identical; outputs agree within 2e-4 and gradients within 2e-3, the
-tolerances of the JAX package's kernel-against-dense tests.
+tolerances of the JAX package's kernel-against-dense tests. The same
+tolerances hold at the geometry of the card's wgmma forward (block 128, D
+64, T 1024, H 2: BigBird with one global, three window and one random
+block, shared and per-head, both directions), where lse (f32 on both sides)
+is held to 2e-4 too.
+
+B5 at block 128 takes the query blocks in the tables' row order, most
+active first; the order is checked over every layout family and
+BERT-Large's BigBird layout.
 """
 
+import functools
+import math
 import warnings
 
 import jax
@@ -16,8 +26,12 @@ import numpy as np
 import pytest
 import torch
 
+from jax.experimental import pallas as pl
+
 from deepspeed_tpu.ops import sparse_attention as jsa
+from deepspeed_tpu.ops.pallas.common import LSE_LANES
 from deepspeed_tpu.ops.sparse_attention import sparse_attention_utils as jutils
+from deepspeed_tpu.ops.sparse_attention import sparse_self_attention as jss
 from deepspeed_tpu_torch.ops import sparse_attention as tsa
 from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bsa
 from deepspeed_tpu_torch.ops.cuda.common import NEG_INF
@@ -364,3 +378,103 @@ def test_card_only_checks_name_the_shape():
     with pytest.raises(ValueError, match="covers"):
         bsa.block_sparse_fwd(q, q, q, bsa.build_index_tables(np.ones((1, 2, 2)), "cpu"),
                              block=16)
+
+
+# ---------------------------------------------------------------------------
+# the geometry of the card's B5 kernel: block 128, D 64, T 1024
+# ---------------------------------------------------------------------------
+GEO_B, GEO_T, GEO_H, GEO_D, GEO_BLOCK = 1, 1024, 2, 64, 128
+GEO_CONFIGS = {
+    "bigbird": dict(num_random_blocks=1, num_sliding_window_blocks=3, num_global_blocks=1),
+    "bigbird_per_head": dict(num_random_blocks=1, num_sliding_window_blocks=3,
+                             num_global_blocks=1, different_layout_per_head=True, seed=2),
+}
+
+
+def _jax_fwd_with_lse(q, k, v, layout, block, causal):
+    """o [B, T, H, D] and lse [B, H, T] from the Pallas forward kernel, as
+    ``_build_op``'s forward calls it."""
+    b, t, h, d = q.shape
+    kidx, n_k, _, _ = jss._build_index_tables(np.asarray(layout), h)
+    hk, nq, _, width_k = kidx.shape
+
+    def flat(x):
+        return jnp.asarray(x).transpose(0, 2, 1, 3).reshape(b * h, t, d)
+
+    o, lse = pl.pallas_call(
+        functools.partial(jss._fwd_kernel, scale=1.0 / math.sqrt(d), causal=causal,
+                          block=block, width_k=width_k, n_k=n_k),
+        grid=(b * h, nq),
+        in_specs=[pl.BlockSpec((None, block, d), lambda i, j: (i, j, 0)),
+                  pl.BlockSpec((None, t, d), lambda i, j: (i, 0, 0)),
+                  pl.BlockSpec((None, t, d), lambda i, j: (i, 0, 0)),
+                  pl.BlockSpec((None, None, jss.IDX_SUBLANES, width_k),
+                               lambda i, j: (i % hk, j, 0, 0))],
+        out_specs=[pl.BlockSpec((None, block, d), lambda i, j: (i, j, 0)),
+                   pl.BlockSpec((None, block, LSE_LANES), lambda i, j: (i, j, 0))],
+        out_shape=[jax.ShapeDtypeStruct((b * h, t, d), jnp.float32),
+                   jax.ShapeDtypeStruct((b * h, t, LSE_LANES), jnp.float32)],
+        interpret=jss._interpret(),
+    )(flat(q), flat(k), flat(v), jnp.asarray(kidx))
+    o = np.asarray(o).reshape(b, h, t, d).transpose(0, 2, 1, 3)
+    return o, np.asarray(lse)[..., 0].reshape(b, h, t)
+
+
+@pytest.mark.parametrize("attention", ["bidirectional", "unidirectional"])
+@pytest.mark.parametrize("name", sorted(GEO_CONFIGS))
+def test_block128_geometry_matches_pallas(name, attention):
+    """Forward, lse and gradients of the plain B5-B7 path against the
+    Pallas kernels at block 128, D 64, T 1024."""
+    kw = dict(GEO_CONFIGS[name], attention=attention)
+    jl = jsa.BigBirdSparsityConfig(num_heads=GEO_H, block=GEO_BLOCK, **kw).make_layout(GEO_T)
+    tl = tsa.BigBirdSparsityConfig(num_heads=GEO_H, block=GEO_BLOCK, **kw).make_layout(GEO_T)
+    np.testing.assert_array_equal(tl, jl)
+    causal = attention == "unidirectional"
+    rng = np.random.RandomState(90 + len(name) + causal)
+    q, k, v = (rng.randn(GEO_B, GEO_T, GEO_H, GEO_D).astype(np.float32) for _ in range(3))
+
+    o_jax, lse_jax = _jax_fwd_with_lse(q, k, v, jl, GEO_BLOCK, causal)
+    tables = bsa.build_index_tables(tl, "cpu")
+    o, lse = bsa.block_sparse_fwd(*_torch((q, k, v)), tables, block=GEO_BLOCK, causal=causal)
+    np.testing.assert_allclose(o.numpy(), o_jax, rtol=FWD_TOL, atol=FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), lse_jax, rtol=FWD_TOL, atol=FWD_TOL)
+
+    def loss(q, k, v):
+        return jnp.sum(jsa.block_sparse_attention(q, k, v, jl, block=GEO_BLOCK,
+                                                  causal=causal) ** 2)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    leaves = _torch((q, k, v), grad=True)
+    (tsa.block_sparse_attention(*leaves, tl, block=GEO_BLOCK, causal=causal) ** 2).sum().backward()
+    for n, w, x in zip("qkv", want, leaves):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(w), rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, err_msg=f"d{n}")
+
+
+# ---------------------------------------------------------------------------
+# B5's row order
+# ---------------------------------------------------------------------------
+def _bert_layout():
+    """BERT-Large's BigBird layout on the card's main path: [16, 32, 32]."""
+    return tsa.BigBirdSparsityConfig(num_heads=16, block=128, num_random_blocks=1,
+                                     num_sliding_window_blocks=3,
+                                     num_global_blocks=1).make_layout(4096)
+
+
+ORDER_LAYOUTS = [(IDS[i], i) for i in range(len(CONFIGS))] + [("bert_large_bigbird", None)]
+
+
+@pytest.mark.parametrize("i", [i for _, i in ORDER_LAYOUTS], ids=[n for n, _ in ORDER_LAYOUTS])
+def test_row_order_is_longest_first_over_every_row(i):
+    layout = _bert_layout() if i is None else _configs(i)[1].make_layout(4 * T)
+    counts = (layout != 0).sum(-1)
+    order = bsa.row_order(counts)
+    flat = counts.reshape(-1)
+    assert order.dtype == np.int32 and sorted(order.tolist()) == list(range(flat.size))
+    assert (np.diff(flat[order]) <= 0).all()
+    # ties keep the rows' own order
+    assert all(a < b for a, b in zip(order, order[1:]) if flat[a] == flat[b])
+    tables = bsa.build_index_tables(layout, "cpu")
+    assert torch.equal(tables.korder, torch.from_numpy(order))
+    if i is None:                      # each head's global row first
+        assert order[:16].tolist() == [32 * h for h in range(16)]
