@@ -12,7 +12,7 @@ Phases, each printing one JSON line:
 * ``build``: compiles every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc, one
   process per source, all started together; reports ptxas's registers and
   spill bytes per kernel, and reads ``cuobjdump -sass`` of the built
-  libraries: each wgmma kernel (B1, B2, B3, B5) must hold HGMMA (wgmma) and
+  libraries: each wgmma kernel (B1, B2, B3, B5, B6, B7) must hold HGMMA (wgmma) and
   UTMALDG (TMA loads) instructions, or the script fails.
 * ``kernel``: holds each kernel against its plain PyTorch version on the
   card, at the 1.3B shapes and at edge cases, and times the kernel, the
@@ -27,8 +27,9 @@ Phases, each printing one JSON line:
   64 and 128, bf16 and f32, causal and not, per-head layouts, rows that see
   no key, layouts with several long rows (also under causal),
   and BERT-Large's BigBird shape, where they are timed against SDPA under
-  the expanded mask, B5 also with its query blocks in row order instead of
-  longest first; the forward and the backward must be bit-reproducible).
+  the expanded mask, B5 and B6 also with their query blocks in row order
+  and B7 with its key blocks in column order instead of longest first; the
+  forward and the backward must be bit-reproducible).
 * ``serve``: GPT-2 1.3B at full width and depth (random weights, seed 0)
   through ``init_inference``: ``forward`` on [4, 1024] ids through the flash
   kernel, checked against the einsum path on the same weights, then
@@ -63,9 +64,21 @@ Phases, each printing one JSON line:
 Then the kernels line, nvidia-smi's line and, last, ``{"ok": true, ...}``.
 A failed check raises, and the script exits nonzero. It imports neither jax
 nor ``deepspeed_tpu``.
+
+``python3 chip_smoke.py --against DIR`` runs only the A/B of the backward
+kernels: DIR holds another checkout's ``deepspeed_tpu_torch/`` (for
+instance ``git archive <commit> deepspeed_tpu_torch | tar -x -C
+build/parent``), whose kernels are built beside this tree's; B2 and B3 (at
+GPT-2 1.3B's training shape, and at D 64 under segments) and B6 and B7 (at
+BERT-Large's BigBird shape) of both builds run on the same tensors in
+turns (other, this, this, other), timed by device time. B2's and B3's
+outputs must be bit-identical across the builds, B6's and B7's within
+``GRAD_REL_TOL`` of the plain backward; one JSON line per kernel and shape,
+then nvidia-smi's line.
 """
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -268,7 +281,9 @@ def phase_device():
 WGMMA_KERNELS = {"flash_attention_fwd": ("flash_fwd_wgmma_kernel",),
                  "flash_attention_bwd": ("bwd_dq_wgmma_kernel",
                                          "flash_bwd_dkv_wgmma_kernel"),
-                 "block_sparse_attention": ("sparse_fwd_wgmma_kernel",)}
+                 "block_sparse_attention": ("sparse_fwd_wgmma_kernel",
+                                            "sparse_dq_wgmma_kernel",
+                                            "sparse_dkv_wgmma_kernel")}
 
 
 def ptxas_by_kernel(log):
@@ -729,6 +744,9 @@ def check_block_sparse():
             attention="unidirectional")), 128, 2, 2048, 4, 64, bf16, True),
         ("band_full_rows_causal_b128_d64", band_full_rows, 128, 1, 2048, 4, 64, bf16,
          True),
+        # the mma.sync kernels at their largest block
+        ("fixed_causal_b64_d64", ("FixedSparsityConfig", dict(
+            num_local_blocks=4, attention="unidirectional")), 64, 2, 1024, 2, 64, bf16, True),
     ]
     worst = {}
     path = None
@@ -774,6 +792,7 @@ def check_block_sparse():
         if name.startswith("empty_row") or name.startswith("band_full_rows"):
             seen = lse_ref > 0.5 * NEG_INF
             line["empty_rows_zero"] = bool((o.float().transpose(1, 2)[~seen] == 0).all()
+                                           and (got[0].float().transpose(1, 2)[~seen] == 0).all()
                                            and (lse[~seen] == lse_ref[~seen]).all()
                                            and bool((~seen).any()))
             ok = ok and line["empty_rows_zero"]
@@ -793,6 +812,7 @@ def check_block_sparse():
 def time_block_sparse(path, worst):
     """B5, B6 and B7 at the path's shape against their bounds, plain
     versions, SDPA under the expanded mask and the gather path."""
+    import numpy as np
     import torch
     import torch.nn.functional as F
 
@@ -806,15 +826,33 @@ def time_block_sparse(path, worst):
     q, k, v, do, o, lse, layout, tables, block = path
     b, t, h, d = q.shape
     scale = d ** -0.5
-    # B5 with its rows longest first (the path's tables) and in row order,
-    # in turns: longest, row order, row order, longest
-    in_order = dataclasses.replace(tables, korder=torch.arange(
-        tables.korder.numel(), dtype=torch.int32, device=q.device))
-    order_t = {"longest_first": [], "row_order": []}
-    for key in ("longest_first", "row_order", "row_order", "longest_first"):
-        tab = tables if key == "longest_first" else in_order
-        order_t[key].append(device_ms(
-            lambda: bsa.block_sparse_fwd(q, k, v, tab, block=block))["ms"])
+    delta = bwd_delta(o, do)
+    args = (q, k, v, lse, delta, do)
+    # each kernel with its rows (B5, B6) or columns (B7) longest first (the
+    # path's tables) and in natural order, in turns: longest, natural,
+    # natural, longest
+    natural = dataclasses.replace(tables, **{
+        f: torch.arange(tables.korder.numel(), dtype=torch.int32, device=q.device)
+        for f in ("korder", "qorder")})
+    launch = {"fwd": lambda tab: bsa.block_sparse_fwd(q, k, v, tab, block=block),
+              "dq": lambda tab: bsa._launch_dq(*args, tab, block, False, scale),
+              "dkv": lambda tab: bsa._launch_dkv(*args, tab, block, False, scale)}
+    order_t = {key: {"longest_first": [], "natural": []} for key in launch}
+    for key, fn in launch.items():
+        for which in ("longest_first", "natural", "natural", "longest_first"):
+            tab = tables if which == "longest_first" else natural
+            order_t[key][which].append(device_ms(lambda: fn(tab))["ms"])
+    # the makespan probe: each kernel on the layout's longest rows and
+    # columns alone (BigBird's global row and column of each head), the
+    # same inputs; a time close to the whole layout's says those blocks set
+    # the kernel's time
+    active = layout != 0
+    longest = np.zeros_like(active)
+    for hl, lay in enumerate(active):
+        rows, cols = lay.sum(1) == lay.sum(1).max(), lay.sum(0) == lay.sum(0).max()
+        longest[hl][rows], longest[hl][:, cols] = lay[rows], lay[:, cols]
+    alone = bsa.build_index_tables(longest.astype(np.int64), q.device)
+    longest_alone_ms = {key: device_ms(lambda: fn(alone))["ms"] for key, fn in launch.items()}
 
     def fwd():
         bsa.block_sparse_fwd(q, k, v, tables, block=block)
@@ -836,10 +874,8 @@ def time_block_sparse(path, worst):
     lookup_us = (time.perf_counter() - t0) / 1000 * 1e6
     fwd_plain_ms = device_ms(lambda: bsa.block_sparse_attention_reference(
         q, k, v, layout, block=block), iters=5)["ms"]
-    delta = bwd_delta(o, do)
-    args = (q, k, v, lse, delta, do, tables, block, False, scale)
-    for key, fn in (("dq", lambda: bsa._launch_dq(*args)),
-                    ("dkv", lambda: bsa._launch_dkv(*args))):
+    for key in ("dq", "dkv"):
+        fn = functools.partial(launch[key], tables)
         dev_t[key], event[key] = device_ms(fn), cuda_ms(fn)
     fwd_ms, dq_ms, dkv_ms = (dev_t[k]["ms"] for k in ("fwd", "dq", "dkv"))
     bwd_plain_ms = device_ms(lambda: bsa.block_sparse_attention_backward_reference(
@@ -873,15 +909,15 @@ def time_block_sparse(path, worst):
              max(worst["dk"], worst["dv"]), bwd_plain_ms, sdpa_bwd_ms)):
         bound_ms, bound_by = _bound(n_ops, nbytes, "bfloat16")
         entry = {"name": name, "route": "cuda",
-                 "variant": "wgmma" if key == "fwd" else "mma.sync", "source": source,
+                 "variant": bsa.kernel_variant(q.dtype, block), "source": source,
                  "replaces": replaces + str(line_no), "launches": None,
                  "max_abs_err": err, "ms": ms, "plain_ms": plain,
                  "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
                  "tflops_per_s": n_ops / ms / 1e9, "event_ms": event[key]}
-        if key == "fwd":
-            # rows stay whole (no global-row split); the longest go first
-            entry.update(split=False, longest_first_ms=order_t["longest_first"],
-                         row_order_ms=order_t["row_order"])
+        # rows (columns for B7) stay whole, no split; the longest go first
+        entry.update(split=False, longest_first_ms=order_t[key]["longest_first"],
+                     natural_order_ms=order_t[key]["natural"],
+                     longest_alone_ms=longest_alone_ms[key])
         entries.append(entry)
         emit({"phase": "kernel", "kernel": name, "case": "bert_large_bigbird_4096",
               "timing": entry, "device_time": dev_t[key], "flops": n_ops,
@@ -892,6 +928,7 @@ def time_block_sparse(path, worst):
           "sdpa_masked_ms": {"fwd": sdpa_fwd_ms, "bwd": sdpa_bwd_ms,
                              "fwd_bwd": sdpa_fwd_bwd_ms},
           "kernels_fwd_bwd_ms": fwd_ms + dq_ms + dkv_ms,
+          "longest_alone_tiles": int(longest.sum()),
           "fwd_wrapper_host_us_per_call": host_us,
           "tables_lookup_host_us_per_call": lookup_us,
           "gather_fwd_ms": gather_ms,
@@ -1460,9 +1497,186 @@ def phase_small_train():
         raise AssertionError(f"small_train: {line}")
 
 
-def main():
+# ---------------------------------------------------------------------------
+# --against DIR: the backward kernels of this tree against another build
+# ---------------------------------------------------------------------------
+def _other_build(root):
+    """The other checkout's ``ops/cuda/build.py``, loaded from its own file:
+    it builds that checkout's sources into that checkout's ``build/``."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(root) / "deepspeed_tpu_torch" / "ops" / "cuda" / "build.py"
+    spec = importlib.util.spec_from_file_location("other_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _build_both(other):
+    """Builds both trees' libraries at once; raises if either fails.
+    Returns ptxas's registers and spill bytes of each build's backward
+    wgmma kernels."""
+    import threading
+
+    from deepspeed_tpu_torch.ops.cuda import build
+
+    errors, logs = [], {}
+
+    def run(who, mod):
+        try:
+            logs[who] = mod.build()
+        except Exception as e:  # reported after both builds ended
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=w)
+               for w in (("this", build), ("other", other))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    return {who: {name: info for lib in ("flash_attention_bwd", "block_sparse_attention")
+                  if lib in built
+                  for name, info in ptxas_by_kernel(built[lib]["log"]).items()
+                  if "dq_wgmma" in name or "dkv_wgmma" in name}
+            for who, built in logs.items()}
+
+
+def _twin(other, lib_name, fn):
+    """``fn`` of the other build's library ``lib_name``, with this tree's
+    argument types. A trailing argument that the other build does not
+    declare (the block-sparse order pointer) is left unread by it."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(other.library_path(lib_name)))
+    twin = getattr(lib, fn.__name__)
+    twin.argtypes, twin.restype = fn.argtypes, fn.restype
+    return twin
+
+
+def _in_turns(run_other, run_this):
+    """Device ms of both, other, this, this, other."""
+    times = {"other": [], "this": []}
+    for who in ("other", "this", "this", "other"):
+        times[who].append(device_ms(run_other if who == "other" else run_this)["ms"])
+    return times, statistics.mean(times["this"]) / statistics.mean(times["other"])
+
+
+def ab_flash(other):
+    """B2 and B3 of both builds at GPT-2 1.3B's training shape, causal, and
+    at [2, 1024, 16, 64] under packed segments, bf16: outputs must be
+    bit-identical."""
     import torch
 
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+
+    dq_fn, dkv_fn = fa._bwd_kernels()
+    pairs = {"flash_dq": (_twin(other, "flash_attention_bwd", dq_fn), dq_fn, 1),
+             "flash_dkv": (_twin(other, "flash_attention_bwd", dkv_fn), dkv_fn, 2)}
+    gen = torch.Generator().manual_seed(30)
+    ok = True
+    for b, t, h, d, packed in ((4, 1024, 16, 128, False), (2, 1024, 16, 64, True)):
+        qkv = torch.randn((b, t, 3 * h * d), generator=gen).to("cuda", torch.bfloat16)
+        q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+        seg = _segments(b, t, gen, "cuda") if packed else None
+        do = torch.randn((b, t, h, d), generator=gen).to("cuda", torch.bfloat16)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True, segment_ids=seg)
+        delta = fa.bwd_delta(o, do)
+        for name, (fn_other, fn_this, n_out) in pairs.items():
+            outs = {w: [torch.empty_like(q) for _ in range(n_out)] for w in ("other", "this")}
+
+            def call(fn, who):
+                err = fa._bwd_call(fn, q, k, v, lse, delta, do, seg, True, d ** -0.5,
+                                   outs[who])
+                if err:
+                    raise RuntimeError(f"{name} ({who}) failed: CUDA error {err}")
+
+            call(fn_other, "other")
+            call(fn_this, "this")
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(outs["other"], outs["this"]))
+            times, ratio = _in_turns(lambda: call(fn_other, "other"),
+                                     lambda: call(fn_this, "this"))
+            ok = ok and same
+            emit({"phase": "against", "kernel": name, "shape": [b, t, h, d],
+                  "causal": True, "segments": packed, "bit_identical": same,
+                  "other_ms": times["other"], "this_ms": times["this"],
+                  "this_over_other": ratio})
+    return ok
+
+
+def ab_sparse(other):
+    """B6 and B7 of both builds at BERT-Large's BigBird shape, block 128,
+    bf16, each against the plain backward (GRAD_REL_TOL)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bsa
+
+    dq_fn, dkv_fn = bsa._kernels()[1:3]
+    b, t, h, d, block = 1, 4096, 16, 64, 128
+    layout = _sparse_config("BigBirdSparsityConfig", h, block, num_random_blocks=1,
+                            num_sliding_window_blocks=3,
+                            num_global_blocks=1).make_layout(t)
+    tables = bsa.build_index_tables(layout, "cuda")
+    gen = torch.Generator().manual_seed(31)
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen).to("cuda", torch.bfloat16)
+    q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+    do = torch.randn((b, t, h, d), generator=gen).to("cuda", torch.bfloat16)
+    o, lse = bsa.block_sparse_fwd(q, k, v, tables, block=block)
+    want = dict(zip(("dq", "dk", "dv"), bsa.block_sparse_attention_backward_reference(
+        q, k, v, o, lse, do, layout, block=block)))
+    delta = bsa.bwd_delta(o, do)
+    ok = True
+    for name, fn_this, rows, grads in (
+            ("sparse_dq", dq_fn, bsa._rows(tables), ("dq",)),
+            ("sparse_dkv", dkv_fn, bsa._columns(tables), ("dk", "dv"))):
+        fn_other = _twin(other, "block_sparse_attention", fn_this)
+        outs = {w: [torch.empty_like(q) for _ in grads] for w in ("other", "this")}
+
+        def call(fn, who):
+            err = bsa._call(fn, q, k, v, rows, block, False, d ** -0.5, do.data_ptr(),
+                            lse.data_ptr(), delta.data_ptr(),
+                            *(x.data_ptr() for x in outs[who]))
+            if err:
+                raise RuntimeError(f"{name} ({who}) failed: CUDA error {err}")
+
+        call(fn_other, "other")
+        call(fn_this, "this")
+        torch.cuda.synchronize()
+        errs = {who: {g: _rel_err(x, want[g]) for g, x in zip(grads, outs[who])}
+                for who in outs}
+        times, ratio = _in_turns(lambda: call(fn_other, "other"),
+                                 lambda: call(fn_this, "this"))
+        ok = ok and all(e <= GRAD_REL_TOL["bfloat16"]
+                        for per in errs.values() for e in per.values())
+        emit({"phase": "against", "kernel": name, "shape": [b, t, h, d], "block": block,
+              "this_variant": bsa.kernel_variant(q.dtype, block), "grad_rel_err": errs,
+              "other_ms": times["other"], "this_ms": times["this"],
+              "this_over_other": ratio})
+    return ok
+
+
+def phase_against(root):
+    """The backward kernels (B2, B3, B6, B7) of this tree against those of
+    the checkout at ``root``, built beside them, on the same tensors, in
+    turns. Returns False if a check failed."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    other = _other_build(root)
+    emit({"phase": "against", "other": str(root), "ptxas": _build_both(other)})
+    ok = ab_flash(other)
+    return ab_sparse(other) and ok
+
+
+def main(argv):
+    import torch
+
+    if len(argv) not in (1, 3) or (len(argv) == 3 and argv[1] != "--against"):
+        print(f"usage: {argv[0]} [--against OTHER_CHECKOUT]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
@@ -1473,6 +1687,10 @@ def main():
         print(f"chip_smoke: run it from a checkout of the repository ({e})",
               file=sys.stderr)
         return 1
+    if len(argv) == 3:
+        ok = phase_against(argv[2])
+        print(nvidia_smi_line(), flush=True)
+        return 0 if ok else 1
     smi = phase_device()
     phase_build()
     kernels = phase_kernel()
@@ -1501,4 +1719,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv))

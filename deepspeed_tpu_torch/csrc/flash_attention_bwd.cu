@@ -22,6 +22,13 @@
 // diagonal to the end. Every output element is written by exactly one block
 // in a fixed order, so gradients are bit-reproducible.
 //
+// B2's consumer pass at D = 64 and 128 lives in flash_bwd_pass.cuh
+// (`dq_pass`), shared with the block-sparse dQ (B6), which walks an index
+// table instead of the causal range. B3 keeps its own consumer body: called
+// through a shared function, the same code spilled 580 instead of 516 bytes
+// at D 128 and ran 5-9% slower (chip_smoke.py --against), so the block-sparse
+// dK/dV (B7) has its own copy of it.
+//
 // B2, 16-bit inputs at D = 64 and 128 (`bwd_dq_wgmma_kernel`), B3's design
 // turned around:
 // * One block = 128 query rows of one (batch, head) and three warpgroups. A
@@ -90,6 +97,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_bwd_pass.cuh"
 #include "hopper.cuh"
 #include "mma_sm80.cuh"
 
@@ -101,8 +109,7 @@ using ds_mma::ld32;
 using ds_mma::ld_col2;
 using ds_mma::load_tile16;
 using namespace ds_hopper;
-
-constexpr float LOG2E = 1.4426950408889634f;
+using namespace ds_bwd;
 
 struct Params {
   const void* q;
@@ -274,26 +281,6 @@ __global__ void __launch_bounds__(MMA_THREADS)
 }
 
 // B3 at D = 64 and 128: wgmma + TMA, warp-specialised (see the top note).
-constexpr int WG_BK = 128;       // keys per block: two consumers x 64
-constexpr int WG_BQ = 64;        // query rows per streamed tile
-constexpr int WG_QH = 32;        // query columns per pass over a tile
-constexpr int WG_STAGES = 2;     // Q/dO tiles in flight
-constexpr int WG_THREADS = 384;  // producer warpgroup + two consumer warpgroups
-
-// byte offsets from the 1024-aligned start of dynamic shared memory
-template <int D>
-struct DkvLayout {
-  static constexpr int kKV = WG_BK * D * 2;  // the K (and the V) tile
-  static constexpr int kQ = WG_BQ * D * 2;   // one Q (and one dO) tile
-  static constexpr int kK = 0;
-  static constexpr int kV = kK + kKV;
-  static constexpr int kStage = kV + kKV;    // stage s: Q, then dO
-  // [stage][lse * log2 e, delta, segment id][row]
-  static constexpr int kRows = kStage + WG_STAGES * 2 * kQ;
-  static constexpr int kBar = kRows + WG_STAGES * 3 * WG_BQ * 4;  // kv, full[], empty[]
-  static constexpr int kBytes = kBar + 8 * (1 + 2 * WG_STAGES) + 1024;  // + align
-};
-
 template <typename Op, int D>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -493,25 +480,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 }
 
-// B2 at D = 64 and 128: wgmma + TMA, warp-specialised (see the top note).
-constexpr int DQ_BM = 128;  // query rows per block: two consumers x 64
-constexpr int DQ_BN = 128;  // keys per K/V tile
-constexpr int DQ_KH = 64;   // keys per pass over a tile
-
-// byte offsets from the 1024-aligned start of dynamic shared memory
-template <int D>
-struct DqLayout {
-  static constexpr int kTile = DQ_BN * D * 2;  // one K or V tile
-  static constexpr int kQ = 0;
-  static constexpr int kDO = kQ + DQ_BM * D * 2;
-  static constexpr int kKV = kDO + DQ_BM * D * 2;  // stage s: K, then V
-  // [lse * log2 e, delta][row]
-  static constexpr int kRows = kKV + WG_STAGES * 2 * kTile;
-  static constexpr int kSeg = kRows + 2 * DQ_BM * 4;  // [stage][key] ids
-  static constexpr int kBar = kSeg + WG_STAGES * DQ_BN * 4;  // q, full[], empty[]
-  static constexpr int kBytes = kBar + 8 * (1 + 2 * WG_STAGES) + 1024;  // + align
-};
-
+// B2 at D = 64 and 128: wgmma + TMA, warp-specialised (see the top note);
+// the consumer pass is ds_bwd::dq_pass (flash_bwd_pass.cuh).
 template <typename Op, int D>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -636,63 +606,17 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         if (causal && kp > first_row + 63) continue;
         const bool masked =
             has_seg || kp + DQ_KH > T || (causal && kp + DQ_KH - 1 > first_row);
-        // S = Q K^T and dP = dO V^T over the pass's keys
-        const uint64_t first = (hk * DQ_KH * 128) >> 4;  // its first key row
-        const uint64_t qd = opaque(q_desc), dd = opaque(do_desc);
-        const uint64_t kd = opaque(desc_sw128(ka, 16, 1024)) + first;
-        const uint64_t vd = opaque(desc_sw128(va, 16, 1024)) + first;
-        float sc[DQ_KH / 2], dp[DQ_KH / 2];
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          wgmma_ss<DQ_KH, Op::kF16>(sc, qd + kmajor_step(DQ_BM, kk),
-                                    kd + kmajor_step(DQ_BN, kk), kk > 0);
-        }
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          wgmma_ss<DQ_KH, Op::kF16>(dp, dd + kmajor_step(DQ_BM, kk),
-                                    vd + kmajor_step(DQ_BN, kk), kk > 0);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();  // also retires the previous pass's dQ products
-        fence_regs(sc);
-        fence_regs(dp);
-        if (release >= 0) {
-          if (t == 0) mbar_arrive(bar_empty + 8 * release);
-          release = -1;
-        }
-
-        // P = exp2(S scale log2 e - lse log2 e), exactly 0 where masked;
-        // dS = P (dP - delta). Element 4 jn + e sits at row r0 + 8 (e >> 1).
-#pragma unroll
-        for (int jn = 0; jn < DQ_KH / 8; ++jn) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = 4 * jn + e;
-            float pr = exp2f(sc[i] * sl2 - lse2[e >> 1]);
-            if (masked) {
-              const int kl = hk * DQ_KH + jn * 8 + tq * 2 + (e & 1);
-              const bool ok = kl <= last[e >> 1] && (!has_seg || tseg[kl] == qseg[e >> 1]);
-              pr = ok ? pr : 0.f;
-            }
-            sc[i] = pr * (dp[i] - delta[e >> 1]);
-          }
-        }
-        // dQ += dS K: dS rounded to the input type and re-packed from the
-        // accumulator as the A fragments; K read with the transpose bit
-        uint32_t dsa[DQ_KH / 16][4];
-#pragma unroll
-        for (int kk = 0; kk < DQ_KH / 16; ++kk) {
-#pragma unroll
-          for (int r = 0; r < 4; ++r) dsa[kk][r] = Op::pack(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-        }
-        const uint64_t kt = opaque(desc_sw128(ka, DQ_BN * 128, 1024));
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < DQ_KH / 16; ++kk) {
-          wgmma_rs<D, Op::kF16>(dq, dsa[kk], kt + mnmajor_step(hk * DQ_KH / 16 + kk));
-        }
-        wgmma_commit();
+        dq_pass<Op, D>(
+            dq, q_desc, do_desc, ka, va, hk, sl2, lse2, delta, tq, masked,
+            [&](int kl, int e) {
+              return kl <= last[e >> 1] && (!has_seg || tseg[kl] == qseg[e >> 1]);
+            },
+            [&] {
+              if (release >= 0) {
+                if (t == 0) mbar_arrive(bar_empty + 8 * release);
+                release = -1;
+              }
+            });
       }
       release = s;
     }

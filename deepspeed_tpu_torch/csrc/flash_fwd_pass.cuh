@@ -30,14 +30,11 @@ namespace ds_fwd {
 using namespace ds_hopper;
 using ds_mma::NEG_INF;
 
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-constexpr int WG_BM = 128;       // query rows per block: two consumers x 64
-constexpr int WG_BN = 128;       // keys per K/V tile
-constexpr int WG_KH = 64;        // keys per softmax pass over a tile
-constexpr int WG_STAGES = 2;     // K/V tiles in flight
-constexpr int WG_THREADS = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int WG_BM = 128;  // query rows per block: two consumers x 64
+constexpr int WG_BN = 128;  // keys per K/V tile
+constexpr int WG_KH = 64;   // keys per softmax pass over a tile
 
 // byte offsets from the 1024-aligned start of dynamic shared memory
 template <int D>

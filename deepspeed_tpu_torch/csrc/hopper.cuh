@@ -29,6 +29,13 @@
 
 namespace ds_hopper {
 
+// the warp-specialised kernels' common shape: a producer warpgroup and two
+// consumer warpgroups, a two-stage ring of tiles
+constexpr int WG_STAGES = 2;     // tiles in flight
+constexpr int WG_THREADS = 384;  // producer warpgroup + two consumer warpgroups
+
+constexpr float LOG2E = 1.4426950408889634f;
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

@@ -9,10 +9,13 @@ CPU tensors they compute ``block_sparse_attention_reference`` and
 ``block_sparse_attention_backward_reference``, full-matrix f32 versions of
 the same functions under the block-expanded layout mask. The kernels read the
 layout through compact index tables (``IndexTables``, built once per layout
-and device by ``build_index_tables``). B5 at block 128 in bf16 is a Hopper
-kernel (wgmma, TMA, warp specialisation, the flash forward's pass) that
-takes the query blocks with the most active blocks first (``row_order``);
-the other blocks, f32, and B6/B7 keep the ``mma.sync`` and FMA kernels.
+and device by ``build_index_tables``). At block 128 in bf16 all three are
+Hopper kernels (wgmma, TMA, warp specialisation) on the flash kernels'
+consumer passes: B5 on the forward's, B6 and B7 on the backward's. They
+take the table rows (B5, B6: query blocks) or columns (B7: key blocks) with
+the most active blocks first (``row_order``: ``korder``, ``qorder``). The
+other blocks keep the ``mma.sync`` kernels and f32 the FMA kernels
+(``kernel_variant`` says which runs).
 ``BlockSparseAttentionFunction`` ties them together; its forward saves q, k,
 v, o and lse. Layout is the model's ``[batch, seq, heads, head_dim]``; lse is
 ``[batch, heads, seq]`` f32.
@@ -49,7 +52,9 @@ class IndexTables:
     in ascending order (-1 past ``kcnt`` [HL, nq]), ``qidx``/``qcnt`` the same
     for each key-block column. Head h reads table h % HL. ``korder``
     [HL * nq] int32 lists the row tables' rows (hl * nq + q-block) longest
-    first: the order in which the forward at block 128 takes them."""
+    first, the order in which B5 and B6 at block 128 take them; ``qorder``
+    [HL * nk] the column tables' columns (hl * nk + k-block) longest first,
+    B7's order."""
 
     layout: np.ndarray
     kidx: torch.Tensor
@@ -57,6 +62,7 @@ class IndexTables:
     qidx: torch.Tensor
     qcnt: torch.Tensor
     korder: torch.Tensor
+    qorder: torch.Tensor
 
 
 def active_lists(rows: np.ndarray):
@@ -74,10 +80,10 @@ def active_lists(rows: np.ndarray):
 
 
 def row_order(counts):
-    """The rows of a [HL, nq] table of active counts, flattened to
-    hl * nq + q-block, most active first (ties in row order): launched in
-    this order, a BigBird global row starts at once and the band rows fill
-    the tail of the grid."""
+    """The rows of a [HL, n] table of active counts, flattened to
+    hl * n + block, most active first (ties in row order): launched in this
+    order, a BigBird global row (or column) starts at once and the band
+    rows fill the tail of the grid."""
     flat = np.asarray(counts).reshape(-1)
     return np.argsort(-flat, kind="stable").astype(np.int32)
 
@@ -96,23 +102,38 @@ def build_index_tables(layout, device) -> IndexTables:
         return torch.from_numpy(x).to(device)
 
     return IndexTables(layout, put(kidx), put(kcnt), put(qidx), put(qcnt),
-                       put(row_order(kcnt)))
+                       put(row_order(kcnt)), put(row_order(qcnt)))
 
 
 @functools.cache
 def _kernels():
     lib = load_library("block_sparse_attention")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # width, HL, block, B, T, H, D, strides, scale, causal, dtype, stream
-    tail = [i32] * 7 + [ptr, f32, i32, i32, ptr]
-    fwd, dq, dkv = (lib.ds_block_sparse_fwd, lib.ds_block_sparse_dq,
-                    lib.ds_block_sparse_dkv)
-    fwd.argtypes = [ptr] * 7 + tail + [ptr]  # + the row order
+    # width, HL, block, B, T, H, D, strides, scale, causal, dtype, stream,
+    # and the row (or column) order
+    tail = [i32] * 7 + [ptr, f32, i32, i32, ptr, ptr]
+    fwd, dq, dkv, variant = (lib.ds_block_sparse_fwd, lib.ds_block_sparse_dq,
+                             lib.ds_block_sparse_dkv, lib.ds_block_sparse_variant)
+    fwd.argtypes = [ptr] * 7 + tail
     dq.argtypes = [ptr] * 9 + tail
     dkv.argtypes = [ptr] * 10 + tail
-    for fn in (fwd, dq, dkv):
+    variant.argtypes = [i32, i32]
+    for fn in (fwd, dq, dkv, variant):
         fn.restype = i32
-    return fwd, dq, dkv
+    return fwd, dq, dkv, variant
+
+
+_VARIANTS = {0: "fma", 1: "mma.sync", 2: "wgmma"}
+
+
+def kernel_variant(dtype, block):
+    """The design the kernels launch at ``block`` for ``dtype``, as the C
+    dispatch decides it: "wgmma" (wgmma + TMA + warp specialisation),
+    "mma.sync" or "fma". Builds the library on first use."""
+    code = _kernels()[3](block, _DTYPE_CODES[dtype])
+    if code not in _VARIANTS:
+        raise ValueError(f"no block-sparse kernel for block {block} and {dtype}")
+    return _VARIANTS[code]
 
 
 def _check(q, k, v, layout, block):
@@ -140,7 +161,7 @@ def _check(q, k, v, layout, block):
 
 def _check_card(q, block):
     """What the kernels take; any other shape raises (no quiet fallback).
-    The grids: (B * H, T / min(block, 64)), and B5 at block 128 one
+    The grids: (B * H, T / min(block, 64)), and at block 128 in bf16 one
     dimension of B * H * T / 128 blocks."""
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"the block-sparse kernels take {list(_DTYPE_CODES)}, "
@@ -219,12 +240,12 @@ def block_sparse_attention_backward_reference(q, k, v, o, lse, do, layout, *,
     return tuple(x.transpose(1, 2).to(q.dtype) for x in (dq, dk, dv))
 
 
-def _call(fn, q, k, v, rows, block, causal, scale, *ptrs, tail=()):
-    """One kernel over ``rows`` (kidx/kcnt or qidx/qcnt); ``ptrs`` are the
-    kernel's own pointer arguments between v and the tables, ``tail`` its
-    arguments after the stream."""
+def _call(fn, q, k, v, rows, block, causal, scale, *ptrs):
+    """One kernel over ``rows`` (kidx, kcnt and korder, or qidx, qcnt and
+    qorder); ``ptrs`` are the kernel's own pointer arguments between v and
+    the tables."""
     b, t, h, d = q.shape
-    idx, cnt = rows
+    idx, cnt, order = rows
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
     with torch.cuda.device(q.device):
@@ -233,7 +254,15 @@ def _call(fn, q, k, v, rows, block, causal, scale, *ptrs, tail=()):
                   idx.data_ptr(), cnt.data_ptr(), idx.shape[-1], idx.shape[0],
                   block, b, t, h, d, ctypes.cast(strides, ctypes.c_void_p),
                   float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype], stream,
-                  *tail)
+                  order.data_ptr())
+
+
+def _rows(tables):
+    return tables.kidx, tables.kcnt, tables.korder
+
+
+def _columns(tables):
+    return tables.qidx, tables.qcnt, tables.qorder
 
 
 def _launch_fwd(q, k, v, tables, block, causal, scale):
@@ -242,9 +271,8 @@ def _launch_fwd(q, k, v, tables, block, causal, scale):
     b, t, h, d = q.shape
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    err = _call(_kernels()[0], q, k, v, (tables.kidx, tables.kcnt),
-                block, causal, scale, o.data_ptr(), lse.data_ptr(),
-                tail=(tables.korder.data_ptr(),))
+    err = _call(_kernels()[0], q, k, v, _rows(tables), block, causal, scale,
+                o.data_ptr(), lse.data_ptr())
     if err:
         raise RuntimeError(f"block-sparse forward kernel failed: CUDA error {err}")
     launches_sparse_fwd += 1
@@ -255,9 +283,8 @@ def _launch_dq(q, k, v, lse, delta, do, tables, block, causal, scale):
     """B6 alone, from a precomputed ``delta`` [B, H, T] f32."""
     global launches_sparse_dq
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    err = _call(_kernels()[1], q, k, v, (tables.kidx, tables.kcnt),
-                block, causal, scale, do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dq.data_ptr())
+    err = _call(_kernels()[1], q, k, v, _rows(tables), block, causal, scale,
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
     if err:
         raise RuntimeError(f"block-sparse dq kernel failed: CUDA error {err}")
     launches_sparse_dq += 1
@@ -269,9 +296,9 @@ def _launch_dkv(q, k, v, lse, delta, do, tables, block, causal, scale):
     global launches_sparse_dkv
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
               for _ in range(2))
-    err = _call(_kernels()[2], q, k, v, (tables.qidx, tables.qcnt),
-                block, causal, scale, do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    err = _call(_kernels()[2], q, k, v, _columns(tables), block, causal,
+                scale, do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dk.data_ptr(), dv.data_ptr())
     if err:
         raise RuntimeError(f"block-sparse dkv kernel failed: CUDA error {err}")
     launches_sparse_dkv += 1

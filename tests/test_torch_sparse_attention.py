@@ -354,7 +354,13 @@ def test_index_tables_and_their_bounded_cache():
             assert bool((tables.kidx[h, r, n:] == -1).all())
             n = int(tables.qcnt[h, r])
             assert tables.qidx[h, r, :n].tolist() == np.nonzero(layout[h, :, r])[0].tolist()
+            assert bool((tables.qidx[h, r, n:] == -1).all())
     assert tables.kidx.dtype == torch.int32 and tables.kidx.shape[0] == H
+    # the grid orders: every row (korder) and every column (qorder) once
+    nb = T // BLOCK
+    for order, cnt in ((tables.korder, tables.kcnt), (tables.qorder, tables.qcnt)):
+        assert order.dtype == torch.int32 and sorted(order.tolist()) == list(range(H * nb))
+        assert torch.equal(order, torch.from_numpy(bsa.row_order(cnt.numpy())))
     tss._OP_CACHE.clear()
     assert tss._build_index_tables(layout, H, BLOCK, "cpu") is \
         tss._build_index_tables(layout, H, BLOCK, "cpu")
@@ -452,7 +458,7 @@ def test_block128_geometry_matches_pallas(name, attention):
 
 
 # ---------------------------------------------------------------------------
-# B5's row order
+# The grid orders: B5 and B6 take the rows, B7 the columns, longest first
 # ---------------------------------------------------------------------------
 def _bert_layout():
     """BERT-Large's BigBird layout on the card's main path: [16, 32, 32]."""
@@ -476,5 +482,11 @@ def test_row_order_is_longest_first_over_every_row(i):
     assert all(a < b for a, b in zip(order, order[1:]) if flat[a] == flat[b])
     tables = bsa.build_index_tables(layout, "cpu")
     assert torch.equal(tables.korder, torch.from_numpy(order))
-    if i is None:                      # each head's global row first
+    # B7's column order: the same rule over the column counts
+    col_counts = (layout != 0).sum(-2)
+    assert torch.equal(tables.qorder, torch.from_numpy(bsa.row_order(col_counts)))
+    col_flat = col_counts.reshape(-1)
+    assert (np.diff(col_flat[tables.qorder.numpy()]) <= 0).all()
+    if i is None:                      # each head's global row and column first
         assert order[:16].tolist() == [32 * h for h in range(16)]
+        assert tables.qorder[:16].tolist() == [32 * h for h in range(16)]
