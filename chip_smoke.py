@@ -34,19 +34,32 @@ Phases, each printing one JSON line:
   through ``init_inference``: ``forward`` on [4, 1024] ids through the flash
   kernel, checked against the einsum path on the same weights, then
   ``generate`` of 32 greedy tokens for 4 ragged prompts. The kernels' launch
-  counts are set to 0 just before this phase and read just after it.
+  counts are set to 0 just before this phase and read just after it. Then
+  the decode graphs (``decode_chunk`` 32: runs of 16, 8, 4, 2 and 1 steps,
+  one CUDA graph each) against eager decode (every step uncaptured, chunk
+  1), greedy and sampled from the same generator seed, over the warm-up,
+  capturing and replaying calls: the tokens must be identical; decode ms
+  per token from the graphs and from eager decode.
 * ``profile``: the card's time by kernel in one traced forward and one
-  traced generate (torch.profiler), and in ``train`` and ``sparse_train``,
-  one traced step.
+  traced generate (torch.profiler), and in ``train`` and ``sparse_train``
+  one traced step, a graph replay: its card-busy share, and the count of
+  each kernel in the trace, which must equal the launches per step.
 * ``small``: a small fp32 GPT on the card, whose greedy ``generate`` must
-  equal an argmax rollout of the full forward, token for token.
+  equal an argmax rollout of the full forward, token for token, and whose
+  decode graphs must give eager decode's tokens (as in ``serve``).
 * ``train`` (the training slice's main path): GPT-2 1.3B at full width and
   depth through ``initialize`` with ``benchmarks/gpt_pretrain.py``'s
-  config (bf16, full remat, flash, FusedAdam on B4, micro batch 4 x 1024),
-  one step checked against the einsum path on the same weights, then 2
-  warm-up and 8 measured steps on one repeated batch: the loss must fall,
-  and each step must launch B1 48, B2 24, B3 24 and B4 1 times (counts set
-  to 0 just before the 10 steps and read just after).
+  config (bf16, full remat, flash, FusedAdam on B4, micro batch 4 x 1024):
+  one step on the einsum path from the same seed's weights, checked against
+  the flash step; then 12 steps through ``train_batch`` on one repeated
+  batch, the first 2 the capture's warm-up and the other 10 replays of the
+  step's CUDA graph, against 12 steps of a second engine from the same seed
+  whose step function is called uncaptured (the engines run one after the
+  other): losses, grad norms and final parameters must be identical, the
+  loss must fall, and each step must launch B1 48, B2 24, B3 24 and B4 1
+  times (counts set to 0 just before the 12 captured steps and read just
+  after; a replay counts the launches its capture saw). Median step ms of
+  both runs.
 * ``sparse_train`` (the block-sparse slice's main path): BERT-Large at full
   width and depth, max positions 4096, through ``initialize`` with
   ``benchmarks/sparse_attention_bench.py``'s config and its BigBird block
@@ -54,9 +67,16 @@ Phases, each printing one JSON line:
   batch 1 x 4096, no attention mask): one step on each of the gather and
   dense implementations from the same weights must agree with the kernels'
   step in loss, global gradient norm and the attention ``qkv`` weights'
-  gradients, then 2 warm-up and 8 measured steps: the loss must fall, and each
-  step must launch B5 48, B6 24, B7 24 and B4 1 times; then a traced step.
-  The gather and dense steps are timed too (median of 3 after the first).
+  gradients; then 12 captured steps against 12 uncaptured ones, as in
+  ``train``: identical, the loss must fall, and each step must launch B5
+  48, B6 24, B7 24 and B4 1 times; then a traced replay. The gather and
+  dense steps are timed too (median of 3 after the first; captured too).
+* ``small_capture``: captured against uncaptured steps of small GPTs:
+  fp16 with a loss scale of 2^26, whose gradients overflow past the
+  capture's warm-up (each skipped step must halve the scale and keep the
+  optimizer's count, and replays must both skip and update), and bf16 with
+  gradient accumulation 2 (the micro-step and apply graphs); identical
+  losses, grad norms, scales, counts and parameters, exact launches.
 * ``small_train``: a small fp32 GPT trained 3 steps on the card (B1-B4) and
   on the CPU (plain versions) from the same weights and batches; losses and
   parameters must agree.
@@ -66,12 +86,13 @@ A failed check raises, and the script exits nonzero. It imports neither jax
 nor ``deepspeed_tpu``.
 
 ``python3 chip_smoke.py --against DIR`` runs only the A/B of the backward
-kernels: DIR holds another checkout's ``deepspeed_tpu_torch/`` (for
-instance ``git archive <commit> deepspeed_tpu_torch | tar -x -C
-build/parent``), whose kernels are built beside this tree's; B2 and B3 (at
-GPT-2 1.3B's training shape, and at D 64 under segments) and B6 and B7 (at
-BERT-Large's BigBird shape) of both builds run on the same tensors in
-turns (other, this, this, other), timed by device time. B2's and B3's
+kernels and of the fused AdamW: DIR holds another checkout's
+``deepspeed_tpu_torch/`` (for instance ``git archive <commit>
+deepspeed_tpu_torch | tar -x -C build/parent``), whose kernels are built
+beside this tree's; B2 and B3 (at GPT-2 1.3B's training shape, and at D 64
+under segments), B6 and B7 (at BERT-Large's BigBird shape) and B4 (over
+GPT-2 1.3B's parameters) of both builds run on the same tensors in turns
+(other, this, this, other), timed by device time. B2's, B3's and B4's
 outputs must be bit-identical across the builds, B6's and B7's within
 ``GRAD_REL_TOL`` of the plain backward; one JSON line per kernel and shape,
 then nvidia-smi's line.
@@ -592,8 +613,10 @@ def check_flash_backward(cases, sdpa_bwd):
 
 def check_fused_adamw():
     """B4 against its plain version over GPT-2 1.3B's parameter shapes (bf16
-    p and g, f32 m and v) for 3 steps; then times the kernel, the plain
-    version and torch.optim.AdamW(fused=True) on f32 copies."""
+    p and g, f32 m and v) for 3 steps, lr, c1 and c2 read from a device
+    buffer, then one step with the buffer's skip flag set, which must change
+    nothing; then times the kernel, the plain version and
+    torch.optim.AdamW(fused=True) on f32 copies."""
     import torch
 
     from deepspeed_tpu_torch.models.transformer_lm import GPT, gpt2_config
@@ -613,10 +636,17 @@ def check_fused_adamw():
     refs = [[x.clone() for x in xs] for xs in (ps, ms, vs)]
     hyper = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
     for step in (1, 2, 3):
-        fadam.fused_adamw_update(ps, gs, ms, vs, 2e-4, step, **hyper)
-        fadam.fused_adamw_reference(*refs[:1], gs, *refs[1:], 2e-4, step,
-                                    **hyper)
+        scalars = fadam.adamw_scalars(2e-4, step, 0.9, 0.95, dev)
+        fadam.fused_adamw_apply(ps, gs, ms, vs, scalars, **hyper)
+        fadam.fused_adamw_reference(*refs[:1], gs, *refs[1:], scalars, **hyper)
+    # the skip flag set: the kernel must leave p, m and v alone
+    before = [[x.clone() for x in xs] for xs in (ps, ms, vs)]
+    fadam.fused_adamw_apply(ps, gs, ms, vs, fadam.adamw_scalars(
+        2e-4, 4, 0.9, 0.95, dev, skip=True), **hyper)
     torch.cuda.synchronize()
+    skip_untouched = all(torch.equal(a, b) for xs, ys in zip(before, (ps, ms, vs))
+                         for a, b in zip(xs, ys))
+    del before
     n = sum(p.numel() for p in ps)
     moved = sum(int((b != a).sum()) for a, b in zip(p0, refs[0])) / n
     identical = {name: all(torch.equal(a, b) for a, b in zip(xs, ys))
@@ -627,18 +657,23 @@ def check_fused_adamw():
     line = {"phase": "kernel", "kernel": "fused_adamw", "case": "gpt2_1p3b_leaves",
             "tensors": len(shapes), "elements": n, "steps": 3,
             "bit_identical": identical, "p_max_abs_err": max_abs,
-            "p_moved_share": moved, "min_moved_share": ADAMW_MIN_MOVED}
+            "p_moved_share": moved, "min_moved_share": ADAMW_MIN_MOVED,
+            "skip_flag_leaves_all_unchanged": skip_untouched}
     emit(line)
-    if not (all(identical.values()) and moved >= ADAMW_MIN_MOVED):
+    if not (all(identical.values()) and moved >= ADAMW_MIN_MOVED
+            and skip_untouched):
         raise AssertionError(f"fused_adamw: {line}")
     del refs, p0
+    # lr, c1 and c2 from a device buffer written once, as a step's are
+    scalars = fadam.adamw_scalars(2e-4, 4, 0.9, 0.95, dev)
+
     def step():
-        fadam.fused_adamw_update(ps, gs, ms, vs, 2e-4, 4, **hyper)
+        fadam.fused_adamw_apply(ps, gs, ms, vs, scalars, **hyper)
 
     dev_t = device_ms(step, iters=10)
     ms_, event_ms = dev_t["ms"], cuda_ms(step, iters=10)
     plain_ms = device_ms(lambda: fadam.fused_adamw_reference(
-        ps, gs, ms, vs, 2e-4, 4, **hyper), iters=3, warmup=1)["ms"]
+        ps, gs, ms, vs, scalars, **hyper), iters=3, warmup=1)["ms"]
     del ms, vs
     # the yardstick: torch's fused AdamW needs one dtype for p, g, m and v
     p32 = [torch.nn.Parameter(p.float()) for p in ps]
@@ -991,10 +1026,13 @@ def phase_serve():
 
     forward_ms = wall_ms(lambda: engine(ids))
     fa.launches = 0
+    decode = compare_decode(engine, prompts, mask)
     gen1_ms = wall_ms(lambda: engine.generate(prompts, max_new_tokens=1,
                                               attention_mask=mask), reps=3)
     gen32_ms = wall_ms(lambda: engine.generate(prompts, max_new_tokens=32,
                                                attention_mask=mask), reps=3)
+    eager32_ms = wall_ms(lambda: eager_generate(engine, prompts, 32, mask),
+                         reps=3)
     line = {"phase": "serve", "model": "gpt2-1.3b",
             "params": num_params(cfg), "dtype": "bf16", "init_s": init_s,
             "forward_shape": [4, 1024], "forward_launches": forward_launches,
@@ -1006,6 +1044,9 @@ def phase_serve():
             "prompt_lengths": lengths, "new_tokens": 32,
             "prefill_ms": gen1_ms,
             "decode_ms_per_token": (gen32_ms - gen1_ms) / 31,
+            "eager_decode_ms_per_token": (eager32_ms - gen1_ms) / 31,
+            "decode_chunk": engine.decode_chunk,
+            "decode_graphs_vs_eager": decode,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     emit(line)
     if not (top1 >= SERVE_TOP1_MIN and diff <= SERVE_MAX_ABS_LOGIT_DIFF):
@@ -1013,8 +1054,41 @@ def phase_serve():
             f"flash vs einsum logits: top-1 agreement {top1} (min "
             f"{SERVE_TOP1_MIN}), max abs diff {diff} (max "
             f"{SERVE_MAX_ABS_LOGIT_DIFF})")
+    if not decode["identical"]:
+        raise AssertionError(f"decode graphs against eager decode: {decode}")
     phase_profile(engine, ids, prompts, mask)
     return launches
+
+
+def eager_generate(engine, prompts, n, mask=None, temperature=0.0):
+    """``generate`` with every decode step called uncaptured, one token
+    per run (decode_chunk 1)."""
+    chunk, engine.decode_chunk = engine.decode_chunk, 1
+    try:
+        return engine._generate(prompts, n, temperature, mask, eager=True)
+    finally:
+        engine.decode_chunk = chunk
+
+
+def compare_decode(engine, prompts, mask=None, n=32, seed=7):
+    """Tokens of ``generate(n)`` from the decode graphs against eager
+    decode, greedy and sampled (temperature 0.8, the engine's generator
+    seeded alike before each), over three calls: a run length's first use
+    runs uncaptured (the warm-up), its second captures, later ones
+    replay."""
+    out = {}
+    for name, temp in (("greedy", 0.0), ("sampled", 0.8)):
+        calls = []
+        for _ in range(3):
+            engine._generator.manual_seed(seed)
+            calls.append(engine.generate(prompts, max_new_tokens=n,
+                                         temperature=temp,
+                                         attention_mask=mask))
+        engine._generator.manual_seed(seed)
+        eager = eager_generate(engine, prompts, n, mask, temp)
+        out[name] = [bool((c == eager).all()) for c in calls]
+    out["identical"] = all(all(v) for v in out.values())
+    return out
 
 
 def _trace(fn):
@@ -1030,11 +1104,12 @@ def _trace(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms_ = (time.perf_counter() - t0) * 1e3
-    by_name, n = {}, 0
+    by_name, count, n = {}, {}, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
+            count[e.name] = count.get(e.name, 0) + 1
             n += 1
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
@@ -1044,20 +1119,20 @@ def _trace(fn):
             "device_busy_share": device_ms / wall_ms_,
             "top_ms": [[name[:90], ms] for name, ms in top],
             "host_top_self_ms": [[a.key[:60], a.self_cpu_time_total / 1e3, a.count]
-                                 for a in host]}, by_name
+                                 for a in host]}, by_name, count
 
 
 def phase_profile(engine, ids, prompts, mask):
     """Where the card's time goes in one traced forward and one traced
     8-token generate (tracing slows the host, so wall times here read high)."""
-    fwd, by_name = _trace(lambda: engine(ids))
+    fwd, by_name, _ = _trace(lambda: engine(ids))
     flash_ms = sum(ms for name, ms in by_name.items()
                    if "flash_fwd_" in name)
     fwd["flash_ms"] = flash_ms
     fwd["flash_share_of_device"] = (flash_ms / fwd["device_ms"]
                                     if fwd["device_ms"] else None)
-    gen, _ = _trace(lambda: engine.generate(prompts, max_new_tokens=8,
-                                            attention_mask=mask))
+    gen, _, _ = _trace(lambda: engine.generate(prompts, max_new_tokens=8,
+                                               attention_mask=mask))
     emit({"phase": "profile", "forward_4x1024": fwd,
           "generate_4_prompts_8_tokens": gen})
 
@@ -1083,33 +1158,131 @@ def phase_small():
         cur = torch.cat([cur, nxt[:, None]], dim=1)
     expect = torch.stack(expect, dim=1)
     same = bool(torch.equal(toks, expect))
-    emit({"phase": "small", "tokens_identical_to_rollout": same})
+    decode = compare_decode(engine, ids)
+    emit({"phase": "small", "tokens_identical_to_rollout": same,
+          "decode_graphs_vs_eager": decode})
     if not same:
         raise AssertionError(f"cached decode {toks.tolist()} != rollout "
                              f"{expect.tolist()}")
-
-
-def _counters():
-    from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bsa
-    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
-    from deepspeed_tpu_torch.ops.cuda import fused_adam as fadam
-
-    return {"flash_attention_fwd": (fa, "launches"),
-            "flash_attention_bwd_dq": (fa, "launches_dq"),
-            "flash_attention_bwd_dkv": (fa, "launches_dkv"),
-            "fused_adamw": (fadam, "launches"),
-            "block_sparse_fwd": (bsa, "launches_sparse_fwd"),
-            "block_sparse_dq": (bsa, "launches_sparse_dq"),
-            "block_sparse_dkv": (bsa, "launches_sparse_dkv")}
+    if not decode["identical"]:
+        raise AssertionError(f"decode graphs against eager decode: {decode}")
 
 
 def reset_launches():
-    for mod, attr in _counters().values():
-        setattr(mod, attr, 0)
+    from deepspeed_tpu_torch.runtime import compiled_step
+
+    compiled_step.reset_launch_counts()
 
 
 def read_launches():
-    return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
+    """Every kernel's launches since the last reset: wrapper calls, plus,
+    for each replay of a CUDA graph, the launches its capture saw."""
+    from deepspeed_tpu_torch.runtime import compiled_step
+
+    return compiled_step.launch_counts()
+
+
+def free_cuda():
+    """Drop what the last phase left (engines and their graphs sit in
+    reference cycles: each step function is a bound method of its engine)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_steps(engine, it, n, eager=False):
+    """``n`` fenced ``train_batch`` steps (``eager``: the step functions
+    called uncaptured). Returns the losses and the grad norms (tensors) and
+    the host ms of each step."""
+    import torch
+
+    losses, norms, times = [], [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(engine._train_batch(it, eager=eager))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        norms.append(engine._last_grad_norm)
+    return losses, norms, times
+
+
+def identical(xs, ys):
+    """Whether two lists of tensors (or of None) are equal bit for bit."""
+    import torch
+
+    return len(xs) == len(ys) and all(
+        (x is None and y is None) or (x is not None and y is not None
+                                      and torch.equal(x, y))
+        for x, y in zip(xs, ys))
+
+
+def first_difference(a, b):
+    """The first name whose tensors differ in two state dicts, and the
+    largest difference there (None when they are equal)."""
+    import torch
+
+    for name, x in a.items():
+        y = b[name]
+        if not torch.equal(x, y):
+            return {"tensor": name,
+                    "max_abs_diff": float((x.float() - y.float()).abs().max())}
+    return None
+
+
+def captured_against_eager(make_engine, batches, steps, traced=None):
+    """The captured steps against the uncaptured ones: ``steps`` steps of a
+    fresh engine from ``make_engine()`` through ``train_batch`` (its first
+    steps warm the capture up, the rest replay graphs), then as many of a
+    second engine from the same seed with its step functions called
+    directly. ``traced(engine, data_iter)``, when given, runs on the
+    captured engine after its steps (a traced replay). The first engine is
+    freed before the second is built. Returns the comparison, the captured
+    run's launches, losses, grad norms and host ms, and the eager run's
+    losses and host ms."""
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    reset_launches()
+    engine = make_engine()
+    it = iter(RepeatingLoader(batches))
+    losses, norms, times = train_steps(engine, it, steps)
+    launches = read_launches()
+    graphs = {name: [dict(g.launches, replays=g.replays)
+                     for g in getattr(engine, name).graphs.values()]
+              for name in ("_fused", "_micro", "_apply")}
+    params = {k: v.clone() for k, v in engine.module.state_dict().items()}
+    result = {"captured_graph_launches": graphs,
+              "loss_scale": engine.loss_scale,
+              "optimizer_count": engine.optimizer.count}
+    if traced is not None:
+        traced(engine, it)
+    del engine, it
+    free_cuda()
+    eager = make_engine()
+    e_losses, e_norms, e_times = train_steps(
+        eager, iter(RepeatingLoader(batches)), steps, eager=True)
+    e_params = eager.module.state_dict()
+    diff = first_difference(params, e_params)
+    result.update(
+        losses_identical=identical(losses, e_losses),
+        grad_norms_identical=identical(norms, e_norms),
+        params_identical=diff is None, first_param_difference=diff,
+        eager_loss_scale=eager.loss_scale,
+        eager_optimizer_count=eager.optimizer.count)
+    del eager, e_params, params
+    free_cuda()
+    result["identical"] = (result["losses_identical"]
+                           and result["grad_norms_identical"]
+                           and result["params_identical"]
+                           and result["loss_scale"] == result["eager_loss_scale"]
+                           and result["optimizer_count"]
+                           == result["eager_optimizer_count"])
+    return (result, launches, [float(x) for x in losses],
+            [None if x is None else float(x) for x in norms], times,
+            [float(x) for x in e_losses], e_times)
 
 
 def gpt_flops_per_token(cfg, seq):
@@ -1137,21 +1310,33 @@ GPT_PRETRAIN_CONFIG = {
     "steps_per_print": 10 ** 9,
     "tpu": {"use_pallas_optimizer": True},
 }
-WARMUP_STEPS, MEASURED_STEPS = 2, 8
+# train_batch steps of each training run: the engine's capture warm-up
+# steps (CompiledStep's default, 2: real steps, uncaptured), then 10 graph
+# replays, the first of which follows the capture
+CAPTURE_WARMUP, CAPTURED_STEPS = 2, 10
+STEPS = CAPTURE_WARMUP + CAPTURED_STEPS
 PER_STEP = {"flash_attention_fwd": 48, "flash_attention_bwd_dq": 24,
             "flash_attention_bwd_dkv": 24, "fused_adamw": 1}
 
 
+def step_medians(times, e_times):
+    """Median host ms of the captured run's replays after the capture step,
+    and of the eager run's steps after as many."""
+    return (statistics.median(times[CAPTURE_WARMUP + 1:]),
+            statistics.median(e_times[CAPTURE_WARMUP + 1:]))
+
+
 def phase_train():
     """GPT-2 1.3B through initialize -> train_batch, the training slice's
-    main path. Returns the kernels' launch counts on it."""
+    main path: one step on the einsum path, then 12 captured steps (2
+    warm-up, 10 replays) against 12 uncaptured ones from the same seed.
+    Returns the kernels' launch counts on the captured run."""
     import numpy as np
     import torch
 
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.transformer_lm import (
         GPT, gpt2_config, num_params)
-    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
 
     def model(flash):
         return GPT(gpt2_config(
@@ -1159,52 +1344,54 @@ def phase_train():
             param_dtype=torch.bfloat16, remat=True, remat_policy="full",
             use_flash_attention=flash))
 
-    torch.cuda.empty_cache()
+    def engine(flash=True):
+        return deepspeed_tpu_torch.initialize(
+            model=model(flash), config=GPT_PRETRAIN_CONFIG, seed=0)[0]
+
+    free_cuda()
     t0 = time.perf_counter()
-    engine, _, _, _ = deepspeed_tpu_torch.initialize(
-        model=model(True), config=GPT_PRETRAIN_CONFIG, seed=0)
+    einsum = engine(flash=False)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    cfg = engine.module.config
+    cfg = einsum.module.config
     rng = np.random.RandomState(1)
     ids = rng.randint(0, cfg.vocab_size, size=(4, 1024)).astype(np.int64)
     batch = {"input_ids": ids, "labels": ids}
-    it = iter(RepeatingLoader([batch]))
 
-    # one step on the einsum path from the same weights and batch
-    weights = {k: v.clone() for k, v in engine.module.state_dict().items()}
-    einsum, _, _, _ = deepspeed_tpu_torch.initialize(
-        model=model(False), config=GPT_PRETRAIN_CONFIG,
-        model_parameters=weights)
+    # one step on the einsum path from the same seed's weights and batch
     loss_e = float(einsum.train_batch(iter([batch])))
     gnorm_e = einsum.get_global_grad_norm()
-    del einsum, weights
-    torch.cuda.empty_cache()
+    del einsum
+    free_cuda()
 
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    losses, times = [], []
-    for step in range(WARMUP_STEPS + MEASURED_STEPS):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        loss = engine.train_batch(it)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t1) * 1e3)
-        losses.append(float(loss))
-        if step == 0:
-            loss_f, gnorm_f = losses[0], engine.get_global_grad_norm()
-    launches = read_launches()
-    steps = WARMUP_STEPS + MEASURED_STEPS
-    ms = statistics.median(times[WARMUP_STEPS:])
+    traces = {}
+    check, launches, losses, norms, times, e_losses, e_times = \
+        captured_against_eager(
+            engine, [batch], STEPS,
+            traced=lambda eng, it: traces.update(profile_step(
+                eng, it, "train_step_1p3b",
+                {"flash_attention_fwd": "flash_fwd_",
+                 "flash_attention_bwd_dq": "bwd_dq_",
+                 "flash_attention_bwd_dkv": "bwd_dkv_",
+                 "fused_adamw": "adamw_kernel"}, PER_STEP)))
+    loss_f, gnorm_f = losses[0], norms[0]
+    ms, eager_ms = step_medians(times, e_times)
     fpt = gpt_flops_per_token(cfg, 1024)
     tflops = 4 * 1024 * fpt / ms / 1e9
     line = {"phase": "train", "model": "gpt2-1.3b", "params": num_params(cfg),
             "config": GPT_PRETRAIN_CONFIG, "batch": [4, 1024],
-            "init_s": init_s, "losses": losses,
+            "init_s": init_s, "losses": losses, "eager_losses": e_losses,
             "flash_vs_einsum": {"loss": [loss_f, loss_e],
                                 "grad_norm": [gnorm_f, gnorm_e]},
-            "launches": launches, "steps": steps,
+            "captured_vs_eager": check,
+            "launches": launches, "steps": STEPS,
+            "capture_warmup_steps": CAPTURE_WARMUP,
             "step_ms_median": ms, "step_ms": times,
+            "eager_step_ms_median": eager_ms, "eager_step_ms": e_times,
+            "capture_step_ms": times[CAPTURE_WARMUP],
+            "traced_replay_device_busy_share":
+                traces["train_step_1p3b"]["device_busy_share"],
             "tokens_per_s": 4 * 1024 / ms * 1e3,
             "model_flops_per_token": fpt, "model_tflops_per_s": tflops,
             "mfu_vs_989": tflops / 989.0,
@@ -1216,34 +1403,42 @@ def phase_train():
     if not losses[-1] <= losses[0] - TRAIN_MIN_LOSS_DROP:
         problems.append(f"loss did not fall by {TRAIN_MIN_LOSS_DROP}")
     for name, per in PER_STEP.items():
-        if launches[name] != per * steps:
+        if launches[name] != per * STEPS:
             problems.append(f"{name}: {launches[name]} launches, want "
-                            f"{per} x {steps}")
+                            f"{per} x {STEPS}")
     if abs(loss_f - loss_e) > TRAIN_LOSS_REL_TOL * abs(loss_e):
         problems.append("flash and einsum losses disagree")
     if abs(gnorm_f - gnorm_e) > TRAIN_GNORM_REL_TOL * abs(gnorm_e):
         problems.append("flash and einsum grad norms disagree")
+    if not check["identical"]:
+        problems.append("captured and eager steps differ")
+    problems += traces["train_step_1p3b"]["problems"]
     if problems:
         raise AssertionError(f"train: {problems}")
-    profile_step(engine, it, "train_step_1p3b",
-                 {"B1": "flash_fwd_", "B2": "bwd_dq_", "B3": "bwd_dkv_",
-                  "B4": "adamw_kernel"})
-    del engine
-    torch.cuda.empty_cache()
     return launches
 
 
-def profile_step(engine, it, name, marks):
-    """Where the card's time goes in one traced train step; ``marks`` maps
-    each kernel to a substring of its name."""
-    step, by_name = _trace(lambda: engine.train_batch(it))
+def profile_step(engine, it, name, marks, per_step):
+    """Where the card's time goes in one traced train step (a graph replay
+    on a captured engine); ``marks`` maps each kernel to a substring of its
+    name. The profiler's count of each kernel must equal ``per_step``
+    (the cross-check of the launch counts). Returns ``{name: summary}``,
+    with a list of ``problems``."""
+    step, by_name, count = _trace(lambda: engine.train_batch(it))
     step["kernel_ms"] = {k: sum(ms for name, ms in by_name.items() if mark in name)
                          for k, mark in marks.items()}
     step["kernel_share_of_device"] = {
         k: v / step["device_ms"] for k, v in step["kernel_ms"].items()}
+    step["kernel_launches_traced"] = {
+        k: sum(n for name, n in count.items() if mark in name)
+        for k, mark in marks.items()}
     step["copy_kernels_ms"] = sum(ms for name, ms in by_name.items()
                                   if "copy" in name)
+    step["problems"] = [
+        f"{k}: the trace saw {n} launches, want {per_step[k]}"
+        for k, n in step["kernel_launches_traced"].items() if n != per_step[k]]
     emit({"phase": "profile", name: step})
+    return {name: step}
 
 
 # benchmarks/sparse_attention_bench.py:30-41 at its defaults (seq 4096,
@@ -1322,16 +1517,16 @@ def qkv_grads(model, batch):
 
 def phase_sparse_train():
     """BERT-Large under BigBird at 4096 through initialize -> train_batch,
-    this slice's main path: one step each on the gather and dense
-    implementations from the same weights (then the median of 3 more as
-    their step time), then 2 warm-up and 8 measured steps on the kernels
-    (B5-B7, B4). Returns the kernels' launch counts."""
+    the block-sparse slice's main path: one step each on the gather and
+    dense implementations from the same weights (then the median of 3 more
+    as their step time), then 12 captured steps on the kernels (B5-B7, B4;
+    2 warm-up, 10 replays) against 12 uncaptured ones from the same seed.
+    Returns the kernels' launch counts on the captured run."""
     import numpy as np
     import torch
 
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.bert import BertForPreTraining, bert_config
-    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
 
     cfg = bert_config("bert-large", dtype=torch.bfloat16, scan_layers=True,
                       remat=True, remat_policy="full",
@@ -1341,22 +1536,28 @@ def phase_sparse_train():
         return dict(BERT_SPARSE_CONFIG,
                     sparse_attention=dict(BIGBIRD_BLOCK, kernel=kernel))
 
-    torch.cuda.empty_cache()
+    def engine():
+        return deepspeed_tpu_torch.initialize(
+            model=BertForPreTraining(cfg), config=config("pallas"), seed=0)[0]
+
+    free_cuda()
     t0 = time.perf_counter()
-    engine, _, _, _ = deepspeed_tpu_torch.initialize(
-        model=BertForPreTraining(cfg), config=config("pallas"), seed=0)
+    first = engine()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    sc = engine.module.config.sparse_attention
+    sc = first.module.config.sparse_attention
     rng = np.random.RandomState(1)
     ids = rng.randint(0, cfg.vocab_size, size=(1, SPARSE_SEQ)).astype(np.int64)
     labels = np.where(rng.rand(1, SPARSE_SEQ) < 0.15, ids, -100).astype(np.int64)
     # no attention_mask: with one, the kernel route takes the dense path
     batch = {"input_ids": ids, "labels": labels}
-    it = iter(RepeatingLoader([batch]))
 
-    weights = {k: v.clone() for k, v in engine.module.state_dict().items()}
-    grads = qkv_grads(engine.module, batch)
+    weights = {k: v.clone() for k, v in first.module.state_dict().items()}
+    grads = qkv_grads(first.module, batch)
+    layout = sc.make_layout(SPARSE_SEQ)
+    fpt = bert_flops_per_token(first.module, layout, sc.block)
+    n_params = sum(p.numel() for p in first.module.parameters())
+    del first
     others, other_ms, qkv_err = {}, {}, {}
     for kernel in ("gather", "dense"):
         # a copy each: the engine takes the tensors it is given as its
@@ -1368,44 +1569,47 @@ def phase_sparse_train():
                            for n, g in qkv_grads(other.module, batch).items()}
         others[kernel] = [float(other.train_batch(iter([batch]))),
                           other.get_global_grad_norm()]
-        # then the implementation's step time (the first step above warmed it)
+        # then the implementation's step time (the first step above warmed
+        # it; its later steps replay its captured step)
         other_ms[kernel] = wall_ms(lambda: other.train_batch(iter([batch])),
                                    reps=SPARSE_OTHER_STEPS)
         del other
-        torch.cuda.empty_cache()
+        free_cuda()
     del weights, grads
 
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    losses, times = [], []
-    for step in range(WARMUP_STEPS + MEASURED_STEPS):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        loss = engine.train_batch(it)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t1) * 1e3)
-        losses.append(float(loss))
-        if step == 0:
-            gnorm = engine.get_global_grad_norm()
-    launches = read_launches()
-    steps = WARMUP_STEPS + MEASURED_STEPS
-    ms = statistics.median(times[WARMUP_STEPS:])
-    layout = sc.make_layout(SPARSE_SEQ)
-    fpt = bert_flops_per_token(engine.module, layout, sc.block)
+    traces = {}
+    check, launches, losses, norms, times, e_losses, e_times = \
+        captured_against_eager(
+            engine, [batch], STEPS,
+            traced=lambda eng, it: traces.update(profile_step(
+                eng, it, "sparse_train_step_bert_large",
+                {"block_sparse_fwd": "sparse_fwd_",
+                 "block_sparse_dq": "sparse_dq_",
+                 "block_sparse_dkv": "sparse_dkv_",
+                 "fused_adamw": "adamw_kernel"}, SPARSE_PER_STEP)))
+    gnorm = norms[0]
+    ms, eager_ms = step_medians(times, e_times)
     tflops = SPARSE_SEQ * fpt / ms / 1e9
+    trace = traces["sparse_train_step_bert_large"]
     line = {"phase": "sparse_train", "model": "bert-large",
-            "params": sum(p.numel() for p in engine.module.parameters()),
+            "params": n_params,
             "config": BERT_SPARSE_CONFIG, "batch": [1, SPARSE_SEQ],
             "layout": type(sc).__name__, "active_tiles": int((layout[0] != 0).sum()),
             "labelled_tokens": int((labels != -100).sum()),
-            "init_s": init_s, "losses": losses,
+            "init_s": init_s, "losses": losses, "eager_losses": e_losses,
             "kernels_vs_gather_vs_dense": {
                 "loss": [losses[0], others["gather"][0], others["dense"][0]],
                 "grad_norm": [gnorm, others["gather"][1], others["dense"][1]],
                 "qkv_grad_rel_l2": qkv_err,
                 "qkv_grad_rel_tol": SPARSE_QKV_GRAD_REL_TOL},
-            "launches": launches, "steps": steps,
+            "captured_vs_eager": check,
+            "launches": launches, "steps": STEPS,
+            "capture_warmup_steps": CAPTURE_WARMUP,
             "step_ms_median": ms, "step_ms": times,
+            "eager_step_ms_median": eager_ms, "eager_step_ms": e_times,
+            "capture_step_ms": times[CAPTURE_WARMUP],
+            "traced_replay_device_busy_share": trace["device_busy_share"],
             "gather_step_ms_median": other_ms["gather"],
             "dense_step_ms_median": other_ms["dense"],
             "tokens_per_s": SPARSE_SEQ / ms * 1e3,
@@ -1419,9 +1623,9 @@ def phase_sparse_train():
     if not losses[-1] <= losses[0] - SPARSE_MIN_LOSS_DROP:
         problems.append(f"loss did not fall by {SPARSE_MIN_LOSS_DROP}")
     for name, per in SPARSE_PER_STEP.items():
-        if launches[name] != per * steps:
+        if launches[name] != per * STEPS:
             problems.append(f"{name}: {launches[name]} launches, want "
-                            f"{per} x {steps}")
+                            f"{per} x {STEPS}")
     for kernel, (loss_o, gnorm_o) in others.items():
         if abs(losses[0] - loss_o) > SPARSE_LOSS_REL_TOL * abs(loss_o):
             problems.append(f"kernel and {kernel} losses disagree")
@@ -1430,14 +1634,109 @@ def phase_sparse_train():
         for n, err in qkv_err[kernel].items():
             if not err <= SPARSE_QKV_GRAD_REL_TOL:
                 problems.append(f"kernel and {kernel} {n} gradients disagree")
+    if not check["identical"]:
+        problems.append("captured and eager steps differ")
+    problems += trace["problems"]
     if problems:
         raise AssertionError(f"sparse_train: {problems}")
-    profile_step(engine, it, "sparse_train_step_bert_large",
-                 {"B5": "sparse_fwd_", "B6": "sparse_dq_", "B7": "sparse_dkv_",
-                  "B4": "adamw_kernel"})
-    del engine
-    torch.cuda.empty_cache()
     return launches
+
+
+# a small fp16 GPT whose loss scale starts far too high: its gradients
+# overflow until the scale has halved enough, past the capture's warm-up
+# steps, so replayed steps are skipped too
+SMALL_FP16_SCALE_POWER = 26
+SMALL_CAPTURE_STEPS = 16
+
+
+def phase_small_capture():
+    """Captured steps against uncaptured ones on small models: fp16 with
+    dynamic loss scaling whose replayed steps overflow (each skipped step
+    must halve the scale and keep the optimizer's count), and gradient
+    accumulation 2 (the micro-step and apply graphs). Losses, grad norms,
+    loss scales, counts and parameters must be identical."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import GPT, GPTConfig
+
+    rng = np.random.RandomState(6)
+    batches = [{"input_ids": x, "labels": x}
+               for x in rng.randint(0, 512, size=(2, 2, 128))]
+    base = {"train_micro_batch_size_per_gpu": 2, "gradient_clipping": 1.0,
+            "optimizer": {"type": "FusedAdam",
+                          "params": {"lr": SMALL_LR, "weight_decay": 0.1}},
+            "steps_per_print": 10 ** 9, "tpu": {"use_pallas_optimizer": True}}
+    runs = {
+        "fp16_overflow": (torch.float16, dict(base, fp16={
+            "enabled": True, "initial_scale_power": SMALL_FP16_SCALE_POWER,
+            "hysteresis": 1}), SMALL_CAPTURE_STEPS),
+        "bf16_gas2": (torch.bfloat16, dict(base, bf16={"enabled": True},
+                                           gradient_accumulation_steps=2), 8),
+    }
+    problems = []
+    for name, (dtype, config, steps) in runs.items():
+        cfg = GPTConfig(vocab_size=512, n_positions=128, n_embd=256,
+                        n_layer=2, n_head=4, dtype=dtype,
+                        use_flash_attention=True)
+        history = []
+
+        def make_engine():
+            eng = deepspeed_tpu_torch.initialize(model=GPT(cfg), config=config,
+                                                 seed=5)[0]
+            history.append([])
+            real = eng._train_batch
+
+            def logged(it, eager=False):
+                out = real(it, eager=eager)
+                history[-1].append((eng.loss_scale, eng.skipped_steps,
+                                    eng.optimizer.count))
+                return out
+
+            eng._train_batch = logged
+            return eng
+
+        check, launches, losses, _, times, e_losses, _ = captured_against_eager(
+            make_engine, batches, steps)
+        captured, eager = history
+        gas = config.get("gradient_accumulation_steps", 1)
+        want = {"flash_attention_fwd": cfg.n_layer * gas * steps,
+                "flash_attention_bwd_dq": cfg.n_layer * gas * steps,
+                "flash_attention_bwd_dkv": cfg.n_layer * gas * steps,
+                "fused_adamw": steps, "block_sparse_fwd": 0,
+                "block_sparse_dq": 0, "block_sparse_dkv": 0}
+        # (scale, skipped, count) after each step, from the start
+        prev = (2.0 ** SMALL_FP16_SCALE_POWER if dtype == torch.float16
+                else 1.0, 0, 0)
+        skipped_replays = updated_replays = 0
+        for i, now in enumerate(captured):
+            skipped = now[1] > prev[1]
+            if skipped and not (now[0] == prev[0] / 2 and now[2] == prev[2]):
+                problems.append(f"{name} step {i}: skipped without halving "
+                                f"the scale and keeping the count")
+            if not skipped and now[2] != prev[2] + 1:
+                problems.append(f"{name} step {i}: updated without a count")
+            if i >= CAPTURE_WARMUP:
+                skipped_replays += skipped
+                updated_replays += not skipped
+            prev = now
+        emit({"phase": "small_capture", "run": name, "steps": steps,
+              "gas": gas, "captured_vs_eager": check,
+              "scale_skipped_count_by_step": captured,
+              "eager_scale_skipped_count_by_step": eager,
+              "skipped_replays": skipped_replays,
+              "updated_replays": updated_replays,
+              "losses": losses, "eager_losses": e_losses,
+              "launches": launches, "step_ms": times})
+        if not check["identical"] or captured != eager:
+            problems.append(f"{name}: captured and eager steps differ")
+        if launches != want:
+            problems.append(f"{name}: launches {launches}, want {want}")
+        if dtype == torch.float16 and not (skipped_replays and updated_replays):
+            problems.append(f"{name}: the replays did not both skip and update")
+    if problems:
+        raise AssertionError(f"small_capture: {problems}")
 
 
 def phase_small_train():
@@ -1498,7 +1797,7 @@ def phase_small_train():
 
 
 # ---------------------------------------------------------------------------
-# --against DIR: the backward kernels of this tree against another build
+# --against DIR: the backward kernels and B4 of this tree against another build
 # ---------------------------------------------------------------------------
 def _other_build(root):
     """The other checkout's ``ops/cuda/build.py``, loaded from its own file:
@@ -1658,17 +1957,87 @@ def ab_sparse(other):
     return ok
 
 
+def ab_adamw(other, root):
+    """B4 of both builds over GPT-2 1.3B's parameter shapes (bf16 p and g,
+    f32 m and v), lr 2e-4 at step 4: one call each on copies of the same
+    tensors must give bit-identical p, m and v, then both are timed in
+    turns. This tree's kernel reads lr, c1, c2 and the skip flag from a
+    device buffer; a build whose source predates that takes them as host
+    floats (told apart by its ``csrc/fused_adamw.cu``)."""
+    import ctypes
+    from pathlib import Path
+
+    import torch
+
+    from deepspeed_tpu_torch.models.transformer_lm import GPT, gpt2_config
+    from deepspeed_tpu_torch.ops.cuda import fused_adam as fadam
+
+    this = fadam._kernel()
+    twin = ctypes.CDLL(str(other.library_path("fused_adamw"))).ds_fused_adamw
+    src = (Path(root) / "deepspeed_tpu_torch" / "csrc" / "fused_adamw.cu").read_text()
+    floats = "const void* scalars" not in src
+    ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
+    twin.argtypes = ([ptr, i32, i64, i64, i32, i32] + [f32] * 9 + [ptr]
+                     if floats else this.argtypes)
+    twin.restype = i32
+    dev = torch.device("cuda")
+    shapes = [p.shape for p in GPT(gpt2_config("gpt2-1.3b")).parameters()]
+    gen = torch.Generator(device=dev).manual_seed(12)
+    gs = [(torch.randn(s, generator=gen, device=dev) * 1e-2).to(torch.bfloat16)
+          for s in shapes]
+    state = {"this": ([(torch.randn(s, generator=gen, device=dev) * 0.02)
+                       .to(torch.bfloat16) for s in shapes],
+                      [torch.randn(s, generator=gen, device=dev) * 1e-3
+                       for s in shapes],
+                      [torch.rand(s, generator=gen, device=dev) * 1e-5
+                       for s in shapes])}
+    state["other"] = tuple([x.clone() for x in xs] for xs in state["this"])
+    lr, step, b1, b2, eps, wd = 2e-4, 4, 0.9, 0.95, 1e-8, 0.1
+    c1, c2 = fadam._bias_corrections(step, b1, b2)
+    scalars = fadam.adamw_scalars(lr, step, b1, b2, dev)
+    tables = {who: fadam._table(list(zip(ps, gs, ms, vs)), dev)
+              for who, (ps, ms, vs) in state.items()}
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(who):
+        table, rows, chunks = tables[who]
+        head = (table.data_ptr(), rows, chunks, fadam.CHUNK, 1, 1)
+        if who == "this" or not floats:
+            err = (this if who == "this" else twin)(
+                *head, scalars.data_ptr(), b1, 1 - b1, b2, 1 - b2, eps, wd, stream)
+        else:
+            err = twin(*head, lr, b1, 1 - b1, b2, 1 - b2, c1, c2, eps, wd, stream)
+        if err:
+            raise RuntimeError(f"fused_adamw ({who}) failed: CUDA error {err}")
+
+    call("other")
+    call("this")
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for xs, ys in zip(state["this"], state["other"])
+               for x, y in zip(xs, ys))
+    times, ratio = _in_turns(lambda: call("other"), lambda: call("this"))
+    emit({"phase": "against", "kernel": "fused_adamw", "case": "gpt2_1p3b_leaves",
+          "other_takes_host_floats": floats, "bit_identical": same,
+          "other_ms": times["other"], "this_ms": times["this"],
+          "this_over_other": ratio})
+    return same
+
+
 def phase_against(root):
-    """The backward kernels (B2, B3, B6, B7) of this tree against those of
-    the checkout at ``root``, built beside them, on the same tensors, in
-    turns. Returns False if a check failed."""
+    """The backward kernels (B2, B3, B6, B7) and the fused AdamW (B4) of
+    this tree against those of the checkout at ``root``, built beside
+    them, on the same tensors, in turns. Returns False if a check
+    failed."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     other = _other_build(root)
     emit({"phase": "against", "other": str(root), "ptxas": _build_both(other)})
     ok = ab_flash(other)
-    return ab_sparse(other) and ok
+    ok = ab_sparse(other) and ok
+    free_cuda()
+    return ab_adamw(other, root) and ok
 
 
 def main(argv):
@@ -1694,10 +2063,15 @@ def main(argv):
     smi = phase_device()
     phase_build()
     kernels = phase_kernel()
+    free_cuda()
     serve_launches = phase_serve()
+    free_cuda()
     phase_small()
+    free_cuda()
     launches = phase_train()
     sparse_launches = phase_sparse_train()
+    phase_small_capture()
+    free_cuda()
     phase_small_train()
     paths = {"serve": serve_launches, "train": launches,
              "sparse_train": sparse_launches}

@@ -7,6 +7,12 @@
 //   m = b1 m + (1 - b1) g,   v = b2 v + (1 - b2) g g        (m, v in f32)
 //   p = p - lr ((m / c1) / (sqrt(v / c2) + eps) + wd p)     (in f32)
 // and the bias corrections c1 = 1 - b1^t, c2 = 1 - b2^t computed on the host.
+// lr, c1, c2 and a skip flag are read from a device f32 buffer, as the Pallas
+// kernel reads lr_ref, c1_ref and c2_ref (fused_adam.py:26-32): the host
+// writes them before each step, so a captured CUDA graph replays with the
+// step's values, and the step function sets the skip flag on the card (the
+// fp16 overflow skip, the JAX step's lax.cond), whereupon every block returns
+// before touching p, m and v.
 //
 // What bounds it on an H100: ~10 flops per element against 22 bytes moved
 // (bf16 p and g read, f32 m and v read and written, bf16 p written), so it
@@ -39,6 +45,9 @@ constexpr int VEC = 8;
 struct Hyper {
   float lr, b1, omb1, b2, omb2, c1, c2, eps, wd;  // omb = 1 - b, on the host
 };
+
+// the step's scalars in device memory (f32 each)
+enum { S_LR, S_C1, S_C2, S_SKIP, N_SCALARS };
 
 // one row of the tensor table (int64 each)
 struct Entry {
@@ -96,7 +105,12 @@ __device__ __forceinline__ void adamw(float& p, float g, float& m, float& v,
 
 template <typename P, typename G>
 __global__ void __launch_bounds__(THREADS)
-    adamw_kernel(const Entry* table, int n_tensors, long long chunk, Hyper hp) {
+    adamw_kernel(const Entry* table, int n_tensors, long long chunk, Hyper hp,
+                 const float* scalars) {
+  if (scalars[S_SKIP] != 0.f) return;  // a skipped step leaves p, m, v alone
+  hp.lr = scalars[S_LR];
+  hp.c1 = scalars[S_C1];
+  hp.c2 = scalars[S_C2];
   const long long c = blockIdx.x;
   // the tensor this chunk belongs to: the last row with chunk0 <= c
   int lo = 0, hi = n_tensors - 1;
@@ -140,12 +154,13 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename P>
 cudaError_t dispatch_g(int g_dtype, const Entry* table, int n, long long chunks,
-                       long long chunk, const Hyper& hp, cudaStream_t s) {
+                       long long chunk, const Hyper& hp, const float* sc,
+                       cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>(chunks));
   switch (g_dtype) {
-    case 0: adamw_kernel<P, float><<<grid, THREADS, 0, s>>>(table, n, chunk, hp); break;
-    case 1: adamw_kernel<P, __nv_bfloat16><<<grid, THREADS, 0, s>>>(table, n, chunk, hp); break;
-    case 2: adamw_kernel<P, __half><<<grid, THREADS, 0, s>>>(table, n, chunk, hp); break;
+    case 0: adamw_kernel<P, float><<<grid, THREADS, 0, s>>>(table, n, chunk, hp, sc); break;
+    case 1: adamw_kernel<P, __nv_bfloat16><<<grid, THREADS, 0, s>>>(table, n, chunk, hp, sc); break;
+    case 2: adamw_kernel<P, __half><<<grid, THREADS, 0, s>>>(table, n, chunk, hp, sc); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -156,24 +171,27 @@ cudaError_t dispatch_g(int g_dtype, const Entry* table, int n, long long chunks,
 // table: device array of n_tensors rows (p, g, m, v, numel, first chunk) of
 // int64, rows in chunk order; total_chunks = chunks of all rows; chunk = the
 // elements per chunk (a multiple of 8). dtypes: 0 = float32, 1 = bfloat16,
-// 2 = float16. Returns a cudaError_t.
+// 2 = float16. scalars: device f32 [lr, c1, c2, skip], read when the kernel
+// runs; a nonzero skip leaves every tensor unchanged. Returns a cudaError_t.
 extern "C" int ds_fused_adamw(const void* table, int n_tensors,
                               long long total_chunks, long long chunk,
-                              int p_dtype, int g_dtype, float lr, float b1,
-                              float omb1, float b2, float omb2, float c1,
-                              float c2, float eps, float wd, void* stream) {
+                              int p_dtype, int g_dtype, const void* scalars,
+                              float b1, float omb1, float b2, float omb2,
+                              float eps, float wd, void* stream) {
   if (n_tensors <= 0 || total_chunks <= 0 || total_chunks >= (1LL << 31) ||
-      chunk <= 0 || chunk % VEC) {
+      chunk <= 0 || chunk % VEC || scalars == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Hyper hp{lr, b1, omb1, b2, omb2, c1, c2, eps, wd};
+  // lr, c1 and c2 come from `scalars` in the kernel
+  const Hyper hp{0.f, b1, omb1, b2, omb2, 0.f, 0.f, eps, wd};
   const Entry* t = static_cast<const Entry*>(table);
+  const float* sc = static_cast<const float*>(scalars);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (p_dtype) {
-    case 0: err = dispatch_g<float>(g_dtype, t, n_tensors, total_chunks, chunk, hp, s); break;
-    case 1: err = dispatch_g<__nv_bfloat16>(g_dtype, t, n_tensors, total_chunks, chunk, hp, s); break;
-    case 2: err = dispatch_g<__half>(g_dtype, t, n_tensors, total_chunks, chunk, hp, s); break;
+    case 0: err = dispatch_g<float>(g_dtype, t, n_tensors, total_chunks, chunk, hp, sc, s); break;
+    case 1: err = dispatch_g<__nv_bfloat16>(g_dtype, t, n_tensors, total_chunks, chunk, hp, sc, s); break;
+    case 2: err = dispatch_g<__half>(g_dtype, t, n_tensors, total_chunks, chunk, hp, sc, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

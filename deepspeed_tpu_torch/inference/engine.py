@@ -2,21 +2,36 @@
 
 ``init_inference`` wraps a ``GPT`` for serving on one card: the weights are
 materialized on the device in the serving dtype, ``forward`` returns f32
-logits and ``generate`` runs prefill plus a per-token decode loop over the
-dense KV cache. The JAX engine compiles prefill and a decode scan with jit;
-here both run eagerly (CUDA graphs are later work).
+logits and ``generate`` runs prefill, then decodes over the dense KV cache
+in runs of ``decode_chunk`` steps (default 32), as the JAX engine does
+(``generate``, ``deepspeed_tpu/inference/engine.py:650-680``): each run is
+the largest power of two of steps that fits in ``min(chunk, remaining)``,
+so at most log2(chunk) + 1 run lengths ever occur. The JAX engine compiles
+each run as one scan; here each run is a step function of tensors
+(``runtime/compiled_step.CompiledStep``), called directly on the CPU and, on
+the card, captured as one CUDA graph per (batch size, run length, greedy or
+sampled) and replayed (a CUDA graph has no ``lax.cond``, so greedy and
+sampled decoding are two graphs). The engine keeps one KV cache per batch
+size, reset at each prefill, whose buffers the graphs read and write; the
+host advances the cache's ``length`` by k after each run. Sampling draws
+from the engine's own generator, registered with each graph. Prefill and
+``forward`` run eagerly.
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when torch sees no card. Pass ``device="cpu"`` to run on the host.
 """
 
+import collections
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.models.transformer_lm import GPT, materialize_gpt
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.models.transformer_lm import (GPT, KVCache,
+                                                       materialize_gpt)
+from deepspeed_tpu_torch.runtime.compiled_step import CompiledStep
+from deepspeed_tpu_torch.utils.logging import log_dist, warning_once
 
 _DTYPES = {None: None, "fp16": torch.float16, "float16": torch.float16,
            "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
@@ -55,6 +70,9 @@ def init_inference(model, config: Optional[Dict[str, Any]] = None,
 
 
 class InferenceEngine:
+    # batch sizes whose KV cache and decode graphs are kept
+    MAX_BATCH_SIZES = 4
+
     def __init__(self, model, config: Dict[str, Any], seed: int = 0,
                  device=None, state_dict=None):
         if not isinstance(model, GPT):
@@ -69,9 +87,7 @@ class InferenceEngine:
                 ("checkpoint loading", bool(config.get("checkpoint"))),
                 ("dtype='int8'", config.get("dtype") == "int8"),
                 ("the int8 KV cache ('kv_cache')",
-                 config.get("kv_cache") is not None),
-                ("'decode_chunk' (a jit dispatch lever)",
-                 "decode_chunk" in config)):
+                 config.get("kv_cache") is not None)):
             if unported:
                 raise NotImplementedError(f"{what} is not ported yet")
         if config.get("dtype") not in _DTYPES:
@@ -86,6 +102,12 @@ class InferenceEngine:
         self.module = model
         self.dtype = _DTYPES[config.get("dtype")]
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.decode_chunk = max(1, int(config.get("decode_chunk", 32)))
+        # the sampling temperature, a device scalar the decode graphs read
+        self._temperature = torch.ones((), dtype=torch.float32,
+                                       device=self.device)
+        # batch size -> (KV cache, its decode runs), least recently used first
+        self._decoders = collections.OrderedDict()
         self._materialize(state_dict)
         log_dist(f"InferenceEngine: device={self.device}, dtype={self.dtype}",
                  ranks=[0])
@@ -109,7 +131,6 @@ class InferenceEngine:
 
     __call__ = forward
 
-    @torch.inference_mode()
     def generate(self, input_ids, max_new_tokens: int = 32,
                  temperature: float = 0.0, attention_mask=None):
         """Greedy (``temperature == 0``) or sampled generation; returns
@@ -118,6 +139,14 @@ class InferenceEngine:
         Ragged batches pass ``attention_mask`` (1 = real token); prompts are
         LEFT-aligned here so that real tokens sit contiguously in the cache,
         as in the JAX engine."""
+        return self._generate(input_ids, max_new_tokens, temperature,
+                              attention_mask)
+
+    @torch.inference_mode()
+    def _generate(self, input_ids, max_new_tokens, temperature,
+                  attention_mask, eager: bool = False):
+        """``generate``; with ``eager`` the decode runs are called
+        uncaptured on the card too (a reference for the decode graphs)."""
         cfg = self.module.config
         ids = self._ids(input_ids)
         if attention_mask is not None:
@@ -155,19 +184,73 @@ class InferenceEngine:
             attention_mask = torch.ones(ids.shape, dtype=torch.bool,
                                         device=self.device)
 
+        cache, decode = self._decoder(ids.shape[0])
         logits, cache = self.module(ids, attention_mask=attention_mask,
-                                    decode=True)
-        tok = self._next_token(logits[:, -1], temperature)
-        out = [tok]
-        for _ in range(max_new_tokens - 1):
-            logits, cache = self.module(tok[:, None], decode=True, cache=cache)
-            tok = self._next_token(logits[:, -1], temperature)
-            out.append(tok)
-        return torch.stack(out, dim=1)
+                                    decode=True, cache=cache.reset())
+        sampled = temperature > 0
+        if sampled:
+            self._temperature.fill_(temperature)
+        tok = self._next_token(logits[:, -1], sampled)
+        out = [tok[:, None]]
+        chunk = self.decode_chunk
+        if chunk & (chunk - 1):
+            warning_once(
+                f"decode_chunk={chunk} is not a power of two; dispatches "
+                f"use {1 << (chunk.bit_length() - 1)}-token runs (plus a "
+                "binary-decomposed tail)")
+        remaining = max_new_tokens - 1
+        while remaining > 0:
+            # the largest power of two <= min(chunk, remaining)
+            k = 1 << (min(chunk, remaining).bit_length() - 1)
+            toks = self._decode_run(decode, cache, tok, k, sampled, eager)
+            out.append(toks)
+            tok = toks[:, -1]
+            remaining -= k
+        return torch.cat(out, dim=1)
 
-    def _next_token(self, logits, temperature):
-        if temperature > 0:
-            probs = torch.softmax(logits / temperature, dim=-1)
+    def _decoder(self, batch: int):
+        """The KV cache and the decode runs kept for ``batch``."""
+        entry = self._decoders.get(batch)
+        if entry is None:
+            cache = KVCache.empty(self.module.config, batch, self.device)
+            gens = (self._generator,) if self.device.type == "cuda" else ()
+            runs = CompiledStep(
+                functools.partial(self._decode_steps, cache), self.device,
+                warmup=1, max_graphs=2 * self.decode_chunk.bit_length(),
+                generators=gens)
+            entry = self._decoders[batch] = (cache, runs)
+            while len(self._decoders) > self.MAX_BATCH_SIZES:
+                _, (_, old) = self._decoders.popitem(last=False)
+                for graph in old.graphs.values():
+                    graph.graph.reset()
+        else:
+            self._decoders.move_to_end(batch)
+        return entry
+
+    def _decode_run(self, decode: CompiledStep, cache: KVCache, tok, k: int,
+                    sampled: bool, eager: bool = False):
+        """``k`` decode steps after ``tok`` ([B]): their tokens [B, k]. The
+        cache's ``length`` is the host's, advanced here by k (a replay runs
+        no Python)."""
+        length = cache.length
+        run = decode.eager if eager else decode
+        toks = run({"tok": tok}, k, sampled)
+        cache.length = length + k
+        return toks
+
+    def _decode_steps(self, cache: KVCache, k: int, sampled: bool, tok):
+        """The step function of one run: ``k`` decode steps through the
+        cache, each feeding its token to the next."""
+        toks = []
+        for _ in range(k):
+            logits, _ = self.module(tok[:, None], decode=True, cache=cache)
+            tok = self._next_token(logits[:, -1], sampled)
+            toks.append(tok)
+        return torch.stack(toks, dim=1)
+
+    def _next_token(self, logits, sampled: bool):
+        if sampled:
+            probs = torch.softmax(logits / self._temperature, dim=-1)
             return torch.multinomial(probs, 1,
                                      generator=self._generator)[:, 0]
         # first index among equal maxima, as jnp.argmax

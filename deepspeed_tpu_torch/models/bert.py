@@ -169,8 +169,12 @@ class BertEncoder(nn.Module):
         remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.layer:
             if remat:
-                x = torch.utils.checkpoint.checkpoint(layer, x, mask,
-                                                      use_reentrant=False)
+                # no RNG state to keep (dropout is refused in training),
+                # and reading the CUDA RNG state is what a captured step may
+                # not
+                x = torch.utils.checkpoint.checkpoint(
+                    layer, x, mask, use_reentrant=False,
+                    preserve_rng_state=False)
             else:
                 x = layer(x, mask)
         return x

@@ -295,6 +295,16 @@ class KVCache:
             index=torch.zeros(batch, dtype=torch.long, device=device),
             position=torch.zeros(batch, dtype=torch.long, device=device))
 
+    def reset(self) -> "KVCache":
+        """Empty again, in place: the buffers keep their addresses (a
+        captured decode step reads and writes them) and hold what
+        ``empty`` makes."""
+        for buf in (*self.key, *self.value, self.valid, self.index,
+                    self.position):
+            buf.zero_()
+        self.length = 0
+        return self
+
 
 @dataclasses.dataclass
 class _DecodeStep:
@@ -481,9 +491,11 @@ class GPT(nn.Module):
         remat = cfg.remat and step is None and torch.is_grad_enabled()
         for i, block in enumerate(self.h):
             if remat:
+                # no RNG state to keep (dropout is refused in training), and
+                # reading the CUDA RNG state is what a captured step may not
                 x = torch.utils.checkpoint.checkpoint(
                     block, x, attention_mask, None, i, segment_ids,
-                    use_reentrant=False)
+                    use_reentrant=False, preserve_rng_state=False)
             else:
                 x = block(x, mask=attention_mask, step=step, layer=i,
                           segment_ids=segment_ids)

@@ -8,17 +8,22 @@ as in the JAX package:
 * ``block_sparse_attention``: the streaming kernels (B5 forward, B6 and B7
   backward, ``ops/cuda/block_sparse_attention.py``), differentiable. The
   kernels' index tables are built once per (layout, heads, block, device)
-  and kept in a bounded cache.
+  and kept in a bounded cache; a CUDA graph captured over the call holds
+  the tables it uses, so an eviction cannot free what a replay reads.
 * ``gathered_blocksparse_attention``: static K/V block gathers followed by
   batched matrix products (the JAX package's default, which XLA compiles to
   einsums; plain PyTorch here), with wide "global" rows split off and
   computed densely, and element masks folded in.
 * ``dense_blocksparse_attention``: masked full attention.
 
+The last two keep their index and mask constants on the device, one copy
+per content, so that a captured step copies nothing from the host.
+
 ``SparseSelfAttention`` routes between them exactly as the JAX module does.
 """
 
 import collections
+import hashlib
 import math
 import warnings
 
@@ -28,10 +33,42 @@ import torch
 from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
     BlockSparseAttentionFunction, keep_mask, active_lists, build_index_tables)
 from deepspeed_tpu_torch.ops.cuda.common import NEG_INF
+from deepspeed_tpu_torch.runtime import compiled_step
 
 # index tables per (layout, heads, block, device), least recently used first
 _OP_CACHE = collections.OrderedDict()
 _OP_CACHE_MAX = 64
+# the gather and dense paths' constants on the device, by content
+_CONST_CACHE = collections.OrderedDict()
+_CONST_CACHE_MAX = 256
+
+
+def _cached_constant(key, make):
+    """``make()`` (a device tensor) kept under ``key``: made once, least
+    recently used first out, and held by a CUDA graph captured over the
+    call, so that a captured step copies nothing from the host."""
+    t = _CONST_CACHE.get(key)
+    if t is None:
+        t = _CONST_CACHE[key] = make()
+        while len(_CONST_CACHE) > _CONST_CACHE_MAX:
+            _CONST_CACHE.popitem(last=False)
+    else:
+        _CONST_CACHE.move_to_end(key)
+    compiled_step.hold(t)
+    return t
+
+
+def _digest(x: np.ndarray) -> bytes:
+    return hashlib.blake2b(np.ascontiguousarray(x).tobytes(),
+                           digest_size=16).digest()
+
+
+def _device_constant(x, device):
+    """The numpy array ``x`` on ``device`` (one copy per content)."""
+    x = np.asarray(x)
+    return _cached_constant(
+        ("array", _digest(x), x.shape, x.dtype.str, str(torch.device(device))),
+        lambda: torch.from_numpy(np.ascontiguousarray(x)).to(device))
 
 
 def _build_index_tables(layout: np.ndarray, num_heads: int, block: int, device):
@@ -68,6 +105,7 @@ def block_sparse_attention(q, k, v, layout, *, block: int,
             f"layout covers {layout.shape[1] * block} positions, "
             f"inputs have {t}")
     tables = _build_index_tables(layout, q.shape[2], block, q.device)
+    compiled_step.hold(tables)
     return BlockSparseAttentionFunction.apply(q, k, v, tables, int(block),
                                               bool(causal), float(scale))
 
@@ -165,7 +203,7 @@ def gathered_blocksparse_attention(q, k, v, layout, *, block: int,
         return s + am_part.float()
 
     def put(x):
-        return torch.as_tensor(x, device=dev)
+        return _device_constant(x, dev)
 
     out_parts, out_rows = [], []
 
@@ -249,7 +287,11 @@ def dense_blocksparse_attention(q, k, v, layout, *, block: int,
         scale = 1.0 / math.sqrt(d)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     neg = NEG_INF
-    s = torch.where(keep_mask(layout, block, causal, q.device), s, neg)
+    layout = np.asarray(layout)
+    keep = _cached_constant(
+        ("keep", _digest(layout), layout.shape, int(block), bool(causal),
+         str(q.device)), lambda: keep_mask(layout, block, causal, q.device))
+    s = torch.where(keep, s, neg)
     if attn_mask is not None:
         am = torch.as_tensor(attn_mask, device=q.device)
         if attn_mask_mode == "mul":

@@ -3,14 +3,25 @@
 fused step ``_build_train_step`` :1379 and the split ``_build_fwd_bwd``
 :1273 / ``_build_apply`` :1323).
 
-One card, eager PyTorch. ``train_batch`` with ``gradient_accumulation_steps
-== 1`` is one fused step that keeps no f32 accumulation buffer; with more,
-it runs ``forward``/``backward``/``step`` and accumulates
-``loss * scale / gas`` gradients in f32. The update follows the JAX step
-exactly: gradients to f32 and divided by the loss scale, the global norm,
-the clip factor ``min(1, clip / (norm + 1e-6))``, each gradient cast to its
-parameter's dtype, the optimizer, then the fp16 overflow skip and the loss
-scale update.
+One card. ``train_batch`` with ``gradient_accumulation_steps == 1`` is one
+fused step that keeps no f32 accumulation buffer; with more, it runs
+``forward`` (the micro step: forward, backward and the f32 accumulation of
+``loss * scale / gas`` gradients, fused as in the JAX engine),
+``backward`` (bookkeeping) and ``step`` (the update at the boundary). The
+update follows the JAX step exactly: gradients to f32 and divided by the
+loss scale, the global norm, the clip factor ``min(1, clip / (norm +
+1e-6))``, each gradient cast to its parameter's dtype, the optimizer, the
+fp16 overflow skip and the loss scale update.
+
+Each of the three steps (fused, micro, apply) is a function of tensors
+only, run by ``runtime/compiled_step.CompiledStep``: called directly on the
+CPU, captured once per batch signature as a CUDA graph and replayed on the
+card (the counterpart of the jitted step). The loss scale is device state
+threaded through it, the fp16 skip is decided on the card, the optimizer
+reads lr and its bias corrections from device buffers, and the clip bound is
+a device scalar. Around each step the host writes the step's scalars
+(``optimizer.prepare``) before and, after, reads the overflow flag once
+(fp16 only), advances the counters and the lr schedule.
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when torch sees no card. Pass ``device="cpu"`` to train on the host (the
@@ -25,6 +36,7 @@ import torch
 
 from deepspeed_tpu_torch.models.bert import BertForPreTraining, materialize_bert
 from deepspeed_tpu_torch.models.transformer_lm import GPT, materialize_gpt
+from deepspeed_tpu_torch.runtime.compiled_step import CompiledStep
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.loss_scaler import (has_overflow,
@@ -77,6 +89,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 
 
 class DeepSpeedEngine:
+    # graphs kept per step function (one per batch signature)
+    MAX_GRAPHS = 4
+
     def __init__(self, model, config, lr_scheduler=None,
                  initial_state_dict=None, seed: int = 0, device=None):
         if not isinstance(model, (GPT, BertForPreTraining)):
@@ -134,9 +149,29 @@ class DeepSpeedEngine:
             self._params, config.optimizer.type, config.optimizer.params,
             schedule_fn, use_pallas=config.tpu.use_pallas_optimizer)
         self._ls_state, self._ls_config = init_loss_scale(
-            config.fp16, enabled=self.fp16_enabled)
+            config.fp16, enabled=self.fp16_enabled, device=self.device)
+        # device scalars, made once: the clip bound and, for the fp16 micro
+        # step, the accumulation count
+        self._max_norm = None
+        if self.gradient_clipping and self.gradient_clipping > 0:
+            self._max_norm = torch.tensor(float(self.gradient_clipping),
+                                          dtype=torch.float32,
+                                          device=self.device)
+        self._gas = torch.tensor(float(self.gradient_accumulation_steps),
+                                 dtype=torch.float32, device=self.device)
 
-        # gas > 1: f32 sums of the micro steps' grads (allocated at first use)
+        # the steps, each captured per batch signature on a card; one memory
+        # pool for the engine's graphs
+        pool = (torch.cuda.graph_pool_handle()
+                if self.device.type == "cuda" else None)
+        self._fused = CompiledStep(self._fused_step, self.device,
+                                   max_graphs=self.MAX_GRAPHS, pool=pool)
+        self._micro = CompiledStep(self._micro_step, self.device,
+                                   max_graphs=self.MAX_GRAPHS, pool=pool)
+        self._apply = CompiledStep(self._apply_step, self.device, pool=pool)
+
+        # forward/backward/step: f32 sums of the micro steps' grads
+        # (allocated at the first micro step)
         self._acc_grads = None
         self._pending_loss = None
         self._last_grad_norm = None
@@ -189,53 +224,28 @@ class DeepSpeedEngine:
             out[key] = x.to(self.device, non_blocking=True)
         return out
 
-    # -- the step ---------------------------------------------------------
-    def _loss_scale(self) -> float:
-        return self._ls_state.scale if self.fp16_enabled else 1.0
-
-    def _apply(self, grads):
+    # -- the step functions (tensors only: no host read) --------------------
+    def _update(self, grads):
         """The update from gradients already divided by the loss scale
-        (modified in place): overflow check (fp16 only), global norm in f32,
-        clip, cast to each parameter's dtype, optimizer step unless the fp16
-        check found an overflow, loss-scale update. Returns whether it
-        skipped. ``grads`` are f32, or the parameters' own dtype when there
-        was no scale to divide by: the norm accumulates in f32 and the clip
-        multiply rounds once to the dtype either way, so both give the JAX
-        step's values."""
-        overflow = bool(has_overflow(grads)) if self.fp16_enabled else False
-        if self.gradient_clipping and self.gradient_clipping > 0:
-            norm = clip_grad_norm_(grads, self.gradient_clipping)
+        (modified in place): the overflow flag (fp16 only), the global norm
+        in f32, the clip, the cast to each parameter's dtype, the optimizer
+        (skipped on the card on overflow) and the loss-scale update. Returns
+        ``(norm, overflow)``, overflow None without fp16. ``grads`` are
+        f32, or the parameters' own dtype when there was no scale to divide
+        by: the norm accumulates in f32 and the clip multiply rounds once to
+        the dtype either way, so both give the JAX step's values."""
+        overflow = has_overflow(grads) if self.fp16_enabled else None
+        if self._max_norm is not None:
+            norm = clip_grad_norm_(grads, self._max_norm)
         else:
             norm = get_global_norm(grads)
-        if not overflow:
-            # g.astype(p.dtype): a new tensor only where the dtypes differ
-            self.optimizer.step([g.to(p.dtype)
-                                 for g, p in zip(grads, self._params)])
-            self._last_grad_norm = norm
-        self._ls_state = update_loss_scale(self._ls_state, overflow,
-                                           self._ls_config)
-        return overflow
-
-    @staticmethod
-    def _grads_f32(grads, scale):
-        """``grads`` in f32 divided by ``scale``: copies of lower-precision
-        grads, the f32 tensors themselves (divided in place) otherwise."""
-        out = [g.float() for g in grads]
-        if scale != 1.0:
-            torch._foreach_div_(out, scale)
-        return out
-
-    def _post_step(self, overflow):
-        if overflow:
-            self.skipped_steps += 1
-            log_dist(f"overflow at step {self.global_steps}; loss scale -> "
-                     f"{self._ls_state.scale}", ranks=[0])
-        elif self.lr_scheduler is not None:
-            self.lr_scheduler.step()
-        if self.global_steps % self._config.steps_per_print == 0:
-            log_dist(f"step={self.global_steps}, skipped={self.skipped_steps}, "
-                     f"lr={self.get_lr()}, loss_scale={self._ls_state.scale}",
-                     ranks=[0])
+        # g.astype(p.dtype): a new tensor only where the dtypes differ
+        self.optimizer.apply([g.to(p.dtype) for g, p in zip(grads, self._params)],
+                             skip=overflow)
+        if self.fp16_enabled and self._ls_config.dynamic:
+            self._ls_state.copy_(update_loss_scale(self._ls_state, overflow,
+                                                   self._ls_config))
+        return norm, overflow
 
     def _grads_of(self, loss_scaled):
         """Backward of ``loss_scaled``; returns the parameters' grads (in
@@ -247,72 +257,136 @@ class DeepSpeedEngine:
             p.grad = None
         return grads
 
+    def _fused_step(self, **batch):
+        """gas == 1: gradients of ``loss * scale`` go straight to the update
+        (no f32 accumulation buffer). Returns ``(loss, norm, overflow)``."""
+        loss = self.module(**batch)
+        if self.fp16_enabled:
+            scale = self._ls_state.scale
+            grads = [g.float() for g in self._grads_of(loss * scale)]
+            torch._foreach_div_(grads, scale)
+        else:
+            grads = self._grads_of(loss)
+        return (loss.detach(),) + self._update(grads)
+
+    def _micro_step(self, **batch):
+        """One micro batch: forward, backward of ``loss * scale / gas``, and
+        the grads added in f32 to the accumulation buffers. Returns the
+        loss."""
+        loss = self.module(**batch)
+        factor = (self._ls_state.scale / self._gas if self.fp16_enabled
+                  else 1.0 / self.gradient_accumulation_steps)
+        for acc, g in zip(self._acc_grads, self._grads_of(loss * factor)):
+            acc.add_(g)
+        return loss.detach()
+
+    def _apply_step(self):
+        """The boundary: the update from the f32 sums themselves (divided
+        and clipped in place), then the sums set to 0. Returns ``(norm,
+        overflow)``."""
+        grads = list(self._acc_grads)
+        if self.fp16_enabled:
+            torch._foreach_div_(grads, self._ls_state.scale)
+        out = self._update(grads)
+        for acc in self._acc_grads:
+            acc.zero_()
+        return out
+
+    # -- the host around them ----------------------------------------------
+    def _finish_update(self, norm, overflow) -> bool:
+        """After an update: the one host read of the overflow flag (fp16
+        only), the optimizer's count, the last grad norm. Returns whether
+        the step was skipped."""
+        skipped = bool(overflow) if self.fp16_enabled else False
+        self.optimizer.commit(not skipped)
+        if not skipped:
+            self._last_grad_norm = norm
+        return skipped
+
+    def _post_step(self, skipped):
+        if skipped:
+            self.skipped_steps += 1
+            log_dist(f"overflow at step {self.global_steps}; loss scale -> "
+                     f"{self.loss_scale}", ranks=[0])
+        elif self.lr_scheduler is not None:
+            self.lr_scheduler.step()
+        if self.global_steps % self._config.steps_per_print == 0:
+            scale = self.loss_scale if self.fp16_enabled else 1.0
+            log_dist(f"step={self.global_steps}, skipped={self.skipped_steps}, "
+                     f"lr={self.get_lr()}, loss_scale={scale}", ranks=[0])
+
     def train_batch(self, data_iter):
         """One optimizer step over ``gradient_accumulation_steps`` micro
         batches from ``data_iter``; returns the mean micro loss."""
+        return self._train_batch(data_iter)
+
+    def _train_batch(self, data_iter, eager: bool = False):
+        """``train_batch``; with ``eager`` the step functions run
+        uncaptured on the card too (a reference for the captured steps)."""
         if self.gradient_accumulation_steps == 1:
-            return self._train_batch_fused(next(data_iter))
+            return self._train_batch_fused(next(data_iter), eager)
         losses = []
         for _ in range(self.gradient_accumulation_steps):
-            losses.append(self.forward(next(data_iter)))
+            losses.append(self._forward(next(data_iter), eager))
             self.backward()
-            self.step()
+            self._step(eager)
         return torch.stack(losses).mean()
 
-    def _train_batch_fused(self, batch):
-        """gas == 1: gradients of ``loss * scale`` go straight to the update
-        (no f32 accumulation buffer)."""
+    @staticmethod
+    def _run(step: CompiledStep, inputs, eager: bool):
+        return step.eager(inputs) if eager else step(inputs)
+
+    def _train_batch_fused(self, batch, eager=False):
         self.module.train()
-        scale = self._loss_scale()
-        loss = self.module(**self._put_batch(batch))
-        grads = self._grads_of(loss * scale)
-        if scale != 1.0:
-            grads = self._grads_f32(grads, scale)
-        overflow = self._apply(grads)
+        self.optimizer.prepare()
+        loss, norm, overflow = self._run(self._fused, self._put_batch(batch),
+                                         eager)
+        skipped = self._finish_update(norm, overflow)
         self.micro_steps += 1
         self.global_steps += 1
         self.global_samples += self.train_micro_batch_size_per_gpu
-        self._post_step(overflow)
+        self._post_step(skipped)
         self.tput_timer.stop(global_step=True)
-        return loss.detach()
+        return loss
 
     def forward(self, batch: Dict[str, Any]):
-        """The loss of one micro batch; ``backward()`` then accumulates its
-        gradients."""
-        self.module.train()
-        loss = self.module(**self._put_batch(batch))
-        self._pending_loss = loss
-        return loss.detach()
+        """The loss of one micro batch. Its gradients are computed with it
+        (fused, as in the JAX engine) and added in f32 to the accumulation
+        buffers; ``backward()`` then records the micro step."""
+        return self._forward(batch, False)
 
-    def backward(self, loss=None):
-        """Gradients of the last ``forward``'s ``loss * scale / gas``, added
-        in f32 to the accumulation buffers."""
-        if self._pending_loss is None:
-            raise RuntimeError("backward() must follow forward()")
-        loss, self._pending_loss = self._pending_loss, None
-        grads = self._grads_of(
-            loss * (self._loss_scale() / self.gradient_accumulation_steps))
+    def _forward(self, batch, eager):
+        self.module.train()
         if self._acc_grads is None:
             self._acc_grads = [torch.zeros_like(p, dtype=torch.float32)
                                for p in self._params]
-        for acc, g in zip(self._acc_grads, grads):
-            acc.add_(g)
-        return loss.detach()
+        loss = self._run(self._micro, self._put_batch(batch), eager)
+        self._pending_loss = loss
+        return loss
+
+    def backward(self, loss=None):
+        """Records the last ``forward``'s micro step (its gradients are
+        already accumulated); returns its loss."""
+        if self._pending_loss is None:
+            raise RuntimeError("backward() must follow forward()")
+        loss, self._pending_loss = self._pending_loss, None
+        return loss
 
     def is_gradient_accumulation_boundary(self) -> bool:
         return (self.micro_steps + 1) % self.gradient_accumulation_steps == 0
 
     def step(self):
         """The optimizer step, at the accumulation boundary only."""
+        self._step(False)
+
+    def _step(self, eager):
         at_boundary = self.is_gradient_accumulation_boundary()
         if at_boundary:
-            # the f32 sums themselves, divided and clipped in place
-            overflow = self._apply(
-                self._grads_f32(self._acc_grads, self._loss_scale()))
-            for acc in self._acc_grads:
-                acc.zero_()
+            self.optimizer.prepare()
+            norm, overflow = self._run(self._apply, {}, eager)
+            skipped = self._finish_update(norm, overflow)
             self.global_steps += 1
-            self._post_step(overflow)
+            self._post_step(skipped)
         self.micro_steps += 1
         self.global_samples += self.train_micro_batch_size_per_gpu
         self.tput_timer.stop(global_step=at_boundary)
@@ -340,7 +414,8 @@ class DeepSpeedEngine:
 
     @property
     def loss_scale(self) -> float:
-        return self._ls_state.scale
+        """The current loss scale (a read of the device state)."""
+        return float(self._ls_state.scale)
 
     @property
     def params(self):

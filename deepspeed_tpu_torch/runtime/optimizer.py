@@ -12,7 +12,10 @@ coupled L2 decay. LAMB, Adagrad, SGD and the 1-bit family are not ported.
 Unlike an optax transformation, a PyTorch optimizer owns its state, so
 ``build_optimizer`` takes the parameters. Every optimizer here has
 ``step(grads)``, with one gradient per parameter in the parameter's dtype,
-and advances its own ``count`` only when it steps.
+and advances its own ``count`` only when it steps; and the same step in
+three parts, ``prepare()`` (the host writes the step's scalars into device
+buffers), ``apply(grads, skip)`` (device work only, which a CUDA graph can
+hold) and ``commit(updated)`` (the count).
 """
 
 from typing import Any, Callable, Dict, Optional, Sequence, Union
@@ -33,7 +36,14 @@ class AdamW:
     (``optax.chain(add_decayed_weights, adam)``) when ``adam_w_mode`` is
     False. ``mu``/``nu`` live in the parameter dtype; every operation runs
     in that dtype, in optax's order. ``lr`` is a float or a
-    ``count -> lr`` schedule read at the count before the increment."""
+    ``count -> lr`` schedule read at the count before the increment.
+
+    The constants are device scalars in each parameter dtype, made once;
+    ``prepare()`` writes the ones that change (-lr, c1, c2) in place before
+    each step, ``apply(grads, skip)`` updates on the device (a 0-dim bool
+    ``skip`` keeps every tensor as it was), and ``commit(updated)``
+    advances ``count``: the same split as ``FusedAdamW``, so that the
+    device part can be captured. ``step(grads)`` does all three."""
 
     def __init__(self, params: Sequence[torch.Tensor],
                  lr: Union[float, Callable] = 1e-3, b1=0.9, b2=0.999,
@@ -45,33 +55,62 @@ class AdamW:
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+        # per (dtype, device): 1 - b1, b1, 1 - b2, b2, eps, wd, -lr, c1, c2
+        self._consts = {}
+        for p in self.params:
+            key = (p.dtype, p.device)
+            if key not in self._consts:
+                self._consts[key] = torch.tensor(
+                    [1 - b1, b1, 1 - b2, b2, eps, weight_decay, 0.0, 1.0, 1.0],
+                    dtype=p.dtype).to(p.device)
 
-    @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]):
+    def prepare(self):
         lr = float(self.lr(self.count) if callable(self.lr) else self.lr)
-        self.count += 1
-        b1, b2, wd = self.b1, self.b2, self.weight_decay
+        count = self.count + 1
         # optax computes 1 - decay**count in f32, then casts to the moment
         # dtype; a Python constant takes the array's dtype (JAX weak typing),
         # so in bf16 even b1 is rounded to bf16 before it multiplies
-        c1, c2 = (float(1.0 - torch.tensor(b, dtype=torch.float32) ** self.count)
-                  for b in (b1, b2))
-        consts = {}
+        c1, c2 = (float(1.0 - torch.tensor(b, dtype=torch.float32) ** count)
+                  for b in (self.b1, self.b2))
+        for (dtype, _), buf in self._consts.items():
+            src = torch.tensor([-lr, c1, c2], dtype=dtype)
+            if buf.is_cuda:
+                # a fresh pinned buffer: no sync, and the next step's values
+                # cannot overwrite this one's before its copy has run
+                buf[6:].copy_(src.pin_memory(), non_blocking=True)
+            else:
+                buf[6:].copy_(src)
+
+    @torch.no_grad()
+    def apply(self, grads: Sequence[torch.Tensor],
+              skip: Optional[torch.Tensor] = None):
         for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
-            key = (p.dtype, p.device)
-            if key not in consts:
-                consts[key] = [torch.tensor(x, dtype=p.dtype).to(p.device) for x in
-                               (1 - b1, b1, 1 - b2, b2, self.eps, wd, -lr,
-                                c1, c2)]
-            k_1mb1, k_b1, k_1mb2, k_b2, k_eps, k_wd, k_lr, k_c1, k_c2 = consts[key]
-            if not self.adam_w_mode and wd:
+            (k_1mb1, k_b1, k_1mb2, k_b2, k_eps, k_wd, k_lr, k_c1,
+             k_c2) = self._consts[(p.dtype, p.device)].unbind()
+            if not self.adam_w_mode and self.weight_decay:
                 g = g + k_wd * p
-            m.copy_(k_1mb1 * g + k_b1 * m)
-            v.copy_(k_1mb2 * (g * g) + k_b2 * v)
-            u = (m / k_c1) / (torch.sqrt(v / k_c2) + k_eps)
+            m_new = k_1mb1 * g + k_b1 * m
+            v_new = k_1mb2 * (g * g) + k_b2 * v
+            u = (m_new / k_c1) / (torch.sqrt(v_new / k_c2) + k_eps)
             if self.adam_w_mode:
                 u = u + k_wd * p
-            p.add_(k_lr * u)
+            if skip is None:
+                m.copy_(m_new)
+                v.copy_(v_new)
+                p.add_(k_lr * u)
+            else:
+                m.copy_(torch.where(skip, m, m_new))
+                v.copy_(torch.where(skip, v, v_new))
+                p.copy_(torch.where(skip, p, p + k_lr * u))
+
+    def commit(self, updated: bool = True):
+        if updated:
+            self.count += 1
+
+    def step(self, grads: Sequence[torch.Tensor]):
+        self.prepare()
+        self.apply(grads)
+        self.commit()
 
 
 def build_optimizer(params: Sequence[torch.Tensor], opt_type: Optional[str],

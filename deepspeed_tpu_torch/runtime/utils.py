@@ -3,7 +3,7 @@
 norm is taken in f32 over all gradients; clipping scales in place. The
 overflow check is ``runtime/loss_scaler.has_overflow``."""
 
-from typing import Sequence
+from typing import Sequence, Union
 
 import torch
 
@@ -22,15 +22,26 @@ def get_global_norm(tensors: Sequence[torch.Tensor], norm_type: float = 2.0
     return torch.linalg.vector_norm(torch.stack(norms), norm_type)
 
 
-def clip_factor(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
-    """``min(1, max_norm / (norm + 1e-6))`` in f32, on the norm's device."""
-    return torch.clamp(norm.new_tensor(max_norm) / (norm + 1e-6), max=1.0)
+def clip_factor(norm: torch.Tensor,
+                max_norm: Union[float, torch.Tensor]) -> torch.Tensor:
+    """``min(1, max_norm / (norm + 1e-6))`` in f32, on the norm's device.
+
+    ``max_norm`` is best an f32 tensor on that device, made once: from a
+    float this makes one (a host-to-device copy, which a captured step
+    cannot hold). Not ``max_norm / t`` with a float: PyTorch computes a
+    float over a tensor as the tensor's reciprocal times the float, which
+    rounds differently from the JAX step's ``clip / (norm + 1e-6)``."""
+    if not torch.is_tensor(max_norm):
+        max_norm = norm.new_tensor(max_norm)
+    return torch.clamp(max_norm / (norm + 1e-6), max=1.0)
 
 
-def clip_grad_norm_(grads: Sequence[torch.Tensor], max_norm: float,
+def clip_grad_norm_(grads: Sequence[torch.Tensor],
+                    max_norm: Union[float, torch.Tensor],
                     norm_type: float = 2.0) -> torch.Tensor:
     """Scale ``grads`` in place so their global norm is at most
-    ``max_norm``; returns the norm before clipping."""
+    ``max_norm`` (a float, or an f32 tensor on the grads' device); returns
+    the norm before clipping."""
     grads = [g for g in grads if g is not None]
     norm = get_global_norm(grads, norm_type)
     if grads:

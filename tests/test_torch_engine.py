@@ -157,6 +157,24 @@ def test_fp16_overflow_skips_and_halves_the_scale():
     assert teng.optimizer.count == 1
 
 
+def test_fp16_overflow_with_accumulation_matches_jax():
+    """The same fp16 overflow sequence at gas 2: each micro step's
+    gradients of ``loss * scale / 2`` are summed in f32 and the skip and
+    the scale update happen at the boundary, in both engines."""
+    ds = _config(gradient_accumulation_steps=2,
+                 fp16={"enabled": True, "initial_scale_power": 20,
+                       "hysteresis": 1})
+    jeng, teng, jl, tl = _train_both(ds, dtype="f16", gas=2)
+    np.testing.assert_allclose(tl, jl, rtol=1e-3)
+    # the halved micro losses overflow once: 2^20 -> 2^19, then two updates
+    assert teng.skipped_steps == jeng.skipped_steps == 1
+    assert teng.loss_scale == float(jeng.loss_scale) == 2.0 ** 19
+    assert teng.micro_steps == jeng.micro_steps == 2 * K
+    np.testing.assert_allclose(teng.get_global_grad_norm(),
+                               jeng.get_global_grad_norm(), rtol=1e-3)
+    assert teng.optimizer.count == K - 1
+
+
 def test_gpt_pretrain_config_parses_as_in_jax():
     t, j = DeepSpeedConfig(GPT_PRETRAIN), JaxDeepSpeedConfig(GPT_PRETRAIN)
     t._resolve_batch_triad(1)

@@ -168,3 +168,138 @@ def test_build_optimizer_follows_the_jax_rules(opt_type, params, use_pallas,
 def test_unported_optimizers_raise(opt_type):
     with pytest.raises(NotImplementedError):
         build_optimizer([torch.zeros(3)], opt_type, {})
+
+
+def _float_reference(params, grads, ms, vs, lr, step, *, b1, b2, eps,
+                     weight_decay):
+    """The kernel's update from host floats (the plain version's form
+    before lr, c1 and c2 moved to device scalars)."""
+    c1, c2 = (torch.tensor(1.0 - b ** step, dtype=torch.float32)
+              for b in (b1, b2))
+    for p, g, m, v in zip(params, grads, ms, vs):
+        gf = g.float()
+        m.mul_(b1).add_(gf * (1.0 - b1))
+        v.mul_(b2).add_(gf * (1.0 - b2) * gf)
+        update = (m / c1) / ((v / c2).sqrt_() + eps)
+        pf = p.float()
+        pf.sub_(lr * (update + weight_decay * pf))
+        p.copy_(pf)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_reference_from_device_scalars_is_bit_identical(dtype):
+    """``fused_adamw_reference`` reading lr, c1 and c2 from the f32 scalar
+    buffer gives the float-argument update bit for bit over 3 steps; with
+    the skip flag set it leaves p, m and v exactly as they were."""
+    params, grads = _arrays(3, dtype)
+    kw = dict(weight_decay=0.1, **HYPER)
+    state = {name: ([torch.tensor(p).to(dtype) for p in params],
+                    [torch.zeros(p.shape) for p in params],
+                    [torch.zeros(p.shape) for p in params])
+             for name in ("floats", "scalars")}
+    for step, g in enumerate(grads, start=1):
+        tg = _to_torch(g, dtype)
+        _float_reference(*state["floats"][:1], tg, *state["floats"][1:],
+                         2e-2, step, **kw)
+        scalars = fadam.adamw_scalars(2e-2, step, HYPER["b1"], HYPER["b2"],
+                                      "cpu")
+        fadam.fused_adamw_reference(*state["scalars"][:1], tg,
+                                    *state["scalars"][1:], scalars, **kw)
+        for a, b in zip(state["floats"], state["scalars"]):
+            for x, y in zip(a, b):
+                assert torch.equal(x, y), f"step {step}"
+    before = [[x.clone() for x in xs] for xs in state["scalars"]]
+    skipped = fadam.adamw_scalars(2e-2, 4, HYPER["b1"], HYPER["b2"], "cpu",
+                                  skip=True)
+    fadam.fused_adamw_reference(*state["scalars"][:1], _to_torch(grads[0], dtype),
+                                *state["scalars"][1:], skipped, **kw)
+    for a, b in zip(before, state["scalars"]):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def test_fused_adamw_prepare_apply_commit():
+    """``FusedAdamW``'s three parts: ``apply`` with a set skip flag leaves
+    every tensor alone, and ``commit(False)`` keeps the count, so the next
+    step repeats the skipped one's lr and bias corrections; a full step
+    then equals ``fused_adamw_update`` at step 1."""
+    dtype = torch.bfloat16
+    params, grads = _arrays(4, dtype)
+    opt = fadam.FusedAdamW(_to_torch(params, dtype), 1e-2, weight_decay=0.1,
+                           **HYPER)
+    g = _to_torch(grads[0], dtype)
+    opt.prepare()
+    opt.apply(g, skip=torch.tensor(True))
+    opt.commit(False)
+    assert opt.count == 0
+    for p, p0 in zip(opt.params, _to_torch(params, dtype)):
+        assert torch.equal(p, p0)
+    assert not any(m.any() for m in opt.mu)
+    opt.step(g)
+    assert opt.count == 1
+    want = _to_torch(params, dtype)
+    ms = [torch.zeros(p.shape) for p in params]
+    vs = [torch.zeros(p.shape) for p in params]
+    fadam.fused_adamw_update(want, g, ms, vs, 1e-2, 1, weight_decay=0.1,
+                             **HYPER)
+    for a, b in zip(opt.params + opt.mu + opt.nu, want + ms + vs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+def test_adamw_skip_and_split_step(adam_w_mode):
+    """The plain AdamW: ``apply`` with a set skip flag changes nothing;
+    with a clear one, ``prepare``/``apply``/``commit`` equals ``step``."""
+    dtype = torch.bfloat16
+    params, grads = _arrays(5, dtype)
+    a = AdamW(_to_torch(params, dtype), 1e-2, weight_decay=0.1,
+              adam_w_mode=adam_w_mode, **HYPER)
+    b = AdamW(_to_torch(params, dtype), 1e-2, weight_decay=0.1,
+              adam_w_mode=adam_w_mode, **HYPER)
+    for step, g in enumerate(grads):
+        tg = _to_torch(g, dtype)
+        a.prepare()
+        a.apply(tg, skip=torch.tensor(True))
+        a.commit(False)
+        a.prepare()
+        a.apply(tg, skip=torch.tensor(False))
+        a.commit(True)
+        b.step(tg)
+        assert a.count == b.count == step + 1
+        for x, y in zip(a.params + a.mu + a.nu, b.params + b.mu + b.nu):
+            assert torch.equal(x, y)
+
+
+def test_pointer_table_under_capture_takes_a_spare():
+    """While a graph is captured, B4's pointer table is a spare buffer made
+    before the capture (a buffer from the graph's pool may be one that
+    earlier nodes of the graph overwrite on every replay), filled once the
+    capture has ended, held by the graph, and replaced by a new spare; with
+    no spare the capture raises."""
+    from deepspeed_tpu_torch.runtime import compiled_step
+
+    params = [torch.zeros(s) for s in ((3, 5), (7,))]
+    group = [(p, torch.ones_like(p), torch.zeros_like(p), torch.zeros_like(p))
+             for p in params]
+    fadam._SPARES.clear()
+    state = compiled_step._CaptureState()
+    compiled_step._capture = state
+    try:
+        with pytest.raises(RuntimeError, match="uncaptured first"):
+            fadam._table(group, torch.device("cpu"))
+        fadam._reserve(torch.device("cpu"), 2)
+        spare = fadam._SPARES[("cpu", 2)]
+        table, rows, chunks = fadam._table(group, torch.device("cpu"))
+    finally:
+        compiled_step._capture = None
+    assert table is spare and (rows, chunks) == (2, 2)
+    assert any(h is table for h in state.held)
+    for fn in state.after:
+        fn()
+    want = [[p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel(), i]
+            for i, (p, g, m, v) in enumerate(group)]
+    assert table.tolist() == want
+    assert fadam._SPARES[("cpu", 2)] is not table
+    fadam._TABLES.clear()
+    fadam._SPARES.clear()

@@ -14,6 +14,7 @@ import torch
 import deepspeed_tpu
 import deepspeed_tpu_torch
 from deepspeed_tpu.models import transformer_lm as jlm
+from deepspeed_tpu_torch.inference import engine as tinf
 from deepspeed_tpu_torch.models import transformer_lm as tlm
 from deepspeed_tpu_torch.module_inject.jax_params import gpt_state_dict_from_jax
 
@@ -86,6 +87,56 @@ def test_generate_errors_match_jax(engines, case):
     assert str(terr.value) == str(jerr.value)
 
 
+@pytest.mark.parametrize("chunk,runs", [(8, [8, 4]), (6, [4, 4, 4])])
+def test_decode_chunk_matches_jax_and_chunk_1(engines, monkeypatch, chunk,
+                                              runs):
+    """``decode_chunk`` as in the JAX engine: each run is the largest power
+    of two <= min(chunk, remaining), and a chunk that is not a power of two
+    warns once and runs as the power below it. 13 new tokens (one from
+    prefill, then the runs) are the JAX engine's tokens with the same
+    config, and the port's with chunk 1 (one step per run)."""
+    jeng, _, ids, _ = engines
+    jchunk = deepspeed_tpu.init_inference(
+        jlm.GPT(jlm.GPTConfig(**SMALL, dtype=jnp.float32)), dtype="fp32",
+        config={"decode_chunk": chunk})
+    want = np.asarray(jchunk.generate(jnp.asarray(ids, jnp.int32),
+                                      max_new_tokens=13))
+    params = jax.device_get(jchunk.params)
+    seen, warned = [], []
+    real_run = tinf.InferenceEngine._decode_run
+
+    def spy(self, decode, cache, tok, k, *args):
+        seen.append(k)
+        return real_run(self, decode, cache, tok, k, *args)
+
+    monkeypatch.setattr(tinf.InferenceEngine, "_decode_run", spy)
+    monkeypatch.setattr(tinf, "warning_once", warned.append)
+    teng = _port_engine(params, config={"decode_chunk": chunk})
+    got = teng.generate(ids, max_new_tokens=13)
+    assert seen == runs
+    assert len(warned) == (chunk == 6)
+    assert all("decode_chunk=6" in w and "4-token runs" in w for w in warned)
+    np.testing.assert_array_equal(got.numpy(), want)
+    seen.clear()
+    one = _port_engine(params, config={"decode_chunk": 1}).generate(
+        ids, max_new_tokens=13)
+    assert seen == [1] * 12
+    assert torch.equal(one, got)
+
+
+def test_decode_chunk_defaults_to_32_and_reuses_the_cache(engines):
+    """The default chunk is the JAX engine's 32; a second generate on the
+    same batch size reuses (and resets) the engine's KV cache and gives the
+    same tokens."""
+    _, teng, ids, _ = engines
+    assert teng.decode_chunk == 32
+    first = teng.generate(ids, max_new_tokens=7)
+    cache, _ = teng._decoders[ids.shape[0]]
+    second = teng.generate(ids, max_new_tokens=7)
+    assert teng._decoders[ids.shape[0]][0] is cache
+    assert torch.equal(first, second)
+
+
 def test_zero_new_tokens(engines):
     _, teng, ids, _ = engines
     assert teng.generate(ids, max_new_tokens=0).shape == (3, 0)
@@ -120,8 +171,7 @@ def test_default_device_is_the_card():
 
 @pytest.mark.parametrize("kw", [{"mp_size": 2}, {"ep_size": 2},
                                 {"checkpoint": "ckpt"}, {"dtype": "int8"},
-                                {"config": {"kv_cache": "int8"}},
-                                {"config": {"decode_chunk": 8}}])
+                                {"config": {"kv_cache": "int8"}}])
 def test_unported_engine_options_raise(kw):
     kw = {"dtype": "fp32", **kw}
     with pytest.raises(NotImplementedError):
