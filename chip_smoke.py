@@ -60,6 +60,24 @@ Phases, each printing one JSON line:
   times (counts set to 0 just before the 12 captured steps and read just
   after; a replay counts the launches its capture saw). Median step ms of
   both runs.
+* ``checkpoint`` (the checkpoint slice's main path): GPT-2 1.3B as in
+  ``train``, 4 steps (2 warm-up, the capture, 1 replay), then
+  ``save_checkpoint`` with the synchronous engine (a 13.1 GB tag under
+  ``build/``, after a check of the free disk), 3 more steps, then
+  ``load_checkpoint`` into the same engine: no step is captured again (the
+  same graphs, 3 more replays each), the 3 steps again must be
+  bit-identical (losses, grad norms, final parameters) and launch B1 48,
+  B2 24, B3 24 and B4 1 times each; a second engine from another seed
+  loads the tag and its 3 steps must be bit-identical too; then
+  ``init_inference(checkpoint=tag_dir)`` must give the logits on [4, 1024]
+  of an engine built from the saving engine's ``state_dict``, bit for bit.
+  Save, verification and load seconds, GB/s, host peak RSS, and the step
+  ms after the load against before it. Then, on small GPTs: the async
+  engine (a step between ``save`` and ``wait`` must not reach the file),
+  ``keep_n`` 2 over 4 saves, a flipped byte (load falls back to the
+  previous tag), a corrupt tag with no fallback (load raises), ``set_lr``
+  under replay (lr 0 freezes the parameters, the next lr moves them, no
+  capture), and LAMB, Adagrad and SGD captured against uncaptured.
 * ``sparse_train`` (the block-sparse slice's main path): BERT-Large at full
   width and depth, max positions 4096, through ``initialize`` with
   ``benchmarks/sparse_attention_bench.py``'s config and its BigBird block
@@ -1334,23 +1352,11 @@ def phase_train():
     import numpy as np
     import torch
 
-    import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models.transformer_lm import (
-        GPT, gpt2_config, num_params)
-
-    def model(flash):
-        return GPT(gpt2_config(
-            "gpt2-1.3b", n_positions=1024, dtype=torch.bfloat16,
-            param_dtype=torch.bfloat16, remat=True, remat_policy="full",
-            use_flash_attention=flash))
-
-    def engine(flash=True):
-        return deepspeed_tpu_torch.initialize(
-            model=model(flash), config=GPT_PRETRAIN_CONFIG, seed=0)[0]
+    from deepspeed_tpu_torch.models.transformer_lm import num_params
 
     free_cuda()
     t0 = time.perf_counter()
-    einsum = engine(flash=False)
+    einsum = gpt_1p3b_engine(flash=False)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cfg = einsum.module.config
@@ -1368,7 +1374,7 @@ def phase_train():
     traces = {}
     check, launches, losses, norms, times, e_losses, e_times = \
         captured_against_eager(
-            engine, [batch], STEPS,
+            gpt_1p3b_engine, [batch], STEPS,
             traced=lambda eng, it: traces.update(profile_step(
                 eng, it, "train_step_1p3b",
                 {"flash_attention_fwd": "flash_fwd_",
@@ -1416,6 +1422,401 @@ def phase_train():
     if problems:
         raise AssertionError(f"train: {problems}")
     return launches
+
+
+def gpt_1p3b_engine(seed=0, flash=True):
+    """GPT-2 1.3B through ``initialize`` with ``GPT_PRETRAIN_CONFIG`` (the
+    ``train`` and ``checkpoint`` phases' engine)."""
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import GPT, gpt2_config
+
+    model = GPT(gpt2_config(
+        "gpt2-1.3b", n_positions=1024, dtype=torch.bfloat16,
+        param_dtype=torch.bfloat16, remat=True, remat_policy="full",
+        use_flash_attention=flash))
+    return deepspeed_tpu_torch.initialize(
+        model=model, config=GPT_PRETRAIN_CONFIG, seed=seed)[0]
+
+
+class PeakRSS:
+    """The resident set of this process on the host, sampled every 20 ms
+    on a thread while the ``with`` block runs: ``before_gib``,
+    ``peak_gib``."""
+
+    def __enter__(self):
+        import threading
+
+        self.before_gib = self.peak_gib = self._rss_gib()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def _rss_gib():
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 2 ** 20
+        raise RuntimeError("no VmRSS in /proc/self/status")
+
+    def _sample(self):
+        while not self._stop.wait(0.02):
+            self.peak_gib = max(self.peak_gib, self._rss_gib())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak_gib = max(self.peak_gib, self._rss_gib())
+        return False
+
+
+def timed(fn):
+    """``fn()`` fenced on both sides; returns its result and its seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+# a tag of GPT-2 1.3B holds bf16 parameters and f32 m and v, 10 bytes per
+# parameter (13.1 GB); the small models' tags need little more
+CKPT_MIN_FREE_BYTES = 15e9
+CKPT_DIR = os.path.join("build", "chip_smoke_checkpoint")
+CKPT_STEPS_BEFORE, CKPT_STEPS_AFTER = 4, 3
+CKPT_SMALL_STEPS = 6
+
+
+def graphs_of(engine):
+    """The engine's CUDA graphs: (step, key) -> (graph, replays)."""
+    return {(name, key): (g.graph, g.replays)
+            for name in ("_fused", "_micro", "_apply")
+            for key, g in getattr(engine, name).graphs.items()}
+
+
+def same_graphs(before, after, more_replays=None):
+    """Whether the engine kept the same graph objects, each replayed
+    ``more_replays`` more times when given."""
+    return set(before) == set(after) and all(
+        before[k][0] is after[k][0]
+        and (more_replays is None or after[k][1] == before[k][1] + more_replays)
+        for k in before)
+
+
+def phase_checkpoint():
+    """GPT-2 1.3B saved, loaded into the live engine and into a fresh one,
+    and served from the tag; then the small-model checks. Returns the
+    kernels' launch counts over the 1.3B part (the path's)."""
+    free_cuda()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    free = shutil.disk_usage(CKPT_DIR).free
+    if free < CKPT_MIN_FREE_BYTES:
+        raise AssertionError(
+            f"checkpoint: {free / 1e9:.1f} GB free under {CKPT_DIR}, the "
+            f"phase needs {CKPT_MIN_FREE_BYTES / 1e9:.0f} GB")
+    try:
+        launches = checkpoint_1p3b()
+        checkpoint_small()
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return launches
+
+
+def checkpoint_1p3b():
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.transformer_lm import GPT, gpt2_config
+    from deepspeed_tpu_torch.runtime import checkpoint_manifest as cm
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    save_dir = os.path.join(CKPT_DIR, "gpt2_1p3b")
+    engine = gpt_1p3b_engine(seed=0)
+    cfg = engine.module.config
+    rng = np.random.RandomState(3)
+    batches = [{"input_ids": x, "labels": x} for x in rng.randint(
+        0, cfg.vocab_size, size=(CKPT_STEPS_AFTER, 4, 1024))]
+
+    def run(eng):
+        return train_steps(eng, iter(RepeatingLoader(batches)),
+                           CKPT_STEPS_AFTER)
+
+    reset_launches()
+    before_ms = train_steps(engine, iter(RepeatingLoader(batches)),
+                            CKPT_STEPS_BEFORE)[2]
+    at_save = {k: v.clone() for k, v in engine.module.state_dict().items()}
+    with PeakRSS() as save_rss:
+        _, save_s = timed(lambda: engine.save_checkpoint(
+            save_dir, client_state={"note": "chip_smoke"}))
+    tag = f"global_step{CKPT_STEPS_BEFORE}"
+    tag_dir = os.path.join(save_dir, tag)
+    manifest = cm.read_manifest(tag_dir)
+    nbytes = sum(entry["bytes"] for entry in manifest["files"].values())
+    problems, verify_s = timed(lambda: cm.verify_tag_dir(tag_dir))
+
+    # 3 steps; the load into the same engine; the same 3 steps again
+    losses1, norms1, ms1 = run(engine)
+    params1 = {k: v.clone() for k, v in engine.module.state_dict().items()}
+    graphs = graphs_of(engine)
+    with PeakRSS() as load_rss:
+        (got_tag, client), load_s = timed(
+            lambda: engine.load_checkpoint(save_dir))
+    restored = first_difference(at_save, engine.module.state_dict())
+    count_after_load = engine.optimizer.count
+    path_launches = read_launches()
+    reset_launches()
+    losses2, norms2, ms2 = run(engine)
+    after_load = read_launches()
+    same_engine = {
+        "losses_identical": identical(losses1, losses2),
+        "grad_norms_identical": identical(norms1, norms2),
+        "first_param_difference": first_difference(
+            params1, engine.module.state_dict()),
+        "graphs_kept": same_graphs(graphs, graphs_of(engine),
+                                   CKPT_STEPS_AFTER)}
+    del engine
+    free_cuda()
+
+    # a second engine, from another seed, loads the tag
+    fresh = gpt_1p3b_engine(seed=1)
+    with PeakRSS() as fresh_rss:
+        (fresh_tag, _), fresh_load_s = timed(
+            lambda: fresh.load_checkpoint(save_dir))
+    reset_launches()
+    losses3, norms3, _ = run(fresh)
+    fresh_launches = read_launches()
+    fresh_engine = {
+        "tag": fresh_tag,
+        "losses_identical": identical(losses1, losses3),
+        "grad_norms_identical": identical(norms1, norms3),
+        "first_param_difference": first_difference(
+            params1, fresh.module.state_dict())}
+    del fresh, params1
+    free_cuda()
+
+    # serving: the tag against the saving engine's state_dict at the save
+    serve_cfg = gpt2_config("gpt2-1.3b", use_flash_attention=True)
+    ids = torch.randint(0, cfg.vocab_size, (4, 1024),
+                        generator=torch.Generator().manual_seed(5))
+    reset_launches()
+    served, serve_init_s = timed(lambda: init_inference(
+        GPT(serve_cfg), dtype="bf16", checkpoint=tag_dir))
+    logits_ckpt = served(ids)
+    del served
+    reference = init_inference(GPT(serve_cfg), dtype="bf16", state_dict=at_save)
+    logits_sd = reference(ids)
+    serve_launches = read_launches()
+    served_identical = bool(torch.equal(logits_ckpt, logits_sd))
+    finite = bool(torch.isfinite(logits_ckpt).all())
+    del reference, at_save, logits_ckpt, logits_sd
+    free_cuda()
+
+    launches = {name: path_launches[name] + after_load[name]
+                + fresh_launches[name] + serve_launches[name]
+                for name in path_launches}
+    gb = nbytes / 1e9
+    emit({"phase": "checkpoint", "model": "gpt2-1.3b", "tag": got_tag,
+          "client_state": client, "tag_bytes": nbytes,
+          "tag_files": sorted(manifest["files"]),
+          "manifest_topology": manifest.get("topology"),
+          "save_s": save_s, "save_gb_per_s": gb / save_s,
+          "verify_s": verify_s, "verify_gb_per_s": gb / verify_s,
+          "load_s": load_s, "load_gb_per_s": gb / load_s,
+          "load_s_less_verify_s": load_s - verify_s,
+          "fresh_engine_load_s": fresh_load_s,
+          "serve_from_checkpoint_init_s": serve_init_s,
+          "host_rss_gib_before_peak": {
+              "save": [save_rss.before_gib, save_rss.peak_gib],
+              "load": [load_rss.before_gib, load_rss.peak_gib],
+              "fresh_engine_load": [fresh_rss.before_gib,
+                                    fresh_rss.peak_gib]},
+          "step_ms_before_save": before_ms,
+          "step_ms_median_before_load": statistics.median(ms1),
+          "step_ms_median_after_load": statistics.median(ms2),
+          "step_ms_before_load": ms1, "step_ms_after_load": ms2,
+          "losses": [float(x) for x in losses1],
+          "same_engine": same_engine, "fresh_engine": fresh_engine,
+          "state_at_save_restored": restored is None,
+          "optimizer_count_after_load": count_after_load,
+          "served_logits_identical": served_identical,
+          "launches_after_load": after_load,
+          "fresh_engine_launches": fresh_launches,
+          "serve_launches": serve_launches, "launches": launches,
+          "card": nvidia_smi_line()})
+    bad = []
+    if problems:
+        bad.append(f"the saved tag fails verification: {problems}")
+    if got_tag != tag or client != {"note": "chip_smoke"}:
+        bad.append(f"load returned {got_tag!r}, {client!r}")
+    if restored is not None or count_after_load != CKPT_STEPS_BEFORE:
+        bad.append("the load did not restore the state at the save")
+    if not (same_engine["losses_identical"]
+            and same_engine["grad_norms_identical"]
+            and same_engine["first_param_difference"] is None):
+        bad.append("the steps after the load differ from those they repeat")
+    if not same_engine["graphs_kept"]:
+        bad.append("the load changed the engine's graphs")
+    if not (fresh_tag == tag and fresh_engine["losses_identical"]
+            and fresh_engine["grad_norms_identical"]
+            and fresh_engine["first_param_difference"] is None):
+        bad.append("the fresh engine's steps differ")
+    for name, per in PER_STEP.items():
+        if after_load[name] != per * CKPT_STEPS_AFTER:
+            bad.append(f"{name}: {after_load[name]} launches in the "
+                       f"{CKPT_STEPS_AFTER} steps after the load, want "
+                       f"{per} x {CKPT_STEPS_AFTER}")
+    if not (served_identical and finite):
+        bad.append("the served logits differ from the state_dict's")
+    if not all(np.isfinite([float(x) for x in losses1])):
+        bad.append("non-finite loss")
+    if bad:
+        raise AssertionError(f"checkpoint: {bad}")
+    return launches
+
+
+def small_ckpt_engine(optimizer, dtype=None, **blocks):
+    """A small GPT's engine on the card (2 layers, width 256)."""
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import GPT, GPTConfig
+
+    cfg = GPTConfig(vocab_size=512, n_positions=128, n_embd=256, n_layer=2,
+                    n_head=4, dtype=dtype or torch.float32,
+                    use_flash_attention=True)
+    config = {"train_micro_batch_size_per_gpu": 2, "gradient_clipping": 1.0,
+              "steps_per_print": 10 ** 9, "optimizer": optimizer, **blocks}
+    return deepspeed_tpu_torch.initialize(model=GPT(cfg), config=config,
+                                          seed=5)[0]
+
+
+def flip_byte(path, at):
+    with open(path, "r+b") as f:
+        f.seek(at)
+        byte = f.read(1)
+        f.seek(at)
+        f.write(bytes([byte[0] ^ 0xFF]))
+
+
+def checkpoint_small():
+    """The small-model checks of the ``checkpoint`` phase."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.runtime import checkpoint_engine as ce
+    from deepspeed_tpu_torch.runtime import checkpoint_manifest as cm
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    rng = np.random.RandomState(8)
+    batches = [{"input_ids": x, "labels": x}
+               for x in rng.randint(0, 512, size=(2, 2, 128))]
+    it = iter(RepeatingLoader(batches))
+    fused = {"type": "FusedAdam", "params": {"lr": SMALL_LR}}
+    on_b4 = {"tpu": {"use_pallas_optimizer": True}}
+    line, bad = {"phase": "checkpoint_small"}, []
+
+    # the async engine: a step between save and wait must not reach the file
+    engine = small_ckpt_engine(fused, nebula={"enabled": True}, **on_b4)
+    train_steps(engine, it, 4)
+    path = os.path.join(CKPT_DIR, "async", "t", "model.pt")
+    before = {k: v.clone() for k, v in engine.module.state_dict().items()}
+    engine.checkpoint_engine.save({"module": engine.module.state_dict()}, path)
+    train_steps(engine, it, 1)
+    engine.checkpoint_engine.commit("t")
+    on_disk = ce.load_torch_file(path)["module"]
+    line["async"] = {
+        "engine": type(engine.checkpoint_engine).__name__,
+        "file_holds_pre_step_values": first_difference(
+            {k: v.cpu() for k, v in before.items()}, on_disk) is None,
+        "step_moved_params": first_difference(
+            before, engine.module.state_dict()) is not None,
+        "manifest_verifies": cm.verify_tag_dir(os.path.dirname(path)) == []}
+    if not all(v for k, v in line["async"].items() if k != "engine"):
+        bad.append(f"async: {line['async']}")
+    del engine, before, on_disk
+
+    # keep_n 2 over 4 saves, a flipped byte, a corrupt tag with no fallback
+    engine = small_ckpt_engine(fused, checkpoint={"keep_n": 2}, **on_b4)
+    save_dir = os.path.join(CKPT_DIR, "keep_n")
+    tags = []
+    for i in range(4):
+        train_steps(engine, it, 1)
+        engine.save_checkpoint(save_dir)
+        tags.append(f"global_step{engine.global_steps}")
+        mpath = cm.manifest_path(os.path.join(save_dir, tags[-1]))
+        os.utime(mpath, (1_000_000 + i,) * 2)  # ordered commit times
+    kept = sorted(d for d in os.listdir(save_dir)
+                  if os.path.isdir(os.path.join(save_dir, d)))
+    latest = cm.read_latest(save_dir)
+    newest = os.path.join(save_dir, tags[-1], "mp_rank_00_model_states.pt")
+    flip_byte(newest, os.path.getsize(newest) // 2)
+    fallback_tag, _ = engine.load_checkpoint(save_dir)
+    lonely_dir = os.path.join(CKPT_DIR, "lonely")
+    engine.save_checkpoint(lonely_dir)
+    lonely = os.path.join(lonely_dir, f"global_step{engine.global_steps}",
+                          "mp_rank_00_model_states.pt")
+    flip_byte(lonely, os.path.getsize(lonely) // 2)
+    try:
+        engine.load_checkpoint(lonely_dir)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)[:300]
+    line["retention"] = {"kept": kept, "latest": latest,
+                         "flipped_byte_fell_back_to": fallback_tag,
+                         "corrupt_without_fallback_raised": raised}
+    if kept != sorted(tags[-2:]) or latest != tags[-1]:
+        bad.append(f"keep_n: kept {kept}, latest {latest}, saved {tags}")
+    if fallback_tag != tags[-2]:
+        bad.append(f"flipped byte: loaded {fallback_tag}, want {tags[-2]}")
+    if raised is None or "no previous valid tag" not in raised:
+        bad.append(f"corrupt tag without fallback: {raised}")
+
+    # set_lr under replay: lr 0 freezes the parameters, the next lr moves
+    # them, and the graphs stay
+    graphs = graphs_of(engine)
+    frozen = {k: v.clone() for k, v in engine.module.state_dict().items()}
+    engine.optimizer_adapter.param_groups[0]["lr"] = 0.0
+    train_steps(engine, it, 2)
+    still = first_difference(frozen, engine.module.state_dict()) is None
+    engine.set_lr(SMALL_LR)
+    train_steps(engine, it, 1)
+    moved = first_difference(frozen, engine.module.state_dict()) is not None
+    line["set_lr"] = {"lr0_froze": still, "next_lr_moved": moved,
+                      "graphs_kept": same_graphs(graphs, graphs_of(engine), 3),
+                      "get_lr": engine.get_lr()}
+    if not (still and moved and line["set_lr"]["graphs_kept"]):
+        bad.append(f"set_lr: {line['set_lr']}")
+    del engine, frozen
+    free_cuda()
+
+    # LAMB, Adagrad and SGD, captured against uncaptured
+    line["optimizers"] = {}
+    for name, opt in (("lamb", {"type": "Lamb", "params": {
+                            "lr": SMALL_LR, "weight_decay": 0.1}}),
+                      ("adagrad", {"type": "Adagrad", "params": {"lr": 1e-2}}),
+                      ("sgd_nesterov", {"type": "SGD", "params": {
+                          "lr": 1e-2, "momentum": 0.9, "nesterov": True}})):
+        check, launches, losses, _, _, _, _ = captured_against_eager(
+            lambda: small_ckpt_engine(opt, dtype=torch.bfloat16), batches,
+            CKPT_SMALL_STEPS)
+        line["optimizers"][name] = {"identical": check["identical"],
+                                    "losses": losses, "launches": launches}
+        if not check["identical"]:
+            bad.append(f"{name}: captured and eager steps differ: {check}")
+        if (launches["flash_attention_fwd"] != 2 * CKPT_SMALL_STEPS
+                or launches["fused_adamw"]):
+            bad.append(f"{name}: launches {launches}")
+    emit(line)
+    free_cuda()
+    if bad:
+        raise AssertionError(f"checkpoint_small: {bad}")
 
 
 def profile_step(engine, it, name, marks, per_step):
@@ -2069,19 +2470,23 @@ def main(argv):
     phase_small()
     free_cuda()
     launches = phase_train()
+    free_cuda()
+    ckpt_launches = phase_checkpoint()
     sparse_launches = phase_sparse_train()
     phase_small_capture()
     free_cuda()
     phase_small_train()
     paths = {"serve": serve_launches, "train": launches,
-             "sparse_train": sparse_launches}
+             "checkpoint": ckpt_launches, "sparse_train": sparse_launches}
     for entry in kernels:
         # each slice's main path, its counts set to 0 just before it: serving
-        # runs B1, GPT training B1-B4, BERT training under BigBird B4-B7.
-        # "launches" is the count on the newest path that runs the kernel
+        # runs B1, GPT training and the checkpoint path B1-B4, BERT training
+        # under BigBird B4-B7. "launches" is the count on the newest path
+        # that runs the kernel
         name = entry["name"]
         entry["launches_by_path"] = {p: counts[name] for p, counts in paths.items()}
-        entry["launches"] = sparse_launches[name] or launches[name]
+        entry["launches"] = (sparse_launches[name] or ckpt_launches[name]
+                             or launches[name])
         if not entry["launches"]:
             raise AssertionError(f"{name} never ran on a main path")
     emit({"kernels": kernels})

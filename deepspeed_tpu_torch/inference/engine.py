@@ -17,12 +17,18 @@ host advances the cache's ``length`` by k after each run. Sampling draws
 from the engine's own generator, registered with each graph. Prefill and
 ``forward`` run eagerly.
 
+``init_inference(checkpoint=...)`` serves weights the training engine
+saved (``_load_checkpoint`` of the JAX engine, :681): a model-states file
+of ``save_checkpoint``, a tag directory (its model-states file checked
+against the manifest) or a ``save_16bit_model`` file.
+
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when torch sees no card. Pass ``device="cpu"`` to run on the host.
 """
 
 import collections
 import functools
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -30,6 +36,9 @@ import torch
 
 from deepspeed_tpu_torch.models.transformer_lm import (GPT, KVCache,
                                                        materialize_gpt)
+from deepspeed_tpu_torch.runtime import checkpoint_manifest as ckpt_manifest
+from deepspeed_tpu_torch.runtime.checkpoint_engine import (MODEL_STATES,
+                                                           load_torch_file)
 from deepspeed_tpu_torch.runtime.compiled_step import CompiledStep
 from deepspeed_tpu_torch.utils.logging import log_dist, warning_once
 
@@ -53,8 +62,10 @@ def init_inference(model, config: Optional[Dict[str, Any]] = None,
     signature, plus where to run and, optionally, the weights).
 
     ``device``: None means ``"cuda"``. ``state_dict``: weights for the model
-    (e.g. from ``module_inject.jax_params.gpt_state_dict_from_jax``); None
-    draws them at random from ``seed``.
+    (e.g. from ``module_inject.jax_params.gpt_state_dict_from_jax``);
+    ``checkpoint``: a path the weights are loaded from instead (see the
+    module docstring); with neither, they are drawn at random from
+    ``seed``. The weights are taken in the engine's dtype.
     """
     config = dict(config or {})
     config.setdefault("tensor_parallel", {"tp_size": mp_size})
@@ -67,6 +78,25 @@ def init_inference(model, config: Optional[Dict[str, Any]] = None,
     config["replace_with_kernel_inject"] = replace_with_kernel_inject
     return InferenceEngine(model, config, seed=seed, device=device,
                            state_dict=state_dict)
+
+
+def load_checkpoint_weights(path: str):
+    """The model ``state_dict`` at ``path``: a file saved by
+    ``save_checkpoint`` (model states) or ``save_16bit_model``, or a tag
+    directory, whose model-states file must match its manifest entry (the
+    optimizer's files, ~80% of a tag, are not read). Host tensors mapped
+    from the file."""
+    if os.path.isdir(path):
+        manifest = ckpt_manifest.read_manifest(path)
+        path = os.path.join(path, MODEL_STATES)
+        if manifest is not None:
+            want = manifest["files"].get(MODEL_STATES)
+            got = ckpt_manifest.file_digest(path)
+            if got != want:
+                raise RuntimeError(f"checkpoint {path} failed verification: "
+                                   f"{got} on disk, manifest says {want}")
+    state = load_torch_file(path)
+    return state.get("module", state)
 
 
 class InferenceEngine:
@@ -84,7 +114,6 @@ class InferenceEngine:
         for what, unported in (
                 ("tensor parallelism (tp_size > 1)", tp_size != 1),
                 ("expert parallelism (ep_size > 1)", ep_size != 1),
-                ("checkpoint loading", bool(config.get("checkpoint"))),
                 ("dtype='int8'", config.get("dtype") == "int8"),
                 ("the int8 KV cache ('kv_cache')",
                  config.get("kv_cache") is not None)):
@@ -108,6 +137,10 @@ class InferenceEngine:
                                        device=self.device)
         # batch size -> (KV cache, its decode runs), least recently used first
         self._decoders = collections.OrderedDict()
+        if config.get("checkpoint"):
+            if state_dict is not None:
+                raise ValueError("pass checkpoint or state_dict, not both")
+            state_dict = load_checkpoint_weights(config["checkpoint"])
         self._materialize(state_dict)
         log_dist(f"InferenceEngine: device={self.device}, dtype={self.dtype}",
                  ranks=[0])

@@ -11,7 +11,10 @@ nothing here imports jax.
 The mapping only renames and transposes leaves, so it carries any tree
 shaped like the parameters: the parity tests also pass ``jax.grad``'s
 gradient trees (and trained parameter trees) through it to compare
-gradients leaf by leaf with the port's ``param.grad``.
+gradients leaf by leaf with the port's ``param.grad``, and
+``adam_state_from_jax`` carries the Adam moments of a JAX-trained run into
+the port's optimizer. (A JAX checkpoint file itself is flax msgpack, which
+the port does not read.)
 """
 
 from typing import Any, Dict
@@ -61,6 +64,38 @@ def gpt_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tens
             sd[f"{p}.{mod}.{name}.weight"] = _tensor(dense["kernel"]).T.contiguous()
             sd[f"{p}.{mod}.{name}.bias"] = _tensor(dense["bias"])
     return sd
+
+
+def _adam_node(state):
+    """The node of an optax state tree that holds ``count``, ``mu`` and
+    ``nu`` (``ScaleByAdamState`` inside ``optax.adamw``'s chain, or the
+    Pallas ``FusedAdamWState``): a named tuple, searched depth first."""
+    if all(hasattr(state, k) for k in ("count", "mu", "nu")):
+        return state
+    children = (state.values() if isinstance(state, dict)
+                else state if isinstance(state, (tuple, list)) else ())
+    for child in children:
+        found = _adam_node(child)
+        if found is not None:
+            return found
+    return None
+
+
+def adam_state_from_jax(opt_state, cfg) -> Dict[str, Any]:
+    """The JAX engine's optax Adam state of a ``GPT`` (``count``, ``mu``
+    and ``nu`` over the scanned or unscanned parameter tree, as numpy:
+    ``jax.device_get(engine._opt_state)``) -> the ``state_dict`` of the
+    port's Adam optimizers (``AdamW``, ``FusedAdamW``): ``{"count": n,
+    "state": {name: {"mu": t, "nu": t}}}``, named and laid out by
+    ``gpt_state_dict_from_jax``'s map, in f32 (``load_state_dict`` casts
+    to the moments' dtype)."""
+    node = _adam_node(opt_state)
+    if node is None:
+        raise ValueError("no optax Adam state (count, mu, nu) in the tree")
+    mu = gpt_state_dict_from_jax(node.mu, cfg)
+    nu = gpt_state_dict_from_jax(node.nu, cfg)
+    return {"count": int(np.asarray(node.count)),
+            "state": {name: {"mu": mu[name], "nu": nu[name]} for name in mu}}
 
 
 def _dense(sd, name, dense):

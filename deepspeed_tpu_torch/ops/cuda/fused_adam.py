@@ -35,6 +35,7 @@ import torch
 
 from deepspeed_tpu_torch.ops.cuda.build import load_library
 from deepspeed_tpu_torch.runtime import compiled_step
+from deepspeed_tpu_torch.runtime.optimizer_state import StatefulOptimizer
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # elements per (tensor, chunk) pair of the kernel's grid; a multiple of 8
@@ -261,7 +262,7 @@ def fused_adamw_update(params: List[torch.Tensor], grads, ms, vs, lr: float,
                       b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
 
 
-class FusedAdamW:
+class FusedAdamW(StatefulOptimizer):
     """AdamW on B4 with the state layout of the JAX ``fused_adamw``
     transformation: ``count``, and f32 ``mu``/``nu`` beside each parameter.
     ``lr`` is a float or a ``count -> lr`` schedule, evaluated at the count
@@ -269,17 +270,22 @@ class FusedAdamW:
     ``lr(0)``); the bias corrections use the 1-based step.
 
     A step is three calls, so that its device part can be captured:
-    ``prepare()`` writes lr, c1 and c2 for the next count into ``scalars``
-    on the host, ``apply(grads, skip)`` updates on the device (``skip``: a
-    0-dim bool tensor, the fp16 overflow flag, or None), and
-    ``commit(updated)`` advances ``count`` when the step updated: the host
-    knows of an overflow before the next step, so a skipped step keeps the
-    count, as the JAX ``skip_update`` branch keeps ``opt_state``.
-    ``step(grads)`` does all three."""
+    ``prepare(lr)`` writes lr (the schedule's, or the override ``lr``), c1
+    and c2 for the next count into ``scalars`` on the host,
+    ``apply(grads, skip)`` updates on the device (``skip``: a 0-dim bool
+    tensor, the fp16 overflow flag, or None), and ``commit(updated)``
+    advances ``count`` when the step updated: the host knows of an overflow
+    before the next step, so a skipped step keeps the count, as the JAX
+    ``skip_update`` branch keeps ``opt_state``. ``step(grads)`` does all
+    three. ``state_dict()`` / ``load_state_dict()`` carry ``count``, ``mu``
+    and ``nu`` by parameter name (``runtime/optimizer_state.py``)."""
+
+    STATE = ("mu", "nu")
 
     def __init__(self, params, lr: Union[float, Callable] = 1e-3, b1=0.9,
-                 b2=0.999, eps=1e-8, weight_decay=0.0):
+                 b2=0.999, eps=1e-8, weight_decay=0.0, names=None):
         self.params = list(params)
+        self._init_names(names)
         self.lr, self.b1, self.b2 = lr, b1, b2
         self.eps, self.weight_decay = eps, weight_decay
         self.count = 0
@@ -288,9 +294,9 @@ class FusedAdamW:
         device = self.params[0].device if self.params else "cpu"
         self.scalars = torch.zeros(N_SCALARS, dtype=torch.float32, device=device)
 
-    def prepare(self):
-        lr = float(self.lr(self.count) if callable(self.lr) else self.lr)
-        write_adamw_scalars(self.scalars, lr, self.count + 1, self.b1, self.b2)
+    def prepare(self, lr=None):
+        write_adamw_scalars(self.scalars, self._lr_now(lr), self.count + 1,
+                            self.b1, self.b2)
 
     @torch.no_grad()
     def apply(self, grads, skip: Optional[torch.Tensor] = None):
@@ -299,12 +305,3 @@ class FusedAdamW:
         fused_adamw_apply(self.params, grads, self.mu, self.nu, self.scalars,
                           b1=self.b1, b2=self.b2, eps=self.eps,
                           weight_decay=self.weight_decay)
-
-    def commit(self, updated: bool = True):
-        if updated:
-            self.count += 1
-
-    def step(self, grads):
-        self.prepare()
-        self.apply(grads)
-        self.commit()

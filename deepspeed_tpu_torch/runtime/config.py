@@ -8,8 +8,10 @@ under its JAX name ``tpu``. The training slice honours the batch triad
 ``gradient_clipping``, ``optimizer``, ``scheduler``, ``steps_per_print``,
 ``zero_optimization.stage`` 0-3 (at world size 1 every stage is the
 unsharded update, as on the JAX package's dp=1 mesh),
-``tpu.use_pallas_optimizer`` and ``sparse_attention`` (applied by the
-engine). ``unported_features()`` names every other
+``tpu.use_pallas_optimizer``, ``sparse_attention`` (applied by the
+engine), ``checkpoint`` (``keep_n``, ``verify``, ``tag_validation``),
+``nebula`` (the asynchronous checkpoint engine) and
+``wall_clock_breakdown``. ``unported_features()`` names every other
 block that is enabled; the engine refuses to train with any of them.
 """
 
@@ -469,7 +471,24 @@ class DeepSpeedConfig:
         self.data_efficiency = pd.get(C.DATA_EFFICIENCY, {})
         self.quantize_training = pd.get(C.QUANTIZE_TRAINING, {})
         self.nebula = NebulaConfig.from_dict(pd.get(C.NEBULA, {}))
-        self.checkpoint = pd.get(C.CHECKPOINT, {}) or {}
+        ckpt = pd.get(C.CHECKPOINT, {}) or {}
+        self.checkpoint_tag_validation = str(ckpt.get(
+            C.CHECKPOINT_TAG_VALIDATION,
+            C.CHECKPOINT_TAG_VALIDATION_DEFAULT)).title()
+        if self.checkpoint_tag_validation not in C.CHECKPOINT_TAG_VALIDATION_MODES:
+            raise DeepSpeedConfigError(
+                f"checkpoint.tag_validation must be one of "
+                f"{C.CHECKPOINT_TAG_VALIDATION_MODES}")
+        self.load_universal_checkpoint = ckpt.get(
+            C.LOAD_UNIVERSAL_CHECKPOINT, C.LOAD_UNIVERSAL_CHECKPOINT_DEFAULT)
+        self.checkpoint_keep_n = int(ckpt.get(C.CHECKPOINT_KEEP_N,
+                                              C.CHECKPOINT_KEEP_N_DEFAULT))
+        if self.checkpoint_keep_n < 0:
+            raise DeepSpeedConfigError(
+                f"checkpoint.keep_n must be >= 0 (0 = keep all), got "
+                f"{self.checkpoint_keep_n}")
+        self.checkpoint_verify = bool(ckpt.get(C.CHECKPOINT_VERIFY,
+                                               C.CHECKPOINT_VERIFY_DEFAULT))
         self.graceful_shutdown = GracefulShutdownConfig.from_dict(
             pd.get(C.GRACEFUL_SHUTDOWN, {}))
         self.sentinel = SentinelConfig.from_dict(pd.get(C.SENTINEL, {}))
@@ -564,8 +583,8 @@ class DeepSpeedConfig:
             ("compression_training", bool(self.compression_training)),
             ("quantize_training",
              bool(self.quantize_training.get("enabled", False))),
-            ("nebula", self.nebula.enabled),
-            ("wall_clock_breakdown", bool(self.wall_clock_breakdown)),
+            ("checkpoint.load_universal (the universal checkpoint, "
+             "ROADMAP A.12)", bool(self.load_universal_checkpoint)),
         ]
         return [name for name, enabled in checks if enabled]
 

@@ -67,6 +67,15 @@ DATALOADER_DROP_LAST = "dataloader_drop_last"
 DATALOADER_DROP_LAST_DEFAULT = True
 
 CHECKPOINT = "checkpoint"
+CHECKPOINT_TAG_VALIDATION = "tag_validation"
+CHECKPOINT_TAG_VALIDATION_DEFAULT = "Warn"
+CHECKPOINT_TAG_VALIDATION_MODES = ["Warn", "Ignore", "Fail"]
+LOAD_UNIVERSAL_CHECKPOINT = "load_universal"
+LOAD_UNIVERSAL_CHECKPOINT_DEFAULT = False
+CHECKPOINT_KEEP_N = "keep_n"
+CHECKPOINT_KEEP_N_DEFAULT = 0  # 0 = keep every tag
+CHECKPOINT_VERIFY = "verify"
+CHECKPOINT_VERIFY_DEFAULT = True
 GRACEFUL_SHUTDOWN = "graceful_shutdown"
 SENTINEL = "sentinel"
 TELEMETRY = "telemetry"

@@ -23,11 +23,25 @@ a device scalar. Around each step the host writes the step's scalars
 (``optimizer.prepare``) before and, after, reads the overflow flag once
 (fp16 only), advances the counters and the lr schedule.
 
+Checkpoints (``save_checkpoint`` :2580, ``load_checkpoint`` :2749 of the
+JAX engine, the dense one-card branch): a tag directory holds
+``mp_rank_00_model_states.pt`` (the model ``state_dict``),
+``engine_states.pt`` (counters, the lr scheduler's and the dataloader's
+state, ``client_state``) and ``zero_pp_rank_0_mp_rank_00_optim_states.pt``
+(the optimizer's ``state_dict`` by parameter name and the loss-scale
+state), written by the checkpoint engine (``runtime/checkpoint_engine.py``)
+and certified by a manifest in the JAX package's schema. A load restores
+every tensor with ``copy_`` into the storage it already has, so the captured
+graphs and B4's pointer table stay valid and no step is captured again.
+
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when torch sees no card. Pass ``device="cpu"`` to train on the host (the
 kernels then take their plain PyTorch versions).
 """
 
+import dataclasses
+import os
+import shutil
 import time
 from typing import Any, Dict, Optional
 
@@ -36,10 +50,15 @@ import torch
 
 from deepspeed_tpu_torch.models.bert import BertForPreTraining, materialize_bert
 from deepspeed_tpu_torch.models.transformer_lm import GPT, materialize_gpt
+from deepspeed_tpu_torch.runtime import checkpoint_manifest as ckpt_manifest
+from deepspeed_tpu_torch.runtime.checkpoint_engine import (
+    ENGINE_STATES, MODEL_STATES, OPTIM_STATES, one_card_topology,
+    select_checkpoint_engine, write_torch_file)
 from deepspeed_tpu_torch.runtime.compiled_step import CompiledStep
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
-from deepspeed_tpu_torch.runtime.loss_scaler import (has_overflow,
+from deepspeed_tpu_torch.runtime.loss_scaler import (LossScaleState,
+                                                     has_overflow,
                                                      init_loss_scale,
                                                      update_loss_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import (LRScheduler,
@@ -47,15 +66,22 @@ from deepspeed_tpu_torch.runtime.lr_schedules import (LRScheduler,
                                                       schedule_fn_from_config)
 from deepspeed_tpu_torch.runtime.optimizer import build_optimizer
 from deepspeed_tpu_torch.runtime.utils import clip_grad_norm_, get_global_norm
-from deepspeed_tpu_torch.utils.logging import log_dist
-from deepspeed_tpu_torch.utils.timer import ThroughputTimer
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
+from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
+                                             ThroughputTimer)
+
+FORWARD_MICRO_TIMER = "fwd_bwd_microstep"
+STEP_MICRO_TIMER = "step_microstep"
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, config=None,
                config_params=None, seed: int = 0, *, device=None):
     """Build the engine; returns ``(engine, optimizer, dataloader,
-    lr_scheduler)`` as ``deepspeed_tpu.initialize`` does.
+    lr_scheduler)`` as ``deepspeed_tpu.initialize`` does: ``optimizer`` is
+    the engine's ``OptimizerAdapter`` (``param_groups``, with ``lr``
+    written through ``set_lr``), ``dataloader`` the engine's
+    ``training_dataloader`` when ``training_data`` is given.
 
     ``model`` is a ``GPT`` or a ``BertForPreTraining``, whose forward with
     ``labels`` returns the mean loss. A ``sparse_attention`` block in the
@@ -85,7 +111,63 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     dataloader = None
     if training_data is not None:
         dataloader = engine.deepspeed_io(training_data)
-    return engine, engine.optimizer, dataloader, engine.lr_scheduler
+    return engine, engine.optimizer_adapter, dataloader, engine.lr_scheduler
+
+
+class _ParamGroup(dict):
+    """One param group with torch-optim write-through (the JAX engine's
+    ``_ParamGroup``): assigning ``lr`` calls ``engine.set_lr``; the other
+    hyperparameters are fixed in the optimizer, and a write to them
+    raises."""
+
+    _FIXED_KEYS = ("betas", "eps", "weight_decay", "momentum", "params")
+
+    def __init__(self, engine, data):
+        super().__init__(data)
+        self._engine = engine
+
+    def __setitem__(self, key, value):
+        if key == "lr":
+            self._engine.set_lr(value)  # raises before the view changes
+        elif key in self._FIXED_KEYS:
+            raise NotImplementedError(
+                f"param_groups[{key!r}] is fixed in the optimizer; only "
+                "'lr' writes through (build a new engine to change it)")
+        super().__setitem__(key, value)
+
+
+class OptimizerAdapter:
+    """The torch-optim surface ``initialize`` returns (the JAX engine's
+    ``OptimizerAdapter``): one param group with the optimizer family's own
+    hyperparameters (no Adam keys on SGD), and the state by name."""
+
+    def __init__(self, engine: "DeepSpeedEngine"):
+        self._engine = engine
+
+    @property
+    def state(self):
+        return self._engine.optimizer.state_dict()["state"]
+
+    @property
+    def param_groups(self):
+        eng = self._engine
+        opt_p = dict(eng._config.optimizer.params or {})
+        group = {"lr": eng.get_lr()[0], "params": list(eng._params)}
+        name = (eng._config.optimizer.type or "adamw").lower()
+        if "adam" in name or "lamb" in name:
+            betas = opt_p.get("betas", (0.9, 0.999))
+            group["betas"] = (float(betas[0]), float(betas[1]))
+            group["eps"] = float(opt_p.get("eps", 1e-8))
+            group["weight_decay"] = float(opt_p.get("weight_decay", 0.0))
+        elif "adagrad" in name:
+            group["eps"] = float(opt_p.get("eps", 1e-10))
+        elif "sgd" in name:
+            group["momentum"] = float(opt_p.get("momentum", 0.0))
+            group["weight_decay"] = float(opt_p.get("weight_decay", 0.0))
+        return [_ParamGroup(eng, group)]
+
+    def state_dict(self):
+        return self._engine.optimizer.state_dict()
 
 
 class DeepSpeedEngine:
@@ -133,7 +215,8 @@ class DeepSpeedEngine:
                        else materialize_gpt)
         materialize(model, self.device, generator, state_dict=initial_state_dict)
         model.train()
-        self._params = list(model.parameters())
+        named = list(model.named_parameters())
+        self._params = [p for _, p in named]
         for p in self._params:
             p.requires_grad_(True)
 
@@ -147,7 +230,13 @@ class DeepSpeedEngine:
         self.lr_scheduler, schedule_fn = self._configure_lr(lr_scheduler)
         self.optimizer = build_optimizer(
             self._params, config.optimizer.type, config.optimizer.params,
-            schedule_fn, use_pallas=config.tpu.use_pallas_optimizer)
+            schedule_fn, use_pallas=config.tpu.use_pallas_optimizer,
+            names=[name for name, _ in named])
+        self.optimizer_adapter = OptimizerAdapter(self)
+        # set_lr's absolute lr for the next step(s), None without one
+        self._lr_override = None
+        self.checkpoint_engine = select_checkpoint_engine(config)
+        self.training_dataloader = None
         self._ls_state, self._ls_config = init_loss_scale(
             config.fp16, enabled=self.fp16_enabled, device=self.device)
         # device scalars, made once: the clip bound and, for the fp16 micro
@@ -183,6 +272,8 @@ class DeepSpeedEngine:
         self.tput_timer = ThroughputTimer(
             batch_size=self.train_batch_size,
             steps_per_output=config.steps_per_print)
+        self.wall_clock_breakdown = bool(config.wall_clock_breakdown)
+        self.timers = SynchronizedWallClockTimer()
         n_params = sum(p.numel() for p in self._params)
         log_dist(
             f"DeepSpeedEngine: device={self.device}, {n_params / 1e6:.1f}M "
@@ -208,10 +299,13 @@ class DeepSpeedEngine:
 
     # -- data -------------------------------------------------------------
     def deepspeed_io(self, dataset, collate_fn=None, shuffle=True):
-        return DeepSpeedDataLoader(
+        """A loader of micro batches, kept as ``training_dataloader``: a
+        checkpoint carries its (epoch, seed) state."""
+        self.training_dataloader = DeepSpeedDataLoader(
             dataset, batch_size=self.train_micro_batch_size_per_gpu,
             shuffle=shuffle, drop_last=self._config.dataloader_drop_last,
             collate_fn=collate_fn)
+        return self.training_dataloader
 
     def _put_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """A dict of numpy arrays or tensors, on the engine's device; integer
@@ -310,6 +404,9 @@ class DeepSpeedEngine:
                      f"{self.loss_scale}", ranks=[0])
         elif self.lr_scheduler is not None:
             self.lr_scheduler.step()
+            # as in torch: a scheduler re-asserts the schedule over a
+            # manual param_groups["lr"] set (see set_lr)
+            self._lr_override = None
         if self.global_steps % self._config.steps_per_print == 0:
             scale = self.loss_scale if self.fp16_enabled else 1.0
             log_dist(f"step={self.global_steps}, skipped={self.skipped_steps}, "
@@ -322,8 +419,11 @@ class DeepSpeedEngine:
 
     def _train_batch(self, data_iter, eager: bool = False):
         """``train_batch``; with ``eager`` the step functions run
-        uncaptured on the card too (a reference for the captured steps)."""
-        if self.gradient_accumulation_steps == 1:
+        uncaptured on the card too (a reference for the captured steps).
+        ``wall_clock_breakdown`` takes the forward / step path even at gas
+        1, as the JAX engine does, so that each part is timed."""
+        if (self.gradient_accumulation_steps == 1
+                and not self.wall_clock_breakdown):
             return self._train_batch_fused(next(data_iter), eager)
         losses = []
         for _ in range(self.gradient_accumulation_steps):
@@ -338,7 +438,7 @@ class DeepSpeedEngine:
 
     def _train_batch_fused(self, batch, eager=False):
         self.module.train()
-        self.optimizer.prepare()
+        self.optimizer.prepare(self._lr_override)
         loss, norm, overflow = self._run(self._fused, self._put_batch(batch),
                                          eager)
         skipped = self._finish_update(norm, overflow)
@@ -356,12 +456,16 @@ class DeepSpeedEngine:
         return self._forward(batch, False)
 
     def _forward(self, batch, eager):
+        if self.wall_clock_breakdown:
+            self.timers(FORWARD_MICRO_TIMER).start()
         self.module.train()
         if self._acc_grads is None:
             self._acc_grads = [torch.zeros_like(p, dtype=torch.float32)
                                for p in self._params]
         loss = self._run(self._micro, self._put_batch(batch), eager)
         self._pending_loss = loss
+        if self.wall_clock_breakdown:
+            self.timers(FORWARD_MICRO_TIMER).stop()
         return loss
 
     def backward(self, loss=None):
@@ -382,11 +486,16 @@ class DeepSpeedEngine:
     def _step(self, eager):
         at_boundary = self.is_gradient_accumulation_boundary()
         if at_boundary:
-            self.optimizer.prepare()
+            if self.wall_clock_breakdown:
+                self.timers(STEP_MICRO_TIMER).start()
+            self.optimizer.prepare(self._lr_override)
             norm, overflow = self._run(self._apply, {}, eager)
             skipped = self._finish_update(norm, overflow)
             self.global_steps += 1
             self._post_step(skipped)
+            if self.wall_clock_breakdown:
+                self.timers(STEP_MICRO_TIMER).stop()
+                self.timers.log([FORWARD_MICRO_TIMER, STEP_MICRO_TIMER])
         self.micro_steps += 1
         self.global_samples += self.train_micro_batch_size_per_gpu
         self.tput_timer.stop(global_step=at_boundary)
@@ -404,6 +513,8 @@ class DeepSpeedEngine:
 
     # -- introspection ----------------------------------------------------
     def get_lr(self):
+        if self._lr_override is not None:
+            return [self._lr_override]
         if self.lr_scheduler is not None:
             return self.lr_scheduler.get_last_lr()
         return [self._config.optimizer.params.get("lr", 0.0)]
@@ -421,16 +532,178 @@ class DeepSpeedEngine:
     def params(self):
         return self.module.state_dict()
 
-    def set_lr(self, lr: float):
-        raise NotImplementedError(
-            "set_lr (param_groups['lr'] write-through) is not ported yet")
+    def set_lr(self, lr: float) -> None:
+        """Write-through lr (what ``optimizer.param_groups[0]["lr"] = lr``
+        calls): an absolute lr from the next step on, in place of the
+        schedule's. With an lr scheduler the override lasts one step (the
+        scheduler's ``step()`` re-asserts the schedule, as torch schedulers
+        overwrite a manual set); without one it persists. ``prepare`` writes
+        it into the device scalars the captured step reads, so nothing is
+        captured again. (The JAX engine multiplies the scheduled update by
+        ``lr / scheduled_lr`` instead; the two agree to f32 rounding.) A
+        client optimizer, which would own its lr, is not ported:
+        ``initialize`` refuses one."""
+        self._lr_override = float(lr)
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError(
-            "checkpoint save is not ported yet (the JAX format is flax "
-            "serialization and needs a design of its own)")
+    # -- checkpoints --------------------------------------------------------
+    @staticmethod
+    def _tag_path(ckpt_dir, tag, name):
+        return os.path.join(ckpt_dir, str(tag), name)
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError(
-            "checkpoint load is not ported yet (the JAX format is flax "
-            "serialization and needs a design of its own)")
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True):
+        """Save the model, the engine's counters and the optimizer under
+        ``save_dir/tag`` (``tag`` defaults to ``global_step{n}``), commit
+        the tag's manifest, then point ``latest`` at it and apply the
+        ``checkpoint.keep_n`` retention. ``client_state`` holds plain Python
+        values and tensors (what ``torch.load(weights_only=True)``
+        reads back). A save in the middle of an accumulation window does
+        not save the partial gradient sums (as in the JAX engine)."""
+        if tag is None:
+            tag = f"global_step{self.global_steps}"
+        ce = self.checkpoint_engine
+        ce.set_topology_metadata(one_card_topology(self.zero_stage))
+        ce.create(tag)
+        ce.save({"module": self.module.state_dict()},
+                self._tag_path(save_dir, tag, MODEL_STATES))
+        meta = {
+            "global_steps": self.global_steps,
+            "global_samples": self.global_samples,
+            "micro_steps": self.micro_steps,
+            "skipped_steps": self.skipped_steps,
+            "lr_scheduler": (self.lr_scheduler.state_dict()
+                             if self.lr_scheduler else {}),
+            "client_state": client_state or {},
+        }
+        if self.training_dataloader is not None:
+            meta["dataloader"] = self.training_dataloader.state_dict()
+        ce.save({"meta": meta}, self._tag_path(save_dir, tag, ENGINE_STATES))
+        ce.save({"optimizer": self.optimizer.state_dict(),
+                 "loss_scale": dataclasses.asdict(self._ls_state)},
+                self._tag_path(save_dir, tag, OPTIM_STATES))
+        # commit before advertising 'latest': with the async engine the
+        # pointer must never name a tag whose files have not landed
+        ce.commit(tag)
+        if save_latest:
+            ckpt_manifest.write_latest(save_dir, tag)
+        self._gc_checkpoints(save_dir)
+        return True
+
+    def _gc_checkpoints(self, save_dir):
+        """``checkpoint.keep_n``: keep the newest N valid tags, never the
+        tag ``latest`` names nor a tag with an async write in flight."""
+        keep_n = self._config.checkpoint_keep_n
+        if keep_n <= 0:
+            return
+        protected = {ckpt_manifest.read_latest(save_dir)} - {None}
+        protected |= self.checkpoint_engine.pinned_tags()
+        tags = ckpt_manifest.find_valid_tags(save_dir, check_data=False)
+        for tag in tags[keep_n:]:
+            if tag in protected:
+                continue
+            try:
+                shutil.rmtree(os.path.join(save_dir, tag))
+                log_dist(f"[ckpt] retention keep_n={keep_n}: removed old "
+                         f"tag {tag}", ranks=[0])
+            except OSError as e:
+                logger.warning("checkpoint GC failed for %s: %s", tag, e)
+
+    def save_16bit_model(self, save_dir, save_filename="pytorch_model.pt"):
+        """The weights in 16 bits (fp16 when training in fp16, else bf16)
+        in one file, ``{"module": state_dict}``, written synchronously
+        whatever the checkpoint engine (it is not part of a tag);
+        ``init_inference(checkpoint=...)`` serves it."""
+        dtype = torch.float16 if self.fp16_enabled else torch.bfloat16
+        half = {k: v.to(dtype) for k, v in self.module.state_dict().items()}
+        write_torch_file({"module": half},
+                         os.path.join(save_dir, save_filename))
+        return True
+
+    def _resolve_valid_tag(self, load_dir, tag):
+        """``tag`` when it verifies against its manifest; otherwise the
+        newest other valid tag, or a raise when there is none. A tag
+        without a manifest loads unverified."""
+        if not self._config.checkpoint_verify:
+            return tag
+        problems = ckpt_manifest.verify_tag_dir(
+            os.path.join(load_dir, str(tag)))
+        if problems is None:
+            logger.info("checkpoint tag %s has no manifest; loading "
+                        "unverified", tag)
+            return tag
+        if not problems:
+            return tag
+        logger.warning("checkpoint tag %s failed verification (%s); falling "
+                       "back to the newest previous valid tag", tag,
+                       "; ".join(problems))
+        fallback = ckpt_manifest.latest_valid_tag(load_dir, exclude={str(tag)})
+        if fallback is None:
+            raise RuntimeError(
+                f"checkpoint tag {tag!r} at {load_dir} is corrupt "
+                f"({'; '.join(problems)}) and no previous valid tag "
+                f"exists to fall back to")
+        log_dist(f"[ckpt] falling back: {tag} -> {fallback}", ranks=[0])
+        return fallback
+
+    @torch.no_grad()
+    def _restore_module(self, sd):
+        """Copy a model ``state_dict`` into the live parameters and buffers
+        (a tied weight is one tensor and one key, restored once)."""
+        own = self.module.state_dict(keep_vars=True)
+        missing = sorted(set(own) - set(sd))
+        unknown = sorted(set(sd) - set(own))
+        if missing or unknown:
+            raise KeyError(f"model state: missing {missing}, unknown "
+                           f"{unknown}")
+        for name, t in own.items():
+            if tuple(sd[name].shape) != tuple(t.shape):
+                raise ValueError(f"model state {name}: shape "
+                                 f"{tuple(sd[name].shape)}, want "
+                                 f"{tuple(t.shape)}")
+            t.copy_(sd[name])
+
+    def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
+                        load_lr_scheduler_states=True):
+        """Restore a tag saved by ``save_checkpoint`` (``tag`` defaults to
+        the one ``latest`` names) and return ``(tag, client_state)``, or
+        ``(None, {})`` when there is no ``latest``. A tag that fails
+        verification falls back to the newest valid one.
+
+        Every tensor is copied into the storage it already has (the
+        parameters, the optimizer's moments, the loss-scale state), so the
+        captured graphs stay valid; the f32 gradient sums of a partial
+        accumulation window are set to 0 in place (the JAX engine drops
+        them); the clip bound and the accumulation divisor, device
+        constants of the config, stay as they are. Unlike the JAX engine, which needs one step first to build
+        its state templates, the port holds its parameters from ``init``,
+        so a load before the first step is legal."""
+        if tag is None:
+            tag = ckpt_manifest.read_latest(load_dir)
+            if tag is None:
+                logger.warning("no 'latest' file at %s", load_dir)
+                return None, {}
+        tag = self._resolve_valid_tag(load_dir, tag)
+        load = self.checkpoint_engine.load
+        self._restore_module(
+            load(self._tag_path(load_dir, tag, MODEL_STATES))["module"])
+        meta = load(self._tag_path(load_dir, tag, ENGINE_STATES))["meta"]
+        self.global_steps = int(meta["global_steps"])
+        self.global_samples = int(meta["global_samples"])
+        self.micro_steps = int(meta["micro_steps"])
+        self.skipped_steps = int(meta["skipped_steps"])
+        if meta.get("dataloader") and self.training_dataloader is not None:
+            self.training_dataloader.load_state_dict(meta["dataloader"])
+        if (load_lr_scheduler_states and self.lr_scheduler is not None
+                and meta.get("lr_scheduler")):
+            self.lr_scheduler.load_state_dict(meta["lr_scheduler"])
+        if load_optimizer_states:
+            optim = load(self._tag_path(load_dir, tag, OPTIM_STATES))
+            self.optimizer.load_state_dict(optim["optimizer"])
+            self._ls_state.copy_(LossScaleState(**optim["loss_scale"]))
+        # a partial accumulation window must not leak into the next step;
+        # the micro and apply graphs read these buffers, so zero in place
+        if self._acc_grads is not None:
+            for acc in self._acc_grads:
+                acc.zero_()
+        self._pending_loss = None
+        return tag, meta.get("client_state", {})

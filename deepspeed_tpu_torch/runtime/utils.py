@@ -1,11 +1,12 @@
-"""Gradient-norm helpers (counterpart of
-``deepspeed_tpu/runtime/utils.py:23-70``), over lists of tensors. The
-norm is taken in f32 over all gradients; clipping scales in place. The
-overflow check is ``runtime/loss_scaler.has_overflow``."""
+"""Gradient-norm helpers and the overflow check (counterpart of
+``deepspeed_tpu/runtime/utils.py:23-71``), over lists of tensors. The
+norm is taken in f32 over all gradients; clipping scales in place."""
 
 from typing import Sequence, Union
 
 import torch
+
+from deepspeed_tpu_torch.runtime.loss_scaler import has_overflow
 
 
 def get_global_norm(tensors: Sequence[torch.Tensor], norm_type: float = 2.0
@@ -49,3 +50,18 @@ def clip_grad_norm_(grads: Sequence[torch.Tensor],
         torch._foreach_mul_(grads, clip_factor(norm, max_norm))
     return norm
 
+
+
+class CheckOverflow:
+    """Inf/NaN detection over a list of gradients (the reference's
+    ``CheckOverflow``; on one card there is no cross-rank reduction). The
+    flag stays on the device, so a captured step may compute it."""
+
+    def __init__(self, param_groups=None, mpu=None, zero_reduce_scatter=False):
+        del param_groups, mpu, zero_reduce_scatter
+
+    @staticmethod
+    def has_overflow(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        return has_overflow([g for g in grads if g is not None])
+
+    __call__ = staticmethod(has_overflow)

@@ -1,9 +1,13 @@
-"""The throughput timer (counterpart of ``deepspeed_tpu/utils/timer.py``'s
-``ThroughputTimer``). It fences, waiting for the card with
-``torch.cuda.synchronize()``, before it reads the clock (CUDA launches
-return before the work is done); without a card the fence is a no-op."""
+"""Wall-clock and throughput timers (counterpart of
+``deepspeed_tpu/utils/timer.py``: ``SynchronizedWallClockTimer`` :107 and
+``ThroughputTimer``). They fence, waiting for the card with
+``torch.cuda.synchronize()``, before they read the clock (CUDA launches
+return before the work is done); without a card the fence is a no-op. The
+engine starts and stops them on the host, around its step calls, never
+inside a step function that a CUDA graph captures."""
 
 import time
+from collections import OrderedDict
 
 import torch
 
@@ -14,6 +18,84 @@ def fence():
     """Wait until the card has finished all queued work."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+class _Timer:
+    def __init__(self, name: str):
+        self.name_ = name
+        self.started_ = False
+        self.elapsed_ = 0.0
+        self.start_time = 0.0
+        self.count = 0
+
+    def start(self, sync: bool = True):
+        assert not self.started_, f"timer {self.name_} has already been started"
+        if sync:
+            fence()
+        self.start_time = time.time()
+        self.started_ = True
+
+    def stop(self, reset: bool = False, sync: bool = True):
+        assert self.started_, f"timer {self.name_} is not started"
+        if sync:
+            fence()
+        elapsed = time.time() - self.start_time
+        self.elapsed_ = elapsed if reset else self.elapsed_ + elapsed
+        self.started_ = False
+        self.count += 1
+
+    def reset(self):
+        self.started_ = False
+        self.elapsed_ = 0.0
+        self.count = 0
+
+    def elapsed(self, reset: bool = True):
+        started = self.started_
+        if started:
+            self.stop()
+        elapsed = self.elapsed_
+        if reset:
+            self.reset()
+        if started:
+            self.start()
+        return elapsed
+
+    def mean(self):
+        return (self.elapsed_ / self.count) if self.count else 0.0
+
+
+class SynchronizedWallClockTimer:
+    """Named timers; ``log()`` prints a one-line breakdown in ms, as the
+    ``wall_clock_breakdown`` output of the JAX engine does."""
+
+    def __init__(self):
+        self.timers = OrderedDict()
+
+    def __call__(self, name: str) -> _Timer:
+        if name not in self.timers:
+            self.timers[name] = _Timer(name)
+        return self.timers[name]
+
+    def has(self, name: str) -> bool:
+        return name in self.timers
+
+    def log(self, names=None, normalizer: float = 1.0, reset: bool = True,
+            ranks=None):
+        assert normalizer > 0.0
+        names = names if names is not None else list(self.timers)
+        parts = []
+        for name in names:
+            if name in self.timers:
+                elapsed = (self.timers[name].elapsed(reset=reset) * 1000.0
+                           / normalizer)
+                parts.append(f"{name}: {elapsed:.2f}")
+        if parts:
+            log_dist("time (ms) | " + " | ".join(parts), ranks=ranks)
+
+    def get_mean(self, names, normalizer: float = 1.0):
+        assert normalizer > 0.0
+        return {name: self.timers[name].mean() * 1000.0 / normalizer
+                for name in names if name in self.timers}
 
 
 class ThroughputTimer:

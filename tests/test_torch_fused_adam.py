@@ -156,6 +156,10 @@ def test_adamw_matches_optax(dtype, scheduled, adam_w_mode):
     ("AdamW", {}, True, "FusedAdamW"),
     ("FusedAdam", {}, False, "AdamW"),
     ("Adam", {"adam_w_mode": False}, True, "AdamW"),
+    ("Lamb", {}, True, "Lamb"),
+    ("FusedLamb", {}, False, "Lamb"),
+    ("Adagrad", {}, True, "Adagrad"),
+    ("SGD", {"momentum": 0.9}, True, "SGD"),
 ])
 def test_build_optimizer_follows_the_jax_rules(opt_type, params, use_pallas,
                                                want):
@@ -164,7 +168,8 @@ def test_build_optimizer_follows_the_jax_rules(opt_type, params, use_pallas,
     assert type(opt).__name__ == want
 
 
-@pytest.mark.parametrize("opt_type", ["Lamb", "Adagrad", "SGD", "OneBitAdam"])
+@pytest.mark.parametrize("opt_type", ["OneBitAdam", "ZeroOneAdam",
+                                     "OneBitLamb"])
 def test_unported_optimizers_raise(opt_type):
     with pytest.raises(NotImplementedError):
         build_optimizer([torch.zeros(3)], opt_type, {})

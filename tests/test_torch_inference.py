@@ -170,7 +170,7 @@ def test_default_device_is_the_card():
 
 
 @pytest.mark.parametrize("kw", [{"mp_size": 2}, {"ep_size": 2},
-                                {"checkpoint": "ckpt"}, {"dtype": "int8"},
+                                {"dtype": "int8"},
                                 {"config": {"kv_cache": "int8"}}])
 def test_unported_engine_options_raise(kw):
     kw = {"dtype": "fp32", **kw}
