@@ -98,10 +98,41 @@ Phases, each printing one JSON line:
 * ``small_train``: a small fp32 GPT trained 3 steps on the card (B1-B4) and
   on the CPU (plain versions) from the same weights and batches; losses and
   parameters must agree.
+* ``zero`` (the data-parallel slice's main path): world = the visible
+  cards, in process on a one-rank NCCL group at world 1, one process per
+  card above (``--zero-rank``, a file rendezvous under ``build/``);
+  ``nvidia-smi topo -m`` once, the world on every line. Rank 0 first runs
+  a group-less engine on one card at gas = world over the same global
+  batches (the reference). Then every rank joins the group and trains
+  GPT-2 1.3B (micro 4 x 1024 per rank, ``GPT_PRETRAIN_CONFIG`` at ZeRO
+  stages 0, 1 and 2) for 12 captured steps against 12 uncaptured ones:
+  bit-identical on each rank, the same loss and parameters on every rank,
+  B1 48 / B2 24 / B3 24 / B4 1 launches per step (counts set to 0 before
+  each stage's captured steps), the loss falling, losses, parameter
+  updates and each step's grad norm within ``ZERO_LOSS_REL_TOL`` /
+  ``ZERO_UPDATE_REL_L2`` / ``ZERO_GRAD_NORM_FIRST_REL_TOL`` (the first
+  step) and ``ZERO_GRAD_NORM_REL_TOL`` of the reference. At world > 1 rank
+  0 also runs the control, the group-less engine without the last rank's
+  rows, which must break at least one of those bounds. Then the step
+  median, peak memory per rank against the predicted state bytes, a
+  traced replay with the NCCL kernels' card time and bus bandwidth, a bare
+  2.63 GB all-reduce as the bandwidth's yardstick, the comms logger's
+  counters, and B4 over one rank's flat shard, held bit for bit against
+  its plain version (and its skip flag) and timed. Small
+  GPTs: stage 2 at gas 2 captured against eager; fp16 at stage 1 from a
+  growing loss scale (every rank skips each step on which any rank's
+  shard overflowed; at world > 1 some overflow must be local to some
+  shards); a stage-1 tag saved at this world, resumed at this world
+  (bit-identical), at stage 2 and on one card with no group (within the
+  CPU tests' tolerances).
 
 Then the kernels line, nvidia-smi's line and, last, ``{"ok": true, ...}``.
 A failed check raises, and the script exits nonzero. It imports neither jax
 nor ``deepspeed_tpu``.
+
+``python3 chip_smoke.py --only zero`` runs only the ``device``, ``build``
+and ``zero`` phases, then nvidia-smi's line and the ``{"ok": true, ...}``
+line (on a machine with four cards, the four-card measurement).
 
 ``python3 chip_smoke.py --against DIR`` runs only the A/B of the backward
 kernels and of the fused AdamW: DIR holds another checkout's
@@ -1424,9 +1455,9 @@ def phase_train():
     return launches
 
 
-def gpt_1p3b_engine(seed=0, flash=True):
+def gpt_1p3b_engine(seed=0, flash=True, config=None):
     """GPT-2 1.3B through ``initialize`` with ``GPT_PRETRAIN_CONFIG`` (the
-    ``train`` and ``checkpoint`` phases' engine)."""
+    ``train``, ``checkpoint`` and ``zero`` phases' engine), or ``config``."""
     import torch
 
     import deepspeed_tpu_torch
@@ -1437,7 +1468,7 @@ def gpt_1p3b_engine(seed=0, flash=True):
         param_dtype=torch.bfloat16, remat=True, remat_policy="full",
         use_flash_attention=flash))
     return deepspeed_tpu_torch.initialize(
-        model=model, config=GPT_PRETRAIN_CONFIG, seed=seed)[0]
+        model=model, config=config or GPT_PRETRAIN_CONFIG, seed=seed)[0]
 
 
 class PeakRSS:
@@ -2198,6 +2229,728 @@ def phase_small_train():
 
 
 # ---------------------------------------------------------------------------
+# zero: data parallelism and ZeRO stages 0-2 over NCCL, one rank per card
+# ---------------------------------------------------------------------------
+ZERO_STAGES = (0, 1, 2)
+ZERO_DIR = os.path.join("build", "chip_smoke_zero")
+# a rank process's limit, and the process group's rendezvous and collective
+# timeout (rank 0 runs the group-less reference engine before it joins)
+ZERO_RANK_TIMEOUT_S = 900
+ZERO_GROUP_TIMEOUT_S = 600
+# the 1.3B runs against a group-less engine on one card fed the same global
+# batches at gas = world, over the 12 steps: the loss of each step to this
+# relative error, the parameters' updates to this relative L2. At world 1
+# only the global norm's summation order differs (one flat buffer against
+# 292 tensors); the card gave identical losses and parameters (0.0 and
+# 0.0). At world 4 each rank's bf16 gradients are summed in bf16 by NCCL
+# against the reference's f32 accumulation of the micro steps: the card
+# gave at most 1.72e-4 and 0.036 over stages 0-2 (PERF.md section 5). The
+# bounds are about 3x those
+ZERO_LOSS_REL_TOL = 6e-4
+ZERO_UPDATE_REL_L2 = 0.12
+# each step's global grad norm against the group-less engine's, relative.
+# The first step's gradients come from the same parameters, so only the
+# exchange's rounding parts them: at world 4 the card gave 7.7e-6 at most
+# (stages 0-2, two runs, identical readings); later steps follow the
+# parameters' drift, up to 2.5e-2. The bounds are about 3x those. The
+# control (the group-less engine on all ranks' rows but the last's) lay
+# 0.105 off at the first step and up to 1.46 later, with its losses 7.0e-2
+# and its updates 0.74 off (PERF.md section 6)
+ZERO_GRAD_NORM_FIRST_REL_TOL = 2.5e-5
+ZERO_GRAD_NORM_REL_TOL = 8e-2
+# the small f32 GPT's checkpoint resumed at another stage or on one card:
+# the CPU tests' bounds (tests/test_torch_zero.py)
+ZERO_SMALL_LOSS_REL_TOL = 1e-5
+ZERO_SMALL_UPDATE_REL_L2 = 1e-3
+# GPT-2 1.3B's parameter count (num_params of gpt2-1.3b at 1024 positions)
+GPT_1P3B_PARAMS = 1_313_626_112
+# the one-card captured step and B4's time over 1.3B (PERF.md sections 5
+# and 6, on an H100 80GB HBM3 at 700 W): the terms of the predicted
+# world-w step
+ONE_CARD_STEP_MS = 126.9
+B4_MS = 9.936
+# bytes of the all-reduce yardstick: GPT-2 1.3B's bf16 gradient
+ZERO_YARDSTICK_BYTES = 2 * GPT_1P3B_PARAMS
+NCCL_KINDS = {"AllReduce": "all_reduce", "ReduceScatter": "reduce_scatter",
+              "AllGather": "all_gather", "Broadcast": "broadcast"}
+
+
+def zero_config(stage, gas=1, **over):
+    """``GPT_PRETRAIN_CONFIG`` at ZeRO ``stage`` with the comms logger on."""
+    config = dict(GPT_PRETRAIN_CONFIG, zero_optimization={"stage": stage},
+                  gradient_accumulation_steps=gas,
+                  comms_logger={"enabled": True})
+    config.update(over)
+    return config
+
+
+def zero_predicted_gb(stage, world, gas=1):
+    """The state bytes a rank holds at GPT-2 1.3B: bf16 parameters and
+    full bf16 gradients (2N each), f32 moments (8N, or 8N / w when
+    partitioned) and, at gas > 1, f32 accumulators (4N, or 4N / w at stage
+    2)."""
+    n = GPT_1P3B_PARAMS
+    moments = 8 * n / (world if stage >= 1 else 1)
+    acc = 0 if gas == 1 else 4 * n / (world if stage >= 2 else 1)
+    return (2 * n + 2 * n + moments + acc) / 1e9
+
+
+def zero_nccl_times(by_name, count):
+    """The card's ms and launches of the NCCL kernels in a trace, by kind."""
+    out = {}
+    for name, ms in by_name.items():
+        if "nccl" not in name.lower():
+            continue
+        kind = next((v for k, v in NCCL_KINDS.items() if k in name), "other")
+        rec = out.setdefault(kind, {"ms": 0.0, "launches": 0})
+        rec["ms"] += ms
+        rec["launches"] += count[name]
+    return out
+
+
+def param_checksums(engine):
+    """Exact integer checksums of each parameter's bits, to hold ranks
+    against each other without moving the tensors."""
+    import torch
+
+    out = []
+    for p in engine.module.parameters():
+        bits = p.detach().view(torch.int16 if p.element_size() == 2
+                               else torch.int32)
+        out.append(int(bits.sum(dtype=torch.int64)))
+    return out
+
+
+def update_rel_l2(got, want, start):
+    """||got - want|| / ||want - start|| over every tensor (``got`` on the
+    card, ``want`` and ``start`` on the host), one tensor at a time."""
+    diff_sq = upd_sq = 0.0
+    for name, g in got.items():
+        w = want[name].to(g.device).float()
+        s = start[name].to(g.device).float()
+        diff_sq += float(((g.float() - w) ** 2).sum())
+        upd_sq += float(((w - s) ** 2).sum())
+    return (diff_sq / max(upd_sq, 1e-30)) ** 0.5
+
+
+def zero_reference(ranks, batch):
+    """The group-less one-card engine at gas = ``ranks`` on the first
+    ``ranks`` ranks' rows of the global batch (``ranks`` micro batches of 4
+    rows, in rank order): its losses and grad norms, and its initial and
+    final parameters on the host. At ``ranks`` = world it is the reference;
+    at world - 1 it is the control, the step of a run that dropped the
+    last rank's rows."""
+    import torch
+
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    free_cuda()
+    eng = gpt_1p3b_engine(config=zero_config(1, gas=ranks,
+                                             comms_logger={}))
+    start = {k: v.cpu() for k, v in eng.module.state_dict().items()}
+    micro = [{k: v[r * 4:(r + 1) * 4] for k, v in batch.items()}
+             for r in range(ranks)]
+    losses, norms, times = train_steps(eng, iter(RepeatingLoader(micro)),
+                                       STEPS)
+    final = {k: v.cpu() for k, v in eng.module.state_dict().items()}
+    out = {"losses": [float(x) for x in losses], "start": start,
+           "final": final, "step_ms": times,
+           "grad_norms": [float(x) for x in norms]}
+    del eng
+    free_cuda()
+    torch.cuda.synchronize()
+    return out
+
+
+def time_b4_shard(n):
+    """B4 over one rank's flat shard of ``n`` elements (bf16 p and g, f32 m
+    and v: one tensor per dtype group, one launch). First held against its
+    plain version as ``check_fused_adamw`` holds it over the leaves: 3 steps
+    from the same device scalars on copies of p, m and v must agree bit for
+    bit (the plain version runs on 64M-element views of the copies, so its
+    temporaries fit beside them; it is elementwise, so the views change
+    nothing), then a step with the skip flag set must change nothing. Then
+    the kernel, its plain version and torch.optim.AdamW(fused=True) over f32
+    copies, by the card's time."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import fused_adam as fadam
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(12)
+    p = (torch.randn(n, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    g = (torch.randn(n, generator=gen, device=dev) * 1e-2).to(torch.bfloat16)
+    m, v = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+    hyper = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    before = fadam.launches
+    p0 = p.clone()
+    refs = [x.clone() for x in (p, m, v)]
+    chunk = 1 << 26
+    views = [list(x.split(chunk)) for x in (refs[0], g, refs[1], refs[2])]
+    for step in (1, 2, 3):
+        scalars = fadam.adamw_scalars(2e-4, step, 0.9, 0.95, dev)
+        fadam.fused_adamw_apply([p], [g], [m], [v], scalars, **hyper)
+        fadam.fused_adamw_reference(*views, scalars, **hyper)
+    del views
+    identical = {name: torch.equal(a, b)
+                 for name, a, b in zip("pmv", (p, m, v), refs)}
+    max_abs = float((p.float() - refs[0].float()).abs().max())
+    moved = int((refs[0] != p0).sum()) / n
+    del p0
+    # the skip flag set: p, m and v must stay equal to the copies
+    fadam.fused_adamw_apply([p], [g], [m], [v], fadam.adamw_scalars(
+        2e-4, 4, 0.9, 0.95, dev, skip=True), **hyper)
+    skip_untouched = all(torch.equal(a, b) for a, b in zip((p, m, v), refs))
+    del refs
+    torch.cuda.empty_cache()
+    scalars = fadam.adamw_scalars(2e-4, 4, 0.9, 0.95, dev)
+
+    def step():
+        fadam.fused_adamw_apply([p], [g], [m], [v], scalars, **hyper)
+
+    dev_t = device_ms(step, iters=10)
+    plain_ms = device_ms(lambda: fadam.fused_adamw_reference(
+        [p], [g], [m], [v], scalars, **hyper), iters=3, warmup=1)["ms"]
+    fadam.launches = before  # a check and a timing, not a main path's launch
+    del m, v
+    p32 = torch.nn.Parameter(p.float())
+    del p
+    p32.grad = g.float()
+    del g
+    opt = torch.optim.AdamW([p32], lr=2e-4, betas=(0.9, 0.95), eps=1e-8,
+                            weight_decay=0.1, fused=True)
+    library_ms = device_ms(opt.step, iters=5, warmup=2)["ms"]
+    del opt, p32
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = _bound(16 * n, 22 * n, "float32")
+    return {"elements": n, "steps": 3, "bit_identical": identical,
+            "max_abs_err": max_abs, "p_moved_share": moved,
+            "min_moved_share": ADAMW_MIN_MOVED,
+            "skip_flag_leaves_all_unchanged": skip_untouched,
+            "ms": dev_t["ms"], "device_time": dev_t,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "gb_per_s": 22 * n / dev_t["ms"] / 1e6}
+
+
+def zero_yardstick(world):
+    """One bare all-reduce of 2.63 GB (bf16) over every rank: the card's ms
+    (CUDA events, median of 5 after 2) and the bus bandwidth, 2 (w-1) / w
+    of the bytes over the time."""
+    import torch
+
+    from deepspeed_tpu_torch import comm
+
+    buf = torch.ones(ZERO_YARDSTICK_BYTES // 2, dtype=torch.bfloat16,
+                     device="cuda")
+    times = []
+    for i in range(7):
+        comm.barrier()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        comm.all_reduce(buf)
+        b.record()
+        b.synchronize()
+        if i >= 2:
+            times.append(a.elapsed_time(b))
+        buf.fill_(1.0)
+    del buf
+    torch.cuda.empty_cache()
+    ms = statistics.median(times)
+    factor = 2.0 * (world - 1) / world
+    return {"bytes": ZERO_YARDSTICK_BYTES, "ms": ms, "ms_all": times,
+            "bus_gb_per_s": factor * ZERO_YARDSTICK_BYTES / ms / 1e6}
+
+
+def rel_errs(got, want):
+    """Each step's relative error of ``got`` against ``want``."""
+    return [abs(a - b) / abs(b) for a, b in zip(got, want)]
+
+
+def zero_stage_run(stage, world, batch, ref, control):
+    """GPT-2 1.3B at ``stage`` on this rank: 12 captured steps against 12
+    uncaptured ones (bit-identical), the launches per step, peak memory
+    against the predicted state bytes, rank 0's agreement with the
+    group-less reference and with the control, and a traced replay with
+    the NCCL kernels' time and bus bandwidth."""
+    import torch
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.comm.logging import comms_logger
+
+    extra = {}
+
+    def make():
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        comms_logger.reset()
+        return gpt_1p3b_engine(config=zero_config(stage))
+
+    def inspect(engine, it):
+        extra["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        extra["checksums"] = param_checksums(engine)
+        extra["comms_counters"] = comms_logger.counters()
+        graphs = list(engine._fused.graphs.values())
+        per_step = graphs[0].comms if graphs else {}
+        extra["graph_comms_per_replay"] = {
+            k: {"count": v["count"], "bytes": v["bytes"],
+                "wire_bytes": v["wire_bytes"]} for k, v in per_step.items()}
+        got = dict(engine.module.state_dict())
+        for key, other in (("vs_group_less", ref), ("vs_control", control)):
+            if other is not None:
+                extra[key] = {"update_rel_l2": update_rel_l2(
+                    got, other["final"], other["start"])}
+        # every rank starts the traced replay together: a collective's
+        # kernel spins until the last rank arrives, and rank 0 has just
+        # compared its parameters with the reference
+        comm.barrier()
+        step, by_name, count = _trace(lambda: engine.train_batch(it))
+        nccl = zero_nccl_times(by_name, count)
+        for kind, rec in nccl.items():
+            wire = per_step.get(kind, {}).get("wire_bytes", 0)
+            rec["wire_bytes"] = wire
+            rec["bus_gb_per_s"] = (wire / rec["ms"] / 1e6 if rec["ms"]
+                                   else None)
+        extra["traced_replay"] = {
+            "device_ms": step["device_ms"], "wall_ms": step["wall_ms"],
+            "device_busy_share": step["device_busy_share"],
+            "top_ms": step["top_ms"], "nccl": nccl}
+
+    check, launches, losses, norms, times, e_losses, e_times = \
+        captured_against_eager(make, [batch], STEPS, traced=inspect)
+    ms, eager_ms = step_medians(times, e_times)
+    out = {"stage": stage, "captured_vs_eager": check, "launches": launches,
+           "losses": losses, "grad_norms": norms, "eager_losses": e_losses,
+           "step_ms_median": ms, "eager_step_ms_median": eager_ms,
+           "step_ms": times,
+           "predicted_state_gb": zero_predicted_gb(stage, world)}
+    out.update(extra)
+    for key, other in (("vs_group_less", ref), ("vs_control", control)):
+        if other is not None:
+            by_step = rel_errs(norms, other["grad_norms"])
+            out[key].update(
+                loss_rel_err=max(rel_errs(losses, other["losses"])),
+                grad_norm_rel_err=max(by_step),
+                grad_norm_rel_err_by_step=by_step)
+    return out
+
+
+def zero_small_engine(stage, dtype, config_over, seed=5, gas=1):
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import GPT, GPTConfig
+
+    cfg = GPTConfig(vocab_size=512, n_positions=128, n_embd=256, n_layer=2,
+                    n_head=4, dtype=dtype, use_flash_attention=True)
+    config = {"train_micro_batch_size_per_gpu": 2,
+              "gradient_accumulation_steps": gas, "gradient_clipping": 1.0,
+              "optimizer": {"type": "FusedAdam",
+                            "params": {"lr": SMALL_LR, "weight_decay": 0.1}},
+              "steps_per_print": 10 ** 9, "tpu": {"use_pallas_optimizer": True},
+              "zero_optimization": {"stage": stage},
+              "comms_logger": {"enabled": True}}
+    config.update(config_over)
+    if dtype == torch.bfloat16:
+        config["bf16"] = {"enabled": True}
+    return deepspeed_tpu_torch.initialize(model=GPT(cfg), config=config,
+                                          seed=seed)[0]
+
+
+def zero_small_batches(world, n, seed):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [{"input_ids": x, "labels": x}
+            for x in rng.randint(0, 512, size=(n, 2 * world, 128))]
+
+
+def zero_small_runs(world, rank):
+    """The paths the 1.3B runs do not reach, on small GPTs: stage 2 at gas
+    2 (micro and apply graphs holding collectives), fp16 at stage 1 from a
+    growing loss scale (the first overflow is local to the shard that
+    holds the largest gradient; every rank must skip it), and a stage-1 tag
+    saved at this world and loaded at this world and stage 2."""
+    import torch
+
+    from deepspeed_tpu_torch import comm
+
+    out = {}
+    # stage 2, gas 2: captured against eager
+    batches = zero_small_batches(world, 2, seed=6)
+    check, launches, losses, _, _, e_losses, _ = captured_against_eager(
+        lambda: zero_small_engine(2, torch.bfloat16, {}, gas=2), batches, 8)
+    want = {"flash_attention_fwd": 2 * 2 * 8, "flash_attention_bwd_dq": 32,
+            "flash_attention_bwd_dkv": 32, "fused_adamw": 8,
+            "block_sparse_fwd": 0, "block_sparse_dq": 0, "block_sparse_dkv": 0}
+    out["stage2_gas2"] = {"captured_vs_eager": check, "launches": launches,
+                          "launches_ok": launches == want, "losses": losses,
+                          "eager_losses": e_losses}
+    # fp16 at stage 1 on a new batch each step (a repeated one is learnt,
+    # and its gradients shrink): the scale doubles after every clean step
+    # (window 1) from 2^12 until it overflows, halves, and climbs again
+    history = []
+
+    def make_fp16():
+        eng = zero_small_engine(1, torch.float16, {"fp16": {
+            "enabled": True, "initial_scale_power": 12,
+            "loss_scale_window": 1, "hysteresis": 1}})
+        history.append([])
+        real = eng._train_batch
+
+        def logged(it, eager=False):
+            loss = real(it, eager=eager)
+            history[-1].append([eng.loss_scale, eng.skipped_steps,
+                                eng.optimizer.count,
+                                bool(eng.optimizer.local_overflow)])
+            return loss
+        eng._train_batch = logged
+        return eng
+
+    check, _, losses, _, _, _, _ = captured_against_eager(
+        make_fp16, zero_small_batches(world, SMALL_CAPTURE_STEPS, seed=7),
+        SMALL_CAPTURE_STEPS)
+    out["fp16_stage1"] = {"captured_vs_eager": check,
+                          "scale_skipped_count_local_by_step": history[0],
+                          "eager_by_step": history[1],
+                          "same_as_eager": history[0] == history[1],
+                          "losses": losses}
+    # a stage-1 tag at this world, resumed at this world (stages 1 and 2)
+    ckpt_dir = os.path.join(ZERO_DIR, "small_ckpt")
+    if rank == 0:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    comm.barrier()
+    batches = zero_small_batches(world, 4, seed=8)
+    eng = zero_small_engine(1, torch.float32, {}, seed=9)
+    start = {k: v.clone() for k, v in eng.module.state_dict().items()}
+    run = []
+    for i, b in enumerate(batches):
+        run.append(float(eng.train_batch(iter([b]))))
+        if i == 1:
+            eng.save_checkpoint(ckpt_dir)
+            saved = {k: v.clone() for k, v in eng.module.state_dict().items()}
+    final = {k: v.clone() for k, v in eng.module.state_dict().items()}
+    del eng
+    resumed = {}
+    for stage in (1, 2):
+        eng = zero_small_engine(stage, torch.float32, {}, seed=11)
+        eng.load_checkpoint(ckpt_dir)
+        losses = [float(eng.train_batch(iter([b]))) for b in batches[2:]]
+        got = dict(eng.module.state_dict())
+        resumed[stage] = {
+            "losses": losses, "reshard": eng.last_reshard.mismatches,
+            "bit_identical": losses == run[2:] and all(
+                torch.equal(got[k], v) for k, v in final.items()),
+            "loss_rel_err": max(abs(a - b) / abs(b)
+                                for a, b in zip(losses, run[2:])),
+            "update_rel_l2": update_rel_l2(got, final, saved)}
+        del eng
+    out["checkpoint"] = {"dir": ckpt_dir, "losses": run, "resumed": resumed}
+    if rank == 0:
+        torch.save({"start": start, "saved": saved, "final": final,
+                    "losses": run, "batches": batches},
+                   os.path.join(ZERO_DIR, "small_ckpt_run.pt"))
+    free_cuda()
+    return out
+
+
+def zero_rank(rank, world, url):
+    """One rank of the zero phase (the whole phase at world 1, in process).
+    Rank 0 first runs the group-less reference on its card, then every rank
+    joins the NCCL group and runs the three stages and the small paths.
+    Returns this rank's results; the process group is destroyed at the
+    end."""
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch import comm
+
+    torch.cuda.set_device(rank)
+    rng = np.random.RandomState(1)
+    ids = rng.randint(0, 50257, size=(4 * world, 1024)).astype(np.int64)
+    batch = {"input_ids": ids, "labels": ids}
+    t0 = time.perf_counter()
+    ref = zero_reference(world, batch) if rank == 0 else None
+    # the control: at world > 1, the step of a run that lost the last
+    # rank's rows must break at least one of the bounds the run is held to
+    control = (zero_reference(world - 1, batch) if rank == 0 and world > 1
+               else None)
+    ref_s = time.perf_counter() - t0
+    comm.init_distributed(init_method=url, rank=rank, world_size=world,
+                          local_rank=rank,
+                          timeout=timedelta(seconds=ZERO_GROUP_TIMEOUT_S))
+    out = {"rank": rank, "world": world, "reference_s": ref_s,
+           "device": torch.cuda.get_device_name(rank)}
+    if ref is not None:
+        out["reference"] = {"losses": ref["losses"],
+                            "grad_norms": ref["grad_norms"],
+                            "step_ms": ref["step_ms"]}
+    out["yardstick"] = zero_yardstick(world)
+    out["stages"] = {}
+    zero_launches = {}
+    for stage in ZERO_STAGES:
+        run = zero_stage_run(stage, world, batch, ref, control)
+        out["stages"][stage] = run
+        for name, n in run["launches"].items():
+            zero_launches[name] = zero_launches.get(name, 0) + n
+    out["launches"] = zero_launches
+    if rank == 0:
+        n = -(-GPT_1P3B_PARAMS // (world * 64)) * 64  # a shard, as padded
+        out["b4_shard"] = time_b4_shard(n)
+    out["small"] = zero_small_runs(world, rank)
+    comm.barrier()
+    comm.destroy_distributed()
+    return out
+
+
+def zero_rank_main(argv):
+    """``chip_smoke.py --zero-rank RANK WORLD URL OUT``: one rank's process
+    at world > 1; its results go to OUT as JSON."""
+    rank, world, url, out = argv
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    result = zero_rank(int(rank), int(world), url)
+    with open(out, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def zero_one_card_resume(world):
+    """The small stage-1 tag saved at ``world`` in a group-less engine on
+    card 0: its 2 resumed steps against the saving run's."""
+    import torch
+
+    saved = torch.load(os.path.join(ZERO_DIR, "small_ckpt_run.pt"),
+                       weights_only=False)
+    eng = zero_small_engine(1, torch.float32,
+                            {"train_micro_batch_size_per_gpu": 2 * world},
+                            seed=11)
+    eng.load_checkpoint(os.path.join(ZERO_DIR, "small_ckpt"))
+    losses = [float(eng.train_batch(iter([b]))) for b in saved["batches"][2:]]
+    got = dict(eng.module.state_dict())
+    out = {"losses": losses, "reshard": eng.last_reshard.mismatches,
+           "loss_rel_err": max(abs(a - b) / abs(b)
+                               for a, b in zip(losses, saved["losses"][2:])),
+           "update_rel_l2": update_rel_l2(got, saved["final"],
+                                          saved["saved"])}
+    del eng
+    free_cuda()
+    return out
+
+
+def zero_spawn(world):
+    """One process per card (``--zero-rank``), started together, a file
+    rendezvous under build/; every process is waited for or killed."""
+    rdv = os.path.join(os.path.abspath(ZERO_DIR), "rendezvous")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    procs, outs, logs = [], [], []
+    for r in range(world):
+        outs.append(os.path.join(ZERO_DIR, f"rank{r}.json"))
+        logs.append(open(os.path.join(ZERO_DIR, f"rank{r}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--zero-rank", str(r),
+             str(world), f"file://{rdv}", outs[-1]],
+            stdout=logs[-1], stderr=subprocess.STDOUT,
+            env=dict(os.environ, LOCAL_RANK=str(r))))
+    deadline = time.monotonic() + ZERO_RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        for r in failed:
+            with open(os.path.join(ZERO_DIR, f"rank{r}.log")) as f:
+                print(f"--- zero rank {r} log (tail) ---\n{f.read()[-3000:]}",
+                      flush=True)
+        raise AssertionError(f"zero: ranks {failed} failed")
+    results = []
+    for path in outs:
+        with open(path) as f:
+            results.append(json.load(f))
+    return results
+
+
+def phase_zero():
+    """Data parallelism and ZeRO 0-2 over NCCL at world = the visible
+    cards: in process on a one-rank group at world 1, one process per card
+    above. Returns rank 0's kernel launches over the three 1.3B stage runs
+    (counts set to 0 before each run's captured steps)."""
+    import torch
+
+    world = torch.cuda.device_count()
+    os.makedirs(ZERO_DIR, exist_ok=True)
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60)
+    topo_text = (topo.stdout + topo.stderr).strip()
+    print(topo_text, flush=True)
+    emit({"phase": "zero", "world": world, "nvidia_smi_topo": topo_text,
+          "nvidia_smi_topo_rc": topo.returncode})
+    free_cuda()
+    t0 = time.perf_counter()
+    if world == 1:
+        results = [zero_rank(0, 1, None)]
+    else:
+        results = zero_spawn(world)
+    one_card = zero_one_card_resume(world)
+    seconds = time.perf_counter() - t0
+    return zero_report(world, results, one_card, seconds)
+
+
+def within_zero_bounds(vs):
+    """Whether a 1.3B run's losses, updates and grad norms lie within the
+    bounds against another run's."""
+    return (vs["loss_rel_err"] <= ZERO_LOSS_REL_TOL
+            and vs["update_rel_l2"] <= ZERO_UPDATE_REL_L2
+            and vs["grad_norm_rel_err_by_step"][0]
+            <= ZERO_GRAD_NORM_FIRST_REL_TOL
+            and vs["grad_norm_rel_err"] <= ZERO_GRAD_NORM_REL_TOL)
+
+
+def zero_report(world, results, one_card, seconds):
+    """One JSON line per stage and one for the small paths, the world on
+    each; raises on any failed check."""
+    r0 = results[0]
+    problems = []
+    smi = nvidia_smi_line()
+    for stage in ZERO_STAGES:
+        runs = [r["stages"][str(stage)] if str(stage) in r["stages"]
+                else r["stages"][stage] for r in results]
+        lead = runs[0]
+        vs = lead["vs_group_less"]
+        yard = r0["yardstick"]
+        line = {"phase": "zero", "world": world, "stage": stage,
+                "card": smi, "model": "gpt2-1.3b", "batch_per_rank": [4, 1024],
+                "steps": STEPS, "losses": lead["losses"],
+                "group_less_losses": r0["reference"]["losses"],
+                "vs_group_less": vs,
+                "vs_control": lead.get("vs_control"),
+                "tolerance": {"loss_rel": ZERO_LOSS_REL_TOL,
+                              "update_rel_l2": ZERO_UPDATE_REL_L2,
+                              "grad_norm_rel_first_step":
+                                  ZERO_GRAD_NORM_FIRST_REL_TOL,
+                              "grad_norm_rel": ZERO_GRAD_NORM_REL_TOL},
+                "step_ms_median_by_rank": [r["step_ms_median"] for r in runs],
+                "eager_step_ms_median_by_rank": [r["eager_step_ms_median"]
+                                                 for r in runs],
+                "group_less_step_ms_median": statistics.median(
+                    r0["reference"]["step_ms"][CAPTURE_WARMUP + 1:]),
+                "peak_allocated_gb_by_rank": [r["peak_allocated_gb"]
+                                              for r in runs],
+                "predicted_state_gb": lead["predicted_state_gb"],
+                "captured_vs_eager_by_rank": [r["captured_vs_eager"]["identical"]
+                                              for r in runs],
+                "launches_rank0": lead["launches"],
+                "graph_comms_per_replay": lead["graph_comms_per_replay"],
+                "comms_counters_rank0": lead["comms_counters"],
+                "traced_replay_by_rank": [r["traced_replay"] for r in runs],
+                "yardstick_all_reduce": yard}
+        if stage == 1:
+            # the prediction of PERF.md: the one-card step, less 3/4 of B4,
+            # plus a reduce-scatter and an all-gather of the bf16 gradient
+            # at the yardstick's bus bandwidth
+            bw = yard["bus_gb_per_s"]
+            xfer = (2 * (world - 1) / world * ZERO_YARDSTICK_BYTES / bw / 1e6
+                    if bw else 0.0)
+            line["predicted_step_ms"] = (ONE_CARD_STEP_MS
+                                         - (1 - 1 / world) * B4_MS + xfer)
+        emit(line)
+        if not all(r["captured_vs_eager"]["identical"] for r in runs):
+            problems.append(f"stage {stage}: captured and eager steps differ")
+        if any(r["losses"] != lead["losses"] for r in runs):
+            problems.append(f"stage {stage}: ranks returned other losses")
+        if any(r["checksums"] != lead["checksums"] for r in runs):
+            problems.append(f"stage {stage}: ranks hold other parameters")
+        for r in runs:
+            for name, per in PER_STEP.items():
+                if r["launches"][name] != per * STEPS:
+                    problems.append(f"stage {stage}: {name} launched "
+                                    f"{r['launches'][name]}, want "
+                                    f"{per} x {STEPS}")
+        if not lead["losses"][-1] <= lead["losses"][0] - TRAIN_MIN_LOSS_DROP:
+            problems.append(f"stage {stage}: the loss did not fall")
+        if not within_zero_bounds(vs):
+            problems.append(f"stage {stage}: against the group-less engine "
+                            f"{vs}")
+        if world > 1 and within_zero_bounds(lead["vs_control"]):
+            problems.append(f"stage {stage}: the bounds do not tell the run "
+                            f"from one that dropped a rank's rows "
+                            f"{lead['vs_control']}")
+    b4 = r0["b4_shard"]
+    if not (all(b4["bit_identical"].values()) and b4["skip_flag_leaves_all_unchanged"]
+            and b4["p_moved_share"] >= ADAMW_MIN_MOVED):
+        problems.append(f"B4 over the shard against its plain version: {b4}")
+    small = [r["small"] for r in results]
+    line = {"phase": "zero", "world": world, "small": small[0],
+            "one_card_resume": one_card, "seconds": seconds,
+            "b4_shard": b4,
+            "fp16_local_overflow_by_rank": [
+                [s[3] for s in r["fp16_stage1"]
+                 ["scale_skipped_count_local_by_step"]] for r in small]}
+    emit(line)
+    for r in small:
+        if not (r["stage2_gas2"]["captured_vs_eager"]["identical"]
+                and r["stage2_gas2"]["launches_ok"]):
+            problems.append("small stage 2 gas 2: captured and eager differ "
+                            "or launches are off")
+        if not (r["fp16_stage1"]["captured_vs_eager"]["identical"]
+                and r["fp16_stage1"]["same_as_eager"]):
+            problems.append("small fp16 stage 1: captured and eager differ")
+        ck = r["checkpoint"]["resumed"]
+        one = ck["1"] if "1" in ck else ck[1]
+        two = ck["2"] if "2" in ck else ck[2]
+        if not one["bit_identical"] or one["reshard"]:
+            problems.append("small checkpoint: the same world and stage did "
+                            "not resume bit for bit")
+        if not (two["loss_rel_err"] <= ZERO_SMALL_LOSS_REL_TOL
+                and two["update_rel_l2"] <= ZERO_SMALL_UPDATE_REL_L2
+                and two["reshard"] == ["zero_stage 1 -> 2"]):
+            problems.append(f"small checkpoint at stage 2: {two}")
+    # every rank saw the same skips and scales; a skip happened, on every
+    # rank, exactly where some rank's own shard overflowed
+    hist = [r["fp16_stage1"]["scale_skipped_count_local_by_step"]
+            for r in small]
+    if any([h[:3] for h in rank] != [h[:3] for h in hist[0]]
+           for rank in hist):
+        problems.append("fp16: the ranks' scales, skips or counts differ")
+    prev = 0
+    local_only = 0
+    for i, step in enumerate(hist[0]):
+        skipped = step[1] > prev
+        prev = step[1]
+        flags = [rank[i][3] for rank in hist]
+        if skipped != any(flags):
+            problems.append(f"fp16 step {i}: skipped={skipped}, local "
+                            f"overflow flags {flags}")
+        local_only += skipped and not all(flags)
+    if not hist[0][-1][1]:
+        problems.append("fp16: no step overflowed")
+    if world > 1 and not local_only:
+        problems.append("fp16: no overflow was local to some ranks' shards")
+    expect_reshard = ([f"world_size {world} -> 1", f"fsdp {world} -> 1"]
+                      if world > 1 else [])
+    if not (one_card["loss_rel_err"] <= ZERO_SMALL_LOSS_REL_TOL
+            and one_card["update_rel_l2"] <= ZERO_SMALL_UPDATE_REL_L2
+            and one_card["reshard"] == expect_reshard):
+        problems.append(f"small checkpoint on one card: {one_card}")
+    shutil.rmtree(ZERO_DIR, ignore_errors=True)
+    if problems:
+        raise AssertionError(f"zero (world {world}): {problems}")
+    return r0["launches"]
+
+
+# ---------------------------------------------------------------------------
 # --against DIR: the backward kernels and B4 of this tree against another build
 # ---------------------------------------------------------------------------
 def _other_build(root):
@@ -2444,8 +3197,13 @@ def phase_against(root):
 def main(argv):
     import torch
 
-    if len(argv) not in (1, 3) or (len(argv) == 3 and argv[1] != "--against"):
-        print(f"usage: {argv[0]} [--against OTHER_CHECKOUT]", file=sys.stderr)
+    usage = (len(argv) == 1 or (len(argv) == 3 and argv[1] in
+                                ("--against", "--only") and
+                                (argv[1] == "--against" or argv[2] == "zero"))
+             or (len(argv) == 6 and argv[1] == "--zero-rank"))
+    if not usage:
+        print(f"usage: {argv[0]} [--against OTHER_CHECKOUT | --only zero]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2457,10 +3215,21 @@ def main(argv):
         print(f"chip_smoke: run it from a checkout of the repository ({e})",
               file=sys.stderr)
         return 1
-    if len(argv) == 3:
+    if argv[1:2] == ["--zero-rank"]:
+        return zero_rank_main(argv[2:])
+    if argv[1:2] == ["--against"]:
         ok = phase_against(argv[2])
         print(nvidia_smi_line(), flush=True)
         return 0 if ok else 1
+    if argv[1:2] == ["--only"]:
+        smi = phase_device()
+        phase_build()
+        emit({"zero_launches": phase_zero()})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     smi = phase_device()
     phase_build()
     kernels = phase_kernel()
@@ -2476,17 +3245,20 @@ def main(argv):
     phase_small_capture()
     free_cuda()
     phase_small_train()
+    free_cuda()
+    zero_launches = phase_zero()
     paths = {"serve": serve_launches, "train": launches,
-             "checkpoint": ckpt_launches, "sparse_train": sparse_launches}
+             "checkpoint": ckpt_launches, "sparse_train": sparse_launches,
+             "zero": zero_launches}
     for entry in kernels:
         # each slice's main path, its counts set to 0 just before it: serving
-        # runs B1, GPT training and the checkpoint path B1-B4, BERT training
-        # under BigBird B4-B7. "launches" is the count on the newest path
-        # that runs the kernel
+        # runs B1, GPT training, the checkpoint path and ZeRO B1-B4, BERT
+        # training under BigBird B4-B7. "launches" is the count on the
+        # newest path that runs the kernel
         name = entry["name"]
         entry["launches_by_path"] = {p: counts[name] for p, counts in paths.items()}
-        entry["launches"] = (sparse_launches[name] or ckpt_launches[name]
-                             or launches[name])
+        entry["launches"] = (zero_launches[name] or sparse_launches[name]
+                             or ckpt_launches[name] or launches[name])
         if not entry["launches"]:
             raise AssertionError(f"{name} never ran on a main path")
     emit({"kernels": kernels})

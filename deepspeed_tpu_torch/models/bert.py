@@ -223,6 +223,11 @@ class BertForPreTraining(nn.Module):
                 self.mlm_bias = nn.Parameter(
                     torch.zeros(cfg.vocab_size, dtype=cfg.param_dtype))
 
+    def loss_weight_sum(self, input_ids=None, labels=None, **_):
+        """The count of labelled positions (the denominator of
+        ``masked_lm_loss`` before its clamp to 1)."""
+        return (labels != -100).float().sum()
+
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 labels=None):
         cfg = self.config

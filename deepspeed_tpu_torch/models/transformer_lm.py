@@ -431,6 +431,13 @@ class GPT(nn.Module):
             self.ln_f = LayerNorm(config.n_embd, config.layer_norm_epsilon,
                                   config)
 
+    def loss_weight_sum(self, input_ids=None, labels=None,
+                        attention_mask=None, segment_ids=None, **_):
+        """The sum of the loss's per-token weights for this batch (the
+        denominator of ``cross_entropy_loss`` before its clamp to 1): the
+        data-parallel engine all-reduces it to weight each rank's mean."""
+        return _shifted_targets(labels, attention_mask, segment_ids)[1].sum()
+
     def forward(self, input_ids, labels=None, attention_mask=None,
                 segment_ids=None, positions=None, *, decode=False,
                 cache: Optional[KVCache] = None):

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.cuda.build import load_library
-from deepspeed_tpu_torch.ops.cuda.common import NEG_INF
+from deepspeed_tpu_torch.ops.cuda.common import NEG_INF, check_current_device
 from deepspeed_tpu_torch.ops.cuda.flash_attention import _check_launch, bwd_delta
 
 # what the kernels are instantiated for (csrc/block_sparse_attention.cu)
@@ -248,6 +248,7 @@ def _call(fn, q, k, v, rows, block, causal, scale, *ptrs):
     idx, cnt, order = rows
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
+    check_current_device(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs,

@@ -24,7 +24,7 @@ import math
 import torch
 
 from deepspeed_tpu_torch.ops.cuda.build import load_library
-from deepspeed_tpu_torch.ops.cuda.common import NEG_INF
+from deepspeed_tpu_torch.ops.cuda.common import NEG_INF, check_current_device
 
 # head dims the kernel is instantiated for (csrc/flash_attention_fwd.cu)
 HEAD_DIMS = (32, 64, 80, 96, 128)
@@ -166,6 +166,7 @@ def _launch(q, k, v, segment_ids, causal, scale):
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     seg = _seg_i32(segment_ids)
+    check_current_device(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(
@@ -186,6 +187,7 @@ def _bwd_call(fn, q, k, v, lse, delta, do, segment_ids, causal, scale, outs):
     seg = _seg_i32(segment_ids)
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
+    check_current_device(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -34,6 +34,7 @@ from typing import Callable, Dict, List, Optional, Union
 import torch
 
 from deepspeed_tpu_torch.ops.cuda.build import load_library
+from deepspeed_tpu_torch.ops.cuda.common import check_current_device
 from deepspeed_tpu_torch.runtime import compiled_step
 from deepspeed_tpu_torch.runtime.optimizer_state import StatefulOptimizer
 
@@ -201,6 +202,7 @@ def _table(group, device):
 def _launch(group, scalars, b1, b2, eps, weight_decay):
     global launches
     p0, g0 = group[0][0], group[0][1]
+    check_current_device(p0)
     with torch.cuda.device(p0.device):
         table, n_rows, chunks = _table(group, p0.device)
         if n_rows == 0:

@@ -23,6 +23,11 @@ returns once the file is durable, so no step runs in between and the host
 holds one tensor at a time. ``AsyncCheckpointEngine.save`` first takes a
 host copy of every tensor (``to_host``) and hands only that copy to its
 writer thread, so training may go on at once.
+
+Under a process group only rank 0 writes (the engine gathers what is
+sharded to it first), so a tag has the same files at every world; its
+manifest's ``topology`` block (``runtime/layout.topology_metadata``)
+records the world, the ZeRO stage and the flat layout it was saved from.
 """
 
 import os
@@ -39,17 +44,6 @@ from deepspeed_tpu_torch.utils.logging import log_dist
 MODEL_STATES = "mp_rank_00_model_states.pt"
 ENGINE_STATES = "engine_states.pt"
 OPTIM_STATES = "zero_pp_rank_0_mp_rank_00_optim_states.pt"
-# the JAX package's mesh axes (deepspeed_tpu/parallel/mesh.py), named in
-# the manifest's topology block
-AXIS_ORDER = ("pp", "dp", "fsdp", "ep", "sp", "tp")
-
-
-def one_card_topology(zero_stage: int) -> Dict[str, Any]:
-    """The manifest ``topology`` block of a one-card engine, in the JAX
-    package's schema (``runtime/layout.topology_metadata``): world size 1,
-    every mesh axis 1, and no partition specs (nothing is sharded)."""
-    return {"world_size": 1, "zero_stage": int(zero_stage),
-            "axis_sizes": {axis: 1 for axis in AXIS_ORDER}}
 
 
 def _map_tensors(fn, tree):

@@ -18,7 +18,16 @@ replay error raises: there is no eager fallback on the card.
 Kernel launch counts: the kernel wrappers count their launches on the host,
 and a replay calls no wrapper. So each graph records the launches its
 capture saw (and takes them back from the counters: a capture runs
-nothing) and adds them to the counters once per replay.
+nothing) and adds them to the counters once per replay. The comms logger's
+records of the collectives (``comm/logging.py``) are kept the same way.
+
+Collectives: a step may hold NCCL collectives (the ZeRO exchanges). Their
+communicators are made before any capture (``comm.warm_up``, and the
+warm-up calls run every collective of the step on the side stream that
+captures), and a graph is captured with ``capture_error_mode=
+"thread_local"``: ProcessGroupNCCL's watchdog thread queries CUDA events
+while the capture runs, which the default "global" mode would count as an
+illegal call and so invalidate the capture.
 
 Lifetimes: a graph holds raw device pointers. What a wrapper makes or looks
 up during a capture and a replay later reads (block-sparse index tables,
@@ -32,6 +41,8 @@ import collections
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
+
+from deepspeed_tpu_torch.comm.logging import comms_logger
 
 _capture: Optional["_CaptureState"] = None
 
@@ -104,12 +115,13 @@ def _signature(inputs: Dict[str, torch.Tensor]):
 
 
 class _Graph:
-    def __init__(self, graph, inputs, outputs, launches, held):
+    def __init__(self, graph, inputs, outputs, launches, held, comms=None):
         self.graph = graph
         self.inputs = inputs
         self.outputs = outputs
         self.launches = launches
         self.held = held
+        self.comms = comms or {}
         self.replays = 0
 
     def replay(self, inputs: Dict[str, torch.Tensor]):
@@ -118,6 +130,7 @@ class _Graph:
         self.graph.replay()
         self.replays += 1
         _add_launch_counts(self.launches)
+        comms_logger.add(self.comms)
         return _map(torch.clone, self.outputs)
 
 
@@ -196,20 +209,24 @@ class CompiledStep:
         for gen in self.generators:
             graph.register_generator_state(gen)
         before = launch_counts()
+        comms_before = comms_logger.snapshot()
         state = _CaptureState()
         _capture = state
         try:
             with torch.cuda.graph(graph, pool=self._pool,
-                                  stream=self._side_stream()):
+                                  stream=self._side_stream(),
+                                  capture_error_mode="thread_local"):
                 outputs = self.fn(*static, **static_in)
         finally:
             _capture = None
             seen = {name: n - before[name]
                     for name, n in launch_counts().items()}
             _add_launch_counts(seen, sign=-1)
+            comms = comms_logger.since(comms_before)
+            comms_logger.add(comms, sign=-1)
         for fn in state.after:
             fn()
-        entry = _Graph(graph, static_in, outputs, seen, state.held)
+        entry = _Graph(graph, static_in, outputs, seen, state.held, comms)
         self._graphs[key] = entry
         while len(self._graphs) > self.max_graphs:
             _, old = self._graphs.popitem(last=False)

@@ -4,15 +4,18 @@
 Every block and key the JAX package accepts still parses, into the same
 dataclasses, so one JSON drives both packages; the device block is read
 under its JAX name ``tpu``. The training slice honours the batch triad
-(resolved at world size 1), ``fp16`` with its loss-scale keys, ``bf16``,
+(resolved by the engine at its data-parallel size: 1 without a process
+group), ``fp16`` with its loss-scale keys, ``bf16``,
 ``gradient_clipping``, ``optimizer``, ``scheduler``, ``steps_per_print``,
-``zero_optimization.stage`` 0-3 (at world size 1 every stage is the
-unsharded update, as on the JAX package's dp=1 mesh),
-``tpu.use_pallas_optimizer``, ``sparse_attention`` (applied by the
-engine), ``checkpoint`` (``keep_n``, ``verify``, ``tag_validation``),
-``nebula`` (the asynchronous checkpoint engine) and
-``wall_clock_breakdown``. ``unported_features()`` names every other
-block that is enabled; the engine refuses to train with any of them.
+``zero_optimization.stage`` 0-2 (and 3 on one rank), ``tpu.mesh`` over dp
+and fsdp, ``communication_data_type`` fp32 / bf16 (bfp16) / fp16 (the
+dtype of the gradient exchange; unset, the gradients' own),
+``comms_logger``, ``tpu.use_pallas_optimizer``, ``sparse_attention``
+(applied by the engine), ``checkpoint`` (``keep_n``, ``verify``,
+``tag_validation``), ``nebula`` (the asynchronous checkpoint engine) and
+``wall_clock_breakdown``. ``unported_features()`` names every other block
+that is enabled, with the ROADMAP item that ports it; the engine refuses
+to train with any of them.
 """
 
 import json
@@ -559,21 +562,20 @@ class DeepSpeedConfig:
             ("tensorboard", self.tensorboard.enabled),
             ("wandb", self.wandb.enabled),
             ("csv_monitor", self.csv_monitor.enabled),
-            ("comms_logger", self.comms_logger.enabled),
-            ("tpu.grad_exchange", gx.deferred or gx.bucket_mb > 0
+            ("tpu.grad_exchange (the bucketed and deferred exchanges, "
+             "ROADMAP A.4)", gx.deferred or gx.bucket_mb > 0
              or gx.hierarchical != "off"),
-            ("the 1-bit optimizers", opt_type in C.ONEBIT_OPTIMIZERS),
-            ("communication_data_type=int8",
-             self.communication_data_type == "int8"),
+            ("the 1-bit optimizers (ROADMAP A.4)",
+             opt_type in C.ONEBIT_OPTIMIZERS),
+            ("communication_data_type=int8 (the compressed exchange, "
+             "ROADMAP A.4)", self.communication_data_type == "int8"),
             ("graceful_shutdown", self.graceful_shutdown.enabled),
             ("pipeline", self.pipeline.to_dict() != PipelineConfig().to_dict()),
             ("activation_checkpointing",
              self.activation_checkpointing.to_dict()
              != ActivationCheckpointingConfig().to_dict()),
-            ("tpu.mesh beyond one device",
-             mesh.dp not in (1, -1) or any(
-                 getattr(mesh, ax) != 1
-                 for ax in ("fsdp", "tp", "pp", "ep", "sp"))),
+            ("tpu.mesh tp/pp/ep/sp > 1 (the other mesh axes, ROADMAP A.9)",
+             any(getattr(mesh, ax) != 1 for ax in ("tp", "pp", "ep", "sp"))),
             ("tpu.remat", self.tpu.remat != "none"),
             ("tpu.step_autotune", self.tpu.step_autotune_config.enabled),
             ("tpu.cluster_health",
@@ -587,6 +589,16 @@ class DeepSpeedConfig:
              "ROADMAP A.12)", bool(self.load_universal_checkpoint)),
         ]
         return [name for name, enabled in checks if enabled]
+
+    @property
+    def communication_dtype(self):
+        """The torch dtype of the gradient exchange, or None for the
+        gradients' own dtype."""
+        import torch
+
+        return {None: None, "fp32": torch.float32, "fp16": torch.float16,
+                "bf16": torch.bfloat16, "bfp16": torch.bfloat16}[
+                    self.communication_data_type]
 
     @property
     def zero_enabled(self) -> bool:

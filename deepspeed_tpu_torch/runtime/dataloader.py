@@ -1,8 +1,9 @@
 """Data loading (counterpart of ``deepspeed_tpu/runtime/dataloader.py``).
 
 ``DeepSpeedDataLoader`` yields batches of ``batch_size`` rows (the engine's
-micro batch: this slice runs on one card) as dicts of numpy arrays, which
-the engine moves to its device; ``RepeatingLoader`` restarts the wrapped
+``deepspeed_io`` asks for the global micro batch, ``micro x dp`` rows, as
+the JAX engine does: every rank reads the same batch and keeps its own
+rows) as dicts of numpy arrays, which the engine moves to its device; ``RepeatingLoader`` restarts the wrapped
 loader at exhaustion. With ``drop_last=False`` a ragged tail batch is padded
 and gets an ``attention_mask``, which sends the model off the flash path.
 """

@@ -3,7 +3,7 @@
 fused step ``_build_train_step`` :1379 and the split ``_build_fwd_bwd``
 :1273 / ``_build_apply`` :1323).
 
-One card. ``train_batch`` with ``gradient_accumulation_steps == 1`` is one
+``train_batch`` with ``gradient_accumulation_steps == 1`` is one
 fused step that keeps no f32 accumulation buffer; with more, it runs
 ``forward`` (the micro step: forward, backward and the f32 accumulation of
 ``loss * scale / gas`` gradients, fused as in the JAX engine),
@@ -34,9 +34,31 @@ and certified by a manifest in the JAX package's schema. A load restores
 every tensor with ``copy_`` into the storage it already has, so the captured
 graphs and B4's pointer table stay valid and no step is captured again.
 
-Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
-when torch sees no card. Pass ``device="cpu"`` to train on the host (the
-kernels then take their plain PyTorch versions).
+Data parallelism and ZeRO stages 0-2 (JAX engine :297-349 for the
+topology, :1459-1470 and :1514-1545 for the data). Without an initialised
+process group the engine is the one-card engine above. With one
+(``comm.init_distributed``; world 1 included), the mesh comes from the
+config over the group's ranks (``tpu.mesh``: dp and fsdp; a ZeRO stage
+moves dp to fsdp), the batch triad resolves at the data-parallel size,
+and ``runtime/zero/stage_1_and_2.ZeroOptimizer`` owns the flat parameter,
+gradient and optimizer-state buffers and their exchanges; the step
+functions are the same three, with the exchange inside them, so a card
+captures the collectives in the step's graph. Each rank weights its mean
+loss by its share of the global batch's loss weights (one all-reduce of
+the weight sum before the backward), so the summed gradient is the global
+mean's gradient even when the ranks' label counts differ, and
+``train_batch`` returns the global mean loss on every rank.
+``deepspeed_io`` loads the global micro batch, ``micro x dp`` rows, and
+``_put_batch`` keeps the rank's rows. Rank 0's parameters are broadcast
+at ``initialize``. A checkpoint is the same tag at every world: rank 0
+writes the whole tensors (gathering the optimizer's shards one parameter
+at a time), every rank loads its slice, and a load at another world or
+stage reshards (``runtime/reshard.py``).
+
+Entry points run on the card: ``device=None`` means ``"cuda"`` (under a
+NCCL group ``cuda:{local_rank}``, one card per rank) and raises when torch
+sees no card. Pass ``device="cpu"`` to train on the host (the kernels then
+take their plain PyTorch versions; a group must then be gloo).
 """
 
 import dataclasses
@@ -48,12 +70,17 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.comm.logging import comms_logger
 from deepspeed_tpu_torch.models.bert import BertForPreTraining, materialize_bert
 from deepspeed_tpu_torch.models.transformer_lm import GPT, materialize_gpt
+from deepspeed_tpu_torch.parallel.mesh import (MeshTopology,
+                                               set_default_topology)
 from deepspeed_tpu_torch.runtime import checkpoint_manifest as ckpt_manifest
+from deepspeed_tpu_torch.runtime import layout, reshard
 from deepspeed_tpu_torch.runtime.checkpoint_engine import (
-    ENGINE_STATES, MODEL_STATES, OPTIM_STATES, one_card_topology,
-    select_checkpoint_engine, write_torch_file)
+    ENGINE_STATES, MODEL_STATES, OPTIM_STATES, select_checkpoint_engine,
+    write_torch_file)
 from deepspeed_tpu_torch.runtime.compiled_step import CompiledStep
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
@@ -66,6 +93,8 @@ from deepspeed_tpu_torch.runtime.lr_schedules import (LRScheduler,
                                                       schedule_fn_from_config)
 from deepspeed_tpu_torch.runtime.optimizer import build_optimizer
 from deepspeed_tpu_torch.runtime.utils import clip_grad_norm_, get_global_norm
+from deepspeed_tpu_torch.runtime.zero.stage_1_and_2 import (DATA_AXES,
+                                                            ZeroOptimizer)
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
                                              ThroughputTimer)
@@ -183,12 +212,15 @@ class DeepSpeedEngine:
                 "(PipelineModule included) is not ported")
         if not isinstance(config, DeepSpeedConfig):
             config = DeepSpeedConfig(config)
-        config._resolve_batch_triad(1)  # one card
         unported = config.unported_features()
         if unported:
             raise NotImplementedError(
                 f"config blocks not ported to deepspeed_tpu_torch yet: "
                 f"{', '.join(unported)}")
+        self._distributed = comm.is_initialized()
+        self.topology = self._build_topology(config)
+        config._resolve_batch_triad(self.topology.data_parallel_size)
+        comms_logger.configure(config.comms_logger)
         self._config = config
         if config.sparse_attention is not None:
             # block-sparse attention from the config alone, as
@@ -205,8 +237,14 @@ class DeepSpeedEngine:
                 raise RuntimeError(
                     "initialize runs on a CUDA card by default and torch sees "
                     "none; pass device='cpu' to train on the host")
-            device = "cuda"
+            device = (f"cuda:{comm.get_local_rank()}" if self._distributed
+                      else "cuda")
         self.device = torch.device(device)
+        if self._distributed and (comm.get_backend() == "nccl") != (
+                self.device.type == "cuda"):
+            raise ValueError(
+                f"a {comm.get_backend()} process group with the engine on "
+                f"{self.device}: NCCL takes CUDA cards, gloo the CPU")
 
         self.module = model
         t0 = time.perf_counter()
@@ -226,12 +264,29 @@ class DeepSpeedEngine:
         self.train_batch_size = config.train_batch_size
         self.gradient_clipping = config.gradient_clipping
         self.zero_stage = config.zero_config.stage
+        self.data_parallel_size = self.topology.data_parallel_size
 
         self.lr_scheduler, schedule_fn = self._configure_lr(lr_scheduler)
-        self.optimizer = build_optimizer(
-            self._params, config.optimizer.type, config.optimizer.params,
-            schedule_fn, use_pallas=config.tpu.use_pallas_optimizer,
-            names=[name for name, _ in named])
+
+        def build(params, names, runs=None, reduce=None):
+            return build_optimizer(
+                params, config.optimizer.type, config.optimizer.params,
+                schedule_fn, use_pallas=config.tpu.use_pallas_optimizer,
+                names=names, runs=runs, reduce=reduce)
+
+        # the data-parallel state (None on the one-card engine)
+        self._zero = None
+        if self._distributed:
+            # NCCL makes a communicator at a group's first collective,
+            # which must come before any capture
+            comm.warm_up(self._exchange_axes(), self.device)
+            self._zero = ZeroOptimizer(
+                named, layout.build_sharding_rules(self.topology,
+                                                   self.zero_stage),
+                build, comm_dtype=config.communication_dtype)
+            self.optimizer = self._zero
+        else:
+            self.optimizer = build(self._params, [name for name, _ in named])
         self.optimizer_adapter = OptimizerAdapter(self)
         # set_lr's absolute lr for the next step(s), None without one
         self._lr_override = None
@@ -264,6 +319,8 @@ class DeepSpeedEngine:
         self._acc_grads = None
         self._pending_loss = None
         self._last_grad_norm = None
+        # the last load_checkpoint's reshard decision (reshard.decide)
+        self.last_reshard = None
 
         self.micro_steps = 0
         self.global_steps = 0
@@ -275,16 +332,54 @@ class DeepSpeedEngine:
         self.wall_clock_breakdown = bool(config.wall_clock_breakdown)
         self.timers = SynchronizedWallClockTimer()
         n_params = sum(p.numel() for p in self._params)
+        layout_note = ("one card, no process group" if self._zero is None
+                       else f"{self.topology}, " + (
+                           "optimizer state partitioned over fsdp"
+                           if self._zero.sharded else "replicated"))
         log_dist(
             f"DeepSpeedEngine: device={self.device}, {n_params / 1e6:.1f}M "
             f"params in {time.perf_counter() - t0:.1f}s, zero_stage="
-            f"{self.zero_stage} (unsharded on one card), dtype="
+            f"{self.zero_stage} ({layout_note}), dtype="
             f"{config.precision_dtype}, micro_bs="
             f"{self.train_micro_batch_size_per_gpu}, gas="
             f"{self.gradient_accumulation_steps}, optimizer="
             f"{type(self.optimizer).__name__}", ranks=[0])
 
     # -- configuration ----------------------------------------------------
+    def _build_topology(self, config) -> MeshTopology:
+        """The one-card mesh without a process group (a mesh of more than
+        one rank then raises); with one, the config's mesh over its ranks,
+        dp moved to fsdp under ZeRO, and registered as the default topology
+        (what the collectives' axis names resolve against)."""
+        if not self._distributed:
+            mesh = config.tpu.mesh_config
+            if mesh.dp not in (1, -1) or mesh.fsdp != 1:
+                raise ValueError(
+                    f"tpu.mesh asks for dp={mesh.dp}, fsdp={mesh.fsdp} but no "
+                    f"process group is initialised: call "
+                    f"deepspeed_tpu_torch.comm.init_distributed in every "
+                    f"rank's process before initialize")
+            return MeshTopology(world_size=1)
+        topology = layout.build_topology(config,
+                                         world_size=comm.get_world_size())
+        stage = config.zero_config.stage
+        if stage >= 3 and topology.data_parallel_size > 1:
+            raise NotImplementedError(
+                "ZeRO stage 3 (partitioned parameters) at world > 1 is not "
+                "ported yet (ROADMAP A.3, stage 3); stages 0-2 are")
+        topology = layout.apply_zero_fsdp_move(topology, stage)
+        set_default_topology(topology)
+        return topology
+
+    def _exchange_axes(self):
+        """The mesh axes whose groups the step's collectives use."""
+        axes = [DATA_AXES]
+        if self.zero_stage >= 1:
+            axes.append("fsdp")
+            if self.topology.size("dp") > 1:
+                axes.append("dp")
+        return axes
+
     def _configure_lr(self, lr_scheduler):
         cfg = self._config
         if lr_scheduler is None and cfg.scheduler.type is not None:
@@ -299,20 +394,34 @@ class DeepSpeedEngine:
 
     # -- data -------------------------------------------------------------
     def deepspeed_io(self, dataset, collate_fn=None, shuffle=True):
-        """A loader of micro batches, kept as ``training_dataloader``: a
-        checkpoint carries its (epoch, seed) state."""
+        """A loader of global micro batches (``micro x dp`` rows, as the JAX
+        engine's; every rank reads the same batch and keeps its rows), kept
+        as ``training_dataloader``: a checkpoint carries its (epoch, seed)
+        state."""
         self.training_dataloader = DeepSpeedDataLoader(
-            dataset, batch_size=self.train_micro_batch_size_per_gpu,
+            dataset, batch_size=(self.train_micro_batch_size_per_gpu
+                                 * self.data_parallel_size),
             shuffle=shuffle, drop_last=self._config.dataloader_drop_last,
             collate_fn=collate_fn)
         return self.training_dataloader
 
     def _put_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """A dict of numpy arrays or tensors, on the engine's device; integer
-        arrays become int64 (token ids, masks, segment ids, positions)."""
+        arrays become int64 (token ids, masks, segment ids, positions).
+        Under a process group each array is the global micro batch and the
+        rank keeps its ``micro`` rows."""
         out = {}
+        micro, dp = self.train_micro_batch_size_per_gpu, self.data_parallel_size
         for key, x in dict(batch).items():
             x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
+            if self._zero is not None:
+                if x.ndim == 0 or x.shape[0] != micro * dp:
+                    raise ValueError(
+                        f"batch leading dim {tuple(x.shape)} must be the "
+                        f"global micro batch (train_micro_batch_size_per_gpu"
+                        f" * dp = {micro} * {dp} = {micro * dp})")
+                r = self.topology.data_parallel_rank()
+                x = x[r * micro:(r + 1) * micro]
             if not x.is_floating_point() and x.dtype != torch.bool:
                 x = x.long()
             out[key] = x.to(self.device, non_blocking=True)
@@ -327,15 +436,25 @@ class DeepSpeedEngine:
         ``(norm, overflow)``, overflow None without fp16. ``grads`` are
         f32, or the parameters' own dtype when there was no scale to divide
         by: the norm accumulates in f32 and the clip multiply rounds once to
-        the dtype either way, so both give the JAX step's values."""
-        overflow = has_overflow(grads) if self.fp16_enabled else None
-        if self._max_norm is not None:
-            norm = clip_grad_norm_(grads, self._max_norm)
+        the dtype either way, so both give the JAX step's values. Under
+        ZeRO ``grads`` are the rank's part of the flat gradient, and the
+        flag and the norm are global (``ZeroOptimizer``)."""
+        z = self._zero
+        if z is not None:
+            overflow = z.overflow(grads) if self.fp16_enabled else None
+            norm = (z.clip(grads, self._max_norm) if self._max_norm is not None
+                    else z.global_norm(grads))
+            z.apply(grads, skip=overflow)
         else:
-            norm = get_global_norm(grads)
-        # g.astype(p.dtype): a new tensor only where the dtypes differ
-        self.optimizer.apply([g.to(p.dtype) for g, p in zip(grads, self._params)],
-                             skip=overflow)
+            overflow = has_overflow(grads) if self.fp16_enabled else None
+            if self._max_norm is not None:
+                norm = clip_grad_norm_(grads, self._max_norm)
+            else:
+                norm = get_global_norm(grads)
+            # g.astype(p.dtype): a new tensor only where the dtypes differ
+            self.optimizer.apply(
+                [g.to(p.dtype) for g, p in zip(grads, self._params)],
+                skip=overflow)
         if self.fp16_enabled and self._ls_config.dynamic:
             self._ls_state.copy_(update_loss_scale(self._ls_state, overflow,
                                                    self._ls_config))
@@ -351,10 +470,21 @@ class DeepSpeedEngine:
             p.grad = None
         return grads
 
+    def _loss_share(self, batch):
+        """This rank's share of the global batch's loss weights,
+        ``max(local, 1) / max(global, 1)`` (a 0-dim f32 device tensor; one
+        all-reduce): the rank's mean loss times it is its part of the global
+        mean."""
+        local = self.module.loss_weight_sum(**batch).float()
+        total = self._zero.data_parallel_sum(local)
+        return local.clamp(min=1.0) / total.clamp(min=1.0)
+
     def _fused_step(self, **batch):
         """gas == 1: gradients of ``loss * scale`` go straight to the update
         (no f32 accumulation buffer). Returns ``(loss, norm, overflow)``."""
         loss = self.module(**batch)
+        if self._zero is not None:
+            return self._zero_fused_step(loss, batch)
         if self.fp16_enabled:
             scale = self._ls_state.scale
             grads = [g.float() for g in self._grads_of(loss * scale)]
@@ -363,13 +493,40 @@ class DeepSpeedEngine:
             grads = self._grads_of(loss)
         return (loss.detach(),) + self._update(grads)
 
+    def _zero_fused_step(self, loss, batch):
+        """gas == 1 under a process group: the backward of the rank's share
+        of the global loss, the exchange (all-reduce at stage 0,
+        reduce-scatter at 1-2), the update of the rank's part. Returns the
+        global mean loss, the norm and the overflow flag."""
+        z = self._zero
+        share = self._loss_share(batch)
+        scaled = loss * share
+        if self.fp16_enabled:
+            scaled = scaled * self._ls_state.scale
+        scaled.backward()
+        z.collect_grads(self._params)
+        grads = z.reduce_grads()
+        if self.fp16_enabled:
+            grads = [g.float() for g in grads]
+            torch._foreach_div_(grads, self._ls_state.scale)
+        norm, overflow = self._update(grads)
+        return z.data_parallel_sum(loss * share), norm, overflow
+
     def _micro_step(self, **batch):
         """One micro batch: forward, backward of ``loss * scale / gas``, and
-        the grads added in f32 to the accumulation buffers. Returns the
-        loss."""
+        the grads added in f32 to the accumulation buffers (under a process
+        group: exchanged first, and the rank's share of the global loss).
+        Returns the loss (the global mean under a group)."""
         loss = self.module(**batch)
         factor = (self._ls_state.scale / self._gas if self.fp16_enabled
                   else 1.0 / self.gradient_accumulation_steps)
+        z = self._zero
+        if z is not None:
+            share = self._loss_share(batch)
+            (loss * (share * factor)).backward()
+            z.collect_grads(self._params)
+            z.accumulate()
+            return z.data_parallel_sum(loss * share)
         for acc, g in zip(self._acc_grads, self._grads_of(loss * factor)):
             acc.add_(g)
         return loss.detach()
@@ -378,6 +535,13 @@ class DeepSpeedEngine:
         """The boundary: the update from the f32 sums themselves (divided
         and clipped in place), then the sums set to 0. Returns ``(norm,
         overflow)``."""
+        if self._zero is not None:
+            grads = self._zero.accumulated()
+            if self.fp16_enabled:
+                torch._foreach_div_(grads, self._ls_state.scale)
+            out = self._update(grads)
+            self._zero.zero_accumulators()
+            return out
         grads = list(self._acc_grads)
         if self.fp16_enabled:
             torch._foreach_div_(grads, self._ls_state.scale)
@@ -444,7 +608,8 @@ class DeepSpeedEngine:
         skipped = self._finish_update(norm, overflow)
         self.micro_steps += 1
         self.global_steps += 1
-        self.global_samples += self.train_micro_batch_size_per_gpu
+        self.global_samples += (self.train_micro_batch_size_per_gpu
+                                * self.data_parallel_size)
         self._post_step(skipped)
         self.tput_timer.stop(global_step=True)
         return loss
@@ -459,7 +624,9 @@ class DeepSpeedEngine:
         if self.wall_clock_breakdown:
             self.timers(FORWARD_MICRO_TIMER).start()
         self.module.train()
-        if self._acc_grads is None:
+        if self._zero is not None:
+            self._zero.make_accumulators()
+        elif self._acc_grads is None:
             self._acc_grads = [torch.zeros_like(p, dtype=torch.float32)
                                for p in self._params]
         loss = self._run(self._micro, self._put_batch(batch), eager)
@@ -497,15 +664,22 @@ class DeepSpeedEngine:
                 self.timers(STEP_MICRO_TIMER).stop()
                 self.timers.log([FORWARD_MICRO_TIMER, STEP_MICRO_TIMER])
         self.micro_steps += 1
-        self.global_samples += self.train_micro_batch_size_per_gpu
+        self.global_samples += (self.train_micro_batch_size_per_gpu
+                                * self.data_parallel_size)
         self.tput_timer.stop(global_step=at_boundary)
 
     @torch.no_grad()
     def eval_batch(self, batch: Dict[str, Any]):
-        """The loss (or logits, without labels) in eval mode."""
+        """The loss (or logits, without labels) in eval mode; under a
+        process group the global mean loss (or this rank's rows' logits)."""
         self.module.eval()
         try:
-            return self.module(**self._put_batch(batch))
+            batch = self._put_batch(batch)
+            out = self.module(**batch)
+            if self._zero is not None and "labels" in batch:
+                out = self._zero.data_parallel_sum(
+                    out * self._loss_share(batch))
+            return out
         finally:
             self.module.train()
 
@@ -562,10 +736,14 @@ class DeepSpeedEngine:
         if tag is None:
             tag = f"global_step{self.global_steps}"
         ce = self.checkpoint_engine
-        ce.set_topology_metadata(one_card_topology(self.zero_stage))
-        ce.create(tag)
-        ce.save({"module": self.module.state_dict()},
-                self._tag_path(save_dir, tag, MODEL_STATES))
+        # under a process group rank 0 writes every file; the others take
+        # part in gathering the optimizer's shards
+        writer = comm.get_rank() == 0
+        if writer:
+            ce.set_topology_metadata(self._topology_metadata())
+            ce.create(tag)
+            ce.save({"module": self.module.state_dict()},
+                    self._tag_path(save_dir, tag, MODEL_STATES))
         meta = {
             "global_steps": self.global_steps,
             "global_samples": self.global_samples,
@@ -577,17 +755,36 @@ class DeepSpeedEngine:
         }
         if self.training_dataloader is not None:
             meta["dataloader"] = self.training_dataloader.state_dict()
-        ce.save({"meta": meta}, self._tag_path(save_dir, tag, ENGINE_STATES))
-        ce.save({"optimizer": self.optimizer.state_dict(),
-                 "loss_scale": dataclasses.asdict(self._ls_state)},
-                self._tag_path(save_dir, tag, OPTIM_STATES))
-        # commit before advertising 'latest': with the async engine the
-        # pointer must never name a tag whose files have not landed
-        ce.commit(tag)
-        if save_latest:
-            ckpt_manifest.write_latest(save_dir, tag)
-        self._gc_checkpoints(save_dir)
+        if writer:
+            ce.save({"meta": meta},
+                    self._tag_path(save_dir, tag, ENGINE_STATES))
+        optim = (self.optimizer.state_dict() if self._zero is None
+                 else self._zero.state_dict(keep=writer, to_host=True))
+        if writer:
+            ce.save({"optimizer": optim,
+                     "loss_scale": dataclasses.asdict(self._ls_state)},
+                    self._tag_path(save_dir, tag, OPTIM_STATES))
+        del optim
+        comm.barrier()  # every rank's part of the tag has been handed over
+        if writer:
+            # commit before advertising 'latest': with the async engine
+            # the pointer must never name a tag whose files have not landed
+            ce.commit(tag)
+            if save_latest:
+                ckpt_manifest.write_latest(save_dir, tag)
+            self._gc_checkpoints(save_dir)
+        comm.barrier()  # no rank reads the tag before it is committed
         return True
+
+    def _topology_metadata(self):
+        """The manifest's topology block: world, ZeRO stage, axis sizes and,
+        under a process group, the flat partition."""
+        specs = None
+        if self._zero is not None:
+            specs = layout.describe_partition(self._zero.rules,
+                                              self._zero.partition)
+        return layout.topology_metadata(self.topology, self.zero_stage,
+                                        partition_specs=specs)
 
     def _gc_checkpoints(self, save_dir):
         """``checkpoint.keep_n``: keep the newest N valid tags, never the
@@ -614,9 +811,11 @@ class DeepSpeedEngine:
         whatever the checkpoint engine (it is not part of a tag);
         ``init_inference(checkpoint=...)`` serves it."""
         dtype = torch.float16 if self.fp16_enabled else torch.bfloat16
-        half = {k: v.to(dtype) for k, v in self.module.state_dict().items()}
-        write_torch_file({"module": half},
-                         os.path.join(save_dir, save_filename))
+        if comm.get_rank() == 0:
+            half = {k: v.to(dtype) for k, v in self.module.state_dict().items()}
+            write_torch_file({"module": half},
+                             os.path.join(save_dir, save_filename))
+        comm.barrier()
         return True
 
     def _resolve_valid_tag(self, load_dir, tag):
@@ -683,9 +882,18 @@ class DeepSpeedEngine:
                 logger.warning("no 'latest' file at %s", load_dir)
                 return None, {}
         tag = self._resolve_valid_tag(load_dir, tag)
+        # a tag of another world or stage loads all the same: each rank
+        # copies its slice of the whole tensors
+        self.last_reshard = reshard.decide(load_dir, tag, self.topology,
+                                           zero_stage=self.zero_stage)
+        if self.last_reshard.needed:
+            log_dist(f"[ckpt] resharding tag {tag}: "
+                     f"{self.last_reshard.describe()}", ranks=[0])
+        specs = (self.last_reshard.saved or {}).get("partition_specs") or {}
         load = self.checkpoint_engine.load
-        self._restore_module(
-            load(self._tag_path(load_dir, tag, MODEL_STATES))["module"])
+        module_sd = load(self._tag_path(load_dir, tag, MODEL_STATES))["module"]
+        reshard.verify_state_dict(module_sd, specs.get("params", {}), "model")
+        self._restore_module(module_sd)
         meta = load(self._tag_path(load_dir, tag, ENGINE_STATES))["meta"]
         self.global_steps = int(meta["global_steps"])
         self.global_samples = int(meta["global_samples"])
@@ -698,6 +906,8 @@ class DeepSpeedEngine:
             self.lr_scheduler.load_state_dict(meta["lr_scheduler"])
         if load_optimizer_states:
             optim = load(self._tag_path(load_dir, tag, OPTIM_STATES))
+            reshard.verify_state_dict(optim["optimizer"]["state"],
+                                      specs.get("opt_state", {}), "optimizer")
             self.optimizer.load_state_dict(optim["optimizer"])
             self._ls_state.copy_(LossScaleState(**optim["loss_scale"]))
         # a partial accumulation window must not leak into the next step;
@@ -705,5 +915,7 @@ class DeepSpeedEngine:
         if self._acc_grads is not None:
             for acc in self._acc_grads:
                 acc.zero_()
+        if self._zero is not None:
+            self._zero.zero_accumulators()
         self._pending_loss = None
         return tag, meta.get("client_state", {})

@@ -144,7 +144,62 @@ class Lamb(AdamW):
     ``scale_by_trust_ratio`` (each update scaled by ``|p| / |u|`` per
     parameter, 1 where either norm is 0), then ``-lr``. The norms are
     taken on the device (``torch._foreach_norm``), so the step reads
-    nothing back and can be captured."""
+    nothing back and can be captured.
+
+    Over ZeRO's flat shards (``runtime/zero/stage_1_and_2.py``) a tensor
+    holds pieces of many parameters, and one parameter may straddle two
+    ranks: ``runs`` gives, per tensor, the runs ``(leaf, a, b)`` that cover
+    it (``leaf`` = ``n_leaves`` over padding) and ``n_leaves``. Each leaf's
+    piece of the local shard is a view; the f32 norms of the pieces of p
+    and u (``torch._foreach_norm``, deterministic) are squared into a
+    ``[2, n_leaves]`` vector, ``reduce`` sums it over the ranks (one
+    all-reduce), and each element takes its parameter's ratio."""
+
+    def __init__(self, params, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                 weight_decay=0.0, names=None, runs=None, reduce=None):
+        super().__init__(params, lr, b1=b1, b2=b2, eps=eps,
+                         weight_decay=weight_decay, names=names)
+        self.reduce = reduce
+        self.runs = None
+        if runs is not None:
+            # per tensor: its leaf runs' ranges, and on the device each
+            # leaf run's leaf, each run's leaf and each run's length
+            self.runs = []
+            for p, (rs, n) in zip(self.params, runs):
+                def on(xs):
+                    return torch.tensor(xs, dtype=torch.int64, device=p.device)
+                self.runs.append((
+                    [(a, b) for i, a, b in rs if i < n],
+                    on([i for i, _, _ in rs if i < n]),
+                    on([i for i, _, _ in rs]), on([b - a for _, a, b in rs]),
+                    n))
+
+    def _ratios(self, updates):
+        """The trust ratio of each tensor (0-dim), or of each element."""
+        if self.runs is None:
+            p_norms = torch._foreach_norm(self.params)
+            u_norms = torch._foreach_norm(updates)
+            return [torch.where((pn == 0) | (un == 0), 1.0, pn / un)
+                    for pn, un in zip(p_norms, u_norms)]
+        out = []
+        for p, u, (leaf_runs, leaves, run_leaf, lengths, n) in zip(
+                self.params, updates, self.runs):
+            sums = torch.zeros((2, n), dtype=torch.float32, device=p.device)
+            for row, x in zip(sums, (p, u)):
+                if leaf_runs:  # a shard of padding only holds no leaf
+                    norms = torch._foreach_norm(
+                        [x[a:b] for a, b in leaf_runs], 2,
+                        dtype=torch.float32)
+                    row.index_copy_(0, leaves, torch.stack(norms).square())
+            if self.reduce is not None:
+                self.reduce(sums)
+            pn, un = sums.sqrt().to(p.dtype).unbind()
+            ratio = torch.where((pn == 0) | (un == 0), 1.0, pn / un)
+            # padding takes a ratio of 1 (its update is 0)
+            ratio = torch.cat([ratio, ratio.new_ones(1)])
+            out.append(ratio[run_leaf].repeat_interleave(
+                lengths, output_size=p.numel()))
+        return out
 
     @torch.no_grad()
     def apply(self, grads, skip=None):
@@ -153,12 +208,9 @@ class Lamb(AdamW):
             m_new, v_new, u = self._moments(p, g, m, v)
             moments.append((m_new, v_new))
             updates.append(u + self._consts.of(p)[5] * p)
-        p_norms = torch._foreach_norm(self.params)
-        u_norms = torch._foreach_norm(updates)
-        for p, m, v, (m_new, v_new), u, pn, un in zip(
-                self.params, self.mu, self.nu, moments, updates, p_norms,
-                u_norms):
-            ratio = torch.where((pn == 0) | (un == 0), 1.0, pn / un)
+        for p, m, v, (m_new, v_new), u, ratio in zip(
+                self.params, self.mu, self.nu, moments, updates,
+                self._ratios(updates)):
             _store(skip, ((m, m_new), (v, v_new),
                           (p, p + self._consts.of(p)[6] * (u * ratio))))
 
@@ -226,9 +278,12 @@ def build_optimizer(params: Sequence[torch.Tensor], opt_type: Optional[str],
                     opt_params: Optional[Dict[str, Any]] = None,
                     learning_rate: Union[float, Callable, None] = None,
                     use_pallas: bool = False,
-                    names: Optional[Sequence[str]] = None):
+                    names: Optional[Sequence[str]] = None,
+                    runs=None, reduce=None):
     """Map a DeepSpeed optimizer block to an optimizer over ``params``
-    (named ``names``, by default their positions).
+    (named ``names``, by default their positions). ``runs`` and
+    ``reduce`` describe flat ZeRO shards to LAMB, the one optimizer here
+    whose update is not elementwise (see ``Lamb``).
     ``learning_rate`` is a float or a ``count -> lr`` schedule; None takes
     the block's ``lr``. ``use_pallas`` (the config's
     ``tpu.use_pallas_optimizer``) routes decoupled-decay Adam to B4."""
@@ -256,7 +311,7 @@ def build_optimizer(params: Sequence[torch.Tensor], opt_type: Optional[str],
                        names=names)
     if name in (C.LAMB_OPTIMIZER, C.FUSED_LAMB_OPTIMIZER):
         return Lamb(params, lr, b1=b1, b2=b2, eps=eps, weight_decay=wd,
-                    names=names)
+                    names=names, runs=runs, reduce=reduce)
     if name == C.SGD_OPTIMIZER:
         return SGD(params, lr, momentum=float(opt_params.get("momentum", 0.0)),
                    nesterov=bool(opt_params.get("nesterov", False)),

@@ -1,7 +1,8 @@
 """Rank-aware logging (counterpart of ``deepspeed_tpu/utils/logging.py``).
 
-The port runs one process per card and has no process group yet, so the rank
-is ``torch.distributed``'s when a group is initialised and 0 otherwise.
+The port runs one process per card; the rank is the process group's
+(``comm.init_distributed``) when one is initialised, and 0 otherwise, so
+``log_dist(..., ranks=[0])`` logs once per job.
 """
 
 import functools
