@@ -98,14 +98,18 @@ Phases, each printing one JSON line:
 * ``small_train``: a small fp32 GPT trained 3 steps on the card (B1-B4) and
   on the CPU (plain versions) from the same weights and batches; losses and
   parameters must agree.
-* ``zero`` (the data-parallel slice's main path): world = the visible
-  cards, in process on a one-rank NCCL group at world 1, one process per
-  card above (``--zero-rank``, a file rendezvous under ``build/``);
-  ``nvidia-smi topo -m`` once, the world on every line. Rank 0 first runs
+* ``zero`` (the data-parallel slice's main path, and ZeRO stage 3's):
+  world = the visible cards, in process on a one-rank NCCL group at world
+  1, one process per card above (``--zero-rank``, a file rendezvous
+  under ``build/``); ``nvidia-smi topo -m`` once, the world on every line. Rank 0 first runs
   a group-less engine on one card at gas = world over the same global
   batches (the reference). Then every rank joins the group and trains
   GPT-2 1.3B (micro 4 x 1024 per rank, ``GPT_PRETRAIN_CONFIG`` at ZeRO
-  stages 0, 1 and 2) for 12 captured steps against 12 uncaptured ones:
+  stages 0, 1, 2 and 3; stage 3 keeps a shard of every leaf of at least
+  100,000 elements, gathers each block's as the block runs and again in the
+  remat recompute, and reduce-scatters each block's gradient in the
+  backward, all in the captured step) for 12 captured steps against 12
+  uncaptured ones:
   bit-identical on each rank, the same loss and parameters on every rank,
   B1 48 / B2 24 / B3 24 / B4 1 launches per step (counts set to 0 before
   each stage's captured steps), the loss falling, losses, parameter
@@ -118,13 +122,20 @@ Phases, each printing one JSON line:
   traced replay with the NCCL kernels' card time and bus bandwidth, a bare
   2.63 GB all-reduce as the bandwidth's yardstick, the comms logger's
   counters, and B4 over one rank's flat shard, held bit for bit against
-  its plain version (and its skip flag) and timed. Small
-  GPTs: stage 2 at gas 2 captured against eager; fp16 at stage 1 from a
+  its plain version (and its skip flag) and timed. At world >= 4 (at
+  fewer cards one line says why not): GPT-2 6.7B, whose state no one card
+  holds, at micro 4 x 1024 per rank, 12 captured steps at stage 2, then 12
+  captured steps at stage 3 against 12 uncaptured ones (bit-identical),
+  B1 64 / B2 32 / B3 32 / B4 1 launches per step, stage 3's losses and
+  updates within the 1.3B bounds of stage 2's, stage 3's peak memory below
+  stage 2's, step ms, peak memory against the predicted state and a traced
+  replay's NCCL time for each. Small GPTs: stages 2 and 3 at gas 2
+  captured against eager; fp16 at stage 1 from a
   growing loss scale (every rank skips each step on which any rank's
   shard overflowed; at world > 1 some overflow must be local to some
   shards); a stage-1 tag saved at this world, resumed at this world
-  (bit-identical), at stage 2 and on one card with no group (within the
-  CPU tests' tolerances).
+  (bit-identical), at stages 2 and 3 and on one card with no group (within
+  the CPU tests' tolerances).
 
 Then the kernels line, nvidia-smi's line and, last, ``{"ok": true, ...}``.
 A failed check raises, and the script exits nonzero. It imports neither jax
@@ -150,6 +161,7 @@ then nvidia-smi's line.
 import dataclasses
 import functools
 import json
+import math
 import os
 import re
 import shutil
@@ -1289,9 +1301,13 @@ def captured_against_eager(make_engine, batches, steps, traced=None):
     second engine from the same seed with its step functions called
     directly. ``traced(engine, data_iter)``, when given, runs on the
     captured engine after its steps (a traced replay). The first engine is
-    freed before the second is built. Returns the comparison, the captured
-    run's launches, losses, grad norms and host ms, and the eager run's
-    losses and host ms."""
+    freed before the second is built. Returns the comparison (with the
+    card's peak allocated GB up to the end of the captured steps, before
+    this check copies the parameters), the captured run's launches,
+    losses, grad norms and host ms, and the eager run's losses and host
+    ms."""
+    import torch
+
     from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
 
     reset_launches()
@@ -1299,11 +1315,13 @@ def captured_against_eager(make_engine, batches, steps, traced=None):
     it = iter(RepeatingLoader(batches))
     losses, norms, times = train_steps(engine, it, steps)
     launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     graphs = {name: [dict(g.launches, replays=g.replays)
                      for g in getattr(engine, name).graphs.values()]
               for name in ("_fused", "_micro", "_apply")}
-    params = {k: v.clone() for k, v in engine.module.state_dict().items()}
+    params = {k: v.clone() for k, v in engine.params.items()}
     result = {"captured_graph_launches": graphs,
+              "peak_allocated_gb": peak_gb,
               "loss_scale": engine.loss_scale,
               "optimizer_count": engine.optimizer.count}
     if traced is not None:
@@ -1313,7 +1331,7 @@ def captured_against_eager(make_engine, batches, steps, traced=None):
     eager = make_engine()
     e_losses, e_norms, e_times = train_steps(
         eager, iter(RepeatingLoader(batches)), steps, eager=True)
-    e_params = eager.module.state_dict()
+    e_params = eager.params
     diff = first_difference(params, e_params)
     result.update(
         losses_identical=identical(losses, e_losses),
@@ -1455,16 +1473,17 @@ def phase_train():
     return launches
 
 
-def gpt_1p3b_engine(seed=0, flash=True, config=None):
-    """GPT-2 1.3B through ``initialize`` with ``GPT_PRETRAIN_CONFIG`` (the
-    ``train``, ``checkpoint`` and ``zero`` phases' engine), or ``config``."""
+def gpt_1p3b_engine(seed=0, flash=True, config=None, model="gpt2-1.3b"):
+    """GPT-2 1.3B (or ``model``) through ``initialize`` with
+    ``GPT_PRETRAIN_CONFIG`` (the ``train``, ``checkpoint`` and ``zero``
+    phases' engine), or ``config``."""
     import torch
 
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.transformer_lm import GPT, gpt2_config
 
     model = GPT(gpt2_config(
-        "gpt2-1.3b", n_positions=1024, dtype=torch.bfloat16,
+        model, n_positions=1024, dtype=torch.bfloat16,
         param_dtype=torch.bfloat16, remat=True, remat_policy="full",
         use_flash_attention=flash))
     return deepspeed_tpu_torch.initialize(
@@ -2229,9 +2248,9 @@ def phase_small_train():
 
 
 # ---------------------------------------------------------------------------
-# zero: data parallelism and ZeRO stages 0-2 over NCCL, one rank per card
+# zero: data parallelism and ZeRO stages 0-3 over NCCL, one rank per card
 # ---------------------------------------------------------------------------
-ZERO_STAGES = (0, 1, 2)
+ZERO_STAGES = (0, 1, 2, 3)
 ZERO_DIR = os.path.join("build", "chip_smoke_zero")
 # a rank process's limit, and the process group's rendezvous and collective
 # timeout (rank 0 runs the group-less reference engine before it joins)
@@ -2271,6 +2290,12 @@ ONE_CARD_STEP_MS = 126.9
 B4_MS = 9.936
 # bytes of the all-reduce yardstick: GPT-2 1.3B's bf16 gradient
 ZERO_YARDSTICK_BYTES = 2 * GPT_1P3B_PARAMS
+# GPT-2 6.7B (whose state, 12N = 80 GB, no one card holds) at stages 2 and
+# 3: on at least this many cards, at this micro batch per rank
+SIXB_MIN_WORLD = 4
+SIXB_MICRO = 4
+SIXB_PER_STEP = {"flash_attention_fwd": 64, "flash_attention_bwd_dq": 32,
+                 "flash_attention_bwd_dkv": 32, "fused_adamw": 1}
 NCCL_KINDS = {"AllReduce": "all_reduce", "ReduceScatter": "reduce_scatter",
               "AllGather": "all_gather", "Broadcast": "broadcast"}
 
@@ -2284,14 +2309,26 @@ def zero_config(stage, gas=1, **over):
     return config
 
 
-def zero_predicted_gb(stage, world, gas=1):
-    """The state bytes a rank holds at GPT-2 1.3B: bf16 parameters and
-    full bf16 gradients (2N each), f32 moments (8N, or 8N / w when
-    partitioned) and, at gas > 1, f32 accumulators (4N, or 4N / w at stage
-    2)."""
-    n = GPT_1P3B_PARAMS
-    moments = 8 * n / (world if stage >= 1 else 1)
+def zero_predicted_gb(stage, world, gas=1, model="gpt2-1.3b"):
+    """The state bytes a rank holds (GPT-2 1.3B, or ``model``): bf16
+    parameters and full bf16 gradients (2N each), f32 moments (8N, or 8N / w
+    when partitioned) and, at gas > 1, f32 accumulators (4N, or 4N / w at
+    stages 2-3). At stage 3 the partitioned leaves hold 12 bytes each over
+    w (parameter, gradient and moments), and the P leaves under the
+    persistence threshold stay whole (2P + 2P, moments 8P / w)."""
+    from deepspeed_tpu_torch.models.transformer_lm import GPT, gpt2_config
+    from deepspeed_tpu_torch.runtime.config import ZeroConfig
+
+    shapes = [p.shape for p in GPT(gpt2_config(
+        model, n_positions=1024)).parameters()]  # on the meta device
+    n = sum(math.prod(s) for s in shapes)
+    threshold = ZeroConfig().param_persistence_threshold
+    whole = sum(math.prod(s) for s in shapes if math.prod(s) < threshold)
     acc = 0 if gas == 1 else 4 * n / (world if stage >= 2 else 1)
+    if stage >= 3:
+        return (12 * (n - whole) / world + 4 * whole + 8 * whole / world
+                + acc) / 1e9
+    moments = 8 * n / (world if stage >= 1 else 1)
     return (2 * n + 2 * n + moments + acc) / 1e9
 
 
@@ -2309,12 +2346,13 @@ def zero_nccl_times(by_name, count):
 
 
 def param_checksums(engine):
-    """Exact integer checksums of each parameter's bits, to hold ranks
-    against each other without moving the tensors."""
+    """Exact integer checksums of each parameter's bits (whole: gathered at
+    stage 3), to hold ranks against each other without moving the
+    tensors."""
     import torch
 
     out = []
-    for p in engine.module.parameters():
+    for p in engine.params.values():
         bits = p.detach().view(torch.int16 if p.element_size() == 2
                                else torch.int32)
         out.append(int(bits.sum(dtype=torch.int64)))
@@ -2468,6 +2506,32 @@ def rel_errs(got, want):
     return [abs(a - b) / abs(b) for a, b in zip(got, want)]
 
 
+def zero_traced_replay(engine, it):
+    """One traced replay of a captured engine on every rank: the card's
+    time, busy share, top kernels and the NCCL kernels' time by kind, with
+    the bus bandwidth of each kind's wire bytes per replay (the comms
+    logger's record of the graph)."""
+    from deepspeed_tpu_torch import comm
+
+    graphs = list(engine._fused.graphs.values())
+    per_step = graphs[0].comms if graphs else {}
+    # every rank starts the traced replay together: a collective's kernel
+    # spins until the last rank arrives, and rank 0 may have just compared
+    # its parameters with a reference
+    comm.barrier()
+    step, by_name, count = _trace(lambda: engine.train_batch(it))
+    nccl = zero_nccl_times(by_name, count)
+    for kind, rec in nccl.items():
+        wire = per_step.get(kind, {}).get("wire_bytes", 0)
+        rec["wire_bytes"] = wire
+        rec["bus_gb_per_s"] = wire / rec["ms"] / 1e6 if rec["ms"] else None
+    return ({k: {"count": v["count"], "bytes": v["bytes"],
+                 "wire_bytes": v["wire_bytes"]} for k, v in per_step.items()},
+            {"device_ms": step["device_ms"], "wall_ms": step["wall_ms"],
+             "device_busy_share": step["device_busy_share"],
+             "top_ms": step["top_ms"], "nccl": nccl})
+
+
 def zero_stage_run(stage, world, batch, ref, control):
     """GPT-2 1.3B at ``stage`` on this rank: 12 captured steps against 12
     uncaptured ones (bit-identical), the launches per step, peak memory
@@ -2476,7 +2540,6 @@ def zero_stage_run(stage, world, batch, ref, control):
     the NCCL kernels' time and bus bandwidth."""
     import torch
 
-    from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.comm.logging import comms_logger
 
     extra = {}
@@ -2488,34 +2551,16 @@ def zero_stage_run(stage, world, batch, ref, control):
         return gpt_1p3b_engine(config=zero_config(stage))
 
     def inspect(engine, it):
-        extra["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
         extra["checksums"] = param_checksums(engine)
         extra["comms_counters"] = comms_logger.counters()
-        graphs = list(engine._fused.graphs.values())
-        per_step = graphs[0].comms if graphs else {}
-        extra["graph_comms_per_replay"] = {
-            k: {"count": v["count"], "bytes": v["bytes"],
-                "wire_bytes": v["wire_bytes"]} for k, v in per_step.items()}
-        got = dict(engine.module.state_dict())
+        got = engine.params
         for key, other in (("vs_group_less", ref), ("vs_control", control)):
             if other is not None:
                 extra[key] = {"update_rel_l2": update_rel_l2(
                     got, other["final"], other["start"])}
-        # every rank starts the traced replay together: a collective's
-        # kernel spins until the last rank arrives, and rank 0 has just
-        # compared its parameters with the reference
-        comm.barrier()
-        step, by_name, count = _trace(lambda: engine.train_batch(it))
-        nccl = zero_nccl_times(by_name, count)
-        for kind, rec in nccl.items():
-            wire = per_step.get(kind, {}).get("wire_bytes", 0)
-            rec["wire_bytes"] = wire
-            rec["bus_gb_per_s"] = (wire / rec["ms"] / 1e6 if rec["ms"]
-                                   else None)
-        extra["traced_replay"] = {
-            "device_ms": step["device_ms"], "wall_ms": step["wall_ms"],
-            "device_busy_share": step["device_busy_share"],
-            "top_ms": step["top_ms"], "nccl": nccl}
+        del got
+        extra["graph_comms_per_replay"], extra["traced_replay"] = \
+            zero_traced_replay(engine, it)
 
     check, launches, losses, norms, times, e_losses, e_times = \
         captured_against_eager(make, [batch], STEPS, traced=inspect)
@@ -2523,7 +2568,7 @@ def zero_stage_run(stage, world, batch, ref, control):
     out = {"stage": stage, "captured_vs_eager": check, "launches": launches,
            "losses": losses, "grad_norms": norms, "eager_losses": e_losses,
            "step_ms_median": ms, "eager_step_ms_median": eager_ms,
-           "step_ms": times,
+           "step_ms": times, "peak_allocated_gb": check["peak_allocated_gb"],
            "predicted_state_gb": zero_predicted_gb(stage, world)}
     out.update(extra)
     for key, other in (("vs_group_less", ref), ("vs_control", control)):
@@ -2533,6 +2578,91 @@ def zero_stage_run(stage, world, batch, ref, control):
                 loss_rel_err=max(rel_errs(losses, other["losses"])),
                 grad_norm_rel_err=max(by_step),
                 grad_norm_rel_err_by_step=by_step)
+    return out
+
+
+def zero_6p7b_pair(world, rank):
+    """GPT-2 6.7B at micro ``SIXB_MICRO`` x 1024 per rank (bf16, full remat,
+    flash, ``GPT_PRETRAIN_CONFIG``), on ``world`` >= 4 cards: 12 captured
+    steps at stage 2, then 12 captured steps at stage 3 against 12
+    uncaptured ones; each with its launches, step ms, peak memory against
+    the predicted state and a traced replay. Rank 0 holds stage 3's losses
+    and final parameters against stage 2's (the updates from the same
+    initial weights); every rank computes every gather (a collective)."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.comm.logging import comms_logger
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    rng = np.random.RandomState(2)
+    ids = rng.randint(0, 50257, size=(SIXB_MICRO * world, 1024)).astype(
+        np.int64)
+    batch = {"input_ids": ids, "labels": ids}
+    config = {stage: zero_config(stage, train_micro_batch_size_per_gpu=
+                                 SIXB_MICRO) for stage in (2, 3)}
+
+    def make(stage):
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        comms_logger.reset()
+        return gpt_1p3b_engine(config=config[stage], model="gpt2-6.7b")
+
+    def host(sd):
+        return {k: v.to("cpu", copy=True) for k, v in sd.items()}
+
+    out = {}
+    # stage 2: captured only (its state and an uncaptured twin's would not
+    # fit on a card one after the other in the time asked)
+    reset_launches()
+    eng = make(2)
+    start = host(eng.params) if rank == 0 else None
+    it = iter(RepeatingLoader([batch]))
+    losses, norms, times = train_steps(eng, it, STEPS)
+    launches = read_launches()
+    two = {"losses": [float(x) for x in losses],
+           "grad_norms": [float(x) for x in norms], "launches": launches,
+           "step_ms": times,
+           "step_ms_median": statistics.median(times[CAPTURE_WARMUP + 1:]),
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "predicted_state_gb": zero_predicted_gb(2, world,
+                                                   model="gpt2-6.7b"),
+           "checksums": param_checksums(eng)}
+    final2 = host(eng.params) if rank == 0 else None
+    two["graph_comms_per_replay"], two["traced_replay"] = \
+        zero_traced_replay(eng, it)
+    del eng, it
+    out[2] = two
+    extra = {}
+
+    def inspect(engine, it):
+        extra["checksums"] = param_checksums(engine)
+        got = engine.params
+        if rank == 0:
+            extra["update_rel_l2_vs_stage2"] = update_rel_l2(got, final2,
+                                                             start)
+        del got
+        extra["graph_comms_per_replay"], extra["traced_replay"] = \
+            zero_traced_replay(engine, it)
+
+    check, launches, losses, norms, times, e_losses, e_times = \
+        captured_against_eager(lambda: make(3), [batch], STEPS,
+                               traced=inspect)
+    ms, eager_ms = step_medians(times, e_times)
+    three = {"captured_vs_eager": check, "launches": launches,
+             "losses": losses, "grad_norms": norms, "eager_losses": e_losses,
+             "step_ms": times, "step_ms_median": ms,
+             "eager_step_ms_median": eager_ms,
+             "peak_allocated_gb": check["peak_allocated_gb"],
+             "predicted_state_gb": zero_predicted_gb(3, world,
+                                                     model="gpt2-6.7b")}
+    three.update(extra)
+    three["loss_rel_err_vs_stage2"] = max(rel_errs(losses, two["losses"]))
+    three["grad_norm_rel_err_vs_stage2_by_step"] = rel_errs(
+        norms, two["grad_norms"])
+    out[3] = three
+    del start, final2
+    free_cuda()
     return out
 
 
@@ -2567,26 +2697,30 @@ def zero_small_batches(world, n, seed):
 
 
 def zero_small_runs(world, rank):
-    """The paths the 1.3B runs do not reach, on small GPTs: stage 2 at gas
-    2 (micro and apply graphs holding collectives), fp16 at stage 1 from a
-    growing loss scale (the first overflow is local to the shard that
-    holds the largest gradient; every rank must skip it), and a stage-1 tag
-    saved at this world and loaded at this world and stage 2."""
+    """The paths the 1.3B runs do not reach, on small GPTs: stages 2 and 3
+    at gas 2 (micro and apply graphs holding collectives; at stage 3 the
+    gathers and reduce-scatters too), fp16 at stage 1 from a growing loss
+    scale (the first overflow is local to the shard that holds the largest
+    gradient; every rank must skip it), and a stage-1 tag saved at this
+    world and loaded at this world and stages 2 and 3."""
     import torch
 
     from deepspeed_tpu_torch import comm
 
     out = {}
-    # stage 2, gas 2: captured against eager
+    # stages 2 and 3, gas 2: captured against eager
     batches = zero_small_batches(world, 2, seed=6)
-    check, launches, losses, _, _, e_losses, _ = captured_against_eager(
-        lambda: zero_small_engine(2, torch.bfloat16, {}, gas=2), batches, 8)
     want = {"flash_attention_fwd": 2 * 2 * 8, "flash_attention_bwd_dq": 32,
             "flash_attention_bwd_dkv": 32, "fused_adamw": 8,
             "block_sparse_fwd": 0, "block_sparse_dq": 0, "block_sparse_dkv": 0}
-    out["stage2_gas2"] = {"captured_vs_eager": check, "launches": launches,
-                          "launches_ok": launches == want, "losses": losses,
-                          "eager_losses": e_losses}
+    for stage in (2, 3):
+        check, launches, losses, _, _, e_losses, _ = captured_against_eager(
+            lambda: zero_small_engine(stage, torch.bfloat16, {}, gas=2),
+            batches, 8)
+        out[f"stage{stage}_gas2"] = {
+            "captured_vs_eager": check, "launches": launches,
+            "launches_ok": launches == want, "losses": losses,
+            "eager_losses": e_losses}
     # fp16 at stage 1 on a new batch each step (a repeated one is learnt,
     # and its gradients shrink): the scale doubles after every clean step
     # (window 1) from 2^12 until it overflows, halves, and climbs again
@@ -2623,21 +2757,21 @@ def zero_small_runs(world, rank):
     comm.barrier()
     batches = zero_small_batches(world, 4, seed=8)
     eng = zero_small_engine(1, torch.float32, {}, seed=9)
-    start = {k: v.clone() for k, v in eng.module.state_dict().items()}
+    start = {k: v.clone() for k, v in eng.params.items()}
     run = []
     for i, b in enumerate(batches):
         run.append(float(eng.train_batch(iter([b]))))
         if i == 1:
             eng.save_checkpoint(ckpt_dir)
-            saved = {k: v.clone() for k, v in eng.module.state_dict().items()}
-    final = {k: v.clone() for k, v in eng.module.state_dict().items()}
+            saved = {k: v.clone() for k, v in eng.params.items()}
+    final = {k: v.clone() for k, v in eng.params.items()}
     del eng
     resumed = {}
-    for stage in (1, 2):
+    for stage in (1, 2, 3):
         eng = zero_small_engine(stage, torch.float32, {}, seed=11)
         eng.load_checkpoint(ckpt_dir)
         losses = [float(eng.train_batch(iter([b]))) for b in batches[2:]]
-        got = dict(eng.module.state_dict())
+        got = eng.params
         resumed[stage] = {
             "losses": losses, "reshard": eng.last_reshard.mismatches,
             "bit_identical": losses == run[2:] and all(
@@ -2658,7 +2792,8 @@ def zero_small_runs(world, rank):
 def zero_rank(rank, world, url):
     """One rank of the zero phase (the whole phase at world 1, in process).
     Rank 0 first runs the group-less reference on its card, then every rank
-    joins the NCCL group and runs the three stages and the small paths.
+    joins the NCCL group and runs the four stages at 1.3B, the 6.7B pair at
+    world >= 4, and the small paths.
     Returns this rank's results; the process group is destroyed at the
     end."""
     from datetime import timedelta
@@ -2694,9 +2829,14 @@ def zero_rank(rank, world, url):
     for stage in ZERO_STAGES:
         run = zero_stage_run(stage, world, batch, ref, control)
         out["stages"][stage] = run
-        for name, n in run["launches"].items():
-            zero_launches[name] = zero_launches.get(name, 0) + n
+        if stage < 3:
+            for name, n in run["launches"].items():
+                zero_launches[name] = zero_launches.get(name, 0) + n
+    # the stage-0-2 path (its runs' launches added) and the stage-3 path
     out["launches"] = zero_launches
+    out["launches_stage3"] = out["stages"][3]["launches"]
+    if world >= SIXB_MIN_WORLD:
+        out["gpt2_6p7b"] = zero_6p7b_pair(world, rank)
     if rank == 0:
         n = -(-GPT_1P3B_PARAMS // (world * 64)) * 64  # a shard, as padded
         out["b4_shard"] = time_b4_shard(n)
@@ -2783,10 +2923,11 @@ def zero_spawn(world):
 
 
 def phase_zero():
-    """Data parallelism and ZeRO 0-2 over NCCL at world = the visible
+    """Data parallelism and ZeRO 0-3 over NCCL at world = the visible
     cards: in process on a one-rank group at world 1, one process per card
-    above. Returns rank 0's kernel launches over the three 1.3B stage runs
-    (counts set to 0 before each run's captured steps)."""
+    above. Returns rank 0's kernel launches by path: ``zero``, the 1.3B
+    runs at stages 0-2 added, and ``zero_stage3`` (counts set to 0 before
+    each run's captured steps)."""
     import torch
 
     world = torch.cuda.device_count()
@@ -2887,6 +3028,14 @@ def zero_report(world, results, one_card, seconds):
             problems.append(f"stage {stage}: the bounds do not tell the run "
                             f"from one that dropped a rank's rows "
                             f"{lead['vs_control']}")
+    peaks = {stage: max(r["stages"][str(stage)]["peak_allocated_gb"]
+                        if str(stage) in r["stages"] else
+                        r["stages"][stage]["peak_allocated_gb"]
+                        for r in results) for stage in ZERO_STAGES}
+    if world >= SIXB_MIN_WORLD and not peaks[3] < peaks[1]:
+        problems.append(f"stage 3's peak per rank {peaks[3]} GB is not "
+                        f"below stage 1's {peaks[1]}")
+    problems += zero_6p7b_report(world, results, smi)
     b4 = r0["b4_shard"]
     if not (all(b4["bit_identical"].values()) and b4["skip_flag_leaves_all_unchanged"]
             and b4["p_moved_share"] >= ADAMW_MIN_MOVED):
@@ -2900,23 +3049,25 @@ def zero_report(world, results, one_card, seconds):
                  ["scale_skipped_count_local_by_step"]] for r in small]}
     emit(line)
     for r in small:
-        if not (r["stage2_gas2"]["captured_vs_eager"]["identical"]
-                and r["stage2_gas2"]["launches_ok"]):
-            problems.append("small stage 2 gas 2: captured and eager differ "
-                            "or launches are off")
+        for stage in (2, 3):
+            run = r[f"stage{stage}_gas2"]
+            if not (run["captured_vs_eager"]["identical"]
+                    and run["launches_ok"]):
+                problems.append(f"small stage {stage} gas 2: captured and "
+                                "eager differ or launches are off")
         if not (r["fp16_stage1"]["captured_vs_eager"]["identical"]
                 and r["fp16_stage1"]["same_as_eager"]):
             problems.append("small fp16 stage 1: captured and eager differ")
-        ck = r["checkpoint"]["resumed"]
-        one = ck["1"] if "1" in ck else ck[1]
-        two = ck["2"] if "2" in ck else ck[2]
-        if not one["bit_identical"] or one["reshard"]:
+        ck = {int(k): v for k, v in r["checkpoint"]["resumed"].items()}
+        if not ck[1]["bit_identical"] or ck[1]["reshard"]:
             problems.append("small checkpoint: the same world and stage did "
                             "not resume bit for bit")
-        if not (two["loss_rel_err"] <= ZERO_SMALL_LOSS_REL_TOL
-                and two["update_rel_l2"] <= ZERO_SMALL_UPDATE_REL_L2
-                and two["reshard"] == ["zero_stage 1 -> 2"]):
-            problems.append(f"small checkpoint at stage 2: {two}")
+        for stage in (2, 3):
+            got = ck[stage]
+            if not (got["loss_rel_err"] <= ZERO_SMALL_LOSS_REL_TOL
+                    and got["update_rel_l2"] <= ZERO_SMALL_UPDATE_REL_L2
+                    and got["reshard"] == [f"zero_stage 1 -> {stage}"]):
+                problems.append(f"small checkpoint at stage {stage}: {got}")
     # every rank saw the same skips and scales; a skip happened, on every
     # rank, exactly where some rank's own shard overflowed
     hist = [r["fp16_stage1"]["scale_skipped_count_local_by_step"]
@@ -2947,7 +3098,77 @@ def zero_report(world, results, one_card, seconds):
     shutil.rmtree(ZERO_DIR, ignore_errors=True)
     if problems:
         raise AssertionError(f"zero (world {world}): {problems}")
-    return r0["launches"]
+    return {"zero": r0["launches"], "zero_stage3": r0["launches_stage3"]}
+
+
+def zero_6p7b_report(world, results, smi):
+    """The 6.7B pair's line (one line saying why none ran below
+    ``SIXB_MIN_WORLD`` cards); returns the failed checks."""
+    if world < SIXB_MIN_WORLD:
+        emit({"phase": "zero", "world": world, "model": "gpt2-6.7b",
+              "ran": False, "why": f"its state (12N = 80 GB at 6.65e9 "
+              f"parameters) does not fit on {world} card(s); the pair runs "
+              f"on {SIXB_MIN_WORLD} or more"})
+        return []
+    runs = [{int(k): v for k, v in r["gpt2_6p7b"].items()} for r in results]
+    lead = runs[0]
+    problems = []
+    for stage in (2, 3):
+        by_rank = [r[stage] for r in runs]
+        line = {"phase": "zero", "world": world, "model": "gpt2-6.7b",
+                "stage": stage, "card": smi,
+                "batch_per_rank": [SIXB_MICRO, 1024], "steps": STEPS,
+                "losses": lead[stage]["losses"],
+                "step_ms_median_by_rank": [r["step_ms_median"]
+                                           for r in by_rank],
+                "peak_allocated_gb_by_rank": [r["peak_allocated_gb"]
+                                              for r in by_rank],
+                "predicted_state_gb": lead[stage]["predicted_state_gb"],
+                "launches_rank0": lead[stage]["launches"],
+                "graph_comms_per_replay":
+                    lead[stage]["graph_comms_per_replay"],
+                "traced_replay_by_rank": [r["traced_replay"]
+                                          for r in by_rank]}
+        if stage == 3:
+            line.update({
+                "eager_step_ms_median_by_rank": [
+                    r["eager_step_ms_median"] for r in by_rank],
+                "captured_vs_eager_by_rank": [
+                    r["captured_vs_eager"]["identical"] for r in by_rank],
+                "vs_stage2": {
+                    "loss_rel_err": lead[3]["loss_rel_err_vs_stage2"],
+                    "update_rel_l2": lead[3]["update_rel_l2_vs_stage2"],
+                    "grad_norm_rel_err_by_step":
+                        lead[3]["grad_norm_rel_err_vs_stage2_by_step"]},
+                "tolerance": {"loss_rel": ZERO_LOSS_REL_TOL,
+                              "update_rel_l2": ZERO_UPDATE_REL_L2}})
+        emit(line)
+        for r in by_rank:
+            for name, per in SIXB_PER_STEP.items():
+                if r["launches"][name] != per * STEPS:
+                    problems.append(f"6.7B stage {stage}: {name} launched "
+                                    f"{r['launches'][name]}, want {per} x "
+                                    f"{STEPS}")
+        if any(r["losses"] != lead[stage]["losses"] for r in by_rank):
+            problems.append(f"6.7B stage {stage}: ranks returned other "
+                            "losses")
+        if any(r["checksums"] != lead[stage]["checksums"] for r in by_rank):
+            problems.append(f"6.7B stage {stage}: ranks hold other "
+                            "parameters")
+        if not all(math.isfinite(x) for x in lead[stage]["losses"]):
+            problems.append(f"6.7B stage {stage}: a loss is not finite")
+    three = lead[3]
+    if not all(r[3]["captured_vs_eager"]["identical"] for r in runs):
+        problems.append("6.7B stage 3: captured and eager steps differ")
+    if not (three["loss_rel_err_vs_stage2"] <= ZERO_LOSS_REL_TOL
+            and three["update_rel_l2_vs_stage2"] <= ZERO_UPDATE_REL_L2):
+        problems.append(f"6.7B: stage 3 against stage 2: loss "
+                        f"{three['loss_rel_err_vs_stage2']}, update "
+                        f"{three['update_rel_l2_vs_stage2']}")
+    if not (max(r[3]["peak_allocated_gb"] for r in runs)
+            < min(r[2]["peak_allocated_gb"] for r in runs)):
+        problems.append("6.7B: stage 3's peak is not below stage 2's")
+    return problems
 
 
 # ---------------------------------------------------------------------------
@@ -3224,7 +3445,7 @@ def main(argv):
     if argv[1:2] == ["--only"]:
         smi = phase_device()
         phase_build()
-        emit({"zero_launches": phase_zero()})
+        emit({"zero_launches_by_path": phase_zero()})
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -3246,18 +3467,20 @@ def main(argv):
     free_cuda()
     phase_small_train()
     free_cuda()
-    zero_launches = phase_zero()
+    zero_paths = phase_zero()
     paths = {"serve": serve_launches, "train": launches,
              "checkpoint": ckpt_launches, "sparse_train": sparse_launches,
-             "zero": zero_launches}
+             **zero_paths}
     for entry in kernels:
         # each slice's main path, its counts set to 0 just before it: serving
-        # runs B1, GPT training, the checkpoint path and ZeRO B1-B4, BERT
-        # training under BigBird B4-B7. "launches" is the count on the
-        # newest path that runs the kernel
+        # runs B1, GPT training, the checkpoint path and ZeRO (stages 0-2,
+        # and stage 3) B1-B4, BERT training under BigBird B4-B7. "launches"
+        # is the count on the newest path that runs the kernel
         name = entry["name"]
         entry["launches_by_path"] = {p: counts[name] for p, counts in paths.items()}
-        entry["launches"] = (zero_launches[name] or sparse_launches[name]
+        entry["launches"] = (zero_paths["zero_stage3"][name]
+                             or zero_paths["zero"][name]
+                             or sparse_launches[name]
                              or ckpt_launches[name] or launches[name])
         if not entry["launches"]:
             raise AssertionError(f"{name} never ran on a main path")

@@ -17,6 +17,7 @@ their defaults.
 """
 
 import dataclasses
+import functools
 import math
 from typing import Any, List, Optional
 
@@ -430,6 +431,10 @@ class GPT(nn.Module):
                                    for _ in range(config.n_layer))
             self.ln_f = LayerNorm(config.n_embd, config.layer_norm_epsilon,
                                   config)
+        # ``block_hook(block, *args, **kwargs)``, when set, runs each block
+        # in place of ``block(*args, **kwargs)``: ZeRO stage 3 gathers the
+        # block's parameters there (runtime/zero/stage3.py)
+        self.block_hook = None
 
     def loss_weight_sum(self, input_ids=None, labels=None,
                         attention_mask=None, segment_ids=None, **_):
@@ -497,15 +502,17 @@ class GPT(nn.Module):
         # backward (nn.remat with no policy)
         remat = cfg.remat and step is None and torch.is_grad_enabled()
         for i, block in enumerate(self.h):
+            run = (block if self.block_hook is None
+                   else functools.partial(self.block_hook, block))
             if remat:
                 # no RNG state to keep (dropout is refused in training), and
                 # reading the CUDA RNG state is what a captured step may not
                 x = torch.utils.checkpoint.checkpoint(
-                    block, x, attention_mask, None, i, segment_ids,
+                    run, x, attention_mask, None, i, segment_ids,
                     use_reentrant=False, preserve_rng_state=False)
             else:
-                x = block(x, mask=attention_mask, step=step, layer=i,
-                          segment_ids=segment_ids)
+                x = run(x, mask=attention_mask, step=step, layer=i,
+                        segment_ids=segment_ids)
         x = self.ln_f(x)
         if labels is not None:
             if decode:

@@ -66,6 +66,15 @@ class AmpConfig(ConfigModel):
 
 @dataclass
 class ZeroConfig(ConfigModel):
+    """``zero_optimization``. Stages 0-3 run under a process group
+    (``runtime/zero/``); stage 3 partitions each parameter of at least
+    ``param_persistence_threshold`` elements
+    (``stage3_param_persistence_threshold``) unit by unit. The prefetch and
+    live-parameter knobs (``stage3_prefetch_bucket_size``,
+    ``stage3_max_live_parameters``, ``stage3_max_reuse_distance``) parse and
+    are inert, as in the JAX package; ``offload_param`` and
+    ``offload_optimizer`` raise (ROADMAP A.10)."""
+
     stage: int = 0
     contiguous_gradients: bool = True
     reduce_scatter: bool = True
@@ -549,9 +558,11 @@ class DeepSpeedConfig:
         mesh = self.tpu.mesh_config
         opt_type = (self.optimizer.type or "").lower()
         checks = [
-            ("zero_optimization.offload_optimizer",
+            ("zero_optimization.offload_optimizer (optimizer offload, "
+             "ROADMAP A.10)",
              (zero.offload_optimizer or {}).get("device", "none") != "none"),
-            ("zero_optimization.offload_param",
+            ("zero_optimization.offload_param (parameter offload, "
+             "ROADMAP A.10)",
              (zero.offload_param or {}).get("device", "none") != "none"),
             ("data_pipeline", self.data_pipeline.enabled),
             ("curriculum_learning", self.curriculum_learning.enabled),

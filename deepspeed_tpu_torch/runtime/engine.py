@@ -34,8 +34,9 @@ and certified by a manifest in the JAX package's schema. A load restores
 every tensor with ``copy_`` into the storage it already has, so the captured
 graphs and B4's pointer table stay valid and no step is captured again.
 
-Data parallelism and ZeRO stages 0-2 (JAX engine :297-349 for the
-topology, :1459-1470 and :1514-1545 for the data). Without an initialised
+Data parallelism and ZeRO stages 0-3 (JAX engine :297-354 for the
+topology and the sharding rules, :1459-1470 and :1514-1545 for the
+data). Without an initialised
 process group the engine is the one-card engine above. With one
 (``comm.init_distributed``; world 1 included), the mesh comes from the
 config over the group's ranks (``tpu.mesh``: dp and fsdp; a ZeRO stage
@@ -50,10 +51,17 @@ mean's gradient even when the ranks' label counts differ, and
 ``train_batch`` returns the global mean loss on every rank.
 ``deepspeed_io`` loads the global micro batch, ``micro x dp`` rows, and
 ``_put_batch`` keeps the rank's rows. Rank 0's parameters are broadcast
-at ``initialize``. A checkpoint is the same tag at every world: rank 0
-writes the whole tensors (gathering the optimizer's shards one parameter
-at a time), every rank loads its slice, and a load at another world or
-stage reshards (``runtime/reshard.py``).
+at ``initialize``. At stage 3 (a ``GPT`` only)
+``runtime/zero/stage3.ZeroStage3Optimizer`` partitions the parameters by
+unit: the step calls the model through it (``_model``), each unit's
+gather and reduce-scatter run inside the forward and the backward, so the
+backward's gradients arrive reduce-scattered and only the whole leaves
+under the threshold are collected and exchanged as at stage 2; the
+module's partitioned parameters are placeholders, and ``params`` gathers
+them. A checkpoint is the same tag at every world: rank 0 writes the
+whole tensors (gathering the optimizer's shards one parameter at a time,
+and at stage 3 the parameters unit by unit), every rank loads its slice,
+and a load at another world or stage reshards (``runtime/reshard.py``).
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` (under a
 NCCL group ``cuda:{local_rank}``, one card per rank) and raises when torch
@@ -93,6 +101,7 @@ from deepspeed_tpu_torch.runtime.lr_schedules import (LRScheduler,
                                                       schedule_fn_from_config)
 from deepspeed_tpu_torch.runtime.optimizer import build_optimizer
 from deepspeed_tpu_torch.runtime.utils import clip_grad_norm_, get_global_norm
+from deepspeed_tpu_torch.runtime.zero.stage3 import ZeroStage3Optimizer
 from deepspeed_tpu_torch.runtime.zero.stage_1_and_2 import (DATA_AXES,
                                                             ZeroOptimizer)
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
@@ -218,6 +227,13 @@ class DeepSpeedEngine:
                 f"config blocks not ported to deepspeed_tpu_torch yet: "
                 f"{', '.join(unported)}")
         self._distributed = comm.is_initialized()
+        if (self._distributed and config.zero_config.stage >= 3
+                and not isinstance(model, GPT)):
+            raise NotImplementedError(
+                f"ZeRO stage 3 under a process group partitions a GPT's "
+                f"blocks; stage 3 for {type(model).__name__} is not ported "
+                "yet (ROADMAP A.3, what is left: stage 3 for BERT); stages "
+                "0-2 are")
         self.topology = self._build_topology(config)
         config._resolve_batch_triad(self.topology.data_parallel_size)
         comms_logger.configure(config.comms_logger)
@@ -257,6 +273,7 @@ class DeepSpeedEngine:
         self._params = [p for _, p in named]
         for p in self._params:
             p.requires_grad_(True)
+        n_params = sum(p.numel() for p in self._params)
 
         self.fp16_enabled = config.fp16.enabled
         self.gradient_accumulation_steps = config.gradient_accumulation_steps
@@ -280,10 +297,15 @@ class DeepSpeedEngine:
             # NCCL makes a communicator at a group's first collective,
             # which must come before any capture
             comm.warm_up(self._exchange_axes(), self.device)
-            self._zero = ZeroOptimizer(
-                named, layout.build_sharding_rules(self.topology,
-                                                   self.zero_stage),
-                build, comm_dtype=config.communication_dtype)
+            rules = layout.build_sharding_rules(
+                self.topology, self.zero_stage,
+                config.zero_config.param_persistence_threshold)
+            if self.zero_stage >= 3:
+                self._zero = ZeroStage3Optimizer(
+                    model, rules, build, comm_dtype=config.communication_dtype)
+            else:
+                self._zero = ZeroOptimizer(
+                    named, rules, build, comm_dtype=config.communication_dtype)
             self.optimizer = self._zero
         else:
             self.optimizer = build(self._params, [name for name, _ in named])
@@ -331,11 +353,12 @@ class DeepSpeedEngine:
             steps_per_output=config.steps_per_print)
         self.wall_clock_breakdown = bool(config.wall_clock_breakdown)
         self.timers = SynchronizedWallClockTimer()
-        n_params = sum(p.numel() for p in self._params)
         layout_note = ("one card, no process group" if self._zero is None
                        else f"{self.topology}, " + (
-                           "optimizer state partitioned over fsdp"
-                           if self._zero.sharded else "replicated"))
+                           "replicated" if not self._zero.sharded else
+                           "parameters partitioned over fsdp by unit"
+                           if self._stage3 else
+                           "optimizer state partitioned over fsdp"))
         log_dist(
             f"DeepSpeedEngine: device={self.device}, {n_params / 1e6:.1f}M "
             f"params in {time.perf_counter() - t0:.1f}s, zero_stage="
@@ -362,17 +385,14 @@ class DeepSpeedEngine:
             return MeshTopology(world_size=1)
         topology = layout.build_topology(config,
                                          world_size=comm.get_world_size())
-        stage = config.zero_config.stage
-        if stage >= 3 and topology.data_parallel_size > 1:
-            raise NotImplementedError(
-                "ZeRO stage 3 (partitioned parameters) at world > 1 is not "
-                "ported yet (ROADMAP A.3, stage 3); stages 0-2 are")
-        topology = layout.apply_zero_fsdp_move(topology, stage)
+        topology = layout.apply_zero_fsdp_move(topology,
+                                               config.zero_config.stage)
         set_default_topology(topology)
         return topology
 
     def _exchange_axes(self):
-        """The mesh axes whose groups the step's collectives use."""
+        """The mesh axes whose groups the step's collectives use (at stage 3
+        the gathers and reduce-scatters run over fsdp too)."""
         axes = [DATA_AXES]
         if self.zero_stage >= 1:
             axes.append("fsdp")
@@ -479,10 +499,21 @@ class DeepSpeedEngine:
         total = self._zero.data_parallel_sum(local)
         return local.clamp(min=1.0) / total.clamp(min=1.0)
 
+    @property
+    def _stage3(self) -> bool:
+        return isinstance(self._zero, ZeroStage3Optimizer)
+
+    def _model(self, **batch):
+        """The model on ``batch``; at stage 3 with its outer unit gathered
+        (each block gathers its own)."""
+        if self._stage3:
+            return self._zero.forward(**batch)
+        return self.module(**batch)
+
     def _fused_step(self, **batch):
         """gas == 1: gradients of ``loss * scale`` go straight to the update
         (no f32 accumulation buffer). Returns ``(loss, norm, overflow)``."""
-        loss = self.module(**batch)
+        loss = self._model(**batch)
         if self._zero is not None:
             return self._zero_fused_step(loss, batch)
         if self.fp16_enabled:
@@ -496,15 +527,17 @@ class DeepSpeedEngine:
     def _zero_fused_step(self, loss, batch):
         """gas == 1 under a process group: the backward of the rank's share
         of the global loss, the exchange (all-reduce at stage 0,
-        reduce-scatter at 1-2), the update of the rank's part. Returns the
-        global mean loss, the norm and the overflow flag."""
+        reduce-scatter at 1-2; at stage 3 the backward reduce-scatters each
+        unit, and the whole leaves are exchanged as at stage 2), the update
+        of the rank's part. Returns the global mean loss, the norm and the
+        overflow flag."""
         z = self._zero
         share = self._loss_share(batch)
         scaled = loss * share
         if self.fp16_enabled:
             scaled = scaled * self._ls_state.scale
         scaled.backward()
-        z.collect_grads(self._params)
+        z.collect_grads()
         grads = z.reduce_grads()
         if self.fp16_enabled:
             grads = [g.float() for g in grads]
@@ -517,14 +550,14 @@ class DeepSpeedEngine:
         the grads added in f32 to the accumulation buffers (under a process
         group: exchanged first, and the rank's share of the global loss).
         Returns the loss (the global mean under a group)."""
-        loss = self.module(**batch)
+        loss = self._model(**batch)
         factor = (self._ls_state.scale / self._gas if self.fp16_enabled
                   else 1.0 / self.gradient_accumulation_steps)
         z = self._zero
         if z is not None:
             share = self._loss_share(batch)
             (loss * (share * factor)).backward()
-            z.collect_grads(self._params)
+            z.collect_grads()
             z.accumulate()
             return z.data_parallel_sum(loss * share)
         for acc, g in zip(self._acc_grads, self._grads_of(loss * factor)):
@@ -675,7 +708,7 @@ class DeepSpeedEngine:
         self.module.eval()
         try:
             batch = self._put_batch(batch)
-            out = self.module(**batch)
+            out = self._model(**batch)
             if self._zero is not None and "labels" in batch:
                 out = self._zero.data_parallel_sum(
                     out * self._loss_share(batch))
@@ -704,7 +737,20 @@ class DeepSpeedEngine:
 
     @property
     def params(self):
+        """The model's ``state_dict``, every tensor whole (at stage 3
+        gathered: a collective, every rank reads it)."""
+        if self._stage3:
+            return self._zero.gathered_state_dict()
         return self.module.state_dict()
+
+    def _state_to_write(self):
+        """The model state rank 0 writes, None on the other ranks; at stage
+        3 gathered to the host unit by unit (a collective: every rank
+        calls it)."""
+        writer = comm.get_rank() == 0
+        if self._stage3:
+            return self._zero.gathered_state_dict(keep=writer, to_host=True)
+        return self.module.state_dict() if writer else None
 
     def set_lr(self, lr: float) -> None:
         """Write-through lr (what ``optimizer.param_groups[0]["lr"] = lr``
@@ -737,13 +783,16 @@ class DeepSpeedEngine:
             tag = f"global_step{self.global_steps}"
         ce = self.checkpoint_engine
         # under a process group rank 0 writes every file; the others take
-        # part in gathering the optimizer's shards
+        # part in gathering the optimizer's shards (and at stage 3 the
+        # parameters')
         writer = comm.get_rank() == 0
+        module_sd = self._state_to_write()
         if writer:
             ce.set_topology_metadata(self._topology_metadata())
             ce.create(tag)
-            ce.save({"module": self.module.state_dict()},
+            ce.save({"module": module_sd},
                     self._tag_path(save_dir, tag, MODEL_STATES))
+        del module_sd
         meta = {
             "global_steps": self.global_steps,
             "global_samples": self.global_samples,
@@ -782,7 +831,7 @@ class DeepSpeedEngine:
         specs = None
         if self._zero is not None:
             specs = layout.describe_partition(self._zero.rules,
-                                              self._zero.partition)
+                                              self._zero.groups)
         return layout.topology_metadata(self.topology, self.zero_stage,
                                         partition_specs=specs)
 
@@ -811,8 +860,9 @@ class DeepSpeedEngine:
         whatever the checkpoint engine (it is not part of a tag);
         ``init_inference(checkpoint=...)`` serves it."""
         dtype = torch.float16 if self.fp16_enabled else torch.bfloat16
-        if comm.get_rank() == 0:
-            half = {k: v.to(dtype) for k, v in self.module.state_dict().items()}
+        sd = self._state_to_write()
+        if sd is not None:
+            half = {k: v.to(dtype) for k, v in sd.items()}
             write_torch_file({"module": half},
                              os.path.join(save_dir, save_filename))
         comm.barrier()
@@ -847,7 +897,8 @@ class DeepSpeedEngine:
     @torch.no_grad()
     def _restore_module(self, sd):
         """Copy a model ``state_dict`` into the live parameters and buffers
-        (a tied weight is one tensor and one key, restored once)."""
+        (a tied weight is one tensor and one key, restored once; a
+        stage-3 placeholder's slice into its unit's shard)."""
         own = self.module.state_dict(keep_vars=True)
         missing = sorted(set(own) - set(sd))
         unknown = sorted(set(sd) - set(own))
@@ -855,6 +906,9 @@ class DeepSpeedEngine:
             raise KeyError(f"model state: missing {missing}, unknown "
                            f"{unknown}")
         for name, t in own.items():
+            if hasattr(t, "ds_zero"):
+                t.ds_zero.load_param(t, sd[name])
+                continue
             if tuple(sd[name].shape) != tuple(t.shape):
                 raise ValueError(f"model state {name}: shape "
                                  f"{tuple(sd[name].shape)}, want "

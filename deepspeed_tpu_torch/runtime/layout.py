@@ -9,8 +9,9 @@ and a checkpoint's manifest carries a ``topology`` block (world size, zero
 stage, axis sizes and the partition record) that a load compares with
 its own to detect a reshard. ``partition_specs`` describes the port's
 flat layout (``runtime/zero/sharding.py``) in the JAX record's shape:
-``{"params": {name: {"spec": [], "shape": [...]}}, "opt_state": {name:
-{"spec": [...], "shape": [...]}}, "flat": [per-dtype buffer]}``.
+``{"params": {name: {"spec": [...], "shape": [...]}}, "opt_state": {name:
+{"spec": [...], "shape": [...]}}, "flat": [per-dtype buffer]}`` (a
+parameter's spec is ``["fsdp"]`` where stage 3 partitions it).
 """
 
 from typing import Any, Dict, List, Optional
@@ -42,22 +43,29 @@ def apply_zero_fsdp_move(topology: MeshTopology,
     return topology
 
 
-def build_sharding_rules(topology: MeshTopology,
-                         zero_stage: int) -> ZeroShardingRules:
-    return ZeroShardingRules(topology, stage=zero_stage)
+def build_sharding_rules(topology: MeshTopology, zero_stage: int,
+                         param_persistence_threshold: int = 0
+                         ) -> ZeroShardingRules:
+    """The per-leaf layout policy for this (topology, stage) pair; the
+    threshold counts only at stage 3."""
+    return ZeroShardingRules(
+        topology, stage=zero_stage,
+        param_persistence_threshold=(
+            param_persistence_threshold if zero_stage >= 3 else 0))
 
 
-def describe_partition(rules: ZeroShardingRules, partition) -> Dict[str, Any]:
-    """The ``partition_specs`` record of a flat partition."""
+def describe_partition(rules: ZeroShardingRules, groups) -> Dict[str, Any]:
+    """The ``partition_specs`` record of a flat partition's groups (at
+    stage 3 the whole leaves' groups, then every unit's)."""
     params, opt = {}, {}
-    for group in partition.groups:
+    for group in groups:
         for name, shape in zip(group.names, group.shapes):
             params[name] = {"spec": list(rules.param_spec(name, shape)),
                             "shape": list(shape)}
             opt[name] = {"spec": list(rules.opt_state_spec(name, shape)),
                          "shape": list(shape)}
     return {"params": params, "opt_state": opt,
-            "flat": partition.describe()}
+            "flat": [g.describe() for g in groups]}
 
 
 def topology_metadata(topology: MeshTopology, zero_stage: int,

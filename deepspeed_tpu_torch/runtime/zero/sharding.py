@@ -5,9 +5,10 @@
 
 The rules are the JAX package's: stage 1 partitions the optimizer state
 over the ``fsdp`` axis, stage 2 also the f32 gradient-accumulation
-buffers. Stage 3 would also partition the parameters; it is refused
-above one rank (ROADMAP A.3, stage 3), so ``param_spec`` is always
-replicated here.
+buffers, stage 3 also every parameter of at least
+``param_persistence_threshold`` elements (the config's
+``stage3_param_persistence_threshold``); smaller leaves stay whole on
+every rank, their gradients and optimizer state partitioned as at stage 2.
 
 **The layout differs from the JAX package's.** JAX shards the largest
 dimension of each leaf that the axis divides (``shard_largest_dim_spec``)
@@ -16,10 +17,13 @@ DeepSpeed does (``stage_1_and_2.py``): ``FlatPartition`` lays the
 parameters of each dtype end to end in ONE contiguous buffer (each leaf at
 a multiple of ``ALIGN`` elements), padded to a multiple of ``world x
 ALIGN`` elements, and rank r of the axis owns the elements ``[r n / w,
-(r + 1) n / w)``; the parameters become views of the buffer. A rank's
-optimizer state is then one tensor per dtype, so the update (B4) is one
-launch over the rank's shard and each collective is one call on one flat
-buffer; sharding each leaf instead would give B4 strided slices and a
+(r + 1) n / w)``; the parameters become views of the buffer. At stage 3
+the same layout holds each unit's partitioned parameters
+(``runtime/zero/stage3.py``: a transformer block, or the embeddings and
+final norm), and a rank keeps only its shard of each unit's buffer. A
+rank's optimizer state is then one tensor per dtype (at stage 3, per unit
+and dtype), so the update (B4) is one launch over the rank's shards and
+each collective is one call on one flat buffer; sharding each leaf instead would give B4 strided slices and a
 collective per leaf. A leaf may straddle two ranks' shards (LAMB's per-leaf
 trust ratio sums its pieces: ``runtime/optimizer.py``). The padding is zero
 in the parameters, gradients and moments, so it enters neither the norm
@@ -44,18 +48,25 @@ ALIGN = 64
 class ZeroShardingRules:
     """Which state a ZeRO stage partitions over ``fsdp`` on ``topo``."""
 
-    def __init__(self, topo: MeshTopology, stage: int):
+    def __init__(self, topo: MeshTopology, stage: int,
+                 param_persistence_threshold: int = 0):
         self.topo = topo
         self.stage = stage
+        self.persistence_threshold = param_persistence_threshold
 
     def _fsdp(self, shape) -> Tuple[str, ...]:
         if self.topo.size("fsdp") <= 1 or not shape:
             return ()
         return ("fsdp",)
 
+    def partitions_param(self, shape) -> bool:
+        """Whether stage 3 keeps only a shard of a parameter of ``shape``
+        (on a one-rank axis too: a 1-way partition, the same path)."""
+        return (self.stage >= 3
+                and math.prod(shape) >= max(self.persistence_threshold, 1))
+
     def param_spec(self, path, shape) -> Tuple[str, ...]:
-        # whole on every rank: the engine refuses stage 3 above one rank
-        return ()
+        return self._fsdp(shape) if self.partitions_param(shape) else ()
 
     def grad_accum_spec(self, path, shape) -> Tuple[str, ...]:
         return self._fsdp(shape) if self.stage >= 2 else ()
@@ -146,9 +157,6 @@ class FlatPartition:
         self.groups = [FlatGroup(dtype, [n for n, _ in items],
                                  [p.shape for _, p in items], world, rank)
                        for dtype, items in by_dtype.items()]
-        # parameter name -> (group, leaf)
-        self.where = {name: (g, i) for g, group in enumerate(self.groups)
-                      for i, name in enumerate(group.names)}
 
     def flatten(self, named_params) -> List[torch.Tensor]:
         """One zero-padded buffer per group holding the parameters' values;
@@ -178,6 +186,3 @@ class FlatPartition:
                                          group.numels, group.shapes):
                 out[name] = flat[o:o + n].view(shape)
         return out
-
-    def describe(self) -> List[Dict[str, object]]:
-        return [g.describe() for g in self.groups]

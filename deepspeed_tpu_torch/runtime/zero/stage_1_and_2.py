@@ -20,7 +20,12 @@ grads into the update, all-gather new params out"; the reference's
   dtype over ``N / w`` elements;
 * with gradient accumulation, f32 accumulators: full buffers at stages 0
   and 1 (replicated, as the JAX engine's ``grad_accum_spec`` below stage
-  2), the rank's shard at stage 2.
+  2), the rank's shard at stages 2 and 3.
+
+At stage 3 the buffers above hold only the leaves under the persistence
+threshold, which take stage 2's path; the partitioned leaves live as
+per-unit shards (``runtime/zero/stage3.py``), which the inner optimizer
+updates beside the whole leaves' shards.
 
 The exchanges, each one collective on one flat buffer: stage 0 all-reduces
 the gradient (every rank then updates everything); stages 1-2
@@ -57,16 +62,24 @@ DATA_AXES = ("dp", "fsdp")
 
 class ZeroOptimizer:
     """The data-parallel update of ``named_params`` under ``rules`` (a
-    ``ZeroShardingRules``: the topology and the stage, 0-2, or 3 on a
-    one-rank fsdp axis, where it is stage 2).
+    ``ZeroShardingRules``: the topology and the stage, 0-2; at stage 3
+    ``named_params`` are the whole (persistent) leaves, which take stage
+    2's path, and ``units`` the partitioned ones: ``runtime/zero/stage3.py``).
     ``build(params, names, runs, reduce)`` makes the inner optimizer over
     the rank's shards; ``runs`` (each shard's leaf runs, for LAMB) and
     ``reduce`` (the all-reduce of per-leaf sums over the partition) are for
-    optimizers whose update is not elementwise."""
+    optimizers whose update is not elementwise.
+
+    ``units`` (stage 3) each hold ``groups`` (``FlatGroup``s over the
+    partition axis), ``shards`` (this rank's shard of each, a parameter the
+    update changes in place) and ``take_grads()`` (each shard's reduced
+    gradient after a backward, handed over once); their groups follow the
+    whole leaves' in ``groups``, ``shard_params`` and the inner optimizer,
+    so B4 stays one launch over every shard."""
 
     def __init__(self, named_params: Sequence[Tuple[str, torch.Tensor]],
                  rules: ZeroShardingRules, build: Callable,
-                 comm_dtype: Optional[torch.dtype] = None):
+                 comm_dtype: Optional[torch.dtype] = None, units=()):
         self.rules = rules
         self.topology = topology = rules.topo
         self.sharded = rules.shards_optimizer
@@ -74,30 +87,35 @@ class ZeroOptimizer:
         world, rank = ((fsdp, topology.axis_index("fsdp")) if self.sharded
                        else (1, 0))
         named = list(named_params)
-        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
         self.partition = FlatPartition(named, world, rank)
-        self.groups = self.partition.groups
+        whole = self.partition.groups
         self.flat_params = self.partition.flatten(named)
         for flat in self.flat_params:
             comm.broadcast(flat, DATA_AXES, root=0)
-        device = self.flat_params[0].device
         self.flat_grads = [torch.zeros(g.padded, dtype=comm_dtype or g.dtype,
-                                       device=device) for g in self.groups]
+                                       device=flat.device)
+                           for g, flat in zip(whole, self.flat_params)]
         grad_views = self.partition.views(self.flat_grads)
-        self._grad_views = [grad_views[n] for n in self.names]
-        self.shard_params = [flat[g.start:g.end]
-                             for g, flat in zip(self.groups, self.flat_params)]
+        self._grad_views = [grad_views[n] for n, _ in named]
         self.grad_shards = ([torch.zeros(g.shard_size, dtype=f.dtype,
-                                         device=device)
-                             for g, f in zip(self.groups, self.flat_grads)]
+                                         device=f.device)
+                             for g, f in zip(whole, self.flat_grads)]
                             if self.sharded else None)
+        self.units = list(units)
+        self.groups = whole + [g for u in self.units for g in u.groups]
+        self.names = [n for g in self.groups for n in g.names]
+        self.shard_params = ([flat[g.start:g.end]
+                              for g, flat in zip(whole, self.flat_params)]
+                             + [s for u in self.units for s in u.shards])
         # the f32 gradient sums of an accumulation window (made by the
         # first micro step: a gas-1 engine never needs them)
         self.accumulators = None
         self.local_overflow = None
         self.inner = build(self.shard_params,
-                           [f"flat.{g.describe()['dtype']}"
-                            for g in self.groups],
+                           [f"flat.{g.describe()['dtype']}" for g in whole]
+                           + [f"{u.name}.flat.{g.describe()['dtype']}"
+                              for u in self.units for g in u.groups],
                            [(g.shard_runs(), len(g.names))
                             for g in self.groups],
                            self._reduce_partition)
@@ -123,11 +141,11 @@ class ZeroOptimizer:
         new tensor)."""
         return comm.all_reduce(x.detach().float().clone(), DATA_AXES)
 
-    def collect_grads(self, params: Sequence[torch.Tensor]):
-        """Copy each parameter's ``.grad`` into the gradient buffer (0 for a
-        parameter without one) and clear it."""
+    def collect_grads(self):
+        """Copy each whole parameter's ``.grad`` into the gradient buffer (0
+        for a parameter without one) and clear it."""
         dst, src = [], []
-        for view, p in zip(self._grad_views, params):
+        for view, p in zip(self._grad_views, self.params):
             if p.grad is None:
                 view.zero_()
             else:
@@ -138,9 +156,10 @@ class ZeroOptimizer:
             torch._foreach_copy_(dst, src)
 
     def _exchange(self, shard: bool) -> List[torch.Tensor]:
-        """The reduced gradient of every group: the full buffers summed
-        over the data-parallel ranks, or (``shard``) this rank's shard of
-        the sum."""
+        """The reduced gradient of every whole group: the full buffers
+        summed over the data-parallel ranks, or (``shard``) this rank's
+        shard of the sum; then the units' shards, which their backward
+        reduced already."""
         if not shard:
             return [comm.all_reduce(f, DATA_AXES) for f in self.flat_grads]
         out = []
@@ -149,11 +168,11 @@ class ZeroOptimizer:
             if self.topology.size("dp") > 1:
                 comm.all_reduce(g_shard, "dp")
             out.append(g_shard)
-        return out
+        return out + [g for u in self.units for g in u.take_grads()]
 
     def reduce_grads(self) -> List[torch.Tensor]:
         """gas 1: the gradients of this rank's update (the summed full
-        buffers at stage 0, the rank's shards at stages 1-2)."""
+        buffers at stage 0, the rank's shards at stages 1-3)."""
         return self._exchange(self.sharded)
 
     def make_accumulators(self):
@@ -163,12 +182,12 @@ class ZeroOptimizer:
             shard = self.rules.shards_grad_accum
             self.accumulators = [
                 torch.zeros(g.shard_size if shard else g.padded,
-                            dtype=torch.float32, device=f.device)
-                for g, f in zip(self.groups, self.flat_params)]
+                            dtype=torch.float32, device=s.device)
+                for g, s in zip(self.groups, self.shard_params)]
 
     def accumulate(self):
         """A micro step: the exchanged gradients added in f32 to the
-        accumulators (full at stages 0-1, the shard at stage 2)."""
+        accumulators (full at stages 0-1, the shard at stages 2-3)."""
         for acc, g in zip(self.accumulators,
                           self._exchange(self.rules.shards_grad_accum)):
             acc.add_(g)
@@ -212,11 +231,13 @@ class ZeroOptimizer:
               skip: Optional[torch.Tensor] = None):
         """The inner optimizer over this rank's shards (each gradient cast
         to its parameter's dtype), then, when sharded, every rank's
-        updated shard gathered into the parameter buffers."""
+        updated shard gathered into the whole parameter buffers (a unit's
+        shard stays a shard: the next forward gathers it)."""
         self.inner.apply([g.to(p.dtype) for g, p in
                           zip(grads, self.shard_params)], skip=skip)
         if self.sharded:
-            for flat, shard in zip(self.flat_params, self.shard_params):
+            for flat, shard in zip(self.flat_params, self.shard_params[
+                    :len(self.flat_params)]):
                 comm.all_gather(shard, "fsdp", out=flat)
 
     # -- state by parameter name -------------------------------------------
@@ -275,13 +296,22 @@ class ZeroOptimizer:
         for key in self.inner.STATE:
             buffers = getattr(self.inner, key)
             for g, group in enumerate(self.groups):
-                for i, a, b in group.overlaps(group.start, group.end):
-                    name, o = group.names[i], group.offsets[i]
-                    src = state[name][key]
-                    if tuple(src.shape) != group.shapes[i]:
-                        raise ValueError(
-                            f"optimizer state {name}.{key}: shape "
-                            f"{tuple(src.shape)}, want {group.shapes[i]}")
-                    buffers[g][a - group.start:b - group.start].copy_(
-                        src.reshape(-1)[a - o:b - o])
+                for i, name in enumerate(group.names):
+                    self._load_leaf(g, i, buffers[g], state[name][key],
+                                    f"optimizer state {name}.{key}")
         self.inner.count = int(sd["count"])
+
+    def _load_leaf(self, g: int, i: int, buf: torch.Tensor,
+                   src: torch.Tensor, what: str):
+        """Copy this rank's slice of leaf ``i`` of group ``g`` from the
+        whole tensor ``src`` into ``buf``, a buffer sharded like the
+        parameters (nothing when the leaf lies in other ranks' shards)."""
+        group = self.groups[g]
+        if tuple(src.shape) != group.shapes[i]:
+            raise ValueError(f"{what}: shape {tuple(src.shape)}, want "
+                             f"{group.shapes[i]}")
+        o = group.offsets[i]
+        for leaf, a, b in group.overlaps(group.start, group.end):
+            if leaf == i:
+                buf[a - group.start:b - group.start].copy_(
+                    src.reshape(-1)[a - o:b - o])

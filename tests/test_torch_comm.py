@@ -291,7 +291,13 @@ def test_zero_rules_and_flat_partition():
            for s in range(4)}
     assert got == {0: ((), (), ()), 1: ((), (), ("fsdp",)),
                    2: ((), ("fsdp",), ("fsdp",)),
-                   3: ((), ("fsdp",), ("fsdp",))}
+                   3: (("fsdp",), ("fsdp",), ("fsdp",))}
+    # stage 3 keeps a leaf under the persistence threshold whole (the flat
+    # layout partitions a leaf whatever its dimensions, where the JAX
+    # package needs one that the axis divides)
+    keep = ZeroShardingRules(topo, 3, param_persistence_threshold=71)
+    assert keep.param_spec("w", shape) == ()
+    assert keep.partitions_param((71,)) and not keep.partitions_param(shape)
     named = [("a", torch.zeros(10, 7)), ("b", torch.zeros(3)),
              ("c", torch.zeros(5, dtype=torch.bfloat16)),
              ("d", torch.zeros(130))]

@@ -120,41 +120,104 @@ def run_ranks(jobs, tmp_path, world=WORLD):
 # ---------------------------------------------------------------------------
 # the child process: torch and the port only
 # ---------------------------------------------------------------------------
-def _run_job(job, rank):
-    import deepspeed_tpu_torch
+def _model(job):
+    """The job's model: the small GPT (``model``: GPTConfig overrides), or
+    with ``bert`` a tiny BERT."""
+    if job.get("bert"):
+        from deepspeed_tpu_torch.models import bert as tbert
+
+        return tbert.BertForPreTraining(tbert.BertConfig(
+            vocab_size=128, hidden_size=32, num_hidden_layers=2,
+            num_attention_heads=2, intermediate_size=64,
+            max_position_embeddings=64, dtype=torch.float32))
     from deepspeed_tpu_torch.models import transformer_lm as tlm
 
-    cfg = tlm.GPTConfig(**SMALL, dtype=getattr(torch, job.get("dtype",
-                                                           "float32")))
+    return tlm.GPT(tlm.GPTConfig(**SMALL, **job.get("model", {}),
+                                 dtype=getattr(torch, job.get("dtype",
+                                                              "float32"))))
+
+
+def _gathered_liveness(engine, batch):
+    """Stage 3: a forward and a backward on ``batch`` outside the step,
+    counting the full buffers the units' gathers made and how many are
+    still alive after the forward and after the backward."""
+    import weakref
+
+    from deepspeed_tpu_torch.runtime.zero import stage3
+
+    made, real = [], stage3._Unit.gather
+
+    def gather(unit, k):
+        full = real(unit, k)
+        made.append(weakref.ref(full))
+        return full
+
+    stage3._Unit.gather = gather
+    try:
+        loss = engine._model(**engine._put_batch(batch))
+        out = {"forward_made": len(made),
+               "forward_alive": sum(r() is not None for r in made)}
+        loss.backward()
+        del loss
+        out.update(made=len(made),
+                   alive=sum(r() is not None for r in made))
+    finally:
+        stage3._Unit.gather = real
+    engine.optimizer.reduce_grads()  # hand the gradients over, unused
+    return out
+
+
+def _run_job(job, rank):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm.logging import comms_logger
+
     init = job.get("init_by_rank", {}).get(rank, job.get("init"))
     if init is not None:
         init = {k: v.clone() for k, v in init.items()}
     out = {"error": None}
     try:
         engine = deepspeed_tpu_torch.initialize(
-            model=tlm.GPT(cfg), config=job["config"], device="cpu",
+            model=_model(job), config=job["config"], device="cpu",
             model_parameters=init, seed=job.get("seed", 0))[0]
         if job.get("load"):
             out["tag"] = engine.load_checkpoint(job["load"])[0]
             out["reshard"] = engine.last_reshard.mismatches
-        out["initial"] = {k: v.clone()
-                          for k, v in engine.module.state_dict().items()}
+        if job.get("liveness"):
+            out["liveness"] = _gathered_liveness(engine, job["liveness"])
+        out["initial"] = {k: v.clone() for k, v in engine.params.items()}
         out.update(losses=[], norms=[], scales=[], skipped=[])
         for i, step in enumerate(job["steps"]):
+            if job.get("comms") and i + 1 == len(job["steps"]):
+                # the collectives of the last step alone
+                comms_logger.reset()
             out["losses"].append(float(engine.train_batch(iter(step))))
             out["norms"].append(engine.get_global_grad_norm())
             out["scales"].append(engine.loss_scale)
             out["skipped"].append(engine.skipped_steps)
             if job.get("save") and i + 1 == job["save"]["after"]:
                 engine.save_checkpoint(job["save"]["dir"])
+        if job.get("comms"):
+            out["comms"] = comms_logger.snapshot()
+        if job.get("save16"):
+            engine.save_16bit_model(job["save16"])
+        if job.get("gathered"):
+            from deepspeed_tpu_torch.runtime import zero
+
+            named = dict(engine.module.named_parameters())
+            with zero.GatheredParameters(
+                    [named[n] for n in job["gathered"]]) as g:
+                out["gathered"] = dict(zip(job["gathered"], g.params))
         if job.get("eval"):
             out["eval"] = float(engine.eval_batch(job["eval"]))
         if job.get("dataset"):
             loader = engine.deepspeed_io(job["dataset"], shuffle=False)
             out["io_rows"] = len(next(iter(loader))["input_ids"])
         out["grad_dtypes"] = [str(f.dtype) for f in engine.optimizer.flat_grads]
-        out["params"] = {k: v.clone()
-                         for k, v in engine.module.state_dict().items()}
+        out["params"] = {k: v.clone() for k, v in engine.params.items()}
+        out["module_numels"] = {k: v.numel() for k, v in
+                                engine.module.state_dict().items()}
+        out["shard_numels"] = [s.numel()
+                               for s in engine.optimizer.shard_params]
         out["count"] = engine.optimizer.count
         out["global_samples"] = engine.global_samples
     except (NotImplementedError, ValueError) as e:
@@ -187,23 +250,23 @@ def _worker(argv):
 # ---------------------------------------------------------------------------
 # the parent: the JAX engine and the one-process port engine
 # ---------------------------------------------------------------------------
-def jax_init(scan_layers=True):
+def jax_init(scan_layers=True, **model):
     import jax
     import jax.numpy as jnp
 
     from deepspeed_tpu.models import transformer_lm as jlm
 
     jmodel = jlm.GPT(jlm.GPTConfig(**SMALL, dtype=jnp.float32,
-                                   scan_layers=scan_layers))
+                                   scan_layers=scan_layers, **model))
     params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
                          deterministic=True)["params"]
     return jmodel, params
 
 
-def jax_run(ds, steps, scan_layers=True, dp=1, fsdp=WORLD):
+def jax_run(ds, steps, scan_layers=True, dp=1, fsdp=WORLD, model=None):
     """Losses and final parameters (port names) of the JAX engine on a
     (dp, fsdp) mesh of the virtual CPU devices (default: 2-device fsdp);
-    and the initial parameters."""
+    and the initial parameters. ``model``: GPTConfig overrides."""
     import jax
 
     import deepspeed_tpu
@@ -212,7 +275,7 @@ def jax_run(ds, steps, scan_layers=True, dp=1, fsdp=WORLD):
     from deepspeed_tpu_torch.module_inject.jax_params import \
         gpt_state_dict_from_jax
 
-    jmodel, params = jax_init(scan_layers)
+    jmodel, params = jax_init(scan_layers, **(model or {}))
     tcfg = tlm.GPTConfig(**SMALL, dtype=torch.float32)
     start = gpt_state_dict_from_jax(jax.device_get(params), tcfg)
     jeng, *_ = deepspeed_tpu.initialize(
@@ -306,7 +369,7 @@ def port_runs(start, tmp_path_factory):
             dataset=[{"input_ids": np.zeros(SEQ, np.int32)}] * 8),
         job("bf16_exchange", config(1, communication_data_type="bf16"),
             MATRIX_STEPS[1], init=init),
-        job("stage3", config(3), [], raises=True),
+        job("stage3", config(3), [], raises=True, bert=True),
         job("tp2", config(1, tpu={"mesh": {"tp": 2}}), [], raises=True),
         job("int8", config(1, communication_data_type="int8"), [],
             raises=True),
