@@ -129,7 +129,31 @@ Phases, each printing one JSON line:
   B1 64 / B2 32 / B3 32 / B4 1 launches per step, stage 3's losses and
   updates within the 1.3B bounds of stage 2's, stage 3's peak memory below
   stage 2's, step ms, peak memory against the predicted state and a traced
-  replay's NCCL time for each. Small GPTs: stages 2 and 3 at gas 2
+  replay's NCCL time for each. The gradient exchanges (``grad_exchange``,
+  the slice's main path): first the card's ``quantized_all_reduce`` and
+  ``compressed_allreduce`` on one 4 MB tensor against their single-process
+  simulation on the same card (every rank's input gathered, quantized or
+  signed as its rank does it, summed in rank order: bit-identical, or
+  within one step with the equal share printed), timed; small bf16 GPTs
+  under 1-bit LAMB, 0/1 Adam and (at an even world above 1) the
+  hierarchical exchange over 2 slices, captured against eager; then
+  GPT-2 1.3B at gas 2 and stage 0 under (a) the deferred bucketed exchange
+  (4 MB buckets) at a bf16 wire (the main path; its launches are the
+  path's) and at an f32 wire, (b) int8 in 4 MB buckets and (c) 1-bit Adam
+  with freeze_step 4, each 12 captured steps against 12 uncaptured ones
+  (bit-identical, error feedback included), B1 96 / B2 48 / B3 48 / B4 1
+  (0 under 1-bit) launches per step, the loss falling, every rank's
+  parameters equal; (a) at f32 against the stage-0 engine with an f32
+  exchange (the first step's update within ``GX_FP32_UPDATE_REL_L2``, its
+  grad norm and the 12 steps within the zero bounds), (a) at bf16 and
+  (b) against (a) at f32 in the loss (``GX_LOSS_REL_TOL``), which the
+  control (the group-less engine without the last rank's rows) must break
+  at world > 1, and (c), which ignores the clip and changes its rule at
+  the freeze step, to a loss that falls after it; per mode the step and eager ms, a traced replay's NCCL ms by kind,
+  the comms logger's wire bytes per step against the prediction, and the
+  peak memory against the state. (At world 1 the JAX engine, and so the
+  port, runs (a) as the plain stage-0 step: no dp axis to defer over.)
+  Small GPTs: stages 2 and 3 at gas 2
   captured against eager; fp16 at stage 1 from a
   growing loss scale (every rank skips each step on which any rank's
   shard overflowed; at world > 1 some overflow must be local to some
@@ -2297,7 +2321,8 @@ SIXB_MICRO = 4
 SIXB_PER_STEP = {"flash_attention_fwd": 64, "flash_attention_bwd_dq": 32,
                  "flash_attention_bwd_dkv": 32, "fused_adamw": 1}
 NCCL_KINDS = {"AllReduce": "all_reduce", "ReduceScatter": "reduce_scatter",
-              "AllGather": "all_gather", "Broadcast": "broadcast"}
+              "AllGather": "all_gather", "Broadcast": "broadcast",
+              "SendRecv": "all_to_all"}
 
 
 def zero_config(stage, gas=1, **over):
@@ -2666,6 +2691,482 @@ def zero_6p7b_pair(world, rank):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the gradient exchanges (the grad_exchange part of the zero phase)
+# ---------------------------------------------------------------------------
+# GPT-2 1.3B at gas 2 under each exchange: (a) the deferred bucketed
+# exchange at a bf16 wire (the main path; at world 1 the JAX engine, and so
+# the port, takes the plain stage-0 step: there is no dp axis to defer
+# over) and at an f32 wire (the reference of the others), (b) int8 in 4 MB
+# buckets, (c) 1-bit Adam with freeze_step 4 (steps 1-4 the exact warm-up,
+# then compressed: two graphs), and the stage-0 engine with an f32 exchange
+# (the one (a) at f32 is held to: the same sums in another order)
+GX_GAS = 2
+GX_BUCKET_MB = 4
+GX_FREEZE_STEP = 4
+GX_MODES = ("deferred_bf16", "deferred_fp32", "int8_bucketed", "onebit")
+# (a) at f32 against the stage-0 engine's f32 exchange, where the two
+# differ only in the order of their f32 sums: the first step's update to
+# this relative L2, and the first grad norm to the zero phase's first-step
+# bound. Over the 12 steps the bf16 parameters round a last-bit difference
+# of an update into a whole bf16 step of some parameters, and those
+# compound: on four cards the 12-step update read 0.0036 (loss 1.0e-5),
+# so the run is held to the zero phase's bounds
+GX_FP32_UPDATE_REL_L2 = 1e-5
+# the others against (a) at f32, the CPU tests' convergence bounds: each
+# step's loss to 1e-3 relative (bf16 wire), the same for int8, whose
+# updates differ by the quantisation. 1-bit Adam ignores the clip (the
+# JAX warning) from its first step, and after its freeze step is another
+# update rule: it is held to convergence, the loss falling over the run
+# and after the freeze step (its distance to (a) is printed)
+GX_LOSS_REL_TOL = 1e-3
+# the elements of the kernel-level checks: one 4 MB bucket
+GX_CHECK_ELEMENTS = 1 << 20
+GX_PER_STEP = {"flash_attention_fwd": 48 * GX_GAS,
+               "flash_attention_bwd_dq": 24 * GX_GAS,
+               "flash_attention_bwd_dkv": 24 * GX_GAS}
+
+
+def gx_config(mode):
+    """``GPT_PRETRAIN_CONFIG`` at stage 0 and gas 2 with the exchange of
+    ``mode``, the comms logger on."""
+    config = zero_config(0, gas=GX_GAS)
+    tpu = dict(GPT_PRETRAIN_CONFIG["tpu"])
+    if mode.startswith("deferred"):
+        tpu["grad_exchange"] = {"deferred": True, "bucket_mb": GX_BUCKET_MB,
+                                "wire_dtype": mode.split("_")[1]}
+    elif mode == "int8_bucketed":
+        tpu["grad_exchange"] = {"bucket_mb": GX_BUCKET_MB}
+        config["communication_data_type"] = "int8"
+    elif mode == "onebit":
+        params = dict(GPT_PRETRAIN_CONFIG["optimizer"]["params"],
+                      freeze_step=GX_FREEZE_STEP)
+        config["optimizer"] = {"type": "OneBitAdam", "params": params}
+    elif mode == "stage0_fp32":
+        config["communication_data_type"] = "fp32"
+    config["tpu"] = tpu
+    return config
+
+
+def gx_predicted_wire_gb(mode, world, n=GPT_1P3B_PARAMS, warmup=False):
+    """The wire bytes per step and rank the exchange should log, ring
+    accounting: an all-reduce of b bytes sends 2 (w-1)/w b."""
+    ring = 2 * (world - 1) / world
+    padded = n + (-n) % (world * 512)
+    per = {"stage0_bf16": GX_GAS * ring * 2 * n,
+           "stage0_fp32": GX_GAS * ring * 4 * n,
+           "deferred_bf16": ring * 2 * n, "deferred_fp32": ring * 4 * n,
+           "int8_bucketed": ring * padded * (1 + 4 / 512),
+           "onebit": ring * 4 * n if warmup else ring * n}
+    return per[mode] / 1e9
+
+
+def gx_predicted_state_gb(mode, world, n=GPT_1P3B_PARAMS):
+    """State bytes per rank: bf16 parameters (2N), f32 moments (8N), the
+    f32 per-worker gradient sum (4N) and, for int8 and 1-bit, the worker
+    (4N) and server (4N / w) error feedback."""
+    state = 2 * n + 8 * n + 4 * n
+    if mode in ("int8_bucketed", "onebit"):
+        state += 4 * n + 4 * n / world
+    return state / 1e9
+
+
+def _bits_sum(tensors):
+    import torch
+
+    return int(sum(int(t.detach().view(torch.int32).sum(dtype=torch.int64))
+                   for t in tensors))
+
+
+def gx_exchange_checksums(engine):
+    cx = engine._cx
+    if cx is None:
+        return None
+    return [_bits_sum(cx.worker_error), _bits_sum(cx.server_error)]
+
+
+def gx_mode_run(mode, world, batch, captured_only=False):
+    """GPT-2 1.3B under ``mode`` on this rank: 12 captured steps, then (but
+    ``captured_only``) 12 uncaptured ones from the same seed; the launches,
+    step ms, peak memory, the error feedback's checksums, a traced replay
+    (NCCL card ms by kind) with the comms logger's records of that step."""
+    import torch
+
+    from deepspeed_tpu_torch.comm.logging import comms_logger
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    extra = {}
+
+    def make():
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        comms_logger.reset()
+        return gpt_1p3b_engine(config=gx_config(mode))
+
+    def inspect(engine, it):
+        extra["checksums"] = param_checksums(engine)
+        extra["exchange_checksums"] = gx_exchange_checksums(engine)
+        extra["mode"] = engine._cx_mode
+        extra["graphs"] = {name: len(getattr(engine, name).graphs)
+                           for name in ("_micro", "_apply")}
+        extra["final"] = ({k: v.to("cpu", copy=True)
+                           for k, v in engine.params.items()}
+                          if comm_rank() == 0 else None)
+        from deepspeed_tpu_torch import comm
+
+        comm.barrier()
+        comms_logger.reset()
+        step, by_name, count = _trace(lambda: engine.train_batch(it))
+        extra["comms_per_step"] = comms_logger.snapshot()
+        extra["nccl"] = zero_nccl_times(by_name, count)
+        extra["traced_replay"] = {k: step[k] for k in (
+            "device_ms", "wall_ms", "device_busy_share", "top_ms")}
+
+    if captured_only:
+        reset_launches()
+        engine = make()
+        it = iter(RepeatingLoader([batch]))
+        losses, norms, times = train_steps(engine, it, STEPS)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        inspect(engine, it)
+        del engine, it
+        free_cuda()
+        return dict(extra, launches=launches, peak_allocated_gb=peak,
+                    losses=[float(x) for x in losses], step_ms=times,
+                    grad_norms=[float(x) for x in norms],
+                    step_ms_median=statistics.median(
+                        times[CAPTURE_WARMUP + 1:]))
+    check, launches, losses, norms, times, e_losses, e_times = \
+        captured_against_eager(make, [batch], STEPS, traced=inspect)
+    ms, eager_ms = step_medians(times, e_times)
+    return dict(extra, captured_vs_eager=check, launches=launches,
+                losses=losses, grad_norms=norms, eager_losses=e_losses,
+                step_ms=times, step_ms_median=ms,
+                eager_step_ms_median=eager_ms,
+                peak_allocated_gb=check["peak_allocated_gb"])
+
+
+def comm_rank():
+    from deepspeed_tpu_torch import comm
+
+    return comm.get_rank()
+
+
+def gx_check_collectives(world, rank):
+    """The card's ``quantized_all_reduce`` and ``compressed_allreduce``
+    against their plain single-process simulation on the same card: every
+    rank's input gathered, each rank's copy quantized (signed) as that rank
+    does it, summed in rank order. Returns the comparison and the ms of
+    each collective (CUDA events, median of 5)."""
+    import torch
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.comm.compressed import (quantized_all_reduce,
+                                                     server_shard_length)
+    from deepspeed_tpu_torch.ops.quantizer import (dequantize,
+                                                   quantize_blockwise)
+    from deepspeed_tpu_torch.runtime.fp16.onebit.adam import (
+        _compress, compressed_allreduce)
+
+    from deepspeed_tpu_torch.parallel.mesh import (MeshTopology,
+                                                   set_default_topology)
+
+    # the collectives run over dp (the earlier stage runs left fsdp)
+    set_default_topology(MeshTopology(dp=world))
+    n, block = GX_CHECK_ELEMENTS - 1000, 512
+    gen = torch.Generator(device="cuda").manual_seed(40 + rank)
+    x = torch.randn(n, generator=gen, device="cuda") * 1e-3
+    per = server_shard_length(n, world, block)
+    se = torch.randn(per, generator=gen, device="cuda") * 1e-6
+    out, err, new_se = quantized_all_reduce(x, "dp", block=block,
+                                            return_error=True,
+                                            server_error=se)
+    xs = comm.all_gather(x, "dp").view(world, n)
+    ses = comm.all_gather(se, "dp").view(world, per)
+    pad = world * per - n
+    flat = torch.nn.functional.pad(xs, (0, pad))
+    q, s = zip(*[quantize_blockwise(f, block) for f in flat])
+    shards = []
+    for j in range(world):
+        acc = dequantize(q[0][j * per:(j + 1) * per],
+                         s[0][j * per // block:(j + 1) * per // block])
+        for r in range(1, world):
+            acc = acc + dequantize(q[r][j * per:(j + 1) * per],
+                                   s[r][j * per // block:
+                                        (j + 1) * per // block])
+        shards.append(acc + ses[j])
+    q2 = [quantize_blockwise(sh, block) for sh in shards]
+    sim = torch.cat([dequantize(a, b) for a, b in q2])[:n]
+    sim_err = (flat[rank] - dequantize(q[rank], s[rank]))[:n]
+    sim_se = shards[rank] - dequantize(*q2[rank])
+    int8 = {"out_identical": bool(torch.equal(out, sim)),
+            "worker_error_identical": bool(torch.equal(err, sim_err)),
+            "server_error_identical": bool(torch.equal(new_se, sim_se)),
+            "max_abs_diff": float((out - sim).abs().max()),
+            "one_step": float(max(b.max() for b in
+                                  (q2[j][1] for j in range(world))))}
+    int8["equal_share"] = float((out == sim).float().mean())
+    # 1-bit: the padded momentum of one leaf, worker and server residuals
+    k = world
+    m = n + (-n) % k
+    xm = torch.nn.functional.pad(x, (0, m - n))
+    we = torch.randn(m, generator=gen, device="cuda") * 1e-4
+    we[n:] = 0
+    se1 = torch.randn(m // k, generator=gen, device="cuda") * 1e-5
+    res, we2, se2 = compressed_allreduce(xm, we, se1, "dp", n_valid=n)
+    xms = comm.all_gather(xm, "dp").view(k, m)
+    wes = comm.all_gather(we, "dp").view(k, m)
+    ses1 = comm.all_gather(se1, "dp").view(k, m // k)
+    comp = [_compress(xms[r].clone(), wes[r], n if m > n else None)
+            for r in range(k)]
+    chunk = m // k
+    sim_chunks = []
+    for j in range(k):
+        acc = comp[0][0][j * chunk:(j + 1) * chunk].float() * comp[0][1]
+        for r in range(1, k):
+            acc = acc + (comp[r][0][j * chunk:(j + 1) * chunk].float()
+                         * comp[r][1])
+        valid = min(max(n - j * chunk, 0), chunk)
+        sim_chunks.append(_compress(acc / k, ses1[j],
+                                    valid if m > n else None))
+    sim_res = torch.cat([sg.float() * sc for sg, sc, _ in sim_chunks])
+    onebit = {"out_identical": bool(torch.equal(res, sim_res)),
+              "worker_error_identical": bool(torch.equal(we2, comp[rank][2])),
+              "server_error_identical": bool(torch.equal(
+                  se2, sim_chunks[rank][2])),
+              "max_abs_diff": float((res - sim_res).abs().max()),
+              "equal_share": float((res == sim_res).float().mean()),
+              "one_step": float(2 * max(sc for _, sc, _ in sim_chunks))}
+
+    def timed_ms(fn):
+        times = []
+        for _ in range(7):
+            comm.barrier()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times[2:])
+
+    int8["ms"] = timed_ms(lambda: quantized_all_reduce(
+        x, "dp", block=block, return_error=True, server_error=se))
+    onebit["ms"] = timed_ms(lambda: compressed_allreduce(
+        xm, we, se1, "dp", n_valid=n))
+    return {"elements": n, "int8": int8, "onebit": onebit}
+
+
+def gx_runs(world, rank, batch, ref, control):
+    """The gradient exchanges at 1.3B on this rank (every rank runs every
+    collective), and rank 0's comparisons: (a) at f32 against the stage-0
+    engine's f32 exchange, the others' losses against (a) at f32, and the
+    control's (the group-less engine without the last rank's rows, at
+    world > 1)."""
+    out = {"check": gx_check_collectives(world, rank)}
+    free_cuda()
+    out["small"] = gx_small_runs(world)
+    stage0 = gx_mode_run("stage0_fp32", world, batch, captured_only=True)
+    for mode in GX_MODES:
+        out[mode] = gx_mode_run(mode, world, batch)
+    first = gx_first_steps(batch, rank)
+    if rank == 0:
+        fp32 = out["deferred_fp32"]
+        start = ref["start"]
+
+        def rel_l2(got, want):
+            return update_rel_l2({k: v.to("cuda") for k, v in got.items()},
+                                 want, start)
+        out["deferred_fp32"]["vs_stage0_fp32"] = {
+            "first_step_update_rel_l2": rel_l2(first["deferred_fp32"],
+                                               first["stage0_fp32"]),
+            "update_rel_l2": rel_l2(fp32["final"], stage0["final"]),
+            "loss_rel_err": max(rel_errs(fp32["losses"], stage0["losses"])),
+            "grad_norm_rel_err_by_step": rel_errs(fp32["grad_norms"],
+                                                  stage0["grad_norms"])}
+        for mode in GX_MODES:
+            run = out[mode]
+            run["vs_deferred_fp32"] = {
+                "loss_rel_err": max(rel_errs(run["losses"],
+                                             fp32["losses"])),
+                "update_rel_l2": rel_l2(run["final"], fp32["final"])}
+        if control is not None:
+            out["control"] = {
+                "loss_rel_err": max(rel_errs(control["losses"],
+                                             fp32["losses"])),
+                "update_rel_l2": rel_l2(control["final"], fp32["final"])}
+    del first
+    for mode in GX_MODES:
+        out[mode].pop("final", None)
+    out["stage0_fp32"] = {k: v for k, v in stage0.items() if k != "final"}
+    return out
+
+
+def gx_first_steps(batch, rank):
+    """The parameters after one step of (a) at f32 and of the stage-0
+    engine's f32 exchange from the same weights (on rank 0's host; every
+    rank steps): where the two differ only in the order of their f32
+    sums. Over 12 steps the bf16 parameters turn last-bit differences of
+    an update into whole bf16 steps of some parameters, which compound."""
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    out = {}
+    for mode in ("stage0_fp32", "deferred_fp32"):
+        free_cuda()
+        engine = gpt_1p3b_engine(config=gx_config(mode))
+        engine.train_batch(iter(RepeatingLoader([batch])))
+        out[mode] = ({k: v.to("cpu", copy=True)
+                      for k, v in engine.params.items()} if rank == 0
+                     else None)
+        del engine
+    free_cuda()
+    return out
+
+
+def gx_small_runs(world):
+    """(d) on small bf16 GPTs, captured against eager: 1-bit LAMB across
+    its freeze step, 0/1 Adam across refresh and plain steps, and at an
+    even world above 1 the hierarchical deferred exchange over 2 slices
+    (``dcn_slices``; its sub-groups warmed before the capture)."""
+    import torch
+
+    out = {}
+    batches = zero_small_batches(world, 2, seed=13)
+    runs = {"onebit_lamb": {"optimizer": {"type": "OneBitLamb", "params": {
+                "lr": SMALL_LR, "weight_decay": 0.1, "freeze_step": 3}}},
+            # at lr 1e-3 (and on four cards at 1e-4) 0/1 Adam's first
+            # sign-compressed steps over a variance from one gradient throw
+            # the small model off (as in the CPU tests)
+            "zero_one_adam": {"optimizer": {"type": "ZeroOneAdam", "params": {
+                "lr": SMALL_LR / 100, "weight_decay": 0.1,
+                "var_update_period": 3}}}}
+    if world > 1 and world % 2 == 0:
+        runs["hierarchical"] = {"tpu": {
+            "use_pallas_optimizer": True, "grad_exchange": {
+                "deferred": True, "hierarchical": "on", "dcn_slices": 2,
+                "bucket_mb": 0.5}}}
+    for name, over in runs.items():
+        check, launches, losses, _, _, e_losses, _ = captured_against_eager(
+            lambda over=over: zero_small_engine(0, torch.bfloat16, over,
+                                                gas=2), batches, 8)
+        out[name] = {"captured_vs_eager": check, "launches": launches,
+                     "losses": losses, "eager_losses": e_losses}
+    return out
+
+
+def gx_report(world, results, smi):
+    """One JSON line per exchange mode, one for the collectives' checks;
+    returns the failed checks and rank 0's launches of (a)."""
+    problems = []
+    r0 = results[0]["grad_exchange"]
+    check = [r["grad_exchange"]["check"] for r in results]
+    emit({"phase": "zero", "part": "grad_exchange_collectives",
+          "world": world, "card": smi, "by_rank": check})
+    small = [r["grad_exchange"]["small"] for r in results]
+    emit({"phase": "zero", "part": "grad_exchange_small", "world": world,
+          "rank0": small[0]})
+    for r in small:
+        for name, run in r.items():
+            if not run["captured_vs_eager"]["identical"]:
+                problems.append(f"small {name}: captured and eager differ")
+            if not all(math.isfinite(x) for x in run["losses"]):
+                problems.append(f"small {name}: a loss is not finite")
+    for c in check:
+        for kind in ("int8", "onebit"):
+            got = c[kind]
+            if not (got["out_identical"] and got["worker_error_identical"]
+                    and got["server_error_identical"]):
+                if not got["max_abs_diff"] <= got["one_step"]:
+                    problems.append(f"{kind} collective against its "
+                                    f"simulation: {got}")
+    n = GPT_1P3B_PARAMS
+    for mode in GX_MODES + ("stage0_fp32",):
+        runs = [r["grad_exchange"][mode] for r in results]
+        lead = runs[0]
+        wire = {k: v["wire_bytes"] for k, v in lead["comms_per_step"].items()}
+        line = {"phase": "zero", "part": "grad_exchange", "mode": mode,
+                "engine_mode": lead["mode"], "world": world, "card": smi,
+                "model": "gpt2-1.3b", "batch_per_rank": [4, 1024],
+                "gas": GX_GAS, "steps": STEPS, "losses": lead["losses"],
+                "step_ms_median_by_rank": [r.get("step_ms_median")
+                                           for r in runs],
+                "eager_step_ms_median_by_rank": [
+                    r.get("eager_step_ms_median") for r in runs],
+                "nccl_by_rank": [r["nccl"] for r in runs],
+                "traced_replay_rank0": lead["traced_replay"],
+                "wire_gb_per_step_logged": sum(wire.values()) / 1e9,
+                "wire_by_name": wire,
+                "wire_gb_per_step_predicted": (
+                    gx_predicted_wire_gb(mode, world)
+                    if mode != "stage0_fp32" else
+                    gx_predicted_wire_gb("stage0_fp32", world)),
+                "wire_gb_per_step_predicted_stage0_bf16":
+                    gx_predicted_wire_gb("stage0_bf16", world),
+                "peak_allocated_gb_by_rank": [r["peak_allocated_gb"]
+                                              for r in runs],
+                "predicted_state_gb": gx_predicted_state_gb(mode, world),
+                "launches_rank0": lead["launches"],
+                "graphs": lead["graphs"],
+                "captured_vs_eager_by_rank": [
+                    r.get("captured_vs_eager", {}).get("identical")
+                    for r in runs],
+                "vs_deferred_fp32": lead.get("vs_deferred_fp32"),
+                "vs_stage0_fp32": lead.get("vs_stage0_fp32"),
+                "control_vs_deferred_fp32": r0.get("control"),
+                "tolerance": {"fp32_vs_stage0_update_rel_l2":
+                              GX_FP32_UPDATE_REL_L2,
+                              "loss_rel": GX_LOSS_REL_TOL}}
+        emit(line)
+        if mode == "stage0_fp32":
+            continue
+        if not all(r["captured_vs_eager"]["identical"] for r in runs):
+            problems.append(f"{mode}: captured and eager steps differ")
+        if any(r["losses"] != lead["losses"] for r in runs):
+            problems.append(f"{mode}: ranks returned other losses")
+        if any(r["checksums"] != lead["checksums"] for r in runs):
+            problems.append(f"{mode}: ranks hold other parameters")
+        want = dict(GX_PER_STEP, fused_adamw=0 if mode == "onebit" else 1)
+        for r in runs:
+            for name, per in want.items():
+                if r["launches"][name] != per * STEPS:
+                    problems.append(f"{mode}: {name} launched "
+                                    f"{r['launches'][name]}, want "
+                                    f"{per} x {STEPS}")
+        if not lead["losses"][-1] <= lead["losses"][0] - TRAIN_MIN_LOSS_DROP:
+            problems.append(f"{mode}: the loss did not fall")
+        expect_mode = {"deferred_bf16": "deferred", "deferred_fp32":
+                       "deferred", "int8_bucketed": "int8",
+                       "onebit": "onebit"}[mode]
+        if lead["mode"] != (expect_mode if world > 1 or mode in (
+                "int8_bucketed", "onebit") else None):
+            problems.append(f"{mode}: the engine took {lead['mode']}")
+        if mode == "onebit" and lead["graphs"]["_apply"] != 2:
+            problems.append(f"onebit: {lead['graphs']} graphs, want 2 "
+                            "apply graphs (warm-up and compressed)")
+        vs = lead["vs_deferred_fp32"]
+        if mode in ("deferred_bf16", "int8_bucketed") and not \
+                vs["loss_rel_err"] <= GX_LOSS_REL_TOL:
+            problems.append(f"{mode} against (a) at f32: {vs}")
+        if mode == "onebit" and not lead["losses"][-1] < \
+                lead["losses"][GX_FREEZE_STEP - 1]:
+            problems.append("onebit: the loss did not fall after the "
+                            "freeze step")
+    fp32 = r0["deferred_fp32"]["vs_stage0_fp32"]
+    if not (fp32["first_step_update_rel_l2"] <= GX_FP32_UPDATE_REL_L2
+            and fp32["grad_norm_rel_err_by_step"][0]
+            <= ZERO_GRAD_NORM_FIRST_REL_TOL
+            and fp32["loss_rel_err"] <= ZERO_LOSS_REL_TOL
+            and fp32["update_rel_l2"] <= ZERO_UPDATE_REL_L2):
+        problems.append(f"(a) at f32 against the stage-0 f32 exchange: "
+                        f"{fp32}")
+    control = r0.get("control")
+    if world > 1 and control["loss_rel_err"] <= GX_LOSS_REL_TOL:
+        problems.append(f"the control does not break the bound: {control}")
+    return problems, r0["deferred_bf16"]["launches"]
+
+
 def zero_small_engine(stage, dtype, config_over, seed=5, gas=1):
     import torch
 
@@ -2835,6 +3336,7 @@ def zero_rank(rank, world, url):
     # the stage-0-2 path (its runs' launches added) and the stage-3 path
     out["launches"] = zero_launches
     out["launches_stage3"] = out["stages"][3]["launches"]
+    out["grad_exchange"] = gx_runs(world, rank, batch, ref, control)
     if world >= SIXB_MIN_WORLD:
         out["gpt2_6p7b"] = zero_6p7b_pair(world, rank)
     if rank == 0:
@@ -3036,6 +3538,8 @@ def zero_report(world, results, one_card, seconds):
         problems.append(f"stage 3's peak per rank {peaks[3]} GB is not "
                         f"below stage 1's {peaks[1]}")
     problems += zero_6p7b_report(world, results, smi)
+    gx_problems, gx_launches = gx_report(world, results, smi)
+    problems += gx_problems
     b4 = r0["b4_shard"]
     if not (all(b4["bit_identical"].values()) and b4["skip_flag_leaves_all_unchanged"]
             and b4["p_moved_share"] >= ADAMW_MIN_MOVED):
@@ -3098,7 +3602,8 @@ def zero_report(world, results, one_card, seconds):
     shutil.rmtree(ZERO_DIR, ignore_errors=True)
     if problems:
         raise AssertionError(f"zero (world {world}): {problems}")
-    return {"zero": r0["launches"], "zero_stage3": r0["launches_stage3"]}
+    return {"zero": r0["launches"], "zero_stage3": r0["launches_stage3"],
+            "grad_exchange": gx_launches}
 
 
 def zero_6p7b_report(world, results, smi):
@@ -3473,12 +3978,14 @@ def main(argv):
              **zero_paths}
     for entry in kernels:
         # each slice's main path, its counts set to 0 just before it: serving
-        # runs B1, GPT training, the checkpoint path and ZeRO (stages 0-2,
-        # and stage 3) B1-B4, BERT training under BigBird B4-B7. "launches"
-        # is the count on the newest path that runs the kernel
+        # runs B1, GPT training, the checkpoint path, ZeRO (stages 0-2, and
+        # stage 3) and the gradient exchange B1-B4, BERT training under
+        # BigBird B4-B7. "launches" is the count on the newest path that
+        # runs the kernel
         name = entry["name"]
         entry["launches_by_path"] = {p: counts[name] for p, counts in paths.items()}
-        entry["launches"] = (zero_paths["zero_stage3"][name]
+        entry["launches"] = (zero_paths["grad_exchange"][name]
+                             or zero_paths["zero_stage3"][name]
                              or zero_paths["zero"][name]
                              or sparse_launches[name]
                              or ckpt_launches[name] or launches[name])

@@ -15,6 +15,7 @@ from deepspeed_tpu_torch.comm.comm import (  # noqa: F401
     get_local_rank,
     get_rank,
     get_world_size,
+    index_group,
     init_distributed,
     is_initialized,
     log_summary,

@@ -17,8 +17,17 @@ Two layers, as in the JAX package:
    collective on a one-rank axis still runs through its group (at world 1
    a one-rank NCCL group), so the path is the same at every size.
    ``ReduceOp.AVG`` is a SUM and a division (gloo's AVG depends on the
-   torch version). ``all_to_all_single`` and ``ppermute`` raise until the
-   other mesh axes are ported (ROADMAP A.9).
+   torch version). ``all_to_all_single`` (JAX :97) runs over a data
+   axis; over tp, pp, ep or sp it raises until those axes are ported
+   (ROADMAP A.9), as ``ppermute`` does.
+
+   ``axis_index_groups`` (the JAX ``lax`` collectives' argument, which the
+   compressed and hierarchical exchanges pass) splits the axis into
+   disjoint groups of equal size, given as indices along the axis: the
+   collective then runs within this rank's group only. Each partition's
+   process groups are made once (``index_group``), by every rank in the
+   same order, at its first use; ``log_name`` and ``level`` label the
+   comms logger's record (``comm/logging.py``).
 
 2. **Process management**: ``init_distributed`` (JAX :140) initialises the
    default process group, NCCL for CUDA cards (after
@@ -30,15 +39,17 @@ Two layers, as in the JAX package:
    ``get_local_device_count``, ``barrier`` and ``is_initialized`` (JAX
    :280-311).
 
-NCCL creates a communicator at the first collective on a group, which must
-not happen inside a CUDA graph capture: ``warm_up`` runs one collective on
-each group a step will use, before any capture.
+NCCL creates a communicator at the first collective on a group (and its
+point-to-point connections at the first all-to-all), which must not happen
+inside a CUDA graph capture: ``warm_up`` runs an all-reduce and an
+all-to-all on each group a step will use, sub-groups included, before any
+capture.
 """
 
 import math
 import os
 from datetime import timedelta
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -93,13 +104,71 @@ def _world_of(axis: Axis) -> int:
     return _resolve(axis)[1]
 
 
+# (axis, groups, mesh shape) -> this rank's group of the partition, and
+# its size
+_index_groups = {}
+
+
+def _check_groups(groups) -> Tuple[Tuple[int, ...], ...]:
+    groups = tuple(tuple(int(i) for i in g) for g in groups)
+    sizes = {len(g) for g in groups}
+    if len(sizes) != 1:
+        raise ValueError(
+            f"axis_index_groups must be equal-size, got sizes {sizes}")
+    return groups
+
+
+def index_group(axis: str, groups):
+    """``(group, size)``: the process group of this rank's part of the
+    partition ``groups`` of ``axis`` (lists of indices along the axis,
+    disjoint, of equal size, covering it). The first call makes every part's
+    group for every slice of the mesh along ``axis``, in one order on every
+    rank (``new_group`` is a collective of the whole world); later calls
+    return it from a cache."""
+    groups = _check_groups(groups)
+    topo = get_default_topology()
+    key = (axis, groups, topo.shape)
+    if key not in _index_groups:
+        if not is_initialized():
+            raise RuntimeError("collectives need an initialised process "
+                               "group (comm.init_distributed)")
+        if sorted(i for g in groups for i in g) != list(range(topo.size(axis))):
+            raise ValueError(f"axis_index_groups {groups} do not partition "
+                             f"the {axis} axis of {topo.size(axis)} ranks")
+        me = dist.get_rank()
+        mine = None
+        for base in topo.filter_ranks(**{axis: 0}):
+            coords = topo.coord_of(base)
+            for g in groups:
+                ranks = [r for i in g for r in topo.filter_ranks(
+                    **dict(coords, **{axis: i}))]
+                group = dist.new_group(ranks)
+                if me in ranks:
+                    mine = group
+        _index_groups[key] = (mine, len(groups[0]))
+    return _index_groups[key]
+
+
+def _group_of(axis: Axis, axis_index_groups=None):
+    """``(group, size)`` of ``axis``, or of this rank's part of
+    ``axis_index_groups`` along it."""
+    if axis_index_groups is None:
+        return _resolve(axis)
+    if not isinstance(axis, str):
+        raise ValueError("axis_index_groups split one mesh axis")
+    return index_group(axis, axis_index_groups)
+
+
 # ---------------------------------------------------------------------------
 # collectives
 # ---------------------------------------------------------------------------
-def all_reduce(x: torch.Tensor, axis: Axis = None, op: str = ReduceOp.SUM):
+def all_reduce(x: torch.Tensor, axis: Axis = None, op: str = ReduceOp.SUM,
+               *, axis_index_groups=None, log_name: Optional[str] = None,
+               level: Optional[str] = None):
     """``x`` reduced over ``axis``, in place (JAX :64)."""
-    group, world = _resolve(axis)
-    comms_logger.append("all_reduce", x, axis, world=world)
+    group, world = _group_of(axis, axis_index_groups)
+    comms_logger.append("all_reduce", x, axis, log_name=log_name,
+                        world=world, level=level)
     dist.all_reduce(x, op=_TORCH_OPS[op], group=group)
     if op == ReduceOp.AVG:
         x.div_(world)
@@ -107,13 +176,16 @@ def all_reduce(x: torch.Tensor, axis: Axis = None, op: str = ReduceOp.SUM):
 
 
 def all_gather(x: torch.Tensor, axis: Axis = None, gather_dim: int = 0,
-               tiled: bool = True, out: Optional[torch.Tensor] = None):
+               tiled: bool = True, out: Optional[torch.Tensor] = None, *,
+               axis_index_groups=None, log_name: Optional[str] = None,
+               level: Optional[str] = None):
     """Every rank's ``x`` concatenated along ``gather_dim`` (``tiled``) or
     stacked on a new leading dimension (JAX :83). ``out`` (contiguous, of
     the gathered shape along dim 0) may hold ``x`` at this rank's place:
     the gather is then in place."""
-    group, world = _resolve(axis)
-    comms_logger.append("all_gather", x, axis, world=world)
+    group, world = _group_of(axis, axis_index_groups)
+    comms_logger.append("all_gather", x, axis, log_name=log_name,
+                        world=world, level=level)
     flat_shape = (world * x.shape[0],) + tuple(x.shape[1:])
     if out is None:
         out = x.new_empty(flat_shape)
@@ -126,16 +198,19 @@ def all_gather(x: torch.Tensor, axis: Axis = None, gather_dim: int = 0,
 
 
 def reduce_scatter(x: torch.Tensor, axis: Axis = None, scatter_dim: int = 0,
-                   out: Optional[torch.Tensor] = None):
+                   out: Optional[torch.Tensor] = None, *,
+                   axis_index_groups=None, log_name: Optional[str] = None,
+                   level: Optional[str] = None):
     """The sum of every rank's ``x``, split along dim 0, this rank's block
     written to ``out`` (JAX :90, ``psum_scatter(tiled=True)``)."""
     if scatter_dim != 0:
         raise ValueError("reduce_scatter splits dim 0 (the flat buffers)")
-    group, world = _resolve(axis)
+    group, world = _group_of(axis, axis_index_groups)
     if x.shape[0] % world:
         raise ValueError(f"reduce_scatter of {x.shape[0]} rows over "
                          f"{world} ranks")
-    comms_logger.append("reduce_scatter", x, axis, world=world)
+    comms_logger.append("reduce_scatter", x, axis, log_name=log_name,
+                        world=world, level=level)
     if out is None:
         out = x.new_empty((x.shape[0] // world,) + tuple(x.shape[1:]))
     dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
@@ -158,9 +233,36 @@ def axis_index(axis: str) -> int:
     return get_default_topology().axis_index(axis)
 
 
-def all_to_all_single(x, axis: str, split_dim: int = 0, concat_dim: int = 0):
-    raise NotImplementedError(
-        "all_to_all_single waits for the expert-parallel axis (ROADMAP A.9)")
+def all_to_all_single(x: torch.Tensor, axis: Axis, split_dim: int = 0,
+                      concat_dim: int = 0, *, axis_index_groups=None,
+                      log_name: Optional[str] = None,
+                      level: Optional[str] = None) -> torch.Tensor:
+    """JAX :97 (``lax.all_to_all(tiled=True)``): ``x`` split into ``w``
+    equal blocks along ``split_dim``, block j sent to the axis's rank j,
+    and the ``w`` blocks received concatenated along ``concat_dim`` in rank
+    order (a new tensor). Over the data axes; tp, pp, ep and sp raise
+    (ROADMAP A.9)."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis or ())
+    unported = [a for a in axes if a not in ("dp", "fsdp")]
+    if unported:
+        raise NotImplementedError(
+            f"all_to_all_single over {unported} waits for the other mesh "
+            "axes (ROADMAP A.9)")
+    group, world = _group_of(axis, axis_index_groups)
+    split_dim %= x.dim()
+    if x.shape[split_dim] % world:
+        raise ValueError(f"all_to_all_single of {x.shape[split_dim]} rows "
+                         f"along dim {split_dim} over {world} ranks")
+    comms_logger.append("all_to_all", x, axis, log_name=log_name,
+                        world=world, level=level)
+    # [w, block]: block j goes to rank j, row i of ``out`` came from rank i
+    blocks = (x.reshape((world, -1) + tuple(x.shape[1:])) if split_dim == 0
+              else torch.stack(x.chunk(world, split_dim)))
+    out = torch.empty_like(blocks)
+    dist.all_to_all_single(out, blocks.contiguous(), group=group)
+    if concat_dim % x.dim() == 0:
+        return out.reshape((-1,) + tuple(out.shape[2:]))
+    return torch.cat(out.unbind(0), dim=concat_dim)
 
 
 def ppermute(x, axis: str, perm):
@@ -176,13 +278,17 @@ def send_recv_prev(x, axis: str, axis_size: int):
     return ppermute(x, axis, None)
 
 
-def warm_up(axes: Sequence[Axis], device) -> None:
-    """One small all-reduce on each group of ``axes``, so that NCCL makes
-    its communicators now and not inside a CUDA graph capture. Not
-    logged."""
-    for axis in axes:
-        group, _ = _resolve(axis)
+def warm_up(axes: Sequence[Axis], device, index_groups=()) -> None:
+    """One small all-reduce and all-to-all on each group of ``axes`` and on
+    this rank's group of each ``(axis, groups)`` in ``index_groups`` (made
+    here if new), so that NCCL makes its communicators and connections now
+    and not inside a CUDA graph capture. Not logged."""
+    groups = [_resolve(axis) for axis in axes]
+    groups += [index_group(axis, g) for axis, g in index_groups]
+    for group, world in groups:
         dist.all_reduce(torch.zeros(1, device=device), group=group)
+        x = torch.zeros(world, dtype=torch.int8, device=device)
+        dist.all_to_all_single(torch.empty_like(x), x, group=group)
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +363,7 @@ def destroy_distributed() -> None:
 
     if is_initialized():
         dist.destroy_process_group()
+    _index_groups.clear()
     reset_default_topology()
 
 

@@ -68,7 +68,7 @@ def wire_factor(op_name: str, world: Optional[int]) -> float:
 
 def _new_record():
     return {"count": 0, "bytes": 0, "wire_bytes": 0, "wire_dtype": None,
-            "msg_sizes": defaultdict(int)}
+            "level": None, "msg_sizes": defaultdict(int)}
 
 
 class CommsLogger:
@@ -84,8 +84,8 @@ class CommsLogger:
         # (ring-accounted bytes sent per device in the wire dtype),
         # "wire_dtype", "msg_sizes": {size: count}}
         self.comms_dict: Dict[str, Dict] = defaultdict(_new_record)
-        # wire bytes by interconnect level ("ici" / "dcn" in the JAX
-        # package's hierarchical exchange, which the port has not yet)
+        # wire bytes by interconnect level: "ici" (inside a slice) and "dcn"
+        # (across slices) of the hierarchical exchange (comm/bucketed.py)
         self.level_bytes: Dict[str, int] = defaultdict(int)
 
     def configure(self, config) -> None:
@@ -123,6 +123,7 @@ class CommsLogger:
                 rec["wire_dtype"] = _dtype_name(wire_dtype)
             rec["msg_sizes"][size] += 1
             if level is not None:
+                rec["level"] = str(level)
                 self.level_bytes[str(level)] += wire
         if self.verbose:
             log_dist(f"comm op: {name} | axis: {axis} | msg size: {size} "
@@ -145,6 +146,7 @@ class CommsLogger:
             if not delta["count"]:
                 continue
             delta["wire_dtype"] = rec["wire_dtype"]
+            delta["level"] = rec["level"]
             delta["msg_sizes"] = {
                 s: n - old["msg_sizes"].get(s, 0)
                 for s, n in rec["msg_sizes"].items()
@@ -164,6 +166,9 @@ class CommsLogger:
                     rec[k] += sign * d[k]
                 if d["wire_dtype"] is not None:
                     rec["wire_dtype"] = d["wire_dtype"]
+                if d.get("level") is not None:
+                    rec["level"] = d["level"]
+                    self.level_bytes[d["level"]] += sign * d["wire_bytes"]
                 for s, n in d["msg_sizes"].items():
                     rec["msg_sizes"][s] += sign * n
                     if not rec["msg_sizes"][s]:

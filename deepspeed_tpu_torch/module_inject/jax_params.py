@@ -149,3 +149,188 @@ def _index_tree(tree, i):
     if isinstance(tree, dict) or hasattr(tree, "items"):
         return {k: _index_tree(v, i) for k, v in tree.items()}
     return np.asarray(tree)[i]
+
+
+# ---------------------------------------------------------------------------
+# the JAX flat layout of a GPT's parameters, for the gradient exchange
+# ---------------------------------------------------------------------------
+class ExchangeLayout:
+    """The port's parameters laid out as the JAX engine flattens its
+    parameter tree (``jax.tree.flatten`` of the flax ``GPT`` params): the
+    leaves in sorted-key order, each in flax layout (Dense kernels ``[in,
+    out]``, the transpose of ``nn.Linear.weight``; ``c_attn`` fused q | k
+    | v), concatenated into one flat buffer. With ``scan_layers`` a block
+    leaf stacks the layers (``h/block/...``, a leading layer axis);
+    without, the blocks are ``h_0, h_1, h_10, ...`` in string order.
+
+    ``leaves`` is ``[(path, jax_shape)]`` in that order, ``offsets`` each
+    leaf's start in the flat buffer, ``numel`` its length. Parameter ``i``
+    (the port's order) lies at ``param_at[i] = (offset, jax_part_shape,
+    transposed)``: its elements in the flat buffer, as the flax array of
+    that layer. ``view(flat, i)`` is parameter i's view of a flat buffer in
+    the port's shape (a strided view for a transposed kernel), so a copy
+    into it writes the JAX order and a read of it reads it back. The
+    quantisation blocks, 1-bit chunks and buckets of the compressed
+    exchange are then taken over the same elements as in the JAX engine,
+    and its error-feedback buffers have the JAX shapes."""
+
+    def __init__(self, leaves, parts, n_params):
+        self.leaves = [(path, tuple(shape)) for path, shape in leaves]
+        self.offsets, at = [], 0
+        for _, shape in self.leaves:
+            self.offsets.append(at)
+            at += int(np.prod(shape)) if shape else 1
+        self.numel = at
+        self.leaf_sizes = [int(np.prod(s)) if s else 1
+                           for _, s in self.leaves]
+        # parts[leaf] = [(param index, layer or None, transposed)]
+        self.param_at = [None] * n_params
+        self.leaf_params = []
+        for li, ((_, shape), members) in enumerate(zip(self.leaves, parts)):
+            self.leaf_params.append([i for i, _, _ in members])
+            for i, layer, transposed in members:
+                part = shape if layer is None else shape[1:]
+                n = int(np.prod(part)) if part else 1
+                off = self.offsets[li] + (0 if layer is None else layer * n)
+                self.param_at[i] = (off, tuple(part), transposed)
+        missing = [i for i, at_ in enumerate(self.param_at) if at_ is None]
+        if missing:
+            raise ValueError(f"parameters {missing} have no JAX leaf")
+
+    @classmethod
+    def identity(cls, named_shapes) -> "ExchangeLayout":
+        """Each parameter its own leaf, in the given order and shape (the
+        layout of a standalone optimizer)."""
+        return cls([(name, tuple(shape)) for name, shape in named_shapes],
+                   [[(i, None, False)] for i in range(len(named_shapes))],
+                   len(named_shapes))
+
+    def view(self, flat, i):
+        off, part, transposed = self.param_at[i]
+        n = int(np.prod(part)) if part else 1
+        v = flat[off:off + n].view(part)
+        return v.t() if transposed else v
+
+    def leaf(self, flat, li):
+        """Leaf ``li``'s contiguous slice of a flat buffer."""
+        o = self.offsets[li]
+        return flat[o:o + self.leaf_sizes[li]]
+
+
+# (port module, port leaf) -> flax (module, leaf, transposed) in a block
+_BLOCK_LEAVES = [
+    ("attn.c_attn.bias", ("attn", "c_attn", "bias"), False),
+    ("attn.c_attn.weight", ("attn", "c_attn", "kernel"), True),
+    ("attn.c_proj.bias", ("attn", "c_proj", "bias"), False),
+    ("attn.c_proj.weight", ("attn", "c_proj", "kernel"), True),
+    ("ln_1.bias", ("ln_1", "bias"), False),
+    ("ln_1.weight", ("ln_1", "scale"), False),
+    ("ln_2.bias", ("ln_2", "bias"), False),
+    ("ln_2.weight", ("ln_2", "scale"), False),
+    ("mlp.c_fc.bias", ("mlp", "c_fc", "bias"), False),
+    ("mlp.c_fc.weight", ("mlp", "c_fc", "kernel"), True),
+    ("mlp.c_proj.bias", ("mlp", "c_proj", "bias"), False),
+    ("mlp.c_proj.weight", ("mlp", "c_proj", "kernel"), True),
+]
+_OUTER_LEAVES = [("ln_f.bias", ("ln_f", "bias")),
+                 ("ln_f.weight", ("ln_f", "scale")),
+                 ("wpe.weight", ("wpe", "embedding")),
+                 ("wte.weight", ("wte", "embedding"))]
+
+
+def gpt_exchange_layout(named_shapes, cfg) -> ExchangeLayout:
+    """The ``ExchangeLayout`` of a ``GPT``'s parameters (``named_shapes``:
+    ``(name, shape)`` in the port's order, as ``named_parameters()`` gives
+    them) under ``cfg.scan_layers``. The inverse of
+    ``gpt_state_dict_from_jax``'s map; it needs no jax."""
+    index = {name: i for i, (name, _) in enumerate(named_shapes)}
+    shapes = {name: tuple(s) for name, s in named_shapes}
+    entries = {}  # jax path tuple -> (jax shape, [(param, layer, transposed)])
+
+    def flax_shape(name, transposed):
+        s = shapes[name]
+        return tuple(reversed(s)) if transposed else s
+
+    for i in range(cfg.n_layer):
+        for port, path, transposed in _BLOCK_LEAVES:
+            name = f"h.{i}.{port}"
+            if name not in index:
+                raise ValueError(f"{name} is not a parameter of the model")
+            part = flax_shape(name, transposed)
+            if cfg.scan_layers:
+                key = ("h", "block") + path
+                shape = (cfg.n_layer,) + part
+                entries.setdefault(key, (shape, []))[1].append(
+                    (index[name], i, transposed))
+            else:
+                entries[(f"h_{i}",) + path] = (
+                    part, [(index[name], None, transposed)])
+    for name, path in _OUTER_LEAVES:
+        entries[path] = (shapes[name], [(index[name], None, False)])
+    if len(index) != sum(len(m) for _, m in entries.values()):
+        unknown = set(index) - {named_shapes[i][0] for _, m in entries.values()
+                                for i, _, _ in m}
+        raise ValueError(f"parameters without a JAX leaf: {sorted(unknown)}")
+    order = sorted(entries)  # jax.tree.flatten sorts dict keys per level
+    return ExchangeLayout([("/".join(k), entries[k][0]) for k in order],
+                          [entries[k][1] for k in order], len(index))
+
+
+def flatten_jax_tree(tree):
+    """``[(path, array)]`` of a nested dict of arrays in
+    ``jax.tree.flatten``'s order (sorted keys at each level)."""
+    if isinstance(tree, dict) or hasattr(tree, "items"):
+        out = []
+        for k in sorted(tree.keys()):
+            out += [((f"{k}/{p}" if p else str(k)), a)
+                    for p, a in flatten_jax_tree(tree[k])]
+        return out
+    return [("", tree)]
+
+
+def _state_fields(state):
+    """A named tuple's fields as a dict (``OnebitAdamState`` and
+    ``ZeroOneAdamState`` arrive from ``jax.device_get`` as named tuples)."""
+    return {k: getattr(state, k) for k in state._fields}
+
+
+def compressed_state_from_jax(opt_state, cfg, mode: str, rank: int,
+                              world: int) -> Dict[str, Any]:
+    """The JAX engine's optimizer state of a compressed gradient exchange
+    (``jax.device_get(engine._opt_state)`` of a ``GPT``: ``(inner,)`` for
+    the deferred exchange, ``(inner, err, serr)`` for int8, with the error
+    feedback per leaf or per bucket, ``[k, ...]`` per worker; an
+    ``OnebitAdamState`` / ``ZeroOneAdamState`` for the 1-bit family) ->
+    the port's, for rank ``rank`` of ``world``: ``{"optimizer": the
+    optimizer's state_dict, "grad_exchange": {"worker_error": [...],
+    "server_error": [...]}}``, the error buffers as this rank's rows,
+    flattened, in the exchange's order (buckets, or leaves in
+    ``jax.tree.flatten`` order). ``CompressedExchange.load_state``
+    (``runtime/compressed_exchange.py``) takes it."""
+    def rows(tree):
+        leaves = ([a for a in tree] if isinstance(tree, (tuple, list))
+                  else [a for _, a in flatten_jax_tree(tree)])
+        out = []
+        for a in leaves:
+            a = np.asarray(a, dtype=np.float32)
+            if a.shape[0] != world:
+                raise ValueError(f"error feedback of {a.shape[0]} workers "
+                                 f"for a world of {world}")
+            out.append(torch.from_numpy(a[rank].reshape(-1).copy()))
+        return out
+
+    if mode == "onebit":
+        st = _state_fields(opt_state)
+        m = gpt_state_dict_from_jax(st["exp_avg"], cfg)
+        v = gpt_state_dict_from_jax(st["exp_avg_sq"], cfg)
+        return {"optimizer": {
+                    "count": int(np.asarray(st["count"])),
+                    "state": {n: {"exp_avg": m[n], "exp_avg_sq": v[n]}
+                              for n in m}},
+                "grad_exchange": {"worker_error": rows(st["worker_error"]),
+                                  "server_error": rows(st["server_error"])}}
+    out = {"optimizer": adam_state_from_jax(opt_state[0], cfg)}
+    if mode == "int8":
+        out["grad_exchange"] = {"worker_error": rows(opt_state[1]),
+                                "server_error": rows(opt_state[2])}
+    return out

@@ -319,12 +319,42 @@ class MeshConfig(ConfigModel):
 
 @dataclass
 class GradExchangeConfig(ConfigModel):
+    """The explicit gradient exchange (``comm/bucketed.py``,
+    ``runtime/compressed_exchange.py``): ``deferred`` exchanges each rank's
+    f32 gradient sum once per step, in buckets of ``bucket_mb`` (which also
+    buckets the int8 exchange; 0 is one leaf per bucket), at ``wire_dtype``
+    (bf16 | fp32); ``hierarchical`` (off | auto | on) the two-level
+    exchange over ``dcn_slices`` slices of the dp axis (0: the hosts), its
+    int8 leg in blocks of ``dcn_block``."""
+
     bucket_mb: float = 0.0
     deferred: bool = False
     wire_dtype: str = "bf16"
     hierarchical: str = "off"
     dcn_slices: int = 0
     dcn_block: int = 512
+
+    def __post_init__validate__(self):
+        if self.wire_dtype not in ("bf16", "bfloat16", "fp32", "float32"):
+            raise DeepSpeedConfigError(
+                "tpu.grad_exchange.wire_dtype must be one of bf16/bfloat16/"
+                f"fp32/float32, got {self.wire_dtype!r}")
+        if self.bucket_mb < 0:
+            raise DeepSpeedConfigError(
+                f"tpu.grad_exchange.bucket_mb must be >= 0, got "
+                f"{self.bucket_mb}")
+        if self.hierarchical not in ("off", "auto", "on"):
+            raise DeepSpeedConfigError(
+                "tpu.grad_exchange.hierarchical must be one of off/auto/on,"
+                f" got {self.hierarchical!r}")
+        if self.dcn_slices < 0:
+            raise DeepSpeedConfigError(
+                f"tpu.grad_exchange.dcn_slices must be >= 0, got "
+                f"{self.dcn_slices}")
+        if self.dcn_block < 1:
+            raise DeepSpeedConfigError(
+                f"tpu.grad_exchange.dcn_block must be >= 1, got "
+                f"{self.dcn_block}")
 
 
 @dataclass
@@ -554,9 +584,7 @@ class DeepSpeedConfig:
         implement yet; the engine raises ``NotImplementedError`` naming them.
         Blocks left at their defaults parse and are inert."""
         zero = self.zero_config
-        gx = self.tpu.grad_exchange_config
         mesh = self.tpu.mesh_config
-        opt_type = (self.optimizer.type or "").lower()
         checks = [
             ("zero_optimization.offload_optimizer (optimizer offload, "
              "ROADMAP A.10)",
@@ -573,13 +601,6 @@ class DeepSpeedConfig:
             ("tensorboard", self.tensorboard.enabled),
             ("wandb", self.wandb.enabled),
             ("csv_monitor", self.csv_monitor.enabled),
-            ("tpu.grad_exchange (the bucketed and deferred exchanges, "
-             "ROADMAP A.4)", gx.deferred or gx.bucket_mb > 0
-             or gx.hierarchical != "off"),
-            ("the 1-bit optimizers (ROADMAP A.4)",
-             opt_type in C.ONEBIT_OPTIMIZERS),
-            ("communication_data_type=int8 (the compressed exchange, "
-             "ROADMAP A.4)", self.communication_data_type == "int8"),
             ("graceful_shutdown", self.graceful_shutdown.enabled),
             ("pipeline", self.pipeline.to_dict() != PipelineConfig().to_dict()),
             ("activation_checkpointing",
@@ -603,12 +624,14 @@ class DeepSpeedConfig:
 
     @property
     def communication_dtype(self):
-        """The torch dtype of the gradient exchange, or None for the
-        gradients' own dtype."""
+        """The torch dtype of the ZeRO gradient exchange, or None for the
+        gradients' own dtype (and for int8, which the compressed exchange
+        carries: ``runtime/compressed_exchange.py``)."""
         import torch
 
         return {None: None, "fp32": torch.float32, "fp16": torch.float16,
-                "bf16": torch.bfloat16, "bfp16": torch.bfloat16}[
+                "bf16": torch.bfloat16, "bfp16": torch.bfloat16,
+                "int8": None}[
                     self.communication_data_type]
 
     @property

@@ -63,6 +63,18 @@ whole tensors (gathering the optimizer's shards one parameter at a time,
 and at stage 3 the parameters unit by unit), every rank loads its slice,
 and a load at another world or stage reshards (``runtime/reshard.py``).
 
+The explicit gradient exchanges (JAX engine :298-340, :1036-1252): with
+``tpu.grad_exchange.deferred`` on a dp axis of several ranks,
+``communication_data_type: "int8"`` or a 1-bit optimizer, at ZeRO stage 0
+(stage 1 for the 1-bit family, its state replicated, dp kept on dp),
+``runtime/compressed_exchange.CompressedExchange`` takes ZeRO's place:
+each rank keeps the gradient of its own mean loss as an f32 sum in the JAX
+engine's flat layout through the accumulation window, and the ranks
+exchange once at the boundary, inside the captured step; the loss is the
+mean of the ranks' losses. The 1-bit optimizers' branch (warm-up or
+compressed, 0/1 Adam's variance refresh) is a static key of the step, so
+each has its own graph.
+
 Entry points run on the card: ``device=None`` means ``"cuda"`` (under a
 NCCL group ``cuda:{local_rank}``, one card per rank) and raises when torch
 sees no card. Pass ``device="cpu"`` to train on the host (the kernels then
@@ -90,6 +102,8 @@ from deepspeed_tpu_torch.runtime.checkpoint_engine import (
     ENGINE_STATES, MODEL_STATES, OPTIM_STATES, select_checkpoint_engine,
     write_torch_file)
 from deepspeed_tpu_torch.runtime.compiled_step import CompiledStep
+from deepspeed_tpu_torch.runtime.compressed_exchange import (
+    CompressedExchange, select_mode, validate_compressed_config)
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.loss_scaler import (LossScaleState,
@@ -221,12 +235,15 @@ class DeepSpeedEngine:
                 "(PipelineModule included) is not ported")
         if not isinstance(config, DeepSpeedConfig):
             config = DeepSpeedConfig(config)
+        self._distributed = comm.is_initialized()
+        # a compressed gradient exchange is checked first, with the JAX
+        # engine's words (runtime/compressed_exchange.py)
+        self._cx_mode = self._select_exchange(config, model)
         unported = config.unported_features()
         if unported:
             raise NotImplementedError(
                 f"config blocks not ported to deepspeed_tpu_torch yet: "
                 f"{', '.join(unported)}")
-        self._distributed = comm.is_initialized()
         if (self._distributed and config.zero_config.stage >= 3
                 and not isinstance(model, GPT)):
             raise NotImplementedError(
@@ -285,15 +302,34 @@ class DeepSpeedEngine:
 
         self.lr_scheduler, schedule_fn = self._configure_lr(lr_scheduler)
 
-        def build(params, names, runs=None, reduce=None):
+        def build(params, names, runs=None, reduce=None, **kw):
             return build_optimizer(
                 params, config.optimizer.type, config.optimizer.params,
                 schedule_fn, use_pallas=config.tpu.use_pallas_optimizer,
-                names=names, runs=runs, reduce=reduce)
+                names=names, runs=runs, reduce=reduce, **kw)
 
-        # the data-parallel state (None on the one-card engine)
+        # device scalars, made once: the clip bound and, for the fp16 micro
+        # step, the accumulation count
+        self._max_norm = None
+        if self.gradient_clipping and self.gradient_clipping > 0:
+            self._max_norm = torch.tensor(float(self.gradient_clipping),
+                                          dtype=torch.float32,
+                                          device=self.device)
+        self._gas = torch.tensor(float(self.gradient_accumulation_steps),
+                                 dtype=torch.float32, device=self.device)
+
+        # the data-parallel state (None on the one-card engine): ZeRO's, or
+        # a compressed gradient exchange's
         self._zero = None
-        if self._distributed:
+        self._cx = None
+        if self._cx_mode is not None:
+            self._cx = CompressedExchange(self._cx_mode, model, named, config,
+                                          self.topology, build,
+                                          self._max_norm)
+            # every group and sub-group the step uses, before any capture
+            comm.warm_up(["dp"], self.device, self._cx.index_groups())
+            self.optimizer = self._cx.inner
+        elif self._distributed:
             # NCCL makes a communicator at a group's first collective,
             # which must come before any capture
             comm.warm_up(self._exchange_axes(), self.device)
@@ -316,15 +352,6 @@ class DeepSpeedEngine:
         self.training_dataloader = None
         self._ls_state, self._ls_config = init_loss_scale(
             config.fp16, enabled=self.fp16_enabled, device=self.device)
-        # device scalars, made once: the clip bound and, for the fp16 micro
-        # step, the accumulation count
-        self._max_norm = None
-        if self.gradient_clipping and self.gradient_clipping > 0:
-            self._max_norm = torch.tensor(float(self.gradient_clipping),
-                                          dtype=torch.float32,
-                                          device=self.device)
-        self._gas = torch.tensor(float(self.gradient_accumulation_steps),
-                                 dtype=torch.float32, device=self.device)
 
         # the steps, each captured per batch signature on a card; one memory
         # pool for the engine's graphs
@@ -353,8 +380,11 @@ class DeepSpeedEngine:
             steps_per_output=config.steps_per_print)
         self.wall_clock_breakdown = bool(config.wall_clock_breakdown)
         self.timers = SynchronizedWallClockTimer()
-        layout_note = ("one card, no process group" if self._zero is None
-                       else f"{self.topology}, " + (
+        layout_note = (
+            f"{self.topology}, {self._cx_mode} gradient exchange"
+            if self._cx is not None else
+            "one card, no process group" if self._zero is None
+            else f"{self.topology}, " + (
                            "replicated" if not self._zero.sharded else
                            "parameters partitioned over fsdp by unit"
                            if self._stage3 else
@@ -369,6 +399,32 @@ class DeepSpeedEngine:
             f"{type(self.optimizer).__name__}", ranks=[0])
 
     # -- configuration ----------------------------------------------------
+    def _select_exchange(self, config, model) -> Optional[str]:
+        """The compressed gradient exchange's mode (None: ZeRO's exchange or
+        the one-card engine), validated as the JAX engine validates it on
+        the mesh before ZeRO's move of dp to fsdp. The mode runs over a
+        process group, and over a GPT's JAX layout."""
+        if not self._distributed:
+            mode = select_mode(config, dp_size=1)
+            if mode is not None:
+                raise ValueError(
+                    f"the {mode} gradient exchange runs over a process "
+                    "group: call deepspeed_tpu_torch.comm.init_distributed "
+                    "in every rank's process before initialize (one rank "
+                    "is enough)")
+            return None
+        topology = layout.build_topology(config, comm.get_world_size())
+        mode = select_mode(config, topology.size("dp"))
+        if mode is None:
+            return None
+        validate_compressed_config(mode, config, topology)
+        if not isinstance(model, GPT):
+            raise NotImplementedError(
+                f"the {mode} gradient exchange follows the JAX layout of a "
+                f"GPT's parameters; for {type(model).__name__} it is not "
+                "ported yet (ROADMAP A.4, what is left: the BERT layout)")
+        return mode
+
     def _build_topology(self, config) -> MeshTopology:
         """The one-card mesh without a process group (a mesh of more than
         one rank then raises); with one, the config's mesh over its ranks,
@@ -385,8 +441,9 @@ class DeepSpeedEngine:
             return MeshTopology(world_size=1)
         topology = layout.build_topology(config,
                                          world_size=comm.get_world_size())
-        topology = layout.apply_zero_fsdp_move(topology,
-                                               config.zero_config.stage)
+        topology = layout.apply_zero_fsdp_move(
+            topology, config.zero_config.stage,
+            compressed=self._cx_mode is not None)
         set_default_topology(topology)
         return topology
 
@@ -434,7 +491,7 @@ class DeepSpeedEngine:
         micro, dp = self.train_micro_batch_size_per_gpu, self.data_parallel_size
         for key, x in dict(batch).items():
             x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
-            if self._zero is not None:
+            if self._data_parallel is not None:
                 if x.ndim == 0 or x.shape[0] != micro * dp:
                     raise ValueError(
                         f"batch leading dim {tuple(x.shape)} must be the "
@@ -447,7 +504,30 @@ class DeepSpeedEngine:
             out[key] = x.to(self.device, non_blocking=True)
         return out
 
+    @property
+    def _data_parallel(self):
+        """The data-parallel state (ZeRO's or the compressed exchange's), or
+        None on the one-card engine."""
+        return self._zero if self._zero is not None else self._cx
+
+    def _phase(self) -> tuple:
+        """The next step's host-known branch (the 1-bit optimizers'), a
+        static key of the captured steps; () otherwise."""
+        return self._cx.phase() if self._cx is not None else ()
+
     # -- the step functions (tensors only: no host read) --------------------
+    def _update_loss_scale(self, overflow):
+        if self.fp16_enabled and self._ls_config.dynamic:
+            self._ls_state.copy_(update_loss_scale(self._ls_state, overflow,
+                                                   self._ls_config))
+
+    def _cx_update(self, phase):
+        """The compressed exchange's update from its f32 sums (divided by
+        the loss scale); returns ``(norm, overflow)``."""
+        norm, overflow = self._cx.update(phase, self.fp16_enabled)
+        self._update_loss_scale(overflow)
+        return norm, overflow
+
     def _update(self, grads):
         """The update from gradients already divided by the loss scale
         (modified in place): the overflow flag (fp16 only), the global norm
@@ -475,9 +555,7 @@ class DeepSpeedEngine:
             self.optimizer.apply(
                 [g.to(p.dtype) for g, p in zip(grads, self._params)],
                 skip=overflow)
-        if self.fp16_enabled and self._ls_config.dynamic:
-            self._ls_state.copy_(update_loss_scale(self._ls_state, overflow,
-                                                   self._ls_config))
+        self._update_loss_scale(overflow)
         return norm, overflow
 
     def _grads_of(self, loss_scaled):
@@ -496,7 +574,7 @@ class DeepSpeedEngine:
         all-reduce): the rank's mean loss times it is its part of the global
         mean."""
         local = self.module.loss_weight_sum(**batch).float()
-        total = self._zero.data_parallel_sum(local)
+        total = self._data_parallel.data_parallel_sum(local)
         return local.clamp(min=1.0) / total.clamp(min=1.0)
 
     @property
@@ -510,10 +588,13 @@ class DeepSpeedEngine:
             return self._zero.forward(**batch)
         return self.module(**batch)
 
-    def _fused_step(self, **batch):
+    def _fused_step(self, *phase, **batch):
         """gas == 1: gradients of ``loss * scale`` go straight to the update
-        (no f32 accumulation buffer). Returns ``(loss, norm, overflow)``."""
+        (no f32 accumulation buffer). Returns ``(loss, norm, overflow)``.
+        ``phase``: the compressed exchange's branch."""
         loss = self._model(**batch)
+        if self._cx is not None:
+            return self._cx_fused_step(loss, phase)
         if self._zero is not None:
             return self._zero_fused_step(loss, batch)
         if self.fp16_enabled:
@@ -545,6 +626,19 @@ class DeepSpeedEngine:
         norm, overflow = self._update(grads)
         return z.data_parallel_sum(loss * share), norm, overflow
 
+    def _cx_fused_step(self, loss, phase):
+        """gas == 1 under a compressed exchange: the backward of the rank's
+        own mean loss, its gradient into the f32 sum (in the JAX layout),
+        the exchange and the update. Returns the mean of the ranks' losses,
+        the norm and the overflow flag."""
+        cx = self._cx
+        (loss * self._ls_state.scale if self.fp16_enabled else loss).backward()
+        cx.collect(add=False)
+        if self.fp16_enabled:
+            cx.acc.div_(self._ls_state.scale)
+        norm, overflow = self._cx_update(phase)
+        return cx.mean_loss(loss), norm, overflow
+
     def _micro_step(self, **batch):
         """One micro batch: forward, backward of ``loss * scale / gas``, and
         the grads added in f32 to the accumulation buffers (under a process
@@ -553,6 +647,12 @@ class DeepSpeedEngine:
         loss = self._model(**batch)
         factor = (self._ls_state.scale / self._gas if self.fp16_enabled
                   else 1.0 / self.gradient_accumulation_steps)
+        if self._cx is not None:
+            # the rank's own mean loss, its gradient added to its f32 sum:
+            # the exchange waits for the boundary
+            (loss * factor).backward()
+            self._cx.collect(add=True)
+            return self._cx.mean_loss(loss)
         z = self._zero
         if z is not None:
             share = self._loss_share(batch)
@@ -564,10 +664,16 @@ class DeepSpeedEngine:
             acc.add_(g)
         return loss.detach()
 
-    def _apply_step(self):
+    def _apply_step(self, *phase):
         """The boundary: the update from the f32 sums themselves (divided
         and clipped in place), then the sums set to 0. Returns ``(norm,
-        overflow)``."""
+        overflow)``. ``phase``: the compressed exchange's branch."""
+        if self._cx is not None:
+            if self.fp16_enabled:
+                self._cx.acc.div_(self._ls_state.scale)
+            out = self._cx_update(phase)
+            self._cx.zero_accumulators()
+            return out
         if self._zero is not None:
             grads = self._zero.accumulated()
             if self.fp16_enabled:
@@ -590,7 +696,7 @@ class DeepSpeedEngine:
         the step was skipped."""
         skipped = bool(overflow) if self.fp16_enabled else False
         self.optimizer.commit(not skipped)
-        if not skipped:
+        if not skipped and (self._cx is None or self._cx.norm_available):
             self._last_grad_norm = norm
         return skipped
 
@@ -630,14 +736,14 @@ class DeepSpeedEngine:
         return torch.stack(losses).mean()
 
     @staticmethod
-    def _run(step: CompiledStep, inputs, eager: bool):
-        return step.eager(inputs) if eager else step(inputs)
+    def _run(step: CompiledStep, inputs, eager: bool, static=()):
+        return step.eager(inputs, *static) if eager else step(inputs, *static)
 
     def _train_batch_fused(self, batch, eager=False):
         self.module.train()
         self.optimizer.prepare(self._lr_override)
         loss, norm, overflow = self._run(self._fused, self._put_batch(batch),
-                                         eager)
+                                         eager, self._phase())
         skipped = self._finish_update(norm, overflow)
         self.micro_steps += 1
         self.global_steps += 1
@@ -659,7 +765,7 @@ class DeepSpeedEngine:
         self.module.train()
         if self._zero is not None:
             self._zero.make_accumulators()
-        elif self._acc_grads is None:
+        elif self._cx is None and self._acc_grads is None:
             self._acc_grads = [torch.zeros_like(p, dtype=torch.float32)
                                for p in self._params]
         loss = self._run(self._micro, self._put_batch(batch), eager)
@@ -689,7 +795,7 @@ class DeepSpeedEngine:
             if self.wall_clock_breakdown:
                 self.timers(STEP_MICRO_TIMER).start()
             self.optimizer.prepare(self._lr_override)
-            norm, overflow = self._run(self._apply, {}, eager)
+            norm, overflow = self._run(self._apply, {}, eager, self._phase())
             skipped = self._finish_update(norm, overflow)
             self.global_steps += 1
             self._post_step(skipped)
@@ -709,8 +815,8 @@ class DeepSpeedEngine:
         try:
             batch = self._put_batch(batch)
             out = self._model(**batch)
-            if self._zero is not None and "labels" in batch:
-                out = self._zero.data_parallel_sum(
+            if self._data_parallel is not None and "labels" in batch:
+                out = self._data_parallel.data_parallel_sum(
                     out * self._loss_share(batch))
             return out
         finally:
@@ -727,7 +833,9 @@ class DeepSpeedEngine:
         return [self._config.optimizer.params.get("lr", 0.0)]
 
     def get_global_grad_norm(self) -> Optional[float]:
-        """Pre-clip global gradient norm of the last optimizer step."""
+        """Pre-clip global gradient norm of the last optimizer step (None
+        before the first, and under the 1-bit optimizers unless
+        ``tpu.compressed_grad_norm`` asks for it, as in the JAX engine)."""
         return None if self._last_grad_norm is None else float(self._last_grad_norm)
 
     @property
@@ -807,11 +915,16 @@ class DeepSpeedEngine:
         if writer:
             ce.save({"meta": meta},
                     self._tag_path(save_dir, tag, ENGINE_STATES))
-        optim = (self.optimizer.state_dict() if self._zero is None
-                 else self._zero.state_dict(keep=writer, to_host=True))
+        if self._cx is not None:
+            # the optimizer by name and the error feedback, [k, ...]
+            optim = self._cx.state_dict(keep=writer, to_host=True)
+        else:
+            optim = {"optimizer": (
+                self.optimizer.state_dict() if self._zero is None
+                else self._zero.state_dict(keep=writer, to_host=True))}
         if writer:
-            ce.save({"optimizer": optim,
-                     "loss_scale": dataclasses.asdict(self._ls_state)},
+            ce.save(dict(optim,
+                         loss_scale=dataclasses.asdict(self._ls_state)),
                     self._tag_path(save_dir, tag, OPTIM_STATES))
         del optim
         comm.barrier()  # every rank's part of the tag has been handed over
@@ -962,14 +1075,17 @@ class DeepSpeedEngine:
             optim = load(self._tag_path(load_dir, tag, OPTIM_STATES))
             reshard.verify_state_dict(optim["optimizer"]["state"],
                                       specs.get("opt_state", {}), "optimizer")
-            self.optimizer.load_state_dict(optim["optimizer"])
+            if self._cx is not None:
+                self._cx.load_state(optim)
+            else:
+                self.optimizer.load_state_dict(optim["optimizer"])
             self._ls_state.copy_(LossScaleState(**optim["loss_scale"]))
         # a partial accumulation window must not leak into the next step;
         # the micro and apply graphs read these buffers, so zero in place
         if self._acc_grads is not None:
             for acc in self._acc_grads:
                 acc.zero_()
-        if self._zero is not None:
-            self._zero.zero_accumulators()
+        if self._data_parallel is not None:
+            self._data_parallel.zero_accumulators()
         self._pending_loss = None
         return tag, meta.get("client_state", {})

@@ -4,7 +4,8 @@ of ``deepspeed_tpu/runtime/layout.py``: ``build_topology`` :38,
 ``topology_metadata`` :138 and ``topology_matches`` :155).
 
 The same decisions as the JAX engine: the mesh comes from the config, a
-ZeRO stage moves the data-parallel axis to fsdp,
+ZeRO stage moves the data-parallel axis to fsdp (but for a compressed
+gradient exchange),
 and a checkpoint's manifest carries a ``topology`` block (world size, zero
 stage, axis sizes and the partition record) that a load compares with
 its own to detect a reshard. ``partition_specs`` describes the port's
@@ -28,12 +29,15 @@ def build_topology(config, world_size: int) -> MeshTopology:
     return topology_from_config(config.tpu.mesh_config, world_size=world_size)
 
 
-def apply_zero_fsdp_move(topology: MeshTopology,
-                         zero_stage: int) -> MeshTopology:
+def apply_zero_fsdp_move(topology: MeshTopology, zero_stage: int,
+                         compressed: bool = False) -> MeshTopology:
     """ZeRO partitions over the fsdp axis: when a ZeRO stage is asked for
-    but all data parallelism is on ``dp``, move it to ``fsdp``."""
+    but all data parallelism is on ``dp``, move it to ``fsdp``. The
+    compressed exchanges keep it on ``dp``: they need each worker's whole
+    gradient or momentum (1-bit Adam at stage 1 keeps its state
+    replicated)."""
     if (zero_stage >= 1 and topology.size("fsdp") == 1
-            and topology.size("dp") > 1):
+            and topology.size("dp") > 1 and not compressed):
         sizes = dict(topology.axis_sizes)
         sizes["fsdp"] = sizes.pop("dp")
         sizes["dp"] = 1

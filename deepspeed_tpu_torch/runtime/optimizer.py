@@ -10,7 +10,10 @@ update order rounds differently), or with ``adam_w_mode=False`` Adam with
 coupled L2 decay. LAMB (``optax.lamb``), Adagrad (``optax.adagrad``) and
 SGD (``optax.sgd``) are written out the same way: optax's arithmetic in
 the parameter dtype, and no kernel of their own (the JAX package has no
-Pallas kernel for them either). The 1-bit family is not ported.
+Pallas kernel for them either). The 1-bit family (``OneBitAdam``,
+``OneBitLamb``, ``ZeroOneAdam``: ``runtime/fp16/onebit/``) takes the
+compression axis and its size from the engine; without them it falls back
+to its uncompressed update rule with the JAX warning.
 
 Unlike an optax transformation, a PyTorch optimizer owns its state, so
 ``build_optimizer`` takes the parameters (and their names, which key
@@ -30,6 +33,7 @@ import torch
 from deepspeed_tpu_torch.ops.cuda.fused_adam import FusedAdamW
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.optimizer_state import StatefulOptimizer
+from deepspeed_tpu_torch.utils.logging import logger
 
 
 def _normalize_betas(params: Dict[str, Any]):
@@ -274,19 +278,31 @@ class SGD(StatefulOptimizer):
             _store(skip, ((t, t_new), (p, p + k_lr * u)))
 
 
+def is_compressed_optimizer(opt_type: Optional[str]) -> bool:
+    """True for the 1-bit family (the compressed-communication
+    optimizers; JAX :29)."""
+    return (opt_type or "").lower() in C.ONEBIT_OPTIMIZERS
+
+
 def build_optimizer(params: Sequence[torch.Tensor], opt_type: Optional[str],
                     opt_params: Optional[Dict[str, Any]] = None,
                     learning_rate: Union[float, Callable, None] = None,
                     use_pallas: bool = False,
                     names: Optional[Sequence[str]] = None,
-                    runs=None, reduce=None):
+                    runs=None, reduce=None,
+                    compression_axis: Optional[str] = None,
+                    compression_axis_size: Optional[int] = None,
+                    layout=None):
     """Map a DeepSpeed optimizer block to an optimizer over ``params``
     (named ``names``, by default their positions). ``runs`` and
     ``reduce`` describe flat ZeRO shards to LAMB, the one optimizer here
     whose update is not elementwise (see ``Lamb``).
     ``learning_rate`` is a float or a ``count -> lr`` schedule; None takes
     the block's ``lr``. ``use_pallas`` (the config's
-    ``tpu.use_pallas_optimizer``) routes decoupled-decay Adam to B4."""
+    ``tpu.use_pallas_optimizer``) routes decoupled-decay Adam to B4. The
+    1-bit family takes ``compression_axis`` and its size (the engine's dp
+    axis) and ``layout`` (the flat layout of its state and exchange,
+    ``ExchangeLayout``); it steps on per-worker gradients."""
     opt_params = dict(opt_params or {})
     lr = learning_rate if learning_rate is not None else opt_params.get("lr", 1e-3)
     b1, b2 = _normalize_betas(opt_params)
@@ -317,6 +333,35 @@ def build_optimizer(params: Sequence[torch.Tensor], opt_type: Optional[str],
                    nesterov=bool(opt_params.get("nesterov", False)),
                    names=names)
     if name in C.ONEBIT_OPTIMIZERS:
-        raise NotImplementedError(
-            f"optimizer {opt_type!r} is not ported to deepspeed_tpu_torch yet")
+        if compression_axis is not None and compression_axis_size is not None:
+            from deepspeed_tpu_torch.runtime.fp16.onebit import (
+                OnebitAdam, OnebitLamb, ZeroOneAdam)
+
+            # reference OnebitAdam calls the warmup length freeze_step
+            warmup = int(opt_params.get(
+                "freeze_step", opt_params.get("warmup_steps", 100)))
+            common = dict(b1=b1, b2=b2, eps=eps, weight_decay=wd,
+                          axis=compression_axis,
+                          axis_size=compression_axis_size, names=names,
+                          layout=layout)
+            if name == C.ONEBIT_LAMB_OPTIMIZER:
+                return OnebitLamb(params, lr, warmup_steps=warmup, **common)
+            if name == C.ZERO_ONE_ADAM_OPTIMIZER:
+                if "freeze_step" in opt_params:
+                    logger.warning(
+                        "ZeroOneAdam has no full-precision warmup stage "
+                        "(0/1 Adam compresses from step 1; the variance "
+                        "refresh period governs accuracy) — freeze_step "
+                        "is ignored")
+                return ZeroOneAdam(params, lr, var_update_period=int(
+                    opt_params.get("var_update_period", 16)), **common)
+            return OnebitAdam(params, lr, warmup_steps=warmup, **common)
+        logger.warning(
+            "%s: no mesh axis provided; using the uncompressed inner "
+            "optimizer (the engine wires the compressed exchange)", opt_type)
+        if "lamb" in name:
+            return Lamb(params, lr, b1=b1, b2=b2, eps=eps, weight_decay=wd,
+                        names=names, runs=runs, reduce=reduce)
+        return AdamW(params, lr, b1=b1, b2=b2, eps=eps, weight_decay=wd,
+                     names=names)
     raise ValueError(f"Unknown optimizer type: {opt_type!r}")

@@ -7,6 +7,8 @@ package's.
   group timeout and a 120 s process timeout), against the values numpy
   gives for the same inputs; the comms logger's counters of that run
   against the JAX ``CommsLogger`` fed the same ops, sizes and worlds.
+* ``all_to_all_single`` and collectives over ``axis_index_groups`` on the
+  same 2 ranks.
 * ``wire_factor`` and ``CommsLogger`` in one process, against the JAX
   module.
 * ``MeshTopology`` and the ``layout`` helpers against the JAX classes on
@@ -61,6 +63,42 @@ def _collectives(rank):
     return {k: v.numpy() for k, v in out.items()}
 
 
+def _all_to_all_and_groups(rank):
+    """``all_to_all_single`` (dim 0, other dims, int8) and collectives over
+    ``axis_index_groups`` of the fsdp axis (after the logged collectives:
+    they are not in ``LOGGED``)."""
+    from deepspeed_tpu_torch import comm
+
+    out = {}
+    x = torch.arange(8, dtype=torch.float32) + 100 * rank
+    out["a2a"] = comm.all_to_all_single(x, "fsdp")
+    m = (torch.arange(12, dtype=torch.float32) + 100 * rank).view(3, 4)
+    out["a2a_split1_concat0"] = comm.all_to_all_single(m, "fsdp", 1, 0)
+    out["a2a_split0_concat1"] = comm.all_to_all_single(
+        torch.arange(8, dtype=torch.float32).view(4, 2) + 100 * rank,
+        "fsdp", 0, 1)
+    out["a2a_int8"] = comm.all_to_all_single(
+        torch.tensor([rank, -rank, 3, -3], dtype=torch.int8), "fsdp").int()
+    y = torch.full((3,), float(rank + 1))
+    out["alone"] = comm.all_reduce(y.clone(), "fsdp",
+                                   axis_index_groups=[[0], [1]])
+    out["together"] = comm.all_reduce(y.clone(), "fsdp",
+                                      axis_index_groups=[[0, 1]])
+    out["gather_alone"] = comm.all_gather(y, "fsdp",
+                                          axis_index_groups=[[0], [1]])
+    out["group_size"] = torch.tensor(
+        comm.index_group("fsdp", [[0], [1]])[1])
+    for key, call in (
+            ("a2a_tp", lambda: comm.all_to_all_single(x, "tp")),
+            ("unequal", lambda: comm.all_reduce(
+                y.clone(), "fsdp", axis_index_groups=[[0, 1], []]))):
+        try:
+            call()
+        except (NotImplementedError, ValueError) as e:
+            out[key] = str(e)
+    return {k: v.numpy() if torch.is_tensor(v) else v for k, v in out.items()}
+
+
 def _worker(argv):
     rank, world, url, out = argv
     rank, world = int(rank), int(world)
@@ -80,6 +118,7 @@ def _worker(argv):
     comm.comms_logger.enabled = True
     results = _collectives(rank)
     results["counters"] = comm.comms_logger.counters()
+    results.update(_all_to_all_and_groups(rank))
     try:
         comm.ppermute(torch.zeros(1), "fsdp", [(0, 1), (1, 0)])
     except NotImplementedError as e:
@@ -134,6 +173,39 @@ def test_collectives_on_two_ranks(two_ranks):
         assert int(got["axis_index"]) == rank
         assert "ROADMAP A.9" in got["ppermute"]
         assert got["groups"] == {"dp": [rank], "fsdp": [0, 1]}
+
+
+def test_all_to_all_and_sub_groups(two_ranks):
+    """``all_to_all_single`` against ``lax.all_to_all(tiled=True)``'s
+    semantics on the same inputs (block j of rank i lands in row block i of
+    rank j), and collectives within ``axis_index_groups``."""
+    x = [np.arange(8, dtype=np.float32) + 100 * r for r in range(WORLD)]
+    m = [(np.arange(12, dtype=np.float32) + 100 * r).reshape(3, 4)
+         for r in range(WORLD)]
+    v = [np.arange(8, dtype=np.float32).reshape(4, 2) + 100 * r
+         for r in range(WORLD)]
+    for rank, got in enumerate(two_ranks):
+        np.testing.assert_array_equal(
+            got["a2a"], np.concatenate([x[r][4 * rank:4 * rank + 4]
+                                        for r in range(WORLD)]))
+        np.testing.assert_array_equal(
+            got["a2a_split1_concat0"],
+            np.concatenate([m[r][:, 2 * rank:2 * rank + 2]
+                            for r in range(WORLD)], axis=0))
+        np.testing.assert_array_equal(
+            got["a2a_split0_concat1"],
+            np.concatenate([v[r][2 * rank:2 * rank + 2]
+                            for r in range(WORLD)], axis=1))
+        # rank r sends [r, -r] to rank 0 and [3, -3] to rank 1
+        np.testing.assert_array_equal(
+            got["a2a_int8"], [0, 0, 1, -1] if rank == 0 else [3, -3, 3, -3])
+        np.testing.assert_array_equal(got["alone"], np.full(3, rank + 1.0))
+        np.testing.assert_array_equal(got["together"], np.full(3, 3.0))
+        np.testing.assert_array_equal(got["gather_alone"],
+                                      np.full(3, rank + 1.0))
+        assert int(got["group_size"]) == 1
+        assert "ROADMAP A.9" in got["a2a_tp"]
+        assert "equal-size" in got["unequal"]
 
 
 def test_logged_counters_match_jax(two_ranks):
@@ -211,6 +283,27 @@ def test_capture_records_add_back():
         [("all_reduce", 4)] + 3 * [("reduce_scatter", 8), ("all_reduce", 2)])
 
 
+def test_capture_records_keep_levels():
+    """A capture's records tagged "ici"/"dcn" (the hierarchical exchange)
+    move the per-level bytes out at the capture and back once per
+    replay."""
+    from deepspeed_tpu_torch.comm.logging import CommsLogger
+
+    log = CommsLogger(enabled=True)
+    before = log.snapshot()
+    log.append("reduce_scatter", torch.zeros(8), "dp", log_name="h.ici",
+               world=2, level="ici")
+    log.append("all_to_all", torch.zeros(8, dtype=torch.int8), "dp",
+               log_name="h.dcn", world=2, level="dcn")
+    seen = log.since(before)
+    log.add(seen, sign=-1)
+    assert log.counters()["ici_bytes"] == log.counters()["dcn_bytes"] == 0
+    for _ in range(2):
+        log.add(seen)
+    assert log.counters()["ici_bytes"] == 2 * 16.0   # 32 B x (w-1)/w
+    assert log.counters()["dcn_bytes"] == 2 * 4.0    # 8 B x (w-1)/w
+
+
 def _counters_after(ops):
     from deepspeed_tpu_torch.comm.logging import CommsLogger
 
@@ -274,6 +367,21 @@ def test_layout_matches_jax(dp, fsdp, stage):
             assert (layout.topology_matches(block, other_mine, other_stage)
                     == jlayout.topology_matches(block, other_ref,
                                                 other_stage))
+
+
+@pytest.mark.parametrize("dp,fsdp", MESHES)
+@pytest.mark.parametrize("stage", [0, 1, 2])
+def test_fsdp_move_with_compression_matches_jax(dp, fsdp, stage):
+    """``apply_zero_fsdp_move(compressed=True)``: a compressed exchange
+    keeps the data parallelism on dp (1-bit Adam at stage 1)."""
+    from deepspeed_tpu.runtime import layout as jlayout
+    from deepspeed_tpu_torch.runtime import layout
+
+    mine, ref = _both(dp, fsdp)
+    for compressed in (False, True):
+        assert (layout.apply_zero_fsdp_move(mine, stage, compressed)
+                .axis_sizes == jlayout.apply_zero_fsdp_move(
+                    ref, stage, compressed=compressed).axis_sizes)
 
 
 def test_zero_rules_and_flat_partition():

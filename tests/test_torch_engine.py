@@ -194,8 +194,8 @@ def test_gpt_pretrain_config_parses_as_in_jax():
     {"sentinel": {"enabled": True}},
     {"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}},
     {"tensorboard": {"enabled": True}},
-    {"tpu": {"grad_exchange": {"deferred": True}}},
-    {"optimizer": {"type": "OneBitAdam", "params": {}}},
+    {"curriculum_learning": {"enabled": True}},
+    {"progressive_layer_drop": {"enabled": True}},
     {"tpu": {"mesh": {"tp": 2}}},
     {"activation_checkpointing": {"partition_activations": True}},
     {"flops_profiler": {"enabled": True}},
@@ -206,6 +206,28 @@ def test_enabled_unported_block_raises(block):
     with pytest.raises(NotImplementedError):
         deepspeed_tpu_torch.initialize(model=tlm.GPT(cfg),
                                        config=_config(**block), device="cpu")
+
+
+def test_exchange_modes_without_a_group():
+    """The gradient exchanges are ported (``test_torch_grad_exchange.py``):
+    without a process group the deferred exchange has no dp axis to defer
+    over and is inert, as in the JAX engine at dp 1, and the int8 and 1-bit
+    exchanges ask for a group; ``hierarchical: on`` without the deferred
+    exchange raises the JAX engine's error."""
+    cfg = tlm.GPTConfig(**SMALL, dtype=torch.float32)
+    engine = deepspeed_tpu_torch.initialize(
+        model=tlm.GPT(cfg), device="cpu",
+        config=_config(tpu={"grad_exchange": {"deferred": True}}))[0]
+    assert engine._cx is None
+    for block in ({"optimizer": {"type": "OneBitAdam", "params": {}}},
+                  {"communication_data_type": "int8"}):
+        with pytest.raises(ValueError, match="init_distributed"):
+            deepspeed_tpu_torch.initialize(model=tlm.GPT(cfg), device="cpu",
+                                           config=_config(**block))
+    with pytest.raises(ValueError, match="hierarchical: on requires"):
+        deepspeed_tpu_torch.initialize(
+            model=tlm.GPT(cfg), device="cpu",
+            config=_config(tpu={"grad_exchange": {"hierarchical": "on"}}))
 
 
 def test_initialize_defaults_to_the_card():

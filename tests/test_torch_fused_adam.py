@@ -171,8 +171,21 @@ def test_build_optimizer_follows_the_jax_rules(opt_type, params, use_pallas,
 @pytest.mark.parametrize("opt_type", ["OneBitAdam", "ZeroOneAdam",
                                      "OneBitLamb"])
 def test_unported_optimizers_raise(opt_type):
-    with pytest.raises(NotImplementedError):
-        build_optimizer([torch.zeros(3)], opt_type, {})
+    """The 1-bit family is ported (``runtime/fp16/onebit/``): without the
+    engine's compression axis ``build_optimizer`` falls back to the
+    uncompressed rule, as the JAX one does; the 1-bit optimizer itself
+    raises without the axis size, with the JAX words."""
+    from deepspeed_tpu_torch.runtime.fp16 import onebit
+
+    opt = build_optimizer([torch.zeros(3)], opt_type, {})
+    assert type(opt).__name__ == ("Lamb" if "Lamb" in opt_type else "AdamW")
+    cls = {"OneBitAdam": onebit.OnebitAdam, "ZeroOneAdam": onebit.ZeroOneAdam,
+           "OneBitLamb": onebit.OnebitLamb}[opt_type]
+    with pytest.raises(ValueError, match="pass axis_size"):
+        cls([torch.zeros(3)])
+    built = build_optimizer([torch.zeros(3)], opt_type, {},
+                            compression_axis="dp", compression_axis_size=2)
+    assert isinstance(built, cls)
 
 
 def _float_reference(params, grads, ms, vs, lr, step, *, b1, b2, eps,

@@ -137,10 +137,35 @@ def _model(job):
                                                               "float32"))))
 
 
-def _gathered_liveness(engine, batch):
+# how long the liveness probe waits for gloo's worker threads to drop the
+# gathered buffers of collectives that have already completed
+GLOO_RELEASE_S = 10.0
+
+
+def _alive_after_release(made, expected):
+    """How many of the weakly referenced buffers ``made`` are alive, once
+    gloo has let go of them. A gloo collective's work object holds its
+    output tensor on the process group's worker thread until that thread
+    drops it, which may be just after ``wait()`` has returned on this
+    thread (under load, a few milliseconds later): while it holds it, the
+    weakref reads alive. So the count is polled until it is at most
+    ``expected`` or ``GLOO_RELEASE_S`` has passed; a buffer that the port
+    itself still references stays alive past that and is counted."""
+    import time
+
+    deadline = time.monotonic() + GLOO_RELEASE_S
+    while True:
+        alive = sum(r() is not None for r in made)
+        if alive <= expected or time.monotonic() > deadline:
+            return alive
+        time.sleep(0.01)
+
+
+def _gathered_liveness(engine, batch, remat):
     """Stage 3: a forward and a backward on ``batch`` outside the step,
     counting the full buffers the units' gathers made and how many are
-    still alive after the forward and after the backward."""
+    still alive after the forward and after the backward (``remat``: under
+    full remat only the outer unit's buffer outlives the forward)."""
     import weakref
 
     from deepspeed_tpu_torch.runtime.zero import stage3
@@ -156,11 +181,11 @@ def _gathered_liveness(engine, batch):
     try:
         loss = engine._model(**engine._put_batch(batch))
         out = {"forward_made": len(made),
-               "forward_alive": sum(r() is not None for r in made)}
+               "forward_alive": _alive_after_release(
+                   made, 1 if remat else len(made))}
         loss.backward()
         del loss
-        out.update(made=len(made),
-                   alive=sum(r() is not None for r in made))
+        out.update(made=len(made), alive=_alive_after_release(made, 0))
     finally:
         stage3._Unit.gather = real
     engine.optimizer.reduce_grads()  # hand the gradients over, unused
@@ -183,7 +208,8 @@ def _run_job(job, rank):
             out["tag"] = engine.load_checkpoint(job["load"])[0]
             out["reshard"] = engine.last_reshard.mismatches
         if job.get("liveness"):
-            out["liveness"] = _gathered_liveness(engine, job["liveness"])
+            out["liveness"] = _gathered_liveness(
+                engine, job["liveness"], job.get("model", {}).get("remat"))
         out["initial"] = {k: v.clone() for k, v in engine.params.items()}
         out.update(losses=[], norms=[], scales=[], skipped=[])
         for i, step in enumerate(job["steps"]):
@@ -371,8 +397,10 @@ def port_runs(start, tmp_path_factory):
             MATRIX_STEPS[1], init=init),
         job("stage3", config(3), [], raises=True, bert=True),
         job("tp2", config(1, tpu={"mesh": {"tp": 2}}), [], raises=True),
-        job("int8", config(1, communication_data_type="int8"), [],
-            raises=True),
+        # the int8 exchange is ported for a GPT (test_torch_grad_exchange.py);
+        # over a BERT's layout it is still refused
+        job("int8", config(0, communication_data_type="int8"), [],
+            raises=True, bert=True),
         job("bad_rows", config(1), [[{k: v[:MICRO] for k, v in
                                       MATRIX_STEPS[1][0][0].items()}]],
             init=init, raises=True),

@@ -181,14 +181,17 @@ def test_gathered_buffers_do_not_outlive_their_unit(remat, runs):
     tied head keep it for the backward), so the state held for the
     backward does not grow with the depth by a unit per block; the
     recompute gathers each block again. Without remat every block's buffer
-    lives until its backward. After the backward none is alive."""
+    lives until its backward. After the backward none is alive. (The
+    probe, ``test_torch_zero._gathered_liveness``, gives gloo's worker
+    thread time to drop the output of a collective that has completed.)"""
     units = tz.SMALL["n_layer"] + 1
     for r in runs["ranks"]:
         got = r[f"live{'remat' if remat else ''}"]["liveness"]
-        assert got["forward_made"] == units
-        assert got["forward_alive"] == (1 if remat else units)
-        assert got["made"] == units + (tz.SMALL["n_layer"] if remat else 0)
-        assert got["alive"] == 0
+        assert got["forward_made"] == units, got
+        assert got["forward_alive"] == (1 if remat else units), got
+        assert got["made"] == units + (tz.SMALL["n_layer"] if remat else 0), \
+            got
+        assert got["alive"] == 0, got
 
 
 @pytest.mark.parametrize("name,words", [
