@@ -60,6 +60,27 @@ Phases, each printing one JSON line:
   times (counts set to 0 just before the 12 captured steps and read just
   after; a replay counts the launches its capture saw). Median step ms of
   both runs.
+* ``data`` (the data slice's main path): GPT-2 1.3B as in ``train`` with a
+  ``data_pipeline`` block (``DATA_PIPELINE``: seq_length 1024, packing,
+  prefetch depth 2) over a corpus of 3000 documents made from seed 0
+  (lengths log-uniform in 32-1024 tokens, three longer, Zipf tokens), fed
+  through ``initialize(..., training_data=docs)``: 12 captured steps with
+  prefetch (counts set to 0 just before them: B1 48, B2 24, B3 24, B4 1
+  per step, B1-B3 all in their segment variant, every batch with a row of
+  several documents, the loss falling) against 12 uncaptured ones and 12
+  captured ones without prefetch, bit for bit (losses, grad norms, final
+  parameters); the prefetcher's counters and the step medians. One packed
+  batch through the flash kernels and through the einsum path with the
+  segment mask (``PACKED_LOSS_REL_TOL``, ``PACKED_GNORM_REL_TOL``), and the
+  flash path's per-token losses after one document's tokens changed: every
+  other document's bit-identical. The curriculum (``DATA_CURRICULUM``,
+  fixed_linear 256 to 1024 in steps of 256 over 12 steps, packing to the
+  difficulty, prefetch on, each copy held until a capture is under way):
+  as many graphs as lengths, captured equal to eager bit for bit, the
+  launches at every length, the peak memory. A small GPT saved after 4
+  steps and resumed in a fresh engine: the next batches token-identical
+  and the losses bit-identical. B1-B3 at the packed batch's segment ids
+  against no segments, in turns, by device time.
 * ``checkpoint`` (the checkpoint slice's main path): GPT-2 1.3B as in
   ``train``, 4 steps (2 warm-up, the capture, 1 replay), then
   ``save_checkpoint`` with the synchronous engine (a 13.1 GB tag under
@@ -159,7 +180,13 @@ Phases, each printing one JSON line:
   shard overflowed; at world > 1 some overflow must be local to some
   shards); a stage-1 tag saved at this world, resumed at this world
   (bit-identical), at stages 2 and 3 and on one card with no group (within
-  the CPU tests' tolerances).
+  the CPU tests' tolerances). The data path at stage 1 on small GPTs
+  (micro 2 x 256 per rank, prefetch on): under ``shard: "process"`` the
+  ranks' documents are disjoint and each rank's the prefix of its own
+  stride, under ``"none"`` each rank's rows its slice of the one-rank
+  pipeline's batch; a tag saved after 2 steps resumes at this world with
+  every rank's next batches and losses identical, and on one card without
+  a group with the stream re-strided from rank 0's state.
 
 Then the kernels line, nvidia-smi's line and, last, ``{"ok": true, ...}``.
 A failed check raises, and the script exits nonzero. It imports neither jax
@@ -167,7 +194,8 @@ nor ``deepspeed_tpu``.
 
 ``python3 chip_smoke.py --only zero`` runs only the ``device``, ``build``
 and ``zero`` phases, then nvidia-smi's line and the ``{"ok": true, ...}``
-line (on a machine with four cards, the four-card measurement).
+line (on a machine with four cards, the four-card measurement);
+``--only data`` the same with the ``data`` phase.
 
 ``python3 chip_smoke.py --against DIR`` runs only the A/B of the backward
 kernels and of the fused AdamW: DIR holds another checkout's
@@ -1408,6 +1436,10 @@ CAPTURE_WARMUP, CAPTURED_STEPS = 2, 10
 STEPS = CAPTURE_WARMUP + CAPTURED_STEPS
 PER_STEP = {"flash_attention_fwd": 48, "flash_attention_bwd_dq": 24,
             "flash_attention_bwd_dkv": 24, "fused_adamw": 1}
+# the flash kernels' segment-variant counts, none on an unpacked batch
+UNSEGMENTED = {"flash_attention_fwd_segment": 0,
+               "flash_attention_bwd_dq_segment": 0,
+               "flash_attention_bwd_dkv_segment": 0}
 
 
 def step_medians(times, e_times):
@@ -2180,7 +2212,7 @@ def phase_small_capture():
                 "flash_attention_bwd_dq": cfg.n_layer * gas * steps,
                 "flash_attention_bwd_dkv": cfg.n_layer * gas * steps,
                 "fused_adamw": steps, "block_sparse_fwd": 0,
-                "block_sparse_dq": 0, "block_sparse_dkv": 0}
+                "block_sparse_dq": 0, "block_sparse_dkv": 0, **UNSEGMENTED}
         # (scale, skipped, count) after each step, from the start
         prev = (2.0 ** SMALL_FP16_SCALE_POWER if dtype == torch.float16
                 else 1.0, 0, 0)
@@ -2212,6 +2244,601 @@ def phase_small_capture():
             problems.append(f"{name}: the replays did not both skip and update")
     if problems:
         raise AssertionError(f"small_capture: {problems}")
+
+
+# ---------------------------------------------------------------------------
+# data: GPT-2 1.3B trained on packed documents through the data pipeline
+# ---------------------------------------------------------------------------
+DATA_DOCS = 3000
+DATA_MIN_LEN, DATA_MAX_LEN = 32, 1024
+# past seq_length 1024: the packer cuts them
+DATA_LONG_DOCS = (1100, 1536, 2048)
+DATA_PIPELINE = {"enabled": True, "seq_length": 1024, "pack_sequences": True,
+                 "prefetch": True, "prefetch_depth": 2, "seed": 0}
+# fixed_linear from 256 to 1024 in steps of 256: the lengths stay multiples
+# of 128, so every step takes the flash kernels (the model's gate). Over 12
+# curriculum steps each length lasts 4 steps: 2 warm-ups, the capture and a
+# replay (over 8, 768 would last only 2 steps and never be captured)
+DATA_CURRICULUM = {"enabled": True, "curriculum_type": "seqlen",
+                   "min_difficulty": 256, "max_difficulty": 1024,
+                   "schedule_type": "fixed_linear",
+                   "schedule_config": {"total_curriculum_step": 12,
+                                       "difficulty_step": 256}}
+DATA_CURRICULUM_STEPS = 16
+# the packed step on the flash kernels against the einsum path with the
+# segment mask: the train phase's flash-against-einsum bounds (bf16)
+PACKED_LOSS_REL_TOL = TRAIN_LOSS_REL_TOL
+PACKED_GNORM_REL_TOL = TRAIN_GNORM_REL_TOL
+# how long a prefetch copy waits for a capture to begin (the curriculum
+# run's proof that the worker copies while a graph is captured)
+CAPTURE_COPY_WAIT_S = 0.3
+DATA_DIR = os.path.join("build", "chip_smoke_data")
+DATA_RESUME_SAVE, DATA_RESUME_STEPS = 4, 8
+
+
+def data_corpus(vocab, n=DATA_DOCS, seed=0, lo=DATA_MIN_LEN, hi=DATA_MAX_LEN,
+                long_docs=DATA_LONG_DOCS):
+    """``n`` documents from ``seed``: lengths log-uniform in [lo, hi] (most
+    documents short, as in web text, so that rows hold several), a few of
+    ``long_docs`` tokens; tokens in [1, vocab) drawn from a Zipf
+    distribution (p ~ 1 / rank), so that a few steps can learn something
+    and the loss falls."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    lengths = np.exp(rng.uniform(np.log(lo), np.log(hi), n)).astype(np.int64)
+    lengths[rng.choice(n, len(long_docs), replace=False)] = long_docs
+    p = 1.0 / np.arange(1, vocab)
+    tokens = rng.choice(vocab - 1, size=int(lengths.sum()), p=p / p.sum()) + 1
+    return np.split(tokens.astype(np.int32), np.cumsum(lengths)[:-1])
+
+
+class BatchTap:
+    """The data iterator a run hands ``train_batch``: for every batch drawn
+    it keeps, on the card (no host read), copies of the token and segment
+    ids. A batch the prefetch worker placed is waited for first."""
+
+    def __init__(self, it):
+        self.it, self.ids, self.segment_ids = it, [], []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        import torch
+
+        from deepspeed_tpu_torch.data.prefetch import PlacedBatch
+
+        batch = next(self.it)
+        if isinstance(batch, PlacedBatch):
+            batch.wait()
+        self.ids.append(torch.as_tensor(batch["input_ids"]).clone())
+        self.segment_ids.append(torch.as_tensor(batch["segment_ids"]).clone())
+        return batch
+
+    def summary(self):
+        """Per batch: the largest segment count of a row, and the length."""
+        return ([int(s.max()) for s in self.segment_ids],
+                [int(x.shape[1]) for x in self.ids])
+
+
+def data_engine(pipeline=None, curriculum=None, seed=0, flash=True):
+    """GPT-2 1.3B through ``initialize`` with ``GPT_PRETRAIN_CONFIG``, the
+    data pipeline (``DATA_PIPELINE`` updated by ``pipeline``) and the
+    corpus; returns the engine and its loader."""
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import GPT, gpt2_config
+
+    config = dict(GPT_PRETRAIN_CONFIG,
+                  data_pipeline=dict(DATA_PIPELINE, **(pipeline or {})))
+    if curriculum is not None:
+        config["curriculum_learning"] = curriculum
+    model = GPT(gpt2_config(
+        "gpt2-1.3b", n_positions=1024, dtype=torch.bfloat16,
+        param_dtype=torch.bfloat16, remat=True, remat_policy="full",
+        use_flash_attention=flash))
+    engine, _, loader, _ = deepspeed_tpu_torch.initialize(
+        model=model, config=config, seed=seed,
+        training_data=data_corpus(model.config.vocab_size))
+    return engine, loader
+
+
+def data_run(steps, eager=False, pipeline=None, curriculum=None,
+             on_engine=None, traced=None):
+    """``steps`` fenced ``train_batch`` steps of a fresh ``data_engine``
+    (``eager``: the step functions uncaptured) over its own loader. Counts
+    are set to 0 just before the steps; ``on_engine(engine)`` runs first,
+    ``traced(engine, data_iter)`` after the steps and the parameters' copy.
+    Returns the run's record (losses, grad norms, host ms, launches in all
+    and per step, the graphs, the prefetch counters, the batches' lengths
+    and segment counts, peak memory) and a copy of the final parameters;
+    the engine is stopped and freed."""
+    import torch
+
+    engine, loader = data_engine(pipeline, curriculum)
+    if on_engine is not None:
+        on_engine(engine)
+    tap = BatchTap(iter(loader))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, norms, times, per_step = [], [], [], []
+    for _ in range(steps):
+        before = read_launches()
+        loss, norm, ms = train_steps(engine, tap, 1, eager=eager)
+        after = read_launches()
+        losses += loss
+        norms += norm
+        times += ms
+        per_step.append({k: after[k] - before[k] for k in after})
+    run = {"launches": read_launches(), "launches_by_step": per_step,
+           "losses": [float(x) for x in losses], "norm_tensors": norms,
+           "step_ms": times,
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           "graphs": [[list(shape) for name, shape, _ in key[1]
+                       if name == "input_ids"][0]
+                      for key in engine._fused.graphs],
+           "counters": (loader.counters() if hasattr(loader, "counters")
+                        else None)}
+    run["max_segments"], run["lengths"] = tap.summary()
+    params = {k: v.clone() for k, v in engine.params.items()}
+    if traced is not None:
+        traced(engine, tap)
+    engine.destroy()
+    del engine, loader, tap
+    free_cuda()
+    return run, params
+
+
+DATA_UNFENCED_STEPS = 20
+
+
+def data_unfenced_ms(prefetch):
+    """Mean ms per step of ``DATA_UNFENCED_STEPS`` replays of a fresh
+    ``data_engine`` with one fence before and one after them (a training
+    loop's rate: the host runs ahead of the card), after the capture's 3
+    fenced steps; ``prefetch`` on or off."""
+    import torch
+
+    engine, loader = data_engine({"prefetch": prefetch})
+    it = iter(loader)
+    train_steps(engine, it, CAPTURE_WARMUP + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DATA_UNFENCED_STEPS):
+        engine.train_batch(it)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / DATA_UNFENCED_STEPS
+    engine.destroy()
+    del engine, loader, it
+    free_cuda()
+    return ms
+
+
+def data_host_costs(n=24):
+    """The host's work per packed 1.3B batch, on this thread alone (median
+    ms over ``n`` batches): packing (the pipeline's ``next``), the deep copy
+    of its state that the prefetcher takes with each batch, and the
+    transfer the worker runs (int64 tensors, pinned, copied on a stream of
+    their own, to the copy's end)."""
+    import copy
+
+    import torch
+
+    from deepspeed_tpu_torch.data import PackedDataPipeline
+    from deepspeed_tpu_torch.data.prefetch import CopyStream
+
+    pipe = PackedDataPipeline(data_corpus(50257), batch_size=4,
+                              seq_length=1024, seed=0)
+    put = CopyStream("cuda")
+    stages = {"pack_ms": [], "state_copy_ms": [], "transfer_ms": []}
+    for _ in range(n):
+        t0 = time.perf_counter()
+        batch = next(pipe)
+        t1 = time.perf_counter()
+        copy.deepcopy(pipe.state_dict())
+        t2 = time.perf_counter()
+        placed = put({k: torch.as_tensor(v).long() for k, v in batch.items()})
+        placed.event.synchronize()
+        t3 = time.perf_counter()
+        for key, a, b in (("pack_ms", t0, t1), ("state_copy_ms", t1, t2),
+                          ("transfer_ms", t2, t3)):
+            stages[key].append((b - a) * 1e3)
+    return {k: statistics.median(v) for k, v in stages.items()}
+
+
+def distinct_nonzero(counts):
+    """The distinct dicts of a list, each without its zero entries."""
+    out = []
+    for c in counts:
+        c = {k: v for k, v in c.items() if v}
+        if c not in out:
+            out.append(c)
+    return out
+
+
+def data_compare(a, a_params, b, b_params):
+    """Whether two runs agree bit for bit: losses, grad norms and final
+    parameters."""
+    diff = first_difference(a_params, b_params)
+    return {"losses_identical": a["losses"] == b["losses"],
+            "grad_norms_identical": identical(a["norm_tensors"],
+                                              b["norm_tensors"]),
+            "params_identical": diff is None, "first_param_difference": diff}
+
+
+def packed_exactness():
+    """One packed 1.3B batch (the pipeline's first) through the flash
+    kernels' segment variant and through the einsum path with the segment
+    mask, the same weights (shared): loss and grad norm. Then per-token
+    losses under the flash path, before and after the tokens of one
+    document are changed: every other document's must stay bit for bit (a
+    masked score contributes exp(NEG_INF - m) = 0)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.data import PackedDataPipeline
+    from deepspeed_tpu_torch.models.transformer_lm import (GPT, _shifted_targets,
+                                                           gpt2_config,
+                                                           materialize_gpt)
+
+    cfg = gpt2_config("gpt2-1.3b", n_positions=1024, dtype=torch.bfloat16,
+                      param_dtype=torch.bfloat16, remat=True,
+                      remat_policy="full", use_flash_attention=True)
+    flash = GPT(cfg)
+    materialize_gpt(flash, "cuda", torch.Generator("cuda").manual_seed(0))
+    einsum = GPT(dataclasses.replace(cfg, use_flash_attention=False))
+    materialize_gpt(einsum, "cuda", None, state_dict=flash.state_dict())
+    host = next(PackedDataPipeline(data_corpus(cfg.vocab_size), batch_size=4,
+                                   seq_length=1024, seed=0))
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in host.items()}
+
+    def loss_and_norm(model):
+        model.train()
+        for p in model.parameters():
+            p.grad = None
+        loss = model(**batch)
+        loss.backward()
+        norm = torch.sqrt(sum((p.grad.float() ** 2).sum()
+                              for p in model.parameters()))
+        for p in model.parameters():
+            p.grad = None
+        return float(loss.detach()), float(norm)
+
+    reset_launches()
+    loss_f, norm_f = loss_and_norm(flash)
+    seg_launches = {k: v for k, v in read_launches().items()
+                    if k.startswith("flash")}
+    loss_e, norm_e = loss_and_norm(einsum)
+
+    @torch.no_grad()
+    def per_token(ids):
+        flash.eval()
+        logits = flash(ids, segment_ids=batch["segment_ids"],
+                       positions=batch["positions"])
+        targets, w = _shifted_targets(ids, None, batch["segment_ids"])
+        ce = F.cross_entropy(logits.view(-1, logits.shape[-1]),
+                             targets.reshape(-1), reduction="none")
+        return ce.view(ids.shape), w
+
+    base, w = per_token(batch["input_ids"])
+    seg = batch["segment_ids"]
+    counts = seg.amax(dim=1).tolist()
+    row = int(np.argmax(counts))
+    doc = (max(counts) + 1) // 2  # a document in the middle of the row
+    changed = torch.zeros_like(seg, dtype=torch.bool)
+    changed[row] = seg[row] == doc
+    ids = batch["input_ids"].clone()
+    ids[changed] = (ids[changed] * 7 + 3) % (cfg.vocab_size - 1) + 1
+    after, _ = per_token(ids)
+    keep = (w > 0) & ~changed
+    diff = (after - base).abs()
+    out = {"batch_segments_per_row": counts,
+           "tolerance": {"loss_rel": PACKED_LOSS_REL_TOL,
+                         "grad_norm_rel": PACKED_GNORM_REL_TOL},
+           "flash": {"loss": loss_f, "grad_norm": norm_f},
+           "einsum": {"loss": loss_e, "grad_norm": norm_e},
+           "loss_rel_err": abs(loss_f - loss_e) / abs(loss_e),
+           "grad_norm_rel_err": abs(norm_f - norm_e) / abs(norm_e),
+           "flash_launches": seg_launches,
+           "isolation": {"row": row, "document": doc,
+                         "changed_tokens": int(changed.sum()),
+                         "other_tokens": int(keep.sum()),
+                         "other_max_abs_diff": float(diff[keep].max()),
+                         "other_bit_identical": bool(
+                             torch.equal(after[keep], base[keep])),
+                         "changed_max_abs_diff": float(
+                             diff[changed & (w > 0)].max())}}
+    out["segment_ids"] = batch["segment_ids"].cpu()
+    del flash, einsum, batch
+    free_cuda()
+    return out
+
+
+def segment_kernel_times(segment_ids):
+    """B1, B2 and B3 at GPT-2 1.3B's attention shape [4, 1024, 16, 128],
+    bf16, causal, under a packed batch's segment ids and without them, in
+    turns (without, with, with, without), by device time; the segment
+    variant's outputs against its plain version (``TOLERANCE``,
+    ``GRAD_REL_TOL``); its bound counts the pairs the segments leave
+    visible."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+
+    b, t, h, d = segment_ids.shape[0], segment_ids.shape[1], 16, 128
+    gen = torch.Generator().manual_seed(40)
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen).to("cuda",
+                                                            torch.bfloat16)
+    q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+    do = torch.randn((b, t, h, d), generator=gen).to("cuda", torch.bfloat16)
+    seg = segment_ids.to("cuda", torch.int32).contiguous()
+    scale = d ** -0.5
+    calls = {}
+    for name, s_ids in (("plain", None), ("segment", seg)):
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True,
+                                        segment_ids=s_ids)
+        delta = fa.bwd_delta(o, do)
+        calls[name] = {
+            "flash_attention_fwd":
+                lambda s_ids=s_ids: fa._launch(q, k, v, s_ids, True, scale),
+            "flash_attention_bwd_dq":
+                lambda s_ids=s_ids, lse=lse, delta=delta: fa._launch_dq(
+                    q, k, v, lse, delta, do, s_ids, True, scale),
+            "flash_attention_bwd_dkv":
+                lambda s_ids=s_ids, lse=lse, delta=delta: fa._launch_dkv(
+                    q, k, v, lse, delta, do, s_ids, True, scale)}
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True, segment_ids=seg)
+    o_ref, _ = fa.flash_attention_reference(q, k, v, causal=True,
+                                            segment_ids=seg)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                   segment_ids=seg)
+    want = fa.flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                 causal=True, segment_ids=seg)
+    errs = {"o_max_abs": float((o.float() - o_ref.float()).abs().max()),
+            "grad_rel": max(_rel_err(g, w) for g, w in zip(grads, want))}
+    sizes = [torch.bincount(row[row > 0].long()).tolist() for row in seg.cpu()]
+    pairs = sum(n * (n + 1) // 2 for row in sizes for n in row)
+    flops_per_pair = {"flash_attention_fwd": 4, "flash_attention_bwd_dq": 6,
+                      "flash_attention_bwd_dkv": 8}
+    out = {"shape": [b, t, h, d], "visible_pairs_per_head": pairs,
+           "causal_pairs_per_head": b * t * (t + 1) // 2, "errors": errs,
+           "tolerance": {"o_max_abs": TOLERANCE["bfloat16"]["o"],
+                         "grad_rel": GRAD_REL_TOL["bfloat16"]}}
+    for kern, per_pair in flops_per_pair.items():
+        times = {"plain": [], "segment": []}
+        for who in ("plain", "segment", "segment", "plain"):
+            times[who].append(device_ms(calls[who][kern])["ms"])
+        bound, by = _bound(per_pair * pairs * h * d, 0, "bfloat16")
+        out[kern] = {"ms": statistics.mean(times["segment"]),
+                     "unsegmented_ms": statistics.mean(times["plain"]),
+                     "ms_by_turn": times, "segment_bound_ms": bound}
+    del q, k, v, qkv, do, o, lse, grads, want, calls
+    free_cuda()
+    return out
+
+
+class CaptureCopies:
+    """Wraps an engine's prefetch transfer: each copy first waits up to
+    ``CAPTURE_COPY_WAIT_S`` for a graph capture to be under way, and counts
+    the copies made while one was (the worker's copies must not break a
+    capture nor land in its graph)."""
+
+    def __init__(self, engine):
+        from deepspeed_tpu_torch.runtime import compiled_step
+
+        self.capturing = compiled_step.capturing
+        self.put = engine._prefetch_put
+        self.during, self.total = 0, 0
+        engine.training_dataloader.put_fn = self
+
+    def __call__(self, batch):
+        deadline = time.monotonic() + CAPTURE_COPY_WAIT_S
+        while not self.capturing() and time.monotonic() < deadline:
+            time.sleep(0.001)
+        out = self.put(batch)
+        self.total += 1
+        self.during += self.capturing()
+        return out
+
+
+def data_resume():
+    """A small GPT on the packed pipeline, prefetch on: 8 steps with a save
+    after 4, then a fresh engine (another seed's weights) loads the tag and
+    takes 4 steps: its batches must be the first run's last 4, token for
+    token, and its losses the same bit for bit."""
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import GPT, GPTConfig
+
+    def make(seed):
+        cfg = GPTConfig(vocab_size=512, n_positions=256, n_embd=256,
+                        n_layer=2, n_head=4, dtype=torch.bfloat16,
+                        use_flash_attention=True)
+        config = {"train_micro_batch_size_per_gpu": 4,
+                  "gradient_clipping": 1.0, "bf16": {"enabled": True},
+                  "optimizer": {"type": "FusedAdam",
+                                "params": {"lr": SMALL_LR}},
+                  "tpu": {"use_pallas_optimizer": True},
+                  "steps_per_print": 10 ** 9,
+                  "data_pipeline": dict(DATA_PIPELINE, seq_length=256)}
+        return deepspeed_tpu_torch.initialize(
+            model=GPT(cfg), config=config, seed=seed,
+            training_data=data_corpus(512, n=400, lo=8, hi=256,
+                                      long_docs=(300,)))
+
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    try:
+        engine, _, loader, _ = make(5)
+        tap = BatchTap(iter(loader))
+        losses = []
+        for i in range(DATA_RESUME_STEPS):
+            losses.append(float(engine.train_batch(tap)))
+            if i + 1 == DATA_RESUME_SAVE:
+                engine.save_checkpoint(DATA_DIR)
+        engine.destroy()
+        fresh, _, loader2, _ = make(6)
+        fresh.load_checkpoint(DATA_DIR)
+        tap2 = BatchTap(iter(loader2))
+        resumed = [float(fresh.train_batch(tap2))
+                   for _ in range(DATA_RESUME_STEPS - DATA_RESUME_SAVE)]
+        fresh.destroy()
+        same_ids = [bool(torch.equal(a, b))
+                    for a, b in zip(tap.ids[DATA_RESUME_SAVE:], tap2.ids)]
+        out = {"losses": losses, "resumed_losses": resumed,
+               "losses_identical": resumed == losses[DATA_RESUME_SAVE:],
+               "batches_token_identical": same_ids,
+               "max_segments": tap.summary()[0]}
+        del engine, fresh, loader, loader2, tap, tap2
+        free_cuda()
+        return out
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
+
+
+def phase_data():
+    """GPT-2 1.3B on packed documents through ``initialize(...,
+    training_data=docs)`` with a ``data_pipeline`` block, the data slice's
+    main path: 12 captured steps with prefetch (counts set to 0 just before
+    them) against 12 uncaptured ones and 12 captured ones without
+    prefetch; the packed batch on the flash kernels against the einsum
+    path, per-document isolation; the curriculum; a resume. Returns the
+    kernels' launch counts on the captured prefetch run."""
+    free_cuda()
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    traces = {}
+    main, main_params = data_run(
+        STEPS, traced=lambda eng, it: traces.update(profile_step(
+            eng, it, "data_step_1p3b",
+            {"flash_attention_fwd": "flash_fwd_",
+             "flash_attention_bwd_dq": "bwd_dq_",
+             "flash_attention_bwd_dkv": "bwd_dkv_",
+             "fused_adamw": "adamw_kernel"}, PER_STEP)))
+    eager, eager_params = data_run(STEPS, eager=True)
+    vs_eager = data_compare(main, main_params, eager, eager_params)
+    del eager_params
+    off, off_params = data_run(STEPS, pipeline={"prefetch": False})
+    vs_off = data_compare(main, main_params, off, off_params)
+    del main_params, off_params
+    free_cuda()
+    exact = packed_exactness()
+    copies = {}
+    curr, curr_params = data_run(
+        DATA_CURRICULUM_STEPS, curriculum=DATA_CURRICULUM,
+        on_engine=lambda eng: copies.update(tap=CaptureCopies(eng)))
+    curr_eager, curr_eager_params = data_run(
+        DATA_CURRICULUM_STEPS, eager=True, curriculum=DATA_CURRICULUM)
+    vs_curr = data_compare(curr, curr_params, curr_eager, curr_eager_params)
+    del curr_params, curr_eager_params
+    free_cuda()
+    resume = data_resume()
+    kernels = segment_kernel_times(exact.pop("segment_ids"))
+    host = data_host_costs()
+    unfenced = {"on": [], "off": []}
+    for prefetch in (True, False, False, True):
+        unfenced["on" if prefetch else "off"].append(
+            data_unfenced_ms(prefetch))
+    ms, eager_ms = step_medians(main["step_ms"], eager["step_ms"])
+    off_ms = statistics.median(off["step_ms"][CAPTURE_WARMUP + 1:])
+    lengths = sorted(set(curr["lengths"]))
+    line = {"phase": "data", "card": smi, "model": "gpt2-1.3b",
+            "config": dict(GPT_PRETRAIN_CONFIG, data_pipeline=DATA_PIPELINE),
+            "corpus": {"documents": DATA_DOCS,
+                       "lengths": [DATA_MIN_LEN, DATA_MAX_LEN],
+                       "long": list(DATA_LONG_DOCS)},
+            "steps": STEPS, "capture_warmup_steps": CAPTURE_WARMUP,
+            "losses": main["losses"], "eager_losses": eager["losses"],
+            "captured_vs_eager": vs_eager,
+            "prefetch_off_losses": off["losses"],
+            "prefetch_on_vs_off": vs_off,
+            "launches": main["launches"],
+            "launches_per_step": main["launches_by_step"][-1],
+            "max_segments_per_row_by_batch": main["max_segments"],
+            "step_ms_median": ms, "eager_step_ms_median": eager_ms,
+            "prefetch_off_step_ms_median": off_ms,
+            "step_ms": main["step_ms"], "prefetch_off_step_ms": off["step_ms"],
+            "prefetch_counters": main["counters"],
+            "traced_replay_device_busy_share":
+                traces["data_step_1p3b"]["device_busy_share"],
+            "unfenced_ms_per_step_by_turn": unfenced,
+            "unfenced_steps": DATA_UNFENCED_STEPS,
+            "host_ms_per_batch": host,
+            "peak_allocated_gb": main["peak_allocated_gb"],
+            "packed_exactness": exact,
+            "curriculum": {
+                "config": DATA_CURRICULUM, "steps": DATA_CURRICULUM_STEPS,
+                "lengths_by_step": curr["lengths"],
+                "distinct_lengths": lengths, "graphs": curr["graphs"],
+                "losses": curr["losses"], "eager_losses": curr_eager["losses"],
+                "captured_vs_eager": vs_curr,
+                "launches_per_step_distinct": distinct_nonzero(
+                    curr["launches_by_step"]),
+                "peak_allocated_gb": curr["peak_allocated_gb"],
+                "peak_reserved_gb": curr["peak_reserved_gb"],
+                "step_ms": curr["step_ms"],
+                "copies_during_a_capture": copies["tap"].during,
+                "copies": copies["tap"].total,
+                "prefetch_counters": curr["counters"]},
+            "resume": resume, "segment_kernels": kernels,
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    problems = []
+    if not all(math.isfinite(x) for x in main["losses"]):
+        problems.append("non-finite loss")
+    if not main["losses"][-1] < main["losses"][0]:
+        problems.append("the loss did not fall")
+    if not all(v for k, v in vs_eager.items() if k.endswith("identical")):
+        problems.append(f"captured against eager: {vs_eager}")
+    if not all(v for k, v in vs_off.items() if k.endswith("identical")):
+        problems.append(f"prefetch on against off: {vs_off}")
+    problems += traces["data_step_1p3b"]["problems"]
+    if not all(n > 1 for n in main["max_segments"]):
+        problems.append("a batch with one document per row")
+    want = dict(PER_STEP, **{k + "_segment": v for k, v in PER_STEP.items()
+                             if k.startswith("flash")})
+    for name, per in want.items():
+        if main["launches"][name] != per * STEPS:
+            problems.append(f"{name}: {main['launches'][name]} launches, "
+                            f"want {per} x {STEPS}")
+    if not (exact["loss_rel_err"] <= PACKED_LOSS_REL_TOL
+            and exact["grad_norm_rel_err"] <= PACKED_GNORM_REL_TOL):
+        problems.append("packed flash against einsum")
+    if exact["flash_launches"]["flash_attention_fwd_segment"] == 0:
+        problems.append("the exactness check missed the segment variant")
+    if not exact["isolation"]["other_bit_identical"]:
+        problems.append(f"isolation: {exact['isolation']}")
+    if not exact["isolation"]["changed_max_abs_diff"] > 0:
+        problems.append("isolation: the changed document's losses did not "
+                        "change")
+    if len(curr["graphs"]) != len(lengths) or len(lengths) < 4:
+        problems.append(f"curriculum: {len(curr['graphs'])} graphs for "
+                        f"lengths {lengths}")
+    if not all(v for k, v in vs_curr.items() if k.endswith("identical")):
+        problems.append(f"curriculum captured against eager: {vs_curr}")
+    for i, got in enumerate(curr["launches_by_step"]):
+        if any(got[name] != per for name, per in want.items()):
+            problems.append(f"curriculum step {i + 1} launched {got}")
+            break
+    if not copies["tap"].during:
+        problems.append("no prefetch copy ran during a capture")
+    if not (kernels["errors"]["o_max_abs"] <= TOLERANCE["bfloat16"]["o"]
+            and kernels["errors"]["grad_rel"] <= GRAD_REL_TOL["bfloat16"]):
+        problems.append(f"segment variant at the packed shape: "
+                        f"{kernels['errors']}")
+    if not (resume["losses_identical"]
+            and all(resume["batches_token_identical"])
+            and len(resume["batches_token_identical"])
+            == DATA_RESUME_STEPS - DATA_RESUME_SAVE):
+        problems.append(f"resume: {resume}")
+    if problems:
+        raise AssertionError(f"data: {problems}")
+    return main["launches"], kernels
+
 
 
 def phase_small_train():
@@ -2265,7 +2892,8 @@ def phase_small_train():
                      "flash_attention_bwd_dq": 3 * cfg.n_layer,
                      "flash_attention_bwd_dkv": 3 * cfg.n_layer,
                      "fused_adamw": 3, "block_sparse_fwd": 0,
-                     "block_sparse_dq": 0, "block_sparse_dkv": 0}
+                     "block_sparse_dq": 0, "block_sparse_dkv": 0,
+                     **UNSEGMENTED}
     if not (loss_err <= SMALL_LOSS_REL_TOL and update_err <= SMALL_UPDATE_REL_L2
             and launches == want_launches):
         raise AssertionError(f"small_train: {line}")
@@ -3213,7 +3841,8 @@ def zero_small_runs(world, rank):
     batches = zero_small_batches(world, 2, seed=6)
     want = {"flash_attention_fwd": 2 * 2 * 8, "flash_attention_bwd_dq": 32,
             "flash_attention_bwd_dkv": 32, "fused_adamw": 8,
-            "block_sparse_fwd": 0, "block_sparse_dq": 0, "block_sparse_dkv": 0}
+            "block_sparse_fwd": 0, "block_sparse_dq": 0, "block_sparse_dkv": 0,
+            **UNSEGMENTED}
     for stage in (2, 3):
         check, launches, losses, _, _, e_losses, _ = captured_against_eager(
             lambda: zero_small_engine(stage, torch.bfloat16, {}, gas=2),
@@ -3290,6 +3919,175 @@ def zero_small_runs(world, rank):
     return out
 
 
+ZERO_DATA_STEPS, ZERO_DATA_SAVE = 4, 2
+ZERO_DATA_DIR = os.path.join(ZERO_DIR, "data_ckpt")
+ZERO_DATA_SEQ = 256
+
+
+def zero_data_corpus():
+    return data_corpus(512, n=600, seed=3, lo=8, hi=ZERO_DATA_SEQ,
+                       long_docs=(300,))
+
+
+def zero_data_engine(shard, seed=5):
+    """A small bf16 GPT at ZeRO stage 1 on the packed pipeline (prefetch
+    on, ``shard`` as given), micro 2 x 256 per rank."""
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import GPT, GPTConfig
+
+    cfg = GPTConfig(vocab_size=512, n_positions=ZERO_DATA_SEQ, n_embd=256,
+                    n_layer=2, n_head=4, dtype=torch.bfloat16,
+                    use_flash_attention=True)
+    config = {"train_micro_batch_size_per_gpu": 2, "gradient_clipping": 1.0,
+              "bf16": {"enabled": True},
+              "optimizer": {"type": "FusedAdam", "params": {"lr": SMALL_LR}},
+              "tpu": {"use_pallas_optimizer": True},
+              "zero_optimization": {"stage": 1}, "steps_per_print": 10 ** 9,
+              "data_pipeline": dict(DATA_PIPELINE, seq_length=ZERO_DATA_SEQ,
+                                    shard=shard)}
+    return deepspeed_tpu_torch.initialize(model=GPT(cfg), config=config,
+                                          seed=seed,
+                                          training_data=zero_data_corpus())
+
+
+def zero_data_run(shard, steps, save=False, load=False):
+    """``steps`` steps of ``zero_data_engine(shard)``: the batches this rank
+    drew (token and segment ids) and the losses; ``save``: a tag under
+    ``ZERO_DATA_DIR`` after ``ZERO_DATA_SAVE`` steps; ``load``: that tag
+    first."""
+    engine, _, loader, _ = zero_data_engine(shard)
+    out = {}
+    if load:
+        engine.load_checkpoint(ZERO_DATA_DIR)
+        out["stream"] = loader.state_dict()["stream"]
+    tap = BatchTap(iter(loader))
+    losses = []
+    for i in range(steps):
+        losses.append(float(engine.train_batch(tap)))
+        if save and i + 1 == ZERO_DATA_SAVE:
+            engine.save_checkpoint(ZERO_DATA_DIR)
+            out["saved_stream"] = loader.state_dict()["stream"]
+    engine.destroy()
+    out.update(losses=losses, ids=[x.tolist() for x in tap.ids],
+               segment_ids=[x.tolist() for x in tap.segment_ids])
+    del engine, loader, tap
+    free_cuda()
+    return out
+
+
+def zero_data_runs():
+    """The data path on this rank: ``shard: "process"`` with a tag saved
+    after 2 of 4 steps, ``shard: "none"``, and the tag resumed at this
+    world."""
+    return {"process": zero_data_run("process", ZERO_DATA_STEPS, save=True),
+            "none": zero_data_run("none", ZERO_DATA_STEPS - 1),
+            "resumed": zero_data_run("process",
+                                     ZERO_DATA_STEPS - ZERO_DATA_SAVE,
+                                     load=True)}
+
+
+def zero_data_one_card():
+    """The data tag in a group-less engine on card 0: the stream's state
+    after the load, and one step."""
+    engine, _, loader, _ = zero_data_engine("process", seed=6)
+    engine.load_checkpoint(ZERO_DATA_DIR)
+    out = {"stream": loader.state_dict()["stream"],
+           "loss": float(engine.train_batch(iter(loader))),
+           "reshard": engine.last_reshard.mismatches}
+    engine.destroy()
+    del engine, loader
+    free_cuda()
+    return out
+
+
+def _documents(ids, segment_ids):
+    """The documents of a packed batch, as tuples of tokens."""
+    import numpy as np
+
+    ids, seg = np.asarray(ids), np.asarray(segment_ids)
+    return [tuple(row[s_row == s].tolist()) for row, s_row in zip(ids, seg)
+            for s in range(1, int(s_row.max()) + 1)]
+
+
+def zero_data_report(world, results, one_card, smi):
+    """The data part's line; returns the failed checks. ``shard:
+    "process"``: the ranks' documents are disjoint, each rank's the prefix
+    of its own stride; ``"none"``: each rank's rows are its slice of the
+    world-1 pipeline's batch; the tag resumed at this world gives every
+    rank its own next batches and losses; on one card the stream
+    re-strides from rank 0's state (at world > 1)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.data import PackedDataPipeline, ShardedSampleStream
+
+    runs = [r["data"] for r in results]
+    corpus = zero_data_corpus()
+    problems = []
+    drawn = [[d for ids, seg in zip(r["process"]["ids"],
+                                    r["process"]["segment_ids"])
+              for d in _documents(ids, seg)] for r in runs]
+    seen = [d for docs in drawn for d in docs]
+    disjoint = len(seen) == len(set(seen))
+    prefix = []
+    for rank, docs in enumerate(drawn):
+        stream = ShardedSampleStream(corpus, seed=DATA_PIPELINE["seed"],
+                                     shard_rank=rank, num_shards=world)
+        own = [tuple(next(stream)[:ZERO_DATA_SEQ].tolist()) for _ in docs]
+        prefix.append(sorted(own) == sorted(docs))
+    ref = PackedDataPipeline(corpus, batch_size=2 * world,
+                             seq_length=ZERO_DATA_SEQ,
+                             seed=DATA_PIPELINE["seed"])
+    none_ok = True
+    for step in range(ZERO_DATA_STEPS - 1):
+        want = next(ref)
+        for rank, r in enumerate(runs):
+            rows = slice(2 * rank, 2 * rank + 2)
+            none_ok &= (np.array_equal(r["none"]["ids"][step],
+                                       want["input_ids"][rows])
+                        and np.array_equal(r["none"]["segment_ids"][step],
+                                           want["segment_ids"][rows]))
+    resumed = [r["resumed"]["ids"] == r["process"]["ids"][ZERO_DATA_SAVE:]
+               and r["resumed"]["losses"]
+               == r["process"]["losses"][ZERO_DATA_SAVE:]
+               and r["resumed"]["stream"] == r["process"]["saved_stream"]
+               for r in runs]
+    saved0 = runs[0]["process"]["saved_stream"]
+    if world > 1:
+        want_stream = dict(saved0, num_shards=1, cursor=0, epoch_offset=(
+            saved0["epoch_offset"] + saved0["cursor"] * world))
+    else:
+        want_stream = saved0
+    line = {"phase": "zero", "world": world, "card": smi, "data": {
+        "shard_process": {"documents_by_rank": [len(d) for d in drawn],
+                          "disjoint": disjoint,
+                          "prefix_of_own_stride_by_rank": prefix,
+                          "losses_by_rank": [r["process"]["losses"]
+                                             for r in runs],
+                          "saved_cursor_by_rank": [
+                              r["process"]["saved_stream"]["cursor"]
+                              for r in runs]},
+        "shard_none_rows_are_world1_slices": none_ok,
+        "resumed_same_world_identical_by_rank": resumed,
+        "one_card": dict(one_card, want_stream=want_stream)}}
+    emit(line)
+    if not (disjoint and all(prefix)):
+        problems.append(f"data: shard process {line['data']['shard_process']}")
+    if any(r["process"]["losses"] != runs[0]["process"]["losses"]
+           for r in runs):
+        problems.append("data: the ranks' losses differ")
+    if not none_ok:
+        problems.append("data: shard none rows are not the world-1 slices")
+    if not all(resumed):
+        problems.append(f"data: resume at world {world}: {resumed}")
+    if one_card["stream"] != want_stream or not math.isfinite(
+            one_card["loss"]):
+        problems.append(f"data: one-card resume {one_card}, want stream "
+                        f"{want_stream}")
+    return problems
+
+
 def zero_rank(rank, world, url):
     """One rank of the zero phase (the whole phase at world 1, in process).
     Rank 0 first runs the group-less reference on its card, then every rank
@@ -3343,6 +4141,7 @@ def zero_rank(rank, world, url):
         n = -(-GPT_1P3B_PARAMS // (world * 64)) * 64  # a shard, as padded
         out["b4_shard"] = time_b4_shard(n)
     out["small"] = zero_small_runs(world, rank)
+    out["data"] = zero_data_runs()
     comm.barrier()
     comm.destroy_distributed()
     return out
@@ -3447,8 +4246,9 @@ def phase_zero():
     else:
         results = zero_spawn(world)
     one_card = zero_one_card_resume(world)
+    data_one_card = zero_data_one_card()
     seconds = time.perf_counter() - t0
-    return zero_report(world, results, one_card, seconds)
+    return zero_report(world, results, one_card, data_one_card, seconds)
 
 
 def within_zero_bounds(vs):
@@ -3461,7 +4261,7 @@ def within_zero_bounds(vs):
             and vs["grad_norm_rel_err"] <= ZERO_GRAD_NORM_REL_TOL)
 
 
-def zero_report(world, results, one_card, seconds):
+def zero_report(world, results, one_card, data_one_card, seconds):
     """One JSON line per stage and one for the small paths, the world on
     each; raises on any failed check."""
     r0 = results[0]
@@ -3599,6 +4399,7 @@ def zero_report(world, results, one_card, seconds):
             and one_card["update_rel_l2"] <= ZERO_SMALL_UPDATE_REL_L2
             and one_card["reshard"] == expect_reshard):
         problems.append(f"small checkpoint on one card: {one_card}")
+    problems += zero_data_report(world, results, data_one_card, smi)
     shutil.rmtree(ZERO_DIR, ignore_errors=True)
     if problems:
         raise AssertionError(f"zero (world {world}): {problems}")
@@ -3925,10 +4726,11 @@ def main(argv):
 
     usage = (len(argv) == 1 or (len(argv) == 3 and argv[1] in
                                 ("--against", "--only") and
-                                (argv[1] == "--against" or argv[2] == "zero"))
+                                (argv[1] == "--against"
+                                 or argv[2] in ("zero", "data")))
              or (len(argv) == 6 and argv[1] == "--zero-rank"))
     if not usage:
-        print(f"usage: {argv[0]} [--against OTHER_CHECKOUT | --only zero]",
+        print(f"usage: {argv[0]} [--against OTHER_CHECKOUT | --only zero|data]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3950,7 +4752,10 @@ def main(argv):
     if argv[1:2] == ["--only"]:
         smi = phase_device()
         phase_build()
-        emit({"zero_launches_by_path": phase_zero()})
+        if argv[2] == "zero":
+            emit({"zero_launches_by_path": phase_zero()})
+        else:
+            emit({"data_launches": phase_data()[0]})
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -3966,6 +4771,8 @@ def main(argv):
     free_cuda()
     launches = phase_train()
     free_cuda()
+    data_launches, segment_times = phase_data()
+    free_cuda()
     ckpt_launches = phase_checkpoint()
     sparse_launches = phase_sparse_train()
     phase_small_capture()
@@ -3975,22 +4782,31 @@ def main(argv):
     zero_paths = phase_zero()
     paths = {"serve": serve_launches, "train": launches,
              "checkpoint": ckpt_launches, "sparse_train": sparse_launches,
-             **zero_paths}
+             **zero_paths, "data": data_launches}
     for entry in kernels:
         # each slice's main path, its counts set to 0 just before it: serving
         # runs B1, GPT training, the checkpoint path, ZeRO (stages 0-2, and
-        # stage 3) and the gradient exchange B1-B4, BERT training under
-        # BigBird B4-B7. "launches" is the count on the newest path that
-        # runs the kernel
+        # stage 3), the gradient exchange and the packed data path B1-B4
+        # (B1-B3 in their segment variant), BERT training under BigBird
+        # B4-B7. "launches" is the count on the newest path that runs the
+        # kernel
         name = entry["name"]
         entry["launches_by_path"] = {p: counts[name] for p, counts in paths.items()}
-        entry["launches"] = (zero_paths["grad_exchange"][name]
+        entry["launches"] = (data_launches[name]
+                             or zero_paths["grad_exchange"][name]
                              or zero_paths["zero_stage3"][name]
                              or zero_paths["zero"][name]
                              or sparse_launches[name]
                              or ckpt_launches[name] or launches[name])
         if not entry["launches"]:
             raise AssertionError(f"{name} never ran on a main path")
+        if name in segment_times:
+            # B1-B3's segment variant at the packed 1.3B batch (data phase)
+            entry["segment_ms"] = segment_times[name]["ms"]
+            entry["segment_unsegmented_ms"] = segment_times[name][
+                "unsegmented_ms"]
+            entry["segment_bound_ms"] = segment_times[name][
+                "segment_bound_ms"]
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

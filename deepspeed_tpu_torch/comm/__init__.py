@@ -4,6 +4,7 @@ exports of ``deepspeed_tpu/comm/__init__.py``)."""
 from deepspeed_tpu_torch.comm.comm import (  # noqa: F401
     ReduceOp,
     all_gather,
+    all_gather_object,
     all_reduce,
     all_to_all_single,
     axis_index,

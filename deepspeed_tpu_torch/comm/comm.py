@@ -403,5 +403,15 @@ def barrier() -> None:
         dist.barrier()
 
 
+def all_gather_object(obj) -> list:
+    """Every rank's ``obj`` (picklable), in rank order: a collective on the
+    host's side, outside any captured step (``[obj]`` without a group)."""
+    if not is_initialized():
+        return [obj]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
 def log_summary():
     return comms_logger.log_summary()

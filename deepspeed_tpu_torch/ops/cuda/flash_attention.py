@@ -31,10 +31,15 @@ HEAD_DIMS = (32, 64, 80, 96, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # kernel launches since the counts were last set to 0 (CPU calls never
-# count): B1 (forward), B2 (dq) and B3 (dk, dv)
+# count): B1 (forward), B2 (dq) and B3 (dk, dv); the ``_segment`` counts
+# are the launches among them that took the segment variant (packed
+# batches: a segment-id pointer, the same-segment mask)
 launches = 0
 launches_dq = 0
 launches_dkv = 0
+launches_segment = 0
+launches_dq_segment = 0
+launches_dkv_segment = 0
 
 
 @functools.cache
@@ -160,7 +165,7 @@ def _seg_i32(segment_ids):
 
 
 def _launch(q, k, v, segment_ids, causal, scale):
-    global launches
+    global launches, launches_segment
     _check_launch(q, k, v)
     b, t, h, d = q.shape
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
@@ -178,6 +183,7 @@ def _launch(q, k, v, segment_ids, causal, scale):
     if err:
         raise RuntimeError(f"flash_attention_fwd kernel failed: CUDA error {err}")
     launches += 1
+    launches_segment += seg is not None
     return o, lse
 
 
@@ -200,19 +206,20 @@ def _bwd_call(fn, q, k, v, lse, delta, do, segment_ids, causal, scale, outs):
 
 def _launch_dq(q, k, v, lse, delta, do, segment_ids, causal, scale):
     """B2 alone, from a precomputed ``delta`` [B, H, T] f32."""
-    global launches_dq
+    global launches_dq, launches_dq_segment
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     err = _bwd_call(_bwd_kernels()[0], q, k, v, lse, delta, do, segment_ids,
                     causal, scale, (dq,))
     if err:
         raise RuntimeError(f"flash_attention_bwd dq kernel failed: CUDA error {err}")
     launches_dq += 1
+    launches_dq_segment += segment_ids is not None
     return dq
 
 
 def _launch_dkv(q, k, v, lse, delta, do, segment_ids, causal, scale):
     """B3 alone, from a precomputed ``delta`` [B, H, T] f32."""
-    global launches_dkv
+    global launches_dkv, launches_dkv_segment
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
               for _ in range(2))
     err = _bwd_call(_bwd_kernels()[1], q, k, v, lse, delta, do, segment_ids,
@@ -220,6 +227,7 @@ def _launch_dkv(q, k, v, lse, delta, do, segment_ids, causal, scale):
     if err:
         raise RuntimeError(f"flash_attention_bwd dkv kernel failed: CUDA error {err}")
     launches_dkv += 1
+    launches_dkv_segment += segment_ids is not None
     return dk, dv
 
 

@@ -82,6 +82,9 @@ def _counters():
     return {"flash_attention_fwd": (fa, "launches"),
             "flash_attention_bwd_dq": (fa, "launches_dq"),
             "flash_attention_bwd_dkv": (fa, "launches_dkv"),
+            "flash_attention_fwd_segment": (fa, "launches_segment"),
+            "flash_attention_bwd_dq_segment": (fa, "launches_dq_segment"),
+            "flash_attention_bwd_dkv_segment": (fa, "launches_dkv_segment"),
             "fused_adamw": (fadam, "launches"),
             "block_sparse_fwd": (bsa, "launches_sparse_fwd"),
             "block_sparse_dq": (bsa, "launches_sparse_dq"),
@@ -89,7 +92,9 @@ def _counters():
 
 
 def launch_counts() -> Dict[str, int]:
-    """Every kernel's launch count, by kernel name (replays included)."""
+    """Every kernel's launch count, by kernel name (replays included); the
+    ``_segment`` entries count the flash kernels' segment-variant launches
+    among their totals."""
     return {name: getattr(mod, attr)
             for name, (mod, attr) in _counters().items()}
 

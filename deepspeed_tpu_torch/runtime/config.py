@@ -11,7 +11,8 @@ group), ``fp16`` with its loss-scale keys, ``bf16``,
 and fsdp, ``communication_data_type`` fp32 / bf16 (bfp16) / fp16 (the
 dtype of the gradient exchange; unset, the gradients' own),
 ``comms_logger``, ``tpu.use_pallas_optimizer``, ``sparse_attention``
-(applied by the engine), ``checkpoint`` (``keep_n``, ``verify``,
+(applied by the engine), ``data_pipeline`` and ``curriculum_learning``
+(the engine's data path), ``checkpoint`` (``keep_n``, ``verify``,
 ``tag_validation``), ``nebula`` (the asynchronous checkpoint engine) and
 ``wall_clock_breakdown``. ``unported_features()`` names every other block
 that is enabled, with the ROADMAP item that ports it; the engine refuses
@@ -196,16 +197,40 @@ class StepProfilerConfig(ConfigModel):
 
 @dataclass
 class DataPipelineConfig(ConfigModel):
+    """The input data pipeline (``deepspeed_tpu_torch/data/``; JAX
+    ``config.py:243-281``): sharded streaming, sequence packing and
+    background prefetch to the card in place of ``DeepSpeedDataLoader``."""
+
     enabled: bool = False
+    # bin-pack variable-length documents into [B, seq_length] with
+    # segment_ids/positions; False collates one sample per row instead
     pack_sequences: bool = True
     seq_length: int = 1024
     pad_token_id: int = 0
     shuffle: bool = True
     seed: int = 0
+    # "process": each data-parallel rank packs its own rows from its own
+    # stride of the stream; "none": every rank packs the same global micro
+    # batch and keeps its rows (runtime/engine.py deepspeed_io)
     shard: str = "process"
+    # a worker thread packs and copies batch N+1 to the card (pinned
+    # memory, a stream of its own) while the step of batch N runs
     prefetch: bool = True
     prefetch_depth: int = 2
+    # pack to the curriculum scheduler's quantized difficulty
     curriculum_pack: bool = True
+
+    def __post_init__validate__(self):
+        if self.seq_length < 2:
+            raise DeepSpeedConfigError(
+                "data_pipeline.seq_length must be >= 2")
+        if self.prefetch_depth < 1:
+            raise DeepSpeedConfigError(
+                "data_pipeline.prefetch_depth must be >= 1")
+        if self.shard not in ("process", "none"):
+            raise DeepSpeedConfigError(
+                f"data_pipeline.shard must be 'process' or 'none', got "
+                f"{self.shard!r}")
 
 
 @dataclass
@@ -592,8 +617,6 @@ class DeepSpeedConfig:
             ("zero_optimization.offload_param (parameter offload, "
              "ROADMAP A.10)",
              (zero.offload_param or {}).get("device", "none") != "none"),
-            ("data_pipeline", self.data_pipeline.enabled),
-            ("curriculum_learning", self.curriculum_learning.enabled),
             ("progressive_layer_drop", self.progressive_layer_drop.enabled),
             ("sentinel", self.sentinel.enabled),
             ("step_profiler", self.step_profiler.enabled),

@@ -75,6 +75,16 @@ mean of the ranks' losses. The 1-bit optimizers' branch (warm-up or
 compressed, 0/1 Adam's variance refresh) is a static key of the step, so
 each has its own graph.
 
+The data path (JAX engine :1455-1545, :2044-2053): with the
+``data_pipeline`` block ``deepspeed_io`` builds ``data/``'s packed pipeline
+(sharded by the data-parallel rank under ``shard: "process"``), behind a
+prefetcher whose worker copies each batch to the card on a stream of its
+own (``_prefetch_put``); ``_put_batch`` takes such a batch as it is once
+the step's stream has waited for its copies. ``curriculum_learning``
+truncates each batch to the scheduled length before the step, and under
+``curriculum_pack`` the pipeline packs to it (``_PackingLength``). A
+checkpoint holds every rank's loader state.
+
 Entry points run on the card: ``device=None`` means ``"cuda"`` (under a
 NCCL group ``cuda:{local_rank}``, one card per rank) and raises when torch
 sees no card. Pass ``device="cpu"`` to train on the host (the kernels then
@@ -92,6 +102,8 @@ import torch
 
 from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.comm.logging import comms_logger
+from deepspeed_tpu_torch.data import DevicePrefetcher, PackedDataPipeline
+from deepspeed_tpu_torch.data.prefetch import CopyStream, PlacedBatch
 from deepspeed_tpu_torch.models.bert import BertForPreTraining, materialize_bert
 from deepspeed_tpu_torch.models.transformer_lm import GPT, materialize_gpt
 from deepspeed_tpu_torch.parallel.mesh import (MeshTopology,
@@ -105,6 +117,8 @@ from deepspeed_tpu_torch.runtime.compiled_step import CompiledStep
 from deepspeed_tpu_torch.runtime.compressed_exchange import (
     CompressedExchange, select_mode, validate_compressed_config)
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.data_pipeline import (
+    CurriculumScheduler, truncate_batch_to_difficulty)
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.loss_scaler import (LossScaleState,
                                                      has_overflow,
@@ -220,6 +234,37 @@ class OptimizerAdapter:
 
     def state_dict(self):
         return self._engine.optimizer.state_dict()
+
+
+class _PackingLength:
+    """The sequence length the packed pipeline packs its next batch to under
+    ``curriculum_pack`` (the pipeline calls it once per batch). The JAX
+    engine passes ``lambda: sched.current_difficulty``; without prefetch,
+    batch n > 0 is drawn just after micro batch n - 1 set the difficulty of
+    its step to ``get_difficulty((n - 1) // gas + 1)``, and batch 0 sees the
+    difficulty the scheduler starts from. This returns exactly that, from
+    n, so that a prefetch worker running ahead of the steps packs every
+    batch to the length it has without prefetch, whatever the two threads'
+    timing (the JAX prefetcher reads the difficulty of the moment, and the
+    queue's depth decides how stale), and a resumed run packs the batches
+    of the run it resumes (a fresh JAX engine packs its first batch after a
+    resume at the starting difficulty). Under a monotone schedule the
+    consumer's truncation then leaves every batch as it was packed."""
+
+    def __init__(self, scheduler, gas, micro_steps):
+        self.scheduler, self.gas = scheduler, gas
+        self.initial = scheduler.current_difficulty
+        self.restart(micro_steps)
+
+    def restart(self, micro_steps):
+        """Batch ``micro_steps`` is drawn next."""
+        self.next_batch = micro_steps
+
+    def __call__(self) -> int:
+        n, self.next_batch = self.next_batch, self.next_batch + 1
+        if n == 0:
+            return self.initial
+        return self.scheduler.get_difficulty((n - 1) // self.gas + 1)
 
 
 class DeepSpeedEngine:
@@ -350,6 +395,17 @@ class DeepSpeedEngine:
         self._lr_override = None
         self.checkpoint_engine = select_checkpoint_engine(config)
         self.training_dataloader = None
+        # the data path (deepspeed_io): the rows a loader's batch holds when
+        # each rank packs its own (shard "process" over several ranks), the
+        # prefetch worker's copies, and the curriculum's packing length
+        self._local_rows = False
+        self._copy_stream = None
+        self._packing_length = None
+        # curriculum learning (JAX engine :548-555): batches truncated to
+        # the scheduled difficulty at consume time
+        self.curriculum_scheduler = (
+            CurriculumScheduler(config.curriculum_learning)
+            if config.curriculum_learning.enabled else None)
         self._ls_state, self._ls_config = init_loss_scale(
             config.fp16, enabled=self.fp16_enabled, device=self.device)
 
@@ -471,27 +527,90 @@ class DeepSpeedEngine:
 
     # -- data -------------------------------------------------------------
     def deepspeed_io(self, dataset, collate_fn=None, shuffle=True):
-        """A loader of global micro batches (``micro x dp`` rows, as the JAX
-        engine's; every rank reads the same batch and keeps its rows), kept
-        as ``training_dataloader``: a checkpoint carries its (epoch, seed)
-        state."""
-        self.training_dataloader = DeepSpeedDataLoader(
-            dataset, batch_size=(self.train_micro_batch_size_per_gpu
-                                 * self.data_parallel_size),
-            shuffle=shuffle, drop_last=self._config.dataloader_drop_last,
-            collate_fn=collate_fn)
-        return self.training_dataloader
+        """The training loader, kept as ``training_dataloader`` (a
+        checkpoint carries its state; JAX engine :1455-1478). Without the
+        ``data_pipeline`` block: a ``DeepSpeedDataLoader`` of global micro
+        batches (``micro x dp`` rows; every rank reads the same batch and
+        keeps its rows). With it: the packed pipeline
+        (``_build_data_pipeline``). A prefetcher an earlier call made is
+        stopped."""
+        self._stop_prefetch()
+        if self._config.data_pipeline.enabled:
+            loader = self._build_data_pipeline(dataset, shuffle)
+        else:
+            self._local_rows = False
+            loader = DeepSpeedDataLoader(
+                dataset, batch_size=(self.train_micro_batch_size_per_gpu
+                                     * self.data_parallel_size),
+                shuffle=shuffle, drop_last=self._config.dataloader_drop_last,
+                collate_fn=collate_fn)
+        self.training_dataloader = loader
+        return loader
 
-    def _put_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """A dict of numpy arrays or tensors, on the engine's device; integer
-        arrays become int64 (token ids, masks, segment ids, positions).
-        Under a process group each array is the global micro batch and the
-        rank keeps its ``micro`` rows."""
+    def _build_data_pipeline(self, dataset, shuffle):
+        """``PackedDataPipeline`` over ``dataset`` (documents: token
+        sequences, or dicts with ``input_ids``), wrapped in a
+        ``DevicePrefetcher`` whose worker runs ``_prefetch_put`` when
+        ``prefetch`` is on (JAX engine :1480-1513).
+
+        The JAX engine runs one process per host and shards the stream by
+        process; the port runs one process per card, so the shard is the
+        data-parallel rank. ``shard: "process"``: each rank packs its own
+        ``micro`` rows from its own stride of the stream, and ``_put_batch``
+        keeps them all. ``shard: "none"``: every rank packs the same global
+        micro batch (``micro x dp`` rows, the JAX single-process run row
+        for row) and keeps its slice. Under ``curriculum_pack`` the pipeline
+        packs each batch to ``_PackingLength``'s length."""
+        dp_cfg = self._config.data_pipeline
+        micro, dp = self.train_micro_batch_size_per_gpu, self.data_parallel_size
+        if dp_cfg.shard == "process":
+            shard_rank, num_shards, rows = (
+                self.topology.data_parallel_rank(), dp, micro)
+        else:
+            shard_rank, num_shards, rows = 0, 1, micro * dp
+        self._local_rows = rows != micro * dp
+        self._packing_length = None
+        if dp_cfg.curriculum_pack and self.curriculum_scheduler is not None:
+            self._packing_length = _PackingLength(
+                self.curriculum_scheduler, self.gradient_accumulation_steps,
+                self.micro_steps)
+        pipeline = PackedDataPipeline(
+            dataset, batch_size=rows, seq_length=dp_cfg.seq_length,
+            pack_sequences=dp_cfg.pack_sequences,
+            pad_token_id=dp_cfg.pad_token_id,
+            shuffle=shuffle and dp_cfg.shuffle, seed=dp_cfg.seed,
+            shard_rank=shard_rank, num_shards=num_shards,
+            seqlen_fn=self._packing_length)
+        if not dp_cfg.prefetch:
+            return pipeline
+        self._copy_stream = CopyStream(self.device)
+        return DevicePrefetcher(pipeline, put_fn=self._prefetch_put,
+                                depth=dp_cfg.prefetch_depth)
+
+    def _stop_prefetch(self):
+        loader = self.training_dataloader
+        if isinstance(loader, DevicePrefetcher):
+            loader.stop()
+
+    def destroy(self):
+        """Stop the data path's prefetch worker (its thread holds the
+        engine). The engine stays usable: the next batch drawn restarts the
+        worker."""
+        self._stop_prefetch()
+
+    def _host_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The rank's rows of ``batch`` (numpy arrays or tensors) as tensors
+        where they lie, integer arrays as int64 (token ids, masks, segment
+        ids, positions). Under a process group an array holds the global
+        micro batch and the rank keeps its ``micro`` rows, or, when each
+        rank packs its own (``shard: "process"``), the rank's ``micro``
+        rows."""
         out = {}
         micro, dp = self.train_micro_batch_size_per_gpu, self.data_parallel_size
         for key, x in dict(batch).items():
             x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
-            if self._data_parallel is not None:
+            if self._data_parallel is not None and not (
+                    self._local_rows and x.ndim and x.shape[0] == micro):
                 if x.ndim == 0 or x.shape[0] != micro * dp:
                     raise ValueError(
                         f"batch leading dim {tuple(x.shape)} must be the "
@@ -501,8 +620,41 @@ class DeepSpeedEngine:
                 x = x[r * micro:(r + 1) * micro]
             if not x.is_floating_point() and x.dtype != torch.bool:
                 x = x.long()
-            out[key] = x.to(self.device, non_blocking=True)
+            out[key] = x
         return out
+
+    def _prefetch_put(self, batch: Dict[str, Any]) -> PlacedBatch:
+        """The prefetch worker's transfer: the rank's rows, through pinned
+        memory, copied on the worker's own stream (``data/prefetch.py``
+        ``CopyStream``)."""
+        return self._copy_stream(self._host_batch(batch))
+
+    def _put_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The step's batch on the engine's device. A batch the prefetch
+        worker placed (``PlacedBatch``, the port's counterpart of the JAX
+        ``x.sharding == target`` pass-through, :1537-1540) is not sliced
+        again: the current stream waits for its copies. Anything else goes
+        through ``_host_batch``."""
+        if isinstance(batch, PlacedBatch):
+            return dict(batch.wait())
+        return {k: x.to(self.device, non_blocking=True)
+                for k, x in self._host_batch(batch).items()}
+
+    def _apply_curriculum(self, batch):
+        """Truncate sequence tensors to the scheduled difficulty (JAX engine
+        :2044-2053; one captured graph per distinct length)."""
+        seqlen = self.curriculum_scheduler.update_difficulty(
+            self.global_steps + 1)
+        return truncate_batch_to_difficulty(batch, seqlen)
+
+    def _step_batch(self, batch):
+        """``_put_batch``, then the curriculum's truncation (the JAX engine
+        truncates before its transfer; on the sequence axis the two
+        commute)."""
+        batch = self._put_batch(batch)
+        if self.curriculum_scheduler is not None:
+            batch = self._apply_curriculum(batch)
+        return batch
 
     @property
     def _data_parallel(self):
@@ -742,7 +894,7 @@ class DeepSpeedEngine:
     def _train_batch_fused(self, batch, eager=False):
         self.module.train()
         self.optimizer.prepare(self._lr_override)
-        loss, norm, overflow = self._run(self._fused, self._put_batch(batch),
+        loss, norm, overflow = self._run(self._fused, self._step_batch(batch),
                                          eager, self._phase())
         skipped = self._finish_update(norm, overflow)
         self.micro_steps += 1
@@ -768,7 +920,7 @@ class DeepSpeedEngine:
         elif self._cx is None and self._acc_grads is None:
             self._acc_grads = [torch.zeros_like(p, dtype=torch.float32)
                                for p in self._params]
-        loss = self._run(self._micro, self._put_batch(batch), eager)
+        loss = self._run(self._micro, self._step_batch(batch), eager)
         self._pending_loss = loss
         if self.wall_clock_breakdown:
             self.timers(FORWARD_MICRO_TIMER).stop()
@@ -911,7 +1063,14 @@ class DeepSpeedEngine:
             "client_state": client_state or {},
         }
         if self.training_dataloader is not None:
+            # the loader's state as of the last batch consumed (with
+            # prefetch: the one delivered, not the worker's); under a
+            # process group every rank's, by rank (a packing rank's cursor
+            # is its own), and rank 0's under the JAX key
             meta["dataloader"] = self.training_dataloader.state_dict()
+            if self._distributed:
+                meta["dataloader_by_rank"] = comm.all_gather_object(
+                    meta["dataloader"])
         if writer:
             ce.save({"meta": meta},
                     self._tag_path(save_dir, tag, ENGINE_STATES))
@@ -1028,6 +1187,21 @@ class DeepSpeedEngine:
                                  f"{tuple(t.shape)}")
             t.copy_(sd[name])
 
+    def _load_loader_state(self, meta):
+        """The training loader's state from a tag: this rank's own when the
+        tag was saved at this world (every rank resumes at its next
+        document), else rank 0's, which the stream re-strides at another
+        shard count (``data/streaming.py``; only shard 0 carries the
+        pending rows, ``data/pipeline.py``). The curriculum's packing
+        length restarts at the restored step."""
+        by_rank = meta.get("dataloader_by_rank")
+        state = meta["dataloader"]
+        if by_rank is not None and len(by_rank) == comm.get_world_size():
+            state = by_rank[comm.get_rank()]
+        self.training_dataloader.load_state_dict(state)
+        if self._packing_length is not None:
+            self._packing_length.restart(self.micro_steps)
+
     def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
                         load_lr_scheduler_states=True):
         """Restore a tag saved by ``save_checkpoint`` (``tag`` defaults to
@@ -1067,7 +1241,7 @@ class DeepSpeedEngine:
         self.micro_steps = int(meta["micro_steps"])
         self.skipped_steps = int(meta["skipped_steps"])
         if meta.get("dataloader") and self.training_dataloader is not None:
-            self.training_dataloader.load_state_dict(meta["dataloader"])
+            self._load_loader_state(meta)
         if (load_lr_scheduler_states and self.lr_scheduler is not None
                 and meta.get("lr_scheduler")):
             self.lr_scheduler.load_state_dict(meta["lr_scheduler"])

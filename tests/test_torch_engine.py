@@ -189,12 +189,14 @@ def test_gpt_pretrain_config_parses_as_in_jax():
     assert t.unported_features() == []
 
 
+# data_pipeline and curriculum_learning are ported (test_torch_data.py,
+# test_torch_curriculum.py): two other refusals take their places
 @pytest.mark.parametrize("block", [
-    {"data_pipeline": {"enabled": True}},
+    {"step_profiler": {"enabled": True}},
     {"sentinel": {"enabled": True}},
     {"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}},
     {"tensorboard": {"enabled": True}},
-    {"curriculum_learning": {"enabled": True}},
+    {"wandb": {"enabled": True}},
     {"progressive_layer_drop": {"enabled": True}},
     {"tpu": {"mesh": {"tp": 2}}},
     {"activation_checkpointing": {"partition_activations": True}},
