@@ -188,6 +188,29 @@ Phases, each printing one JSON line:
   every rank's next batches and losses identical, and on one card without
   a group with the stream re-strided from rank 0's state.
 
+* ``mistral`` (the LLaMA-shaped trunk's main path): Mistral-7B-v0.1's
+  config (``MISTRAL_7B``: RMSNorm, gated SiLU MLP, no biases, rotary, 32
+  query heads over 8 KV heads, an untied head; ``n_positions`` cut to its
+  4096-token sliding window), random weights from seed 0, bf16. Serving
+  at all 32 layers through ``init_inference``: ``forward`` on [2, 4096]
+  through B1 against the einsum path (relative L2 of the logits,
+  ``MISTRAL_LOGITS_REL_L2``), ``generate(32)`` for 4 left-padded prompts of
+  37-512 tokens with the decode graphs against eager decode (tokens, and
+  the logits of a captured 8-step decode run bit for bit), cached decode
+  against the full forward of the same sequences; forward, prefill and
+  decode times, peak memory, and the card's time by kernel in one traced
+  forward and one traced 8-token generate. Training at 8 layers (the
+  depth cut) through
+  ``initialize`` with ``GPT_PRETRAIN_CONFIG`` at micro [2, 4096]: one
+  einsum step against the flash step, 12 captured steps against 12
+  uncaptured ones (identical), the loss falling, B1 16 / B2 8 / B3 8 / B4
+  1 launches per step and no segment variant; step ms, tokens/s, model
+  TFLOP/s. One packed batch of the data phase's corpus at vocab 32000,
+  [2, 4096]: B1-B3's segment variant against einsum, per-document
+  isolation. B1-B3 at [2, 4096, 32, 128] (k and v repeated from 8 heads)
+  against their plain versions on batch 1, heads 0-7, and timed against
+  their bounds, the plain versions and SDPA's backends (cuDNN among them).
+
 Then the kernels line, nvidia-smi's line and, last, ``{"ok": true, ...}``.
 A failed check raises, and the script exits nonzero. It imports neither jax
 nor ``deepspeed_tpu``.
@@ -195,7 +218,8 @@ nor ``deepspeed_tpu``.
 ``python3 chip_smoke.py --only zero`` runs only the ``device``, ``build``
 and ``zero`` phases, then nvidia-smi's line and the ``{"ok": true, ...}``
 line (on a machine with four cards, the four-card measurement);
-``--only data`` the same with the ``data`` phase.
+``--only data`` the same with the ``data`` phase, ``--only mistral`` with
+the ``mistral`` phase.
 
 ``python3 chip_smoke.py --against DIR`` runs only the A/B of the backward
 kernels and of the fused AdamW: DIR holds another checkout's
@@ -2469,13 +2493,14 @@ def data_compare(a, a_params, b, b_params):
             "params_identical": diff is None, "first_param_difference": diff}
 
 
-def packed_exactness():
-    """One packed 1.3B batch (the pipeline's first) through the flash
-    kernels' segment variant and through the einsum path with the segment
-    mask, the same weights (shared): loss and grad norm. Then per-token
-    losses under the flash path, before and after the tokens of one
-    document are changed: every other document's must stay bit for bit (a
-    masked score contributes exp(NEG_INF - m) = 0)."""
+def packed_exactness(cfg=None, batch_size=4, seq_length=1024):
+    """One packed batch (the pipeline's first) of ``cfg`` (default: GPT-2
+    1.3B as in ``train``) through the flash kernels' segment variant and
+    through the einsum path with the segment mask, the same weights
+    (shared): loss and grad norm. Then per-token losses under the flash
+    path, before and after the tokens of one document are changed: every
+    other document's must stay bit for bit (a masked score contributes
+    exp(NEG_INF - m) = 0)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2485,15 +2510,18 @@ def packed_exactness():
                                                            gpt2_config,
                                                            materialize_gpt)
 
-    cfg = gpt2_config("gpt2-1.3b", n_positions=1024, dtype=torch.bfloat16,
-                      param_dtype=torch.bfloat16, remat=True,
-                      remat_policy="full", use_flash_attention=True)
+    if cfg is None:
+        cfg = gpt2_config("gpt2-1.3b", n_positions=1024,
+                          dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                          remat=True, remat_policy="full",
+                          use_flash_attention=True)
     flash = GPT(cfg)
     materialize_gpt(flash, "cuda", torch.Generator("cuda").manual_seed(0))
     einsum = GPT(dataclasses.replace(cfg, use_flash_attention=False))
     materialize_gpt(einsum, "cuda", None, state_dict=flash.state_dict())
-    host = next(PackedDataPipeline(data_corpus(cfg.vocab_size), batch_size=4,
-                                   seq_length=1024, seed=0))
+    host = next(PackedDataPipeline(data_corpus(cfg.vocab_size),
+                                   batch_size=batch_size,
+                                   seq_length=seq_length, seed=0))
     batch = {k: torch.from_numpy(v).long().cuda() for k, v in host.items()}
 
     def loss_and_norm(model):
@@ -2839,6 +2867,441 @@ def phase_data():
         raise AssertionError(f"data: {problems}")
     return main["launches"], kernels
 
+
+
+# Mistral-7B-v0.1 (https://huggingface.co/mistralai/Mistral-7B-v0.1/blob/
+# main/config.json) as deepspeed_tpu/module_inject/hf.py:516-537
+# (llama_from_hf) configures it, with n_positions cut to its 4096-token
+# sliding window: the JAX policy ignores the window, so 4096 is the longest
+# context at which both packages compute Mistral's own attention
+MISTRAL_7B = dict(vocab_size=32000, n_positions=4096, n_embd=4096,
+                  n_layer=32, n_head=32, n_kv_head=8, intermediate_size=14336,
+                  layer_norm_epsilon=1e-5, norm="rmsnorm", activation="silu",
+                  gated_mlp=True, use_bias=False, attn_bias=False,
+                  rotary=True, rope_theta=10000.0, learned_positions=False,
+                  tie_word_embeddings=False)
+MISTRAL_SOURCE = ("https://huggingface.co/mistralai/Mistral-7B-v0.1/blob/"
+                  "main/config.json")
+MISTRAL_SEQ = 4096
+# training keeps the full width and cuts the depth: ZeRO-1 bf16 holds ~12
+# bytes per parameter, 2.01 B parameters at 8 layers (~24 GB, and the
+# eager twin of captured_against_eager after it); every layer is alike
+MISTRAL_TRAIN_LAYERS = 8
+MISTRAL_MICRO = 2
+MISTRAL_PER_STEP = {"flash_attention_fwd": 2 * MISTRAL_TRAIN_LAYERS,
+                    "flash_attention_bwd_dq": MISTRAL_TRAIN_LAYERS,
+                    "flash_attention_bwd_dkv": MISTRAL_TRAIN_LAYERS,
+                    "fused_adamw": 1}
+# flash (f32 scores) against einsum (bf16 scores) on the same weights: each
+# layer's attention output differs by bf16 rounding (2^-8 relative, ~4e-3);
+# over 32 layers of a residual stream that adds up in quadrature to about
+# sqrt(32) * 4e-3 = 2.3e-2 of the logits; the bound is twice that. The
+# same bound holds cached decode against the full forward (the grouped
+# decode contraction against the repeated einsum, other matmul shapes and
+# the same bf16 rounding points)
+MISTRAL_LOGITS_REL_L2 = 5e-2
+# ragged left-padded serving prompts, up to the 512 of the prompt width
+MISTRAL_PROMPT_LENGTHS = (37, 128, 300, 512)
+MISTRAL_NEW_TOKENS = 32
+# decode steps held logit for logit: captured graph against eager, and the
+# cache against the full forward
+MISTRAL_LOGIT_STEPS = 8
+# the kernels' plain versions hold [T, T] f32 scores per head: they run on
+# a slice (batch 1, heads 0-7) of the kernels' full-shape outputs
+MISTRAL_PLAIN_SLICE = (1, 8)
+
+
+def mistral_config(**over):
+    import torch
+
+    from deepspeed_tpu_torch.models.transformer_lm import GPTConfig
+
+    fields = dict(MISTRAL_7B, dtype=torch.bfloat16,
+                  param_dtype=torch.bfloat16, use_flash_attention=True)
+    fields.update(over)
+    return GPTConfig(**fields)
+
+
+def _rel_l2(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+def mistral_decode_logits(engine, prompts, mask, k=MISTRAL_LOGIT_STEPS):
+    """The logits of the prefill's last position and of ``k`` greedy decode
+    steps, through a ``CompiledStep`` like the engine's decode runs: called
+    uncaptured (the reference), then its warm-up, capturing and replaying
+    calls, each after a fresh prefill into the same cache. Returns the
+    eager logits, the generated tokens and whether each captured call's
+    logits equal the eager ones bit for bit."""
+    import torch
+
+    from deepspeed_tpu_torch.models.transformer_lm import KVCache
+    from deepspeed_tpu_torch.runtime.compiled_step import CompiledStep
+
+    model = engine.module
+    cache = KVCache.empty(model.config, prompts.shape[0], engine.device)
+
+    def steps(k, tok):
+        out = []
+        for _ in range(k):
+            logits, _ = model(tok[:, None], decode=True, cache=cache)
+            out.append(logits[:, -1])
+            tok = logits[:, -1].argmax(-1)
+        return torch.stack(out, dim=1)
+
+    runs = CompiledStep(steps, engine.device, warmup=1)
+    results = []
+    with torch.inference_mode():
+        for call in ("eager", "warmup", "capture", "replay"):
+            first, _ = model(prompts, attention_mask=mask, decode=True,
+                             cache=cache.reset())
+            first = first[:, -1]
+            length = cache.length
+            run = runs.eager if call == "eager" else runs
+            results.append(run({"tok": first.argmax(-1)}, k))
+            cache.length = length + k
+    same = [bool(torch.equal(r, results[0])) for r in results[1:]]
+    logits = torch.cat([first[:, None], results[0]], dim=1)   # [B, k + 1, V]
+    del cache, runs
+    return logits, logits[:, :-1].argmax(-1), same
+
+
+def mistral_serve():
+    """Mistral-7B, all 32 layers, bf16, through ``init_inference``: the
+    flash forward against the einsum path, the decode graphs against eager
+    decode (tokens over ``generate``, logits over a captured decode run),
+    cached decode against the full forward, and the serving times."""
+    import torch
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.transformer_lm import GPT, num_params
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+
+    cfg = mistral_config()
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = init_inference(GPT(cfg), dtype="bf16", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    gen = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (2, MISTRAL_SEQ), generator=gen)
+    width = max(MISTRAL_PROMPT_LENGTHS)
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (len(MISTRAL_PROMPT_LENGTHS), width), generator=gen)
+    # left-padded, as generate aligns them (the decode-logits check feeds
+    # the model directly)
+    mask = torch.arange(width)[None, :] >= \
+        width - torch.tensor(MISTRAL_PROMPT_LENGTHS)[:, None]
+    prompts = prompts * mask
+
+    reset_launches()
+    logits = engine(ids)
+    torch.cuda.synchronize()
+    forward_launches = fa.launches
+    toks = engine.generate(prompts, max_new_tokens=MISTRAL_NEW_TOKENS,
+                           attention_mask=mask)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    problems = []
+    if forward_launches != cfg.n_layer:
+        problems.append(f"forward launched B1 {forward_launches} times, "
+                        f"want {cfg.n_layer}")
+    if tuple(logits.shape) != (2, MISTRAL_SEQ, cfg.vocab_size) or \
+            logits.dtype != torch.float32 or \
+            not bool(torch.isfinite(logits).all()):
+        problems.append(f"logits {tuple(logits.shape)} {logits.dtype}, "
+                        "finite: " + str(bool(torch.isfinite(logits).all())))
+    if tuple(toks.shape) != (len(MISTRAL_PROMPT_LENGTHS), MISTRAL_NEW_TOKENS):
+        problems.append(f"generate returned {tuple(toks.shape)}")
+
+    einsum = init_inference(GPT(mistral_config(use_flash_attention=False)),
+                            dtype="bf16",
+                            state_dict=engine.module.state_dict())
+    logits_e = einsum(ids)
+    flash_rel = _rel_l2(logits, logits_e)
+    top1 = float((logits.argmax(-1) == logits_e.argmax(-1)).float().mean())
+    del logits, logits_e, einsum
+    free_cuda()
+
+    forward_ms = wall_ms(lambda: engine(ids), reps=3)
+    decode = compare_decode(engine, prompts, mask, n=MISTRAL_NEW_TOKENS)
+    # cached decode against the full forward over the same sequences: the
+    # left-aligned prompts (left pads, masked as keys) and the generated
+    # tokens; the rotary phases are the cache slots on both sides
+    dec_logits, dec_toks, graph_same = mistral_decode_logits(
+        engine, prompts.cuda(), mask.cuda())
+    seq = torch.cat([prompts.cuda(), dec_toks], dim=1)
+    seq_mask = torch.cat([mask.cuda(), torch.ones_like(dec_toks,
+                                                       dtype=torch.bool)], 1)
+    with torch.inference_mode():
+        full = engine.module(seq, attention_mask=seq_mask)
+    full = full[:, width - 1:]                          # [B, k + 1, V]
+    rollout_rel = _rel_l2(dec_logits, full)
+    rollout_top1 = float((dec_logits.argmax(-1) == full.argmax(-1))
+                         .float().mean())
+    del full, dec_logits, seq
+    n = MISTRAL_NEW_TOKENS
+    gen1_ms = wall_ms(lambda: engine.generate(prompts, max_new_tokens=1,
+                                              attention_mask=mask), reps=3)
+    gen_ms = wall_ms(lambda: engine.generate(prompts, max_new_tokens=n,
+                                             attention_mask=mask), reps=3)
+    eager_ms = wall_ms(lambda: eager_generate(engine, prompts, n, mask),
+                       reps=1)
+    # where the card's time goes: one traced forward, one traced 8-token
+    # generate (prefill, then decode runs of 4, 2 and 1 steps, replayed)
+    profile = {"forward_2x4096": _trace(lambda: engine(ids))[0],
+               "generate_4_prompts_8_tokens": _trace(
+                   lambda: engine.generate(prompts, max_new_tokens=8,
+                                           attention_mask=mask))[0]}
+    line = {"phase": "mistral", "part": "serve", "model": "mistral-7b-v0.1",
+            "source": MISTRAL_SOURCE, "params": num_params(cfg),
+            "config": {k: v for k, v in MISTRAL_7B.items()},
+            "reduced": {"n_positions": "32768 -> 4096 (the sliding window; "
+                        "the policy attends over the whole context)"},
+            "dtype": "bf16", "init_s": init_s, "weights_gb": weights_gb,
+            "forward_shape": [2, MISTRAL_SEQ],
+            "forward_launches": forward_launches, "launches": launches,
+            "flash_vs_einsum_logits_rel_l2": flash_rel,
+            "flash_vs_einsum_top1_agreement": top1,
+            "logits_rel_l2_tol": MISTRAL_LOGITS_REL_L2,
+            "forward_ms": forward_ms,
+            "forward_tokens_per_s": 2 * MISTRAL_SEQ / forward_ms * 1e3,
+            "prompt_lengths": list(MISTRAL_PROMPT_LENGTHS), "new_tokens": n,
+            "prefill_ms": gen1_ms,
+            "decode_ms_per_token": (gen_ms - gen1_ms) / (n - 1),
+            "eager_decode_ms_per_token": (eager_ms - gen1_ms) / (n - 1),
+            "decode_graphs_vs_eager_tokens": decode,
+            "decode_graphs_vs_eager_logits_identical": graph_same,
+            "decode_vs_forward_logits_rel_l2": rollout_rel,
+            "decode_vs_forward_top1_agreement": rollout_top1,
+            "logit_steps": MISTRAL_LOGIT_STEPS, "profile": profile,
+            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(line)
+    if not flash_rel <= MISTRAL_LOGITS_REL_L2:
+        problems.append(f"flash against einsum: relative L2 {flash_rel}")
+    if not decode["identical"] or not all(graph_same):
+        problems.append("decode graphs against eager decode differ")
+    if not rollout_rel <= MISTRAL_LOGITS_REL_L2:
+        problems.append(f"cached decode against the forward: relative L2 "
+                        f"{rollout_rel}")
+    if problems:
+        raise AssertionError(f"mistral serve: {problems}")
+    del engine
+    free_cuda()
+    return launches
+
+
+def mistral_engine(seed=0, flash=True):
+    """Mistral-7B's widths at ``MISTRAL_TRAIN_LAYERS`` layers through
+    ``initialize`` with ``GPT_PRETRAIN_CONFIG`` (FusedAdam on B4, ZeRO 1,
+    clip 1.0, bf16) at micro ``MISTRAL_MICRO``, full remat."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import GPT
+
+    model = GPT(mistral_config(n_layer=MISTRAL_TRAIN_LAYERS, remat=True,
+                               use_flash_attention=flash))
+    config = dict(GPT_PRETRAIN_CONFIG,
+                  train_micro_batch_size_per_gpu=MISTRAL_MICRO)
+    return deepspeed_tpu_torch.initialize(model=model, config=config,
+                                          seed=seed)[0]
+
+
+def mistral_train():
+    """The 8-layer cut through initialize -> train_batch: one einsum step,
+    then 12 captured steps against 12 uncaptured ones from the same seed.
+    Returns the launch counts of the captured run."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.models.transformer_lm import num_params
+
+    free_cuda()
+    einsum = mistral_engine(flash=False)
+    cfg = einsum.module.config
+    rng = np.random.RandomState(1)
+    ids = rng.randint(0, cfg.vocab_size,
+                      size=(MISTRAL_MICRO, MISTRAL_SEQ)).astype(np.int64)
+    batch = {"input_ids": ids, "labels": ids}
+    loss_e = float(einsum.train_batch(iter([batch])))
+    gnorm_e = einsum.get_global_grad_norm()
+    del einsum
+    free_cuda()
+
+    torch.cuda.reset_peak_memory_stats()
+    check, launches, losses, norms, times, e_losses, e_times = \
+        captured_against_eager(mistral_engine, [batch], STEPS)
+    ms, eager_ms = step_medians(times, e_times)
+    tokens = MISTRAL_MICRO * MISTRAL_SEQ
+    fpt = gpt_flops_per_token(cfg, MISTRAL_SEQ)
+    tflops = tokens * fpt / ms / 1e9
+    line = {"phase": "mistral", "part": "train",
+            "model": f"mistral-7b-v0.1, {MISTRAL_TRAIN_LAYERS} layers",
+            "params": num_params(cfg),
+            "reduced": {"n_layer": f"32 -> {MISTRAL_TRAIN_LAYERS}",
+                        "n_positions": "32768 -> 4096"},
+            "config": dict(GPT_PRETRAIN_CONFIG,
+                           train_micro_batch_size_per_gpu=MISTRAL_MICRO),
+            "batch": [MISTRAL_MICRO, MISTRAL_SEQ], "losses": losses,
+            "eager_losses": e_losses,
+            "flash_vs_einsum": {"loss": [losses[0], loss_e],
+                                "grad_norm": [norms[0], gnorm_e]},
+            "captured_vs_eager": check, "launches": launches,
+            "steps": STEPS, "step_ms_median": ms, "step_ms": times,
+            "eager_step_ms_median": eager_ms,
+            "tokens_per_s": tokens / ms * 1e3,
+            "model_flops_per_token": fpt, "model_tflops_per_s": tflops,
+            "mfu_vs_989": tflops / 989.0,
+            "peak_allocated_gb": check["peak_allocated_gb"]}
+    emit(line)
+    problems = []
+    if not all(np.isfinite(losses)):
+        problems.append("non-finite loss")
+    if not losses[-1] <= losses[0] - TRAIN_MIN_LOSS_DROP:
+        problems.append(f"loss did not fall by {TRAIN_MIN_LOSS_DROP}")
+    for name, per in {**MISTRAL_PER_STEP, **UNSEGMENTED}.items():
+        if launches[name] != per * STEPS:
+            problems.append(f"{name}: {launches[name]} launches, want "
+                            f"{per} x {STEPS}")
+    if abs(losses[0] - loss_e) > TRAIN_LOSS_REL_TOL * abs(loss_e):
+        problems.append("flash and einsum losses disagree")
+    if abs(norms[0] - gnorm_e) > TRAIN_GNORM_REL_TOL * abs(gnorm_e):
+        problems.append("flash and einsum grad norms disagree")
+    if not check["identical"]:
+        problems.append("captured and eager steps differ")
+    if problems:
+        raise AssertionError(f"mistral train: {problems}")
+    return launches
+
+
+def mistral_kernels():
+    """B1, B2 and B3 at the Mistral training shape [2, 4096, 32, 128],
+    bf16, causal: q as the rotary hands it over, k and v repeated from 8
+    KV heads. Each against its plain version on a slice (batch 1, heads
+    0-7), then timed (device time) against its bound, its plain version at
+    the full shape and SDPA's backends on the same tensors."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+
+    b, t, h = MISTRAL_MICRO, MISTRAL_SEQ, MISTRAL_7B["n_head"]
+    d = MISTRAL_7B["n_embd"] // h
+    group = h // MISTRAL_7B["n_kv_head"]
+    gen = torch.Generator().manual_seed(50)
+    q = torch.randn((b, t, h, d), generator=gen).to("cuda", torch.bfloat16)
+    k, v = (torch.randn((b, t, h // group, d), generator=gen)
+            .to("cuda", torch.bfloat16).repeat_interleave(group, dim=2)
+            for _ in range(2))
+    do = torch.randn((b, t, h, d), generator=gen).to("cuda", torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    sb, sh = MISTRAL_PLAIN_SLICE
+    cut = [x[:sb, :, :sh].contiguous() for x in (q, k, v, do)]
+    o_ref, lse_ref = fa.flash_attention_reference(*cut[:3], causal=True)
+    want = fa.flash_attention_backward_reference(
+        *cut[:3], o[:sb, :, :sh].contiguous(), lse[:sb, :sh].contiguous(),
+        cut[3], causal=True)
+    torch.cuda.synchronize()
+    errs = {"o_max_abs": float((o[:sb, :, :sh].float()
+                                - o_ref.float()).abs().max()),
+            "lse_max_abs": float((lse[:sb, :sh] - lse_ref).abs().max())}
+    errs.update({f"{n}_rel": _rel_err(g[:sb, :, :sh], w)
+                 for n, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)})
+    tol = {"o_max_abs": TOLERANCE["bfloat16"]["o"],
+           "lse_max_abs": TOLERANCE["bfloat16"]["lse"],
+           "grad_rel": GRAD_REL_TOL["bfloat16"]}
+    ok = (errs["o_max_abs"] <= tol["o_max_abs"]
+          and errs["lse_max_abs"] <= tol["lse_max_abs"]
+          and max(errs[f"{n}_rel"] for n in ("dq", "dk", "dv"))
+          <= tol["grad_rel"])
+    del o_ref, lse_ref, want, cut, dq, dk, dv
+
+    scale = d ** -0.5
+    delta = fa.bwd_delta(o, do)
+    args = (q, k, v, lse, delta, do, None, True, scale)
+    times = {"flash_attention_fwd": device_ms(
+                 lambda: fa._launch(q, k, v, None, True, scale)),
+             "flash_attention_bwd_dq": device_ms(lambda: fa._launch_dq(*args)),
+             "flash_attention_bwd_dkv": device_ms(
+                 lambda: fa._launch_dkv(*args))}
+    plain = {"fwd": device_ms(lambda: fa.flash_attention_reference(
+                 q, k, v, causal=True), iters=3)["ms"],
+             "bwd": device_ms(lambda: fa.flash_attention_backward_reference(
+                 q, k, v, o, lse, do, causal=True), iters=3)["ms"]}
+    free_cuda()
+    sdpa, sdpa_fwd, sdpa_bwd = sdpa_yardstick(q, k, v, do, True)
+    pairs = b * t * (t + 1) // 2
+    bthd, bht = b * t * h * d * 2, b * h * t * 4
+    work = {"flash_attention_fwd": attention_flops_bytes(b, t, h, d, True, 2),
+            "flash_attention_bwd_dq": (6 * pairs * h * d, 5 * bthd + 2 * bht),
+            "flash_attention_bwd_dkv": (8 * pairs * h * d,
+                                        6 * bthd + 2 * bht)}
+    out = {}
+    for name, (n_ops, nbytes) in work.items():
+        bound_ms, bound_by = _bound(n_ops, nbytes, "bfloat16")
+        ms = times[name]["ms"]
+        fwd = name == "flash_attention_fwd"
+        cudnn = sdpa.get("cudnn", {}).get("fwd" if fwd else "bwd")
+        out[name] = {"shape": [b, t, h, d], "ms": ms,
+                     "device_time": times[name], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "flops": n_ops, "bytes": nbytes,
+                     "tflops_per_s": n_ops / ms / 1e9,
+                     "plain_ms": plain["fwd" if fwd else "bwd"],
+                     "library_ms": (sdpa_fwd if fwd else sdpa_bwd)[1],
+                     "library": (sdpa_fwd if fwd else sdpa_bwd)[0],
+                     "cudnn_ms": None if cudnn is None else cudnn["ms"]}
+    emit({"phase": "mistral", "part": "kernels", "shape": [b, t, h, d],
+          "kv_heads_repeated_from": MISTRAL_7B["n_kv_head"],
+          "plain_slice": {"batch": sb, "heads": sh}, "errors": errs,
+          "tolerance": tol, "timing": out, "sdpa_by_backend": sdpa,
+          "note": "plain_ms and library_ms of B2/B3 compute dq, dk and dv "
+                  "together"})
+    del q, k, v, do, o, lse, delta, args
+    free_cuda()
+    if not ok:
+        raise AssertionError(f"mistral kernels: {errs} over {tol}")
+    return out
+
+
+def phase_mistral():
+    """Mistral-7B-v0.1's LLaMA-shaped trunk (RMSNorm, SwiGLU, rotary, GQA,
+    bias-free, untied head): serving at all 32 layers, training at 8,
+    one packed batch, and B1-B3 at its attention shape. Returns the
+    launch counts of the serve and train runs and the kernels' times at
+    the Mistral shape."""
+    import torch
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    serve = mistral_serve()
+    train = mistral_train()
+    free_cuda()
+    packed = packed_exactness(
+        mistral_config(n_layer=MISTRAL_TRAIN_LAYERS, remat=True),
+        batch_size=MISTRAL_MICRO, seq_length=MISTRAL_SEQ)
+    packed.pop("segment_ids")
+    emit({"phase": "mistral", "part": "packed", "packed_exactness": packed})
+    problems = []
+    if packed["loss_rel_err"] > PACKED_LOSS_REL_TOL:
+        problems.append("packed flash and einsum losses disagree")
+    if packed["grad_norm_rel_err"] > PACKED_GNORM_REL_TOL:
+        problems.append("packed flash and einsum grad norms disagree")
+    if not packed["isolation"]["other_bit_identical"]:
+        problems.append("a document's change reached another document")
+    seg = packed["flash_launches"]
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        if seg[name] == 0 or seg[name + "_segment"] != seg[name]:
+            problems.append(f"{name}: not all in the segment variant: {seg}")
+    if problems:
+        raise AssertionError(f"mistral packed: {problems}")
+    kernels = mistral_kernels()
+    emit({"phase": "mistral", "part": "done", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0,
+          "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return {"mistral_serve": serve, "mistral_train": train}, kernels
 
 
 def phase_small_train():
@@ -4727,11 +5190,11 @@ def main(argv):
     usage = (len(argv) == 1 or (len(argv) == 3 and argv[1] in
                                 ("--against", "--only") and
                                 (argv[1] == "--against"
-                                 or argv[2] in ("zero", "data")))
+                                 or argv[2] in ("zero", "data", "mistral")))
              or (len(argv) == 6 and argv[1] == "--zero-rank"))
     if not usage:
-        print(f"usage: {argv[0]} [--against OTHER_CHECKOUT | --only zero|data]",
-              file=sys.stderr)
+        print(f"usage: {argv[0]} [--against OTHER_CHECKOUT | "
+              "--only zero|data|mistral]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -4754,6 +5217,8 @@ def main(argv):
         phase_build()
         if argv[2] == "zero":
             emit({"zero_launches_by_path": phase_zero()})
+        elif argv[2] == "mistral":
+            emit({"mistral_launches_by_path": phase_mistral()[0]})
         else:
             emit({"data_launches": phase_data()[0]})
         print(smi, flush=True)
@@ -4780,19 +5245,22 @@ def main(argv):
     phase_small_train()
     free_cuda()
     zero_paths = phase_zero()
+    free_cuda()
+    mistral_paths, mistral_shape = phase_mistral()
     paths = {"serve": serve_launches, "train": launches,
              "checkpoint": ckpt_launches, "sparse_train": sparse_launches,
-             **zero_paths, "data": data_launches}
+             **zero_paths, "data": data_launches, **mistral_paths}
     for entry in kernels:
         # each slice's main path, its counts set to 0 just before it: serving
         # runs B1, GPT training, the checkpoint path, ZeRO (stages 0-2, and
-        # stage 3), the gradient exchange and the packed data path B1-B4
-        # (B1-B3 in their segment variant), BERT training under BigBird
-        # B4-B7. "launches" is the count on the newest path that runs the
-        # kernel
+        # stage 3), the gradient exchange, the packed data path and
+        # Mistral's training B1-B4 (B1-B3 of the data path in their segment
+        # variant), BERT training under BigBird B4-B7. "launches" is the
+        # count on the newest path that runs the kernel
         name = entry["name"]
         entry["launches_by_path"] = {p: counts[name] for p, counts in paths.items()}
-        entry["launches"] = (data_launches[name]
+        entry["launches"] = (mistral_paths["mistral_train"][name]
+                             or data_launches[name]
                              or zero_paths["grad_exchange"][name]
                              or zero_paths["zero_stage3"][name]
                              or zero_paths["zero"][name]
@@ -4807,6 +5275,12 @@ def main(argv):
                 "unsegmented_ms"]
             entry["segment_bound_ms"] = segment_times[name][
                 "segment_bound_ms"]
+        if name in mistral_shape:
+            # B1-B3 at Mistral's training attention [2, 4096, 32, 128]
+            entry["mistral_shape"] = {
+                k: mistral_shape[name][k]
+                for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms", "library", "cudnn_ms")}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

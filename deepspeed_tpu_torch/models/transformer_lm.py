@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM of the GPT-2 family (counterpart of
-``deepspeed_tpu/models/transformer_lm.py``).
+"""Decoder-only transformer LM of the GPT-2 and LLaMA families (counterpart
+of ``deepspeed_tpu/models/transformer_lm.py``).
 
 The same config, the same math and the same parameter names as the flax
 model, in PyTorch idiom: ``nn.Module``s, a layer loop over an
@@ -8,12 +8,16 @@ explicit ``KVCache`` passed in and returned in place of flax's mutable
 ``cache`` collection. Parameters are stored in ``param_dtype`` and every
 op computes in ``dtype``, as flax's ``Dense``/``Embed``/``LayerNorm`` do.
 
-The port covers learned-position, tied-head, pre-LN GPT-2: the logits path
-(einsum and flash attention for full forwards, the dense-cache decode path)
-and the training path (``labels`` -> mean next-token cross entropy, packed
-``segment_ids``/``positions``, full activation recomputation). Config fields
-of features not ported yet raise ``NotImplementedError`` when set away from
-their defaults.
+The port covers the pre-LN trunk in both of its shapes: GPT-2's (LayerNorm,
+biases, learned positions, a head tied to the embedding) and LLaMA's or
+Mistral's (``norm="rmsnorm"``, the gated SiLU MLP, bias-free layers, rotary
+embeddings, grouped-query attention over ``n_kv_head`` KV heads, an untied
+``lm_head``), and the mixes between them that the config allows: the logits
+path (einsum and flash attention for full forwards, the dense-cache decode
+path) and the training path (``labels`` -> mean next-token cross entropy,
+packed ``segment_ids``/``positions``, full activation recomputation).
+Config fields of features not ported yet raise ``NotImplementedError`` when
+set away from their defaults.
 """
 
 import dataclasses
@@ -27,23 +31,11 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 # field -> (default, feature) for GPTConfig fields whose feature this port
-# does not have yet
+# does not have yet (ROADMAP A.6)
 _UNPORTED = {
-    "norm": ("layernorm", "RMSNorm"),
-    "gated_mlp": (False, "the gated (SwiGLU) MLP"),
-    "use_bias": (True, "bias-free layers"),
-    "attn_bias": (None, "a separate attention-bias switch"),
     "alibi": (False, "ALiBi"),
     "embed_layernorm": (False, "the embedding LayerNorm"),
-    "rotary": (False, "rotary embeddings"),
-    "rotary_pct": (1.0, "rotary embeddings"),
-    "rotary_interleaved": (False, "rotary embeddings"),
-    "rope_theta": (10000.0, "rotary embeddings"),
-    "learned_positions": (True, "models without a learned position table"),
-    "tie_word_embeddings": (True, "an untied LM head"),
-    "lm_head_bias": (False, "an LM-head bias"),
     "parallel_residual": (False, "the parallel residual"),
-    "n_kv_head": (None, "grouped-query attention"),
     "flash_autotune": (False, "the flash block autotuner"),
     "attention_chunk": (None, "chunked attention"),
     "param_offload": (False, "parameter offload"),
@@ -139,7 +131,7 @@ class GPTConfig:
             if value is not default and value != default:
                 raise NotImplementedError(
                     f"GPTConfig.{name}={value!r}: {feature} is not ported to "
-                    "deepspeed_tpu_torch yet")
+                    "deepspeed_tpu_torch yet (ROADMAP A.6)")
         if self.use_flash_attention == "auto":
             raise NotImplementedError(
                 "use_flash_attention='auto' selects by a flash/einsum "
@@ -166,8 +158,14 @@ class GPTConfig:
                 "ported yet")
         if fused not in ("auto", False, 0):
             raise ValueError(f"unknown fused_head_ce {fused!r}")
+        if self.norm not in ("layernorm", "rmsnorm"):
+            raise ValueError(f"unknown norm {self.norm!r}")
         if self.activation not in _ACTIVATIONS:
             raise ValueError(f"unknown activation {self.activation!r}")
+        if self.n_kv_head is not None and self.n_head % self.n_kv_head:
+            raise ValueError(
+                f"n_head ({self.n_head}) must be divisible by n_kv_head "
+                f"({self.n_kv_head})")
         if self.n_embd % self.n_head:
             raise ValueError(
                 f"n_embd ({self.n_embd}) must be divisible by n_head "
@@ -178,8 +176,17 @@ class GPTConfig:
         return self.n_embd // self.n_head
 
     @property
+    def kv_heads(self) -> int:
+        return self.n_kv_head or self.n_head
+
+    @property
     def ffn_dim(self) -> int:
         return self.intermediate_size or self.mlp_ratio * self.n_embd
+
+    @property
+    def rotary_dim(self) -> int:
+        rd = round(self.rotary_pct * self.head_dim)
+        return rd - rd % 2
 
 
 GPT2_SIZES = {
@@ -215,33 +222,66 @@ _ACTIVATIONS = {
 
 class Dense(nn.Linear):
     """flax ``nn.Dense``: weight and bias cast to the compute dtype at use.
-    The weight is torch's ``[out, in]``; the JAX kernel is its transpose."""
+    The weight is torch's ``[out, in]``; the JAX kernel is its transpose.
+    ``bias=False`` is ``use_bias=False``: no bias parameter."""
 
-    def __init__(self, in_features, out_features, cfg):
-        super().__init__(in_features, out_features, dtype=cfg.param_dtype)
+    def __init__(self, in_features, out_features, cfg, bias=True):
+        super().__init__(in_features, out_features, bias=bias,
+                         dtype=cfg.param_dtype)
         self.compute_dtype = cfg.dtype
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm`` (the ``_norm`` layernorm branch): statistics and
     the affine map in f32, the result cast to the compute dtype. ``width``
-    features, ``eps`` as the model's config names it."""
+    features, ``eps`` as the model's config names it; ``bias=False`` is
+    ``use_bias=False``."""
 
-    def __init__(self, width, eps, cfg):
+    def __init__(self, width, eps, cfg, bias=True):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(width, dtype=cfg.param_dtype))
-        self.bias = nn.Parameter(torch.zeros(width, dtype=cfg.param_dtype))
+        self.bias = (nn.Parameter(torch.zeros(width, dtype=cfg.param_dtype))
+                     if bias else None)
         self.eps = eps
         self.compute_dtype = cfg.dtype
 
     def forward(self, x):
+        bias = None if self.bias is None else self.bias.float()
         y = F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
-                         self.bias.float(), self.eps)
+                         bias, self.eps)
         return y.to(self.compute_dtype)
+
+
+class RMSNorm(nn.Module):
+    """flax ``nn.RMSNorm`` (the ``_norm`` rmsnorm branch): the mean of squares
+    in f32, ``rsqrt(var + eps)`` times the scale (``weight``, flax's
+    ``scale``, one per feature), times x in f32, cast to the compute dtype
+    (flax ``_compute_stats`` with ``use_mean=False``, then ``_normalize``)."""
+
+    def __init__(self, width, eps, cfg):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(width, dtype=cfg.param_dtype))
+        self.eps = eps
+        self.compute_dtype = cfg.dtype
+
+    def forward(self, x):
+        xf = x.float()
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return (xf * mul).to(self.compute_dtype)
+
+
+def _norm(cfg: "GPTConfig"):
+    """The config's norm over ``n_embd`` features (JAX ``_norm``)."""
+    if cfg.norm == "rmsnorm":
+        return RMSNorm(cfg.n_embd, cfg.layer_norm_epsilon, cfg)
+    return LayerNorm(cfg.n_embd, cfg.layer_norm_epsilon, cfg,
+                     bias=cfg.use_bias)
 
 
 class VocabEmbed(nn.Embedding):
@@ -261,12 +301,15 @@ class KVCache:
     """The dense decode cache (flax's ``cache`` collection,
     ``transformer_lm.py:565-612``, plus the position counter at :1114).
 
-    ``key``/``value`` hold one ``[B, n_positions, H, D]`` buffer per layer.
-    ``valid`` ([B, n_positions]) marks written real tokens, ``index`` ([B])
-    is each row's next write slot and ``position`` ([B]) each row's next
-    learned position. The flax model keeps a copy of ``valid`` and ``index``
-    in every layer; all copies are equal, so one serves here. The buffers are
-    updated in place.
+    ``key``/``value`` hold one ``[B, n_positions, Hkv, D]`` buffer per layer:
+    the KV heads, not repeated to the query heads (grouped-query attention
+    reads each one for its group of queries). Keys are stored rotated when
+    the model is rotary. ``valid`` ([B, n_positions]) marks written real
+    tokens, ``index`` ([B]) is each row's next write slot and ``position``
+    ([B]) each row's next learned position (None for a model without a
+    position table). The flax model keeps a copy of ``valid`` and ``index``
+    in every layer; all copies are equal, so one serves here. The buffers
+    are updated in place.
 
     Every call appends its T columns to every row, so ``length``, a host
     int, bounds all rows' ``index``: a call that would write past the cache
@@ -278,12 +321,12 @@ class KVCache:
     value: List[torch.Tensor]
     valid: torch.Tensor
     index: torch.Tensor
-    position: torch.Tensor
+    position: Optional[torch.Tensor]
     length: int = 0
 
     @classmethod
     def empty(cls, cfg: GPTConfig, batch: int, device) -> "KVCache":
-        shape = (batch, cfg.n_positions, cfg.n_head, cfg.head_dim)
+        shape = (batch, cfg.n_positions, cfg.kv_heads, cfg.head_dim)
 
         def zeros():
             return torch.zeros(shape, dtype=cfg.dtype, device=device)
@@ -294,7 +337,8 @@ class KVCache:
             valid=torch.zeros((batch, cfg.n_positions), dtype=torch.bool,
                               device=device),
             index=torch.zeros(batch, dtype=torch.long, device=device),
-            position=torch.zeros(batch, dtype=torch.long, device=device))
+            position=(torch.zeros(batch, dtype=torch.long, device=device)
+                      if cfg.learned_positions else None))
 
     def reset(self) -> "KVCache":
         """Empty again, in place: the buffers keep their addresses (a
@@ -302,7 +346,8 @@ class KVCache:
         ``empty`` makes."""
         for buf in (*self.key, *self.value, self.valid, self.index,
                     self.position):
-            buf.zero_()
+            if buf is not None:
+                buf.zero_()
         self.length = 0
         return self
 
@@ -310,8 +355,9 @@ class KVCache:
 @dataclasses.dataclass
 class _DecodeStep:
     """What every layer of one decode call shares: the cache, the slots
-    ([B, T]) this call writes, and the cache entries each query may not see
-    ([B, 1, T, S]: later slots, and slots holding no real token)."""
+    ([B, T]) this call writes (also the rotary positions, JAX :589-594),
+    and the cache entries each query may not see ([B, 1, 1, T, S]: later
+    slots, and slots holding no real token)."""
 
     cache: KVCache
     rows: torch.Tensor
@@ -327,33 +373,72 @@ class CausalSelfAttention(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         self.cfg = cfg
-        self.c_attn = Dense(cfg.n_embd, 3 * cfg.n_embd, cfg)
-        self.c_proj = Dense(cfg.n_embd, cfg.n_embd, cfg)
+        bias = cfg.use_bias if cfg.attn_bias is None else cfg.attn_bias
+        width = (cfg.n_head + 2 * cfg.kv_heads) * cfg.head_dim
+        self.c_attn = Dense(cfg.n_embd, width, cfg, bias=bias)
+        self.c_proj = Dense(cfg.n_embd, cfg.n_embd, cfg, bias=bias)
 
-    def forward(self, x, mask=None, step=None, layer=0, segment_ids=None):
+    def _rope(self, t, positions):
+        from deepspeed_tpu_torch.ops.rotary import apply_rotary_pos_emb
+
+        cfg = self.cfg
+        return apply_rotary_pos_emb(t, positions, base=cfg.rope_theta,
+                                    rotary_dim=cfg.rotary_dim,
+                                    interleaved=cfg.rotary_interleaved)
+
+    def forward(self, x, mask=None, step=None, layer=0, segment_ids=None,
+                positions=None):
         """Full forward when ``step`` is None; otherwise the decode path:
         write this call's keys and values into the layer's cache buffers and
         attend over the whole cache. ``segment_ids`` ([B, T], packed
-        batches) restricts each query to keys of its own segment."""
+        batches) restricts each query to keys of its own segment;
+        ``positions`` ([B, T]) are the rotary positions of a full forward
+        (default ``arange(T)``; packed documents restart them)."""
         cfg = self.cfg
         B, T, C = x.shape
-        H, D = cfg.n_head, cfg.head_dim
+        H, Hkv, D = cfg.n_head, cfg.kv_heads, cfg.head_dim
+        G = H // Hkv
         qkv = self.c_attn(x)
-        # views into the fused projection: the flash kernel reads them
-        # through their strides
-        q, k, v = (t.view(B, T, H, D) for t in qkv.split(C, dim=-1))
+        # views into the fused projection, split q | k | v (JAX :399-404):
+        # the flash kernel reads them through their strides
+        q, k, v = qkv.split((H * D, Hkv * D, Hkv * D), dim=-1)
+        q, k, v = q.view(B, T, H, D), k.view(B, T, Hkv, D), v.view(B, T, Hkv, D)
         scale = 1.0 / math.sqrt(D)
 
         if step is not None:
+            if cfg.rotary:
+                # rotated at the cache slot, before the write: cached keys
+                # hold their phase (JAX :589-594)
+                q, k = self._rope(q, step.slots), self._rope(k, step.slots)
             k_all, v_all = step.cache.key[layer], step.cache.value[layer]
             step.write(k_all, k)
             step.write(v_all, v)
-            att = torch.matmul(q.transpose(1, 2),
-                               k_all.permute(0, 2, 3, 1)) * scale  # [B,H,T,S]
+            # grouped attention against the un-repeated cache (JAX
+            # :619-633, bqhgd,bkhd->bhgqk): query head h = g_kv * G + g
+            qg = q.view(B, T, Hkv, G, D).permute(0, 2, 3, 1, 4)
+            att = torch.matmul(qg.reshape(B, Hkv, G * T, D),
+                               k_all.permute(0, 2, 3, 1)) * scale
+            att = att.view(B, Hkv, G, T, -1)                    # [B,h,g,T,S]
             att = att.masked_fill(step.hidden, torch.finfo(att.dtype).min)
             att = torch.softmax(att.float(), dim=-1).to(cfg.dtype)
-            y = torch.matmul(att, v_all.transpose(1, 2))           # [B,H,T,D]
-            return self.c_proj(y.transpose(1, 2).reshape(B, T, C))
+            y = torch.matmul(att.view(B, Hkv, G * T, -1),
+                             v_all.transpose(1, 2))              # [B,h,GT,D]
+            y = y.view(B, Hkv, G, T, D).permute(0, 3, 1, 2, 4)
+            return self.c_proj(y.reshape(B, T, C))
+
+        if cfg.rotary:
+            # packed batches pass per-document positions, so each document
+            # sees the phases it would alone (JAX :639-645)
+            pos = (positions if positions is not None
+                   else torch.arange(T, device=x.device)[None, :])
+            q, k = self._rope(q, pos), self._rope(k, pos)
+        if G > 1:
+            # jnp.repeat(t, G, axis=2): query head h reads KV head h // G.
+            # Contiguous copies: the kernels take three strides per tensor,
+            # which a stride-0 expand over the group cannot give; autograd
+            # sums the per-head dk, dv over each group
+            k = k.repeat_interleave(G, dim=2)
+            v = v.repeat_interleave(G, dim=2)
 
         # the flax model's gate (transformer_lm.py:720-725) unchanged, so
         # both packages route the same shapes; the kernel itself takes any T
@@ -385,29 +470,40 @@ class CausalSelfAttention(nn.Module):
 
 
 class MLP(nn.Module):
+    """``c_proj(act(c_fc(x)))``, or with ``gated_mlp`` (SwiGLU, JAX
+    :774-778) ``c_proj(act(c_gate(x)) * c_fc(x))`` in the compute dtype."""
+
     def __init__(self, cfg: GPTConfig):
         super().__init__()
-        self.c_fc = Dense(cfg.n_embd, cfg.ffn_dim, cfg)
-        self.c_proj = Dense(cfg.ffn_dim, cfg.n_embd, cfg)
+        self.c_fc = Dense(cfg.n_embd, cfg.ffn_dim, cfg, bias=cfg.use_bias)
+        self.c_gate = (Dense(cfg.n_embd, cfg.ffn_dim, cfg, bias=cfg.use_bias)
+                       if cfg.gated_mlp else None)
+        self.c_proj = Dense(cfg.ffn_dim, cfg.n_embd, cfg, bias=cfg.use_bias)
         self.act = _ACTIVATIONS[cfg.activation]
 
     def forward(self, x):
-        return self.c_proj(self.act(self.c_fc(x)))
+        h = self.c_fc(x)
+        if self.c_gate is not None:
+            h = self.act(self.c_gate(x)) * h
+        else:
+            h = self.act(h)
+        return self.c_proj(h)
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block (dense MLP)."""
+    """Pre-norm transformer block (dense MLP)."""
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
-        self.ln_1 = LayerNorm(cfg.n_embd, cfg.layer_norm_epsilon, cfg)
+        self.ln_1 = _norm(cfg)
         self.attn = CausalSelfAttention(cfg)
-        self.ln_2 = LayerNorm(cfg.n_embd, cfg.layer_norm_epsilon, cfg)
+        self.ln_2 = _norm(cfg)
         self.mlp = MLP(cfg)
 
-    def forward(self, x, mask=None, step=None, layer=0, segment_ids=None):
+    def forward(self, x, mask=None, step=None, layer=0, segment_ids=None,
+                positions=None):
         x = x + self.attn(self.ln_1(x), mask=mask, step=step, layer=layer,
-                          segment_ids=segment_ids)
+                          segment_ids=segment_ids, positions=positions)
         return x + self.mlp(self.ln_2(x))
 
 
@@ -419,18 +515,27 @@ class GPT(nn.Module):
     Like a flax module, ``GPT(config)`` describes the model without
     allocating it: its parameters live on the meta device until
     ``init_inference`` materializes them on the card (or ``load_state_dict(
-    ..., assign=True)`` supplies them)."""
+    ..., assign=True)`` supplies them). ``wpe`` exists only with
+    ``learned_positions``; an untied model has ``lm_head`` (``[n_embd,
+    vocab]``, JAX's layout) and ``lm_head_bias`` is ``[vocab]``."""
 
     def __init__(self, config: GPTConfig):
         super().__init__()
         self.config = config
         with torch.device("meta"):
             self.wte = VocabEmbed(config.vocab_size, config.n_embd, config)
-            self.wpe = VocabEmbed(config.n_positions, config.n_embd, config)
+            self.wpe = (VocabEmbed(config.n_positions, config.n_embd, config)
+                        if config.learned_positions else None)
             self.h = nn.ModuleList(Block(config)
                                    for _ in range(config.n_layer))
-            self.ln_f = LayerNorm(config.n_embd, config.layer_norm_epsilon,
-                                  config)
+            self.ln_f = _norm(config)
+            self.lm_head = (None if config.tie_word_embeddings
+                            else nn.Parameter(torch.empty(
+                                (config.n_embd, config.vocab_size),
+                                dtype=config.param_dtype)))
+            self.lm_head_bias = (nn.Parameter(torch.empty(
+                config.vocab_size, dtype=config.param_dtype))
+                if config.lm_head_bias else None)
         # ``block_hook(block, *args, **kwargs)``, when set, runs each block
         # in place of ``block(*args, **kwargs)``: ZeRO stage 3 gathers the
         # block's parameters there (runtime/zero/stage3.py)
@@ -443,6 +548,13 @@ class GPT(nn.Module):
         data-parallel engine all-reduces it to weight each rank's mean."""
         return _shifted_targets(labels, attention_mask, segment_ids)[1].sum()
 
+    def _head_weight(self, dtype):
+        """The LM head as ``[vocab, n_embd]`` in ``dtype``: the embedding
+        table when tied, else a view of the cast ``lm_head``."""
+        if self.lm_head is None:
+            return self.wte.weight.to(dtype)
+        return self.lm_head.to(dtype).t()
+
     def forward(self, input_ids, labels=None, attention_mask=None,
                 segment_ids=None, positions=None, *, decode=False,
                 cache: Optional[KVCache] = None):
@@ -454,7 +566,7 @@ class GPT(nn.Module):
         real tokens (of LEFT-padded prompts when decoding). Packed training
         batches pass ``segment_ids`` (attention stays within a segment, and
         the loss skips cross-segment and pad targets) and ``positions``
-        (learned positions that restart at each document)."""
+        (learned or rotary positions that restart at each document)."""
         cfg = self.config
         B, T = input_ids.shape
         dev = input_ids.device
@@ -471,18 +583,20 @@ class GPT(nn.Module):
                 "decode caches are per-sequence")
         if decode and cache is None:
             cache = KVCache.empty(cfg, B, dev)
+        pos = None
         if decode:
             if cache.length + T > cfg.n_positions:
                 raise ValueError(
                     f"{T} more tokens overflow the KV cache ({cache.length} "
                     f"of n_positions={cfg.n_positions} written)")
             # a token's learned position is its count of real predecessors,
-            # not its cache slot (left-padded ragged prompts)
-            if attention_mask is not None:
+            # not its cache slot (left-padded ragged prompts); rotary phases
+            # are the slots themselves (see CausalSelfAttention)
+            if cfg.learned_positions and attention_mask is not None:
                 am = attention_mask.long()
                 pos = cache.position[:, None] + (am.cumsum(1) - 1).clamp_min(0)
                 cache.position += am.sum(1)
-            else:
+            elif cfg.learned_positions:
                 pos = cache.position[:, None] + torch.arange(T, device=dev)
                 cache.position += T
             slots = cache.index[:, None] + torch.arange(T, device=dev)
@@ -493,11 +607,13 @@ class GPT(nn.Module):
             k_pos = torch.arange(cfg.n_positions, device=dev)
             visible = (k_pos[None, None, :] <= slots[:, :, None]) \
                 & cache.valid[:, None, :]                           # [B,T,S]
-            step = _DecodeStep(cache, rows, slots, ~visible[:, None])
-        else:
+            step = _DecodeStep(cache, rows, slots, ~visible[:, None, None])
+        elif cfg.learned_positions:
             pos = (positions if positions is not None
                    else torch.arange(T, device=dev)[None, :])
-        x = self.wte(input_ids) + self.wpe(pos)
+        x = self.wte(input_ids)
+        if self.wpe is not None:
+            x = x + self.wpe(pos)
         # full recomputation: each block keeps only its input for the
         # backward (nn.remat with no policy)
         remat = cfg.remat and step is None and torch.is_grad_enabled()
@@ -508,11 +624,11 @@ class GPT(nn.Module):
                 # no RNG state to keep (dropout is refused in training), and
                 # reading the CUDA RNG state is what a captured step may not
                 x = torch.utils.checkpoint.checkpoint(
-                    run, x, attention_mask, None, i, segment_ids,
+                    run, x, attention_mask, None, i, segment_ids, positions,
                     use_reentrant=False, preserve_rng_state=False)
             else:
                 x = run(x, mask=attention_mask, step=step, layer=i,
-                        segment_ids=segment_ids)
+                        segment_ids=segment_ids, positions=positions)
         x = self.ln_f(x)
         if labels is not None:
             if decode:
@@ -525,11 +641,16 @@ class GPT(nn.Module):
                     f"fused_head_ce='auto' picks the fused head + CE for "
                     f"[{B}, {T}, {cfg.vocab_size}] logits (>= 4 GB), and "
                     "fused_linear_cross_entropy is not ported yet")
-            # compute-dtype logits (the unfused training head, :1217-1218)
-            logits = F.linear(x.to(cfg.dtype), self.wte.weight.to(cfg.dtype))
+            # compute-dtype logits (the unfused training head, :1217-1218),
+            # the bias added after the product as in JAX
+            logits = F.linear(x.to(cfg.dtype), self._head_weight(cfg.dtype))
+            if self.lm_head_bias is not None:
+                logits = logits + self.lm_head_bias.to(cfg.dtype)
             return cross_entropy_loss(logits, labels, attention_mask,
                                       segment_ids)
-        logits = _tied_head(x, self.wte.weight.to(cfg.dtype))
+        logits = _tied_head(x, self._head_weight(cfg.dtype))
+        if self.lm_head_bias is not None:
+            logits = logits + self.lm_head_bias.float()
         if decode:
             cache.index += T
             cache.length += T
@@ -542,10 +663,10 @@ def materialize_gpt(model: GPT, device, generator: torch.Generator,
     """Give a meta-device ``GPT`` real weights on ``device``, in ``dtype``
     (default: the config's ``param_dtype``): the given ``state_dict``, or a
     random init drawn from ``generator`` in flax's distributions
-    (truncated-normal lecun Dense kernels, normal 1/sqrt(C) embeddings, zero
-    biases, unit LayerNorm scales). Random weights are drawn on the device,
-    never allocated on the host; a ``state_dict`` is cast on the host, so
-    full precision never moves."""
+    (truncated-normal lecun Dense kernels, normal 1/sqrt(C) embeddings, a
+    normal(0.02) untied head, zero biases, unit norm scales). Random weights
+    are drawn on the device, never allocated on the host; a ``state_dict``
+    is cast on the host, so full precision never moves."""
     dtype = dtype or model.config.param_dtype
     if state_dict is not None:
         model.load_state_dict(state_dict, assign=True)
@@ -555,9 +676,10 @@ def materialize_gpt(model: GPT, device, generator: torch.Generator,
     model.to_empty(device=device)
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, LayerNorm):
+            if isinstance(mod, (LayerNorm, RMSNorm)):
                 mod.weight.fill_(1.0)
-                mod.bias.zero_()
+                if getattr(mod, "bias", None) is not None:
+                    mod.bias.zero_()
             elif isinstance(mod, VocabEmbed):
                 mod.weight.normal_(0.0, mod.weight.shape[1] ** -0.5,
                                    generator=generator)
@@ -566,13 +688,20 @@ def materialize_gpt(model: GPT, device, generator: torch.Generator,
                 std = mod.in_features ** -0.5 / 0.87962566103423978
                 torch.nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std,
                                             2 * std, generator=generator)
-                mod.bias.zero_()
+                if mod.bias is not None:
+                    mod.bias.zero_()
+        # a GPT's untied head (BERT's model comes here too, and has none)
+        if getattr(model, "lm_head", None) is not None:
+            model.lm_head.normal_(0.0, 0.02, generator=generator)
+        if getattr(model, "lm_head_bias", None) is not None:
+            model.lm_head_bias.zero_()
     model.to(dtype)
 
 
 def _tied_head(x, w):
-    """``x @ w.T`` with compute-dtype operands and f32 accumulation and
-    output (``lax.dot_general(..., preferred_element_type=f32)``)."""
+    """``x @ w.T`` (``w`` the ``[vocab, n_embd]`` head) with compute-dtype
+    operands and f32 accumulation and output
+    (``lax.dot_general(..., preferred_element_type=f32)``)."""
     x2 = x.reshape(-1, x.shape[-1])
     if x.dtype == torch.float32:
         out = torch.mm(x2, w.t())
@@ -622,11 +751,24 @@ def cross_entropy_loss(logits, labels, mask=None, segment_ids=None):
 
 
 def num_params(config: GPTConfig) -> int:
-    """Parameter count of the ported architecture (counterpart of
-    ``transformer_lm.py:1273`` for GPT-2's knobs)."""
-    C, L, V, F_ = config.n_embd, config.n_layer, config.vocab_size, \
-        config.ffn_dim
-    attn = C * 3 * C + 3 * C + C * C + C
-    mlp = 2 * C * F_ + F_ + C
-    per_layer = attn + mlp + 2 * 2 * C
-    return V * C + L * per_layer + 2 * C + config.n_positions * C
+    """Parameter count (``transformer_lm.py:1273-1293``): GQA, the gated
+    MLP, biases, norms, learned positions and the untied head and its
+    bias."""
+    cfg = config
+    C, L, V = cfg.n_embd, cfg.n_layer, cfg.vocab_size
+    D, H, Hkv, F_ = cfg.head_dim, cfg.n_head, cfg.kv_heads, cfg.ffn_dim
+    b = 1 if cfg.use_bias else 0
+    ab = b if cfg.attn_bias is None else (1 if cfg.attn_bias else 0)
+    attn = C * (H + 2 * Hkv) * D + ab * (H + 2 * Hkv) * D + C * C + ab * C
+    mlp = (3 if cfg.gated_mlp else 2) * C * F_ + b * (
+        (2 if cfg.gated_mlp else 1) * F_ + C)
+    norm_p = C * (2 if (cfg.norm == "layernorm" and cfg.use_bias) else 1)
+    per_layer = attn + mlp + 2 * norm_p
+    total = V * C + L * per_layer + norm_p
+    if cfg.learned_positions:
+        total += cfg.n_positions * C
+    if not cfg.tie_word_embeddings:
+        total += C * V
+    if cfg.lm_head_bias:
+        total += V
+    return total

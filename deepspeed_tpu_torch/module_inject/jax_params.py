@@ -4,7 +4,10 @@ the port.
 Counterpart of the GPT-2 mapping in ``deepspeed_tpu/module_inject/hf.py``
 (``gpt2_params_from_hf`` :92 and ``gpt2_to_hf_state_dict`` :988), from the
 flax tree straight to this package's ``state_dict``; the BERT mapping
-follows ``deepspeed_tpu/models/bert.py``'s parameter names. The tree arrives as
+follows ``deepspeed_tpu/models/bert.py``'s parameter names. A GPT tree may
+have any shape the port's ``GPTConfig`` builds: GPT-2's, or the LLaMA-shaped
+trunk that ``llama_from_hf`` (hf.py:499) configures (RMSNorm, ``c_gate``, no
+biases, no ``wpe``, an untied ``lm_head``). The tree arrives as
 nested dicts of numpy arrays (``jax.device_get(params)`` gives one), so
 nothing here imports jax.
 
@@ -35,8 +38,12 @@ def gpt_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tens
 
     Dense kernels are ``[in, out]`` and become ``nn.Linear`` weights by
     transposition; ``c_attn`` stays fused, its output columns ordered
-    q | k | v as in the flax model. LayerNorm ``scale`` becomes ``weight``.
-    The LM head is tied to ``wte`` and has no entry of its own.
+    q | kv-heads' k | kv-heads' v as in the flax model. A norm's ``scale``
+    becomes ``weight`` (LayerNorm and RMSNorm alike). The tree decides
+    which leaves exist: biases (``use_bias``, ``attn_bias``), ``c_gate``
+    (the gated MLP), ``wpe`` (learned positions), the untied ``lm_head``
+    (``[n_embd, vocab]`` in both packages) and ``lm_head_bias``. A tied
+    head has no entry of its own.
     """
     if "h" in params:
         stacked = params["h"]["block"]
@@ -47,22 +54,20 @@ def gpt_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tens
         def layer(i):
             return params[f"h_{i}"]
 
-    sd = {
-        "wte.weight": _tensor(params["wte"]["embedding"]),
-        "wpe.weight": _tensor(params["wpe"]["embedding"]),
-        "ln_f.weight": _tensor(params["ln_f"]["scale"]),
-        "ln_f.bias": _tensor(params["ln_f"]["bias"]),
-    }
+    sd = {"wte.weight": _tensor(params["wte"]["embedding"])}
+    if "wpe" in params:
+        sd["wpe.weight"] = _tensor(params["wpe"]["embedding"])
+    _layer_norm(sd, "ln_f", params["ln_f"])
+    for name in ("lm_head", "lm_head_bias"):
+        if name in params:
+            sd[name] = _tensor(params[name])
     for i in range(cfg.n_layer):
         lp, p = layer(i), f"h.{i}"
         for ln in ("ln_1", "ln_2"):
-            sd[f"{p}.{ln}.weight"] = _tensor(lp[ln]["scale"])
-            sd[f"{p}.{ln}.bias"] = _tensor(lp[ln]["bias"])
-        for mod, name in (("attn", "c_attn"), ("attn", "c_proj"),
-                          ("mlp", "c_fc"), ("mlp", "c_proj")):
-            dense = lp[mod][name]
-            sd[f"{p}.{mod}.{name}.weight"] = _tensor(dense["kernel"]).T.contiguous()
-            sd[f"{p}.{mod}.{name}.bias"] = _tensor(dense["bias"])
+            _layer_norm(sd, f"{p}.{ln}", lp[ln])
+        for mod in ("attn", "mlp"):
+            for name, dense in lp[mod].items():
+                _dense(sd, f"{p}.{mod}.{name}", dense)
     return sd
 
 
@@ -100,12 +105,16 @@ def adam_state_from_jax(opt_state, cfg) -> Dict[str, Any]:
 
 def _dense(sd, name, dense):
     sd[f"{name}.weight"] = _tensor(dense["kernel"]).T.contiguous()
-    sd[f"{name}.bias"] = _tensor(dense["bias"])
+    if "bias" in dense:
+        sd[f"{name}.bias"] = _tensor(dense["bias"])
 
 
 def _layer_norm(sd, name, ln):
+    """A LayerNorm's or RMSNorm's leaves (RMSNorm and a bias-free
+    LayerNorm have only ``scale``)."""
     sd[f"{name}.weight"] = _tensor(ln["scale"])
-    sd[f"{name}.bias"] = _tensor(ln["bias"])
+    if "bias" in ln:
+        sd[f"{name}.bias"] = _tensor(ln["bias"])
 
 
 def bert_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
@@ -217,7 +226,9 @@ class ExchangeLayout:
         return flat[o:o + self.leaf_sizes[li]]
 
 
-# (port module, port leaf) -> flax (module, leaf, transposed) in a block
+# (port module, port leaf) -> flax (module, leaf, transposed) in a block;
+# a model has the ones its config builds (no biases under use_bias=False,
+# c_gate only with gated_mlp)
 _BLOCK_LEAVES = [
     ("attn.c_attn.bias", ("attn", "c_attn", "bias"), False),
     ("attn.c_attn.weight", ("attn", "c_attn", "kernel"), True),
@@ -229,10 +240,15 @@ _BLOCK_LEAVES = [
     ("ln_2.weight", ("ln_2", "scale"), False),
     ("mlp.c_fc.bias", ("mlp", "c_fc", "bias"), False),
     ("mlp.c_fc.weight", ("mlp", "c_fc", "kernel"), True),
+    ("mlp.c_gate.bias", ("mlp", "c_gate", "bias"), False),
+    ("mlp.c_gate.weight", ("mlp", "c_gate", "kernel"), True),
     ("mlp.c_proj.bias", ("mlp", "c_proj", "bias"), False),
     ("mlp.c_proj.weight", ("mlp", "c_proj", "kernel"), True),
 ]
-_OUTER_LEAVES = [("ln_f.bias", ("ln_f", "bias")),
+# the untied head is [n_embd, vocab] in both packages: no transpose
+_OUTER_LEAVES = [("lm_head", ("lm_head",)),
+                 ("lm_head_bias", ("lm_head_bias",)),
+                 ("ln_f.bias", ("ln_f", "bias")),
                  ("ln_f.weight", ("ln_f", "scale")),
                  ("wpe.weight", ("wpe", "embedding")),
                  ("wte.weight", ("wte", "embedding"))]
@@ -242,7 +258,9 @@ def gpt_exchange_layout(named_shapes, cfg) -> ExchangeLayout:
     """The ``ExchangeLayout`` of a ``GPT``'s parameters (``named_shapes``:
     ``(name, shape)`` in the port's order, as ``named_parameters()`` gives
     them) under ``cfg.scan_layers``. The inverse of
-    ``gpt_state_dict_from_jax``'s map; it needs no jax."""
+    ``gpt_state_dict_from_jax``'s map; it needs no jax. A leaf of
+    ``_BLOCK_LEAVES`` is in the layout when layer 0 has it, and then every
+    layer must."""
     index = {name: i for i, (name, _) in enumerate(named_shapes)}
     shapes = {name: tuple(s) for name, s in named_shapes}
     entries = {}  # jax path tuple -> (jax shape, [(param, layer, transposed)])
@@ -251,8 +269,10 @@ def gpt_exchange_layout(named_shapes, cfg) -> ExchangeLayout:
         s = shapes[name]
         return tuple(reversed(s)) if transposed else s
 
+    block_leaves = [leaf for leaf in _BLOCK_LEAVES
+                    if f"h.0.{leaf[0]}" in index]
     for i in range(cfg.n_layer):
-        for port, path, transposed in _BLOCK_LEAVES:
+        for port, path, transposed in block_leaves:
             name = f"h.{i}.{port}"
             if name not in index:
                 raise ValueError(f"{name} is not a parameter of the model")
@@ -266,7 +286,8 @@ def gpt_exchange_layout(named_shapes, cfg) -> ExchangeLayout:
                 entries[(f"h_{i}",) + path] = (
                     part, [(index[name], None, transposed)])
     for name, path in _OUTER_LEAVES:
-        entries[path] = (shapes[name], [(index[name], None, False)])
+        if name in index:
+            entries[path] = (shapes[name], [(index[name], None, False)])
     if len(index) != sum(len(m) for _, m in entries.values()):
         unknown = set(index) - {named_shapes[i][0] for _, m in entries.values()
                                 for i, _, _ in m}

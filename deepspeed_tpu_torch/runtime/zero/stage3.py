@@ -7,8 +7,9 @@ sharding.py:124-130``; and of the reference's ``stage3.py`` /
 
 **Units.** The model is cut into units: each block of its one
 ``nn.ModuleList`` (``GPT.h[i]``), and one outer unit holding the rest (the
-token and position embeddings, which the tied head reads too, and the
-final LayerNorm). A unit's parameters of at least
+token embedding, which a tied head reads too, the position embedding when
+the model has one, the final norm, and an untied ``lm_head`` and its bias).
+A unit's parameters of at least
 ``stage3_param_persistence_threshold`` elements
 (``ZeroShardingRules.partitions_param``) are laid out as stages 1-2 lay
 the whole model out (``FlatPartition``: one buffer per dtype, leaves at
@@ -29,8 +30,8 @@ optimizer (``_Unit.take_grads``) rather than to autograd. The unit's module
 then runs on views of the full buffer, bound by
 ``torch.func.functional_call``: ``ZeroStage3Optimizer.forward`` gathers the
 outer unit once per forward and calls the model with it (the embedding and
-the tied head share one gather, and one reduce-scatter at the end of the
-backward), and the model's ``block_hook`` gathers each block's unit as the
+the head, tied or not, share one gather, and one reduce-scatter at the end
+of the backward), and the model's ``block_hook`` gathers each block's unit as the
 block runs. The hook is the one change the model needed: the engine cannot
 rebind a block's parameters from outside without renaming them. Under full
 remat the gather runs inside the function that ``torch.utils.checkpoint``

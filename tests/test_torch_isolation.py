@@ -23,6 +23,15 @@ engine = deepspeed_tpu_torch.init_inference(GPT(cfg), dtype="fp32",
 ids = torch.randint(0, 64, (1, 128))
 assert engine(ids).shape == (1, 128, 64)
 assert engine.generate(ids[:, :9], max_new_tokens=3).shape == (1, 3)
+lcfg = GPTConfig(vocab_size=64, n_positions=256, n_embd=64, n_layer=1,
+                 n_head=2, n_kv_head=1, norm="rmsnorm", activation="silu",
+                 gated_mlp=True, use_bias=False, rotary=True,
+                 learned_positions=False, tie_word_embeddings=False,
+                 dtype=torch.float32, use_flash_attention=True)
+llama = deepspeed_tpu_torch.init_inference(GPT(lcfg), dtype="fp32",
+                                           device="cpu")
+assert llama(ids).shape == (1, 128, 64)
+assert llama.generate(ids[:, :9], max_new_tokens=3).shape == (1, 3)
 from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
 tcfg = GPTConfig(vocab_size=64, n_positions=256, n_embd=64, n_layer=1,
                  n_head=2, dtype=torch.float32, use_flash_attention=True,

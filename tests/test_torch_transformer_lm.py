@@ -140,8 +140,9 @@ def test_bf16_logits_track_jax(flash):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("rotary", True), ("alibi", True), ("n_kv_head", 1), ("norm", "rmsnorm"),
-    ("gated_mlp", True), ("moe_num_experts", 2), ("attention_chunk", 64),
+    ("parallel_residual", True), ("alibi", True), ("embed_layernorm", True),
+    ("stochastic_mode", True), ("sparse_kv_cache", True),
+    ("moe_num_experts", 2), ("attention_chunk", 64),
     ("sequence_parallel", "ring"), ("quantized_weights", True),
     ("kv_cache_dtype", "int8"), ("param_offload", True),
     ("remat_policy", "selective"), ("sparse_attention", object()),

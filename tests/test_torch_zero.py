@@ -132,7 +132,7 @@ def _model(job):
             max_position_embeddings=64, dtype=torch.float32))
     from deepspeed_tpu_torch.models import transformer_lm as tlm
 
-    return tlm.GPT(tlm.GPTConfig(**SMALL, **job.get("model", {}),
+    return tlm.GPT(tlm.GPTConfig(**{**SMALL, **job.get("model", {})},
                                  dtype=getattr(torch, job.get("dtype",
                                                               "float32"))))
 
@@ -246,6 +246,10 @@ def _run_job(job, rank):
                                for s in engine.optimizer.shard_params]
         out["count"] = engine.optimizer.count
         out["global_samples"] = engine.global_samples
+        if job.get("units"):
+            # stage 3: each unit's partitioned leaves, by full name
+            out["units"] = {u.name: sorted(u.local)
+                            for u in engine.optimizer.units}
     except (NotImplementedError, ValueError) as e:
         if not job.get("raises"):
             raise
@@ -282,8 +286,8 @@ def jax_init(scan_layers=True, **model):
 
     from deepspeed_tpu.models import transformer_lm as jlm
 
-    jmodel = jlm.GPT(jlm.GPTConfig(**SMALL, dtype=jnp.float32,
-                                   scan_layers=scan_layers, **model))
+    jmodel = jlm.GPT(jlm.GPTConfig(**{**SMALL, **model}, dtype=jnp.float32,
+                                   scan_layers=scan_layers))
     params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
                          deterministic=True)["params"]
     return jmodel, params
@@ -315,14 +319,15 @@ def jax_run(ds, steps, scan_layers=True, dp=1, fsdp=WORLD, model=None):
             "skipped": jeng.skipped_steps}
 
 
-def one_process(ds, steps, init):
+def one_process(ds, steps, init, model=None):
     """The port's engine without a process group, on the same data as
-    micro batches of one rank's size."""
+    micro batches of one rank's size. ``model``: GPTConfig overrides."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import transformer_lm as tlm
 
     engine = deepspeed_tpu_torch.initialize(
-        model=tlm.GPT(tlm.GPTConfig(**SMALL, dtype=torch.float32)),
+        model=tlm.GPT(tlm.GPTConfig(**{**SMALL, **(model or {})},
+                                    dtype=torch.float32)),
         config=ds, device="cpu",
         model_parameters={k: v.clone() for k, v in init.items()})[0]
     losses = [float(engine.train_batch(iter(s))) for s in split_micro(steps)]
