@@ -210,6 +210,38 @@ Phases, each printing one JSON line:
   isolation. B1-B3 at [2, 4096, 32, 128] (k and v repeated from 8 heads)
   against their plain versions on batch 1, heads 0-7, and timed against
   their bounds, the plain versions and SDPA's backends (cuDNN among them).
+  The serving and training checks are ``serve_lm`` and ``lm_train``,
+  which the next two phases share.
+* ``neox`` (the parallel residual, the embedding LayerNorm and ALiBi):
+  Pythia-6.9B's config (``PYTHIA_6P9B``: parallel residual, rotary on 25%
+  of each head, exact GELU, biases, an untied head), served at all 32
+  layers as ``mistral`` serves (``forward`` [2, 2048] through B1 against
+  einsum, decode graphs against eager, cached decode against the forward)
+  and trained at 8 layers at micro [4, 2048] (one einsum step against the
+  flash step, 12 captured steps against 12 uncaptured ones, the loss
+  falling, B1 16 / B2 8 / B3 8 / B4 1 per step, a traced replay); then
+  BLOOM-7b1's (``BLOOM_7B1``: ALiBi, the embedding LayerNorm, a tied head,
+  vocab 250880) served at all 30 layers, its ``forward`` [1, 2048] with
+  ``use_flash_attention=True`` launching B1 0 times (JAX's gate: ALiBi
+  takes the einsum path), decode against eager and against the forward.
+* ``moe`` (mixture of experts): Mixtral-8x7B-v0.1's config
+  (``MIXTRAL_8X7B``: the Mistral trunk, 8 gated-SiLU experts, top-2,
+  capacity factors 2.0 and 4.0, rotary theta 1e6; ``n_positions`` cut to
+  4096) served at 16 layers (``forward`` [1, 4096] through B1 against
+  einsum, each layer's tokens per expert, the first layer's spread over
+  every expert; decode graphs against eager; cached decode against the
+  forward) and trained at 2 layers at micro [2, 4096] with the engine's
+  gating noise (captured against eager bit for bit, two more replays
+  drawing different noise, the loss falling, B1 4 / B2 2 / B3 2 / B4 2
+  per step: B4 once for the bf16 weights and once for the f32 gates; the
+  active and the executed FLOPs); the index dispatch/combine against the
+  dense one-hot products at the training shape (dispatch bit for bit, the
+  f32 combine within ``MOE_COMBINE_REL_L2``), each timed with its
+  backward, and their share of the step; a small top-1 MoE GPT (RSample
+  and RTS) saved to a tag with one file per expert and kind and resumed
+  in a fresh engine bit for bit (losses, noise, parameters), and trained
+  at ZeRO stages 0-2 on a one-rank NCCL group, captured against eager and
+  against the group-less engine.
 
 Then the kernels line, nvidia-smi's line and, last, ``{"ok": true, ...}``.
 A failed check raises, and the script exits nonzero. It imports neither jax
@@ -219,7 +251,8 @@ nor ``deepspeed_tpu``.
 and ``zero`` phases, then nvidia-smi's line and the ``{"ok": true, ...}``
 line (on a machine with four cards, the four-card measurement);
 ``--only data`` the same with the ``data`` phase, ``--only mistral`` with
-the ``mistral`` phase.
+the ``mistral`` phase, ``--only neox`` with ``neox`` and ``--only moe``
+with ``moe``.
 
 ``python3 chip_smoke.py --against DIR`` runs only the A/B of the backward
 kernels and of the fused AdamW: DIR holds another checkout's
@@ -2967,18 +3000,28 @@ def mistral_decode_logits(engine, prompts, mask, k=MISTRAL_LOGIT_STEPS):
     return logits, logits[:, :-1].argmax(-1), same
 
 
-def mistral_serve():
-    """Mistral-7B, all 32 layers, bf16, through ``init_inference``: the
-    flash forward against the einsum path, the decode graphs against eager
-    decode (tokens over ``generate``, logits over a captured decode run),
-    cached decode against the full forward, and the serving times."""
+def serve_lm(phase, make_config, *, model, source, config, reduced, batch,
+             seq, prompt_lengths, logits_rel_l2, flash_layers=True,
+             extra=None, part="serve"):
+    """One model at full width through ``init_inference``, bf16, random
+    weights from seed 0: ``forward`` on [batch, seq] (through B1 on every
+    layer when ``flash_layers``, else with no B1 launch: ALiBi takes the
+    einsum path) against the einsum path on the same weights (relative L2
+    of the logits, ``logits_rel_l2``), ``generate`` for left-padded prompts
+    of ``prompt_lengths`` with the decode graphs against eager decode
+    (tokens, and the logits of a captured decode run bit for bit), cached
+    decode against the full forward of the same sequences; forward, prefill
+    and decode times, peak memory, and the card's time by kernel in one
+    traced forward and one traced 8-token generate. ``extra(engine, ids)``
+    adds to the line. Returns the launch counts of the forward and
+    generate."""
     import torch
 
     from deepspeed_tpu_torch import init_inference
     from deepspeed_tpu_torch.models.transformer_lm import GPT, num_params
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 
-    cfg = mistral_config()
+    cfg = make_config()
     free_cuda()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2987,14 +3030,14 @@ def mistral_serve():
     init_s = time.perf_counter() - t0
     weights_gb = torch.cuda.memory_allocated() / 1e9
     gen = torch.Generator().manual_seed(1)
-    ids = torch.randint(0, cfg.vocab_size, (2, MISTRAL_SEQ), generator=gen)
-    width = max(MISTRAL_PROMPT_LENGTHS)
-    prompts = torch.randint(0, cfg.vocab_size,
-                            (len(MISTRAL_PROMPT_LENGTHS), width), generator=gen)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen)
+    width = max(prompt_lengths)
+    prompts = torch.randint(0, cfg.vocab_size, (len(prompt_lengths), width),
+                            generator=gen)
     # left-padded, as generate aligns them (the decode-logits check feeds
     # the model directly)
     mask = torch.arange(width)[None, :] >= \
-        width - torch.tensor(MISTRAL_PROMPT_LENGTHS)[:, None]
+        width - torch.tensor(prompt_lengths)[:, None]
     prompts = prompts * mask
 
     reset_launches()
@@ -3006,18 +3049,20 @@ def mistral_serve():
     torch.cuda.synchronize()
     launches = read_launches()
     problems = []
-    if forward_launches != cfg.n_layer:
+    want_b1 = cfg.n_layer if flash_layers else 0
+    if forward_launches != want_b1:
         problems.append(f"forward launched B1 {forward_launches} times, "
-                        f"want {cfg.n_layer}")
-    if tuple(logits.shape) != (2, MISTRAL_SEQ, cfg.vocab_size) or \
+                        f"want {want_b1}")
+    if tuple(logits.shape) != (batch, seq, cfg.vocab_size) or \
             logits.dtype != torch.float32 or \
             not bool(torch.isfinite(logits).all()):
         problems.append(f"logits {tuple(logits.shape)} {logits.dtype}, "
                         "finite: " + str(bool(torch.isfinite(logits).all())))
-    if tuple(toks.shape) != (len(MISTRAL_PROMPT_LENGTHS), MISTRAL_NEW_TOKENS):
+    if tuple(toks.shape) != (len(prompt_lengths), MISTRAL_NEW_TOKENS):
         problems.append(f"generate returned {tuple(toks.shape)}")
+    line_extra = extra(engine, ids) if extra is not None else {}
 
-    einsum = init_inference(GPT(mistral_config(use_flash_attention=False)),
+    einsum = init_inference(GPT(make_config(use_flash_attention=False)),
                             dtype="bf16",
                             state_dict=engine.module.state_dict())
     logits_e = einsum(ids)
@@ -3030,19 +3075,20 @@ def mistral_serve():
     decode = compare_decode(engine, prompts, mask, n=MISTRAL_NEW_TOKENS)
     # cached decode against the full forward over the same sequences: the
     # left-aligned prompts (left pads, masked as keys) and the generated
-    # tokens; the rotary phases are the cache slots on both sides
+    # tokens; rotary phases and ALiBi positions are the cache slots on both
+    # sides
     dec_logits, dec_toks, graph_same = mistral_decode_logits(
         engine, prompts.cuda(), mask.cuda())
-    seq = torch.cat([prompts.cuda(), dec_toks], dim=1)
+    seq_ids = torch.cat([prompts.cuda(), dec_toks], dim=1)
     seq_mask = torch.cat([mask.cuda(), torch.ones_like(dec_toks,
                                                        dtype=torch.bool)], 1)
     with torch.inference_mode():
-        full = engine.module(seq, attention_mask=seq_mask)
+        full = engine.module(seq_ids, attention_mask=seq_mask)
     full = full[:, width - 1:]                          # [B, k + 1, V]
     rollout_rel = _rel_l2(dec_logits, full)
     rollout_top1 = float((dec_logits.argmax(-1) == full.argmax(-1))
                          .float().mean())
-    del full, dec_logits, seq
+    del full, dec_logits, seq_ids
     n = MISTRAL_NEW_TOKENS
     gen1_ms = wall_ms(lambda: engine.generate(prompts, max_new_tokens=1,
                                               attention_mask=mask), reps=3)
@@ -3052,24 +3098,25 @@ def mistral_serve():
                        reps=1)
     # where the card's time goes: one traced forward, one traced 8-token
     # generate (prefill, then decode runs of 4, 2 and 1 steps, replayed)
-    profile = {"forward_2x4096": _trace(lambda: engine(ids))[0],
-               "generate_4_prompts_8_tokens": _trace(
+    profile = {f"forward_{batch}x{seq}": _trace(lambda: engine(ids))[0],
+               f"generate_{len(prompt_lengths)}_prompts_8_tokens": _trace(
                    lambda: engine.generate(prompts, max_new_tokens=8,
                                            attention_mask=mask))[0]}
-    line = {"phase": "mistral", "part": "serve", "model": "mistral-7b-v0.1",
-            "source": MISTRAL_SOURCE, "params": num_params(cfg),
-            "config": {k: v for k, v in MISTRAL_7B.items()},
-            "reduced": {"n_positions": "32768 -> 4096 (the sliding window; "
-                        "the policy attends over the whole context)"},
+    line = {"phase": phase, "part": part, "model": model,
+            "source": source,
+            "params": sum(p.numel() for p in engine.module.parameters()),
+            # the reference's count (one dense MLP for a mixture of experts)
+            "num_params_reference": num_params(cfg),
+            "config": dict(config), "reduced": reduced,
             "dtype": "bf16", "init_s": init_s, "weights_gb": weights_gb,
-            "forward_shape": [2, MISTRAL_SEQ],
+            "forward_shape": [batch, seq],
             "forward_launches": forward_launches, "launches": launches,
             "flash_vs_einsum_logits_rel_l2": flash_rel,
             "flash_vs_einsum_top1_agreement": top1,
-            "logits_rel_l2_tol": MISTRAL_LOGITS_REL_L2,
+            "logits_rel_l2_tol": logits_rel_l2,
             "forward_ms": forward_ms,
-            "forward_tokens_per_s": 2 * MISTRAL_SEQ / forward_ms * 1e3,
-            "prompt_lengths": list(MISTRAL_PROMPT_LENGTHS), "new_tokens": n,
+            "forward_tokens_per_s": batch * seq / forward_ms * 1e3,
+            "prompt_lengths": list(prompt_lengths), "new_tokens": n,
             "prefill_ms": gen1_ms,
             "decode_ms_per_token": (gen_ms - gen1_ms) / (n - 1),
             "eager_decode_ms_per_token": (eager_ms - gen1_ms) / (n - 1),
@@ -3078,20 +3125,35 @@ def mistral_serve():
             "decode_vs_forward_logits_rel_l2": rollout_rel,
             "decode_vs_forward_top1_agreement": rollout_top1,
             "logit_steps": MISTRAL_LOGIT_STEPS, "profile": profile,
-            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            **line_extra}
     emit(line)
-    if not flash_rel <= MISTRAL_LOGITS_REL_L2:
+    if not flash_rel <= logits_rel_l2:
         problems.append(f"flash against einsum: relative L2 {flash_rel}")
     if not decode["identical"] or not all(graph_same):
         problems.append("decode graphs against eager decode differ")
-    if not rollout_rel <= MISTRAL_LOGITS_REL_L2:
+    if not rollout_rel <= logits_rel_l2:
         problems.append(f"cached decode against the forward: relative L2 "
                         f"{rollout_rel}")
     if problems:
-        raise AssertionError(f"mistral serve: {problems}")
+        raise AssertionError(f"{phase} {part}: {problems}")
     del engine
     free_cuda()
     return launches
+
+
+def mistral_serve():
+    """Mistral-7B, all 32 layers, bf16, through ``init_inference``: the
+    flash forward against the einsum path, the decode graphs against eager
+    decode (tokens over ``generate``, logits over a captured decode run),
+    cached decode against the full forward, and the serving times."""
+    return serve_lm(
+        "mistral", mistral_config, model="mistral-7b-v0.1",
+        source=MISTRAL_SOURCE, config=MISTRAL_7B,
+        reduced={"n_positions": "32768 -> 4096 (the sliding window; the "
+                 "policy attends over the whole context)"},
+        batch=2, seq=MISTRAL_SEQ, prompt_lengths=MISTRAL_PROMPT_LENGTHS,
+        logits_rel_l2=MISTRAL_LOGITS_REL_L2)
 
 
 def mistral_engine(seed=0, flash=True):
@@ -3110,70 +3172,17 @@ def mistral_engine(seed=0, flash=True):
 
 
 def mistral_train():
-    """The 8-layer cut through initialize -> train_batch: one einsum step,
-    then 12 captured steps against 12 uncaptured ones from the same seed.
-    Returns the launch counts of the captured run."""
-    import numpy as np
-    import torch
-
-    from deepspeed_tpu_torch.models.transformer_lm import num_params
-
-    free_cuda()
-    einsum = mistral_engine(flash=False)
-    cfg = einsum.module.config
-    rng = np.random.RandomState(1)
-    ids = rng.randint(0, cfg.vocab_size,
-                      size=(MISTRAL_MICRO, MISTRAL_SEQ)).astype(np.int64)
-    batch = {"input_ids": ids, "labels": ids}
-    loss_e = float(einsum.train_batch(iter([batch])))
-    gnorm_e = einsum.get_global_grad_norm()
-    del einsum
-    free_cuda()
-
-    torch.cuda.reset_peak_memory_stats()
-    check, launches, losses, norms, times, e_losses, e_times = \
-        captured_against_eager(mistral_engine, [batch], STEPS)
-    ms, eager_ms = step_medians(times, e_times)
-    tokens = MISTRAL_MICRO * MISTRAL_SEQ
-    fpt = gpt_flops_per_token(cfg, MISTRAL_SEQ)
-    tflops = tokens * fpt / ms / 1e9
-    line = {"phase": "mistral", "part": "train",
-            "model": f"mistral-7b-v0.1, {MISTRAL_TRAIN_LAYERS} layers",
-            "params": num_params(cfg),
-            "reduced": {"n_layer": f"32 -> {MISTRAL_TRAIN_LAYERS}",
-                        "n_positions": "32768 -> 4096"},
-            "config": dict(GPT_PRETRAIN_CONFIG,
-                           train_micro_batch_size_per_gpu=MISTRAL_MICRO),
-            "batch": [MISTRAL_MICRO, MISTRAL_SEQ], "losses": losses,
-            "eager_losses": e_losses,
-            "flash_vs_einsum": {"loss": [losses[0], loss_e],
-                                "grad_norm": [norms[0], gnorm_e]},
-            "captured_vs_eager": check, "launches": launches,
-            "steps": STEPS, "step_ms_median": ms, "step_ms": times,
-            "eager_step_ms_median": eager_ms,
-            "tokens_per_s": tokens / ms * 1e3,
-            "model_flops_per_token": fpt, "model_tflops_per_s": tflops,
-            "mfu_vs_989": tflops / 989.0,
-            "peak_allocated_gb": check["peak_allocated_gb"]}
-    emit(line)
-    problems = []
-    if not all(np.isfinite(losses)):
-        problems.append("non-finite loss")
-    if not losses[-1] <= losses[0] - TRAIN_MIN_LOSS_DROP:
-        problems.append(f"loss did not fall by {TRAIN_MIN_LOSS_DROP}")
-    for name, per in {**MISTRAL_PER_STEP, **UNSEGMENTED}.items():
-        if launches[name] != per * STEPS:
-            problems.append(f"{name}: {launches[name]} launches, want "
-                            f"{per} x {STEPS}")
-    if abs(losses[0] - loss_e) > TRAIN_LOSS_REL_TOL * abs(loss_e):
-        problems.append("flash and einsum losses disagree")
-    if abs(norms[0] - gnorm_e) > TRAIN_GNORM_REL_TOL * abs(gnorm_e):
-        problems.append("flash and einsum grad norms disagree")
-    if not check["identical"]:
-        problems.append("captured and eager steps differ")
-    if problems:
-        raise AssertionError(f"mistral train: {problems}")
-    return launches
+    """The 8-layer cut through initialize -> train_batch (``lm_train``):
+    one einsum step, then 12 captured steps against 12 uncaptured ones
+    from the same seed. Returns the launch counts of the captured run."""
+    return lm_train(
+        "mistral", mistral_engine,
+        model=f"mistral-7b-v0.1, {MISTRAL_TRAIN_LAYERS} layers",
+        reduced={"n_layer": f"32 -> {MISTRAL_TRAIN_LAYERS}",
+                 "n_positions": "32768 -> 4096"},
+        micro=MISTRAL_MICRO, seq=MISTRAL_SEQ, per_step=MISTRAL_PER_STEP,
+        flops=lambda cfg: {"model_6n_plus_attention":
+                           gpt_flops_per_token(cfg, MISTRAL_SEQ)})[0]
 
 
 def mistral_kernels():
@@ -3302,6 +3311,546 @@ def phase_mistral():
           "seconds": time.perf_counter() - t0,
           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
     return {"mistral_serve": serve, "mistral_train": train}, kernels
+
+
+
+# Pythia-6.9B (https://huggingface.co/EleutherAI/pythia-6.9b/blob/main/
+# config.json) as deepspeed_tpu/module_inject/hf.py:266 (gptneox_from_hf)
+# configures it: the parallel residual, rotary on 25% of each head, exact
+# GELU, biases, an untied head
+PYTHIA_6P9B = dict(vocab_size=50432, n_positions=2048, n_embd=4096,
+                   n_layer=32, n_head=32, intermediate_size=16384,
+                   layer_norm_epsilon=1e-5, activation="gelu", rotary=True,
+                   rotary_pct=0.25, rope_theta=10000.0,
+                   learned_positions=False, tie_word_embeddings=False,
+                   parallel_residual=True)
+PYTHIA_SOURCE = ("https://huggingface.co/EleutherAI/pythia-6.9b/blob/main/"
+                 "config.json")
+# BLOOM-7b1 (https://huggingface.co/bigscience/bloom-7b1/blob/main/
+# config.json) as hf.py:813 (bloom_from_hf) configures it: ALiBi, the
+# embedding LayerNorm, the tanh GELU, biases, a tied head, 2048 positions
+BLOOM_7B1 = dict(vocab_size=250880, n_positions=2048, n_embd=4096,
+                 n_layer=30, n_head=32, layer_norm_epsilon=1e-5,
+                 activation="gelu_tanh", alibi=True, embed_layernorm=True,
+                 learned_positions=False, tie_word_embeddings=True)
+BLOOM_SOURCE = ("https://huggingface.co/bigscience/bloom-7b1/blob/main/"
+                "config.json")
+NEOX_SEQ = 2048
+# training cuts Pythia's depth: ZeRO-1 bf16 holds ~12 bytes per parameter,
+# 2.02 B parameters at 8 layers (~24 GB); every layer is alike
+PYTHIA_TRAIN_LAYERS = 8
+PYTHIA_MICRO = 4
+PYTHIA_PER_STEP = {"flash_attention_fwd": 2 * PYTHIA_TRAIN_LAYERS,
+                   "flash_attention_bwd_dq": PYTHIA_TRAIN_LAYERS,
+                   "flash_attention_bwd_dkv": PYTHIA_TRAIN_LAYERS,
+                   "fused_adamw": 1}
+# serving prompts within BLOOM's and Pythia's 2048 positions
+NEOX_PROMPT_LENGTHS = (37, 128, 300, 512)
+
+
+def neox_config(fields, **over):
+    import torch
+
+    from deepspeed_tpu_torch.models.transformer_lm import GPTConfig
+
+    cfg = dict(fields, dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+               use_flash_attention=True)
+    cfg.update(over)
+    return GPTConfig(**cfg)
+
+
+def lm_train(phase, make_engine, *, model, reduced, micro, seq, per_step,
+             flops, noise_check=False):
+    """A depth cut through initialize -> train_batch (``make_engine(flash=
+    ...)``): one einsum step against the flash step, then 12 captured steps
+    against 12 uncaptured ones from the same seed (bit for bit), the loss
+    falling, ``per_step`` launches per step and no segment variant.
+    ``flops(cfg)`` gives ``{name: FLOPs per token}`` for the line (the
+    first is the model TFLOP/s). With ``noise_check`` two more replays
+    after the 12 must draw different gating noise. Returns the launch
+    counts of the captured run."""
+    import numpy as np
+    import torch
+
+    free_cuda()
+    einsum = make_engine(flash=False)
+    cfg = einsum.module.config
+    params = sum(p.numel() for p in einsum.module.parameters())
+    rng = np.random.RandomState(1)
+    ids = rng.randint(0, cfg.vocab_size, size=(micro, seq)).astype(np.int64)
+    batch = {"input_ids": ids, "labels": ids}
+    loss_e = float(einsum.train_batch(iter([batch])))
+    gnorm_e = einsum.get_global_grad_norm()
+    del einsum
+    free_cuda()
+
+    noise = {}
+
+    def after_the_steps(engine, it):
+        # with noise_check, two more replays of the step's graph: the
+        # gating noise buffer after each (the generator is registered with
+        # the graph); then one traced replay, the card's time by kernel
+        if noise_check:
+            bufs = []
+            for _ in range(2):
+                engine.train_batch(it)
+                bufs.append(torch.cat([b.flatten() for b in
+                                       engine._gating_noise.values()]).clone())
+            torch.cuda.synchronize()
+            noise["replays_draw_different_noise"] = not torch.equal(*bufs)
+            noise["noise_elements"] = int(bufs[0].numel())
+        noise["profile_replay"] = _trace(lambda: engine.train_batch(it))[0]
+
+    torch.cuda.reset_peak_memory_stats()
+    check, launches, losses, norms, times, e_losses, e_times = \
+        captured_against_eager(make_engine, [batch], STEPS,
+                               traced=after_the_steps)
+    ms, eager_ms = step_medians(times, e_times)
+    tokens = micro * seq
+    fpt = flops(cfg)
+    first = next(iter(fpt.values()))
+    tflops = tokens * first / ms / 1e9
+    line = {"phase": phase, "part": "train", "model": model,
+            "params_numel": params, "reduced": reduced,
+            "config": dict(GPT_PRETRAIN_CONFIG,
+                           train_micro_batch_size_per_gpu=micro),
+            "batch": [micro, seq], "losses": losses,
+            "eager_losses": e_losses,
+            "flash_vs_einsum": {"loss": [losses[0], loss_e],
+                                "grad_norm": [norms[0], gnorm_e]},
+            "captured_vs_eager": check, "launches": launches,
+            "steps": STEPS, "step_ms_median": ms, "step_ms": times,
+            "eager_step_ms_median": eager_ms,
+            "tokens_per_s": tokens / ms * 1e3,
+            "flops_per_token": fpt,
+            "tflops_per_s": {k: tokens * v / ms / 1e9 for k, v in fpt.items()},
+            "model_tflops_per_s": tflops, "mfu_vs_989": tflops / 989.0,
+            "peak_allocated_gb": check["peak_allocated_gb"], **noise}
+    emit(line)
+    problems = []
+    if not all(np.isfinite(losses)):
+        problems.append("non-finite loss")
+    if not losses[-1] <= losses[0] - TRAIN_MIN_LOSS_DROP:
+        problems.append(f"loss did not fall by {TRAIN_MIN_LOSS_DROP}")
+    for name, per in {**per_step, **UNSEGMENTED}.items():
+        if launches[name] != per * STEPS:
+            problems.append(f"{name}: {launches[name]} launches, want "
+                            f"{per} x {STEPS}")
+    if abs(losses[0] - loss_e) > TRAIN_LOSS_REL_TOL * abs(loss_e):
+        problems.append("flash and einsum losses disagree")
+    if abs(norms[0] - gnorm_e) > TRAIN_GNORM_REL_TOL * abs(gnorm_e):
+        problems.append("flash and einsum grad norms disagree")
+    if not check["identical"]:
+        problems.append("captured and eager steps differ")
+    if noise_check and not noise.get("replays_draw_different_noise"):
+        problems.append("two replays drew the same gating noise")
+    if problems:
+        raise AssertionError(f"{phase} train: {problems}")
+    return launches, ms
+
+
+def pythia_engine(seed=0, flash=True):
+    """Pythia-6.9B's widths at ``PYTHIA_TRAIN_LAYERS`` layers through
+    ``initialize`` with ``GPT_PRETRAIN_CONFIG`` at micro ``PYTHIA_MICRO``,
+    full remat."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import GPT
+
+    model = GPT(neox_config(PYTHIA_6P9B, n_layer=PYTHIA_TRAIN_LAYERS,
+                            remat=True, use_flash_attention=flash))
+    config = dict(GPT_PRETRAIN_CONFIG,
+                  train_micro_batch_size_per_gpu=PYTHIA_MICRO)
+    return deepspeed_tpu_torch.initialize(model=model, config=config,
+                                          seed=seed)[0]
+
+
+def phase_neox():
+    """The parallel residual, partial rotary, ALiBi and the embedding
+    LayerNorm: Pythia-6.9B served at all 32 layers and trained at 8,
+    BLOOM-7b1 served at all 30 (ALiBi keeps it off B1). Returns the launch
+    counts by path."""
+    import torch
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    pythia = serve_lm(
+        "neox", functools.partial(neox_config, PYTHIA_6P9B),
+        model="pythia-6.9b", source=PYTHIA_SOURCE, config=PYTHIA_6P9B,
+        reduced={}, batch=2, seq=NEOX_SEQ,
+        prompt_lengths=NEOX_PROMPT_LENGTHS,
+        logits_rel_l2=MISTRAL_LOGITS_REL_L2, part="pythia_serve")
+    train, _ = lm_train(
+        "neox", pythia_engine,
+        model=f"pythia-6.9b, {PYTHIA_TRAIN_LAYERS} layers",
+        reduced={"n_layer": f"32 -> {PYTHIA_TRAIN_LAYERS}"},
+        micro=PYTHIA_MICRO, seq=NEOX_SEQ, per_step=PYTHIA_PER_STEP,
+        flops=lambda cfg: {"model_6n_plus_attention":
+                           gpt_flops_per_token(cfg, NEOX_SEQ)})
+    bloom = serve_lm(
+        "neox", functools.partial(neox_config, BLOOM_7B1),
+        model="bloom-7b1", source=BLOOM_SOURCE, config=BLOOM_7B1,
+        reduced={}, batch=1, seq=NEOX_SEQ,
+        prompt_lengths=NEOX_PROMPT_LENGTHS,
+        logits_rel_l2=MISTRAL_LOGITS_REL_L2, flash_layers=False,
+        part="bloom_serve")
+    emit({"phase": "neox", "part": "done", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0,
+          "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return {"neox_serve": pythia, "neox_train": train, "bloom_serve": bloom}
+
+
+# Mixtral-8x7B-v0.1 (https://huggingface.co/mistralai/Mixtral-8x7B-v0.1/
+# blob/main/config.json) as hf.py:590 (mixtral_from_hf) configures it: the
+# Mistral trunk (RMSNorm, 32 query over 8 KV heads, rotary at theta 1e6, no
+# biases, an untied head) with 8 gated-SiLU experts, top-2, the router's
+# aux coefficient 0.02, capacity factors 2.0 (training) and 4.0 (eval);
+# n_positions cut to 4096 as for Mistral
+MIXTRAL_8X7B = dict(vocab_size=32000, n_positions=4096, n_embd=4096,
+                    n_layer=32, n_head=32, n_kv_head=8,
+                    intermediate_size=14336, layer_norm_epsilon=1e-5,
+                    norm="rmsnorm", activation="silu", use_bias=False,
+                    rotary=True, rope_theta=1e6, learned_positions=False,
+                    tie_word_embeddings=False, moe_num_experts=8,
+                    moe_top_k=2, moe_gated_experts=True,
+                    moe_aux_loss_coef=0.02, moe_capacity_factor=2.0,
+                    moe_eval_capacity_factor=4.0)
+MIXTRAL_SOURCE = ("https://huggingface.co/mistralai/Mixtral-8x7B-v0.1/blob/"
+                  "main/config.json")
+# 1,451,270,144 parameters a layer (2.9 GB in bf16): 16 layers serve in
+# ~47 GB of one card, all 32 would take 93 GB
+MIXTRAL_SERVE_LAYERS = 16
+# 3,164,688,384 parameters at 2 layers, ~38 GB of ZeRO-1 state at 12 bytes
+# a parameter; every layer is alike
+MIXTRAL_TRAIN_LAYERS = 2
+MIXTRAL_MICRO = 2
+# B4 launches once per parameter dtype: the bf16 weights and the gates,
+# which stay f32 under a bf16 param_dtype (as in JAX)
+MIXTRAL_PER_STEP = {"flash_attention_fwd": 2 * MIXTRAL_TRAIN_LAYERS,
+                    "flash_attention_bwd_dq": MIXTRAL_TRAIN_LAYERS,
+                    "flash_attention_bwd_dkv": MIXTRAL_TRAIN_LAYERS,
+                    "fused_adamw": 2}
+# the index dispatch/combine against the dense one-hot products: dispatch
+# copies exactly; the f32 combine sums the same two products per element,
+# cuBLAS's with a fused multiply-add, so they part by an f32 rounding
+MOE_COMBINE_REL_L2 = 1e-6
+MOE_SMALL = dict(vocab_size=512, n_positions=128, n_embd=256, n_layer=2,
+                 n_head=4, n_kv_head=2, intermediate_size=384,
+                 norm="rmsnorm", activation="silu", use_bias=False,
+                 rotary=True, learned_positions=False,
+                 tie_word_embeddings=False, moe_num_experts=4,
+                 moe_top_k=1, moe_noisy_gate_policy="RSample",
+                 moe_capacity_factor=1.0, use_flash_attention=True,
+                 remat=True)
+MOE_SMALL_STEPS = 6
+
+
+def mixtral_config(**over):
+    return neox_config(MIXTRAL_8X7B, **over)
+
+
+def moe_flops_per_token(cfg, seq, tokens):
+    """Training FLOPs per token of a mixture-of-experts GPT, from its
+    parameters (``num_params`` counts one dense MLP, as in JAX). ``active``:
+    6 x (the non-embedding parameters a token uses: k of E experts) plus
+    the attention term of ``gpt_flops_per_token``. ``executed``: what the
+    step runs, the experts at their capacity-padded E x C rows for
+    ``tokens`` tokens, and the forward twice under full remat (8 in place
+    of 6)."""
+    from deepspeed_tpu_torch.models.transformer_lm import GPT
+    from deepspeed_tpu_torch.moe.sharded_moe import static_capacity
+
+    model = GPT(cfg)
+    expert = sum(p.numel() for n, p in model.named_parameters()
+                 if ".experts." in n)
+    other = sum(p.numel() for n, p in model.named_parameters()
+                if ".experts." not in n and n != "wte.weight")
+    E, k = cfg.moe_num_experts, cfg.moe_top_k
+    cf = cfg.moe_capacity_factor * (2.0 if k == 2 else 1.0)
+    C = static_capacity(tokens, E, cf, cfg.moe_min_capacity)
+    attn = 6 * cfg.n_layer * cfg.n_embd * seq
+    return {"active": 6.0 * (other + expert * k / E) + attn,
+            "executed": 8.0 * (other + expert * C / tokens) + attn * 8 / 6}
+
+
+def mixtral_exp_counts(engine, ids):
+    """Each layer's tokens routed to each expert (first choice) in one
+    forward: routing that is not degenerate sends tokens to every
+    expert."""
+    import torch
+
+    counts = []
+    hooks = [blk.mlp.register_forward_hook(
+        lambda mod, args, out: counts.append(out[2].tolist()))
+        for blk in engine.module.h]
+    try:
+        with torch.inference_mode():
+            engine.module(ids.to(engine.device))
+    finally:
+        for h in hooks:
+            h.remove()
+    used = [sum(1 for c in layer if c > 0) for layer in counts]
+    if used[0] != len(counts[0]):
+        raise AssertionError(f"the first layer routed to {used[0]} of "
+                             f"{len(counts[0])} experts: {counts[0]}")
+    return {"exp_counts_by_layer": counts, "experts_used_by_layer": used}
+
+
+def mixtral_engine(seed=0, flash=True):
+    """Mixtral-8x7B's widths at ``MIXTRAL_TRAIN_LAYERS`` layers through
+    ``initialize`` with ``GPT_PRETRAIN_CONFIG`` at micro ``MIXTRAL_MICRO``,
+    full remat; the engine draws the gating noise."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import GPT
+
+    model = GPT(mixtral_config(n_layer=MIXTRAL_TRAIN_LAYERS, remat=True,
+                               use_flash_attention=flash))
+    config = dict(GPT_PRETRAIN_CONFIG,
+                  train_micro_batch_size_per_gpu=MIXTRAL_MICRO)
+    return deepspeed_tpu_torch.initialize(model=model, config=config,
+                                          seed=seed)[0]
+
+
+def moe_dispatch_combine():
+    """The index dispatch/combine against the dense one-hot products at
+    Mixtral's training shape (T 8192 tokens, E 8, top-2 at factor 2.0: C
+    4096, M 4096): the same gating output, bf16 tokens and expert outputs;
+    dispatch bit for bit, the f32 combine within ``MOE_COMBINE_REL_L2``;
+    each timed (device time), forward and the combine's backward."""
+    import torch
+
+    from deepspeed_tpu_torch.moe import sharded_moe as sm
+
+    T, E, M = MIXTRAL_MICRO * MISTRAL_SEQ, 8, MIXTRAL_8X7B["n_embd"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    logits = torch.randn((T, E), generator=gen, device="cuda")
+    gumbel = torch.empty((T, E), device="cuda")
+    from deepspeed_tpu_torch.moe.layer import draw_gating_noise
+
+    draw_gating_noise(gumbel[None], ("gumbel",), gen)
+    gout = sm.top2_gating(logits, MIXTRAL_8X7B["moe_capacity_factor"], 4,
+                          gumbel=gumbel)
+    r = gout.routing
+    C = r.capacity
+    x = torch.randn((T, M), generator=gen, device="cuda").bfloat16()
+    eo = torch.randn((E, C, M), generator=gen, device="cuda").bfloat16()
+    dy = torch.randn((T, M), generator=gen, device="cuda").bfloat16()
+    mask, weights = gout.dispatch_mask, gout.combine_weights
+    d_dense = sm.dispatch_tokens(mask, x)
+    d_index = sm.dispatch_by_index(r, x)
+    c_dense = sm.combine_tokens(weights, eo, dtype=torch.bfloat16)
+    c_index = sm.combine_by_index(r, eo, dtype=torch.bfloat16)
+    c_dense32 = sm.combine_tokens(weights, eo)
+    c_index32 = sm.combine_by_index(r, eo)
+    torch.cuda.synchronize()
+    out = {"shape": {"tokens": T, "experts": E, "capacity": C, "width": M},
+           "kept_choices": int(r.kept.sum()),
+           "dispatch_identical": bool(torch.equal(d_dense, d_index)),
+           "combine_f32_rel_l2": _rel_l2(c_index32, c_dense32),
+           "combine_bf16_max_abs": float((c_index.float()
+                                          - c_dense.float()).abs().max())}
+
+    # the combine's backward, as training runs it: the gradients of the
+    # expert outputs and of the weights (which reach the gate)
+    eo_ = eo.detach().requires_grad_(True)
+    dense_w = weights.detach().requires_grad_(True)
+    r_w = dataclasses.replace(r, weights=r.weights.detach()
+                              .requires_grad_(True))
+
+    def dense_bwd():
+        y = sm.combine_tokens(dense_w, eo_, dtype=torch.bfloat16)
+        return torch.autograd.grad(y, (dense_w, eo_), dy)
+
+    def index_bwd():
+        y = sm.combine_by_index(r_w, eo_, dtype=torch.bfloat16)
+        return torch.autograd.grad(y, (r_w.weights, eo_), dy)
+
+    times = {
+        "dispatch_dense": device_ms(lambda: sm.dispatch_tokens(mask, x),
+                                    iters=5),
+        "dispatch_index": device_ms(lambda: sm.dispatch_by_index(r, x)),
+        "combine_dense_f32": device_ms(lambda: sm.combine_tokens(
+            dense_w, eo, dtype=torch.bfloat16), iters=5),
+        "combine_index": device_ms(lambda: sm.combine_by_index(
+            r, eo, dtype=torch.bfloat16)),
+        "combine_dense_f32_with_backward": device_ms(dense_bwd, iters=5),
+        "combine_index_with_backward": device_ms(index_bwd),
+        "gating_top2": device_ms(lambda: sm.top2_gating(
+            logits, MIXTRAL_8X7B["moe_capacity_factor"], 4, gumbel=gumbel)),
+    }
+    out["ms"] = {k: v["ms"] for k, v in times.items()}
+    out["device_time"] = times
+    # the dense products' work: 2 T E C M each, the combine in true f32
+    # (TF32 is off), its backward two more such products
+    flops = 2 * T * E * C * M
+    out["dense_flops_each"] = flops
+    out["combine_dense_f32_tflops_per_s"] = flops / times[
+        "combine_dense_f32"]["ms"] / 1e9
+    del d_dense, d_index, c_dense, c_index, mask, weights, dense_w, eo, x
+    del eo_, r_w
+    free_cuda()
+    return out
+
+
+def moe_small_engine(seed=5, stage=None, **over):
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import GPT, GPTConfig
+
+    cfg = GPTConfig(**dict(MOE_SMALL, dtype=torch.float32, **over))
+    config = {"train_micro_batch_size_per_gpu": 2, "gradient_clipping": 1.0,
+              "optimizer": {"type": "FusedAdam",
+                            "params": {"lr": SMALL_LR, "weight_decay": 0.1}},
+              "steps_per_print": 10 ** 9, "tpu": {"use_pallas_optimizer": True}}
+    if stage is not None:
+        config["zero_optimization"] = {"stage": stage}
+    return deepspeed_tpu_torch.initialize(model=GPT(cfg), config=config,
+                                          seed=seed)[0]
+
+
+def moe_small():
+    """A small top-1 MoE GPT (RSample noise and random token selection, the
+    engine's gating generator) on the card: a tag saved after 3 steps holds
+    one file per expert and kind, the JAX schema's manifest lists them, and
+    a fresh engine from another seed that loads it takes the next 3 steps
+    bit for bit (losses, noise, parameters); then ZeRO stages 0-2 on a
+    one-rank NCCL group, captured against uncaptured, against the
+    group-less engine."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.runtime import checkpoint_manifest as cm
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    rng = np.random.RandomState(4)
+    batches = [{"input_ids": x, "labels": x}
+               for x in rng.randint(0, 512, size=(2, 2, 128))]
+    ckpt_dir = os.path.join(CKPT_DIR, "moe")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out = {}
+    try:
+        a = moe_small_engine()
+        it = iter(RepeatingLoader(batches))
+        train_steps(a, it, 3)
+        a.save_checkpoint(ckpt_dir)
+        tag_dir = os.path.join(ckpt_dir, "global_step3")
+        files = sorted(os.listdir(tag_dir))
+        manifest = cm.read_manifest(tag_dir)
+        want = [f"expert_{e}_mp_rank_00_{k}_states.pt"
+                for e in range(MOE_SMALL["moe_num_experts"])
+                for k in ("model", "optim")]
+        a_losses, _, _ = train_steps(a, it, 3)
+        a_noise = torch.cat([b.flatten() for b in
+                             a._gating_noise.values()]).clone()
+        a_params = {k: v.clone() for k, v in a.params.items()}
+        del a
+        free_cuda()
+        b = moe_small_engine(seed=11)
+        b.load_checkpoint(ckpt_dir)
+        it_b = iter(RepeatingLoader(batches))
+        next(it_b)  # the loader's place after 3 steps of two batches
+        b_losses, _, _ = train_steps(b, it_b, 3)
+        b_noise = torch.cat([x.flatten() for x in
+                             b._gating_noise.values()])
+        out["checkpoint"] = {
+            "expert_files": [f for f in files if f.startswith("expert_")],
+            "expert_files_complete": all(f in files for f in want),
+            "manifest_lists_them": all(f in manifest["files"] for f in want),
+            "verify_tag_dir": cm.verify_tag_dir(tag_dir),
+            "resume_losses_identical": identical(a_losses, b_losses),
+            "resume_noise_identical": bool(torch.equal(a_noise, b_noise)),
+            "resume_params_identical": first_difference(
+                a_params, b.params) is None}
+        del b, a_params
+        free_cuda()
+        ref, _, _ = train_steps(moe_small_engine(),
+                                iter(RepeatingLoader(batches)),
+                                MOE_SMALL_STEPS)
+        ref = [float(x) for x in ref]
+        comm.init_distributed()
+        stages = {}
+        for stage in (0, 1, 2):
+            check, _, losses, _, _, e_losses, _ = captured_against_eager(
+                functools.partial(moe_small_engine, stage=stage), batches,
+                MOE_SMALL_STEPS)
+            rel = max(abs(x - y) / abs(y) for x, y in zip(losses, ref))
+            stages[stage] = {"identical": check["identical"],
+                             "loss_rel_err_vs_no_group": rel,
+                             "losses": losses}
+        out["zero_world_1"] = stages
+    finally:
+        if comm.is_initialized():
+            comm.destroy_distributed()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    emit({"phase": "moe", "part": "small", **out})
+    ck = out["checkpoint"]
+    problems = [k for k in ("expert_files_complete", "manifest_lists_them",
+                            "resume_losses_identical",
+                            "resume_noise_identical",
+                            "resume_params_identical") if not ck[k]]
+    if ck["verify_tag_dir"]:
+        problems.append(f"verify_tag_dir: {ck['verify_tag_dir']}")
+    for stage, run in out["zero_world_1"].items():
+        if not run["identical"]:
+            problems.append(f"stage {stage}: captured and eager differ")
+        if run["loss_rel_err_vs_no_group"] > ZERO_SMALL_LOSS_REL_TOL:
+            problems.append(f"stage {stage}: losses against the group-less "
+                            f"engine {run['loss_rel_err_vs_no_group']}")
+    if problems:
+        raise AssertionError(f"moe small: {problems}")
+
+
+def phase_moe():
+    """Mixtral-8x7B: serving at 16 layers, training at 2 with the engine's
+    gating noise, the index dispatch/combine against the dense products,
+    and the small model's checkpoint and ZeRO paths. Returns the launch
+    counts by path."""
+    import torch
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    serve = serve_lm(
+        "moe", functools.partial(mixtral_config,
+                                 n_layer=MIXTRAL_SERVE_LAYERS),
+        model=f"mixtral-8x7b-v0.1, {MIXTRAL_SERVE_LAYERS} layers",
+        source=MIXTRAL_SOURCE, config=MIXTRAL_8X7B,
+        reduced={"n_layer": f"32 -> {MIXTRAL_SERVE_LAYERS} (one card's "
+                 "memory; all 32 need ep over cards, ROADMAP A.9)",
+                 "n_positions": "32768 -> 4096"},
+        batch=1, seq=MISTRAL_SEQ, prompt_lengths=MISTRAL_PROMPT_LENGTHS,
+        logits_rel_l2=MISTRAL_LOGITS_REL_L2, extra=mixtral_exp_counts)
+    tokens = MIXTRAL_MICRO * MISTRAL_SEQ
+    train, step_ms = lm_train(
+        "moe", mixtral_engine,
+        model=f"mixtral-8x7b-v0.1, {MIXTRAL_TRAIN_LAYERS} layers",
+        reduced={"n_layer": f"32 -> {MIXTRAL_TRAIN_LAYERS}",
+                 "n_positions": "32768 -> 4096"},
+        micro=MIXTRAL_MICRO, seq=MISTRAL_SEQ, per_step=MIXTRAL_PER_STEP,
+        flops=lambda cfg: moe_flops_per_token(cfg, MISTRAL_SEQ, tokens),
+        noise_check=True)
+    dc = moe_dispatch_combine()
+    # what the dense products would add to the step: per layer the combine
+    # in the forward and the recompute, and its backward; the dispatch
+    # likewise (its backward is the same product again)
+    ms, L = dc["ms"], MIXTRAL_TRAIN_LAYERS
+    dense = L * (ms["combine_dense_f32"] + ms["combine_dense_f32_with_backward"]
+                 + 3 * ms["dispatch_dense"])
+    index = L * (ms["combine_index"] + ms["combine_index_with_backward"]
+                 + 3 * ms["dispatch_index"])
+    dc.update(step_ms=step_ms, dense_ms_per_step=dense,
+              index_ms_per_step=index,
+              dense_share_of_step=dense / (step_ms - index + dense),
+              index_share_of_step=index / step_ms)
+    emit({"phase": "moe", "part": "dispatch_combine", **dc})
+    if not dc["dispatch_identical"] or \
+            not dc["combine_f32_rel_l2"] <= MOE_COMBINE_REL_L2:
+        raise AssertionError(f"moe dispatch/combine: {dc}")
+    moe_small()
+    emit({"phase": "moe", "part": "done", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0,
+          "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return {"moe_serve": serve, "moe_train": train}
 
 
 def phase_small_train():
@@ -5190,11 +5739,12 @@ def main(argv):
     usage = (len(argv) == 1 or (len(argv) == 3 and argv[1] in
                                 ("--against", "--only") and
                                 (argv[1] == "--against"
-                                 or argv[2] in ("zero", "data", "mistral")))
+                                 or argv[2] in ("zero", "data", "mistral",
+                                                "neox", "moe")))
              or (len(argv) == 6 and argv[1] == "--zero-rank"))
     if not usage:
         print(f"usage: {argv[0]} [--against OTHER_CHECKOUT | "
-              "--only zero|data|mistral]", file=sys.stderr)
+              "--only zero|data|mistral|neox|moe]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -5219,6 +5769,10 @@ def main(argv):
             emit({"zero_launches_by_path": phase_zero()})
         elif argv[2] == "mistral":
             emit({"mistral_launches_by_path": phase_mistral()[0]})
+        elif argv[2] == "neox":
+            emit({"neox_launches_by_path": phase_neox()})
+        elif argv[2] == "moe":
+            emit({"moe_launches_by_path": phase_moe()})
         else:
             emit({"data_launches": phase_data()[0]})
         print(smi, flush=True)
@@ -5247,19 +5801,27 @@ def main(argv):
     zero_paths = phase_zero()
     free_cuda()
     mistral_paths, mistral_shape = phase_mistral()
+    free_cuda()
+    neox_paths = phase_neox()
+    free_cuda()
+    moe_paths = phase_moe()
     paths = {"serve": serve_launches, "train": launches,
              "checkpoint": ckpt_launches, "sparse_train": sparse_launches,
-             **zero_paths, "data": data_launches, **mistral_paths}
+             **zero_paths, "data": data_launches, **mistral_paths,
+             **neox_paths, **moe_paths}
     for entry in kernels:
         # each slice's main path, its counts set to 0 just before it: serving
         # runs B1, GPT training, the checkpoint path, ZeRO (stages 0-2, and
         # stage 3), the gradient exchange, the packed data path and
         # Mistral's training B1-B4 (B1-B3 of the data path in their segment
-        # variant), BERT training under BigBird B4-B7. "launches" is the
-        # count on the newest path that runs the kernel
+        # variant), Pythia's and Mixtral's training B1-B4 (BLOOM serves
+        # without B1: ALiBi), BERT training under BigBird B4-B7.
+        # "launches" is the count on the newest path that runs the kernel
         name = entry["name"]
         entry["launches_by_path"] = {p: counts[name] for p, counts in paths.items()}
-        entry["launches"] = (mistral_paths["mistral_train"][name]
+        entry["launches"] = (moe_paths["moe_train"][name]
+                             or neox_paths["neox_train"][name]
+                             or mistral_paths["mistral_train"][name]
                              or data_launches[name]
                              or zero_paths["grad_exchange"][name]
                              or zero_paths["zero_stage3"][name]

@@ -22,6 +22,10 @@ saved (``_load_checkpoint`` of the JAX engine, :681): a model-states file
 of ``save_checkpoint``, a tag directory (its model-states file checked
 against the manifest) or a ``save_16bit_model`` file.
 
+A mixture-of-experts model serves at its eval capacity factor (the module
+is in eval mode) with every expert on the card; its gating reads nothing
+back to the host, so the decode runs capture like a dense model's.
+
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when torch sees no card. Pass ``device="cpu"`` to run on the host.
 """
@@ -37,6 +41,7 @@ import torch
 from deepspeed_tpu_torch.models.transformer_lm import (GPT, KVCache,
                                                        materialize_gpt)
 from deepspeed_tpu_torch.runtime import checkpoint_manifest as ckpt_manifest
+from deepspeed_tpu_torch.runtime import moe_checkpoint as moe_ckpt
 from deepspeed_tpu_torch.runtime.checkpoint_engine import (MODEL_STATES,
                                                            load_torch_file)
 from deepspeed_tpu_torch.runtime.compiled_step import CompiledStep
@@ -84,18 +89,28 @@ def load_checkpoint_weights(path: str):
     """The model ``state_dict`` at ``path``: a file saved by
     ``save_checkpoint`` (model states) or ``save_16bit_model``, or a tag
     directory, whose model-states file must match its manifest entry (the
-    optimizer's files, ~80% of a tag, are not read). Host tensors mapped
-    from the file."""
+    optimizer's files, ~80% of a tag, are not read). A mixture of experts'
+    tag keeps its experts in one file per expert beside the model-states
+    file (``runtime/moe_checkpoint.py``): they are merged back, each
+    checked against the manifest too. Host tensors mapped from the
+    files."""
+    manifest = None
     if os.path.isdir(path):
         manifest = ckpt_manifest.read_manifest(path)
         path = os.path.join(path, MODEL_STATES)
+
+    def load(file):
         if manifest is not None:
-            want = manifest["files"].get(MODEL_STATES)
-            got = ckpt_manifest.file_digest(path)
+            name = os.path.basename(file)
+            want = manifest["files"].get(name)
+            got = ckpt_manifest.file_digest(file)
             if got != want:
-                raise RuntimeError(f"checkpoint {path} failed verification: "
+                raise RuntimeError(f"checkpoint {file} failed verification: "
                                    f"{got} on disk, manifest says {want}")
-    state = load_torch_file(path)
+        return load_torch_file(file)
+
+    state = moe_ckpt.load_with_experts(load, os.path.dirname(path),
+                                       os.path.basename(path), "model")
     return state.get("module", state)
 
 
@@ -113,7 +128,8 @@ class InferenceEngine:
         ep_size = int(config.get("moe", {}).get("ep_size", 1))
         for what, unported in (
                 ("tensor parallelism (tp_size > 1)", tp_size != 1),
-                ("expert parallelism (ep_size > 1)", ep_size != 1),
+                ("expert parallelism (ep_size > 1, ROADMAP A.9)",
+                 ep_size != 1),
                 ("dtype='int8'", config.get("dtype") == "int8"),
                 ("the int8 KV cache ('kv_cache')",
                  config.get("kv_cache") is not None)):

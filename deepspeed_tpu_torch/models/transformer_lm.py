@@ -8,16 +8,21 @@ explicit ``KVCache`` passed in and returned in place of flax's mutable
 ``cache`` collection. Parameters are stored in ``param_dtype`` and every
 op computes in ``dtype``, as flax's ``Dense``/``Embed``/``LayerNorm`` do.
 
-The port covers the pre-LN trunk in both of its shapes: GPT-2's (LayerNorm,
-biases, learned positions, a head tied to the embedding) and LLaMA's or
+The port covers the pre-LN trunk in its shapes: GPT-2's (LayerNorm,
+biases, learned positions, a head tied to the embedding), LLaMA's or
 Mistral's (``norm="rmsnorm"``, the gated SiLU MLP, bias-free layers, rotary
 embeddings, grouped-query attention over ``n_kv_head`` KV heads, an untied
-``lm_head``), and the mixes between them that the config allows: the logits
-path (einsum and flash attention for full forwards, the dense-cache decode
-path) and the training path (``labels`` -> mean next-token cross entropy,
-packed ``segment_ids``/``positions``, full activation recomputation).
-Config fields of features not ported yet raise ``NotImplementedError`` when
-set away from their defaults.
+``lm_head``), GPT-NeoX's and GPT-J's (``parallel_residual``: attention and
+MLP both read the block's input), BLOOM's (``alibi`` position biases in
+place of positions, ``embed_layernorm`` after the embedding) and
+Mixtral's (``moe_num_experts`` > 0: the MLP becomes a top-k gated mixture
+of experts, ``moe/``), and the mixes between them that the config allows:
+the logits path (einsum and flash attention for full forwards, the
+dense-cache decode path) and the training path (``labels`` -> mean
+next-token cross entropy plus the experts' load-balancing loss, packed
+``segment_ids``/``positions``, full activation recomputation). Config
+fields of features not ported yet raise ``NotImplementedError`` when set
+away from their defaults.
 """
 
 import dataclasses
@@ -25,6 +30,7 @@ import functools
 import math
 from typing import Any, List, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -33,9 +39,6 @@ import torch.utils.checkpoint
 # field -> (default, feature) for GPTConfig fields whose feature this port
 # does not have yet (ROADMAP A.6)
 _UNPORTED = {
-    "alibi": (False, "ALiBi"),
-    "embed_layernorm": (False, "the embedding LayerNorm"),
-    "parallel_residual": (False, "the parallel residual"),
     "flash_autotune": (False, "the flash block autotuner"),
     "attention_chunk": (None, "chunked attention"),
     "param_offload": (False, "parameter offload"),
@@ -46,16 +49,6 @@ _UNPORTED = {
     "kv_cache_dtype": (None, "the int8 KV cache"),
     "kv_cache_slack_blocks": (0, "the ring KV cache"),
     "stochastic_mode": (False, "stochastic depth (training)"),
-    "moe_num_experts": (0, "mixture of experts"),
-    "moe_top_k": (1, "mixture of experts"),
-    "moe_capacity_factor": (1.0, "mixture of experts"),
-    "moe_eval_capacity_factor": (1.0, "mixture of experts"),
-    "moe_min_capacity": (4, "mixture of experts"),
-    "moe_drop_tokens": (True, "mixture of experts"),
-    "moe_aux_loss_coef": (0.01, "mixture of experts"),
-    "moe_noisy_gate_policy": (None, "mixture of experts"),
-    "moe_use_rts": (True, "mixture of experts"),
-    "moe_gated_experts": (False, "mixture of experts"),
 }
 
 
@@ -126,6 +119,14 @@ class GPTConfig:
     moe_gated_experts: bool = False
 
     def __post_init__(self):
+        # the JAX config's own refusal (transformer_lm.py:195-200), before
+        # the unported block-sparse route would raise
+        if self.sparse_attention is not None and self.alibi:
+            raise ValueError(
+                "sparse_attention does not compose with alibi (the "
+                "block-sparse path has no positional-bias hook); a silent "
+                "dense fallback would change the model's math, so this is "
+                "rejected up front")
         for name, (default, feature) in _UNPORTED.items():
             value = getattr(self, name)
             if value is not default and value != default:
@@ -188,6 +189,10 @@ class GPTConfig:
         rd = round(self.rotary_pct * self.head_dim)
         return rd - rd % 2
 
+    @property
+    def is_moe(self) -> bool:
+        return self.moe_num_experts > 0
+
 
 GPT2_SIZES = {
     "gpt2-125m": dict(n_embd=768, n_layer=12, n_head=12),
@@ -218,6 +223,37 @@ _ACTIVATIONS = {
     "silu": F.silu,
     "quick_gelu": lambda x: x * torch.sigmoid(1.702 * x),
 }
+
+
+def alibi_slopes(n_head: int) -> np.ndarray:
+    """Per-head ALiBi slopes (JAX :856-869; HF ``build_alibi_tensor``'s
+    math), f32, exact for head counts that are not powers of two."""
+    closest = 2 ** math.floor(math.log2(n_head))
+    base = 2.0 ** (-(2.0 ** -(math.log2(closest) - 3)))
+    slopes = [base ** i for i in range(1, closest + 1)]
+    if closest != n_head:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * closest) - 3)))
+        n_extra = min(closest, n_head - closest)
+        slopes += [extra_base ** i for i in range(1, 2 * n_extra, 2)]
+    return np.asarray(slopes, np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _alibi_slopes_on(n_head: int, device: torch.device) -> torch.Tensor:
+    """``alibi_slopes`` as an f32 tensor on ``device``, made once: a
+    captured step reads it and never copies host values itself (its first,
+    uncaptured call makes it)."""
+    return torch.from_numpy(alibi_slopes(n_head)).to(device)
+
+
+def alibi_bias(n_head: int, length: int, dtype, device) -> torch.Tensor:
+    """``[n_head, length]`` f32: each head's slope times the key positions
+    ``0 .. length - 1`` taken in ``dtype``, the scores' dtype, as JAX
+    builds them (``jnp.arange(T, dtype=att.dtype)``; the scores are f32 in
+    both packages, so the positions are exact: bf16 would round them past
+    256); the f32 slopes make the product f32."""
+    pos = torch.arange(length, device=device).to(dtype)
+    return _alibi_slopes_on(n_head, device)[:, None] * pos[None, :]
 
 
 class Dense(nn.Linear):
@@ -417,8 +453,12 @@ class CausalSelfAttention(nn.Module):
             # :619-633, bqhgd,bkhd->bhgqk): query head h = g_kv * G + g
             qg = q.view(B, T, Hkv, G, D).permute(0, 2, 3, 1, 4)
             att = torch.matmul(qg.reshape(B, Hkv, G * T, D),
-                               k_all.permute(0, 2, 3, 1)) * scale
+                               k_all.permute(0, 2, 3, 1)).float() * scale
             att = att.view(B, Hkv, G, T, -1)                    # [B,h,g,T,S]
+            if cfg.alibi:
+                # slopes[h] times the absolute cache slot (JAX :624-627)
+                att = att + alibi_bias(H, cfg.n_positions, att.dtype,
+                                       x.device).view(Hkv, G, 1, -1)
             att = att.masked_fill(step.hidden, torch.finfo(att.dtype).min)
             att = torch.softmax(att.float(), dim=-1).to(cfg.dtype)
             y = torch.matmul(att.view(B, Hkv, G * T, -1),
@@ -442,7 +482,8 @@ class CausalSelfAttention(nn.Module):
 
         # the flax model's gate (transformer_lm.py:720-725) unchanged, so
         # both packages route the same shapes; the kernel itself takes any T
-        use_flash = cfg.use_flash_attention and mask is None and T % 128 == 0
+        use_flash = (cfg.use_flash_attention and mask is None
+                     and T % 128 == 0 and not cfg.alibi)
         if use_flash:
             from deepspeed_tpu_torch.ops.cuda.flash_attention import \
                 flash_attention
@@ -450,8 +491,14 @@ class CausalSelfAttention(nn.Module):
             y = flash_attention(q, k, v, causal=cfg.causal,
                                 segment_ids=segment_ids)
         else:
-            att = torch.matmul(q.transpose(1, 2),
-                               k.permute(0, 2, 3, 1)) * scale      # [B,H,T,T]
+            # f32 scores, as in JAX: its scale is a numpy f64 scalar, which
+            # (unlike a Python float) promotes the compute-dtype product
+            att = torch.matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1)
+                               ).float() * scale                  # [B,H,T,T]
+            if cfg.alibi:
+                # slopes[h] * key position (JAX :736-742)
+                att = att + alibi_bias(H, T, att.dtype, x.device)[
+                    None, :, None, :]
             if cfg.causal:
                 tri = torch.ones((T, T), dtype=torch.bool,
                                  device=x.device).tril()
@@ -491,20 +538,49 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block (dense MLP)."""
+    """Pre-norm transformer block (JAX ``Block``, :795-833): the dense MLP,
+    or a ``moe.MoE`` when the config has experts; with
+    ``parallel_residual`` (GPT-NeoX, GPT-J) attention and MLP both read the
+    block's input, ``x + mlp(ln_2 x) + attn(ln_1 x)`` (GPT-J's one shared
+    LayerNorm is ``ln_1`` and ``ln_2`` holding the same weights). Returns
+    ``(x, l_aux)``, ``l_aux`` None for a dense MLP."""
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
+        self.parallel_residual = cfg.parallel_residual
         self.ln_1 = _norm(cfg)
         self.attn = CausalSelfAttention(cfg)
         self.ln_2 = _norm(cfg)
-        self.mlp = MLP(cfg)
+        if cfg.is_moe:
+            from deepspeed_tpu_torch.moe.layer import MoE
+
+            self.mlp = MoE(
+                cfg.n_embd, cfg.ffn_dim, num_experts=cfg.moe_num_experts,
+                k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+                eval_capacity_factor=cfg.moe_eval_capacity_factor,
+                min_capacity=cfg.moe_min_capacity,
+                noisy_gate_policy=cfg.moe_noisy_gate_policy,
+                drop_tokens=cfg.moe_drop_tokens, use_rts=cfg.moe_use_rts,
+                gated_experts=cfg.moe_gated_experts, dtype=cfg.dtype,
+                param_dtype=cfg.param_dtype)
+        else:
+            self.mlp = MLP(cfg)
 
     def forward(self, x, mask=None, step=None, layer=0, segment_ids=None,
-                positions=None):
-        x = x + self.attn(self.ln_1(x), mask=mask, step=step, layer=layer,
-                          segment_ids=segment_ids, positions=positions)
-        return x + self.mlp(self.ln_2(x))
+                positions=None, noise=None):
+        """``noise``: this layer's gating draws (``MoE.forward``)."""
+        a = self.attn(self.ln_1(x), mask=mask, step=step, layer=layer,
+                      segment_ids=segment_ids, positions=positions)
+        if not self.parallel_residual:
+            x = x + a
+        h = self.ln_2(x)
+        l_aux = None
+        if isinstance(self.mlp, MLP):
+            y = self.mlp(h)
+        else:
+            y, l_aux, _ = self.mlp(h, noise=noise)
+        x = x + y + a if self.parallel_residual else x + y
+        return x, l_aux
 
 
 class GPT(nn.Module):
@@ -524,6 +600,8 @@ class GPT(nn.Module):
         self.config = config
         with torch.device("meta"):
             self.wte = VocabEmbed(config.vocab_size, config.n_embd, config)
+            # BLOOM's word_embeddings_layernorm (JAX :1104-1105)
+            self.ln_embed = _norm(config) if config.embed_layernorm else None
             self.wpe = (VocabEmbed(config.n_positions, config.n_embd, config)
                         if config.learned_positions else None)
             self.h = nn.ModuleList(Block(config)
@@ -557,7 +635,8 @@ class GPT(nn.Module):
 
     def forward(self, input_ids, labels=None, attention_mask=None,
                 segment_ids=None, positions=None, *, decode=False,
-                cache: Optional[KVCache] = None):
+                cache: Optional[KVCache] = None,
+                gating_noise: Optional[torch.Tensor] = None):
         """Logits of ``input_ids`` ([B, T]), or the mean loss with ``labels``.
 
         With ``decode=True`` the call appends to a KV cache and returns
@@ -566,7 +645,14 @@ class GPT(nn.Module):
         real tokens (of LEFT-padded prompts when decoding). Packed training
         batches pass ``segment_ids`` (attention stays within a segment, and
         the loss skips cross-segment and pad targets) and ``positions``
-        (learned or rotary positions that restart at each document)."""
+        (learned or rotary positions that restart at each document).
+
+        A mixture-of-experts model routes at the training capacity factor
+        in training mode, else at the eval factor, and with ``labels`` adds
+        ``moe_aux_loss_coef`` times the layers' mean load-balancing loss
+        (JAX :1222-1226). ``gating_noise`` ([n_layer, kinds, B * T, E],
+        ``MoE.noise_kinds``) is every layer's gating noise, drawn by the
+        caller (the training engine); None routes without noise."""
         cfg = self.config
         B, T = input_ids.shape
         dev = input_ids.device
@@ -581,6 +667,10 @@ class GPT(nn.Module):
             raise NotImplementedError(
                 "packed-sequence segment_ids are a training-path feature; "
                 "decode caches are per-sequence")
+        if segment_ids is not None and cfg.alibi:
+            raise NotImplementedError(
+                "ALiBi's absolute-position bias is not segment-aware; "
+                "packed batches require rotary or learned positions")
         if decode and cache is None:
             cache = KVCache.empty(cfg, B, dev)
         pos = None
@@ -612,23 +702,32 @@ class GPT(nn.Module):
             pos = (positions if positions is not None
                    else torch.arange(T, device=dev)[None, :])
         x = self.wte(input_ids)
+        if self.ln_embed is not None:
+            x = self.ln_embed(x)
         if self.wpe is not None:
             x = x + self.wpe(pos)
         # full recomputation: each block keeps only its input for the
         # backward (nn.remat with no policy)
         remat = cfg.remat and step is None and torch.is_grad_enabled()
+        l_aux = []
         for i, block in enumerate(self.h):
             run = (block if self.block_hook is None
                    else functools.partial(self.block_hook, block))
+            noise = None if gating_noise is None else gating_noise[i]
             if remat:
-                # no RNG state to keep (dropout is refused in training), and
-                # reading the CUDA RNG state is what a captured step may not
-                x = torch.utils.checkpoint.checkpoint(
+                # no RNG state to keep: dropout is refused in training, and
+                # the gating noise comes in drawn, so the recompute routes
+                # as the forward did (reading the CUDA RNG state is what a
+                # captured step may not)
+                x, aux = torch.utils.checkpoint.checkpoint(
                     run, x, attention_mask, None, i, segment_ids, positions,
-                    use_reentrant=False, preserve_rng_state=False)
+                    noise, use_reentrant=False, preserve_rng_state=False)
             else:
-                x = run(x, mask=attention_mask, step=step, layer=i,
-                        segment_ids=segment_ids, positions=positions)
+                x, aux = run(x, mask=attention_mask, step=step, layer=i,
+                             segment_ids=segment_ids, positions=positions,
+                             noise=noise)
+            if aux is not None:
+                l_aux.append(aux)
         x = self.ln_f(x)
         if labels is not None:
             if decode:
@@ -646,8 +745,13 @@ class GPT(nn.Module):
             logits = F.linear(x.to(cfg.dtype), self._head_weight(cfg.dtype))
             if self.lm_head_bias is not None:
                 logits = logits + self.lm_head_bias.to(cfg.dtype)
-            return cross_entropy_loss(logits, labels, attention_mask,
+            loss = cross_entropy_loss(logits, labels, attention_mask,
                                       segment_ids)
+            if cfg.is_moe:
+                # the layers' mean load-balancing loss, with its coefficient
+                loss = loss + cfg.moe_aux_loss_coef * torch.stack(
+                    l_aux).sum() / cfg.n_layer
+            return loss
         logits = _tied_head(x, self._head_weight(cfg.dtype))
         if self.lm_head_bias is not None:
             logits = logits + self.lm_head_bias.float()
@@ -663,17 +767,31 @@ def materialize_gpt(model: GPT, device, generator: torch.Generator,
     """Give a meta-device ``GPT`` real weights on ``device``, in ``dtype``
     (default: the config's ``param_dtype``): the given ``state_dict``, or a
     random init drawn from ``generator`` in flax's distributions
-    (truncated-normal lecun Dense kernels, normal 1/sqrt(C) embeddings, a
+    (truncated-normal lecun Dense kernels, the experts' 3-D kernels with
+    the expert axis in their fan-in, normal 1/sqrt(C) embeddings, a
     normal(0.02) untied head, zero biases, unit norm scales). Random weights
     are drawn on the device, never allocated on the host; a ``state_dict``
-    is cast on the host, so full precision never moves."""
+    is cast on the host, so full precision never moves. Under the default
+    dtype a module marked ``keep_param_dtype`` (the MoE gate, f32 in JAX
+    whatever the model's ``param_dtype``) keeps its own; a serving dtype
+    casts everything, as the JAX serving engine casts every leaf."""
+    keep = dtype is None
     dtype = dtype or model.config.param_dtype
     if state_dict is not None:
         model.load_state_dict(state_dict, assign=True)
-        model.to(dtype)
+        _cast_params(model, dtype, keep)
         model.to(device)
         return
+    from deepspeed_tpu_torch.moe.experts import StackedExperts
+
     model.to_empty(device=device)
+
+    def lecun_(w, fan_in):
+        # lecun_normal: cut at 2 std, std corrected for the cut
+        std = fan_in ** -0.5 / 0.87962566103423978
+        torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                    generator=generator)
+
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, (LayerNorm, RMSNorm)):
@@ -684,18 +802,32 @@ def materialize_gpt(model: GPT, device, generator: torch.Generator,
                 mod.weight.normal_(0.0, mod.weight.shape[1] ** -0.5,
                                    generator=generator)
             elif isinstance(mod, Dense):
-                # lecun_normal: cut at 2 std, std corrected for the cut
-                std = mod.in_features ** -0.5 / 0.87962566103423978
-                torch.nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std,
-                                            2 * std, generator=generator)
+                lecun_(mod.weight, mod.in_features)
                 if mod.bias is not None:
                     mod.bias.zero_()
+            elif isinstance(mod, StackedExperts):
+                for name in ("wi", "wg", "wo"):
+                    if getattr(mod, name) is not None:
+                        lecun_(getattr(mod, name), mod.fan_in(name))
+                for bias in (mod.bi, mod.bo):
+                    if bias is not None:
+                        bias.zero_()
         # a GPT's untied head (BERT's model comes here too, and has none)
         if getattr(model, "lm_head", None) is not None:
             model.lm_head.normal_(0.0, 0.02, generator=generator)
         if getattr(model, "lm_head_bias", None) is not None:
             model.lm_head_bias.zero_()
-    model.to(dtype)
+    _cast_params(model, dtype, keep)
+
+
+def _cast_params(model, dtype, keep: bool):
+    """Every floating parameter to ``dtype``, but, with ``keep``, those of a
+    module marked ``keep_param_dtype``."""
+    for mod in model.modules():
+        if keep and getattr(mod, "keep_param_dtype", False):
+            continue
+        mod._apply(lambda t: t.to(dtype) if t.is_floating_point() else t,
+                   recurse=False)
 
 
 def _tied_head(x, w):
@@ -753,7 +885,10 @@ def cross_entropy_loss(logits, labels, mask=None, segment_ids=None):
 def num_params(config: GPTConfig) -> int:
     """Parameter count (``transformer_lm.py:1273-1293``): GQA, the gated
     MLP, biases, norms, learned positions and the untied head and its
-    bias."""
+    bias. As in JAX, a mixture-of-experts config is counted as one dense
+    MLP (no experts, no gate) and the embedding LayerNorm is left out: the
+    count is the reference's, not the model's (``numel`` of the
+    parameters counts those)."""
     cfg = config
     C, L, V = cfg.n_embd, cfg.n_layer, cfg.vocab_size
     D, H, Hkv, F_ = cfg.head_dim, cfg.n_head, cfg.kv_heads, cfg.ffn_dim

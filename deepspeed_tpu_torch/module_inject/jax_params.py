@@ -7,7 +7,9 @@ flax tree straight to this package's ``state_dict``; the BERT mapping
 follows ``deepspeed_tpu/models/bert.py``'s parameter names. A GPT tree may
 have any shape the port's ``GPTConfig`` builds: GPT-2's, or the LLaMA-shaped
 trunk that ``llama_from_hf`` (hf.py:499) configures (RMSNorm, ``c_gate``, no
-biases, no ``wpe``, an untied ``lm_head``). The tree arrives as
+biases, no ``wpe``, an untied ``lm_head``), BLOOM's ``ln_embed`` and the
+mixture-of-experts MLP (``mlp/gate`` and ``mlp/experts``, as
+``mixtral_from_hf``, hf.py:590, lays them out). The tree arrives as
 nested dicts of numpy arrays (``jax.device_get(params)`` gives one), so
 nothing here imports jax.
 
@@ -42,8 +44,12 @@ def gpt_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tens
     becomes ``weight`` (LayerNorm and RMSNorm alike). The tree decides
     which leaves exist: biases (``use_bias``, ``attn_bias``), ``c_gate``
     (the gated MLP), ``wpe`` (learned positions), the untied ``lm_head``
-    (``[n_embd, vocab]`` in both packages) and ``lm_head_bias``. A tied
-    head has no entry of its own.
+    (``[n_embd, vocab]`` in both packages), ``lm_head_bias`` and
+    ``ln_embed``. A tied head has no entry of its own. In a mixture of
+    experts the gate's kernel ``[M, E]`` becomes ``mlp.gate.weight``
+    ``[E, M]`` and the experts' leaves keep the JAX layout, expert axis
+    first (``mlp.experts.wi`` / ``wg`` ``[E, M, H]``, ``wo`` ``[E, H,
+    M]``, ``bi`` ``[E, H]``, ``bo`` ``[E, M]``).
     """
     if "h" in params:
         stacked = params["h"]["block"]
@@ -58,6 +64,8 @@ def gpt_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tens
     if "wpe" in params:
         sd["wpe.weight"] = _tensor(params["wpe"]["embedding"])
     _layer_norm(sd, "ln_f", params["ln_f"])
+    if "ln_embed" in params:
+        _layer_norm(sd, "ln_embed", params["ln_embed"])
     for name in ("lm_head", "lm_head_bias"):
         if name in params:
             sd[name] = _tensor(params[name])
@@ -67,7 +75,11 @@ def gpt_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tens
             _layer_norm(sd, f"{p}.{ln}", lp[ln])
         for mod in ("attn", "mlp"):
             for name, dense in lp[mod].items():
-                _dense(sd, f"{p}.{mod}.{name}", dense)
+                if name == "experts":
+                    for leaf, x in dense.items():
+                        sd[f"{p}.mlp.experts.{leaf}"] = _tensor(x)
+                else:
+                    _dense(sd, f"{p}.{mod}.{name}", dense)
     return sd
 
 
@@ -244,10 +256,19 @@ _BLOCK_LEAVES = [
     ("mlp.c_gate.weight", ("mlp", "c_gate", "kernel"), True),
     ("mlp.c_proj.bias", ("mlp", "c_proj", "bias"), False),
     ("mlp.c_proj.weight", ("mlp", "c_proj", "kernel"), True),
+    # a mixture of experts: the gate's kernel, the experts in JAX's layout
+    ("mlp.gate.weight", ("mlp", "gate", "kernel"), True),
+    ("mlp.experts.bi", ("mlp", "experts", "bi"), False),
+    ("mlp.experts.bo", ("mlp", "experts", "bo"), False),
+    ("mlp.experts.wg", ("mlp", "experts", "wg"), False),
+    ("mlp.experts.wi", ("mlp", "experts", "wi"), False),
+    ("mlp.experts.wo", ("mlp", "experts", "wo"), False),
 ]
 # the untied head is [n_embd, vocab] in both packages: no transpose
 _OUTER_LEAVES = [("lm_head", ("lm_head",)),
                  ("lm_head_bias", ("lm_head_bias",)),
+                 ("ln_embed.bias", ("ln_embed", "bias")),
+                 ("ln_embed.weight", ("ln_embed", "scale")),
                  ("ln_f.bias", ("ln_f", "bias")),
                  ("ln_f.weight", ("ln_f", "scale")),
                  ("wpe.weight", ("wpe", "embedding")),

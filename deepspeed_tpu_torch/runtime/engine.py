@@ -85,6 +85,20 @@ truncates each batch to the scheduled length before the step, and under
 ``curriculum_pack`` the pipeline packs to it (``_PackingLength``). A
 checkpoint holds every rank's loader state.
 
+Mixture of experts (JAX engine :1173, :1295, :1399: a ``gating`` key,
+``fold_in(rng, 7)``, in every training step): the engine owns one
+generator on its device, seeded from ``seed``, and each step function draws
+every MoE layer's gating noise from it before the forward, into a buffer
+kept per token count, and hands it to the model. Drawn up front, the noise
+is what the full-remat recompute sees too (``torch.utils.checkpoint`` would
+restore only the default generators' states); the generator is registered
+with every captured step, so each replay draws afresh, as an uncaptured
+step from the same state would, bit for bit; a checkpoint holds its state,
+so a resume draws what an unbroken run would. The expert leaves are plain
+parameters at ZeRO 0-2 (one card: ``ep`` is ROADMAP A.9), and a tag splits
+them and their moments into one file per expert
+(``runtime/moe_checkpoint.py``).
+
 Entry points run on the card: ``device=None`` means ``"cuda"`` (under a
 NCCL group ``cuda:{local_rank}``, one card per rank) and raises when torch
 sees no card. Pass ``device="cpu"`` to train on the host (the kernels then
@@ -106,10 +120,13 @@ from deepspeed_tpu_torch.data import DevicePrefetcher, PackedDataPipeline
 from deepspeed_tpu_torch.data.prefetch import CopyStream, PlacedBatch
 from deepspeed_tpu_torch.models.bert import BertForPreTraining, materialize_bert
 from deepspeed_tpu_torch.models.transformer_lm import GPT, materialize_gpt
+from deepspeed_tpu_torch.moe.layer import draw_gating_noise
 from deepspeed_tpu_torch.parallel.mesh import (MeshTopology,
                                                set_default_topology)
 from deepspeed_tpu_torch.runtime import checkpoint_manifest as ckpt_manifest
-from deepspeed_tpu_torch.runtime import layout, reshard
+from deepspeed_tpu_torch.runtime import layout
+from deepspeed_tpu_torch.runtime import moe_checkpoint as moe_ckpt
+from deepspeed_tpu_torch.runtime import reshard
 from deepspeed_tpu_torch.runtime.checkpoint_engine import (
     ENGINE_STATES, MODEL_STATES, OPTIM_STATES, select_checkpoint_engine,
     write_torch_file)
@@ -135,6 +152,10 @@ from deepspeed_tpu_torch.runtime.zero.stage_1_and_2 import (DATA_AXES,
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
                                              ThroughputTimer)
+
+# the gating generator's seed is the engine's seed plus this (the JAX
+# engine folds 7 into each step's key for its "gating" stream)
+GATING_SEED_OFFSET = 7
 
 FORWARD_MICRO_TIMER = "fwd_bwd_microstep"
 STEP_MICRO_TIMER = "step_microstep"
@@ -296,6 +317,13 @@ class DeepSpeedEngine:
                 f"blocks; stage 3 for {type(model).__name__} is not ported "
                 "yet (ROADMAP A.3, what is left: stage 3 for BERT); stages "
                 "0-2 are")
+        if (self._distributed and config.zero_config.stage >= 3
+                and isinstance(model, GPT) and model.config.is_moe):
+            raise NotImplementedError(
+                "ZeRO stage 3 of a mixture-of-experts GPT is not ported yet "
+                "(ROADMAP A.3, what is left: the expert leaves in stage 3's "
+                "per-block units); stages 0-2 take them as replicated "
+                "parameters")
         self.topology = self._build_topology(config)
         config._resolve_batch_triad(self.topology.data_parallel_size)
         comms_logger.configure(config.comms_logger)
@@ -331,6 +359,16 @@ class DeepSpeedEngine:
                        else materialize_gpt)
         materialize(model, self.device, generator, state_dict=initial_state_dict)
         model.train()
+        # the gating noise's draws per MoE layer (none for a dense model),
+        # and the generator they come from
+        self._gating_kinds = ()
+        if isinstance(model, GPT) and model.config.is_moe:
+            self._gating_kinds = model.h[0].mlp.noise_kinds()
+        self._gating_gen = None
+        if self._gating_kinds:
+            self._gating_gen = torch.Generator(device=self.device).manual_seed(
+                seed + GATING_SEED_OFFSET)
+        self._gating_noise = {}
         named = list(model.named_parameters())
         self._params = [p for _, p in named]
         for p in self._params:
@@ -413,10 +451,14 @@ class DeepSpeedEngine:
         # pool for the engine's graphs
         pool = (torch.cuda.graph_pool_handle()
                 if self.device.type == "cuda" else None)
+        gens = (() if self._gating_gen is None or self.device.type != "cuda"
+                else (self._gating_gen,))
         self._fused = CompiledStep(self._fused_step, self.device,
-                                   max_graphs=self.MAX_GRAPHS, pool=pool)
+                                   max_graphs=self.MAX_GRAPHS, pool=pool,
+                                   generators=gens)
         self._micro = CompiledStep(self._micro_step, self.device,
-                                   max_graphs=self.MAX_GRAPHS, pool=pool)
+                                   max_graphs=self.MAX_GRAPHS, pool=pool,
+                                   generators=gens)
         self._apply = CompiledStep(self._apply_step, self.device, pool=pool)
 
         # forward/backward/step: f32 sums of the micro steps' grads
@@ -740,11 +782,34 @@ class DeepSpeedEngine:
             return self._zero.forward(**batch)
         return self.module(**batch)
 
+    def _gating(self, batch) -> Dict[str, torch.Tensor]:
+        """The training forward's gating noise (``{}`` for a dense model):
+        every MoE layer's draws, drawn now from the gating generator into
+        the buffer of this token count (made by the first, uncaptured call
+        of a batch signature; a graph reads and writes it at each replay).
+        As the JAX engine draws over the global batch, each rank draws the
+        global micro batch's noise (the generators agree) and keeps its
+        rows' slice."""
+        if not self._gating_kinds:
+            return {}
+        cfg = self.module.config
+        local = batch["input_ids"].numel()
+        dp = self.data_parallel_size
+        shape = (cfg.n_layer, len(self._gating_kinds), local * dp,
+                 cfg.moe_num_experts)
+        buf = self._gating_noise.get(shape)
+        if buf is None:
+            buf = self._gating_noise[shape] = torch.empty(
+                shape, dtype=torch.float32, device=self.device)
+        draw_gating_noise(buf, self._gating_kinds, self._gating_gen)
+        r = self.topology.data_parallel_rank() if dp > 1 else 0
+        return {"gating_noise": buf[:, :, r * local:(r + 1) * local]}
+
     def _fused_step(self, *phase, **batch):
         """gas == 1: gradients of ``loss * scale`` go straight to the update
         (no f32 accumulation buffer). Returns ``(loss, norm, overflow)``.
         ``phase``: the compressed exchange's branch."""
-        loss = self._model(**batch)
+        loss = self._model(**batch, **self._gating(batch))
         if self._cx is not None:
             return self._cx_fused_step(loss, phase)
         if self._zero is not None:
@@ -796,7 +861,7 @@ class DeepSpeedEngine:
         the grads added in f32 to the accumulation buffers (under a process
         group: exchanged first, and the rank's share of the global loss).
         Returns the loss (the global mean under a group)."""
-        loss = self._model(**batch)
+        loss = self._model(**batch, **self._gating(batch))
         factor = (self._ls_state.scale / self._gas if self.fp16_enabled
                   else 1.0 / self.gradient_accumulation_steps)
         if self._cx is not None:
@@ -1050,8 +1115,8 @@ class DeepSpeedEngine:
         if writer:
             ce.set_topology_metadata(self._topology_metadata())
             ce.create(tag)
-            ce.save({"module": module_sd},
-                    self._tag_path(save_dir, tag, MODEL_STATES))
+            self._save_sharded({"module": module_sd}, save_dir, tag,
+                               MODEL_STATES, "model")
         del module_sd
         meta = {
             "global_steps": self.global_steps,
@@ -1062,6 +1127,8 @@ class DeepSpeedEngine:
                              if self.lr_scheduler else {}),
             "client_state": client_state or {},
         }
+        if self._gating_gen is not None:
+            meta["gating_generator"] = self._gating_gen.get_state()
         if self.training_dataloader is not None:
             # the loader's state as of the last batch consumed (with
             # prefetch: the one delivered, not the worker's); under a
@@ -1082,9 +1149,9 @@ class DeepSpeedEngine:
                 self.optimizer.state_dict() if self._zero is None
                 else self._zero.state_dict(keep=writer, to_host=True))}
         if writer:
-            ce.save(dict(optim,
-                         loss_scale=dataclasses.asdict(self._ls_state)),
-                    self._tag_path(save_dir, tag, OPTIM_STATES))
+            self._save_sharded(
+                dict(optim, loss_scale=dataclasses.asdict(self._ls_state)),
+                save_dir, tag, OPTIM_STATES, "optim")
         del optim
         comm.barrier()  # every rank's part of the tag has been handed over
         if writer:
@@ -1096,6 +1163,23 @@ class DeepSpeedEngine:
             self._gc_checkpoints(save_dir)
         comm.barrier()  # no rank reads the tag before it is committed
         return True
+
+    def _save_sharded(self, payload, save_dir, tag, name, kind):
+        """Write ``payload`` as the tag's file ``name``; its expert leaves
+        (``moe_checkpoint``) go to one file per expert and the main file
+        records them under ``moe_experts`` (JAX engine ``_save_sharded``).
+        A dense model's payload is written as it is."""
+        ce = self.checkpoint_engine
+        info = moe_ckpt.find_expert_leaves(payload)
+        if info:
+            dense, meta, n_files = moe_ckpt.split_expert_state(payload, info)
+            for e in range(n_files):
+                ce.save({"experts": moe_ckpt.expert_slice(payload, info, e)},
+                        self._tag_path(save_dir, tag,
+                                       moe_ckpt.expert_states_filename(
+                                           e, kind)))
+            payload = dict(dense, moe_experts=meta)
+        ce.save(payload, self._tag_path(save_dir, tag, name))
 
     def _topology_metadata(self):
         """The manifest's topology block: world, ZeRO stage, axis sizes and,
@@ -1232,7 +1316,9 @@ class DeepSpeedEngine:
                      f"{self.last_reshard.describe()}", ranks=[0])
         specs = (self.last_reshard.saved or {}).get("partition_specs") or {}
         load = self.checkpoint_engine.load
-        module_sd = load(self._tag_path(load_dir, tag, MODEL_STATES))["module"]
+        tag_dir = os.path.join(load_dir, str(tag))
+        module_sd = moe_ckpt.load_with_experts(load, tag_dir, MODEL_STATES,
+                                               "model")["module"]
         reshard.verify_state_dict(module_sd, specs.get("params", {}), "model")
         self._restore_module(module_sd)
         meta = load(self._tag_path(load_dir, tag, ENGINE_STATES))["meta"]
@@ -1240,13 +1326,16 @@ class DeepSpeedEngine:
         self.global_samples = int(meta["global_samples"])
         self.micro_steps = int(meta["micro_steps"])
         self.skipped_steps = int(meta["skipped_steps"])
+        if self._gating_gen is not None and "gating_generator" in meta:
+            self._gating_gen.set_state(meta["gating_generator"])
         if meta.get("dataloader") and self.training_dataloader is not None:
             self._load_loader_state(meta)
         if (load_lr_scheduler_states and self.lr_scheduler is not None
                 and meta.get("lr_scheduler")):
             self.lr_scheduler.load_state_dict(meta["lr_scheduler"])
         if load_optimizer_states:
-            optim = load(self._tag_path(load_dir, tag, OPTIM_STATES))
+            optim = moe_ckpt.load_with_experts(load, tag_dir, OPTIM_STATES,
+                                               "optim")
             reshard.verify_state_dict(optim["optimizer"]["state"],
                                       specs.get("opt_state", {}), "optimizer")
             if self._cx is not None:

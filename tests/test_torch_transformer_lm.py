@@ -140,9 +140,10 @@ def test_bf16_logits_track_jax(flash):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("parallel_residual", True), ("alibi", True), ("embed_layernorm", True),
+    ("flash_autotune", True), ("kv_cache_slack_blocks", 2),
+    ("sequence_parallel", "ulysses"), ("sparse_kv_cache", False),
     ("stochastic_mode", True), ("sparse_kv_cache", True),
-    ("moe_num_experts", 2), ("attention_chunk", 64),
+    ("attention_chunk", 64),
     ("sequence_parallel", "ring"), ("quantized_weights", True),
     ("kv_cache_dtype", "int8"), ("param_offload", True),
     ("remat_policy", "selective"), ("sparse_attention", object()),
