@@ -29,7 +29,11 @@ Phases, each printing one JSON line:
   and BERT-Large's BigBird shape, where they are timed against SDPA under
   the expanded mask, B5 and B6 also with their query blocks in row order
   and B7 with its key blocks in column order instead of longest first; the
-  forward and the backward must be bit-reproducible).
+  forward and the backward must be bit-reproducible). Then the sweep behind
+  ``use_flash_attention="auto"`` (``flash_auto_sweep``): the flash kernels
+  (B1, and B1 + B2 + B3 with the backward) against the model's einsum path,
+  causal bf16, D 64 and 128, T 128-8192 at 8192 tokens a call, by device
+  time, with the selector's constants it implies beside the model's.
 * ``serve``: GPT-2 1.3B at full width and depth (random weights, seed 0)
   through ``init_inference``: ``forward`` on [4, 1024] ids through the flash
   kernel, checked against the einsum path on the same weights, then
@@ -49,7 +53,9 @@ Phases, each printing one JSON line:
   decode graphs must give eager decode's tokens (as in ``serve``).
 * ``train`` (the training slice's main path): GPT-2 1.3B at full width and
   depth through ``initialize`` with ``benchmarks/gpt_pretrain.py``'s
-  config (bf16, full remat, flash, FusedAdam on B4, micro batch 4 x 1024):
+  config as written (bf16, full remat, ``use_flash_attention="auto"``,
+  which routes T 1024 to the flash kernels, FusedAdam on B4, micro batch 4
+  x 1024):
   one step on the einsum path from the same seed's weights, checked against
   the flash step; then 12 steps through ``train_batch`` on one repeated
   batch, the first 2 the capture's warm-up and the other 10 replays of the
@@ -243,6 +249,29 @@ Phases, each printing one JSON line:
   at ZeRO stages 0-2 on a one-rank NCCL group, captured against eager and
   against the group-less engine.
 
+* ``train_options`` (the GPT training options of ROADMAP A.6; ``--only
+  train_options`` runs the sweep first): GPT-2 1.3B (``gpt_pretrain.py``'s
+  config, [4, 1024]) under each ``remat_policy`` (``full``,
+  ``selective``, ``save_nothing_but_flash``, ``save_dots``): 12 captured
+  steps against 12 uncaptured ones (bit for bit), B1 48 / 24 / 24 / 48
+  per step (B2 24, B3 24, B4 1), and every policy's losses, grad norms and
+  final parameters bit for bit equal to ``full``'s; the step medians and
+  peaks. At dropout 0.1 (B1-B3 0: the einsum path, JAX's gate): captured
+  against eager, two replays at lr 0 giving different losses, each of the
+  73 sites' kept share within 6 binomial deviations of 0.9, the same 12
+  steps without remat bit for bit, and a small GPT's tag resuming the mask
+  stream bit for bit. ``stochastic_mode`` under ``progressive_layer_drop``
+  (theta 0.5, gamma 0.001; B1 48 / B2 24 / B3 24 / B4 1): captured against
+  eager, the device theta against the host schedule before every step, and
+  a small GPT's per-layer keep counts over 256 steps against the schedule.
+  BLOOM-7b1 at 8 layers, micro [6, 2048] (6.17e9 bytes of logits: the
+  fused head by ``"auto"``, its calls counted; 0 B1-B3), captured against
+  eager, the loss falling; then at [2, 2048] the fused head against the
+  unfused one (loss, gradients, peaks). Mistral-7B at 8 layers, [2, 4096],
+  ``attention_chunk=1024`` (0 B1-B3) against the flash run (first loss and
+  grad norm, step medians), and its 32-layer ``forward`` [1, 4096] chunked
+  against flash.
+
 Then the kernels line, nvidia-smi's line and, last, ``{"ok": true, ...}``.
 A failed check raises, and the script exits nonzero. It imports neither jax
 nor ``deepspeed_tpu``.
@@ -251,8 +280,9 @@ nor ``deepspeed_tpu``.
 and ``zero`` phases, then nvidia-smi's line and the ``{"ok": true, ...}``
 line (on a machine with four cards, the four-card measurement);
 ``--only data`` the same with the ``data`` phase, ``--only mistral`` with
-the ``mistral`` phase, ``--only neox`` with ``neox`` and ``--only moe``
-with ``moe``.
+the ``mistral`` phase, ``--only neox`` with ``neox``, ``--only moe``
+with ``moe`` and ``--only train_options`` with the sweep and
+``train_options``.
 
 ``python3 chip_smoke.py --against DIR`` runs only the A/B of the backward
 kernels and of the fused AdamW: DIR holds another checkout's
@@ -650,8 +680,10 @@ def phase_kernel():
           "library": f"F.scaled_dot_product_attention, {sdpa_fwd[0]} backend",
           "sdpa_by_backend": sdpa, "flops": flops, "bytes": nbytes,
           "tflops_per_s": flops / ms / 1e9})
-    return ([entry] + check_flash_backward(cases, sdpa_bwd)
-            + check_fused_adamw() + check_block_sparse())
+    entries = ([entry] + check_flash_backward(cases, sdpa_bwd)
+               + check_fused_adamw() + check_block_sparse())
+    flash_auto_sweep()
+    return entries
 
 
 def _bound(flops, nbytes, dtype_name):
@@ -1363,14 +1395,17 @@ def free_cuda():
     torch.cuda.empty_cache()
 
 
-def train_steps(engine, it, n, eager=False):
+def train_steps(engine, it, n, eager=False, probe=None):
     """``n`` fenced ``train_batch`` steps (``eager``: the step functions
-    called uncaptured). Returns the losses and the grad norms (tensors) and
-    the host ms of each step."""
+    called uncaptured; ``probe(engine)``, when given, runs before each).
+    Returns the losses and the grad norms (tensors) and the host ms of each
+    step."""
     import torch
 
     losses, norms, times = [], [], []
     for _ in range(n):
+        if probe is not None:
+            probe(engine)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         losses.append(engine._train_batch(it, eager=eager))
@@ -1403,16 +1438,19 @@ def first_difference(a, b):
     return None
 
 
-def captured_against_eager(make_engine, batches, steps, traced=None):
+def captured_against_eager(make_engine, batches, steps, traced=None,
+                           probe=None):
     """The captured steps against the uncaptured ones: ``steps`` steps of a
     fresh engine from ``make_engine()`` through ``train_batch`` (its first
     steps warm the capture up, the rest replay graphs), then as many of a
     second engine from the same seed with its step functions called
     directly. ``traced(engine, data_iter)``, when given, runs on the
-    captured engine after its steps (a traced replay). The first engine is
-    freed before the second is built. Returns the comparison (with the
-    card's peak allocated GB up to the end of the captured steps, before
-    this check copies the parameters), the captured run's launches,
+    captured engine after its steps (a traced replay); ``probe(engine)``
+    before every step of both runs. The first engine is freed before the
+    second is built. Returns the comparison (with the card's peak
+    allocated GB up to the end of the captured steps, before this check
+    copies the parameters, the eager run's peak, and each run's state: what
+    was allocated once its engine was built), the captured run's launches,
     losses, grad norms and host ms, and the eager run's losses and host
     ms."""
     import torch
@@ -1421,8 +1459,9 @@ def captured_against_eager(make_engine, batches, steps, traced=None):
 
     reset_launches()
     engine = make_engine()
+    state_gb = torch.cuda.memory_allocated() / 1e9
     it = iter(RepeatingLoader(batches))
-    losses, norms, times = train_steps(engine, it, steps)
+    losses, norms, times = train_steps(engine, it, steps, probe=probe)
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     graphs = {name: [dict(g.launches, replays=g.replays)
@@ -1430,19 +1469,28 @@ def captured_against_eager(make_engine, batches, steps, traced=None):
               for name in ("_fused", "_micro", "_apply")}
     params = {k: v.clone() for k, v in engine.params.items()}
     result = {"captured_graph_launches": graphs,
-              "peak_allocated_gb": peak_gb,
+              "peak_allocated_gb": peak_gb, "state_gb": state_gb,
               "loss_scale": engine.loss_scale,
               "optimizer_count": engine.optimizer.count}
     if traced is not None:
         traced(engine, it)
     del engine, it
     free_cuda()
+    torch.cuda.reset_peak_memory_stats()
     eager = make_engine()
+    e_state_gb = torch.cuda.memory_allocated() / 1e9
     e_losses, e_norms, e_times = train_steps(
-        eager, iter(RepeatingLoader(batches)), steps, eager=True)
+        eager, iter(RepeatingLoader(batches)), steps, eager=True,
+        probe=probe)
+    e_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     e_params = eager.params
     diff = first_difference(params, e_params)
     result.update(
+        eager_peak_allocated_gb=e_peak_gb,
+        # the eager steps' peak above what was allocated before them (the
+        # engine's state, and anything the caller holds): the activations
+        # and the step's transients
+        eager_peak_above_state_gb=e_peak_gb - e_state_gb,
         losses_identical=identical(losses, e_losses),
         grad_norms_identical=identical(norms, e_norms),
         params_identical=diff is None, first_param_difference=diff,
@@ -1509,8 +1557,9 @@ def step_medians(times, e_times):
 def phase_train():
     """GPT-2 1.3B through initialize -> train_batch, the training slice's
     main path: one step on the einsum path, then 12 captured steps (2
-    warm-up, 10 replays) against 12 uncaptured ones from the same seed.
-    Returns the kernels' launch counts on the captured run."""
+    warm-up, 10 replays) against 12 uncaptured ones from the same seed,
+    through ``use_flash_attention="auto"`` as gpt_pretrain.py asks. Returns
+    the kernels' launch counts on the captured run."""
     import numpy as np
     import torch
 
@@ -1536,7 +1585,7 @@ def phase_train():
     traces = {}
     check, launches, losses, norms, times, e_losses, e_times = \
         captured_against_eager(
-            gpt_1p3b_engine, [batch], STEPS,
+            functools.partial(gpt_1p3b_engine, flash="auto"), [batch], STEPS,
             traced=lambda eng, it: traces.update(profile_step(
                 eng, it, "train_step_1p3b",
                 {"flash_attention_fwd": "flash_fwd_",
@@ -1548,7 +1597,8 @@ def phase_train():
     fpt = gpt_flops_per_token(cfg, 1024)
     tflops = 4 * 1024 * fpt / ms / 1e9
     line = {"phase": "train", "model": "gpt2-1.3b", "params": num_params(cfg),
-            "config": GPT_PRETRAIN_CONFIG, "batch": [4, 1024],
+            "config": GPT_PRETRAIN_CONFIG, "use_flash_attention": "auto",
+            "batch": [4, 1024],
             "init_s": init_s, "losses": losses, "eager_losses": e_losses,
             "flash_vs_einsum": {"loss": [loss_f, loss_e],
                                 "grad_norm": [gnorm_f, gnorm_e]},
@@ -5733,6 +5783,695 @@ def phase_against(root):
     return ab_adamw(other, root) and ok
 
 
+# -- train_options: the GPT training options (ROADMAP A.6) ---------------------
+# the "auto" selector's sweep: the flash kernels (B1; B1 + B2 + B3 with the
+# backward) against the model's einsum path, causal, bf16, at a fixed token
+# count per call (batch = SWEEP_TOKENS / T) and heads x D = SWEEP_WIDTH
+SWEEP_SEQS = (128, 256, 384, 512, 768, 1024, 2048, 4096, 8192)
+SWEEP_HEAD_DIMS = (64, 128)
+SWEEP_TOKENS = 8192
+SWEEP_WIDTH = 1024
+# remat policies on GPT-2 1.3B (gpt_pretrain.py's config, micro [4, 1024]),
+# with each one's launches per step: selective and save_nothing_but_flash
+# keep B1's o and lse, so B1 runs once per layer; save_dots keeps every
+# product, but a kernel is not a product, so B1 runs again in the recompute
+OPTION_POLICIES = ("full", "selective", "save_nothing_but_flash", "save_dots")
+POLICY_PER_STEP = {
+    policy: {"flash_attention_fwd": 24 if policy in (
+        "selective", "save_nothing_but_flash") else 48,
+             "flash_attention_bwd_dq": 24, "flash_attention_bwd_dkv": 24,
+             "fused_adamw": 1}
+    for policy in OPTION_POLICIES}
+# dropout in training keeps attention on the einsum path (JAX's gate)
+EINSUM_PER_STEP = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+                   "flash_attention_bwd_dkv": 0, "fused_adamw": 1}
+# GPT-2's published dropout (resid_pdrop, embd_pdrop, attn_pdrop:
+# https://huggingface.co/openai-community/gpt2/blob/main/config.json)
+OPTIONS_DROPOUT = 0.1
+# a kept share further than this many binomial standard deviations from
+# 1 - p fails
+KEEP_SIGMAS = 6.0
+OPTIONS_PLD = {"enabled": True, "theta": 0.5, "gamma": 0.001}
+# the per-layer keep counts are taken on a small GPT (eager steps, a forward
+# pre-hook on each block reads its gate): 1.3B replays cannot show their
+# gates, and 256 of its steps would take the phase's whole budget
+PLD_COUNT_STEPS = 256
+PLD_SMALL = dict(vocab_size=512, n_positions=128, n_embd=128, n_layer=8,
+                 n_head=4)
+# BLOOM-7b1 trains at full width through the fused head: 8 layers, micro
+# [6, 2048], whose bf16 logits (6 x 2048 x 250880 x 2 = 6.17e9 bytes) pass
+# the 4 GiB point of fused_head_ce="auto"; [4, 2048] (4.11e9) would not
+BLOOM_TRAIN_LAYERS = 8
+BLOOM_MICRO = 6
+# fused head against the unfused one, at a micro batch both fit
+BLOOM_CMP_MICRO = 2
+# the fused head computes each logit with the same bf16 product as the
+# unfused head, but a chunk's GEMM may take another cuBLAS tiling, and dw
+# sums over chunks in f32 where the unfused head's one product rounds once
+# to bf16: the loss agrees to TRAIN_LOSS_REL_TOL, the gradients to the
+# bf16 rounding of their largest entries (relative L2)
+FUSED_GRAD_REL_L2 = 2e-2
+# Mistral-7B's widths, 8 layers, [2, 4096]: chunked attention at 1024
+# against flash
+OPTIONS_CHUNK = 1024
+MISTRAL_FWD_MICRO = 1
+
+
+def flash_auto_sweep():
+    """The flash kernels against the einsum path over ``SWEEP_SEQS`` at D 64
+    and 128, forward alone and forward + backward, by device time. Returns
+    the sweep and the constants it implies: ``min_seq``, the shortest T from
+    which flash wins forward + backward at every longer T of the sweep and
+    both head dims, and ``max_seq``, the longest T at which it still wins
+    (the sweep's last when it wins throughout)."""
+    import torch
+
+    from deepspeed_tpu_torch.models import transformer_lm as tlm
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(3)
+    rows, wins = [], {}
+    for d in SWEEP_HEAD_DIMS:
+        h = SWEEP_WIDTH // d
+        for t in SWEEP_SEQS:
+            b = max(1, SWEEP_TOKENS // t)
+            q, k, v, do = (torch.randn((b, t, h, d), generator=gen).to(
+                "cuda", torch.bfloat16) for _ in range(4))
+            for x in (q, k, v):
+                x.requires_grad_(True)
+
+            def flash():
+                return fa.flash_attention(q, k, v, causal=True)
+
+            def einsum():
+                return tlm.einsum_attention(q, k, v, causal=True)
+
+            row = {"d": d, "t": t, "shape": [b, t, h, d]}
+            iters = 10 if t <= 2048 else 4
+            for name, fn in (("flash", flash), ("einsum", einsum)):
+                with torch.no_grad():
+                    row[f"{name}_fwd_ms"] = device_ms(fn, iters=iters)["ms"]
+                row[f"{name}_fwd_bwd_ms"] = device_ms(
+                    lambda: torch.autograd.grad(fn(), (q, k, v), do),
+                    iters=iters)["ms"]
+            row["flash_wins_fwd"] = row["flash_fwd_ms"] < row["einsum_fwd_ms"]
+            row["flash_wins_fwd_bwd"] = (row["flash_fwd_bwd_ms"]
+                                         < row["einsum_fwd_bwd_ms"])
+            wins[(d, t)] = row["flash_wins_fwd_bwd"]
+            rows.append(row)
+            del q, k, v, do
+            free_cuda()
+    seqs = list(SWEEP_SEQS)
+    min_seq = next((t for i, t in enumerate(seqs)
+                    if all(wins[(d, s)] for d in SWEEP_HEAD_DIMS
+                           for s in seqs[i:])), None)
+    won = [t for t in seqs if all(wins[(d, t)] for d in SWEEP_HEAD_DIMS)]
+    result = {"phase": "kernel", "part": "flash_auto_sweep", "rows": rows,
+              "tokens_per_call": SWEEP_TOKENS, "heads_x_d": SWEEP_WIDTH,
+              "implied_min_seq": min_seq,
+              "implied_max_seq": max(won) if won else None,
+              "model_constants": {"FLASH_AUTO_MIN_SEQ": tlm.FLASH_AUTO_MIN_SEQ,
+                                  "FLASH_MAX_SEQ": tlm.FLASH_MAX_SEQ,
+                                  "CHUNKED_AUTO_CHUNK":
+                                      tlm.CHUNKED_AUTO_CHUNK},
+              "smi": nvidia_smi_line()}
+    emit(result)
+    return result
+
+
+def options_engine(seed=0, config=None, **model_over):
+    """GPT-2 1.3B through ``initialize`` with ``GPT_PRETRAIN_CONFIG`` (or
+    ``config``), as ``gpt_pretrain.py`` builds it (full remat,
+    ``use_flash_attention="auto"``), with ``model_over`` on the config."""
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import GPT, gpt2_config
+
+    fields = dict(n_positions=1024, dtype=torch.bfloat16,
+                  param_dtype=torch.bfloat16, remat=True, remat_policy="full",
+                  use_flash_attention="auto")
+    fields.update(model_over)
+    return deepspeed_tpu_torch.initialize(
+        model=GPT(gpt2_config("gpt2-1.3b", **fields)),
+        config=config or GPT_PRETRAIN_CONFIG, seed=seed)[0]
+
+
+def lm_batch(vocab, micro, seq, seed=1):
+    import numpy as np
+
+    ids = np.random.RandomState(seed).randint(
+        0, vocab, size=(micro, seq)).astype(np.int64)
+    return {"input_ids": ids, "labels": ids}
+
+
+def options_pair(make_engine, batch, per_step, probe=None, after=None):
+    """``captured_against_eager`` over ``STEPS`` steps on a repeated batch
+    (2 warm-up, the capture, 9 replays) as one line: the launches, the
+    medians, the peaks, the identity, and ``probe(engine)``'s values before
+    every step of both runs (which must agree). ``after(engine, it)``'s
+    dict joins the line; it runs on the captured engine after its steps,
+    once the final parameters are copied. Returns the line, the captured
+    run's final parameters and the problems found."""
+    import numpy as np
+
+    import torch
+
+    probes, kept = [], {}
+
+    def traced(engine, it):
+        kept.update((k, v.clone()) for k, v in engine.params.items())
+        if after is not None:
+            kept["line"] = after(engine, it)
+
+    torch.cuda.reset_peak_memory_stats()
+    check, launches, losses, norms, times, e_losses, e_times = \
+        captured_against_eager(
+            make_engine, [batch], STEPS, traced=traced,
+            probe=None if probe is None else
+            (lambda engine: probes.append(probe(engine))))
+    line = {"launches": launches,
+            "launches_per_step": {k: v / STEPS for k, v in launches.items()
+                                  if k in per_step},
+            "losses": losses, "grad_norms": norms,
+            "step_ms_median": statistics.median(times[CAPTURE_WARMUP + 1:]),
+            "eager_step_ms_median":
+                statistics.median(e_times[CAPTURE_WARMUP + 1:]),
+            "capture_step_ms": times[CAPTURE_WARMUP],
+            **{k: check[k] for k in (
+                "state_gb", "peak_allocated_gb", "eager_peak_allocated_gb",
+                "eager_peak_above_state_gb", "identical",
+                "first_param_difference")},
+            **kept.pop("line", {})}
+    problems = [f"{name}: {launches[name]} launches, want {per} x {STEPS}"
+                for name, per in {**per_step, **UNSEGMENTED}.items()
+                if launches[name] != per * STEPS]
+    if not all(np.isfinite(losses)):
+        problems.append("non-finite loss")
+    if probe is not None:
+        line["probes"] = probes[:STEPS]
+        if probes[:STEPS] != probes[STEPS:]:
+            problems.append("the probes differ between captured and eager")
+    if not check["identical"]:
+        problems.append("captured and eager steps differ")
+    return line, kept, problems
+
+
+# cuBLAS's GEMM kernels on Hopper, by name
+GEMM_KERNEL_MARKS = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def traced_gemms(engine, it):
+    """One traced replay: the card's time, and the part of it in GEMM
+    kernels (what a remat policy's recompute saves or spends)."""
+    summary, by_name, _ = _trace(lambda: engine.train_batch(it))
+    gemm = sum(ms for name, ms in by_name.items()
+               if any(m in name.lower() for m in GEMM_KERNEL_MARKS))
+    return {"traced_replay": summary, "traced_gemm_ms": gemm}
+
+
+def options_policies(batch):
+    """GPT-2 1.3B under each remat policy: the launches per step, captured
+    against eager, and every policy's losses, grad norms and final
+    parameters bit for bit against ``full``'s (a policy changes what is
+    saved, never a value). Returns the launch counts by policy and the
+    problems found."""
+    counts, problems = {}, []
+    full = None
+    for policy in OPTION_POLICIES:
+        line, params, probs = options_pair(
+            functools.partial(options_engine, remat_policy=policy), batch,
+            POLICY_PER_STEP[policy], after=traced_gemms)
+        line["tokens_per_s"] = 4 * 1024 / line["step_ms_median"] * 1e3
+        problems += [f"{policy}: {p}" for p in probs]
+        if full is None:
+            full = (line, params)
+        else:
+            ref, ref_params = full
+            diff = first_difference(ref_params, params)
+            line["equals_full"] = {
+                "losses": line["losses"] == ref["losses"],
+                "grad_norms": line["grad_norms"] == ref["grad_norms"],
+                "params": diff is None, "first_param_difference": diff}
+            if not all(v for k, v in line["equals_full"].items()
+                       if k != "first_param_difference"):
+                problems.append(f"{policy}: differs from full")
+            line["peak_vs_full_gb"] = (line["eager_peak_above_state_gb"]
+                                       - ref["eager_peak_above_state_gb"])
+            line["step_vs_full"] = (line["step_ms_median"]
+                                    / ref["step_ms_median"])
+        del params
+        counts[policy] = line["launches"]
+        emit({"phase": "train_options", "part": "remat_policy",
+              "policy": policy, **line})
+    del full
+    free_cuda()
+    return counts, problems
+
+
+def _kept_shares(engine, batch):
+    """Each dropout site's kept share in one eager training forward of
+    ``engine``'s model (the masks read where they are drawn)."""
+    import torch
+
+    from deepspeed_tpu_torch.runtime import activation_checkpointing as ac
+
+    shares, draw = [], ac.bernoulli_mask
+
+    def counted(shape, p, generator, device):
+        mask = draw(shape, p, generator, device)
+        shares.append((float(mask.float().mean()), mask.numel(), p))
+        return mask
+
+    ac.bernoulli_mask = counted
+    try:
+        with torch.no_grad():
+            ids = torch.as_tensor(batch["input_ids"], device="cuda")
+            engine.module.train()
+            engine.module(ids, labels=ids,
+                          dropout_generator=engine._dropout_gen)
+    finally:
+        ac.bernoulli_mask = draw
+    return shares
+
+
+def options_dropout(batch):
+    """GPT-2 1.3B at dropout 0.1 (einsum attention: B1-B3 0): captured
+    against eager over 12 steps; at lr 0 two replays give different losses
+    (different masks); each site's kept share within ``KEEP_SIGMAS`` of 0.9;
+    the same 12 steps without remat bit for bit (the recompute sees the
+    forward's masks); a small GPT saved and resumed continues the mask
+    stream bit for bit."""
+    import math as _m
+
+    problems = []
+
+    def after(engine, it):
+        engine.set_lr(0.0)
+        frozen = [float(engine.train_batch(it)) for _ in range(2)]
+        shares = _kept_shares(engine, batch)
+        bad = [i for i, (share, n, p) in enumerate(shares)
+               if abs(share - p) > KEEP_SIGMAS * _m.sqrt(p * (1 - p) / n)]
+        return {"lr0_replay_losses": frozen,
+                "replays_draw_different_masks": frozen[0] != frozen[1],
+                "sites": len(shares),
+                "kept_share_min_max": [min(s for s, _, _ in shares),
+                                       max(s for s, _, _ in shares)],
+                "sites_outside_bound": bad}
+
+    line, params, probs = options_pair(
+        functools.partial(options_engine, dropout=OPTIONS_DROPOUT), batch,
+        EINSUM_PER_STEP, after=after)
+    line["tokens_per_s"] = 4 * 1024 / line["step_ms_median"] * 1e3
+    problems += probs
+    if not line["replays_draw_different_masks"]:
+        problems.append("two replays drew the same masks")
+    if line["sites"] != 1 + 3 * 24 or line["sites_outside_bound"]:
+        problems.append(f"kept shares: {line['sites']} sites, outside "
+                        f"{line['sites_outside_bound']}")
+    # the same steps without recomputation, uncaptured
+    import torch
+
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    torch.cuda.reset_peak_memory_stats()
+    plain = options_engine(dropout=OPTIONS_DROPOUT, remat=False)
+    losses, norms, times = train_steps(
+        plain, iter(RepeatingLoader([batch])), STEPS, eager=True)
+    diff = first_difference(params, plain.params)
+    line["remat_off"] = {
+        "losses_equal": [float(x) for x in losses] == line["losses"],
+        "grad_norms_equal": [float(x) for x in norms] == line["grad_norms"],
+        "params_equal": diff is None, "first_param_difference": diff,
+        "step_ms_median": statistics.median(times[CAPTURE_WARMUP + 1:]),
+        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del plain, params
+    free_cuda()
+    if not all(line["remat_off"][k] for k in
+               ("losses_equal", "grad_norms_equal", "params_equal")):
+        problems.append("remat on and off differ under dropout")
+    line["resume"] = dropout_resume()
+    if not line["resume"]["continues_bit_for_bit"]:
+        problems.append("a resume does not continue the mask stream")
+    emit({"phase": "train_options", "part": "dropout",
+          "dropout": OPTIONS_DROPOUT, **line})
+    return line, problems
+
+
+def dropout_resume():
+    """A small dropout GPT: 4 steps, a tag, 3 more steps; a fresh engine
+    from another seed loads the tag and takes the same 3 steps: losses and
+    parameters bit for bit (the tag holds the dropout generator's state)."""
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import GPT, GPTConfig
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    path = os.path.join("build", "chip_smoke_dropout")
+    shutil.rmtree(path, ignore_errors=True)
+    batch = lm_batch(PLD_SMALL["vocab_size"], 4, 128, seed=4)
+
+    def engine(seed):
+        cfg = GPTConfig(**PLD_SMALL, dtype=torch.bfloat16, remat=True,
+                        dropout=OPTIONS_DROPOUT, use_flash_attention="auto")
+        return deepspeed_tpu_torch.initialize(
+            model=GPT(cfg), config=dict(GPT_PRETRAIN_CONFIG,
+                                        zero_optimization={"stage": 0}),
+            seed=seed)[0]
+
+    try:
+        a = engine(0)
+        it = iter(RepeatingLoader([batch]))
+        for _ in range(4):
+            a.train_batch(it)
+        a.save_checkpoint(path)
+        want = [float(a.train_batch(it)) for _ in range(3)]
+        b = engine(5)
+        b.load_checkpoint(path)
+        got = [float(b.train_batch(iter(RepeatingLoader([batch]))))
+               for _ in range(3)]
+        diff = first_difference(a.params, b.params)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return {"losses_after_save": want, "losses_after_resume": got,
+            "continues_bit_for_bit": want == got and diff is None}
+
+
+def pld_keep_counts():
+    """A small stochastic-mode GPT under the PLD schedule, ``PLD_COUNT_STEPS``
+    eager steps: each block's gate read by a forward pre-hook, each layer's
+    keep count against the sum of its keep probabilities (binomial bound),
+    and the device theta against the host schedule at every step."""
+    import math as _m
+
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import (
+        GPT, GPTConfig, pld_keep_probability)
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    cfg = GPTConfig(**PLD_SMALL, dtype=torch.bfloat16, stochastic_mode=True,
+                    use_flash_attention="auto")
+    engine = deepspeed_tpu_torch.initialize(
+        model=GPT(cfg), config=dict(GPT_PRETRAIN_CONFIG,
+                                    zero_optimization={"stage": 0},
+                                    progressive_layer_drop=OPTIONS_PLD),
+        seed=2)[0]
+    kept = [0] * cfg.n_layer
+    hooks = []
+    for i, block in enumerate(engine.module.h):
+        def hook(mod, args, kwargs, i=i):
+            gate = kwargs.get("gate")
+            kept[i] += int(bool(gate))
+        hooks.append(block.register_forward_pre_hook(hook, with_kwargs=True))
+    expect = [0.0] * cfg.n_layer
+    var = [0.0] * cfg.n_layer
+    theta_err = 0.0
+    it = iter(RepeatingLoader([lm_batch(cfg.vocab_size, 4, 128, seed=6)]))
+    for _ in range(PLD_COUNT_STEPS):
+        host = engine.progressive_layer_drop.get_theta()
+        theta_err = max(theta_err, abs(float(engine.pld_theta()) - host))
+        for i in range(cfg.n_layer):
+            p = pld_keep_probability(i, cfg.n_layer, host)
+            expect[i] += p
+            var[i] += p * (1 - p)
+        engine._train_batch(it, eager=True)
+    for h in hooks:
+        h.remove()
+    bad = [i for i in range(cfg.n_layer)
+           if abs(kept[i] - expect[i]) > KEEP_SIGMAS * _m.sqrt(var[i]) + 0.5]
+    del engine
+    return {"steps": PLD_COUNT_STEPS, "kept": kept, "expected": expect,
+            "layers_outside_bound": bad,
+            "device_vs_host_theta_max_abs": theta_err}
+
+
+def options_pld(batch):
+    """GPT-2 1.3B with stochastic_mode under progressive_layer_drop (theta
+    0.5, gamma 0.001), flash on: B1 48 / B2 24 / B3 24 / B4 1 (the blocks
+    always run), captured against eager, the device theta against the host
+    schedule before every step; then the per-layer keep counts on a small
+    GPT (``pld_keep_counts``)."""
+    problems = []
+
+    def probe(engine):
+        return [float(engine.pld_theta()),
+                engine.progressive_layer_drop.get_theta()]
+
+    config = dict(GPT_PRETRAIN_CONFIG, progressive_layer_drop=OPTIONS_PLD)
+    line, params, probs = options_pair(
+        functools.partial(options_engine, config=config,
+                          stochastic_mode=True),
+        batch, POLICY_PER_STEP["full"], probe=probe)
+    del params
+    line["tokens_per_s"] = 4 * 1024 / line["step_ms_median"] * 1e3
+    problems += probs
+    # the device computes theta in f32, the host in f64
+    line["theta_max_abs_diff"] = max(abs(d - h) for d, h in line["probes"])
+    if line["theta_max_abs_diff"] > 1e-6:
+        problems.append("device pld_theta departs from the host schedule")
+    line["keep_counts"] = pld_keep_counts()
+    if line["keep_counts"]["layers_outside_bound"] or \
+            line["keep_counts"]["device_vs_host_theta_max_abs"] > 1e-6:
+        problems.append(f"PLD keep counts: {line['keep_counts']}")
+    free_cuda()
+    emit({"phase": "train_options", "part": "progressive_layer_drop",
+          "pld": OPTIONS_PLD, **line})
+    return line, problems
+
+
+def bloom_train_engine(seed=0, micro=BLOOM_MICRO, **over):
+    """BLOOM-7b1's widths at ``BLOOM_TRAIN_LAYERS`` layers through
+    ``initialize`` with ``GPT_PRETRAIN_CONFIG`` at ``micro``, full remat,
+    ``fused_head_ce`` "auto" unless ``over`` says otherwise."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import GPT
+
+    fields = dict(n_layer=BLOOM_TRAIN_LAYERS, remat=True)
+    fields.update(over)
+    return deepspeed_tpu_torch.initialize(
+        model=GPT(neox_config(BLOOM_7B1, **fields)),
+        config=dict(GPT_PRETRAIN_CONFIG, train_micro_batch_size_per_gpu=micro),
+        seed=seed)[0]
+
+
+def bloom_fused_against_unfused():
+    """At micro [2, 2048] the fused head (``fused_head_ce=True``) against
+    the unfused one on the same BLOOM weights: the loss, the tied
+    embedding's and the last layer's gradients, and each head's peak
+    memory above the model's."""
+    import dataclasses as _dc
+
+    import torch
+
+    from deepspeed_tpu_torch.models.transformer_lm import GPT, materialize_gpt
+
+    free_cuda()
+    cfg = neox_config(BLOOM_7B1, n_layer=BLOOM_TRAIN_LAYERS, remat=True,
+                      fused_head_ce=True)
+    fused = GPT(cfg)
+    materialize_gpt(fused, torch.device("cuda"),
+                    torch.Generator(device="cuda").manual_seed(0))
+    unfused = GPT(_dc.replace(cfg, fused_head_ce=False))
+    unfused.load_state_dict(fused.state_dict(), assign=True)
+    batch = lm_batch(cfg.vocab_size, BLOOM_CMP_MICRO, NEOX_SEQ, seed=7)
+    ids = torch.as_tensor(batch["input_ids"], device="cuda")
+    out = {}
+    for name, model in (("fused", fused), ("unfused", unfused)):
+        model.train()
+        for p in model.parameters():
+            p.requires_grad_(True)
+            p.grad = None
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = model(ids, labels=ids)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[name] = {
+            "loss": float(loss),
+            "peak_above_model_gb":
+                (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "grads": {"wte": model.wte.weight.grad.clone(),
+                      **{f"h.{len(model.h) - 1}.{n}": p.grad.clone()
+                         for n, p in model.h[-1].named_parameters()}}}
+        for p in model.parameters():
+            p.grad = None
+    rel = {k: _rel_l2(out["fused"]["grads"][k], out["unfused"]["grads"][k])
+           for k in out["fused"]["grads"]}
+    result = {"batch": [BLOOM_CMP_MICRO, NEOX_SEQ],
+              "loss": [out["fused"]["loss"], out["unfused"]["loss"]],
+              "peak_above_model_gb": [out["fused"]["peak_above_model_gb"],
+                                      out["unfused"]["peak_above_model_gb"]],
+              "grad_rel_l2_max": max(rel.values()),
+              "grad_rel_l2_worst": max(rel, key=rel.get)}
+    del fused, unfused, out
+    free_cuda()
+    return result
+
+
+def options_bloom():
+    """BLOOM-7b1 trains at full width, 8 layers, micro [6, 2048] (einsum
+    attention under ALiBi: B1-B3 0, B4 1): ``"auto"`` must engage the fused
+    head (its calls counted in the captured run's warm-up); then the fused
+    head against the unfused one at micro 2."""
+    import torch
+
+    from deepspeed_tpu_torch.models import transformer_lm as tlm
+    from deepspeed_tpu_torch.ops import cross_entropy as ce
+
+    problems = []
+    cfg = neox_config(BLOOM_7B1, n_layer=BLOOM_TRAIN_LAYERS)
+    chunk = tlm.fused_head_engages(cfg, BLOOM_MICRO, NEOX_SEQ)
+    calls = [0]
+    real = ce.fused_linear_cross_entropy
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    ce.fused_linear_cross_entropy = counted
+    try:
+        line, params, probs = options_pair(
+            bloom_train_engine,
+            lm_batch(cfg.vocab_size, BLOOM_MICRO, NEOX_SEQ),
+            EINSUM_PER_STEP)
+    finally:
+        ce.fused_linear_cross_entropy = real
+    del params
+    problems += probs
+    tokens = BLOOM_MICRO * NEOX_SEQ
+    logits_bytes = tokens * cfg.vocab_size * 2
+    line.update(model=f"bloom-7b1, {BLOOM_TRAIN_LAYERS} layers",
+                source=BLOOM_SOURCE,
+                reduced={"n_layer": f"30 -> {BLOOM_TRAIN_LAYERS}"},
+                batch=[BLOOM_MICRO, NEOX_SEQ], logits_bytes=logits_bytes,
+                fused_chunk=chunk, fused_head_calls=calls[0],
+                tokens_per_s=tokens / line["step_ms_median"] * 1e3,
+                model_tflops_per_s=tokens * gpt_flops_per_token(
+                    cfg, NEOX_SEQ) / line["step_ms_median"] / 1e9)
+    # every uncaptured call of the step (2 warm-ups, the capture, the
+    # eager twin's 12) goes through the fused head; replays call nothing
+    if chunk != tlm.FUSED_HEAD_CE_CHUNK or calls[0] != 3 + STEPS:
+        problems.append(f"fused head not engaged: chunk {chunk}, "
+                        f"{calls[0]} calls")
+    if not line["losses"][-1] <= line["losses"][0] - TRAIN_MIN_LOSS_DROP:
+        problems.append("BLOOM loss did not fall")
+    line["fused_vs_unfused"] = cmp = bloom_fused_against_unfused()
+    if abs(cmp["loss"][0] - cmp["loss"][1]) > \
+            TRAIN_LOSS_REL_TOL * abs(cmp["loss"][1]):
+        problems.append("fused and unfused losses disagree")
+    if cmp["grad_rel_l2_max"] > FUSED_GRAD_REL_L2:
+        problems.append("fused and unfused gradients disagree")
+    emit({"phase": "train_options", "part": "bloom_fused_head", **line})
+    return line, problems
+
+
+def options_mistral():
+    """Mistral-7B's widths, 8 layers, [2, 4096]: ``attention_chunk=1024``
+    (B1-B3 0, B4 1) against the flash run (the first step's loss and grad
+    norm, both step medians); then ``forward`` at all 32 layers, chunked
+    against flash, on [1, 4096]."""
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import GPT
+
+    problems = []
+
+    def engine(chunk, seed=0):
+        model = GPT(mistral_config(n_layer=MISTRAL_TRAIN_LAYERS, remat=True,
+                                   attention_chunk=chunk))
+        config = dict(GPT_PRETRAIN_CONFIG,
+                      train_micro_batch_size_per_gpu=MISTRAL_MICRO)
+        return deepspeed_tpu_torch.initialize(model=model, config=config,
+                                              seed=seed)[0]
+
+    batch = lm_batch(MISTRAL_7B["vocab_size"], MISTRAL_MICRO, MISTRAL_SEQ)
+    chunked, params, probs = options_pair(
+        functools.partial(engine, OPTIONS_CHUNK), batch, EINSUM_PER_STEP)
+    del params
+    problems += probs
+    flash, params, probs = options_pair(
+        functools.partial(engine, None), batch, MISTRAL_PER_STEP)
+    del params
+    problems += probs
+    tokens = MISTRAL_MICRO * MISTRAL_SEQ
+    line = {"model": f"mistral-7b-v0.1, {MISTRAL_TRAIN_LAYERS} layers",
+            "batch": [MISTRAL_MICRO, MISTRAL_SEQ], "chunk": OPTIONS_CHUNK,
+            "chunked": chunked, "flash": flash,
+            "first_loss": [chunked["losses"][0], flash["losses"][0]],
+            "first_grad_norm": [chunked["grad_norms"][0],
+                                flash["grad_norms"][0]],
+            "tokens_per_s": [tokens / chunked["step_ms_median"] * 1e3,
+                             tokens / flash["step_ms_median"] * 1e3]}
+    if abs(chunked["losses"][0] - flash["losses"][0]) > \
+            TRAIN_LOSS_REL_TOL * abs(flash["losses"][0]):
+        problems.append("chunked and flash losses disagree")
+    if abs(chunked["grad_norms"][0] - flash["grad_norms"][0]) > \
+            TRAIN_GNORM_REL_TOL * abs(flash["grad_norms"][0]):
+        problems.append("chunked and flash grad norms disagree")
+    # the forward at all 32 layers
+    free_cuda()
+    ids = torch.as_tensor(lm_batch(MISTRAL_7B["vocab_size"],
+                                   MISTRAL_FWD_MICRO, MISTRAL_SEQ,
+                                   seed=2)["input_ids"], device="cuda")
+    logits, fwd_ms = {}, {}
+    for name, chunk in (("flash", None), ("chunked", OPTIONS_CHUNK)):
+        infer = deepspeed_tpu_torch.init_inference(
+            GPT(mistral_config(attention_chunk=chunk)), dtype="bf16")
+        reset_launches()
+        with torch.no_grad():
+            logits[name] = infer(ids).float().cpu()
+        line[f"forward_{name}_b1_launches"] = read_launches()[
+            "flash_attention_fwd"]
+        fwd_ms[name] = wall_ms(lambda: infer(ids), reps=3)
+        del infer
+        free_cuda()
+    line["forward_32_layers"] = {
+        "batch": [MISTRAL_FWD_MICRO, MISTRAL_SEQ], "ms": fwd_ms,
+        "logits_rel_l2": _rel_l2(logits["chunked"], logits["flash"])}
+    if line["forward_32_layers"]["logits_rel_l2"] > MISTRAL_LOGITS_REL_L2:
+        problems.append("chunked and flash 32-layer logits disagree")
+    if line["forward_chunked_b1_launches"] or \
+            line["forward_flash_b1_launches"] != 32:
+        problems.append("forward routes: chunked must launch no B1, flash 32")
+    emit({"phase": "train_options", "part": "attention_chunk", **line})
+    return line, problems
+
+
+def phase_train_options():
+    """The GPT training options of ROADMAP A.6 on the card (see the module
+    docstring). Returns the launch counts by path: each run's counts set to
+    0 just before its captured steps and read just after."""
+    t0 = time.perf_counter()
+    problems = []
+    batch = lm_batch(50257, 4, 1024)
+    counts, probs = options_policies(batch)
+    problems += probs
+    paths = {f"remat_{p}": c for p, c in counts.items()}
+    line, probs = options_dropout(batch)
+    problems += probs
+    paths["dropout"] = line["launches"]
+    line, probs = options_pld(batch)
+    problems += probs
+    paths["pld"] = line["launches"]
+    line, probs = options_bloom()
+    problems += probs
+    paths["bloom_fused_head"] = line["launches"]
+    line, probs = options_mistral()
+    problems += probs
+    paths["attention_chunk"] = line["chunked"]["launches"]
+    emit({"phase": "train_options", "part": "summary",
+          "seconds": time.perf_counter() - t0, "problems": problems,
+          "smi": nvidia_smi_line()})
+    if problems:
+        raise AssertionError(f"train_options: {problems}")
+    return paths
+
+
 def main(argv):
     import torch
 
@@ -5740,11 +6479,13 @@ def main(argv):
                                 ("--against", "--only") and
                                 (argv[1] == "--against"
                                  or argv[2] in ("zero", "data", "mistral",
-                                                "neox", "moe")))
+                                                "neox", "moe",
+                                                "train_options")))
              or (len(argv) == 6 and argv[1] == "--zero-rank"))
     if not usage:
         print(f"usage: {argv[0]} [--against OTHER_CHECKOUT | "
-              "--only zero|data|mistral|neox|moe]", file=sys.stderr)
+              "--only zero|data|mistral|neox|moe|train_options]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -5773,6 +6514,10 @@ def main(argv):
             emit({"neox_launches_by_path": phase_neox()})
         elif argv[2] == "moe":
             emit({"moe_launches_by_path": phase_moe()})
+        elif argv[2] == "train_options":
+            flash_auto_sweep()
+            free_cuda()
+            emit({"train_options_launches_by_path": phase_train_options()})
         else:
             emit({"data_launches": phase_data()[0]})
         print(smi, flush=True)
@@ -5805,21 +6550,27 @@ def main(argv):
     neox_paths = phase_neox()
     free_cuda()
     moe_paths = phase_moe()
+    free_cuda()
+    option_paths = phase_train_options()
     paths = {"serve": serve_launches, "train": launches,
              "checkpoint": ckpt_launches, "sparse_train": sparse_launches,
              **zero_paths, "data": data_launches, **mistral_paths,
-             **neox_paths, **moe_paths}
+             **neox_paths, **moe_paths, **option_paths}
     for entry in kernels:
         # each slice's main path, its counts set to 0 just before it: serving
         # runs B1, GPT training, the checkpoint path, ZeRO (stages 0-2, and
         # stage 3), the gradient exchange, the packed data path and
         # Mistral's training B1-B4 (B1-B3 of the data path in their segment
         # variant), Pythia's and Mixtral's training B1-B4 (BLOOM serves
-        # without B1: ALiBi), BERT training under BigBird B4-B7.
-        # "launches" is the count on the newest path that runs the kernel
+        # without B1: ALiBi), BERT training under BigBird B4-B7, and the
+        # training options' runs (each remat policy, dropout, PLD, BLOOM's
+        # fused head, chunked attention). "launches" is the count on the
+        # newest path that runs the kernel
         name = entry["name"]
         entry["launches_by_path"] = {p: counts[name] for p, counts in paths.items()}
-        entry["launches"] = (moe_paths["moe_train"][name]
+        entry["launches"] = (option_paths["remat_selective"][name]
+                             or option_paths["pld"][name]
+                             or moe_paths["moe_train"][name]
                              or neox_paths["neox_train"][name]
                              or mistral_paths["mistral_train"][name]
                              or data_launches[name]

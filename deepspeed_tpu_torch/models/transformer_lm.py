@@ -17,12 +17,15 @@ MLP both read the block's input), BLOOM's (``alibi`` position biases in
 place of positions, ``embed_layernorm`` after the embedding) and
 Mixtral's (``moe_num_experts`` > 0: the MLP becomes a top-k gated mixture
 of experts, ``moe/``), and the mixes between them that the config allows:
-the logits path (einsum and flash attention for full forwards, the
-dense-cache decode path) and the training path (``labels`` -> mean
-next-token cross entropy plus the experts' load-balancing loss, packed
-``segment_ids``/``positions``, full activation recomputation). Config
-fields of features not ported yet raise ``NotImplementedError`` when set
-away from their defaults.
+the logits path (einsum, flash and chunked attention for full forwards,
+routed as JAX routes them, ``"auto"`` included; the dense-cache decode path)
+and the training path (``labels`` -> mean next-token cross entropy, or the
+fused head + CE, plus the experts' load-balancing loss; packed
+``segment_ids``/``positions``; activation recomputation under JAX's four
+``remat_policy`` values; dropout at JAX's sites and stochastic depth, both
+drawn from a generator the caller passes). Config fields of features not
+ported yet raise ``NotImplementedError`` when set away from their
+defaults.
 """
 
 import dataclasses
@@ -34,30 +37,27 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-import torch.utils.checkpoint
 
-# field -> (default, feature) for GPTConfig fields whose feature this port
-# does not have yet (ROADMAP A.6)
+# field -> (default, feature, ROADMAP item) for GPTConfig fields whose
+# feature this port does not have yet
 _UNPORTED = {
-    "flash_autotune": (False, "the flash block autotuner"),
-    "attention_chunk": (None, "chunked attention"),
-    "param_offload": (False, "parameter offload"),
-    "sequence_parallel": ("none", "sequence parallelism"),
-    "sparse_attention": (None, "block-sparse attention"),
-    "sparse_kv_cache": ("auto", "the ring KV cache"),
-    "quantized_weights": (False, "int8 weights"),
-    "kv_cache_dtype": (None, "the int8 KV cache"),
-    "kv_cache_slack_blocks": (0, "the ring KV cache"),
-    "stochastic_mode": (False, "stochastic depth (training)"),
+    "flash_autotune": (False, "the flash block autotuner", "A.12"),
+    "param_offload": (False, "parameter offload", "A.10"),
+    "sequence_parallel": ("none", "sequence parallelism", "A.9"),
+    "sparse_attention": (None, "block-sparse attention", "A.6"),
+    "sparse_kv_cache": ("auto", "the ring KV cache", "A.6"),
+    "quantized_weights": (False, "int8 weights", "A.8"),
+    "kv_cache_dtype": (None, "the int8 KV cache", "A.8"),
+    "kv_cache_slack_blocks": (0, "the ring KV cache", "A.6"),
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
     """The fields and defaults of ``deepspeed_tpu``'s ``GPTConfig``, with
-    torch dtypes. ``dropout`` is inert in eval mode (serving, as the JAX
-    engine serves with ``deterministic=True``); a model with ``dropout > 0``
-    raises ``NotImplementedError`` when it runs in training mode."""
+    torch dtypes. ``dropout`` and ``stochastic_mode`` act in training mode
+    only (serving runs in eval mode, as the JAX engine serves with
+    ``deterministic=True``)."""
 
     vocab_size: int = 50257
     n_positions: int = 1024
@@ -92,9 +92,10 @@ class GPTConfig:
     # the layout of the JAX parameter tree this config pairs with (one
     # stacked "h/block" or "h_0".."h_{n-1}"); the port always loops
     scan_layers: bool = True
-    # True routes full forwards (no mask, T % 128 == 0) through the flash
-    # kernel. "auto" picks by a crossover measured on a TPU; the card's own
-    # crossover is not measured yet, so it is refused
+    # True routes full forwards (no mask, T % 128 == 0, no training
+    # dropout) through the flash kernel; "auto" picks einsum, flash or
+    # chunked by T at the crossovers measured on the card (FLASH_AUTO_MIN_SEQ,
+    # FLASH_MAX_SEQ)
     use_flash_attention: Any = False
     flash_autotune: bool = False
     attention_chunk: Optional[int] = None
@@ -127,37 +128,28 @@ class GPTConfig:
                 "block-sparse path has no positional-bias hook); a silent "
                 "dense fallback would change the model's math, so this is "
                 "rejected up front")
-        for name, (default, feature) in _UNPORTED.items():
+        for name, (default, feature, item) in _UNPORTED.items():
             value = getattr(self, name)
             if value is not default and value != default:
                 raise NotImplementedError(
                     f"GPTConfig.{name}={value!r}: {feature} is not ported to "
-                    "deepspeed_tpu_torch yet (ROADMAP A.6)")
-        if self.use_flash_attention == "auto":
-            raise NotImplementedError(
-                "use_flash_attention='auto' selects by a flash/einsum "
-                "crossover that has not been measured on the GPU yet; pass "
-                "True or False")
-        if self.use_flash_attention not in (True, False):
+                    f"deepspeed_tpu_torch yet (ROADMAP {item})")
+        if self.use_flash_attention not in (True, False, "auto"):
             raise ValueError(
-                f"use_flash_attention must be True or False; got "
+                f"use_flash_attention must be True, False or 'auto'; got "
                 f"{self.use_flash_attention!r}")
-        if self.remat_policy in _UNPORTED_REMAT:
-            raise NotImplementedError(
-                f"remat_policy={self.remat_policy!r} is not ported yet: "
-                "PyTorch's selective checkpointing does not see the flash "
-                "kernel's outputs the way checkpoint_name tags do; use 'full'")
-        if self.remat_policy != "full":
-            raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
-        # bool first: True is an int. "auto", False and 0 keep the unfused
-        # head; True or a chunk size asks for the fused head + CE
+        if self.attention_chunk is not None and (
+                not isinstance(self.attention_chunk, int)
+                or self.attention_chunk <= 0):
+            raise ValueError(
+                f"attention_chunk must be a positive int or None; got "
+                f"{self.attention_chunk!r}")
+        _remat_policy(self.remat_policy)  # raises for an unknown name
+        # bool first: True is an int. "auto" decides per call; True or an
+        # int >= 1 (the token chunk) forces the fused head, False or 0 not
         fused = self.fused_head_ce
-        if fused is True or (isinstance(fused, int) and not isinstance(
-                fused, bool) and fused != 0):
-            raise NotImplementedError(
-                f"fused_head_ce={fused!r}: fused_linear_cross_entropy is not "
-                "ported yet")
-        if fused not in ("auto", False, 0):
+        if not (fused == "auto" or isinstance(fused, bool) or (
+                isinstance(fused, int) and fused >= 0)):
             raise ValueError(f"unknown fused_head_ce {fused!r}")
         if self.norm not in ("layernorm", "rmsnorm"):
             raise ValueError(f"unknown norm {self.norm!r}")
@@ -210,11 +202,23 @@ def gpt2_config(name: str, **overrides) -> GPTConfig:
     return GPTConfig(**base)
 
 
-# the JAX package's remat policies other than "full" (_remat_policy, :954)
-_UNPORTED_REMAT = ("selective", "save_dots", "save_nothing_but_flash")
 # fused_head_ce="auto" engages the fused head once the [B, T, V] logits
-# would take this many bytes (transformer_lm.py:1196-1198)
+# would take this many bytes (transformer_lm.py:1196-1198); True means
+# chunks of this many tokens
 FUSED_HEAD_CE_AUTO_BYTES = 4 << 30
+FUSED_HEAD_CE_CHUNK = 2048
+
+# use_flash_attention="auto" (JAX :694-725, the card's constants): einsum
+# attention below FLASH_AUTO_MIN_SEQ, the flash kernels from there up to
+# FLASH_MAX_SEQ, the chunked path past it at the largest of
+# (CHUNKED_AUTO_CHUNK, 512, 256, 128) dividing T. chip_smoke.py's sweep
+# (flash_auto_sweep: causal bf16, D 64 and 128, T 128-8192) on an NVIDIA
+# H100 80GB HBM3 at 700.00 W: the flash kernels beat the einsum path at
+# every T measured, forward (8-54x) and forward + backward (2.2-24x), so
+# flash from the shortest T its gate takes (128) to the longest measured
+FLASH_AUTO_MIN_SEQ = 128
+FLASH_MAX_SEQ = 8192
+CHUNKED_AUTO_CHUNK = 1024
 
 _ACTIVATIONS = {
     "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
@@ -223,6 +227,80 @@ _ACTIVATIONS = {
     "silu": F.silu,
     "quick_gelu": lambda x: x * torch.sigmoid(1.702 * x),
 }
+
+
+def pld_keep_probability(layer_idx, n_layer: int, theta):
+    """Layer ``layer_idx`` survives stochastic depth with ``1 - (i / L)(1 -
+    theta)`` (JAX :943): deeper layers drop more. ``layer_idx`` and
+    ``theta`` may be numbers or tensors."""
+    return 1.0 - (layer_idx / n_layer) * (1.0 - theta)
+
+
+def _remat_policy(name: str):
+    """The recomputation policy of ``remat_policy`` (JAX ``_remat_policy``,
+    :954-985), as ``runtime/activation_checkpointing`` policies:
+    ``selective`` keeps the parameter products and the flash forward's o
+    and lse (B1 then runs once per layer), ``save_dots`` every product,
+    batched ones included (B1 runs again: a kernel is not a dot),
+    ``save_nothing_but_flash`` only B1's o and lse (``full`` on the einsum
+    path, where nothing carries those names), ``full`` nothing."""
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import \
+        checkpointing as ac
+
+    if name == "selective":
+        return ac.save_from_both_policies(
+            ac.dots_with_no_batch_dims_saveable,
+            ac.save_only_these_names("attn_out", "attn_lse"))
+    if name == "save_dots":
+        return ac.dots_saveable
+    if name == "save_nothing_but_flash":
+        return ac.save_only_these_names("attn_out", "attn_lse")
+    if name == "full":
+        return ac.nothing_saveable
+    raise ValueError(f"unknown remat_policy {name!r}")
+
+
+def attention_route(cfg: "GPTConfig", t: int, *, mask=False, segments=False,
+                    training_dropout=False):
+    """Which path a full forward of length ``t`` takes (JAX :689-725):
+    ``("chunked", chunk)``, ``("flash", None)`` or ``("einsum", None)``.
+    ``mask``/``segments``: a padding mask or packed segment ids is present;
+    ``training_dropout``: dropout > 0 in training, which keeps attention on
+    the einsum path (the flash and chunked paths have no probability
+    dropout). An explicit ``attention_chunk`` wins over flash; ``"auto"``
+    chunks past ``FLASH_MAX_SEQ`` and picks flash from
+    ``FLASH_AUTO_MIN_SEQ``."""
+    auto = cfg.use_flash_attention == "auto"
+    auto_chunk = None
+    if auto and t > FLASH_MAX_SEQ:
+        auto_chunk = next((c for c in (CHUNKED_AUTO_CHUNK, 512, 256, 128)
+                           if t % c == 0), None)
+    chunk = cfg.attention_chunk or auto_chunk
+    plain = not mask and not cfg.alibi and not training_dropout
+    if (chunk and plain and not segments and t % chunk == 0
+            and t > chunk):
+        return "chunked", chunk
+    want_flash = (FLASH_AUTO_MIN_SEQ <= t <= FLASH_MAX_SEQ if auto
+                  else cfg.use_flash_attention)
+    if want_flash and plain and t % 128 == 0:
+        return "flash", None
+    return "einsum", None
+
+
+def fused_head_engages(cfg: "GPTConfig", batch: int, seq: int):
+    """The token chunk of the fused head + CE for a ``[batch, seq]`` call,
+    or 0 for the unfused head (JAX :1188-1213): ``"auto"`` fuses once the
+    compute-dtype logits of the call reach ``FUSED_HEAD_CE_AUTO_BYTES``;
+    ``True`` means ``FUSED_HEAD_CE_CHUNK``; an int is the chunk (bool is
+    tested first: True is an int)."""
+    fused = cfg.fused_head_ce
+    if fused == "auto":
+        itemsize = torch.finfo(cfg.dtype).bits // 8
+        fused = (batch * seq * cfg.vocab_size * itemsize
+                 >= FUSED_HEAD_CE_AUTO_BYTES)
+    if isinstance(fused, bool):
+        return FUSED_HEAD_CE_CHUNK if fused else 0
+    return fused
 
 
 def alibi_slopes(n_head: int) -> np.ndarray:
@@ -254,6 +332,31 @@ def alibi_bias(n_head: int, length: int, dtype, device) -> torch.Tensor:
     256); the f32 slopes make the product f32."""
     pos = torch.arange(length, device=device).to(dtype)
     return _alibi_slopes_on(n_head, device)[:, None] * pos[None, :]
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in training mode, inverted dropout at ``rate``,
+    ``where(mask, x / keep, 0)`` with a keep mask drawn from the generator
+    given at the call (``bernoulli_mask``: the remat recompute gets the
+    forward's mask back); in eval mode, or at rate 0, ``x`` itself. No
+    parameters."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator: Optional[torch.Generator]):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            # flax's edge case: no NaN gradient from x / 0
+            return torch.zeros_like(x)
+        from deepspeed_tpu_torch.runtime.activation_checkpointing import \
+            bernoulli_mask
+
+        keep = 1.0 - self.rate
+        mask = bernoulli_mask(x.shape, keep, generator, x.device)
+        return torch.where(mask, x / keep, 0.0)
 
 
 class Dense(nn.Linear):
@@ -405,6 +508,37 @@ class _DecodeStep:
         buf[self.rows, self.slots] = vals.to(buf.dtype)
 
 
+def einsum_attention(q, k, v, *, causal=True, mask=None, segment_ids=None,
+                     alibi=False, dropout=None, generator=None):
+    """The einsum path (JAX :727-756) over ``[B, T, H, D]`` q, k, v: f32
+    scores (JAX's scale is a numpy f64 scalar, which, unlike a Python float,
+    promotes the compute-dtype product), the ALiBi bias, the causal, padding
+    (``mask`` [B, T]) and segment masks, an f32 softmax cast to q's dtype,
+    then ``dropout`` (a ``Dropout``, drawing from ``generator``) on the
+    probabilities. Returns ``[B, T, H, D]``."""
+    B, T, H, D = q.shape
+    att = torch.matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1)
+                       ).float() * (1.0 / math.sqrt(D))         # [B,H,T,T]
+    if alibi:
+        # slopes[h] * key position (JAX :736-742)
+        att = att + alibi_bias(H, T, att.dtype, q.device)[None, :, None, :]
+    if causal:
+        tri = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+        att = att.masked_fill(~tri, torch.finfo(att.dtype).min)
+    if mask is not None:
+        att = att.masked_fill(~mask.bool()[:, None, None, :],
+                              torch.finfo(att.dtype).min)
+    if segment_ids is not None:
+        # NaN-safe: the causal diagonal is always same-segment
+        same = (segment_ids[:, None, :, None]
+                == segment_ids[:, None, None, :])
+        att = att.masked_fill(~same, torch.finfo(att.dtype).min)
+    att = torch.softmax(att.float(), dim=-1).to(q.dtype)
+    if dropout is not None:
+        att = dropout(att, generator)
+    return torch.matmul(att, v.transpose(1, 2)).transpose(1, 2)
+
+
 class CausalSelfAttention(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -413,6 +547,8 @@ class CausalSelfAttention(nn.Module):
         width = (cfg.n_head + 2 * cfg.kv_heads) * cfg.head_dim
         self.c_attn = Dense(cfg.n_embd, width, cfg, bias=bias)
         self.c_proj = Dense(cfg.n_embd, cfg.n_embd, cfg, bias=bias)
+        # the probabilities' and the output's dropout (JAX :756, :761)
+        self.dropout = Dropout(cfg.dropout)
 
     def _rope(self, t, positions):
         from deepspeed_tpu_torch.ops.rotary import apply_rotary_pos_emb
@@ -423,13 +559,14 @@ class CausalSelfAttention(nn.Module):
                                     interleaved=cfg.rotary_interleaved)
 
     def forward(self, x, mask=None, step=None, layer=0, segment_ids=None,
-                positions=None):
+                positions=None, rng=None):
         """Full forward when ``step`` is None; otherwise the decode path:
         write this call's keys and values into the layer's cache buffers and
         attend over the whole cache. ``segment_ids`` ([B, T], packed
         batches) restricts each query to keys of its own segment;
         ``positions`` ([B, T]) are the rotary positions of a full forward
-        (default ``arange(T)``; packed documents restart them)."""
+        (default ``arange(T)``; packed documents restart them); ``rng`` is
+        the generator of the dropout masks (training only)."""
         cfg = self.cfg
         B, T, C = x.shape
         H, Hkv, D = cfg.n_head, cfg.kv_heads, cfg.head_dim
@@ -480,40 +617,27 @@ class CausalSelfAttention(nn.Module):
             k = k.repeat_interleave(G, dim=2)
             v = v.repeat_interleave(G, dim=2)
 
-        # the flax model's gate (transformer_lm.py:720-725) unchanged, so
+        # the flax model's gates (transformer_lm.py:689-725) unchanged, so
         # both packages route the same shapes; the kernel itself takes any T
-        use_flash = (cfg.use_flash_attention and mask is None
-                     and T % 128 == 0 and not cfg.alibi)
-        if use_flash:
+        route, chunk = attention_route(
+            cfg, T, mask=mask is not None, segments=segment_ids is not None,
+            training_dropout=self.training and cfg.dropout > 0.0)
+        if route == "chunked":
+            from deepspeed_tpu_torch.ops.chunked_attention import \
+                chunked_attention
+
+            y = chunked_attention(q, k, v, causal=cfg.causal, chunk=chunk)
+        elif route == "flash":
             from deepspeed_tpu_torch.ops.cuda.flash_attention import \
                 flash_attention
 
             y = flash_attention(q, k, v, causal=cfg.causal,
                                 segment_ids=segment_ids)
         else:
-            # f32 scores, as in JAX: its scale is a numpy f64 scalar, which
-            # (unlike a Python float) promotes the compute-dtype product
-            att = torch.matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1)
-                               ).float() * scale                  # [B,H,T,T]
-            if cfg.alibi:
-                # slopes[h] * key position (JAX :736-742)
-                att = att + alibi_bias(H, T, att.dtype, x.device)[
-                    None, :, None, :]
-            if cfg.causal:
-                tri = torch.ones((T, T), dtype=torch.bool,
-                                 device=x.device).tril()
-                att = att.masked_fill(~tri, torch.finfo(att.dtype).min)
-            if mask is not None:
-                att = att.masked_fill(~mask.bool()[:, None, None, :],
-                                      torch.finfo(att.dtype).min)
-            if segment_ids is not None:
-                # NaN-safe: the causal diagonal is always same-segment
-                same = (segment_ids[:, None, :, None]
-                        == segment_ids[:, None, None, :])
-                att = att.masked_fill(~same, torch.finfo(att.dtype).min)
-            att = torch.softmax(att.float(), dim=-1).to(cfg.dtype)
-            y = torch.matmul(att, v.transpose(1, 2)).transpose(1, 2)
-        return self.c_proj(y.reshape(B, T, C))
+            y = einsum_attention(q, k, v, causal=cfg.causal, mask=mask,
+                                 segment_ids=segment_ids, alibi=cfg.alibi,
+                                 dropout=self.dropout, generator=rng)
+        return self.dropout(self.c_proj(y.reshape(B, T, C)), rng)
 
 
 class MLP(nn.Module):
@@ -527,14 +651,15 @@ class MLP(nn.Module):
                        if cfg.gated_mlp else None)
         self.c_proj = Dense(cfg.ffn_dim, cfg.n_embd, cfg, bias=cfg.use_bias)
         self.act = _ACTIVATIONS[cfg.activation]
+        self.dropout = Dropout(cfg.dropout)  # JAX :783
 
-    def forward(self, x):
+    def forward(self, x, rng=None):
         h = self.c_fc(x)
         if self.c_gate is not None:
             h = self.act(self.c_gate(x)) * h
         else:
             h = self.act(h)
-        return self.c_proj(h)
+        return self.dropout(self.c_proj(h), rng)
 
 
 class Block(nn.Module):
@@ -543,7 +668,10 @@ class Block(nn.Module):
     ``parallel_residual`` (GPT-NeoX, GPT-J) attention and MLP both read the
     block's input, ``x + mlp(ln_2 x) + attn(ln_1 x)`` (GPT-J's one shared
     LayerNorm is ``ln_1`` and ``ln_2`` holding the same weights). Returns
-    ``(x, l_aux)``, ``l_aux`` None for a dense MLP."""
+    ``(x, l_aux)``, ``l_aux`` None for a dense MLP. Under stochastic depth
+    (JAX :834-840) ``gate`` (a 0-dim bool) keeps the block's output or its
+    input, and ``l_aux`` with it: the block always runs, so the shapes and
+    the launches stay what a captured step recorded."""
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -567,19 +695,27 @@ class Block(nn.Module):
             self.mlp = MLP(cfg)
 
     def forward(self, x, mask=None, step=None, layer=0, segment_ids=None,
-                positions=None, noise=None):
-        """``noise``: this layer's gating draws (``MoE.forward``)."""
+                positions=None, noise=None, rng=None, gate=None):
+        """``noise``: this layer's gating draws (``MoE.forward``); ``rng``:
+        the dropout masks' generator; ``gate``: the stochastic-depth draw
+        (None: the block is kept)."""
+        x_in = x
         a = self.attn(self.ln_1(x), mask=mask, step=step, layer=layer,
-                      segment_ids=segment_ids, positions=positions)
+                      segment_ids=segment_ids, positions=positions, rng=rng)
         if not self.parallel_residual:
             x = x + a
         h = self.ln_2(x)
         l_aux = None
         if isinstance(self.mlp, MLP):
-            y = self.mlp(h)
+            y = self.mlp(h, rng=rng)
         else:
             y, l_aux, _ = self.mlp(h, noise=noise)
         x = x + y + a if self.parallel_residual else x + y
+        if gate is not None:
+            # the PLD form: identity skip, no 1/keep rescale
+            x = torch.where(gate, x, x_in)
+            if l_aux is not None:
+                l_aux = torch.where(gate, l_aux, 0.0)
         return x, l_aux
 
 
@@ -604,6 +740,7 @@ class GPT(nn.Module):
             self.ln_embed = _norm(config) if config.embed_layernorm else None
             self.wpe = (VocabEmbed(config.n_positions, config.n_embd, config)
                         if config.learned_positions else None)
+            self.drop = Dropout(config.dropout)  # the embedding's, JAX :1130
             self.h = nn.ModuleList(Block(config)
                                    for _ in range(config.n_layer))
             self.ln_f = _norm(config)
@@ -636,7 +773,9 @@ class GPT(nn.Module):
     def forward(self, input_ids, labels=None, attention_mask=None,
                 segment_ids=None, positions=None, *, decode=False,
                 cache: Optional[KVCache] = None,
-                gating_noise: Optional[torch.Tensor] = None):
+                gating_noise: Optional[torch.Tensor] = None,
+                dropout_generator: Optional[torch.Generator] = None,
+                pld_theta: Optional[torch.Tensor] = None):
         """Logits of ``input_ids`` ([B, T]), or the mean loss with ``labels``.
 
         With ``decode=True`` the call appends to a KV cache and returns
@@ -652,15 +791,19 @@ class GPT(nn.Module):
         ``moe_aux_loss_coef`` times the layers' mean load-balancing loss
         (JAX :1222-1226). ``gating_noise`` ([n_layer, kinds, B * T, E],
         ``MoE.noise_kinds``) is every layer's gating noise, drawn by the
-        caller (the training engine); None routes without noise."""
+        caller (the training engine); None routes without noise.
+
+        In training mode ``dropout_generator`` draws the dropout masks (JAX's
+        ``dropout`` stream; None: torch's default generator) and, with
+        ``stochastic_mode`` and a ``pld_theta`` (a 0-dim f32 tensor, the
+        progressive-layer-drop schedule's theta), one keep gate per layer,
+        kept with ``pld_keep_probability``. ``remat`` recomputes each block
+        in the backward under ``remat_policy``; the recompute reuses the
+        forward's masks and gates."""
         cfg = self.config
         B, T = input_ids.shape
         dev = input_ids.device
         step = None
-        if self.training and cfg.dropout > 0:
-            raise NotImplementedError(
-                f"dropout={cfg.dropout} in training: dropout is not ported "
-                "yet (serving in eval mode ignores it)")
         if decode and not cfg.causal:
             raise NotImplementedError("decode path requires a causal model")
         if decode and segment_ids is not None:
@@ -706,47 +849,69 @@ class GPT(nn.Module):
             x = self.ln_embed(x)
         if self.wpe is not None:
             x = x + self.wpe(pos)
-        # full recomputation: each block keeps only its input for the
-        # backward (nn.remat with no policy)
+        x = self.drop(x, dropout_generator)
+        gates = None
+        if cfg.stochastic_mode and pld_theta is not None and self.training:
+            # one Bernoulli draw per layer from the dropout stream, made
+            # before the blocks, so a recompute sees the same gates
+            keep = pld_keep_probability(
+                torch.arange(cfg.n_layer, device=dev, dtype=torch.float32),
+                cfg.n_layer, pld_theta)
+            gates = torch.rand(cfg.n_layer, generator=dropout_generator,
+                               device=dev) < keep
+        # recomputation (nn.remat with the config's policy): the gating
+        # noise comes in drawn and the dropout masks are handed back to the
+        # recompute, so no RNG state is read (what a captured step may not)
         remat = cfg.remat and step is None and torch.is_grad_enabled()
+        policy = _remat_policy(cfg.remat_policy) if remat else None
         l_aux = []
         for i, block in enumerate(self.h):
             run = (block if self.block_hook is None
                    else functools.partial(self.block_hook, block))
             noise = None if gating_noise is None else gating_noise[i]
+            gate = None if gates is None else gates[i]
             if remat:
-                # no RNG state to keep: dropout is refused in training, and
-                # the gating noise comes in drawn, so the recompute routes
-                # as the forward did (reading the CUDA RNG state is what a
-                # captured step may not)
-                x, aux = torch.utils.checkpoint.checkpoint(
-                    run, x, attention_mask, None, i, segment_ids, positions,
-                    noise, use_reentrant=False, preserve_rng_state=False)
+                from deepspeed_tpu_torch.runtime.activation_checkpointing \
+                    import checkpoint
+
+                x, aux = checkpoint(run, x, attention_mask, None, i,
+                                    segment_ids, positions, noise,
+                                    dropout_generator, gate, policy=policy)
             else:
                 x, aux = run(x, mask=attention_mask, step=step, layer=i,
                              segment_ids=segment_ids, positions=positions,
-                             noise=noise)
+                             noise=noise, rng=dropout_generator, gate=gate)
             if aux is not None:
                 l_aux.append(aux)
         x = self.ln_f(x)
         if labels is not None:
             if decode:
                 raise ValueError("labels and decode=True do not combine")
-            itemsize = torch.finfo(cfg.dtype).bits // 8
-            if cfg.fused_head_ce == "auto" and (
-                    B * T * cfg.vocab_size * itemsize
-                    >= FUSED_HEAD_CE_AUTO_BYTES):
-                raise NotImplementedError(
-                    f"fused_head_ce='auto' picks the fused head + CE for "
-                    f"[{B}, {T}, {cfg.vocab_size}] logits (>= 4 GB), and "
-                    "fused_linear_cross_entropy is not ported yet")
-            # compute-dtype logits (the unfused training head, :1217-1218),
-            # the bias added after the product as in JAX
-            logits = F.linear(x.to(cfg.dtype), self._head_weight(cfg.dtype))
-            if self.lm_head_bias is not None:
-                logits = logits + self.lm_head_bias.to(cfg.dtype)
-            loss = cross_entropy_loss(logits, labels, attention_mask,
-                                      segment_ids)
+            chunk = fused_head_engages(cfg, B, T)
+            if chunk:
+                # the fused head + CE (JAX :1199-1213): the [B*T, V] logits
+                # exist one token chunk at a time
+                from deepspeed_tpu_torch.ops.cross_entropy import \
+                    fused_linear_cross_entropy
+
+                targets, w = _shifted_targets(labels, attention_mask,
+                                              segment_ids)
+                tied = self.lm_head is None
+                head = (self.wte.weight if tied else self.lm_head).to(
+                    cfg.dtype)
+                loss = fused_linear_cross_entropy(
+                    tied, chunk, x.to(cfg.dtype).reshape(-1, cfg.n_embd),
+                    head, self.lm_head_bias, targets.reshape(-1),
+                    w.reshape(-1))
+            else:
+                # compute-dtype logits (the unfused training head,
+                # :1217-1218), the bias added after the product as in JAX
+                logits = F.linear(x.to(cfg.dtype),
+                                  self._head_weight(cfg.dtype))
+                if self.lm_head_bias is not None:
+                    logits = logits + self.lm_head_bias.to(cfg.dtype)
+                loss = cross_entropy_loss(logits, labels, attention_mask,
+                                          segment_ids)
             if cfg.is_moe:
                 # the layers' mean load-balancing loss, with its coefficient
                 loss = loss + cfg.moe_aux_loss_coef * torch.stack(

@@ -15,16 +15,25 @@ the plain PyTorch versions of the same functions. ``flash_attention`` ties
 them together in ``FlashAttentionFunction``, whose forward saves q, k, v, o
 and lse. Layout is the model's ``[batch, seq, heads, head_dim]`` on both
 sides; lse comes back as ``[batch, heads, seq]`` f32.
+
+The forward reaches the dispatcher as one op, ``deepspeed_tpu_torch::
+flash_fwd`` (o and lse), whose outputs carry the checkpoint names
+``attn_out`` and ``attn_lse`` (the JAX kernel's ``checkpoint_name`` tags):
+a selective recomputation policy sees B1 there and can keep its outputs
+instead of launching it again (``runtime/activation_checkpointing``).
 """
 
 import ctypes
 import functools
 import math
+from typing import Optional, Tuple
 
 import torch
 
 from deepspeed_tpu_torch.ops.cuda.build import load_library
 from deepspeed_tpu_torch.ops.cuda.common import NEG_INF, check_current_device
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing \
+    import name_op_outputs
 
 # head dims the kernel is instantiated for (csrc/flash_attention_fwd.cu)
 HEAD_DIMS = (32, 64, 80, 96, 128)
@@ -293,15 +302,35 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, scale=None,
                        segment_ids, causal, scale)
 
 
+@torch.library.custom_op("deepspeed_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 segment_ids: Optional[torch.Tensor], causal: bool,
+                 scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_fwd`` as one dispatcher op (B1, or its plain
+    version on CPU tensors): what a selective checkpoint policy sees."""
+    return flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                               segment_ids=segment_ids)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, segment_ids, causal, scale):
+    b, t, h, d = q.shape
+    return (q.new_empty((b, t, h, d)),
+            q.new_empty((b, h, t), dtype=torch.float32))
+
+
+name_op_outputs("deepspeed_tpu_torch::flash_fwd", "attn_out", "attn_lse")
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """Flash attention with its gradient (the ``_flash``/``_flash_seg``
-    custom VJPs): the forward runs B1 and saves q, k, v, o and lse; the
-    backward runs B2 and B3. ``segment_ids`` gets no gradient."""
+    custom VJPs): the forward runs B1 (``flash_fwd_op``) and saves q, k, v,
+    o and lse; the backward runs B2 and B3. ``segment_ids`` gets no
+    gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, causal, scale):
-        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
-                                     segment_ids=segment_ids)
+        o, lse = flash_fwd_op(q, k, v, segment_ids, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse, segment_ids)
         ctx.causal, ctx.scale = causal, scale
         return o
@@ -319,4 +348,7 @@ def flash_attention(q, k, v, *, causal=True, scale=None, segment_ids=None):
     """Differentiable flash attention: the signature of
     ``deepspeed_tpu.ops.pallas.flash_attention.flash_attention`` minus its
     TPU block-size arguments."""
-    return FlashAttentionFunction.apply(q, k, v, segment_ids, causal, scale)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return FlashAttentionFunction.apply(q, k, v, segment_ids, causal,
+                                        float(scale))

@@ -617,7 +617,6 @@ class DeepSpeedConfig:
             ("zero_optimization.offload_param (parameter offload, "
              "ROADMAP A.10)",
              (zero.offload_param or {}).get("device", "none") != "none"),
-            ("progressive_layer_drop", self.progressive_layer_drop.enabled),
             ("sentinel", self.sentinel.enabled),
             ("step_profiler", self.step_profiler.enabled),
             ("flops_profiler", self.flops_profiler.enabled),
@@ -626,12 +625,11 @@ class DeepSpeedConfig:
             ("csv_monitor", self.csv_monitor.enabled),
             ("graceful_shutdown", self.graceful_shutdown.enabled),
             ("pipeline", self.pipeline.to_dict() != PipelineConfig().to_dict()),
-            ("activation_checkpointing",
-             self.activation_checkpointing.to_dict()
-             != ActivationCheckpointingConfig().to_dict()),
+            ("activation_checkpointing.cpu_checkpointing (activation "
+             "offload, ROADMAP A.10)",
+             bool(self.activation_checkpointing.cpu_checkpointing)),
             ("tpu.mesh tp/pp/ep/sp > 1 (the other mesh axes, ROADMAP A.9)",
              any(getattr(mesh, ax) != 1 for ax in ("tp", "pp", "ep", "sp"))),
-            ("tpu.remat", self.tpu.remat != "none"),
             ("tpu.step_autotune", self.tpu.step_autotune_config.enabled),
             ("tpu.cluster_health",
              self.tpu.cluster_health_config.enabled is True),

@@ -99,6 +99,19 @@ parameters at ZeRO 0-2 (one card: ``ep`` is ROADMAP A.9), and a tag splits
 them and their moments into one file per expert
 (``runtime/moe_checkpoint.py``).
 
+Dropout and stochastic depth (JAX engine :1284-1298: a ``dropout`` key
+per step, ``pld_theta`` from ``_pld_model_kwargs`` :1257-1271): a GPT with
+``dropout > 0`` or ``stochastic_mode`` gets a second generator on the
+engine's device (``_dropout_gen``), handed to the model with each training
+forward; like the gating generator it is registered with every captured
+step and saved in a tag. Under ``progressive_layer_drop`` the engine keeps
+the global step in a device counter (``_pld_step``, advanced inside the
+step functions) and computes ``pld_theta`` from it in the step, so a replay
+needs no host write; the host schedule (``progressive_layer_drop``) is
+updated after each step, as in JAX. ``activation_checkpointing`` and
+``tpu.remat`` configure ``runtime/activation_checkpointing``'s module-level
+policy (JAX engine :541-546).
+
 Entry points run on the card: ``device=None`` means ``"cuda"`` (under a
 NCCL group ``cuda:{local_rank}``, one card per rank) and raises when torch
 sees no card. Pass ``device="cpu"`` to train on the host (the kernels then
@@ -123,6 +136,7 @@ from deepspeed_tpu_torch.models.transformer_lm import GPT, materialize_gpt
 from deepspeed_tpu_torch.moe.layer import draw_gating_noise
 from deepspeed_tpu_torch.parallel.mesh import (MeshTopology,
                                                set_default_topology)
+from deepspeed_tpu_torch.runtime import activation_checkpointing
 from deepspeed_tpu_torch.runtime import checkpoint_manifest as ckpt_manifest
 from deepspeed_tpu_torch.runtime import layout
 from deepspeed_tpu_torch.runtime import moe_checkpoint as moe_ckpt
@@ -145,6 +159,8 @@ from deepspeed_tpu_torch.runtime.lr_schedules import (LRScheduler,
                                                       build_lr_scheduler,
                                                       schedule_fn_from_config)
 from deepspeed_tpu_torch.runtime.optimizer import build_optimizer
+from deepspeed_tpu_torch.runtime.progressive_layer_drop import \
+    ProgressiveLayerDrop
 from deepspeed_tpu_torch.runtime.utils import clip_grad_norm_, get_global_norm
 from deepspeed_tpu_torch.runtime.zero.stage3 import ZeroStage3Optimizer
 from deepspeed_tpu_torch.runtime.zero.stage_1_and_2 import (DATA_AXES,
@@ -156,6 +172,9 @@ from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
 # the gating generator's seed is the engine's seed plus this (the JAX
 # engine folds 7 into each step's key for its "gating" stream)
 GATING_SEED_OFFSET = 7
+# the dropout generator's seed is the engine's seed plus this (the JAX
+# engine's dropout key is fold_in(rng, 1) at init, :804)
+DROPOUT_SEED_OFFSET = 1
 
 FORWARD_MICRO_TIMER = "fwd_bwd_microstep"
 STEP_MICRO_TIMER = "step_microstep"
@@ -328,6 +347,10 @@ class DeepSpeedEngine:
         config._resolve_batch_triad(self.topology.data_parallel_size)
         comms_logger.configure(config.comms_logger)
         self._config = config
+        # module-level activation checkpointing (JAX engine :541-546):
+        # models that call activation_checkpointing.checkpoint() take this
+        # policy
+        activation_checkpointing.configure(config, remat=config.tpu.remat)
         if config.sparse_attention is not None:
             # block-sparse attention from the config alone, as
             # deepspeed_tpu/runtime/engine.py:267-277 applies it
@@ -369,6 +392,23 @@ class DeepSpeedEngine:
             self._gating_gen = torch.Generator(device=self.device).manual_seed(
                 seed + GATING_SEED_OFFSET)
         self._gating_noise = {}
+        # the dropout masks' and the stochastic-depth gates' generator
+        self._dropout_gen = None
+        if isinstance(model, GPT) and (model.config.dropout > 0
+                                       or model.config.stochastic_mode):
+            self._dropout_gen = torch.Generator(
+                device=self.device).manual_seed(seed + DROPOUT_SEED_OFFSET)
+        # progressive layer drop (JAX engine :556-562): the host schedule,
+        # and the global step on the device, from which each step computes
+        # pld_theta
+        self.progressive_layer_drop = None
+        self._pld_step = None
+        if config.progressive_layer_drop.enabled:
+            pld = config.progressive_layer_drop
+            self.progressive_layer_drop = ProgressiveLayerDrop(
+                theta=pld.theta, gamma=pld.gamma)
+            self._pld_step = torch.zeros((), dtype=torch.float32,
+                                         device=self.device)
         named = list(model.named_parameters())
         self._params = [p for _, p in named]
         for p in self._params:
@@ -451,8 +491,8 @@ class DeepSpeedEngine:
         # pool for the engine's graphs
         pool = (torch.cuda.graph_pool_handle()
                 if self.device.type == "cuda" else None)
-        gens = (() if self._gating_gen is None or self.device.type != "cuda"
-                else (self._gating_gen,))
+        gens = (() if self.device.type != "cuda" else tuple(
+            g for g in (self._gating_gen, self._dropout_gen) if g is not None))
         self._fused = CompiledStep(self._fused_step, self.device,
                                    max_graphs=self.MAX_GRAPHS, pool=pool,
                                    generators=gens)
@@ -805,11 +845,42 @@ class DeepSpeedEngine:
         r = self.topology.data_parallel_rank() if dp > 1 else 0
         return {"gating_noise": buf[:, :, r * local:(r + 1) * local]}
 
+    def pld_theta(self) -> Optional[torch.Tensor]:
+        """The step's ``pld_theta`` (a 0-dim f32 device tensor, the JAX
+        engine's in-graph ``_pld_model_kwargs``): ``theta + (1 - theta)
+        exp(-gamma t)`` at the device's global step t, for a stochastic-mode
+        GPT under ``progressive_layer_drop``; None otherwise."""
+        if self._pld_step is None or not (
+                isinstance(self.module, GPT)
+                and self.module.config.stochastic_mode):
+            return None
+        pld = self._config.progressive_layer_drop
+        return pld.theta + (1.0 - pld.theta) * torch.exp(
+            -pld.gamma * self._pld_step)
+
+    def _draws(self, batch) -> Dict[str, torch.Tensor]:
+        """The training forward's random inputs: the gating noise, the
+        dropout generator and ``pld_theta``, where the model has them."""
+        draws = self._gating(batch)
+        if self._dropout_gen is not None:
+            draws["dropout_generator"] = self._dropout_gen
+        theta = self.pld_theta()
+        if theta is not None:
+            draws["pld_theta"] = theta
+        return draws
+
+    def _advance_pld(self):
+        """One more global step on the device's counter (inside the step
+        that ends the window: the fused or the apply step)."""
+        if self._pld_step is not None:
+            self._pld_step.add_(1.0)
+
     def _fused_step(self, *phase, **batch):
         """gas == 1: gradients of ``loss * scale`` go straight to the update
         (no f32 accumulation buffer). Returns ``(loss, norm, overflow)``.
         ``phase``: the compressed exchange's branch."""
-        loss = self._model(**batch, **self._gating(batch))
+        loss = self._model(**batch, **self._draws(batch))
+        self._advance_pld()
         if self._cx is not None:
             return self._cx_fused_step(loss, phase)
         if self._zero is not None:
@@ -861,7 +932,7 @@ class DeepSpeedEngine:
         the grads added in f32 to the accumulation buffers (under a process
         group: exchanged first, and the rank's share of the global loss).
         Returns the loss (the global mean under a group)."""
-        loss = self._model(**batch, **self._gating(batch))
+        loss = self._model(**batch, **self._draws(batch))
         factor = (self._ls_state.scale / self._gas if self.fp16_enabled
                   else 1.0 / self.gradient_accumulation_steps)
         if self._cx is not None:
@@ -885,6 +956,7 @@ class DeepSpeedEngine:
         """The boundary: the update from the f32 sums themselves (divided
         and clipped in place), then the sums set to 0. Returns ``(norm,
         overflow)``. ``phase``: the compressed exchange's branch."""
+        self._advance_pld()
         if self._cx is not None:
             if self.fp16_enabled:
                 self._cx.acc.div_(self._ls_state.scale)
@@ -927,6 +999,8 @@ class DeepSpeedEngine:
             # as in torch: a scheduler re-asserts the schedule over a
             # manual param_groups["lr"] set (see set_lr)
             self._lr_override = None
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self.global_steps)
         if self.global_steps % self._config.steps_per_print == 0:
             scale = self.loss_scale if self.fp16_enabled else 1.0
             log_dist(f"step={self.global_steps}, skipped={self.skipped_steps}, "
@@ -1129,6 +1203,8 @@ class DeepSpeedEngine:
         }
         if self._gating_gen is not None:
             meta["gating_generator"] = self._gating_gen.get_state()
+        if self._dropout_gen is not None:
+            meta["dropout_generator"] = self._dropout_gen.get_state()
         if self.training_dataloader is not None:
             # the loader's state as of the last batch consumed (with
             # prefetch: the one delivered, not the worker's); under a
@@ -1328,6 +1404,12 @@ class DeepSpeedEngine:
         self.skipped_steps = int(meta["skipped_steps"])
         if self._gating_gen is not None and "gating_generator" in meta:
             self._gating_gen.set_state(meta["gating_generator"])
+        if self._dropout_gen is not None and "dropout_generator" in meta:
+            self._dropout_gen.set_state(meta["dropout_generator"])
+        if self.progressive_layer_drop is not None:
+            # the device counter in place (the graphs read it)
+            self._pld_step.fill_(float(self.global_steps))
+            self.progressive_layer_drop.update_state(self.global_steps)
         if meta.get("dataloader") and self.training_dataloader is not None:
             self._load_loader_state(meta)
         if (load_lr_scheduler_states and self.lr_scheduler is not None

@@ -590,7 +590,7 @@ def test_data_blocks_are_ported_and_other_refusals_stay():
             DeepSpeedConfig(ds_config(**bad))
     for block in ({"sentinel": {"enabled": True}},
                   {"step_profiler": {"enabled": True}},
-                  {"progressive_layer_drop": {"enabled": True}}):
+                  {"eigenvalue": {"enabled": True}}):
         with pytest.raises(NotImplementedError):
             deepspeed_tpu_torch.initialize(
                 model=tlm.GPT(tlm.GPTConfig(**SMALL, dtype=torch.float32)),

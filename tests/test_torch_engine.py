@@ -190,16 +190,18 @@ def test_gpt_pretrain_config_parses_as_in_jax():
 
 
 # data_pipeline and curriculum_learning are ported (test_torch_data.py,
-# test_torch_curriculum.py): two other refusals take their places
+# test_torch_curriculum.py), progressive_layer_drop and activation
+# checkpointing too (test_torch_stochastic_depth.py,
+# test_torch_remat_policies.py): other refusals take their places
 @pytest.mark.parametrize("block", [
     {"step_profiler": {"enabled": True}},
     {"sentinel": {"enabled": True}},
     {"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}},
     {"tensorboard": {"enabled": True}},
     {"wandb": {"enabled": True}},
-    {"progressive_layer_drop": {"enabled": True}},
+    {"eigenvalue": {"enabled": True}},
     {"tpu": {"mesh": {"tp": 2}}},
-    {"activation_checkpointing": {"partition_activations": True}},
+    {"activation_checkpointing": {"cpu_checkpointing": True}},
     {"flops_profiler": {"enabled": True}},
     {"graceful_shutdown": {"enabled": True, "save_dir": "ckpt"}},
 ])

@@ -142,16 +142,48 @@ def test_bf16_logits_track_jax(flash):
 @pytest.mark.parametrize("field,value", [
     ("flash_autotune", True), ("kv_cache_slack_blocks", 2),
     ("sequence_parallel", "ulysses"), ("sparse_kv_cache", False),
-    ("stochastic_mode", True), ("sparse_kv_cache", True),
-    ("attention_chunk", 64),
+    ("sparse_kv_cache", True),
     ("sequence_parallel", "ring"), ("quantized_weights", True),
     ("kv_cache_dtype", "int8"), ("param_offload", True),
-    ("remat_policy", "selective"), ("sparse_attention", object()),
-    ("use_flash_attention", "auto"), ("fused_head_ce", True),
-    ("fused_head_ce", 2048),
+    ("sparse_attention", object()),
 ])
 def test_unported_config_fields_raise(field, value):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        tlm.GPTConfig(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("stochastic_mode", True), ("attention_chunk", 64),
+    ("remat_policy", "selective"), ("remat_policy", "save_dots"),
+    ("remat_policy", "save_nothing_but_flash"),
+    ("use_flash_attention", "auto"), ("fused_head_ce", True),
+    ("fused_head_ce", 2048), ("dropout", 0.1),
+])
+def test_training_option_fields_are_accepted(field, value):
+    """The GPT training options ported in this package's A.6 slice: each
+    config builds and a small model trains one step under it on the CPU
+    (test_torch_remat_policies.py, test_torch_dropout.py,
+    test_torch_stochastic_depth.py, test_torch_fused_ce.py and
+    test_torch_chunked_attention.py hold each to JAX)."""
+    cfg = tlm.GPTConfig(**SMALL, dtype=torch.float32, remat=True,
+                        **{field: value})
+    model = tlm.GPT(cfg)
+    tlm.materialize_gpt(model, "cpu", torch.Generator().manual_seed(0))
+    ids = torch.from_numpy(_ids(2, 128, seed=1)).long()
+    loss = model.train()(ids, labels=ids, pld_theta=torch.tensor(0.5),
+                         dropout_generator=torch.Generator().manual_seed(1))
+    loss.backward()
+    assert bool(torch.isfinite(loss))
+    assert all(bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())
+
+
+@pytest.mark.parametrize("field,value", [
+    ("attention_chunk", 0), ("attention_chunk", 1.5),
+    ("use_flash_attention", "yes"),
+])
+def test_bad_training_option_values_raise(field, value):
+    with pytest.raises(ValueError, match=field):
         tlm.GPTConfig(**{field: value})
 
 
@@ -266,31 +298,61 @@ def test_bf16_loss_tracks_jax(flash):
     assert all(bool(torch.isfinite(g).all()) for g in got.values())
 
 
-def test_dropout_raises_in_training_only():
+def test_dropout_acts_in_training_only():
+    """Eval mode ignores dropout (the logits of the model without it); in
+    training mode two generators give two losses, one generator state the
+    same loss twice."""
     cfg = tlm.GPTConfig(**SMALL, dtype=torch.float32, dropout=0.1)
     tmodel = tlm.GPT(cfg)
     sd = gpt_state_dict_from_jax(jax.device_get(_pair()[1]), cfg)
     tmodel.load_state_dict(sd, assign=True)
+    plain = tlm.GPT(dataclasses.replace(cfg, dropout=0.0))
+    plain.load_state_dict(sd, assign=True)
     ids = torch.from_numpy(_ids(1, 16)).long()
     with torch.no_grad():
-        assert tmodel.eval()(ids).shape == (1, 16, SMALL["vocab_size"])
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tmodel.train()(ids, labels=ids)
+        assert torch.equal(tmodel.eval()(ids), plain.eval()(ids))
+        tmodel.train()
+        a, b, c = (tmodel(ids, labels=ids, dropout_generator=torch.Generator(
+        ).manual_seed(s)) for s in (1, 2, 1))
+    assert torch.equal(a, c) and not torch.equal(a, b)
 
 
 @pytest.mark.parametrize("policy", ["selective", "save_dots",
                                     "save_nothing_but_flash"])
-def test_remat_policies_other_than_full_raise(policy):
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        tlm.GPTConfig(remat=True, remat_policy=policy)
+def test_remat_policies_other_than_full_train(policy):
+    """Each policy's gradients equal full remat's (bit for bit on the CPU;
+    test_torch_remat_policies.py holds them to JAX's)."""
+    ids = torch.from_numpy(_ids(2, 128, seed=4)).long()
+    grads = []
+    for name in ("full", policy):
+        jcfg = dict(flash=True, remat=True)
+        _, _, tmodel = _train_pair(**jcfg)
+        tmodel.config = dataclasses.replace(tmodel.config, remat_policy=name)
+        tmodel(ids, labels=ids).backward()
+        grads.append({n: p.grad for n, p in tmodel.named_parameters()})
+    for name, g in grads[0].items():
+        assert torch.equal(grads[1][name], g), name
 
 
-def test_fused_head_auto_raises_only_past_4gb():
+def test_fused_head_auto_engages_only_past_4gb(monkeypatch):
     """fused_head_ce="auto" keeps the unfused head below 4 GB of logits
-    (transformer_lm.py:1189-1198) and raises where JAX would fuse."""
-    cfg = tlm.GPTConfig(vocab_size=2 ** 20, n_positions=2048, n_embd=32,
-                        n_layer=0, n_head=1, dtype=torch.bfloat16)
-    tmodel = tlm.GPT(cfg).to_empty(device="meta").train()
-    ids = torch.zeros((1, 2048), dtype=torch.long, device="meta")
-    with pytest.raises(NotImplementedError, match="fused_linear_cross_entropy"):
-        tmodel(ids, labels=ids)
+    (transformer_lm.py:1189-1198) and takes the fused head + CE where JAX
+    would fuse: the meta device shows the route without the memory."""
+    from deepspeed_tpu_torch.ops import cross_entropy as tce
+
+    seen = []
+    real = tce.fused_linear_cross_entropy
+
+    def spy(vocab_major, chunk, *args):
+        seen.append(chunk)
+        return real(vocab_major, chunk, *args)
+
+    monkeypatch.setattr(tce, "fused_linear_cross_entropy", spy)
+    for vocab, want in ((2 ** 20, [2048]), (2 ** 19, [])):
+        seen.clear()
+        cfg = tlm.GPTConfig(vocab_size=vocab, n_positions=2048, n_embd=32,
+                            n_layer=0, n_head=1, dtype=torch.bfloat16)
+        tmodel = tlm.GPT(cfg).to_empty(device="meta").train()
+        ids = torch.zeros((1, 2048), dtype=torch.long, device="meta")
+        assert tmodel(ids, labels=ids).shape == ()
+        assert seen == want, vocab
