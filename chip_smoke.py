@@ -333,6 +333,13 @@ SERVE_MAX_ABS_LOGIT_DIFF = 1.0
 # a few ulps of the largest entries (bf16 ulp 2^-8, f16 2^-11); f32 runs in
 # f32 FMA and differs only in the order of sums
 GRAD_REL_TOL = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-5}
+# B5 against its plain version, as the largest relative L2 error of one row
+# of o (a query and head, over D) among the rows that see a key: a row that
+# attends thousands of keys has |o| near sqrt(e / n), so a max-abs limit on
+# O(1) values may not see a tile of P@V dropped or read from the wrong block
+# (a third or more of the row); bf16 rounds o on both sides and P before
+# P@V, so a row differs by up to about 5e-3 (f32: about 1e-6)
+O_ROW_REL_TOL = {"bfloat16": 1e-2, "float16": 2e-3, "float32": 1e-5}
 # B4 against its plain version: each op is one IEEE f32 rounding on both
 # sides, in the same order, so p, m and v must be bit-identical. The
 # parameters are drawn at GPT-2's init scale (std 0.02), where one bf16 ulp
@@ -698,6 +705,15 @@ def _rel_err(got, want):
     return float((got.float() - want.float()).abs().max()) / scale
 
 
+def _row_rel_err(got, want):
+    """Largest relative L2 error over the last axis, among the rows where
+    ``want`` is not zero."""
+    den = want.float().norm(dim=-1)
+    err = (got.float() - want.float()).norm(dim=-1)
+    seen = den > 0
+    return float((err[seen] / den[seen]).max()) if bool(seen.any()) else 0.0
+
+
 def check_flash_backward(cases, sdpa_bwd):
     """B2 and B3 against the plain backward at every B1 case; the full
     autograd gradient against autograd through the plain forward;
@@ -910,32 +926,29 @@ def _sparse_config(family, heads, block, **kw):
     return getattr(sa, family)(num_heads=heads, block=block, **kw)
 
 
-def visible_pairs(layout, block, heads):
-    """(query, key) pairs the block-sparse kernels compute for one batch row
-    of bidirectional attention, summed over heads: every active tile."""
+def visible_pairs(layout, block, heads, causal=False):
+    """(query, key) pairs the block-sparse kernels compute for one batch row,
+    summed over heads: every active tile, or under ``causal`` the pairs with
+    key <= query in them (the diagonal tiles' lower halves; tiles above
+    the diagonal count none)."""
     import numpy as np
 
     active = np.broadcast_to(layout != 0, (heads,) + layout.shape[1:])
-    return int(active.sum()) * block * block
+    if not causal:
+        return int(active.sum()) * block * block
+    nq, nk = layout.shape[1:]
+    qb, kb = np.arange(nq)[:, None], np.arange(nk)[None, :]
+    per_tile = np.where(kb < qb, block * block,
+                        np.where(kb == qb, block * (block + 1) // 2, 0))
+    return int((active * per_tile[None]).sum())
 
 
-def check_block_sparse():
-    """B5 (forward), B6 (dq) and B7 (dk, dv) against their plain versions at
-    every sparsity family, blocks 16-128, D 64 and 128, bf16 and f32, causal
-    and bidirectional, a per-head layout, layouts with a row that sees no
-    key, and the path's own shape (BERT-Large under BigBird at 4096); the
-    backward must be bit-reproducible and finite. Then times the three
-    kernels at the path's shape against their bounds, their plain versions,
-    F.scaled_dot_product_attention under the expanded boolean mask (the
-    library call: dense work under a mask) and the port's gather path."""
+def block_sparse_cases():
+    """``check_block_sparse``'s cases: name, layout (an array, or a config
+    name and its fields), block, B, T, H, D, dtype, causal."""
     import numpy as np
     import torch
 
-    from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bsa
-    from deepspeed_tpu_torch.ops.cuda.common import NEG_INF
-
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(20)
     bf16, f32 = torch.bfloat16, torch.float32
     empty = np.ones((1, 8, 8), np.int64)
     empty[0, 3] = 0                          # q-block 3 sees no key
@@ -949,8 +962,7 @@ def check_block_sparse():
         band_full_rows[0, r, max(r - 1, 0):r + 2] = 1
     band_full_rows[0, [2, 9]] = 1
     band_full_rows[0, 5] = 0
-    # name, layout (or config), block, B, T, H, D, dtype, causal
-    cases = [
+    return [
         ("dense_b16_d64", ("DenseSparsityConfig", {}), 16, 2, 256, 4, 64, bf16, False),
         ("fixed_causal_b16_d128_f32", ("FixedSparsityConfig", dict(
             num_local_blocks=4, attention="unidirectional")), 16, 2, 256, 4, 128, f32, True),
@@ -984,66 +996,221 @@ def check_block_sparse():
         # the mma.sync kernels at their largest block
         ("fixed_causal_b64_d64", ("FixedSparsityConfig", dict(
             num_local_blocks=4, attention="unidirectional")), 64, 2, 1024, 2, 64, bf16, True),
+        # the GPT route's shape (sparse_gpt): Mistral-7B's causal window at
+        # 16384, D 128, on 4 of its 32 heads (the plain versions' [B, H, T, T]
+        # f32 scores take 4.3 GB here, 34 GB at 32 heads)
+        ("gpt_window_causal_b128_d128", ("LocalSlidingWindowSparsityConfig", dict(
+            num_sliding_window_blocks=SPARSE_GPT_BLOCK["num_sliding_window_blocks"])),
+         128, 1, SPARSE_GPT_SEQ, 4, 128, bf16, True),
     ]
+
+
+def check_block_sparse():
+    """B5 (forward), B6 (dq) and B7 (dk, dv) against their plain versions
+    (o by max-abs and by each row's relative error, ``O_ROW_REL_TOL``; the
+    plain backward on the plain forward's o and lse) at every sparsity family, blocks 16-128, D 64 and 128, bf16 and f32, causal
+    and bidirectional, a per-head layout, layouts with a row that sees no
+    key, and the path's own shape (BERT-Large under BigBird at 4096); the
+    backward must be bit-reproducible and finite. Then times the three
+    kernels at the path's shape against their bounds, their plain versions,
+    F.scaled_dot_product_attention under the expanded boolean mask (the
+    library call: dense work under a mask) and the port's gather path; and
+    at the GPT route's shape (``time_block_sparse_gpt``)."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(20)
+    cases = block_sparse_cases()
     worst = {}
     path = None
-    for name, lay, block, b, t, h, d, dtype, causal in cases:
-        layout = (lay if isinstance(lay, np.ndarray)
-                  else _sparse_config(lay[0], h, block, **lay[1]).make_layout(t))
-        tables = bsa.build_index_tables(layout, dev)
-        qkv = torch.randn((b, t, 3 * h * d), generator=gen).to(dev, dtype)
-        q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
-        do = torch.randn((b, t, h, d), generator=gen).to(dev, dtype)
-        kw = dict(block=block, causal=causal)
-        o, lse = bsa.block_sparse_fwd(q, k, v, tables, **kw)
-        o2, lse2 = bsa.block_sparse_fwd(q, k, v, tables, **kw)
-        o_ref, lse_ref = bsa.block_sparse_attention_reference(q, k, v, layout, **kw)
-        got = bsa.block_sparse_bwd(q, k, v, o, lse, do, tables, **kw)
-        again = bsa.block_sparse_bwd(q, k, v, o, lse, do, tables, **kw)
-        want = bsa.block_sparse_attention_backward_reference(
-            q, k, v, o, lse, do, layout, **kw)
-        torch.cuda.synchronize()
-        dname = str(dtype).split(".")[-1]
-        tol = TOLERANCE[dname]
-        line = {"phase": "kernel", "kernel": "block_sparse_attention", "case": name,
-                "shape": [b, t, h, d], "block": block, "causal": causal,
-                "dtype": str(dtype), "layout_heads": int(layout.shape[0]),
-                "active_tiles": int((layout != 0).sum()),
-                "fwd_bit_reproducible": bool(torch.equal(o, o2) and torch.equal(lse, lse2)),
-                "o_max_abs_err": float((o.float() - o_ref.float()).abs().max()),
-                "lse_max_abs_err": float((lse - lse_ref).abs().max()), "tol": tol,
-                "grad_rel_tol": GRAD_REL_TOL[dname],
-                "grad_rel_err": {n: _rel_err(g, w) for n, g, w in
-                                 zip(("dq", "dk", "dv"), got, want)},
-                "grad_max_abs_err": {n: float((g.float() - w.float()).abs().max())
-                                     for n, g, w in zip(("dq", "dk", "dv"), got, want)},
-                "ref_grad_abs_max": {n: float(w.float().abs().max())
-                                     for n, w in zip(("dq", "dk", "dv"), want)},
-                "bit_reproducible": all(torch.equal(x, y) for x, y in zip(got, again)),
-                "finite": all(bool(torch.isfinite(x).all()) for x in (o, *got))}
-        ok = (min(line["ref_grad_abs_max"].values()) > 0
-              and line["o_max_abs_err"] <= tol["o"] and line["lse_max_abs_err"] <= tol["lse"]
-              and max(line["grad_rel_err"].values()) <= GRAD_REL_TOL[dname]
-              and line["bit_reproducible"] and line["fwd_bit_reproducible"]
-              and line["finite"])
-        if name.startswith("empty_row") or name.startswith("band_full_rows"):
-            seen = lse_ref > 0.5 * NEG_INF
-            line["empty_rows_zero"] = bool((o.float().transpose(1, 2)[~seen] == 0).all()
-                                           and (got[0].float().transpose(1, 2)[~seen] == 0).all()
-                                           and (lse[~seen] == lse_ref[~seen]).all()
-                                           and bool((~seen).any()))
-            ok = ok and line["empty_rows_zero"]
-        emit(line)
-        if not ok:
-            raise AssertionError(f"block_sparse_attention {name}: {line}")
+    for case in cases:
+        line, kept = check_sparse_case(case, gen, dev)
         worst["fwd"] = max(worst.get("fwd", 0.0), line["o_max_abs_err"])
         for n, e in line["grad_max_abs_err"].items():
             worst[n] = max(worst.get(n, 0.0), e)
-        if name == "bert_large_bigbird_4096":
-            path = (q, k, v, do, o, lse, layout, tables, block)
-        del o_ref, lse_ref, want, got, again, o2, lse2
+        if case[0] == "bert_large_bigbird_4096":
+            path = kept
+        del kept
     torch.cuda.empty_cache()
-    return time_block_sparse(path, worst)
+    entries = time_block_sparse(path, worst)
+    del path
+    free_cuda()
+    window = time_block_sparse_gpt()
+    for entry in entries:
+        # B5-B7 at the GPT route's shape (Mistral-7B's causal window)
+        entry["gpt_window_shape"] = window[entry["name"]]
+    return entries
+
+
+def check_sparse_case(case, gen, dev):
+    """One case of ``check_block_sparse``: the kernels against their plain
+    versions, bit-reproducible and finite (rows that see no key: zero).
+    Returns the line and the case's tensors ``(q, k, v, do, o, lse, layout,
+    tables, block)``; raises when a check fails."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.cuda.common import NEG_INF
+
+    name, lay, block, b, t, h, d, dtype, causal = case
+    layout = (lay if isinstance(lay, np.ndarray)
+              else _sparse_config(lay[0], h, block, **lay[1]).make_layout(t))
+    tables = bsa.build_index_tables(layout, dev)
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen).to(dev, dtype)
+    q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+    do = torch.randn((b, t, h, d), generator=gen).to(dev, dtype)
+    kw = dict(block=block, causal=causal)
+    o, lse = bsa.block_sparse_fwd(q, k, v, tables, **kw)
+    o2, lse2 = bsa.block_sparse_fwd(q, k, v, tables, **kw)
+    o_ref, lse_ref = bsa.block_sparse_attention_reference(q, k, v, layout, **kw)
+    got = bsa.block_sparse_bwd(q, k, v, o, lse, do, tables, **kw)
+    again = bsa.block_sparse_bwd(q, k, v, o, lse, do, tables, **kw)
+    # the plain backward runs on the plain forward's o and lse, so that a
+    # fault of B5 cannot reach both sides of the backward's check
+    want = bsa.block_sparse_attention_backward_reference(
+        q, k, v, o_ref, lse_ref, do, layout, **kw)
+    torch.cuda.synchronize()
+    dname = str(dtype).split(".")[-1]
+    tol = TOLERANCE[dname]
+    line = {"phase": "kernel", "kernel": "block_sparse_attention", "case": name,
+            "shape": [b, t, h, d], "block": block, "causal": causal,
+            "dtype": str(dtype), "layout_heads": int(layout.shape[0]),
+            "active_tiles": int((layout != 0).sum()),
+            "fwd_bit_reproducible": bool(torch.equal(o, o2) and torch.equal(lse, lse2)),
+            "o_max_abs_err": float((o.float() - o_ref.float()).abs().max()),
+            "lse_max_abs_err": float((lse - lse_ref).abs().max()), "tol": tol,
+            "o_row_rel_err": _row_rel_err(o, o_ref),
+            "o_row_rel_tol": O_ROW_REL_TOL[dname],
+            "grad_rel_tol": GRAD_REL_TOL[dname],
+            "grad_rel_err": {n: _rel_err(g, w) for n, g, w in
+                             zip(("dq", "dk", "dv"), got, want)},
+            "grad_max_abs_err": {n: float((g.float() - w.float()).abs().max())
+                                 for n, g, w in zip(("dq", "dk", "dv"), got, want)},
+            "ref_grad_abs_max": {n: float(w.float().abs().max())
+                                 for n, w in zip(("dq", "dk", "dv"), want)},
+            "bit_reproducible": all(torch.equal(x, y) for x, y in zip(got, again)),
+            "finite": all(bool(torch.isfinite(x).all()) for x in (o, *got))}
+    ok = (min(line["ref_grad_abs_max"].values()) > 0
+          and line["o_max_abs_err"] <= tol["o"] and line["lse_max_abs_err"] <= tol["lse"]
+          and line["o_row_rel_err"] <= O_ROW_REL_TOL[dname]
+          and max(line["grad_rel_err"].values()) <= GRAD_REL_TOL[dname]
+          and line["bit_reproducible"] and line["fwd_bit_reproducible"]
+          and line["finite"])
+    if name.startswith("empty_row") or name.startswith("band_full_rows"):
+        seen = lse_ref > 0.5 * NEG_INF
+        line["empty_rows_zero"] = bool((o.float().transpose(1, 2)[~seen] == 0).all()
+                                       and (got[0].float().transpose(1, 2)[~seen] == 0).all()
+                                       and (lse[~seen] == lse_ref[~seen]).all()
+                                       and bool((~seen).any()))
+        ok = ok and line["empty_rows_zero"]
+    emit(line)
+    if not ok:
+        raise AssertionError(f"block_sparse_attention {name}: {line}")
+    return line, (q, k, v, do, o, lse, layout, tables, block)
+
+
+def time_block_sparse_gpt():
+    """B5, B6 and B7 at the GPT route's shape, Mistral-7B's causal window
+    at [1, 16384, 32, 128] bf16, block 128 (a layout shared by the heads):
+    device time against the bound over the causal visible pairs, against
+    F.scaled_dot_product_attention under the expanded [T, T] boolean mask
+    (the library call: the same function, dense work under the mask), and
+    against B1-B3 over full causal attention at the same shape (what the
+    plain Mistral config runs). The plain versions hold [B, H, T, T] f32
+    scores, so they are timed at 4 heads (the kernel phase's
+    ``gpt_window_causal_b128_d128`` case checks the kernels against them
+    there). Returns ``{kernel: {...}}`` for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+
+    b, t, h, d = 1, SPARSE_GPT_SEQ, MISTRAL_7B["n_head"], 128
+    block = SPARSE_GPT_BLOCK["block"]
+    layout = _sparse_config(
+        "LocalSlidingWindowSparsityConfig", h, block,
+        num_sliding_window_blocks=SPARSE_GPT_BLOCK["num_sliding_window_blocks"]
+    ).make_layout(t)
+    tables = bsa.build_index_tables(layout, "cuda")
+    gen = torch.Generator().manual_seed(60)
+    q, k, v, do = (torch.randn((b, t, h, d), generator=gen)
+                   .to("cuda", torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = bsa.block_sparse_fwd(q, k, v, tables, block=block, causal=True)
+    delta = fa.bwd_delta(o, do)
+    args = (q, k, v, lse, delta, do, tables, block, True, scale)
+    times = {"block_sparse_fwd": device_ms(lambda: bsa._launch_fwd(
+                 q, k, v, tables, block, True, scale)),
+             "block_sparse_dq": device_ms(lambda: bsa._launch_dq(*args)),
+             "block_sparse_dkv": device_ms(lambda: bsa._launch_dkv(*args))}
+    # B1-B3 over full causal attention at the same shape
+    fo, flse = fa.flash_attention_fwd(q, k, v, causal=True)
+    fdelta = fa.bwd_delta(fo, do)
+    fargs = (q, k, v, flse, fdelta, do, None, True, scale)
+    flash = {"flash_attention_fwd": device_ms(
+                 lambda: fa._launch(q, k, v, None, True, scale))["ms"],
+             "flash_attention_bwd_dq": device_ms(
+                 lambda: fa._launch_dq(*fargs))["ms"],
+             "flash_attention_bwd_dkv": device_ms(
+                 lambda: fa._launch_dkv(*fargs))["ms"]}
+    del fo, flse, fdelta, fargs
+    # the plain versions at 4 heads
+    cut = [x[:, :, :4].contiguous() for x in (q, k, v, do)]
+    o4, lse4 = bsa.block_sparse_attention_reference(
+        *cut[:3], layout[:1], block=block, causal=True)
+    plain = {"fwd": device_ms(lambda: bsa.block_sparse_attention_reference(
+                 *cut[:3], layout[:1], block=block, causal=True), iters=3)["ms"],
+             "bwd": device_ms(lambda: bsa.block_sparse_attention_backward_reference(
+                 *cut[:3], o4, lse4, cut[3], layout[:1], block=block,
+                 causal=True), iters=3)["ms"]}
+    del cut, o4, lse4
+    free_cuda()
+    # the library call under the expanded boolean mask
+    mask = bsa.keep_mask(layout, block, True, q.device)[0, 0]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    sdpa_fwd = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), iters=5)["ms"]
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    sdpa_bwd = device_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), iters=5)["ms"]
+    del out, mask, qt, kt, vt
+    pairs = visible_pairs(layout, block, h, causal=True) * b
+    full_pairs = b * h * t * (t + 1) // 2
+    bthd, bht = b * t * h * d * 2, b * h * t * 4
+    out = {}
+    for name, key, n_ops, nbytes, library in (
+            ("block_sparse_fwd", "fwd", 4 * pairs * d, 4 * bthd + bht, sdpa_fwd),
+            ("block_sparse_dq", "bwd", 6 * pairs * d, 5 * bthd + 2 * bht, sdpa_bwd),
+            ("block_sparse_dkv", "bwd", 8 * pairs * d, 6 * bthd + 2 * bht, sdpa_bwd)):
+        bound_ms, bound_by = _bound(n_ops, nbytes, "bfloat16")
+        ms = times[name]["ms"]
+        flash_name = {"block_sparse_fwd": "flash_attention_fwd",
+                      "block_sparse_dq": "flash_attention_bwd_dq",
+                      "block_sparse_dkv": "flash_attention_bwd_dkv"}[name]
+        out[name] = {"shape": [b, t, h, d], "block": block, "causal": True,
+                     "ms": ms, "device_time": times[name],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "flops": n_ops, "bytes": nbytes,
+                     "tflops_per_s": n_ops / ms / 1e9,
+                     "plain_ms_4_heads": plain[key], "library_ms": library,
+                     "library": "F.scaled_dot_product_attention under the "
+                                "expanded [T, T] boolean mask",
+                     "full_causal_flash_ms": flash[flash_name]}
+    emit({"phase": "kernel", "kernel": "block_sparse_attention",
+          "case": "gpt_window_causal_16384_timing", "shape": [b, t, h, d],
+          "visible_pairs_per_head": pairs // (b * h),
+          "full_causal_pairs_per_head": full_pairs // (b * h),
+          "visible_share": pairs / full_pairs, "timing": out,
+          "kernels_fwd_bwd_ms": sum(times[n]["ms"] for n in times),
+          "full_causal_flash_fwd_bwd_ms": sum(flash.values()),
+          "note": "plain and SDPA backward times compute dq, dk and dv "
+                  "together; the plain versions at 4 heads"})
+    del q, k, v, do, o, lse, delta, args, tables
+    free_cuda()
+    return out
 
 
 def time_block_sparse(path, worst):
@@ -1272,14 +1439,15 @@ def eager_generate(engine, prompts, n, mask=None, temperature=0.0):
         engine.decode_chunk = chunk
 
 
-def compare_decode(engine, prompts, mask=None, n=32, seed=7):
+def compare_decode(engine, prompts, mask=None, n=32, seed=7,
+                   temperatures=(("greedy", 0.0), ("sampled", 0.8))):
     """Tokens of ``generate(n)`` from the decode graphs against eager
     decode, greedy and sampled (temperature 0.8, the engine's generator
     seeded alike before each), over three calls: a run length's first use
     runs uncaptured (the warm-up), its second captures, later ones
     replay."""
     out = {}
-    for name, temp in (("greedy", 0.0), ("sampled", 0.8)):
+    for name, temp in temperatures:
         calls = []
         for _ in range(3):
             engine._generator.manual_seed(seed)
@@ -3014,16 +3182,17 @@ def mistral_decode_logits(engine, prompts, mask, k=MISTRAL_LOGIT_STEPS):
     """The logits of the prefill's last position and of ``k`` greedy decode
     steps, through a ``CompiledStep`` like the engine's decode runs: called
     uncaptured (the reference), then its warm-up, capturing and replaying
-    calls, each after a fresh prefill into the same cache. Returns the
+    calls, each after a fresh prefill into the same cache (the engine's
+    cache kind: the ring of a window layout, else dense). Returns the
     eager logits, the generated tokens and whether each captured call's
     logits equal the eager ones bit for bit."""
     import torch
 
-    from deepspeed_tpu_torch.models.transformer_lm import KVCache
+    from deepspeed_tpu_torch.models.transformer_lm import kv_cache
     from deepspeed_tpu_torch.runtime.compiled_step import CompiledStep
 
     model = engine.module
-    cache = KVCache.empty(model.config, prompts.shape[0], engine.device)
+    cache = kv_cache(model.config, prompts.shape[0], engine.device)
 
     def steps(k, tok):
         out = []
@@ -3037,8 +3206,8 @@ def mistral_decode_logits(engine, prompts, mask, k=MISTRAL_LOGIT_STEPS):
     results = []
     with torch.inference_mode():
         for call in ("eager", "warmup", "capture", "replay"):
-            first, _ = model(prompts, attention_mask=mask, decode=True,
-                             cache=cache.reset())
+            # one pass, or the ring cache's block-aligned spans
+            first = engine._chunked_prefill(prompts, mask, cache.reset())
             first = first[:, -1]
             length = cache.length
             run = runs.eager if call == "eager" else runs
@@ -6472,6 +6641,354 @@ def phase_train_options():
     return paths
 
 
+# The GPT block-sparse route (ROADMAP A.6): Mistral-7B-v0.1 at its published
+# n_positions 32768 under a causal sliding window of 32 past blocks of 128
+# plus the query's own (4096-4223 keys: the block-granular form of the
+# published sliding_window 4096, a superset of it), on B5-B7
+SPARSE_GPT_BLOCK = {"mode": "local_sliding_window", "block": 128,
+                    "num_sliding_window_blocks": 65, "kernel": "pallas"}
+SPARSE_GPT_POSITIONS = 32768
+SPARSE_GPT_SEQ = 16384
+# ring_engaged: (past window blocks, leading global tokens, block)
+SPARSE_GPT_RING = (32, 0, 128)
+SPARSE_GPT_RING_SLOTS = 4224
+SPARSE_GPT_PROMPT_LENGTHS = (4500, 5000, 5500, 6000)
+SPARSE_GPT_PER_STEP = {"block_sparse_fwd": 2 * MISTRAL_TRAIN_LAYERS,
+                       "block_sparse_dq": MISTRAL_TRAIN_LAYERS,
+                       "block_sparse_dkv": MISTRAL_TRAIN_LAYERS,
+                       "fused_adamw": 1, "flash_attention_fwd": 0,
+                       "flash_attention_bwd_dq": 0,
+                       "flash_attention_bwd_dkv": 0}
+# the kernels' first step against the gather path's: the gathered f32
+# scores of one layer take 8.9 GB per tensor at 16384 (several live in its
+# backward, beside 24 GB of ZeRO-1 state), so the pair runs at the
+# shortest length the window's layout takes (65 blocks) rounded up: 66
+SPARSE_GPT_CMP_SEQ = 66 * 128
+SPARSE_GPT_FLASH_STEPS = 6
+
+
+def sparse_gpt_model(kernel="pallas", **over):
+    """Mistral-7B at n_positions 32768 rebuilt by ``apply_sparse_attention``
+    with ``SPARSE_GPT_BLOCK`` on ``kernel``."""
+    from deepspeed_tpu_torch.models.transformer_lm import GPT
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_attention_utils \
+        import apply_sparse_attention
+
+    return apply_sparse_attention(
+        GPT(mistral_config(n_positions=SPARSE_GPT_POSITIONS, **over)),
+        dict(SPARSE_GPT_BLOCK, kernel=kernel))
+
+
+def sparse_gpt_flops_per_token(cfg, seq):
+    """6N (non-embedding) plus the attention term of ``gpt_flops_per_token``
+    scaled to the causal visible pairs of the window, and the full causal
+    count beside it."""
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        LocalSlidingWindowSparsityConfig
+
+    block = SPARSE_GPT_BLOCK["block"]
+    layout = LocalSlidingWindowSparsityConfig(
+        num_heads=1, block=block,
+        num_sliding_window_blocks=SPARSE_GPT_BLOCK[
+            "num_sliding_window_blocks"]).make_layout(seq)
+    share = visible_pairs(layout, block, 1, causal=True) / (seq * (seq + 1) // 2)
+    full = gpt_flops_per_token(cfg, seq)
+    attn = 6 * cfg.n_layer * cfg.n_embd * seq
+    return {"model_6n_plus_visible_attention": full - attn + share * attn,
+            "model_6n_plus_full_causal_attention": full,
+            "visible_share": share}
+
+
+def _cache_bytes(cache):
+    return sum(t.numel() * t.element_size()
+               for t in (*cache.key, *cache.value, cache.valid, cache.index,
+                         getattr(cache, "slot_pos", None))
+               if t is not None)
+
+
+def sparse_gpt_serve():
+    """Serving at all 32 layers through ``init_inference`` (bf16, seed 0):
+    ``forward`` [1, 16384] on B5 (32 launches, no B1), its logits against
+    the gather path's on the same weights, timed against the plain Mistral
+    config's flash ``forward``; ``generate`` for 4 left-padded prompts of
+    4500-6000 tokens (longer than the 4224-slot ring: 128-token prefill
+    spans) and 32 greedy tokens, the decode graphs against eager decode,
+    each decode step's logits against the gather forward's at the same
+    positions, the ring's bytes against a dense cache's."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.transformer_lm import GPT, RingKVCache
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_attention_utils \
+        import ring_engaged, ring_storage_len
+
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = init_inference(sparse_gpt_model(), dtype="bf16", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = engine.module.config
+    ring = ring_engaged(cfg)
+    problems = []
+    if ring != SPARSE_GPT_RING or \
+            ring_storage_len(cfg, ring) != SPARSE_GPT_RING_SLOTS:
+        problems.append(f"ring {ring}, want {SPARSE_GPT_RING} and "
+                        f"{SPARSE_GPT_RING_SLOTS} slots")
+    gen = torch.Generator().manual_seed(3)
+    ids = torch.randint(0, cfg.vocab_size, (1, SPARSE_GPT_SEQ), generator=gen)
+    width = max(SPARSE_GPT_PROMPT_LENGTHS)
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (len(SPARSE_GPT_PROMPT_LENGTHS), width),
+                            generator=gen)
+    mask = torch.arange(width)[None, :] >= \
+        width - torch.tensor(SPARSE_GPT_PROMPT_LENGTHS)[:, None]
+    prompts = prompts * mask
+
+    reset_launches()
+    logits = engine(ids)
+    torch.cuda.synchronize()
+    forward_launches = read_launches()
+    toks = engine.generate(prompts, max_new_tokens=MISTRAL_NEW_TOKENS,
+                           attention_mask=mask)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if forward_launches["block_sparse_fwd"] != cfg.n_layer or \
+            forward_launches["flash_attention_fwd"]:
+        problems.append(f"forward launched B5 "
+                        f"{forward_launches['block_sparse_fwd']} and B1 "
+                        f"{forward_launches['flash_attention_fwd']} times, "
+                        f"want {cfg.n_layer} and 0")
+    if not bool(torch.isfinite(logits).all()) or tuple(logits.shape) != (
+            1, SPARSE_GPT_SEQ, cfg.vocab_size):
+        problems.append(f"logits {tuple(logits.shape)} not finite")
+    if tuple(toks.shape) != (len(SPARSE_GPT_PROMPT_LENGTHS),
+                             MISTRAL_NEW_TOKENS):
+        problems.append(f"generate returned {tuple(toks.shape)}")
+    cache = engine._decoder(len(SPARSE_GPT_PROMPT_LENGTHS))[0]
+    if not isinstance(cache, RingKVCache) or \
+            cache.key[0].shape[1] != SPARSE_GPT_RING_SLOTS:
+        problems.append(f"cache {type(cache).__name__} "
+                        f"{tuple(cache.key[0].shape)}")
+    ring_bytes = _cache_bytes(cache)
+    dense_bytes = (2 * cfg.n_layer * len(SPARSE_GPT_PROMPT_LENGTHS)
+                   * SPARSE_GPT_POSITIONS * cfg.kv_heads * cfg.head_dim * 2)
+
+    # the kernels' logits against the gather path's, the same weights
+    gather = init_inference(sparse_gpt_model("gather"), dtype="bf16",
+                            state_dict=engine.module.state_dict())
+    logits_g = gather(ids)
+    gather_rel = _rel_l2(logits, logits_g)
+    gather_top1 = float((logits.argmax(-1) == logits_g.argmax(-1))
+                        .float().mean())
+    del logits, logits_g
+    free_cuda()
+    forward_ms = wall_ms(lambda: engine(ids), reps=3)
+    flash = init_inference(GPT(mistral_config(
+        n_positions=SPARSE_GPT_POSITIONS)), dtype="bf16",
+        state_dict=engine.module.state_dict())
+    reset_launches()
+    flash(ids)
+    flash_b1 = read_launches()["flash_attention_fwd"]
+    flash_forward_ms = wall_ms(lambda: flash(ids), reps=3)
+    del flash
+    free_cuda()
+
+    decode = compare_decode(engine, prompts, mask, n=MISTRAL_NEW_TOKENS,
+                            temperatures=(("greedy", 0.0),))
+    dev = engine.device
+    dec_logits, dec_toks, graph_same = mistral_decode_logits(
+        engine, prompts.to(dev), mask.to(dev))
+    # the training sparse forward over the same sequences, one row at a
+    # time: the left-padded prompts, the fed tokens, right pads up to a
+    # length the layout takes (>= 65 blocks)
+    k = dec_toks.shape[1]
+    t_ref = max(SPARSE_GPT_CMP_SEQ, -(-(width + k) // 128) * 128)
+    rel, top1 = [], []
+    with torch.inference_mode():
+        for b in range(prompts.shape[0]):
+            row = torch.zeros((1, t_ref), dtype=torch.long, device=dev)
+            row_mask = torch.zeros((1, t_ref), dtype=torch.bool, device=dev)
+            row[0, :width], row_mask[0, :width] = prompts[b], mask[b]
+            row[0, width:width + k] = dec_toks[b]
+            row_mask[0, width:width + k] = True
+            full = gather.module(row, attention_mask=row_mask)
+            want = full[0, width - 1:width + k]
+            rel.append(_rel_l2(dec_logits[b], want))
+            top1.append(float((dec_logits[b].argmax(-1) == want.argmax(-1))
+                              .float().mean()))
+            del full, want
+    del gather, dec_logits
+    free_cuda()
+    n = MISTRAL_NEW_TOKENS
+    gen1_ms = wall_ms(lambda: engine.generate(prompts, max_new_tokens=1,
+                                              attention_mask=mask), reps=2)
+    gen_ms = wall_ms(lambda: engine.generate(prompts, max_new_tokens=n,
+                                             attention_mask=mask), reps=2)
+    eager_ms = wall_ms(lambda: eager_generate(engine, prompts, n, mask),
+                       reps=1)
+    line = {"phase": "sparse_gpt", "part": "serve",
+            "model": "mistral-7b-v0.1", "source": MISTRAL_SOURCE,
+            "params": sum(p.numel() for p in engine.module.parameters()),
+            "config": dict(MISTRAL_7B, n_positions=SPARSE_GPT_POSITIONS),
+            "sparse_attention": SPARSE_GPT_BLOCK, "reduced": {},
+            "ring": list(ring), "ring_slots": ring_storage_len(cfg, ring),
+            "dtype": "bf16", "init_s": init_s,
+            "forward_shape": [1, SPARSE_GPT_SEQ],
+            "forward_launches": forward_launches, "launches": launches,
+            "kernels_vs_gather_logits_rel_l2": gather_rel,
+            "kernels_vs_gather_top1_agreement": gather_top1,
+            "logits_rel_l2_tol": MISTRAL_LOGITS_REL_L2,
+            "forward_ms": forward_ms,
+            "forward_tokens_per_s": SPARSE_GPT_SEQ / forward_ms * 1e3,
+            "flash_full_causal_forward_ms": flash_forward_ms,
+            "flash_forward_b1_launches": flash_b1,
+            "prompt_lengths": list(SPARSE_GPT_PROMPT_LENGTHS),
+            "new_tokens": n, "prefill_ms": gen1_ms,
+            "decode_ms_per_token": (gen_ms - gen1_ms) / (n - 1),
+            "eager_decode_ms_per_token": (eager_ms - gen1_ms) / (n - 1),
+            "decode_graphs_vs_eager_tokens": decode,
+            "decode_graphs_vs_eager_logits_identical": graph_same,
+            "decode_vs_forward_logits_rel_l2": rel,
+            "decode_vs_forward_top1_agreement": top1,
+            "logit_steps": k, "forward_reference_length": t_ref,
+            "ring_cache_gb": ring_bytes / 1e9,
+            "dense_cache_gb_at_n_positions": dense_bytes / 1e9,
+            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(line)
+    if not gather_rel <= MISTRAL_LOGITS_REL_L2:
+        problems.append(f"kernels against gather: relative L2 {gather_rel}")
+    if flash_b1 != cfg.n_layer:
+        problems.append(f"the flash yardstick launched B1 {flash_b1} times")
+    if not decode["identical"] or not all(graph_same):
+        problems.append("decode graphs against eager decode differ")
+    if not max(rel) <= MISTRAL_LOGITS_REL_L2:
+        problems.append(f"ring decode against the forward: relative L2 {rel}")
+    if problems:
+        raise AssertionError(f"sparse_gpt serve: {problems}")
+    del engine, cache
+    free_cuda()
+    return launches, line
+
+
+def sparse_gpt_engine(kernel="pallas", attention=True):
+    """The 8-layer cut through ``initialize`` with ``GPT_PRETRAIN_CONFIG``
+    at micro 1 and the ``sparse_attention`` block on ``kernel`` (the engine
+    rebuilds the model onto the route); ``attention=False``: the plain
+    Mistral config (flash), the yardstick."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import GPT
+
+    model = GPT(mistral_config(n_layer=MISTRAL_TRAIN_LAYERS, remat=True,
+                               n_positions=SPARSE_GPT_POSITIONS))
+    config = dict(GPT_PRETRAIN_CONFIG, train_micro_batch_size_per_gpu=1)
+    if attention:
+        config["sparse_attention"] = dict(SPARSE_GPT_BLOCK, kernel=kernel)
+    return deepspeed_tpu_torch.initialize(model=model, config=config)[0]
+
+
+def sparse_gpt_train():
+    """Training at 8 layers, micro [1, 16384]: the kernels' first step
+    against the gather path's (loss, grad norm; at ``SPARSE_GPT_CMP_SEQ``),
+    then 12 captured steps against 12 uncaptured ones (bit for bit), B5 16
+    / B6 8 / B7 8 / B4 1 and no B1-B3 per step, the loss falling; the step
+    time, tokens/s and model TFLOP/s over the visible pairs; the plain
+    Mistral config's flash step at the same shape. Returns the captured
+    run's launches and the line."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    problems = []
+    cmp_batch = lm_batch(MISTRAL_7B["vocab_size"], 1, SPARSE_GPT_CMP_SEQ)
+    first = {}
+    for kernel in ("pallas", "gather"):
+        free_cuda()
+        engine = sparse_gpt_engine(kernel=kernel)
+        first[kernel] = (float(engine.train_batch(iter([cmp_batch]))),
+                         engine.get_global_grad_norm())
+        del engine
+    free_cuda()
+    batch = lm_batch(MISTRAL_7B["vocab_size"], 1, SPARSE_GPT_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    check, launches, losses, norms, times, e_losses, e_times = \
+        captured_against_eager(sparse_gpt_engine, [batch], STEPS)
+    ms, eager_ms = step_medians(times, e_times)
+    # the yardstick: the same widths on flash (B1-B3 over full causal)
+    free_cuda()
+    flash = sparse_gpt_engine(attention=False)
+    f_losses, _, f_times = train_steps(
+        flash, iter(RepeatingLoader([batch])), SPARSE_GPT_FLASH_STEPS)
+    del flash
+    free_cuda()
+    flash_ms = statistics.median(f_times[CAPTURE_WARMUP + 1:])
+    cfg = mistral_config(n_layer=MISTRAL_TRAIN_LAYERS)
+    fpt = sparse_gpt_flops_per_token(cfg, SPARSE_GPT_SEQ)
+    tokens = SPARSE_GPT_SEQ
+    line = {"phase": "sparse_gpt", "part": "train",
+            "model": f"mistral-7b-v0.1, {MISTRAL_TRAIN_LAYERS} layers",
+            "reduced": {"n_layer": f"32 -> {MISTRAL_TRAIN_LAYERS}"},
+            "config": dict(GPT_PRETRAIN_CONFIG,
+                           train_micro_batch_size_per_gpu=1,
+                           sparse_attention=SPARSE_GPT_BLOCK),
+            "batch": [1, SPARSE_GPT_SEQ], "losses": losses,
+            "eager_losses": e_losses, "captured_vs_eager": check,
+            "launches": launches, "steps": STEPS,
+            "step_ms_median": ms, "step_ms": times,
+            "eager_step_ms_median": eager_ms,
+            "tokens_per_s": tokens / ms * 1e3, "flops_per_token": fpt,
+            "model_tflops_per_s": tokens * fpt[
+                "model_6n_plus_visible_attention"] / ms / 1e9,
+            "flash_full_causal_step_ms_median": flash_ms,
+            "flash_full_causal_losses": [float(x) for x in f_losses],
+            "flash_full_causal_tokens_per_s": tokens / flash_ms * 1e3,
+            "flash_full_causal_model_tflops_per_s": tokens * fpt[
+                "model_6n_plus_full_causal_attention"] / flash_ms / 1e9,
+            "kernels_vs_gather_first_step": {
+                "batch": [1, SPARSE_GPT_CMP_SEQ],
+                "loss": [first["pallas"][0], first["gather"][0]],
+                "grad_norm": [first["pallas"][1], first["gather"][1]]},
+            "peak_allocated_gb": check["peak_allocated_gb"]}
+    emit(line)
+    if not all(np.isfinite(losses)):
+        problems.append("non-finite loss")
+    if not losses[-1] <= losses[0] - TRAIN_MIN_LOSS_DROP:
+        problems.append(f"loss did not fall by {TRAIN_MIN_LOSS_DROP}")
+    for name, per in {**SPARSE_GPT_PER_STEP, **UNSEGMENTED}.items():
+        if launches[name] != per * STEPS:
+            problems.append(f"{name}: {launches[name]} launches, want "
+                            f"{per} x {STEPS}")
+    (lp, gp), (lg, gg) = first["pallas"], first["gather"]
+    if abs(lp - lg) > SPARSE_LOSS_REL_TOL * abs(lg):
+        problems.append("kernels and gather losses disagree")
+    if abs(gp - gg) > SPARSE_GNORM_REL_TOL * abs(gg):
+        problems.append("kernels and gather grad norms disagree")
+    if not check["identical"]:
+        problems.append("captured and eager steps differ")
+    if problems:
+        raise AssertionError(f"sparse_gpt train: {problems}")
+    return launches, line
+
+
+def phase_sparse_gpt():
+    """The GPT block-sparse route with the ring KV cache (ROADMAP A.6) on
+    Mistral-7B's sliding window: serving at 32 layers, training at 8.
+    Returns the launch counts of the serve and train runs."""
+    import torch
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    serve, _ = sparse_gpt_serve()
+    t_serve = time.perf_counter() - t0
+    train, _ = sparse_gpt_train()
+    emit({"phase": "sparse_gpt", "part": "done", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0, "serve_seconds": t_serve,
+          "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return {"sparse_gpt_serve": serve, "sparse_gpt_train": train}
+
+
 def main(argv):
     import torch
 
@@ -6480,11 +6997,12 @@ def main(argv):
                                 (argv[1] == "--against"
                                  or argv[2] in ("zero", "data", "mistral",
                                                 "neox", "moe",
-                                                "train_options")))
+                                                "train_options",
+                                                "sparse_gpt")))
              or (len(argv) == 6 and argv[1] == "--zero-rank"))
     if not usage:
         print(f"usage: {argv[0]} [--against OTHER_CHECKOUT | "
-              "--only zero|data|mistral|neox|moe|train_options]",
+              "--only zero|data|mistral|neox|moe|train_options|sparse_gpt]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -6518,6 +7036,16 @@ def main(argv):
             flash_auto_sweep()
             free_cuda()
             emit({"train_options_launches_by_path": phase_train_options()})
+        elif argv[2] == "sparse_gpt":
+            import torch as _torch
+
+            window = [c for c in block_sparse_cases()
+                      if c[0] == "gpt_window_causal_b128_d128"]
+            check_sparse_case(window[0], _torch.Generator().manual_seed(20),
+                              _torch.device("cuda"))
+            free_cuda()
+            time_block_sparse_gpt()
+            emit({"sparse_gpt_launches_by_path": phase_sparse_gpt()})
         else:
             emit({"data_launches": phase_data()[0]})
         print(smi, flush=True)
@@ -6552,10 +7080,12 @@ def main(argv):
     moe_paths = phase_moe()
     free_cuda()
     option_paths = phase_train_options()
+    free_cuda()
+    sparse_gpt_paths = phase_sparse_gpt()
     paths = {"serve": serve_launches, "train": launches,
              "checkpoint": ckpt_launches, "sparse_train": sparse_launches,
              **zero_paths, "data": data_launches, **mistral_paths,
-             **neox_paths, **moe_paths, **option_paths}
+             **neox_paths, **moe_paths, **option_paths, **sparse_gpt_paths}
     for entry in kernels:
         # each slice's main path, its counts set to 0 just before it: serving
         # runs B1, GPT training, the checkpoint path, ZeRO (stages 0-2, and
@@ -6564,11 +7094,13 @@ def main(argv):
         # variant), Pythia's and Mixtral's training B1-B4 (BLOOM serves
         # without B1: ALiBi), BERT training under BigBird B4-B7, and the
         # training options' runs (each remat policy, dropout, PLD, BLOOM's
-        # fused head, chunked attention). "launches" is the count on the
-        # newest path that runs the kernel
+        # fused head, chunked attention), and Mistral's sliding window on
+        # the GPT block-sparse route (B5-B7, B4). "launches" is the count
+        # on the newest path that runs the kernel
         name = entry["name"]
         entry["launches_by_path"] = {p: counts[name] for p, counts in paths.items()}
-        entry["launches"] = (option_paths["remat_selective"][name]
+        entry["launches"] = (sparse_gpt_paths["sparse_gpt_train"][name]
+                             or option_paths["remat_selective"][name]
                              or option_paths["pld"][name]
                              or moe_paths["moe_train"][name]
                              or neox_paths["neox_train"][name]

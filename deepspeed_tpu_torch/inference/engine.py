@@ -2,7 +2,7 @@
 
 ``init_inference`` wraps a ``GPT`` for serving on one card: the weights are
 materialized on the device in the serving dtype, ``forward`` returns f32
-logits and ``generate`` runs prefill, then decodes over the dense KV cache
+logits and ``generate`` runs prefill, then decodes over the KV cache
 in runs of ``decode_chunk`` steps (default 32), as the JAX engine does
 (``generate``, ``deepspeed_tpu/inference/engine.py:650-680``): each run is
 the largest power of two of steps that fits in ``min(chunk, remaining)``,
@@ -16,6 +16,14 @@ size, reset at each prefill, whose buffers the graphs read and write; the
 host advances the cache's ``length`` by k after each run. Sampling draws
 from the engine's own generator, registered with each graph. Prefill and
 ``forward`` run eagerly.
+
+A model whose ``sparse_attention`` layout is a causal window (+ leading
+globals) decodes from the ring KV cache (``ring_engaged``;
+``models/transformer_lm.py`` ``RingKVCache``), which reproduces the
+training block-sparse attention: a prompt longer than the ring prefills in
+block-aligned spans (``prefill_chunk_spans``), and a rotary model streams
+past ``n_positions``. Another layout decodes over the dense cache, with a
+warning.
 
 ``init_inference(checkpoint=...)`` serves weights the training engine
 saved (``_load_checkpoint`` of the JAX engine, :681): a model-states file
@@ -39,7 +47,10 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.models.transformer_lm import (GPT, KVCache,
+                                                       kv_cache,
                                                        materialize_gpt)
+from deepspeed_tpu_torch.ops.sparse_attention.sparse_attention_utils import (
+    ring_engaged, ring_storage_len)
 from deepspeed_tpu_torch.runtime import checkpoint_manifest as ckpt_manifest
 from deepspeed_tpu_torch.runtime import moe_checkpoint as moe_ckpt
 from deepspeed_tpu_torch.runtime.checkpoint_engine import (MODEL_STATES,
@@ -53,10 +64,45 @@ _DTYPES = {None: None, "fp16": torch.float16, "float16": torch.float16,
 
 
 def prefill_chunk_spans(model_cfg, T: int):
-    """Spans of an exact chunked prefill. The port has only the dense cache,
-    where one pass is always exact, so this is always None (the ring cache
-    that needs spans is not ported)."""
-    return None
+    """Spans of an exact ring-cache prefill of a ``T``-token prompt (JAX
+    :64-90).
+
+    None when one pass is exact: a dense cache, or ``T <= ring_len`` from
+    an empty cache (no key is evicted before every query of the pass has
+    attended it). Otherwise block-aligned ``[(start, end), ...]`` spans of
+    at most one layout block: a pass over layout blocks ``[b0, b1]`` needs
+    blocks ``b0 - w_blk .. b1`` in the ring at once, and the ring holds
+    ``w_blk + 1`` blocks, so ``b1 == b0``. The partial tail stays inside
+    one block, so it is exact too."""
+    ring = ring_engaged(model_cfg) if model_cfg is not None else None
+    if ring is None:
+        return None
+    w_blk, g_tok, blk = ring
+    ring_len = ring_storage_len(model_cfg, ring)
+    if T <= ring_len:
+        return None
+    return [(s, min(s + blk, T)) for s in range(0, T, blk)]
+
+
+def continuation_chunk_spans(model_cfg, start: int, end: int):
+    """Spans of an exact continuation prefill of columns ``[start, end)``
+    on a cache that already holds ``start`` positions (JAX :92-125): a
+    prefix-cache admission resumes mid-prompt, at any ``start``. A pass
+    writing ``[s, e)`` evicts up to ``e - ring_len`` while its first query
+    needs block ``s // blk - w_blk``: exact when the span stays inside one
+    layout block. When ``end <= ring_len`` nothing is evicted and one pass
+    is exact; a dense cache is always one pass."""
+    if not 0 <= start < end:
+        raise ValueError(f"bad continuation span [{start}, {end})")
+    ring = ring_engaged(model_cfg) if model_cfg is not None else None
+    if ring is not None:
+        w_blk, g_tok, blk = ring
+        ring_len = ring_storage_len(model_cfg, ring)
+        if end > ring_len:
+            return [(s, min(end, (s // blk + 1) * blk))
+                    for s in range(start, end)
+                    if s == start or s % blk == 0]
+    return [(start, end)]
 
 
 def init_inference(model, config: Optional[Dict[str, Any]] = None,
@@ -197,6 +243,18 @@ class InferenceEngine:
         """``generate``; with ``eager`` the decode runs are called
         uncaptured on the card too (a reference for the decode graphs)."""
         cfg = self.module.config
+        # one ring decision per call (JAX :565-590): the dense-decode
+        # warning and the streaming exemption below read it; the cache
+        # made for this batch size consults the same function
+        ring = ring_engaged(cfg)
+        if cfg.sparse_attention is not None and ring is None:
+            warning_once(
+                "generate() on a sparse_attention-configured model: "
+                "this layout decodes with DENSE attention (training "
+                "was block-sparse); window/longformer layouts decode "
+                "sparse-exactly via the ring KV cache — including "
+                "prompts longer than the ring, which prefill in "
+                "block-aligned chunks — see docs/DIVERGENCES.md")
         ids = self._ids(input_ids)
         if attention_mask is not None:
             ids_np = ids.cpu().numpy()
@@ -225,7 +283,11 @@ class InferenceEngine:
         if max_new_tokens == 0:
             return torch.zeros((ids.shape[0], 0), dtype=torch.long,
                                device=self.device)
-        if ids.shape[1] + max_new_tokens > cfg.n_positions:
+        # a ring-cached model without a position table streams past
+        # n_positions (JAX :612-630): the ring evicts old window blocks and
+        # keeps the globals; a position table keeps the cap
+        streaming = ring is not None and not cfg.learned_positions
+        if ids.shape[1] + max_new_tokens > cfg.n_positions and not streaming:
             raise ValueError(
                 f"prompt ({ids.shape[1]}) + max_new_tokens ({max_new_tokens}) "
                 f"exceeds the KV cache capacity (n_positions={cfg.n_positions})")
@@ -234,8 +296,7 @@ class InferenceEngine:
                                         device=self.device)
 
         cache, decode = self._decoder(ids.shape[0])
-        logits, cache = self.module(ids, attention_mask=attention_mask,
-                                    decode=True, cache=cache.reset())
+        logits = self._chunked_prefill(ids, attention_mask, cache.reset())
         sampled = temperature > 0
         if sampled:
             self._temperature.fill_(temperature)
@@ -257,11 +318,26 @@ class InferenceEngine:
             remaining -= k
         return torch.cat(out, dim=1)
 
+    def _chunked_prefill(self, ids, attention_mask, cache: KVCache):
+        """Prefill ``ids`` into ``cache`` exactly (JAX :533-550): one pass
+        when that is exact, else block-aligned passes of at most one layout
+        block (``prefill_chunk_spans``). Returns the last pass's logits;
+        with left-padded prompts its last column is every row's last real
+        token. ``attention_mask`` [B, T] is required (``generate`` makes
+        one of ones when it is given none)."""
+        spans = prefill_chunk_spans(self.module.config, int(ids.shape[1]))
+        for s, e in spans or [(0, ids.shape[1])]:
+            logits, _ = self.module(ids[:, s:e],
+                                    attention_mask=attention_mask[:, s:e],
+                                    decode=True, cache=cache)
+        return logits
+
     def _decoder(self, batch: int):
-        """The KV cache and the decode runs kept for ``batch``."""
+        """The KV cache (dense, or the ring of a window layout) and the
+        decode runs kept for ``batch``."""
         entry = self._decoders.get(batch)
         if entry is None:
-            cache = KVCache.empty(self.module.config, batch, self.device)
+            cache = kv_cache(self.module.config, batch, self.device)
             gens = (self._generator,) if self.device.type == "cuda" else ()
             runs = CompiledStep(
                 functools.partial(self._decode_steps, cache), self.device,

@@ -18,7 +18,10 @@ place of positions, ``embed_layernorm`` after the embedding) and
 Mixtral's (``moe_num_experts`` > 0: the MLP becomes a top-k gated mixture
 of experts, ``moe/``), and the mixes between them that the config allows:
 the logits path (einsum, flash and chunked attention for full forwards,
-routed as JAX routes them, ``"auto"`` included; the dense-cache decode path)
+routed as JAX routes them, ``"auto"`` included; the block-sparse route of
+a ``sparse_attention`` layout, on the kernels B5-B7 or their plain
+versions; the dense-cache decode path, and the ring cache of a window
+layout)
 and the training path (``labels`` -> mean next-token cross entropy, or the
 fused head + CE, plus the experts' load-balancing loss; packed
 ``segment_ids``/``positions``; activation recomputation under JAX's four
@@ -44,11 +47,8 @@ _UNPORTED = {
     "flash_autotune": (False, "the flash block autotuner", "A.12"),
     "param_offload": (False, "parameter offload", "A.10"),
     "sequence_parallel": ("none", "sequence parallelism", "A.9"),
-    "sparse_attention": (None, "block-sparse attention", "A.6"),
-    "sparse_kv_cache": ("auto", "the ring KV cache", "A.6"),
     "quantized_weights": (False, "int8 weights", "A.8"),
     "kv_cache_dtype": (None, "the int8 KV cache", "A.8"),
-    "kv_cache_slack_blocks": (0, "the ring KV cache", "A.6"),
 }
 
 
@@ -120,8 +120,7 @@ class GPTConfig:
     moe_gated_experts: bool = False
 
     def __post_init__(self):
-        # the JAX config's own refusal (transformer_lm.py:195-200), before
-        # the unported block-sparse route would raise
+        # the JAX config's own refusals (transformer_lm.py:195-231)
         if self.sparse_attention is not None and self.alibi:
             raise ValueError(
                 "sparse_attention does not compose with alibi (the "
@@ -144,6 +143,27 @@ class GPTConfig:
             raise ValueError(
                 f"attention_chunk must be a positive int or None; got "
                 f"{self.attention_chunk!r}")
+        if not isinstance(self.kv_cache_slack_blocks, int) or \
+                self.kv_cache_slack_blocks < 0:
+            raise ValueError(
+                f"kv_cache_slack_blocks must be a non-negative int; got "
+                f"{self.kv_cache_slack_blocks!r}")
+        if self.sparse_kv_cache not in ("auto", True, False):
+            raise ValueError(
+                f"sparse_kv_cache must be 'auto', True or False; got "
+                f"{self.sparse_kv_cache!r}")
+        if self.sparse_kv_cache is True:
+            from deepspeed_tpu_torch.ops.sparse_attention.\
+                sparse_attention_utils import ring_decode_params
+
+            if (self.sparse_attention is None
+                    or ring_decode_params(self.sparse_attention) is None):
+                raise ValueError(
+                    "sparse_kv_cache=True needs a ring-expressible layout "
+                    "(causal sliding-window, or longformer with leading "
+                    "global blocks); BigBird's random links cannot be "
+                    "served from a bounded ring — use 'auto' to fall back "
+                    "to the dense cache")
         _remat_policy(self.remat_policy)  # raises for an unknown name
         # bool first: True is an int. "auto" decides per call; True or an
         # int >= 1 (the token chunk) forces the fused head, False or 0 not
@@ -243,7 +263,11 @@ def _remat_policy(name: str):
     and lse (B1 then runs once per layer), ``save_dots`` every product,
     batched ones included (B1 runs again: a kernel is not a dot),
     ``save_nothing_but_flash`` only B1's o and lse (``full`` on the einsum
-    path, where nothing carries those names), ``full`` nothing."""
+    path, where nothing carries those names), ``full`` nothing. On the
+    block-sparse route no policy keeps B5's output (its autograd function
+    launches through ctypes, which no policy sees): B5 runs again in every
+    recompute, as the Pallas kernel does under JAX's policies, and
+    ``selective``/``save_dots`` keep the products around it."""
     from deepspeed_tpu_torch.runtime.activation_checkpointing import \
         checkpointing as ac
 
@@ -464,8 +488,12 @@ class KVCache:
     length: int = 0
 
     @classmethod
-    def empty(cls, cfg: GPTConfig, batch: int, device) -> "KVCache":
-        shape = (batch, cfg.n_positions, cfg.kv_heads, cfg.head_dim)
+    def empty(cls, cfg: GPTConfig, batch: int, device, slots=None,
+              **fields) -> "KVCache":
+        """Zeroed buffers of ``slots`` cache slots (default
+        ``n_positions``)."""
+        slots = cfg.n_positions if slots is None else slots
+        shape = (batch, slots, cfg.kv_heads, cfg.head_dim)
 
         def zeros():
             return torch.zeros(shape, dtype=cfg.dtype, device=device)
@@ -473,11 +501,11 @@ class KVCache:
         return cls(
             key=[zeros() for _ in range(cfg.n_layer)],
             value=[zeros() for _ in range(cfg.n_layer)],
-            valid=torch.zeros((batch, cfg.n_positions), dtype=torch.bool,
+            valid=torch.zeros((batch, slots), dtype=torch.bool,
                               device=device),
             index=torch.zeros(batch, dtype=torch.long, device=device),
             position=(torch.zeros(batch, dtype=torch.long, device=device)
-                      if cfg.learned_positions else None))
+                      if cfg.learned_positions else None), **fields)
 
     def reset(self) -> "KVCache":
         """Empty again, in place: the buffers keep their addresses (a
@@ -490,22 +518,143 @@ class KVCache:
         self.length = 0
         return self
 
+    def step(self, cfg: GPTConfig, written: torch.Tensor) -> "_DecodeStep":
+        """The next call's slots ([B, T]: each row's next T), its validity
+        written (``written`` [B, T] bool: the real tokens) and the slots
+        each query may not see: later ones and those holding no real token
+        (JAX :589-633)."""
+        B, T = written.shape
+        if self.length + T > cfg.n_positions:
+            raise ValueError(
+                f"{T} more tokens overflow the KV cache ({self.length} "
+                f"of n_positions={cfg.n_positions} written)")
+        dev = written.device
+        slots = self.index[:, None] + torch.arange(T, device=dev)
+        rows = torch.arange(B, device=dev)[:, None]
+        self.valid[rows, slots] = written
+        k_pos = torch.arange(self.valid.shape[1], device=dev)
+        visible = (k_pos[None, None, :] <= slots[:, :, None]) \
+            & self.valid[:, None, :]                            # [B,T,S]
+        return _DecodeStep(self, rows, slots, (slots,),
+                           ~visible[:, None, None])
+
+
+@dataclasses.dataclass
+class RingKVCache(KVCache):
+    """The layout-aware ring decode cache (the JAX attention's ring branch,
+    ``transformer_lm.py:440-537``) of a window (+ leading globals) sparse
+    layout: only the slots the layout can still attend, so decode computes
+    the training block-sparse attention exactly.
+
+    ``ring`` is ``(w_blk, g_tok, blk)`` (``ring_engaged``) and ``ring_len``
+    the ring's storage (``ring_storage_len``): each buffer holds ``g_tok +
+    ring_len`` slots, the first ``g_tok`` for the leading global tokens.
+    Position p is written to slot ``g_tok + p % ring_len``, and a global
+    token also to slot p. ``slot_pos`` ([B, S], -1 = empty) holds each
+    slot's position, from which visibility is computed on the device:
+    ``0 <= slot_pos <= q_pos`` and either a global slot or a ring slot whose
+    block lies within ``w_blk`` blocks of the query's. A pass of more than
+    ``ring_len`` tokens would evict keys its own queries need, and raises.
+    Without a position table (rotary) nothing caps the stream; with one,
+    ``n_positions`` does, as for the dense cache."""
+
+    slot_pos: Optional[torch.Tensor] = None
+    ring: tuple = (0, 0, 1)
+    ring_len: int = 0
+
+    @classmethod
+    def empty(cls, cfg: GPTConfig, batch: int, device, *,
+              ring) -> "RingKVCache":
+        from deepspeed_tpu_torch.ops.sparse_attention.sparse_attention_utils \
+            import ring_storage_len
+
+        ring_len = ring_storage_len(cfg, ring)
+        slots = ring[1] + ring_len
+        return super().empty(
+            cfg, batch, device, slots=slots, ring=tuple(ring),
+            ring_len=ring_len,
+            slot_pos=torch.full((batch, slots), -1, dtype=torch.long,
+                                device=device))
+
+    def reset(self) -> "RingKVCache":
+        super().reset()
+        self.slot_pos.fill_(-1)
+        return self
+
+    def step(self, cfg: GPTConfig, written: torch.Tensor) -> "_DecodeStep":
+        B, T = written.shape
+        w_blk, g_tok, blk = self.ring
+        if T > self.ring_len:
+            raise ValueError(
+                f"ring KV prefill got {T} tokens in one pass but "
+                f"the ring retains only {self.ring_len} positions: keys "
+                "a mid-prompt query still needs would be evicted "
+                "before it attends, and the corrupted attention "
+                "outputs would poison every later layer's cache "
+                "(and with it every generated token). Prefill long "
+                "prompts in block-aligned chunks instead — "
+                "InferenceEngine.generate and the continuous-"
+                "batching scheduler do this automatically "
+                "(inference/engine.py prefill_chunk_spans).")
+        if cfg.learned_positions and self.length + T > cfg.n_positions:
+            raise ValueError(
+                f"{T} more tokens overflow the position table ({self.length} "
+                f"of n_positions={cfg.n_positions} written)")
+        dev = written.device
+        pos = self.index[:, None] + torch.arange(T, device=dev)   # [B, T]
+        slots = (g_tok + pos % self.ring_len,)
+        if g_tok:
+            # a leading-global token also lands in its own slot; the others
+            # write their ring slot again (the same values)
+            slots += (torch.where(pos < g_tok, pos, slots[0]),)
+        rows = torch.arange(B, device=dev)[:, None]
+        for slot in slots:
+            self.valid[rows, slot] = written
+            self.slot_pos[rows, slot] = pos
+        S = self.valid.shape[1]
+        q_pos = pos[:, :, None]                                  # [B, T, 1]
+        ps = self.slot_pos[:, None, :]                           # [B, 1, S]
+        is_glob = torch.arange(S, device=dev) < g_tok
+        in_window = ps.div(blk, rounding_mode="floor") >= \
+            q_pos.div(blk, rounding_mode="floor") - w_blk
+        visible = ((ps >= 0) & (ps <= q_pos)
+                   & (is_glob | (in_window & (ps >= g_tok)))
+                   & self.valid[:, None, :])                     # [B, T, S]
+        return _DecodeStep(self, rows, pos, slots, ~visible[:, None, None])
+
+
+def kv_cache(cfg: GPTConfig, batch: int, device) -> KVCache:
+    """An empty decode cache for ``batch`` rows: the ring cache when the
+    config's sparse layout engages it (``ring_engaged``), else the dense
+    cache."""
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_attention_utils \
+        import ring_engaged
+
+    ring = ring_engaged(cfg)
+    if ring is not None:
+        return RingKVCache.empty(cfg, batch, device, ring=ring)
+    return KVCache.empty(cfg, batch, device)
+
 
 @dataclasses.dataclass
 class _DecodeStep:
-    """What every layer of one decode call shares: the cache, the slots
-    ([B, T]) this call writes (also the rotary positions, JAX :589-594),
-    and the cache entries each query may not see ([B, 1, 1, T, S]: later
-    slots, and slots holding no real token)."""
+    """What every layer of one decode call shares: the cache, the rotary
+    positions ([B, T], JAX :589-594) and the slots this call writes (one or
+    more [B, T] sets), and the cache entries each query may not see ([B, 1,
+    1, T, S])."""
 
     cache: KVCache
     rows: torch.Tensor
-    slots: torch.Tensor
+    positions: torch.Tensor
+    slots: tuple
     hidden: torch.Tensor
 
     def write(self, buf, vals):
-        """``buf[b, slots[b, t]] = vals[b, t]`` (``.at[rows, pos].set``)."""
-        buf[self.rows, self.slots] = vals.to(buf.dtype)
+        """``buf[b, slots[b, t]] = vals[b, t]`` for each slot set
+        (``.at[rows, slots].set``)."""
+        vals = vals.to(buf.dtype)
+        for slots in self.slots:
+            buf[self.rows, slots] = vals
 
 
 def einsum_attention(q, k, v, *, causal=True, mask=None, segment_ids=None,
@@ -549,6 +698,15 @@ class CausalSelfAttention(nn.Module):
         self.c_proj = Dense(cfg.n_embd, cfg.n_embd, cfg, bias=bias)
         # the probabilities' and the output's dropout (JAX :756, :761)
         self.dropout = Dropout(cfg.dropout)
+        # the block-sparse route (JAX :649-667): its layouts, and through
+        # them the kernels' index tables, are made once per length
+        self.sparse = None
+        if cfg.sparse_attention is not None:
+            from deepspeed_tpu_torch.ops.sparse_attention import \
+                SparseSelfAttention
+
+            self.sparse = SparseSelfAttention(
+                cfg.sparse_attention, max_seq_length=cfg.n_positions)
 
     def _rope(self, t, positions):
         from deepspeed_tpu_torch.ops.rotary import apply_rotary_pos_emb
@@ -580,9 +738,10 @@ class CausalSelfAttention(nn.Module):
 
         if step is not None:
             if cfg.rotary:
-                # rotated at the cache slot, before the write: cached keys
-                # hold their phase (JAX :589-594)
-                q, k = self._rope(q, step.slots), self._rope(k, step.slots)
+                # rotated at the token's position, before the write: cached
+                # keys hold their phase (JAX :589-594)
+                q, k = (self._rope(q, step.positions),
+                        self._rope(k, step.positions))
             k_all, v_all = step.cache.key[layer], step.cache.value[layer]
             step.write(k_all, k)
             step.write(v_all, v)
@@ -597,7 +756,12 @@ class CausalSelfAttention(nn.Module):
                 att = att + alibi_bias(H, cfg.n_positions, att.dtype,
                                        x.device).view(Hkv, G, 1, -1)
             att = att.masked_fill(step.hidden, torch.finfo(att.dtype).min)
-            att = torch.softmax(att.float(), dim=-1).to(cfg.dtype)
+            att = torch.softmax(att.float(), dim=-1)
+            # a query that sees nothing gets no weight (JAX's
+            # softmax(where=visible) on the ring; on the dense cache such a
+            # query is a pad, whose output no valid entry or logit reads)
+            att = att.masked_fill(step.hidden, 0.0)
+            att = att.to(cfg.dtype)
             y = torch.matmul(att.view(B, Hkv, G * T, -1),
                              v_all.transpose(1, 2))              # [B,h,GT,D]
             y = y.view(B, Hkv, G, T, D).permute(0, 3, 1, 2, 4)
@@ -616,6 +780,19 @@ class CausalSelfAttention(nn.Module):
             # sums the per-head dk, dv over each group
             k = k.repeat_interleave(G, dim=2)
             v = v.repeat_interleave(G, dim=2)
+
+        if self.sparse is not None:
+            # taken whenever a layout is configured (JAX :649-667): "pallas"
+            # runs the block-sparse kernels (B5-B7), "gather" and "dense"
+            # their plain paths, and "pallas" with a padding mask warns and
+            # takes the dense path. No probability dropout on this route;
+            # the output's applies
+            kpm = None
+            if mask is not None:
+                kpm = torch.where(mask.bool(), 0.0,
+                                  torch.finfo(torch.float32).min)
+            y = self.sparse(q, k, v, key_padding_mask=kpm, causal=cfg.causal)
+            return self.dropout(self.c_proj(y.reshape(B, T, C)), rng)
 
         # the flax model's gates (transformer_lm.py:689-725) unchanged, so
         # both packages route the same shapes; the kernel itself takes any T
@@ -794,7 +971,8 @@ class GPT(nn.Module):
         caller (the training engine); None routes without noise.
 
         In training mode ``dropout_generator`` draws the dropout masks (JAX's
-        ``dropout`` stream; None: torch's default generator) and, with
+        ``dropout`` stream; None: torch's default generator; a
+        ``GlobalBatchDraws`` under data parallelism) and, with
         ``stochastic_mode`` and a ``pld_theta`` (a 0-dim f32 tensor, the
         progressive-layer-drop schedule's theta), one keep gate per layer,
         kept with ``pld_keep_probability``. ``remat`` recomputes each block
@@ -810,21 +988,25 @@ class GPT(nn.Module):
             raise NotImplementedError(
                 "packed-sequence segment_ids are a training-path feature; "
                 "decode caches are per-sequence")
+        if segment_ids is not None and cfg.sparse_attention is not None:
+            raise NotImplementedError(
+                "segment_ids with a block-sparse layout would silently "
+                "change the layout's visibility; unpack the batch or "
+                "disable sparse_attention")
         if segment_ids is not None and cfg.alibi:
             raise NotImplementedError(
                 "ALiBi's absolute-position bias is not segment-aware; "
                 "packed batches require rotary or learned positions")
         if decode and cache is None:
-            cache = KVCache.empty(cfg, B, dev)
+            cache = kv_cache(cfg, B, dev)
         pos = None
         if decode:
-            if cache.length + T > cfg.n_positions:
-                raise ValueError(
-                    f"{T} more tokens overflow the KV cache ({cache.length} "
-                    f"of n_positions={cfg.n_positions} written)")
+            step = cache.step(cfg, attention_mask.bool()
+                              if attention_mask is not None else
+                              torch.ones((B, T), dtype=torch.bool, device=dev))
             # a token's learned position is its count of real predecessors,
             # not its cache slot (left-padded ragged prompts); rotary phases
-            # are the slots themselves (see CausalSelfAttention)
+            # are the slots' positions (see CausalSelfAttention)
             if cfg.learned_positions and attention_mask is not None:
                 am = attention_mask.long()
                 pos = cache.position[:, None] + (am.cumsum(1) - 1).clamp_min(0)
@@ -832,15 +1014,6 @@ class GPT(nn.Module):
             elif cfg.learned_positions:
                 pos = cache.position[:, None] + torch.arange(T, device=dev)
                 cache.position += T
-            slots = cache.index[:, None] + torch.arange(T, device=dev)
-            rows = torch.arange(B, device=dev)[:, None]
-            cache.valid[rows, slots] = (
-                attention_mask.bool() if attention_mask is not None
-                else torch.ones((B, T), dtype=torch.bool, device=dev))
-            k_pos = torch.arange(cfg.n_positions, device=dev)
-            visible = (k_pos[None, None, :] <= slots[:, :, None]) \
-                & cache.valid[:, None, :]                           # [B,T,S]
-            step = _DecodeStep(cache, rows, slots, ~visible[:, None, None])
         elif cfg.learned_positions:
             pos = (positions if positions is not None
                    else torch.arange(T, device=dev)[None, :])
@@ -854,10 +1027,14 @@ class GPT(nn.Module):
         if cfg.stochastic_mode and pld_theta is not None and self.training:
             # one Bernoulli draw per layer from the dropout stream, made
             # before the blocks, so a recompute sees the same gates
+            from deepspeed_tpu_torch.runtime.activation_checkpointing \
+                import base_generator
+
             keep = pld_keep_probability(
                 torch.arange(cfg.n_layer, device=dev, dtype=torch.float32),
                 cfg.n_layer, pld_theta)
-            gates = torch.rand(cfg.n_layer, generator=dropout_generator,
+            gates = torch.rand(cfg.n_layer,
+                               generator=base_generator(dropout_generator),
                                device=dev) < keep
         # recomputation (nn.remat with the config's policy): the gating
         # noise comes in drawn and the dropout masks are handed back to the

@@ -1,19 +1,25 @@
 """Config-to-model wiring for block-sparse attention (counterpart of
 ``deepspeed_tpu/ops/sparse_attention/sparse_attention_utils.py``:
 ``get_sparse_attention_config`` :53, ``apply_sparse_attention`` :93,
-``pad_to_block_size`` :124 and ``unpad_sequence_output`` :143).
+``pad_to_block_size`` :124, ``unpad_sequence_output`` :143 and the ring KV
+cache helpers ``ring_decode_params``, ``ring_engaged``, ``ring_storage_len``,
+``RING_DECLINES`` and ``_decline_demanded_ring`` :151-255).
 
 As in the JAX package, the model's *config* carries an optional
 ``sparse_attention`` field (a :class:`SparsityConfig`) and the attention
 module routes on it; :func:`apply_sparse_attention` returns the model
 rebuilt with that field populated, and ``deepspeed_tpu_torch.initialize``
 calls it when the DeepSpeed config has a ``sparse_attention`` block. The
-ring KV cache helpers of the JAX module belong to GPT decoding and are not
-ported yet.
+ring helpers decide whether a GPT decodes from the layout-aware ring cache
+(``models/transformer_lm.py`` ``RingKVCache``). A declined demand for the
+ring warns and is recorded in ``RING_DECLINES``; the JAX helper also
+publishes it on its telemetry bus, which the port does not have until
+ROADMAP A.11.
 """
 
 import dataclasses
 import inspect
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -89,10 +95,10 @@ def apply_sparse_attention(model, sparse_config):
     ``sparse_config`` is the DeepSpeed ``sparse_attention`` dict (or an
     already-built :class:`SparsityConfig`). The model's config dataclass
     must have a ``sparse_attention`` field and a ``num_attention_heads`` (or
-    ``n_head``) count. The port's models hold their parameters on the meta
-    device until an engine materializes them, so the rebuilt model is a new
-    ``type(model)(config)``: weights are supplied to the engine separately.
-    A ``GPT`` refuses the field (its sparse route is not ported yet).
+    ``n_head``) count: ``BertForPreTraining`` and ``GPT`` here. The port's
+    models hold their parameters on the meta device until an engine
+    materializes them, so the rebuilt model is a new ``type(model)(config)``:
+    weights are supplied to the engine separately.
     """
     cfg = getattr(model, "config", None)
     if cfg is None or not dataclasses.is_dataclass(cfg) or not any(
@@ -100,7 +106,7 @@ def apply_sparse_attention(model, sparse_config):
         raise NotImplementedError(
             f"{type(model).__name__} does not support sparse attention "
             f"injection (its config has no 'sparse_attention' field); "
-            f"supported: BertForPreTraining")
+            f"supported: BertForPreTraining and GPT")
     num_heads = getattr(cfg, "num_attention_heads",
                         getattr(cfg, "n_head", None))
     if num_heads is None:
@@ -138,3 +144,95 @@ def unpad_sequence_output(pad_len: int, sequence_output):
     if pad_len == 0:
         return sequence_output
     return sequence_output[:, :-pad_len]
+
+
+def ring_decode_params(sparsity_config):
+    """``(past_window_blocks, global_tokens, block)`` when the layout's
+    decode-time visibility is "a sliding window of whole blocks plus a
+    contiguous run of leading global blocks", the shape a ring KV cache can
+    serve exactly, else None.
+
+    Expressible: :class:`LocalSlidingWindowSparsityConfig` (a causal window)
+    and a causal :class:`BSLongformerSparsityConfig` whose global blocks
+    are a leading contiguous run. BigBird's per-row random links reach
+    arbitrary past blocks, which a bounded ring cannot keep; the fixed and
+    variable patterns' row-block structure exceeds window + globals too.
+    """
+    sc = sparsity_config
+    if isinstance(sc, LocalSlidingWindowSparsityConfig):
+        if sc.attention != "unidirectional":
+            return None
+        return sc.num_sliding_window_blocks // 2, 0, sc.block
+    if isinstance(sc, BSLongformerSparsityConfig):
+        if sc.attention != "unidirectional":
+            return None
+        idx = list(sc.global_block_indices)
+        if sc.global_block_end_indices is None:
+            spans = [(g, g + 1) for g in idx]
+        else:
+            spans = list(zip(idx, sc.global_block_end_indices))
+        blocks = sorted({b for s, e in spans for b in range(s, e)})
+        if blocks != list(range(len(blocks))):
+            return None  # globals not a leading contiguous run
+        return (sc.num_sliding_window_blocks // 2, len(blocks) * sc.block,
+                sc.block)
+    return None
+
+
+def ring_engaged(model_cfg):
+    """The one decision the model's decode cache and the inference engine's
+    dense-decode warning both consult: the ring parameters when this model
+    config decodes through the ring KV cache, else None (the dense cache).
+
+    ``sparse_kv_cache="auto"`` takes the ring only when it is smaller than
+    the dense cache and declines silently otherwise; ``True`` demands it
+    whatever its size, and a layout with no ring expression then warns and
+    is recorded (``_decline_demanded_ring``); ``False`` never rings."""
+    sc = getattr(model_cfg, "sparse_attention", None)
+    if sc is None:
+        return None
+    if getattr(model_cfg, "sparse_kv_cache", False) not in ("auto", True):
+        return None
+    demanded = getattr(model_cfg, "sparse_kv_cache", False) is True
+    ring = ring_decode_params(sc)
+    if ring is None:
+        if demanded:
+            _decline_demanded_ring(
+                f"layout {type(sc).__name__} has no ring expression")
+        return None
+    w_blk, g_tok, blk = ring
+    if not demanded and g_tok + (w_blk + 1) * blk >= model_cfg.n_positions:
+        return None
+    return ring
+
+
+def ring_storage_len(model_cfg, ring) -> int:
+    """The ring's capacity in tokens: the ``w_blk + 1`` blocks decode
+    visibility needs, plus ``kv_cache_slack_blocks`` blocks of storage.
+
+    Slack changes no result (visibility is by an entry's position, so more
+    blocks only delay overwriting) but makes an unaligned multi-token pass
+    exact: with one slack block a pass of at most ``block`` tokens never
+    evicts an entry one of its own queries still needs (a speculative
+    decode's verify pass). Chunked prefill splits at block boundaries and
+    needs none. The model's cache and the engine's spans both size the ring
+    here."""
+    w_blk, g_tok, blk = ring
+    slack = int(getattr(model_cfg, "kv_cache_slack_blocks", 0) or 0)
+    return (w_blk + 1 + slack) * blk
+
+
+# the reasons, newest last, for which an explicit sparse_kv_cache=True was
+# declined ("auto" declines are silent)
+RING_DECLINES: list = []
+
+
+def _decline_demanded_ring(reason: str) -> None:
+    """``sparse_kv_cache=True`` is a demand: record and warn rather than
+    decode densely in silence (dense decode sees more keys than the sparse
+    training did)."""
+    RING_DECLINES.append(reason)
+    warnings.warn(
+        "sparse_kv_cache=True but the ring KV cache is NOT engaged; decode "
+        f"falls back to DENSE attention: {reason}", RuntimeWarning,
+        stacklevel=3)

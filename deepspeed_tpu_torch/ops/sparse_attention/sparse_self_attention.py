@@ -46,10 +46,13 @@ _CONST_CACHE_MAX = 256
 def _cached_constant(key, make):
     """``make()`` (a device tensor) kept under ``key``: made once, least
     recently used first out, and held by a CUDA graph captured over the
-    call, so that a captured step copies nothing from the host."""
+    call, so that a captured step copies nothing from the host. It is made
+    outside inference mode, so that a constant first made while serving
+    can index a training step's tensors (autograd saves the indices)."""
     t = _CONST_CACHE.get(key)
     if t is None:
-        t = _CONST_CACHE[key] = make()
+        with torch.inference_mode(False):
+            t = _CONST_CACHE[key] = make()
         while len(_CONST_CACHE) > _CONST_CACHE_MAX:
             _CONST_CACHE.popitem(last=False)
     else:
@@ -165,6 +168,13 @@ def gathered_blocksparse_attention(q, k, v, layout, *, block: int,
     if t != nq * block:
         raise ValueError(
             f"layout covers {nq * block} positions, inputs have {t}")
+    if h_layout > 1 and (layout == layout[:1]).all():
+        # heads that share one layout share its tables and masks
+        layout, h_layout = layout[:1], 1
+    # the layout's identity for its derived constants: hashing the layout,
+    # not the (up to [heads, nq, block, W, block]) masks made from it
+    lay_key = ("gather", _digest(layout), layout.shape, int(block),
+               bool(causal), str(q.device))
 
     counts = layout.sum(axis=-1).max(axis=0)          # [nq], max over heads
     light_rows, heavy_rows = _partition_rows(counts, nk)
@@ -224,12 +234,16 @@ def gathered_blocksparse_attention(q, k, v, layout, *, block: int,
         valid = put(idx >= 0)                         # [hL, nL, W] static
         s = torch.where(valid[None, :, :, None, :, None], s, neg)
         if causal:
-            q_pos = (light_rows[:, None] * block
-                     + np.arange(block)[None, :])     # [nL, block]
-            k_pos = idx[..., None] * block + np.arange(block)
-            cm = (k_pos[:, :, None, :, :]
-                  <= q_pos[None, :, :, None, None])   # [hL,nL,block,W,block]
-            s = torch.where(put(cm)[None], s, neg)
+            def light_causal():
+                q_pos = (light_rows[:, None] * block
+                         + np.arange(block)[None, :])     # [nL, block]
+                k_pos = idx[..., None] * block + np.arange(block)
+                cm = (k_pos[:, :, None, :, :]
+                      <= q_pos[None, :, :, None, None])   # [hL,nL,block,W,block]
+                return torch.from_numpy(cm).to(dev)
+
+            cm = _cached_constant(lay_key + ("light_causal",), light_causal)
+            s = torch.where(cm[None], s, neg)
         if amp is not None:
             flat = amp.permute(0, 2, 1, 3).reshape(nq * nq, block, block)
             pair = light_rows[None, :, None] * nq + np.maximum(idx, 0)
@@ -250,13 +264,17 @@ def gathered_blocksparse_attention(q, k, v, layout, *, block: int,
         row_mask = put(layout[:, heavy_rows] != 0)    # [hL, nH, nk] static
         s = torch.where(row_mask[None, :, :, None, :, None], s, neg)
         if causal:
-            q_pos = (heavy_rows[:, None] * block
-                     + np.arange(block)[None, :])     # [nH, block]
-            k_pos = (np.arange(nk)[:, None] * block
-                     + np.arange(block)[None, :])     # [nk, block]
-            cm = (k_pos[None, None, :, :]
-                  <= q_pos[:, :, None, None])         # [nH, block, nk, block]
-            s = torch.where(put(cm)[None, None], s, neg)
+            def heavy_causal():
+                q_pos = (heavy_rows[:, None] * block
+                         + np.arange(block)[None, :])     # [nH, block]
+                k_pos = (np.arange(nk)[:, None] * block
+                         + np.arange(block)[None, :])     # [nk, block]
+                cm = (k_pos[None, None, :, :]
+                      <= q_pos[:, :, None, None])         # [nH, block, nk, block]
+                return torch.from_numpy(cm).to(dev)
+
+            cm = _cached_constant(lay_key + ("heavy_causal",), heavy_causal)
+            s = torch.where(cm[None, None], s, neg)
         if amp is not None:
             am_h = amp[put(heavy_rows)]               # [nH, block, nq, block]
             s = apply_am(s, am_h[None, None])

@@ -27,7 +27,10 @@ this one maps it onto ``torch.utils.checkpoint`` (non-reentrant):
   handed back, in order, in its recompute, so the recompute sees the
   forward's dropout masks without reading or restoring any generator state
   (which a captured CUDA step may not do). A draw inside a checkpoint that
-  is itself nested in another is not supported (no model nests them);
+  is itself nested in another is not supported (no model nests them).
+  Under data parallelism each mask is drawn over the global micro batch
+  and the rank keeps its rows (``GlobalBatchDraws``): what is recorded and
+  handed back is that slice;
 * the Megatron RNG-state tracker -> ``RNGStateTracker`` over named
   ``torch.Generator``s.
 
@@ -36,6 +39,7 @@ API of the reference.
 """
 
 import contextlib
+import dataclasses
 import threading
 from typing import Any, Callable, Optional
 
@@ -206,19 +210,48 @@ def _drawing(draws: _Draws, replay: bool):
         _current.draws = previous
 
 
-def bernoulli_mask(shape, p: float, generator: Optional[torch.Generator],
-                   device) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class GlobalBatchDraws:
+    """A mask generator under data parallelism: ``bernoulli_mask`` draws
+    each mask over the global micro batch (``world`` times the rank's rows
+    on dim 0) from ``generator`` and keeps this rank's rows, ``rank * b ..
+    (rank + 1) * b``, as the JAX engine draws one mask over the global
+    batch. Every rank draws alike, so the generators stay equal; draws that
+    are not per row (the stochastic-depth gates, ``base_generator``) are
+    equal on every rank."""
+
+    generator: torch.Generator
+    rank: int
+    world: int
+
+
+def base_generator(generator):
+    """The ``torch.Generator`` behind a ``GlobalBatchDraws`` (or
+    ``generator`` itself)."""
+    return getattr(generator, "generator", generator)
+
+
+def bernoulli_mask(shape, p: float, generator, device) -> torch.Tensor:
     """A ``bool`` tensor of ``shape`` whose entries are True with probability
-    ``p``, drawn from ``generator`` (``jax.random.bernoulli``'s meaning).
-    Inside a checkpointed call the forward's draw is recorded and its
-    recompute gets the same tensor back without drawing."""
+    ``p``, drawn from ``generator`` (``jax.random.bernoulli``'s meaning; a
+    ``GlobalBatchDraws`` draws the global batch's mask and keeps this
+    rank's rows). Inside a checkpointed call the forward's draw is recorded
+    and its recompute gets the same tensor back without drawing."""
     draws = getattr(_current, "draws", None)
     if draws is not None and draws.replaying:
         mask = draws.masks[draws.next]
         draws.next += 1
         return mask
-    mask = torch.empty(shape, dtype=torch.bool, device=device).bernoulli_(
-        p, generator=generator)
+    if isinstance(generator, GlobalBatchDraws):
+        rows = shape[0]
+        full = torch.empty((rows * generator.world, *shape[1:]),
+                           dtype=torch.bool, device=device).bernoulli_(
+            p, generator=generator.generator)
+        # a copy of the rank's rows: the global draw is freed at once
+        mask = full[generator.rank * rows:(generator.rank + 1) * rows].clone()
+    else:
+        mask = torch.empty(shape, dtype=torch.bool, device=device).bernoulli_(
+            p, generator=generator)
     if draws is not None:
         draws.masks.append(mask)
     return mask

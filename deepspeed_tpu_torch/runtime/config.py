@@ -14,7 +14,9 @@ dtype of the gradient exchange; unset, the gradients' own),
 (applied by the engine), ``data_pipeline`` and ``curriculum_learning``
 (the engine's data path), ``checkpoint`` (``keep_n``, ``verify``,
 ``tag_validation``), ``nebula`` (the asynchronous checkpoint engine) and
-``wall_clock_breakdown``. ``unported_features()`` names every other block
+``wall_clock_breakdown``; ``amp`` parses and is inert, as in the JAX
+package (which keeps it for config compatibility and reads it nowhere).
+``unported_features()`` names every other block
 that is enabled, with the ROADMAP item that ports it; the engine refuses
 to train with any of them.
 """
@@ -617,26 +619,29 @@ class DeepSpeedConfig:
             ("zero_optimization.offload_param (parameter offload, "
              "ROADMAP A.10)",
              (zero.offload_param or {}).get("device", "none") != "none"),
-            ("sentinel", self.sentinel.enabled),
-            ("step_profiler", self.step_profiler.enabled),
-            ("flops_profiler", self.flops_profiler.enabled),
-            ("tensorboard", self.tensorboard.enabled),
-            ("wandb", self.wandb.enabled),
-            ("csv_monitor", self.csv_monitor.enabled),
-            ("graceful_shutdown", self.graceful_shutdown.enabled),
-            ("pipeline", self.pipeline.to_dict() != PipelineConfig().to_dict()),
+            ("sentinel (ROADMAP A.11)", self.sentinel.enabled),
+            ("step_profiler (ROADMAP A.11)", self.step_profiler.enabled),
+            ("flops_profiler (ROADMAP A.11)", self.flops_profiler.enabled),
+            ("tensorboard (ROADMAP A.11)", self.tensorboard.enabled),
+            ("wandb (ROADMAP A.11)", self.wandb.enabled),
+            ("csv_monitor (ROADMAP A.11)", self.csv_monitor.enabled),
+            ("graceful_shutdown (ROADMAP A.11)",
+             self.graceful_shutdown.enabled),
+            ("pipeline (ROADMAP A.9)",
+             self.pipeline.to_dict() != PipelineConfig().to_dict()),
             ("activation_checkpointing.cpu_checkpointing (activation "
              "offload, ROADMAP A.10)",
              bool(self.activation_checkpointing.cpu_checkpointing)),
             ("tpu.mesh tp/pp/ep/sp > 1 (the other mesh axes, ROADMAP A.9)",
              any(getattr(mesh, ax) != 1 for ax in ("tp", "pp", "ep", "sp"))),
-            ("tpu.step_autotune", self.tpu.step_autotune_config.enabled),
-            ("tpu.cluster_health",
+            ("tpu.step_autotune (ROADMAP A.12)",
+             self.tpu.step_autotune_config.enabled),
+            ("tpu.cluster_health (ROADMAP A.11)",
              self.tpu.cluster_health_config.enabled is True),
-            ("amp", self.amp.enabled),
-            ("eigenvalue", self.eigenvalue.enabled),
-            ("compression_training", bool(self.compression_training)),
-            ("quantize_training",
+            ("eigenvalue (ROADMAP A.12)", self.eigenvalue.enabled),
+            ("compression_training (ROADMAP A.12)",
+             bool(self.compression_training)),
+            ("quantize_training (ROADMAP A.12)",
              bool(self.quantize_training.get("enabled", False))),
             ("checkpoint.load_universal (the universal checkpoint, "
              "ROADMAP A.12)", bool(self.load_universal_checkpoint)),

@@ -104,7 +104,10 @@ per step, ``pld_theta`` from ``_pld_model_kwargs`` :1257-1271): a GPT with
 ``dropout > 0`` or ``stochastic_mode`` gets a second generator on the
 engine's device (``_dropout_gen``), handed to the model with each training
 forward; like the gating generator it is registered with every captured
-step and saved in a tag. Under ``progressive_layer_drop`` the engine keeps
+step and saved in a tag. Under data parallelism each rank draws every
+mask over the global micro batch and keeps its rows
+(``activation_checkpointing.GlobalBatchDraws``), so a dp run draws the
+masks of the one-rank run at the global micro batch, row for row. Under ``progressive_layer_drop`` the engine keeps
 the global step in a device counter (``_pld_step``, advanced inside the
 step functions) and computes ``pld_theta`` from it in the step, so a replay
 needs no host write; the host schedule (``progressive_layer_drop``) is
@@ -137,6 +140,8 @@ from deepspeed_tpu_torch.moe.layer import draw_gating_noise
 from deepspeed_tpu_torch.parallel.mesh import (MeshTopology,
                                                set_default_topology)
 from deepspeed_tpu_torch.runtime import activation_checkpointing
+from deepspeed_tpu_torch.runtime.activation_checkpointing import \
+    GlobalBatchDraws
 from deepspeed_tpu_torch.runtime import checkpoint_manifest as ckpt_manifest
 from deepspeed_tpu_torch.runtime import layout
 from deepspeed_tpu_torch.runtime import moe_checkpoint as moe_ckpt
@@ -863,7 +868,14 @@ class DeepSpeedEngine:
         dropout generator and ``pld_theta``, where the model has them."""
         draws = self._gating(batch)
         if self._dropout_gen is not None:
-            draws["dropout_generator"] = self._dropout_gen
+            # as the gating noise: each rank draws the global micro batch's
+            # masks and keeps its rows (the stochastic-depth gates are per
+            # layer, and equal on every rank)
+            dp = self.data_parallel_size
+            draws["dropout_generator"] = (
+                self._dropout_gen if dp == 1 else GlobalBatchDraws(
+                    self._dropout_gen, self.topology.data_parallel_rank(),
+                    dp))
         theta = self.pld_theta()
         if theta is not None:
             draws["pld_theta"] = theta

@@ -18,6 +18,7 @@ processes, ``python tests/test_torch_data.py --worker ...``, torch only;
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -289,25 +290,34 @@ def test_prefetcher_is_transparent_and_counts_like_jax():
 
 def test_prefetcher_starved_gets_follow_a_slow_loader():
     """A loader slower than the consumer starves every get; a fast one,
-    once the queue has filled, none."""
+    once the queue has filled, none. The fast loader's first item waits
+    for a gate that a timer opens only after the consumer has asked for it,
+    so the first get finds the queue empty by construction (the worker
+    starts inside that ``next``, and could otherwise fill the queue before
+    the consumer looks)."""
     class Slow:
-        def __init__(self, delay):
-            self.delay, self.i = delay, 0
+        def __init__(self, delay, gate=None):
+            self.delay, self.i, self.gate = delay, 0, gate
 
         def __iter__(self):
             return self
 
         def __next__(self):
+            if self.gate is not None:
+                self.gate.wait()
             time.sleep(self.delay)
             self.i += 1
             return {"x": np.full((1,), self.i)}
 
+    gate = threading.Event()
     slow = DevicePrefetcher(Slow(0.25), depth=2)
-    fast = DevicePrefetcher(Slow(0.0), depth=2)
+    fast = DevicePrefetcher(Slow(0.0, gate), depth=2)
+    opener = threading.Timer(0.5, gate.set)
     try:
         for _ in range(3):
             next(slow)
         assert slow.counters()["prefetch_starved_gets"] == 3.0
+        opener.start()
         next(fast)
         time.sleep(0.3)
         for _ in range(3):
@@ -317,6 +327,8 @@ def test_prefetcher_starved_gets_follow_a_slow_loader():
         assert c["prefetch_starved_gets"] == 1.0
         assert c["prefetch_queue_depth_max"] == 2.0
     finally:
+        opener.cancel()
+        gate.set()
         slow.stop()
         fast.stop()
 

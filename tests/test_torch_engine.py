@@ -12,6 +12,8 @@ sides hold only rounding noise there, and Adam normalizes that noise to
 steps of +-lr, so it is held to K * 2 * lr.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -212,6 +214,41 @@ def test_enabled_unported_block_raises(block):
                                        config=_config(**block), device="cpu")
 
 
+def test_amp_block_is_inert_as_in_jax():
+    """The JAX config parses ``amp`` for compatibility and reads it nowhere
+    (``deepspeed_tpu/runtime/config.py:57-59, 806``): a JSON with it
+    initialises both engines, which train the same first step."""
+    ds = _config(amp={"enabled": True, "opt_level": "O1"})
+    assert DeepSpeedConfig(ds).unported_features() == []
+    jeng, teng, jl, tl = _train_both(ds)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    _assert_params_close(jeng, teng)
+
+
+def test_every_refusal_names_its_roadmap_item():
+    """Every block ``unported_features`` refuses, all enabled at once, is
+    named with the ROADMAP item that ports it."""
+    ds = _config(
+        sentinel={"enabled": True}, step_profiler={"enabled": True},
+        flops_profiler={"enabled": True}, tensorboard={"enabled": True},
+        wandb={"enabled": True}, csv_monitor={"enabled": True},
+        graceful_shutdown={"enabled": True, "save_dir": "ckpt"},
+        pipeline={"stages": 2}, eigenvalue={"enabled": True},
+        compression_training={"weight_quantization": {}},
+        quantize_training={"enabled": True},
+        activation_checkpointing={"cpu_checkpointing": True},
+        checkpoint={"load_universal": True},
+        zero_optimization={"stage": 2,
+                           "offload_optimizer": {"device": "cpu"},
+                           "offload_param": {"device": "cpu"}},
+        tpu={"mesh": {"tp": 2}, "step_autotune": {"enabled": True},
+             "cluster_health": {"enabled": True}})
+    names = DeepSpeedConfig(ds).unported_features()
+    assert len(names) == 18, names
+    for name in names:
+        assert re.search(r"ROADMAP A\.(9|1[0-2])\b", name), name
+
+
 def test_exchange_modes_without_a_group():
     """The gradient exchanges are ported (``test_torch_grad_exchange.py``):
     without a process group the deferred exchange has no dp axis to defer
@@ -384,8 +421,18 @@ def test_bert_dense_mode_matches_full_attention():
 
 
 def test_gpt_with_a_sparse_attention_block_raises():
+    """A GPT takes the block-sparse route from a ``sparse_attention`` block
+    (``test_torch_sparse_gpt.py`` holds it to the JAX package); what the JAX
+    attention refuses there, a packed batch, the port refuses with its
+    words."""
     cfg = tlm.GPTConfig(**SMALL, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="block-sparse attention"):
-        deepspeed_tpu_torch.initialize(
-            model=tlm.GPT(cfg), device="cpu",
-            config=_config(sparse_attention=dict(BIGBIRD_16, kernel="pallas")))
+    engine = deepspeed_tpu_torch.initialize(
+        model=tlm.GPT(cfg), device="cpu",
+        config=_config(sparse_attention=dict(BIGBIRD_16, kernel="pallas")))[0]
+    assert engine.module.config.sparse_attention.kernel_impl == "pallas"
+    ids = np.zeros((2, 64), np.int64)
+    seg = np.ones_like(ids)
+    with pytest.raises(NotImplementedError,
+                       match="segment_ids with a block-sparse layout"):
+        engine.train_batch(iter([{"input_ids": ids, "labels": ids,
+                                  "segment_ids": seg}]))

@@ -81,8 +81,32 @@ def _jax_fwd(q, k, v, seg, causal):
     return o, np.asarray(lse)[..., 0].reshape(b, h, t)
 
 
+def _exact_attention(q, k, v, seg, causal):
+    """o [B, T, H, D] and lse [B, H, T] in f64 numpy: the masks of the
+    kernels (causal, same segment; a padded tail is segment 0 and sees its
+    own positions), exact sums."""
+    q, k, v = (x.astype(np.float64) for x in (q, k, v))
+    t = q.shape[1]
+    s = np.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(q.shape[-1])
+    keep = np.ones((1, 1, t, t), bool)
+    if causal:
+        keep = keep & np.tril(np.ones((t, t), bool))
+    if seg is not None:
+        keep = keep & (seg[:, None, :, None] == seg[:, None, None, :])
+    s = np.where(keep, s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    p = np.exp(s - m)
+    lse = (m + np.log(p.sum(-1, keepdims=True)))[..., 0]
+    o = np.einsum("bhqk,bkhd->bqhd", p / p.sum(-1, keepdims=True), v)
+    return o, lse
+
+
 @pytest.mark.parametrize("causal,t,with_segments,d,dtype", _cases())
-def test_reference_matches_pallas_forward(causal, t, with_segments, d, dtype):
+def test_reference_matches_pallas_forward(causal, t, with_segments, d, dtype,
+                                          tmp_path):
+    """The two sides against each other, and in f32 each side against the
+    exact (f64) attention to the same bound, so that a failure names the
+    side that moved; the arrays are kept under ``tmp_path`` on a failure."""
     q, k, v, seg = _inputs(t, seed=t + causal, with_segments=with_segments,
                            d=d, dtype=dtype)
     o_jax, lse_jax = _jax_fwd(q, k, v, seg, causal)
@@ -93,9 +117,24 @@ def test_reference_matches_pallas_forward(causal, t, with_segments, d, dtype):
         segment_ids=None if seg is None else torch.from_numpy(seg))
     assert o.dtype == getattr(torch, dtype) and lse.dtype == torch.float32
     o_tol, lse_tol, _ = TOL[dtype]
-    np.testing.assert_allclose(o.float().numpy(), o_jax.astype(np.float32),
-                               atol=o_tol, rtol=0)
-    np.testing.assert_allclose(lse.numpy(), lse_jax, atol=lse_tol, rtol=0)
+    got = {"port": (o.float().numpy(), lse.numpy()),
+           "jax": (o_jax.astype(np.float32), lse_jax)}
+    checks = [("port", "jax")]
+    if dtype == "float32":
+        got["exact"] = _exact_attention(q, k, v, seg, causal)
+        checks = [("port", "exact"), ("jax", "exact"), ("port", "jax")]
+    for a, b in checks:
+        for i, (name, tol) in enumerate((("o", o_tol), ("lse", lse_tol))):
+            err = np.abs(got[a][i] - got[b][i])
+            if err.max() > tol:
+                dump = tmp_path / "arrays.npz"
+                np.savez(dump, q=q, k=k, v=v, **{
+                    f"{side}_{n}": got[side][j] for side in got
+                    for j, n in enumerate(("o", "lse"))})
+                raise AssertionError(
+                    f"{name}: {a} against {b}: {int((err > tol).sum())} of "
+                    f"{err.size} elements off by up to {err.max():.3g} "
+                    f"(atol {tol}); arrays in {dump}")
     assert fa.launches == 0, "a CPU tensor must not count as a kernel launch"
 
 

@@ -140,16 +140,40 @@ def test_bf16_logits_track_jax(flash):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("flash_autotune", True), ("kv_cache_slack_blocks", 2),
-    ("sequence_parallel", "ulysses"), ("sparse_kv_cache", False),
-    ("sparse_kv_cache", True),
+    ("flash_autotune", True), ("sequence_parallel", "ulysses"),
     ("sequence_parallel", "ring"), ("quantized_weights", True),
     ("kv_cache_dtype", "int8"), ("param_offload", True),
-    ("sparse_attention", object()),
 ])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         tlm.GPTConfig(**{field: value})
+
+
+_OPAQUE_LAYOUT = object()
+
+
+@pytest.mark.parametrize("field,value", [
+    ("kv_cache_slack_blocks", 2), ("sparse_kv_cache", False),
+    ("sparse_kv_cache", True), ("sparse_attention", _OPAQUE_LAYOUT),
+])
+def test_sparse_config_fields_follow_jax(field, value):
+    """The block-sparse route and the ring cache are ported
+    (``test_torch_sparse_gpt.py``): each of these values does in the port's
+    ``GPTConfig`` what it does in the JAX one, side by side (accepted, or
+    ``sparse_kv_cache=True`` without a ring-expressible layout refused with
+    JAX's ValueError)."""
+    try:
+        jlm.GPTConfig(**{field: value})
+        want = None
+    except ValueError as e:
+        want = str(e)
+    if want is None:
+        assert getattr(tlm.GPTConfig(**{field: value}), field) is value
+    else:
+        with pytest.raises(ValueError) as got:
+            tlm.GPTConfig(**{field: value})
+        assert str(got.value) == want
+    assert (field, value) != ("sparse_kv_cache", True) or want is not None
 
 
 @pytest.mark.parametrize("field,value", [

@@ -200,6 +200,20 @@ def _run_job(job, rank):
     if init is not None:
         init = {k: v.clone() for k, v in init.items()}
     out = {"error": None}
+    from deepspeed_tpu_torch.runtime import activation_checkpointing as ac
+
+    real_mask = ac.bernoulli_mask
+    if job.get("record_masks"):
+        # the first ``record_masks`` dropout masks this rank draws
+        out["masks"] = []
+
+        def recording(*args, **kw):
+            mask = real_mask(*args, **kw)
+            if len(out["masks"]) < job["record_masks"]:
+                out["masks"].append(mask.clone())
+            return mask
+
+        ac.bernoulli_mask = recording
     try:
         engine = deepspeed_tpu_torch.initialize(
             model=_model(job), config=job["config"], device="cpu",
@@ -254,6 +268,8 @@ def _run_job(job, rank):
         if not job.get("raises"):
             raise
         out["error"] = (type(e).__name__, str(e))
+    finally:
+        ac.bernoulli_mask = real_mask
     return out
 
 
