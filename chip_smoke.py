@@ -192,7 +192,17 @@ Phases, each printing one JSON line:
   stride, under ``"none"`` each rank's rows its slice of the one-rank
   pipeline's batch; a tag saved after 2 steps resumes at this world with
   every rank's next batches and losses identical, and on one card without
-  a group with the stream re-strided from rank 0's state.
+  a group with the stream re-strided from rank 0's state. BERT-Large under
+  BigBird at [1, 4096] per rank (``BERT_SPARSE_CONFIG``, dropout 0) at
+  stage 3 (25 units: each of ``encoder.layer`` and the outer unit): 12
+  captured steps against 12 uncaptured ones, B5 48 / B6 24 / B7 24 / B4 1
+  per step, each step's loss and grad norm within the zero bounds and the
+  first step's update within ``BERT_FIRST_UPDATE_REL_L2`` of a group-less
+  engine at gas = world that rank 0 runs first (every row with the same
+  count of labels); at world >= 4 also at stage 0 under the deferred
+  f32, int8 (4 MB buckets) and 1-bit Adam (freeze_step 4, the exact grad
+  norm on) exchanges: int8 and 1-bit's warm-up against the deferred f32
+  run in loss and grad norm, the losses falling.
 
 * ``mistral`` (the LLaMA-shaped trunk's main path): Mistral-7B-v0.1's
   config (``MISTRAL_7B``: RMSNorm, gated SiLU MLP, no biases, rotary, 32
@@ -250,18 +260,19 @@ Phases, each printing one JSON line:
   against the group-less engine.
 
 * ``train_options`` (the GPT training options of ROADMAP A.6; ``--only
-  train_options`` runs the sweep first): GPT-2 1.3B (``gpt_pretrain.py``'s
-  config, [4, 1024]) under each ``remat_policy`` (``full``,
-  ``selective``, ``save_nothing_but_flash``, ``save_dots``): 12 captured
-  steps against 12 uncaptured ones (bit for bit), B1 48 / 24 / 24 / 48
-  per step (B2 24, B3 24, B4 1), and every policy's losses, grad norms and
-  final parameters bit for bit equal to ``full``'s; the step medians and
-  peaks. At dropout 0.1 (B1-B3 0: the einsum path, JAX's gate): captured
-  against eager, two replays at lr 0 giving different losses, each of the
-  73 sites' kept share within 6 binomial deviations of 0.9, the same 12
-  steps without remat bit for bit, and a small GPT's tag resuming the mask
-  stream bit for bit. ``stochastic_mode`` under ``progressive_layer_drop``
-  (theta 0.5, gamma 0.001; B1 48 / B2 24 / B3 24 / B4 1): captured against
+  train_options`` runs the sweep first): GPT-2 1.3B's widths
+  (``gpt_pretrain.py``'s config, [4, 1024]) at ``OPTIONS_LAYERS`` (12) of
+  its 24 layers under each ``remat_policy`` (``full``, ``selective``,
+  ``save_nothing_but_flash``, ``save_dots``): 12 captured steps against 12
+  uncaptured ones (bit for bit), B1 24 / 12 / 12 / 24 per step (B2 12, B3
+  12, B4 1), and every policy's losses, grad norms and final parameters
+  bit for bit equal to ``full``'s; the step medians and peaks. At dropout
+  0.1 (B1-B3 0: the einsum path, JAX's gate): captured against eager, two
+  replays at lr 0 giving different losses, each of the 37 sites' kept
+  share within 6 binomial deviations of 0.9, the same 12 steps without
+  remat bit for bit, and a small GPT's tag resuming the mask stream bit
+  for bit. ``stochastic_mode`` under ``progressive_layer_drop`` (theta
+  0.5, gamma 0.001; B1 24 / B2 12 / B3 12 / B4 1): captured against
   eager, the device theta against the host schedule before every step, and
   a small GPT's per-layer keep counts over 256 steps against the schedule.
   BLOOM-7b1 at 8 layers, micro [6, 2048] (6.17e9 bytes of logits: the
@@ -271,6 +282,26 @@ Phases, each printing one JSON line:
   ``attention_chunk=1024`` (0 B1-B3) against the flash run (first loss and
   grad norm, step medians), and its 32-layer ``forward`` [1, 4096] chunked
   against flash.
+* ``sparse_gpt`` (the GPT block-sparse route and the ring KV cache):
+  Mistral-7B's sliding window at ``n_positions`` 32768 on B5-B7, served at
+  ``SPARSE_GPT_SERVE_LAYERS`` (16) of its 32 layers from the ring cache
+  and trained at 8 on [1, 16384] (``--only sparse_gpt``).
+* ``bert_options`` (BERT breadth, ROADMAP A.7; ``--only bert_options``):
+  BERT-Large at full width and depth (24 layers) under BigBird (block 128,
+  ``"pallas"``: B5-B7) at [1, 4096] with its published dropout 0.1, under
+  each ``remat_policy``: 12 captured steps against 12 uncaptured ones (bit
+  for bit), B5 48 / B6 24 / B7 24 / B4 1 per step under every policy (no
+  policy keeps B5's output), the loss falling, every policy's losses,
+  grad norms and parameters bit for bit ``full``'s (the same masks), two
+  replays at lr 0 drawing different masks, step medians and activation
+  GB by policy; the kernels' first loss and grad norm against the
+  ``"gather"`` route's at the same masks, and a dropout-0 engine's loss
+  unlike the dropout-0.1 one; stochastic depth under the DeepSpeed PLD
+  tutorial's BERT settings (theta 0.5, gamma 0.001) with dropout 0.1:
+  captured against eager, the device theta against the host schedule
+  before every step, the layers each eager step dropped against the
+  schedule's expectation; a dense BERT-Large at [8, 512] with dropout 0.1
+  (the einsum path, B4 only) captured against eager.
 
 Then the kernels line, nvidia-smi's line and, last, ``{"ok": true, ...}``.
 A failed check raises, and the script exits nonzero. It imports neither jax
@@ -281,8 +312,12 @@ and ``zero`` phases, then nvidia-smi's line and the ``{"ok": true, ...}``
 line (on a machine with four cards, the four-card measurement);
 ``--only data`` the same with the ``data`` phase, ``--only mistral`` with
 the ``mistral`` phase, ``--only neox`` with ``neox``, ``--only moe``
-with ``moe`` and ``--only train_options`` with the sweep and
-``train_options``.
+with ``moe``, ``--only train_options`` with the sweep and
+``train_options``, ``--only sparse_gpt`` with the window kernel case, its
+timing and ``sparse_gpt``, and ``--only bert_options`` with
+``bert_options``. Every phase line carries ``seconds`` (since its phase
+began), and the full run prints each phase's wall seconds
+(``phase_seconds``) before the kernels line.
 
 ``python3 chip_smoke.py --against DIR`` runs only the A/B of the backward
 kernels and of the fused AdamW: DIR holds another checkout's
@@ -371,7 +406,19 @@ SMALL_LOSS_REL_TOL = 1e-5
 SMALL_UPDATE_REL_L2 = 1e-3
 
 
+# when the running phase began (``start_phase``): every phase line that
+# does not state its own ``seconds`` gets the seconds since then
+_PHASE_STARTED = [None]
+
+
+def start_phase():
+    _PHASE_STARTED[0] = time.perf_counter()
+
+
 def emit(obj):
+    if (isinstance(obj, dict) and "phase" in obj and "seconds" not in obj
+            and _PHASE_STARTED[0] is not None):
+        obj = dict(obj, seconds=time.perf_counter() - _PHASE_STARTED[0])
     print(json.dumps(obj), flush=True)
 
 
@@ -2318,21 +2365,14 @@ def phase_sparse_train():
         return dict(BERT_SPARSE_CONFIG,
                     sparse_attention=dict(BIGBIRD_BLOCK, kernel=kernel))
 
-    def engine():
-        return deepspeed_tpu_torch.initialize(
-            model=BertForPreTraining(cfg), config=config("pallas"), seed=0)[0]
-
     free_cuda()
     t0 = time.perf_counter()
-    first = engine()
+    first = bert_large_engine()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     sc = first.module.config.sparse_attention
-    rng = np.random.RandomState(1)
-    ids = rng.randint(0, cfg.vocab_size, size=(1, SPARSE_SEQ)).astype(np.int64)
-    labels = np.where(rng.rand(1, SPARSE_SEQ) < 0.15, ids, -100).astype(np.int64)
-    # no attention_mask: with one, the kernel route takes the dense path
-    batch = {"input_ids": ids, "labels": labels}
+    batch = mlm_batch(1, SPARSE_SEQ)
+    labels = batch["labels"]
 
     weights = {k: v.clone() for k, v in first.module.state_dict().items()}
     grads = qkv_grads(first.module, batch)
@@ -2363,7 +2403,7 @@ def phase_sparse_train():
     traces = {}
     check, launches, losses, norms, times, e_losses, e_times = \
         captured_against_eager(
-            engine, [batch], STEPS,
+            bert_large_engine, [batch], STEPS,
             traced=lambda eng, it: traces.update(profile_step(
                 eng, it, "sparse_train_step_bert_large",
                 {"block_sparse_fwd": "sparse_fwd_",
@@ -4255,6 +4295,29 @@ def update_rel_l2(got, want, start):
     return (diff_sq / max(upd_sq, 1e-30)) ** 0.5
 
 
+def bert_update_split(got, want, start):
+    """``update_rel_l2`` of a BERT's parameters three ways: over every
+    tensor (``all``), over all but the key third of each
+    ``attention.qkv`` (its weight's rows C..2C and the same of its bias:
+    ``without_key``) and over that key third alone (``key``). The tensors
+    are compared on the card."""
+    sums = {"all": [0.0, 0.0], "without_key": [0.0, 0.0], "key": [0.0, 0.0]}
+    for name, g in got.items():
+        g = g.to("cuda").float()
+        w = want[name].to(g.device).float()
+        s = start[name].to(g.device).float()
+        d, u = (g - w) ** 2, (w - s) ** 2
+        td, tu, kd, ku = float(d.sum()), float(u.sum()), 0.0, 0.0
+        if name.endswith(("attention.qkv.weight", "attention.qkv.bias")):
+            c = d.shape[0] // 3
+            kd, ku = float(d[c:2 * c].sum()), float(u[c:2 * c].sum())
+        for key, (a, b) in (("all", (td, tu)), ("key", (kd, ku)),
+                            ("without_key", (td - kd, tu - ku))):
+            sums[key][0] += a
+            sums[key][1] += b
+    return {k: (a / max(b, 1e-30)) ** 0.5 for k, (a, b) in sums.items()}
+
+
 def zero_reference(ranks, batch):
     """The group-less one-card engine at gas = ``ranks`` on the first
     ``ranks`` ranks' rows of the global batch (``ranks`` micro batches of 4
@@ -4463,6 +4526,339 @@ def zero_stage_run(stage, world, batch, ref, control):
                 grad_norm_rel_err=max(by_step),
                 grad_norm_rel_err_by_step=by_step)
     return out
+
+
+# BERT-Large under BigBird at 4096 (B5-B7) in the zero phase: stage 3 on
+# every visible card, BERT_ZERO_ROWS rows of one global batch per step
+# (``bert_zero_gas``: gas 4 at world 1, 1 at world 4), against the
+# group-less engine at gas = the rows: each step's loss and grad norm
+# within the zero phase's bounds, the first step's update within
+# BERT_FIRST_UPDATE_REL_L2, and the 12-step update within
+# BERT_WITNESS_FACTOR of the witness's. Every row holds the same count of
+# labels (``mlm_batch``): with unequal counts the data-parallel engine's
+# mean over the global batch's labelled tokens is not the mean of the
+# micro batches' means that gradient accumulation takes (on four H100s,
+# rows with 15% of their positions labelled at random put the first grad
+# norm 1.9e-4 and the first update 0.17 off).
+# The witness is the group-less engine against itself with its micro
+# batches summed in the reverse order, run on rank 0 in the same call: a
+# BERT run's 12-step update carries a rounding-level difference far, and
+# the zero phase's GPT bound (ZERO_UPDATE_REL_L2) does not hold between two
+# runs that differ in rounding alone. On an H100 the witness read a first
+# update 3.4e-8 apart, losses within 1.8e-5, and a 12-step update 0.140
+# apart: 0.543 over the key third of each attention.qkv (whose gradient
+# sums to 0 over the keys, softmax ignoring a shift per row, so that
+# rounding sets its direction along the tokens' common component; Adam
+# turns it into steps of +-lr), 0.101 over the rest (PERF.md section 6).
+# Stage 3 at world 4, whose exchange sums the ranks' bf16 gradients in
+# bf16, read 0.173 with a first update 7.1e-7 apart, and at world 1 (gas
+# 4) 0.174 with 7.1e-7. A fault in the
+# exchange or the units moves the update by far more: the GPT's control
+# (a run that lost one rank's rows) lay 0.74 off.
+# On at least SIXB_MIN_WORLD cards also the int8 and 1-bit exchanges
+# against the deferred f32 exchange: int8's every loss to GX_LOSS_REL_TOL
+# and grad norm to BERT_GX_NORM_REL_TOL; 1-bit Adam (its exact norm on,
+# tpu.compressed_grad_norm) ignores the clip, so only its first step, from
+# the same weights, is held in loss and grad norm (the zero phase's
+# first-step bounds), then its loss must fall over the run and after the
+# freeze step
+BERT_ZERO_ROWS = 4
+BERT_WITNESS_FACTOR = 2.0
+
+
+def bert_zero_gas(world):
+    """The BERT stage-3 run's micro batches per step on ``world`` ranks:
+    ``BERT_ZERO_ROWS`` rows in all (at least one per rank), so that the
+    witness's gas (the rows) is the same at every world and its reversed
+    order differs from the forward one (two micro batches would sum
+    alike either way)."""
+    return max(1, BERT_ZERO_ROWS // world)
+
+
+BERT_GX_MODES = ("deferred_fp32", "int8_bucketed", "onebit")
+BERT_GX_FREEZE_STEP = 4
+# int8 rounds each 512-element block's values to 1/127 of its largest:
+# the norm of the exchanged gradient moves by far less than that
+BERT_GX_NORM_REL_TOL = 1e-2
+# Adam's first update is lr * g / (|g| + eps), about lr * sign(g): a last-bit
+# difference in a gradient moves no update unless the element's gradient
+# lies within rounding of 0, and then by 2 lr. This bound allows ~80 such
+# elements of BERT-Large's 339M (2 sqrt(k / N))
+BERT_FIRST_UPDATE_REL_L2 = 1e-3
+
+
+def zero_bert_config(stage, **over):
+    config = dict(BERT_SPARSE_CONFIG, zero_optimization={"stage": stage},
+                  comms_logger={"enabled": True})
+    config.update(over)
+    return config
+
+
+def zero_bert_reference(batch, reverse=False):
+    """The group-less BERT-Large engine at gas = the batch's rows, one row
+    per micro batch in order (``reverse``: in the reverse order, which
+    changes only the order in which the micro batches' gradients are
+    summed): losses, grad norms, host copies of the initial parameters and
+    of those after the first and the last step."""
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    rows = len(batch["input_ids"])
+    free_cuda()
+    eng = bert_large_engine(config=dict(BERT_SPARSE_CONFIG,
+                                        gradient_accumulation_steps=rows))
+    start = {k: v.to("cpu", copy=True)
+             for k, v in eng.module.state_dict().items()}
+    micro = [{k: v[r:r + 1] for k, v in batch.items()} for r in range(rows)]
+    if reverse:
+        micro.reverse()
+    it = iter(RepeatingLoader(micro))
+    losses, norms, times = train_steps(eng, it, 1)
+    first = {k: v.to("cpu", copy=True)
+             for k, v in eng.module.state_dict().items()}
+    more = train_steps(eng, it, STEPS - 1)
+    losses, norms, times = losses + more[0], norms + more[1], times + more[2]
+    out = {"losses": [float(x) for x in losses],
+           "grad_norms": [float(x) for x in norms], "step_ms": times,
+           "start": start, "first": first,
+           "final": {k: v.to("cpu", copy=True)
+             for k, v in eng.module.state_dict().items()}}
+    del eng
+    free_cuda()
+    return out
+
+
+def zero_bert_stage3(world, batch, ref):
+    """BERT-Large sparse at stage 3 on this rank (its layers the units),
+    ``bert_zero_gas(world)`` micro batches of one row per step (global
+    micro batch j: rows j w .. j w + w - 1): 12 captured steps against 12
+    uncaptured ones, the launches (B5 48 / B6 24 / B7 24 per micro batch,
+    B4 1 per step), rank 0's agreement with the group-less engine, and a
+    traced replay."""
+    import torch
+
+    from deepspeed_tpu_torch.comm.logging import comms_logger
+
+    extra, probed = {}, []
+    gas = bert_zero_gas(world)
+    micro = [{k: v[j * world:(j + 1) * world] for k, v in batch.items()}
+             for j in range(gas)]
+
+    def make():
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        comms_logger.reset()
+        return bert_large_engine(config=zero_bert_config(
+            3, gradient_accumulation_steps=gas))
+
+    def probe(engine):
+        # before the captured run's second step: its parameters after the
+        # first (a gather: every rank calls it)
+        probed.append(None)
+        if len(probed) == 2:
+            got = engine.params
+            if ref is not None:
+                extra["first_step_update_rel_l2"] = update_rel_l2(
+                    got, ref["first"], ref["start"])
+            del got
+
+    def inspect(engine, it):
+        extra["checksums"] = param_checksums(engine)
+        extra["units"] = [u.name for u in engine.optimizer.units]
+        got = engine.params
+        if ref is not None:
+            # and the tensors whose updates part the most from the
+            # reference's (their share of the squared difference)
+            diff = {}
+            for name, g in got.items():
+                w = ref["final"][name].to(g.device).float()
+                diff[name] = float(((g.float() - w) ** 2).sum())
+            total = sum(diff.values()) or 1.0
+            split = bert_update_split(got, ref["final"], ref["start"])
+            extra["vs_group_less"] = {
+                "update_rel_l2": split["all"],
+                "update_rel_l2_without_key": split["without_key"],
+                "update_rel_l2_key": split["key"],
+                "update_diff_share_top": sorted(
+                    ((v / total, k) for k, v in diff.items()),
+                    reverse=True)[:6]}
+        del got
+        extra["graph_comms_per_replay"], extra["traced_replay"] = \
+            zero_traced_replay(engine, it)
+
+    check, launches, losses, norms, times, e_losses, e_times = \
+        captured_against_eager(make, micro, STEPS, traced=inspect,
+                               probe=probe)
+    ms, eager_ms = step_medians(times, e_times)
+    out = {"gas": gas, "captured_vs_eager": check, "launches": launches,
+           "losses": losses, "grad_norms": norms, "eager_losses": e_losses,
+           "step_ms_median": ms, "eager_step_ms_median": eager_ms,
+           "step_ms": times, "peak_allocated_gb": check["peak_allocated_gb"]}
+    first_update = extra.pop("first_step_update_rel_l2", None)
+    out.update(extra)
+    if ref is not None:
+        by_step = rel_errs(norms, ref["grad_norms"])
+        out["vs_group_less"]["first_step_update_rel_l2"] = first_update
+        out["vs_group_less"].update(
+            loss_rel_err=max(rel_errs(losses, ref["losses"])),
+            grad_norm_rel_err=max(by_step),
+            grad_norm_rel_err_by_step=by_step)
+    return out
+
+
+def zero_bert_exchanges(world, batch):
+    """BERT-Large sparse under each of ``BERT_GX_MODES`` at stage 0 on this
+    rank (every rank runs every mode): 12 captured steps each, their
+    losses, grad norms, launches, step ms and peak."""
+    import torch
+
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    out = {}
+    for mode in BERT_GX_MODES:
+        tpu = dict(BERT_SPARSE_CONFIG["tpu"])
+        over = {}
+        if mode == "deferred_fp32":
+            tpu["grad_exchange"] = {"deferred": True,
+                                    "bucket_mb": GX_BUCKET_MB,
+                                    "wire_dtype": "fp32"}
+        elif mode == "int8_bucketed":
+            tpu["grad_exchange"] = {"bucket_mb": GX_BUCKET_MB}
+            over["communication_data_type"] = "int8"
+        else:
+            tpu["compressed_grad_norm"] = True
+            over["optimizer"] = {"type": "OneBitAdam", "params": dict(
+                BERT_SPARSE_CONFIG["optimizer"]["params"],
+                freeze_step=BERT_GX_FREEZE_STEP)}
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        engine = bert_large_engine(config=zero_bert_config(0, tpu=tpu,
+                                                            **over))
+        losses, norms, times = train_steps(
+            engine, iter(RepeatingLoader([batch])), STEPS)
+        out[mode] = {"engine_mode": engine._cx_mode,
+                     "launches": read_launches(),
+                     "losses": [float(x) for x in losses],
+                     "grad_norms": [None if x is None else float(x)
+                                    for x in norms],
+                     "step_ms_median": statistics.median(
+                         times[CAPTURE_WARMUP + 1:]),
+                     "peak_allocated_gb":
+                         torch.cuda.max_memory_allocated() / 1e9,
+                     "checksums": param_checksums(engine)}
+        del engine
+    free_cuda()
+    return out
+
+
+def zero_bert_report(world, results, smi):
+    """The BERT lines of the zero phase; returns the failed checks and rank
+    0's stage-3 launches."""
+    problems = []
+    runs = [r["bert_stage3"] for r in results]
+    lead = runs[0]
+    vs = lead["vs_group_less"]
+    witness = results[0]["bert_witness"]
+    emit({"phase": "zero", "part": "bert_stage3", "world": world,
+          "card": smi, "model": "bert-large", "batch_per_rank": [1, SPARSE_SEQ],
+          "sparse_attention": BIGBIRD_BLOCK, "steps": STEPS,
+          "units": lead["units"], "losses": lead["losses"],
+          "group_less_losses": results[0]["bert_reference"]["losses"],
+          "vs_group_less": vs,
+          "gas": lead["gas"],
+          "witness_group_less_reversed": witness,
+          "tolerance": {"loss_rel": ZERO_LOSS_REL_TOL,
+                        "first_step_update_rel_l2": BERT_FIRST_UPDATE_REL_L2,
+                        "update_rel_l2": BERT_WITNESS_FACTOR
+                        * witness["update"]["all"],
+                        "grad_norm_rel_first_step":
+                            ZERO_GRAD_NORM_FIRST_REL_TOL,
+                        "grad_norm_rel": ZERO_GRAD_NORM_REL_TOL},
+          "step_ms_median_by_rank": [r["step_ms_median"] for r in runs],
+          "eager_step_ms_median_by_rank": [r["eager_step_ms_median"]
+                                           for r in runs],
+          "group_less_step_ms_median": statistics.median(
+              results[0]["bert_reference"]["step_ms"][CAPTURE_WARMUP + 1:]),
+          "peak_allocated_gb_by_rank": [r["peak_allocated_gb"] for r in runs],
+          "captured_vs_eager_by_rank": [r["captured_vs_eager"]["identical"]
+                                        for r in runs],
+          "launches_rank0": lead["launches"],
+          "graph_comms_per_replay": lead["graph_comms_per_replay"],
+          "traced_replay_by_rank": [r["traced_replay"] for r in runs]})
+    if not all(r["captured_vs_eager"]["identical"] for r in runs):
+        problems.append("bert stage 3: captured and eager steps differ")
+    if any(r["losses"] != lead["losses"] or r["checksums"] != lead["checksums"]
+           for r in runs):
+        problems.append("bert stage 3: ranks differ")
+    for r in runs:
+        for name, per in SPARSE_PER_STEP.items():
+            per *= 1 if name == "fused_adamw" else r["gas"]
+            if r["launches"][name] != per * STEPS:
+                problems.append(f"bert stage 3: {name} launched "
+                                f"{r['launches'][name]}, want {per} x {STEPS}")
+    if len(lead["units"]) != 25:
+        problems.append(f"bert stage 3 units: {lead['units']}")
+    if not lead["losses"][-1] <= lead["losses"][0] - SPARSE_MIN_LOSS_DROP:
+        problems.append("bert stage 3: the loss did not fall")
+    if not (vs["loss_rel_err"] <= ZERO_LOSS_REL_TOL
+            and vs["first_step_update_rel_l2"] <= BERT_FIRST_UPDATE_REL_L2
+            and vs["update_rel_l2"]
+            <= BERT_WITNESS_FACTOR * witness["update"]["all"]
+            and vs["grad_norm_rel_err_by_step"][0]
+            <= ZERO_GRAD_NORM_FIRST_REL_TOL
+            and vs["grad_norm_rel_err"] <= ZERO_GRAD_NORM_REL_TOL):
+        problems.append(f"bert stage 3 against the group-less engine: {vs}")
+    if world < SIXB_MIN_WORLD:
+        return problems, lead["launches"]
+    gx = [r["bert_exchanges"] for r in results]
+    ref = gx[0]["deferred_fp32"]
+    for mode in BERT_GX_MODES:
+        run = gx[0][mode]
+        line = {"phase": "zero", "part": "bert_grad_exchange", "mode": mode,
+                "world": world, "card": smi, "model": "bert-large",
+                "batch_per_rank": [1, SPARSE_SEQ], "steps": STEPS, **run,
+                "step_ms_median_by_rank": [g[mode]["step_ms_median"]
+                                           for g in gx]}
+        if mode != "deferred_fp32":
+            line["vs_deferred_fp32"] = {
+                "loss_rel_err_by_step": rel_errs(run["losses"],
+                                                 ref["losses"]),
+                "grad_norm_rel_err_by_step": [
+                    None if a is None else abs(a - b) / abs(b)
+                    for a, b in zip(run["grad_norms"], ref["grad_norms"])]}
+        emit(line)
+        if any(g[mode]["losses"] != run["losses"]
+               or g[mode]["checksums"] != run["checksums"] for g in gx):
+            problems.append(f"bert {mode}: ranks differ")
+        want = {"deferred_fp32": "deferred", "int8_bucketed": "int8",
+                "onebit": "onebit"}[mode]
+        if run["engine_mode"] != want:
+            problems.append(f"bert {mode}: the engine took "
+                            f"{run['engine_mode']}")
+        for name, per in SPARSE_PER_STEP.items():
+            per = 0 if (mode == "onebit" and name == "fused_adamw") else per
+            if run["launches"][name] != per * STEPS:
+                problems.append(f"bert {mode}: {name} launched "
+                                f"{run['launches'][name]}")
+        if not run["losses"][-1] < run["losses"][0]:
+            problems.append(f"bert {mode}: the loss did not fall")
+        if mode == "int8_bucketed":
+            vs = line["vs_deferred_fp32"]
+            if not (max(vs["loss_rel_err_by_step"]) <= GX_LOSS_REL_TOL
+                    and max(vs["grad_norm_rel_err_by_step"])
+                    <= BERT_GX_NORM_REL_TOL):
+                problems.append(f"bert int8 against deferred f32: {vs}")
+        if mode == "onebit":
+            vs = line["vs_deferred_fp32"]
+            if not (vs["loss_rel_err_by_step"][0] <= ZERO_LOSS_REL_TOL
+                    and vs["grad_norm_rel_err_by_step"][0]
+                    <= ZERO_GRAD_NORM_FIRST_REL_TOL):
+                problems.append(f"bert onebit's first step against deferred "
+                                f"f32: {vs}")
+            if not run["losses"][-1] < run["losses"][BERT_GX_FREEZE_STEP - 1]:
+                problems.append("bert onebit: the loss did not fall after "
+                                "the freeze step")
+    return problems, lead["launches"]
 
 
 def zero_6p7b_pair(world, rank):
@@ -5343,6 +5739,24 @@ def zero_rank(rank, world, url):
     # rank's rows must break at least one of the bounds the run is held to
     control = (zero_reference(world - 1, batch) if rank == 0 and world > 1
                else None)
+    bert_batch = mlm_batch(world * bert_zero_gas(world), SPARSE_SEQ, seed=3)
+    bert_ref = zero_bert_reference(bert_batch) if rank == 0 else None
+    bert_witness = None
+    if rank == 0:
+        # the group-less engine against itself, the micro batches summed
+        # in the reverse order: how far rounding alone moves a BERT run
+        other = zero_bert_reference(bert_batch, reverse=True)
+        bert_witness = {
+            "update": bert_update_split(other["final"], bert_ref["final"],
+                                        bert_ref["start"]),
+            "first_step_update_rel_l2": update_rel_l2(
+                {k: v.to("cuda") for k, v in other["first"].items()},
+                bert_ref["first"], bert_ref["start"]),
+            "loss_rel_err": max(rel_errs(other["losses"],
+                                         bert_ref["losses"])),
+            "grad_norm_rel_err_by_step": rel_errs(other["grad_norms"],
+                                                  bert_ref["grad_norms"])}
+        del other
     ref_s = time.perf_counter() - t0
     comm.init_distributed(init_method=url, rank=rank, world_size=world,
                           local_rank=rank,
@@ -5353,6 +5767,9 @@ def zero_rank(rank, world, url):
         out["reference"] = {"losses": ref["losses"],
                             "grad_norms": ref["grad_norms"],
                             "step_ms": ref["step_ms"]}
+        out["bert_reference"] = {k: bert_ref[k] for k in (
+            "losses", "grad_norms", "step_ms")}
+        out["bert_witness"] = bert_witness
     out["yardstick"] = zero_yardstick(world)
     out["stages"] = {}
     zero_launches = {}
@@ -5368,6 +5785,12 @@ def zero_rank(rank, world, url):
     out["grad_exchange"] = gx_runs(world, rank, batch, ref, control)
     if world >= SIXB_MIN_WORLD:
         out["gpt2_6p7b"] = zero_6p7b_pair(world, rank)
+    t1 = time.perf_counter()
+    out["bert_stage3"] = zero_bert_stage3(world, bert_batch, bert_ref)
+    del bert_ref
+    if world >= SIXB_MIN_WORLD:
+        out["bert_exchanges"] = zero_bert_exchanges(world, bert_batch)
+    out["bert_seconds"] = time.perf_counter() - t1
     if rank == 0:
         n = -(-GPT_1P3B_PARAMS // (world * 64)) * 64  # a shard, as padded
         out["b4_shard"] = time_b4_shard(n)
@@ -5569,6 +5992,8 @@ def zero_report(world, results, one_card, data_one_card, seconds):
         problems.append(f"stage 3's peak per rank {peaks[3]} GB is not "
                         f"below stage 1's {peaks[1]}")
     problems += zero_6p7b_report(world, results, smi)
+    bert_problems, bert_launches = zero_bert_report(world, results, smi)
+    problems += bert_problems
     gx_problems, gx_launches = gx_report(world, results, smi)
     problems += gx_problems
     b4 = r0["b4_shard"]
@@ -5578,6 +6003,8 @@ def zero_report(world, results, one_card, data_one_card, seconds):
     small = [r["small"] for r in results]
     line = {"phase": "zero", "world": world, "small": small[0],
             "one_card_resume": one_card, "seconds": seconds,
+            "bert_seconds_by_rank": [r["bert_seconds"] for r in results],
+            "reference_seconds_rank0": r0["reference_s"],
             "b4_shard": b4,
             "fp16_local_overflow_by_rank": [
                 [s[3] for s in r["fp16_stage1"]
@@ -5635,7 +6062,7 @@ def zero_report(world, results, one_card, data_one_card, seconds):
     if problems:
         raise AssertionError(f"zero (world {world}): {problems}")
     return {"zero": r0["launches"], "zero_stage3": r0["launches_stage3"],
-            "grad_exchange": gx_launches}
+            "grad_exchange": gx_launches, "zero_bert_stage3": bert_launches}
 
 
 def zero_6p7b_report(world, results, smi):
@@ -5960,15 +6387,19 @@ SWEEP_SEQS = (128, 256, 384, 512, 768, 1024, 2048, 4096, 8192)
 SWEEP_HEAD_DIMS = (64, 128)
 SWEEP_TOKENS = 8192
 SWEEP_WIDTH = 1024
-# remat policies on GPT-2 1.3B (gpt_pretrain.py's config, micro [4, 1024]),
-# with each one's launches per step: selective and save_nothing_but_flash
-# keep B1's o and lse, so B1 runs once per layer; save_dots keeps every
-# product, but a kernel is not a product, so B1 runs again in the recompute
+# remat policies on GPT-2 1.3B's widths (gpt_pretrain.py's config, micro
+# [4, 1024]) at OPTIONS_LAYERS of its 24 layers (the depth cut that makes
+# room for later phases: PERF.md section 4), with each one's launches per
+# step: selective and save_nothing_but_flash keep B1's o and lse, so B1
+# runs once per layer; save_dots keeps every product, but a kernel is not a
+# product, so B1 runs again in the recompute
+OPTIONS_LAYERS = 12
 OPTION_POLICIES = ("full", "selective", "save_nothing_but_flash", "save_dots")
 POLICY_PER_STEP = {
-    policy: {"flash_attention_fwd": 24 if policy in (
-        "selective", "save_nothing_but_flash") else 48,
-             "flash_attention_bwd_dq": 24, "flash_attention_bwd_dkv": 24,
+    policy: {"flash_attention_fwd": OPTIONS_LAYERS if policy in (
+        "selective", "save_nothing_but_flash") else 2 * OPTIONS_LAYERS,
+             "flash_attention_bwd_dq": OPTIONS_LAYERS,
+             "flash_attention_bwd_dkv": OPTIONS_LAYERS,
              "fused_adamw": 1}
     for policy in OPTION_POLICIES}
 # dropout in training keeps attention on the einsum path (JAX's gate)
@@ -5981,12 +6412,21 @@ OPTIONS_DROPOUT = 0.1
 # 1 - p fails
 KEEP_SIGMAS = 6.0
 OPTIONS_PLD = {"enabled": True, "theta": 0.5, "gamma": 0.001}
-# the per-layer keep counts are taken on a small GPT (eager steps, a forward
-# pre-hook on each block reads its gate): 1.3B replays cannot show their
-# gates, and 256 of its steps would take the phase's whole budget
+# the per-layer keep counts are taken on a small model of the family (eager
+# steps, a forward pre-hook on each block reads its gate): full-size replays
+# cannot show their gates, and 256 of their steps would take the phase's
+# whole budget. The counts run under a faster schedule than the tutorial's
+# (theta near 0.5 from step ~150 on), so that the last layer drops ~103
+# times in 256 steps: a gate that never drops, or always drops, lies
+# outside some layer's bound (under gamma 0.001 a gate that never dropped
+# stayed within every layer's)
 PLD_COUNT_STEPS = 256
+PLD_COUNT_SCHEDULE = {"enabled": True, "theta": 0.5, "gamma": 0.02}
 PLD_SMALL = dict(vocab_size=512, n_positions=128, n_embd=128, n_layer=8,
                  n_head=4)
+PLD_SMALL_BERT = dict(vocab_size=512, hidden_size=128, num_hidden_layers=8,
+                      num_attention_heads=4, intermediate_size=512,
+                      max_position_embeddings=128)
 # BLOOM-7b1 trains at full width through the fused head: 8 layers, micro
 # [6, 2048], whose bf16 logits (6 x 2048 x 250880 x 2 = 6.17e9 bytes) pass
 # the 4 GiB point of fused_head_ce="auto"; [4, 2048] (4.11e9) would not
@@ -6069,15 +6509,17 @@ def flash_auto_sweep():
 
 
 def options_engine(seed=0, config=None, **model_over):
-    """GPT-2 1.3B through ``initialize`` with ``GPT_PRETRAIN_CONFIG`` (or
-    ``config``), as ``gpt_pretrain.py`` builds it (full remat,
+    """GPT-2 1.3B's widths at ``OPTIONS_LAYERS`` layers through
+    ``initialize`` with ``GPT_PRETRAIN_CONFIG`` (or ``config``), as
+    ``gpt_pretrain.py`` builds it (full remat,
     ``use_flash_attention="auto"``), with ``model_over`` on the config."""
     import torch
 
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.transformer_lm import GPT, gpt2_config
 
-    fields = dict(n_positions=1024, dtype=torch.bfloat16,
+    fields = dict(n_positions=1024, n_layer=OPTIONS_LAYERS,
+                  dtype=torch.bfloat16,
                   param_dtype=torch.bfloat16, remat=True, remat_policy="full",
                   use_flash_attention="auto")
     fields.update(model_over)
@@ -6255,7 +6697,7 @@ def options_dropout(batch):
     problems += probs
     if not line["replays_draw_different_masks"]:
         problems.append("two replays drew the same masks")
-    if line["sites"] != 1 + 3 * 24 or line["sites_outside_bound"]:
+    if line["sites"] != 1 + 3 * OPTIONS_LAYERS or line["sites_outside_bound"]:
         problems.append(f"kept shares: {line['sites']} sites, outside "
                         f"{line['sites_outside_bound']}")
     # the same steps without recomputation, uncaptured
@@ -6327,11 +6769,14 @@ def dropout_resume():
             "continues_bit_for_bit": want == got and diff is None}
 
 
-def pld_keep_counts():
-    """A small stochastic-mode GPT under the PLD schedule, ``PLD_COUNT_STEPS``
-    eager steps: each block's gate read by a forward pre-hook, each layer's
-    keep count against the sum of its keep probabilities (binomial bound),
-    and the device theta against the host schedule at every step."""
+def pld_keep_counts(family):
+    """A small stochastic-mode model (``family`` "gpt": ``PLD_SMALL``;
+    "bert": ``PLD_SMALL_BERT`` with dropout 0.1) under
+    ``PLD_COUNT_SCHEDULE``, ``PLD_COUNT_STEPS`` eager steps: each block's
+    gate read by a forward pre-hook, each layer's keep count against the
+    sum of its keep probabilities (binomial bound), whether a gate that
+    never drops or always drops would lie outside the bound, and the device
+    theta against the host schedule at every step."""
     import math as _m
 
     import torch
@@ -6341,45 +6786,73 @@ def pld_keep_counts():
         GPT, GPTConfig, pld_keep_probability)
     from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
 
-    cfg = GPTConfig(**PLD_SMALL, dtype=torch.bfloat16, stochastic_mode=True,
-                    use_flash_attention="auto")
-    engine = deepspeed_tpu_torch.initialize(
-        model=GPT(cfg), config=dict(GPT_PRETRAIN_CONFIG,
-                                    zero_optimization={"stage": 0},
-                                    progressive_layer_drop=OPTIONS_PLD),
-        seed=2)[0]
-    kept = [0] * cfg.n_layer
+    config = dict(GPT_PRETRAIN_CONFIG, zero_optimization={"stage": 0},
+                  progressive_layer_drop=PLD_COUNT_SCHEDULE)
+    if family == "bert":
+        from deepspeed_tpu_torch.models.bert import (BertConfig,
+                                                     BertForPreTraining)
+
+        cfg = BertConfig(**PLD_SMALL_BERT, dtype=torch.bfloat16,
+                         stochastic_mode=True, dropout=BERT_DROPOUT)
+        model, n_layer = BertForPreTraining(cfg), cfg.num_hidden_layers
+        blocks = model.encoder.layer
+        batch = mlm_batch(4, 128, seed=6, vocab=cfg.vocab_size)
+    else:
+        cfg = GPTConfig(**PLD_SMALL, dtype=torch.bfloat16,
+                        stochastic_mode=True, use_flash_attention="auto")
+        model, n_layer, blocks = GPT(cfg), cfg.n_layer, None
+        batch = lm_batch(cfg.vocab_size, 4, 128, seed=6)
+    engine = deepspeed_tpu_torch.initialize(model=model, config=config,
+                                            seed=2)[0]
+    if blocks is None:
+        blocks = engine.module.h
+    kept = [0] * n_layer
     hooks = []
-    for i, block in enumerate(engine.module.h):
+    for i, block in enumerate(blocks):
         def hook(mod, args, kwargs, i=i):
-            gate = kwargs.get("gate")
+            # a GPT block takes its gate by keyword, a BERT layer as its
+            # fourth argument
+            gate = kwargs.get("gate", args[3] if len(args) > 3 else None)
             kept[i] += int(bool(gate))
         hooks.append(block.register_forward_pre_hook(hook, with_kwargs=True))
-    expect = [0.0] * cfg.n_layer
-    var = [0.0] * cfg.n_layer
+    expect = [0.0] * n_layer
+    var = [0.0] * n_layer
     theta_err = 0.0
-    it = iter(RepeatingLoader([lm_batch(cfg.vocab_size, 4, 128, seed=6)]))
+    it = iter(RepeatingLoader([batch]))
     for _ in range(PLD_COUNT_STEPS):
         host = engine.progressive_layer_drop.get_theta()
         theta_err = max(theta_err, abs(float(engine.pld_theta()) - host))
-        for i in range(cfg.n_layer):
-            p = pld_keep_probability(i, cfg.n_layer, host)
+        for i in range(n_layer):
+            p = pld_keep_probability(i, n_layer, host)
             expect[i] += p
             var[i] += p * (1 - p)
         engine._train_batch(it, eager=True)
     for h in hooks:
         h.remove()
-    bad = [i for i in range(cfg.n_layer)
-           if abs(kept[i] - expect[i]) > KEEP_SIGMAS * _m.sqrt(var[i]) + 0.5]
+    bound = [KEEP_SIGMAS * _m.sqrt(v) + 0.5 for v in var]
+    bad = [i for i in range(n_layer) if abs(kept[i] - expect[i]) > bound[i]]
     del engine
-    return {"steps": PLD_COUNT_STEPS, "kept": kept, "expected": expect,
-            "layers_outside_bound": bad,
+    return {"family": family, "steps": PLD_COUNT_STEPS,
+            "schedule": PLD_COUNT_SCHEDULE, "kept": kept, "expected": expect,
+            "bound": bound, "layers_outside_bound": bad,
+            "never_drop_caught": any(PLD_COUNT_STEPS - e > b
+                                     for e, b in zip(expect, bound)),
+            "always_drop_caught": any(e > b for e, b in zip(expect, bound)),
             "device_vs_host_theta_max_abs": theta_err}
+
+
+def keep_count_problems(counts):
+    """The failed checks of a ``pld_keep_counts`` reading."""
+    if (counts["layers_outside_bound"] or not counts["never_drop_caught"]
+            or not counts["always_drop_caught"]
+            or counts["device_vs_host_theta_max_abs"] > 1e-6):
+        return [f"PLD keep counts: {counts}"]
+    return []
 
 
 def options_pld(batch):
     """GPT-2 1.3B with stochastic_mode under progressive_layer_drop (theta
-    0.5, gamma 0.001), flash on: B1 48 / B2 24 / B3 24 / B4 1 (the blocks
+    0.5, gamma 0.001), flash on: B1 24 / B2 12 / B3 12 / B4 1 (the blocks
     always run), captured against eager, the device theta against the host
     schedule before every step; then the per-layer keep counts on a small
     GPT (``pld_keep_counts``)."""
@@ -6401,10 +6874,8 @@ def options_pld(batch):
     line["theta_max_abs_diff"] = max(abs(d - h) for d, h in line["probes"])
     if line["theta_max_abs_diff"] > 1e-6:
         problems.append("device pld_theta departs from the host schedule")
-    line["keep_counts"] = pld_keep_counts()
-    if line["keep_counts"]["layers_outside_bound"] or \
-            line["keep_counts"]["device_vs_host_theta_max_abs"] > 1e-6:
-        problems.append(f"PLD keep counts: {line['keep_counts']}")
+    line["keep_counts"] = pld_keep_counts("gpt")
+    problems += keep_count_problems(line["keep_counts"])
     free_cuda()
     emit({"phase": "train_options", "part": "progressive_layer_drop",
           "pld": OPTIONS_PLD, **line})
@@ -6648,6 +7119,9 @@ def phase_train_options():
 SPARSE_GPT_BLOCK = {"mode": "local_sliding_window", "block": 128,
                     "num_sliding_window_blocks": 65, "kernel": "pallas"}
 SPARSE_GPT_POSITIONS = 32768
+# serving's depth cut (from 32 layers; PERF.md section 4): every check of
+# the serving part is per layer or on the whole stack's output
+SPARSE_GPT_SERVE_LAYERS = 16
 SPARSE_GPT_SEQ = 16384
 # ring_engaged: (past window blocks, leading global tokens, block)
 SPARSE_GPT_RING = (32, 0, 128)
@@ -6707,8 +7181,9 @@ def _cache_bytes(cache):
 
 
 def sparse_gpt_serve():
-    """Serving at all 32 layers through ``init_inference`` (bf16, seed 0):
-    ``forward`` [1, 16384] on B5 (32 launches, no B1), its logits against
+    """Serving at ``SPARSE_GPT_SERVE_LAYERS`` layers through
+    ``init_inference`` (bf16, seed 0): ``forward`` [1, 16384] on B5 (one
+    launch per layer, no B1), its logits against
     the gather path's on the same weights, timed against the plain Mistral
     config's flash ``forward``; ``generate`` for 4 left-padded prompts of
     4500-6000 tokens (longer than the 4224-slot ring: 128-token prefill
@@ -6726,7 +7201,9 @@ def sparse_gpt_serve():
     free_cuda()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine = init_inference(sparse_gpt_model(), dtype="bf16", seed=0)
+    engine = init_inference(
+        sparse_gpt_model(n_layer=SPARSE_GPT_SERVE_LAYERS), dtype="bf16",
+        seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cfg = engine.module.config
@@ -6776,8 +7253,9 @@ def sparse_gpt_serve():
                    * SPARSE_GPT_POSITIONS * cfg.kv_heads * cfg.head_dim * 2)
 
     # the kernels' logits against the gather path's, the same weights
-    gather = init_inference(sparse_gpt_model("gather"), dtype="bf16",
-                            state_dict=engine.module.state_dict())
+    gather = init_inference(
+        sparse_gpt_model("gather", n_layer=SPARSE_GPT_SERVE_LAYERS),
+        dtype="bf16", state_dict=engine.module.state_dict())
     logits_g = gather(ids)
     gather_rel = _rel_l2(logits, logits_g)
     gather_top1 = float((logits.argmax(-1) == logits_g.argmax(-1))
@@ -6786,7 +7264,8 @@ def sparse_gpt_serve():
     free_cuda()
     forward_ms = wall_ms(lambda: engine(ids), reps=3)
     flash = init_inference(GPT(mistral_config(
-        n_positions=SPARSE_GPT_POSITIONS)), dtype="bf16",
+        n_positions=SPARSE_GPT_POSITIONS, n_layer=SPARSE_GPT_SERVE_LAYERS)),
+        dtype="bf16",
         state_dict=engine.module.state_dict())
     reset_launches()
     flash(ids)
@@ -6832,7 +7311,8 @@ def sparse_gpt_serve():
             "model": "mistral-7b-v0.1", "source": MISTRAL_SOURCE,
             "params": sum(p.numel() for p in engine.module.parameters()),
             "config": dict(MISTRAL_7B, n_positions=SPARSE_GPT_POSITIONS),
-            "sparse_attention": SPARSE_GPT_BLOCK, "reduced": {},
+            "sparse_attention": SPARSE_GPT_BLOCK,
+            "reduced": {"n_layer": f"32 -> {SPARSE_GPT_SERVE_LAYERS}"},
             "ring": list(ring), "ring_slots": ring_storage_len(cfg, ring),
             "dtype": "bf16", "init_s": init_s,
             "forward_shape": [1, SPARSE_GPT_SEQ],
@@ -6974,7 +7454,8 @@ def sparse_gpt_train():
 
 def phase_sparse_gpt():
     """The GPT block-sparse route with the ring KV cache (ROADMAP A.6) on
-    Mistral-7B's sliding window: serving at 32 layers, training at 8.
+    Mistral-7B's sliding window: serving at ``SPARSE_GPT_SERVE_LAYERS``
+    layers, training at 8.
     Returns the launch counts of the serve and train runs."""
     import torch
 
@@ -6989,6 +7470,333 @@ def phase_sparse_gpt():
     return {"sparse_gpt_serve": serve, "sparse_gpt_train": train}
 
 
+# BERT breadth (ROADMAP A.7): BERT-Large at full width and depth on B5-B7
+# (BigBird block 128, [1, 4096]) under its published dropout
+# (hidden_dropout_prob and attention_probs_dropout_prob 0.1:
+# google-research/bert, bert_config.json of BERT-Large; the config has one
+# dropout field), under each remat policy and under progressive layer drop
+# with the DeepSpeed PLD tutorial's BERT settings
+BERT_DROPOUT = 0.1
+BERT_PLD = {"enabled": True, "theta": 0.5, "gamma": 0.001}
+# a dense BERT-Large at [8, 512] (the einsum path, probability dropout on)
+BERT_DENSE_MICRO, BERT_DENSE_SEQ = 8, 512
+BERT_DENSE_PER_STEP = {"block_sparse_fwd": 0, "block_sparse_dq": 0,
+                       "block_sparse_dkv": 0, "fused_adamw": 1,
+                       "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+                       "flash_attention_bwd_dkv": 0}
+
+
+def bert_large_engine(seed=0, config=None, **over):
+    """BERT-Large at ``SPARSE_SEQ`` positions through ``initialize`` with
+    ``BERT_SPARSE_CONFIG`` (or ``config``): bf16, full remat unless
+    ``over`` says otherwise."""
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.bert import BertForPreTraining, bert_config
+
+    fields = dict(dtype=torch.bfloat16, scan_layers=True, remat=True,
+                  remat_policy="full", max_position_embeddings=SPARSE_SEQ)
+    fields.update(over)
+    return deepspeed_tpu_torch.initialize(
+        model=BertForPreTraining(bert_config("bert-large", **fields)),
+        config=config or BERT_SPARSE_CONFIG, seed=seed)[0]
+
+
+def mlm_batch(rows, seq, seed=1, vocab=30522):
+    """``rows`` x ``seq`` random ids with 15% of each row's positions
+    labelled, the same count in every row as BERT's pretraining data
+    masks a full-length sequence (so a data-parallel engine's global mean
+    over the labelled tokens is the mean of the rows' means, as gradient
+    accumulation takes it). No attention_mask: with one, the kernel route
+    takes the dense path."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, size=(rows, seq)).astype(np.int64)
+    picked = rng.rand(rows, seq).argsort(axis=1)[:, :round(0.15 * seq)]
+    labels = np.full_like(ids, -100)
+    np.put_along_axis(labels, picked, np.take_along_axis(ids, picked, 1), 1)
+    return {"input_ids": ids, "labels": labels}
+
+
+def bert_policies(batch):
+    """BERT-Large sparse at dropout 0.1 under each remat policy: captured
+    against eager (``options_pair``), B5 48 / B6 24 / B7 24 / B4 1 per
+    step, the loss falling, every policy's losses, grad norms and final
+    parameters bit for bit ``full``'s (the same masks); after ``full``'s
+    steps two replays at lr 0 draw different masks. Returns the lines by
+    policy and the problems found."""
+    problems, lines, full = [], {}, None
+
+    def after(engine, it):
+        engine.set_lr(0.0)
+        frozen = [float(engine.train_batch(it)) for _ in range(2)]
+        return {"lr0_replay_losses": frozen,
+                "replays_draw_different_masks": frozen[0] != frozen[1]}
+
+    for policy in OPTION_POLICIES:
+        line, params, probs = options_pair(
+            functools.partial(bert_large_engine, remat_policy=policy,
+                              dropout=BERT_DROPOUT),
+            batch, SPARSE_PER_STEP, after=after if full is None else None)
+        problems += [f"{policy}: {p}" for p in probs]
+        if not line["losses"][-1] <= line["losses"][0] - SPARSE_MIN_LOSS_DROP:
+            problems.append(f"{policy}: the loss did not fall by "
+                            f"{SPARSE_MIN_LOSS_DROP}")
+        if full is None:
+            full = (line, params)
+            if not line["replays_draw_different_masks"]:
+                problems.append("two replays drew the same masks")
+        else:
+            ref, ref_params = full
+            diff = first_difference(ref_params, params)
+            line["equals_full"] = {
+                "losses": line["losses"] == ref["losses"],
+                "grad_norms": line["grad_norms"] == ref["grad_norms"],
+                "first_step_grad_norm": (line["grad_norms"][0]
+                                         == ref["grad_norms"][0]),
+                "params": diff is None, "first_param_difference": diff}
+            if not all(v for k, v in line["equals_full"].items()
+                       if k != "first_param_difference"):
+                problems.append(f"{policy}: differs from full")
+            line["activation_gb_vs_full"] = (
+                line["eager_peak_above_state_gb"]
+                - ref["eager_peak_above_state_gb"])
+        del params
+        line["tokens_per_s"] = SPARSE_SEQ / line["step_ms_median"] * 1e3
+        lines[policy] = line
+        emit({"phase": "bert_options", "part": "remat_policy",
+              "policy": policy, "dropout": BERT_DROPOUT, **line})
+    del full
+    free_cuda()
+    return lines, problems
+
+
+def bert_dropout_checks(batch, full_line):
+    """At the same weights and masks (one step each from seed 0): the
+    kernels' loss and grad norm against the gather route's (``full``'s
+    first step), and a dropout-0 engine's first loss, which must differ
+    from the dropout-0.1 one."""
+    import torch
+
+    problems, out = [], {}
+    loss_k, norm_k = full_line["losses"][0], full_line["grad_norms"][0]
+    config = dict(BERT_SPARSE_CONFIG,
+                  sparse_attention=dict(BIGBIRD_BLOCK, kernel="gather"))
+    for name, engine in (
+            ("gather", lambda: bert_large_engine(config=config,
+                                                 dropout=BERT_DROPOUT)),
+            ("dropout_0", lambda: bert_large_engine())):
+        free_cuda()
+        eng = engine()
+        out[name] = [float(eng.train_batch(iter([batch]))),
+                     eng.get_global_grad_norm()]
+        del eng
+    free_cuda()
+    loss_g, norm_g = out["gather"]
+    out["kernels_vs_gather"] = {
+        "loss": [loss_k, loss_g], "grad_norm": [norm_k, norm_g],
+        "loss_rel_err": abs(loss_k - loss_g) / abs(loss_g),
+        "grad_norm_rel_err": abs(norm_k - norm_g) / abs(norm_g),
+        "tolerance": {"loss_rel": SPARSE_LOSS_REL_TOL,
+                      "grad_norm_rel": SPARSE_GNORM_REL_TOL}}
+    if not out["kernels_vs_gather"]["loss_rel_err"] <= SPARSE_LOSS_REL_TOL:
+        problems.append("kernels and gather losses disagree under dropout")
+    if not out["kernels_vs_gather"]["grad_norm_rel_err"] <= \
+            SPARSE_GNORM_REL_TOL:
+        problems.append("kernels and gather grad norms disagree under "
+                        "dropout")
+    if out["dropout_0"][0] == loss_k:
+        problems.append("the dropout-0 engine gave the dropout-0.1 loss")
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out, problems
+
+
+def bert_pld(batch):
+    """Stochastic depth under ``BERT_PLD`` with dropout 0.1: captured
+    against eager, the device theta against the host schedule before every
+    step of both runs, the layers each eager step dropped (the gates read
+    as the encoder receives them, outside any capture), and the per-layer
+    keep counts on a small BERT (``pld_keep_counts``)."""
+    import math as _m
+
+    import torch
+
+    from deepspeed_tpu_torch.models.transformer_lm import pld_keep_probability
+
+    problems, gates = [], []
+
+    def probe(engine):
+        enc = engine.module.encoder
+        if not getattr(enc, "_gate_probe", False):
+            def hook(mod, args):
+                g = args[3] if len(args) > 3 else None
+                if g is not None and \
+                        not torch.cuda.is_current_stream_capturing():
+                    gates.append((id(mod), g.clone()))
+            enc.register_forward_pre_hook(hook)
+            enc._gate_probe = True
+        return [float(engine.pld_theta()),
+                engine.progressive_layer_drop.get_theta()]
+
+    config = dict(BERT_SPARSE_CONFIG, progressive_layer_drop=BERT_PLD)
+    line, params, probs = options_pair(
+        functools.partial(bert_large_engine, config=config,
+                          dropout=BERT_DROPOUT, stochastic_mode=True),
+        batch, SPARSE_PER_STEP, probe=probe)
+    del params
+    problems += probs
+    line["theta_max_abs_diff"] = max(abs(d - h) for d, h in line["probes"])
+    if line["theta_max_abs_diff"] > 1e-6:
+        problems.append("device pld_theta departs from the host schedule")
+    # the eager engine's gates (the last STEPS entries of its module)
+    eager = [g for m, g in gates if m == gates[-1][0]][-STEPS:]
+    dropped = [int((~g).sum()) for g in eager]
+    n_layer = len(eager[0])
+    expect = var = 0.0
+    for theta, _ in line["probes"]:
+        for i in range(n_layer):
+            p = float(pld_keep_probability(i, n_layer, theta))
+            expect += 1 - p
+            var += p * (1 - p)
+    line["dropped_layers_by_step"] = dropped
+    line["dropped_layers_expected"] = expect
+    if abs(sum(dropped) - expect) > KEEP_SIGMAS * _m.sqrt(var) + 0.5:
+        problems.append(f"PLD dropped {sum(dropped)} layers, expected "
+                        f"{expect}")
+    # 12 steps near theta 1 drop ~0.4 layers, which no bound can tell from
+    # a gate that never drops: the gates are counted on a small BERT
+    free_cuda()
+    line["keep_counts"] = pld_keep_counts("bert")
+    problems += keep_count_problems(line["keep_counts"])
+    line["tokens_per_s"] = SPARSE_SEQ / line["step_ms_median"] * 1e3
+    emit({"phase": "bert_options", "part": "progressive_layer_drop",
+          "pld": BERT_PLD, "dropout": BERT_DROPOUT, **line})
+    free_cuda()
+    return line, problems
+
+
+def bert_dense():
+    """A dense BERT-Large at [8, 512] with dropout 0.1 (the einsum path with
+    probability dropout; B4 alone): captured against eager."""
+    config = dict(BERT_SPARSE_CONFIG,
+                  train_micro_batch_size_per_gpu=BERT_DENSE_MICRO)
+    del config["sparse_attention"]
+    line, params, problems = options_pair(
+        functools.partial(bert_large_engine, config=config,
+                          dropout=BERT_DROPOUT,
+                          max_position_embeddings=BERT_DENSE_SEQ),
+        mlm_batch(BERT_DENSE_MICRO, BERT_DENSE_SEQ, seed=2),
+        BERT_DENSE_PER_STEP)
+    del params
+    line["tokens_per_s"] = (BERT_DENSE_MICRO * BERT_DENSE_SEQ
+                            / line["step_ms_median"] * 1e3)
+    emit({"phase": "bert_options", "part": "dense",
+          "batch": [BERT_DENSE_MICRO, BERT_DENSE_SEQ],
+          "dropout": BERT_DROPOUT, **line})
+    free_cuda()
+    return line, problems
+
+
+# embedding tables whose backward must repeat bit for bit, eager and
+# captured: BERT's token types ([1, 4096] of type 0: one id 4096 times),
+# its word table over the MLM batch's ids, and the same ids with 490 of
+# the positions on one id (a [MASK] token's share of a 15%-masked row).
+# What ``bert.TypeEmbed``'s note rests on
+EMBED_REPEAT_CASES = (("token_type", 2, "zeros"), ("word", 30522, "mlm"),
+                      ("word_one_id_490", 30522, "mlm_490"))
+
+
+def embedding_backward_repeats():
+    """The port's ``VocabEmbed`` (bf16 compute, f32 table, BERT-Large's
+    width) on each of ``EMBED_REPEAT_CASES``: its table gradient from one
+    upstream gradient, three times eagerly and three captured replays,
+    all bit for bit equal; and the captured backward's ms."""
+    import torch
+
+    from deepspeed_tpu_torch.models.bert import bert_config
+    from deepspeed_tpu_torch.models.transformer_lm import VocabEmbed
+
+    cfg = bert_config("bert-large", dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    mlm = torch.as_tensor(mlm_batch(1, SPARSE_SEQ, seed=3)["input_ids"],
+                          device="cuda")
+    out = {}
+    for name, rows, kind in EMBED_REPEAT_CASES:
+        ids = torch.zeros_like(mlm) if kind == "zeros" else mlm.clone()
+        if kind == "mlm_490":
+            ids[0, torch.randperm(SPARSE_SEQ, generator=gen,
+                                  device="cuda")[:490]] = 103
+        table = VocabEmbed(rows, cfg.hidden_size, cfg).cuda()
+        g = torch.randn(*ids.shape, cfg.hidden_size, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+
+        def grad():
+            return torch.autograd.grad(table(ids), table.weight, g)[0]
+
+        eager = [grad() for _ in range(3)]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            grad()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static = grad()
+        replays = []
+        for _ in range(3):
+            graph.replay()
+            replays.append(static.clone())
+        out[name] = {"rows": rows, "distinct_ids": int(ids.unique().numel()),
+                     "identical": all(torch.equal(eager[0], x)
+                                      for x in eager[1:] + replays),
+                     "captured_ms": device_ms(graph.replay)["ms"]}
+        del graph, static, eager, replays, table
+    free_cuda()
+    return out
+
+
+def phase_bert_options():
+    """BERT breadth (ROADMAP A.7) on the card (see the module docstring).
+    Returns the launch counts by path: each run's counts set to 0 just
+    before its captured steps and read just after."""
+    import torch
+
+    t0 = time.perf_counter()
+    problems = []
+    batch = mlm_batch(1, SPARSE_SEQ)
+    lines, probs = bert_policies(batch)
+    problems += probs
+    paths = {f"bert_{p}": line["launches"] for p, line in lines.items()}
+    checks, probs = bert_dropout_checks(batch, lines["full"])
+    problems += probs
+    line, probs = bert_pld(batch)
+    problems += probs
+    paths["bert_pld"] = line["launches"]
+    line, probs = bert_dense()
+    problems += probs
+    paths["bert_dense"] = line["launches"]
+    repeats = embedding_backward_repeats()
+    if not all(r["identical"] for r in repeats.values()):
+        problems.append(f"embedding backward does not repeat: {repeats}")
+    emit({"phase": "bert_options", "part": "summary",
+          "model": "bert-large", "batch": [1, SPARSE_SEQ],
+          "sparse_attention": BIGBIRD_BLOCK, "dropout": BERT_DROPOUT,
+          "step_ms_median_by_policy": {
+              p: line["step_ms_median"] for p, line in lines.items()},
+          "activation_gb_by_policy": {
+              p: line["eager_peak_above_state_gb"]
+              for p, line in lines.items()},
+          "checks": checks, "embedding_backward_repeats": repeats,
+          "seconds": time.perf_counter() - t0,
+          "problems": problems, "smi": nvidia_smi_line(),
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if problems:
+        raise AssertionError(f"bert_options: {problems}")
+    return paths
+
+
 def main(argv):
     import torch
 
@@ -6998,12 +7806,13 @@ def main(argv):
                                  or argv[2] in ("zero", "data", "mistral",
                                                 "neox", "moe",
                                                 "train_options",
-                                                "sparse_gpt")))
+                                                "sparse_gpt",
+                                                "bert_options")))
              or (len(argv) == 6 and argv[1] == "--zero-rank"))
     if not usage:
         print(f"usage: {argv[0]} [--against OTHER_CHECKOUT | "
-              "--only zero|data|mistral|neox|moe|train_options|sparse_gpt]",
-              file=sys.stderr)
+              "--only zero|data|mistral|neox|moe|train_options|sparse_gpt"
+              "|bert_options]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -7022,8 +7831,11 @@ def main(argv):
         print(nvidia_smi_line(), flush=True)
         return 0 if ok else 1
     if argv[1:2] == ["--only"]:
+        start_phase()
         smi = phase_device()
+        start_phase()
         phase_build()
+        start_phase()
         if argv[2] == "zero":
             emit({"zero_launches_by_path": phase_zero()})
         elif argv[2] == "mistral":
@@ -7046,6 +7858,8 @@ def main(argv):
             free_cuda()
             time_block_sparse_gpt()
             emit({"sparse_gpt_launches_by_path": phase_sparse_gpt()})
+        elif argv[2] == "bert_options":
+            emit({"bert_options_launches_by_path": phase_bert_options()})
         else:
             emit({"data_launches": phase_data()[0]})
         print(smi, flush=True)
@@ -7053,39 +7867,43 @@ def main(argv):
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
-    smi = phase_device()
-    phase_build()
-    kernels = phase_kernel()
-    free_cuda()
-    serve_launches = phase_serve()
-    free_cuda()
-    phase_small()
-    free_cuda()
-    launches = phase_train()
-    free_cuda()
-    data_launches, segment_times = phase_data()
-    free_cuda()
-    ckpt_launches = phase_checkpoint()
-    sparse_launches = phase_sparse_train()
-    phase_small_capture()
-    free_cuda()
-    phase_small_train()
-    free_cuda()
-    zero_paths = phase_zero()
-    free_cuda()
-    mistral_paths, mistral_shape = phase_mistral()
-    free_cuda()
-    neox_paths = phase_neox()
-    free_cuda()
-    moe_paths = phase_moe()
-    free_cuda()
-    option_paths = phase_train_options()
-    free_cuda()
-    sparse_gpt_paths = phase_sparse_gpt()
+    started = time.perf_counter()
+    phase_seconds = {}
+
+    def run(name, fn):
+        """One phase, its wall seconds kept, then what it left freed."""
+        t0 = time.perf_counter()
+        start_phase()
+        out = fn()
+        free_cuda()
+        phase_seconds[name] = time.perf_counter() - t0
+        return out
+
+    smi = run("device", phase_device)
+    run("build", phase_build)
+    kernels = run("kernel", phase_kernel)
+    serve_launches = run("serve", phase_serve)
+    run("small", phase_small)
+    launches = run("train", phase_train)
+    data_launches, segment_times = run("data", phase_data)
+    ckpt_launches = run("checkpoint", phase_checkpoint)
+    sparse_launches = run("sparse_train", phase_sparse_train)
+    run("small_capture", phase_small_capture)
+    run("small_train", phase_small_train)
+    zero_paths = run("zero", phase_zero)
+    mistral_paths, mistral_shape = run("mistral", phase_mistral)
+    neox_paths = run("neox", phase_neox)
+    moe_paths = run("moe", phase_moe)
+    option_paths = run("train_options", phase_train_options)
+    sparse_gpt_paths = run("sparse_gpt", phase_sparse_gpt)
+    bert_paths = run("bert_options", phase_bert_options)
+    emit({"phase_seconds": phase_seconds,
+          "total_seconds": time.perf_counter() - started})
     paths = {"serve": serve_launches, "train": launches,
              "checkpoint": ckpt_launches, "sparse_train": sparse_launches,
              **zero_paths, "data": data_launches, **mistral_paths,
-             **neox_paths, **moe_paths, **option_paths, **sparse_gpt_paths}
+             **neox_paths, **moe_paths, **option_paths, **sparse_gpt_paths,
+             **bert_paths}
     for entry in kernels:
         # each slice's main path, its counts set to 0 just before it: serving
         # runs B1, GPT training, the checkpoint path, ZeRO (stages 0-2, and
@@ -7094,12 +7912,15 @@ def main(argv):
         # variant), Pythia's and Mixtral's training B1-B4 (BLOOM serves
         # without B1: ALiBi), BERT training under BigBird B4-B7, and the
         # training options' runs (each remat policy, dropout, PLD, BLOOM's
-        # fused head, chunked attention), and Mistral's sliding window on
-        # the GPT block-sparse route (B5-B7, B4). "launches" is the count
-        # on the newest path that runs the kernel
+        # fused head, chunked attention), Mistral's sliding window on the
+        # GPT block-sparse route (B5-B7, B4), and BERT-Large's training
+        # options (each remat policy under dropout, PLD: B5-B7, B4; the
+        # dense BERT: B4). "launches" is the count on the newest path that
+        # runs the kernel
         name = entry["name"]
         entry["launches_by_path"] = {p: counts[name] for p, counts in paths.items()}
-        entry["launches"] = (sparse_gpt_paths["sparse_gpt_train"][name]
+        entry["launches"] = (bert_paths["bert_selective"][name]
+                             or sparse_gpt_paths["sparse_gpt_train"][name]
                              or option_paths["remat_selective"][name]
                              or option_paths["pld"][name]
                              or moe_paths["moe_train"][name]

@@ -933,6 +933,13 @@ class GPT(nn.Module):
         # block's parameters there (runtime/zero/stage3.py)
         self.block_hook = None
 
+    # the blocks ZeRO stage 3 cuts into units, and their names' prefix
+    block_prefix = "h"
+
+    @property
+    def blocks(self) -> nn.ModuleList:
+        return self.h
+
     def loss_weight_sum(self, input_ids=None, labels=None,
                         attention_mask=None, segment_ids=None, **_):
         """The sum of the loss's per-token weights for this batch (the

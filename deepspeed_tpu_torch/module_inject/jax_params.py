@@ -98,19 +98,38 @@ def _adam_node(state):
     return None
 
 
+def _bridge(cfg):
+    """The model family's ``(state_dict_from_jax, exchange_layout)`` pair,
+    by the config's class: ``BertConfig`` or ``GPTConfig``."""
+    from deepspeed_tpu_torch.models.bert import BertConfig
+    from deepspeed_tpu_torch.models.transformer_lm import GPTConfig
+
+    if isinstance(cfg, BertConfig):
+        return bert_state_dict_from_jax, bert_exchange_layout
+    if isinstance(cfg, GPTConfig):
+        return gpt_state_dict_from_jax, gpt_exchange_layout
+    raise TypeError(f"no JAX bridge for {type(cfg).__name__}")
+
+
+def state_dict_from_jax(tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """``bert_state_dict_from_jax`` for a ``BertConfig``, else
+    ``gpt_state_dict_from_jax``."""
+    return _bridge(cfg)[0](tree, cfg)
+
+
 def adam_state_from_jax(opt_state, cfg) -> Dict[str, Any]:
-    """The JAX engine's optax Adam state of a ``GPT`` (``count``, ``mu``
-    and ``nu`` over the scanned or unscanned parameter tree, as numpy:
-    ``jax.device_get(engine._opt_state)``) -> the ``state_dict`` of the
-    port's Adam optimizers (``AdamW``, ``FusedAdamW``): ``{"count": n,
-    "state": {name: {"mu": t, "nu": t}}}``, named and laid out by
-    ``gpt_state_dict_from_jax``'s map, in f32 (``load_state_dict`` casts
-    to the moments' dtype)."""
+    """The JAX engine's optax Adam state of a ``GPT`` or a
+    ``BertForPreTraining`` (``count``, ``mu`` and ``nu`` over the scanned or
+    unscanned parameter tree, as numpy: ``jax.device_get(
+    engine._opt_state)``) -> the ``state_dict`` of the port's Adam
+    optimizers (``AdamW``, ``FusedAdamW``): ``{"count": n, "state": {name:
+    {"mu": t, "nu": t}}}``, named and laid out by ``state_dict_from_jax``'s
+    map, in f32 (``load_state_dict`` casts to the moments' dtype)."""
     node = _adam_node(opt_state)
     if node is None:
         raise ValueError("no optax Adam state (count, mu, nu) in the tree")
-    mu = gpt_state_dict_from_jax(node.mu, cfg)
-    nu = gpt_state_dict_from_jax(node.nu, cfg)
+    mu = state_dict_from_jax(node.mu, cfg)
+    nu = state_dict_from_jax(node.nu, cfg)
     return {"count": int(np.asarray(node.count)),
             "state": {name: {"mu": mu[name], "nu": nu[name]} for name in mu}}
 
@@ -173,16 +192,18 @@ def _index_tree(tree, i):
 
 
 # ---------------------------------------------------------------------------
-# the JAX flat layout of a GPT's parameters, for the gradient exchange
+# the JAX flat layout of a model's parameters, for the gradient exchange
 # ---------------------------------------------------------------------------
 class ExchangeLayout:
     """The port's parameters laid out as the JAX engine flattens its
-    parameter tree (``jax.tree.flatten`` of the flax ``GPT`` params): the
-    leaves in sorted-key order, each in flax layout (Dense kernels ``[in,
-    out]``, the transpose of ``nn.Linear.weight``; ``c_attn`` fused q | k
-    | v), concatenated into one flat buffer. With ``scan_layers`` a block
-    leaf stacks the layers (``h/block/...``, a leading layer axis);
-    without, the blocks are ``h_0, h_1, h_10, ...`` in string order.
+    parameter tree (``jax.tree.flatten`` of the flax ``GPT`` or
+    ``BertForPreTraining`` params): the leaves in sorted-key order, each in
+    flax layout (Dense kernels ``[in, out]``, the transpose of
+    ``nn.Linear.weight``; ``c_attn`` and ``qkv`` fused q | k | v),
+    concatenated into one flat buffer. With ``scan_layers`` a block leaf
+    stacks the layers (``h/block/...`` or ``encoder/layer/...``, a leading
+    layer axis); without, the blocks are ``h_0, h_1, h_10, ...`` (or
+    ``encoder/layer_0, ...``) in string order.
 
     ``leaves`` is ``[(path, jax_shape)]`` in that order, ``offsets`` each
     leaf's start in the flat buffer, ``numel`` its length. Parameter ``i``
@@ -265,14 +286,43 @@ _BLOCK_LEAVES = [
     ("mlp.experts.wo", ("mlp", "experts", "wo"), False),
 ]
 # the untied head is [n_embd, vocab] in both packages: no transpose
-_OUTER_LEAVES = [("lm_head", ("lm_head",)),
-                 ("lm_head_bias", ("lm_head_bias",)),
-                 ("ln_embed.bias", ("ln_embed", "bias")),
-                 ("ln_embed.weight", ("ln_embed", "scale")),
-                 ("ln_f.bias", ("ln_f", "bias")),
-                 ("ln_f.weight", ("ln_f", "scale")),
-                 ("wpe.weight", ("wpe", "embedding")),
-                 ("wte.weight", ("wte", "embedding"))]
+_OUTER_LEAVES = [("lm_head", ("lm_head",), False),
+                 ("lm_head_bias", ("lm_head_bias",), False),
+                 ("ln_embed.bias", ("ln_embed", "bias"), False),
+                 ("ln_embed.weight", ("ln_embed", "scale"), False),
+                 ("ln_f.bias", ("ln_f", "bias"), False),
+                 ("ln_f.weight", ("ln_f", "scale"), False),
+                 ("wpe.weight", ("wpe", "embedding"), False),
+                 ("wte.weight", ("wte", "embedding"), False)]
+# a BertLayer's leaves and the rest of BertForPreTraining (bert.py's names)
+_BERT_LAYER_LEAVES = [
+    ("attention.output.bias", ("attention", "output", "bias"), False),
+    ("attention.output.weight", ("attention", "output", "kernel"), True),
+    ("attention.qkv.bias", ("attention", "qkv", "bias"), False),
+    ("attention.qkv.weight", ("attention", "qkv", "kernel"), True),
+    ("intermediate.bias", ("intermediate", "bias"), False),
+    ("intermediate.weight", ("intermediate", "kernel"), True),
+    ("ln_attn.bias", ("ln_attn", "bias"), False),
+    ("ln_attn.weight", ("ln_attn", "scale"), False),
+    ("ln_out.bias", ("ln_out", "bias"), False),
+    ("ln_out.weight", ("ln_out", "scale"), False),
+    ("output.bias", ("output", "bias"), False),
+    ("output.weight", ("output", "kernel"), True),
+]
+_BERT_OUTER_LEAVES = [
+    ("embeddings_ln.bias", ("embeddings_ln", "bias"), False),
+    ("embeddings_ln.weight", ("embeddings_ln", "scale"), False),
+    ("mlm_bias", ("mlm_bias",), False),
+    ("mlm_dense.bias", ("mlm_dense", "bias"), False),
+    ("mlm_dense.weight", ("mlm_dense", "kernel"), True),
+    ("mlm_ln.bias", ("mlm_ln", "bias"), False),
+    ("mlm_ln.weight", ("mlm_ln", "scale"), False),
+    ("position_embeddings.weight", ("position_embeddings", "embedding"),
+     False),
+    ("token_type_embeddings.weight", ("token_type_embeddings", "embedding"),
+     False),
+    ("word_embeddings.weight", ("word_embeddings", "embedding"), False),
+]
 
 
 def gpt_exchange_layout(named_shapes, cfg) -> ExchangeLayout:
@@ -282,6 +332,35 @@ def gpt_exchange_layout(named_shapes, cfg) -> ExchangeLayout:
     ``gpt_state_dict_from_jax``'s map; it needs no jax. A leaf of
     ``_BLOCK_LEAVES`` is in the layout when layer 0 has it, and then every
     layer must."""
+    return _exchange_layout(named_shapes, cfg.n_layer, cfg.scan_layers, "h",
+                            ("h", "block"), lambda i: (f"h_{i}",),
+                            _BLOCK_LEAVES, _OUTER_LEAVES)
+
+
+def bert_exchange_layout(named_shapes, cfg) -> ExchangeLayout:
+    """The ``ExchangeLayout`` of a ``BertForPreTraining``'s parameters under
+    ``cfg.scan_layers``: ``encoder/layer/...`` stacked, or
+    ``encoder/layer_{i}``, with the Dense kernels transposed as
+    ``bert_state_dict_from_jax`` reads them (its inverse; no jax)."""
+    return _exchange_layout(named_shapes, cfg.num_hidden_layers,
+                            cfg.scan_layers, "encoder.layer",
+                            ("encoder", "layer"),
+                            lambda i: ("encoder", f"layer_{i}"),
+                            _BERT_LAYER_LEAVES, _BERT_OUTER_LEAVES)
+
+
+def exchange_layout(named_shapes, cfg) -> ExchangeLayout:
+    """``bert_exchange_layout`` for a ``BertConfig``, else
+    ``gpt_exchange_layout``."""
+    return _bridge(cfg)[1](named_shapes, cfg)
+
+
+def _exchange_layout(named_shapes, n_layer, scan, prefix, scanned_key,
+                     unscanned_key, block_leaves, outer_leaves):
+    """The layout of a model whose blocks are ``{prefix}.{i}`` in the port
+    and ``scanned_key`` (stacked) or ``unscanned_key(i)`` in the flax
+    tree; ``block_leaves`` and ``outer_leaves`` map the port's leaf names
+    to flax paths, with whether the leaf is a transposed kernel."""
     index = {name: i for i, (name, _) in enumerate(named_shapes)}
     shapes = {name: tuple(s) for name, s in named_shapes}
     entries = {}  # jax path tuple -> (jax shape, [(param, layer, transposed)])
@@ -290,25 +369,26 @@ def gpt_exchange_layout(named_shapes, cfg) -> ExchangeLayout:
         s = shapes[name]
         return tuple(reversed(s)) if transposed else s
 
-    block_leaves = [leaf for leaf in _BLOCK_LEAVES
-                    if f"h.0.{leaf[0]}" in index]
-    for i in range(cfg.n_layer):
+    block_leaves = [leaf for leaf in block_leaves
+                    if f"{prefix}.0.{leaf[0]}" in index]
+    for i in range(n_layer):
         for port, path, transposed in block_leaves:
-            name = f"h.{i}.{port}"
+            name = f"{prefix}.{i}.{port}"
             if name not in index:
                 raise ValueError(f"{name} is not a parameter of the model")
             part = flax_shape(name, transposed)
-            if cfg.scan_layers:
-                key = ("h", "block") + path
-                shape = (cfg.n_layer,) + part
+            if scan:
+                key = scanned_key + path
+                shape = (n_layer,) + part
                 entries.setdefault(key, (shape, []))[1].append(
                     (index[name], i, transposed))
             else:
-                entries[(f"h_{i}",) + path] = (
+                entries[unscanned_key(i) + path] = (
                     part, [(index[name], None, transposed)])
-    for name, path in _OUTER_LEAVES:
+    for name, path, transposed in outer_leaves:
         if name in index:
-            entries[path] = (shapes[name], [(index[name], None, False)])
+            entries[path] = (flax_shape(name, transposed),
+                             [(index[name], None, transposed)])
     if len(index) != sum(len(m) for _, m in entries.values()):
         unknown = set(index) - {named_shapes[i][0] for _, m in entries.values()
                                 for i, _, _ in m}
@@ -339,7 +419,8 @@ def _state_fields(state):
 def compressed_state_from_jax(opt_state, cfg, mode: str, rank: int,
                               world: int) -> Dict[str, Any]:
     """The JAX engine's optimizer state of a compressed gradient exchange
-    (``jax.device_get(engine._opt_state)`` of a ``GPT``: ``(inner,)`` for
+    (``jax.device_get(engine._opt_state)`` of a ``GPT`` or a
+    ``BertForPreTraining``: ``(inner,)`` for
     the deferred exchange, ``(inner, err, serr)`` for int8, with the error
     feedback per leaf or per bucket, ``[k, ...]`` per worker; an
     ``OnebitAdamState`` / ``ZeroOneAdamState`` for the 1-bit family) ->
@@ -363,8 +444,8 @@ def compressed_state_from_jax(opt_state, cfg, mode: str, rank: int,
 
     if mode == "onebit":
         st = _state_fields(opt_state)
-        m = gpt_state_dict_from_jax(st["exp_avg"], cfg)
-        v = gpt_state_dict_from_jax(st["exp_avg_sq"], cfg)
+        m = state_dict_from_jax(st["exp_avg"], cfg)
+        v = state_dict_from_jax(st["exp_avg_sq"], cfg)
         return {"optimizer": {
                     "count": int(np.asarray(st["count"])),
                     "state": {n: {"exp_avg": m[n], "exp_avg_sq": v[n]}

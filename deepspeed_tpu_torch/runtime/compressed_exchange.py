@@ -58,7 +58,7 @@ from deepspeed_tpu_torch.comm.bucketed import (bucketed_all_reduce,
                                                plan_for_tree)
 from deepspeed_tpu_torch.comm.compressed import (quantized_all_reduce,
                                                  server_shard_length)
-from deepspeed_tpu_torch.module_inject.jax_params import gpt_exchange_layout
+from deepspeed_tpu_torch.module_inject.jax_params import exchange_layout
 from deepspeed_tpu_torch.runtime.fp16.onebit.adam import _store
 from deepspeed_tpu_torch.runtime.loss_scaler import has_overflow
 from deepspeed_tpu_torch.runtime.optimizer import is_compressed_optimizer
@@ -190,7 +190,7 @@ class CompressedExchange:
         with torch.no_grad():
             for p in self.params:
                 comm.broadcast(p.data, AXIS, root=0)
-        self.layout = gpt_exchange_layout(
+        self.layout = exchange_layout(
             [(n, p.shape) for n, p in named], model.config)
         gx = config.tpu.grad_exchange_config
         self.plan = None

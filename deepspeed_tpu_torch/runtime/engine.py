@@ -51,8 +51,8 @@ mean's gradient even when the ranks' label counts differ, and
 ``train_batch`` returns the global mean loss on every rank.
 ``deepspeed_io`` loads the global micro batch, ``micro x dp`` rows, and
 ``_put_batch`` keeps the rank's rows. Rank 0's parameters are broadcast
-at ``initialize``. At stage 3 (a ``GPT`` only)
-``runtime/zero/stage3.ZeroStage3Optimizer`` partitions the parameters by
+at ``initialize``. At stage 3 (a ``GPT`` or a ``BertForPreTraining``; not
+a mixture of experts) ``runtime/zero/stage3.ZeroStage3Optimizer`` partitions the parameters by
 unit: the step calls the model through it (``_model``), each unit's
 gather and reduce-scatter run inside the forward and the backward, so the
 backward's gradients arrive reduce-scattered and only the whole leaves
@@ -100,8 +100,8 @@ them and their moments into one file per expert
 (``runtime/moe_checkpoint.py``).
 
 Dropout and stochastic depth (JAX engine :1284-1298: a ``dropout`` key
-per step, ``pld_theta`` from ``_pld_model_kwargs`` :1257-1271): a GPT with
-``dropout > 0`` or ``stochastic_mode`` gets a second generator on the
+per step, ``pld_theta`` from ``_pld_model_kwargs`` :1257-1271): a GPT or a BERT
+with ``dropout > 0`` or ``stochastic_mode`` gets a second generator on the
 engine's device (``_dropout_gen``), handed to the model with each training
 forward; like the gating generator it is registered with every captured
 step and saved in a tag. Under data parallelism each rank draws every
@@ -335,13 +335,6 @@ class DeepSpeedEngine:
                 f"config blocks not ported to deepspeed_tpu_torch yet: "
                 f"{', '.join(unported)}")
         if (self._distributed and config.zero_config.stage >= 3
-                and not isinstance(model, GPT)):
-            raise NotImplementedError(
-                f"ZeRO stage 3 under a process group partitions a GPT's "
-                f"blocks; stage 3 for {type(model).__name__} is not ported "
-                "yet (ROADMAP A.3, what is left: stage 3 for BERT); stages "
-                "0-2 are")
-        if (self._distributed and config.zero_config.stage >= 3
                 and isinstance(model, GPT) and model.config.is_moe):
             raise NotImplementedError(
                 "ZeRO stage 3 of a mixture-of-experts GPT is not ported yet "
@@ -399,8 +392,7 @@ class DeepSpeedEngine:
         self._gating_noise = {}
         # the dropout masks' and the stochastic-depth gates' generator
         self._dropout_gen = None
-        if isinstance(model, GPT) and (model.config.dropout > 0
-                                       or model.config.stochastic_mode):
+        if model.config.dropout > 0 or model.config.stochastic_mode:
             self._dropout_gen = torch.Generator(
                 device=self.device).manual_seed(seed + DROPOUT_SEED_OFFSET)
         # progressive layer drop (JAX engine :556-562): the host schedule,
@@ -546,7 +538,8 @@ class DeepSpeedEngine:
         """The compressed gradient exchange's mode (None: ZeRO's exchange or
         the one-card engine), validated as the JAX engine validates it on
         the mesh before ZeRO's move of dp to fsdp. The mode runs over a
-        process group, and over a GPT's JAX layout."""
+        process group, in the JAX layout of the model's parameter tree (a
+        GPT's or a BERT's)."""
         if not self._distributed:
             mode = select_mode(config, dp_size=1)
             if mode is not None:
@@ -561,11 +554,6 @@ class DeepSpeedEngine:
         if mode is None:
             return None
         validate_compressed_config(mode, config, topology)
-        if not isinstance(model, GPT):
-            raise NotImplementedError(
-                f"the {mode} gradient exchange follows the JAX layout of a "
-                f"GPT's parameters; for {type(model).__name__} it is not "
-                "ported yet (ROADMAP A.4, what is left: the BERT layout)")
         return mode
 
     def _build_topology(self, config) -> MeshTopology:
@@ -854,10 +842,9 @@ class DeepSpeedEngine:
         """The step's ``pld_theta`` (a 0-dim f32 device tensor, the JAX
         engine's in-graph ``_pld_model_kwargs``): ``theta + (1 - theta)
         exp(-gamma t)`` at the device's global step t, for a stochastic-mode
-        GPT under ``progressive_layer_drop``; None otherwise."""
-        if self._pld_step is None or not (
-                isinstance(self.module, GPT)
-                and self.module.config.stochastic_mode):
+        model (a GPT or a BERT) under ``progressive_layer_drop``; None otherwise."""
+        if (self._pld_step is None
+                or not self.module.config.stochastic_mode):
             return None
         pld = self._config.progressive_layer_drop
         return pld.theta + (1.0 - pld.theta) * torch.exp(

@@ -6,9 +6,11 @@ sharding.py:124-130``; and of the reference's ``stage3.py`` /
 ``partition_parameters.py``).
 
 **Units.** The model is cut into units: each block of its one
-``nn.ModuleList`` (``GPT.h[i]``), and one outer unit holding the rest (the
-token embedding, which a tied head reads too, the position embedding when
-the model has one, the final norm, and an untied ``lm_head`` and its bias).
+``nn.ModuleList`` (``GPT.h[i]``, or a BERT's ``encoder.layer[i]``), and one
+outer unit holding the rest (the token embedding, which a tied head reads
+too, the position embedding when the model has one, the final norm, and an
+untied ``lm_head`` and its bias; a BERT's embeddings, their LayerNorm and
+the MLM head).
 A unit's parameters of at least
 ``stage3_param_persistence_threshold`` elements
 (``ZeroShardingRules.partitions_param``) are laid out as stages 1-2 lay
@@ -31,9 +33,12 @@ then runs on views of the full buffer, bound by
 ``torch.func.functional_call``: ``ZeroStage3Optimizer.forward`` gathers the
 outer unit once per forward and calls the model with it (the embedding and
 the head, tied or not, share one gather, and one reduce-scatter at the end
-of the backward), and the model's ``block_hook`` gathers each block's unit as the
-block runs. The hook is the one change the model needed: the engine cannot
-rebind a block's parameters from outside without renaming them. Under full
+of the backward), and the model's ``block_hook`` gathers each block's
+unit as the block runs. A model names its blocks (``blocks``, a
+``ModuleList``, and ``block_prefix``: ``h`` for a ``GPT``,
+``encoder.layer`` for a ``BertForPreTraining``) and runs each through its
+``block_hook`` when one is set: the engine cannot rebind a block's
+parameters from outside without renaming them. Under full
 remat the gather runs inside the function that ``torch.utils.checkpoint``
 wraps (non-reentrant), so the recompute gathers again and the backward
 keeps no full buffer past its block; without remat, autograd keeps every
@@ -172,10 +177,11 @@ class _Unit:
 
 
 class ZeroStage3Optimizer(ZeroOptimizer):
-    """Stage 3 of a ``GPT`` (``module``) under ``rules``: one ``_Unit`` per
-    block and one outer unit, and ``ZeroOptimizer``'s stage-2 path for the
-    leaves under the threshold. Installs ``run_block`` as the model's
-    ``block_hook``; the engine calls the model through ``forward``."""
+    """Stage 3 of a ``GPT`` or a ``BertForPreTraining`` (``module``) under
+    ``rules``: one ``_Unit`` per block of ``module.blocks`` and one outer
+    unit, and ``ZeroOptimizer``'s stage-2 path for the leaves under the
+    threshold. Installs ``run_block`` as the model's ``block_hook``; the
+    engine calls the model through ``forward``."""
 
     def __init__(self, module: torch.nn.Module, rules: ZeroShardingRules,
                  build, comm_dtype: Optional[torch.dtype] = None):
@@ -189,11 +195,14 @@ class ZeroStage3Optimizer(ZeroOptimizer):
                          [(n, p) for n, p in named if n in leaves], world,
                          rank, topo.size("dp"), comm_dtype)
 
+        prefix = module.block_prefix
         self.outer = unit("outer", module, "",
-                          {n for n in split if not n.startswith("h.")})
-        self.blocks = [unit(f"h.{i}", block, f"h.{i}.",
-                            {n for n in split if n.startswith(f"h.{i}.")})
-                       for i, block in enumerate(module.h)]
+                          {n for n in split
+                           if not n.startswith(f"{prefix}.")})
+        self.blocks = [unit(f"{prefix}.{i}", block, f"{prefix}.{i}.",
+                            {n for n in split
+                             if n.startswith(f"{prefix}.{i}.")})
+                       for i, block in enumerate(module.blocks)]
         super().__init__([(n, p) for n, p in named if n not in split], rules,
                          build, comm_dtype, units=[self.outer] + self.blocks)
         self.module = module

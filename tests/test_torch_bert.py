@@ -181,19 +181,28 @@ def test_bert_large_shapes_and_sizes():
 
 
 @pytest.mark.parametrize("field,value", [("stochastic_mode", True),
-                                         ("remat_policy", "selective")])
-def test_unported_config_fields_raise(field, value):
-    with pytest.raises(NotImplementedError):
-        tbert.BertConfig(**TINY, **{field: value})
-
-
-def test_dropout_raises_in_training_only():
-    _, tcfg = _configs(None, dropout=0.1)
+                                         ("remat_policy", "selective"),
+                                         ("dropout", 0.1)])
+def test_once_refused_fields_run(field, value):
+    """The fields the port once refused build and train
+    (``test_torch_bert_options.py`` holds them to JAX): in training mode
+    the loss is finite and every parameter gets a finite gradient; eval
+    mode, where dropout and stochastic depth are inert, gives the loss of
+    the model without the field."""
+    jcfg, tcfg = _configs(None, remat=True, **{field: value})
     _, params, tmodel = _both(_configs(None)[0], tcfg)
+    _, _, plain = _both(_configs(None)[0], _configs(None)[1])
     batch = _batch()
-    tmodel.eval()
+    for p in tmodel.parameters():
+        p.requires_grad_(True)
+    loss = _torch_call(tmodel.train(), batch,
+                       dropout_generator=torch.Generator().manual_seed(0),
+                       pld_theta=torch.tensor(0.5))
+    loss.backward()
+    assert torch.isfinite(loss)
+    for name, p in tmodel.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
     with torch.no_grad():
-        assert torch.isfinite(_torch_call(tmodel, batch))
-    tmodel.train()
-    with pytest.raises(NotImplementedError, match="dropout"):
-        _torch_call(tmodel, batch)
+        got = _torch_call(tmodel.eval(), batch, pld_theta=torch.tensor(0.5))
+        want = _torch_call(plain.eval(), batch)
+    assert torch.equal(got, want)

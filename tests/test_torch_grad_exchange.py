@@ -268,8 +268,6 @@ def runs(tmp_path_factory):
             for name, (ds, steps, scan) in RUNS.items()]
     jobs += [tz.job(name, ds, [], raises=True)
              for name, (ds, _) in REFUSALS.items()]
-    jobs.append(tz.job("bert", gx_config(**INT8_LEAF), [], raises=True,
-                       bert=True))
     jobs.append(tz.job("fp16_int8", FP16_INT8, STEPS_FP16, init=inits[True],
                        dtype="float16", record=True))
     for name, ds in (("deferred32", RUNS["deferred32"][0]),
@@ -429,11 +427,12 @@ def test_checkpoint_resumes_identically(name, runs):
                 assert torch.equal(x, y), field
 
 
-@pytest.mark.parametrize("name", sorted(REFUSALS) + ["bert"])
+@pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_refusals(name, runs):
     """Each mode the JAX engine refuses is refused with its words; the
-    other ports' refusals stay; BERT's JAX layout is not ported."""
-    words = (REFUSALS[name][1] if name in REFUSALS else "ROADMAP A.4")
+    other ports' refusals stay (a BERT's JAX layout is ported:
+    test_torch_bert_dp.py)."""
+    words = REFUSALS[name][1]
     for r in runs["ranks"]:
         kind, msg = r[name]["error"]
         assert words in msg, msg

@@ -120,16 +120,19 @@ def run_ranks(jobs, tmp_path, world=WORLD):
 # ---------------------------------------------------------------------------
 # the child process: torch and the port only
 # ---------------------------------------------------------------------------
+BERT_TINY = dict(vocab_size=128, hidden_size=32, num_hidden_layers=2,
+                 num_attention_heads=2, intermediate_size=64,
+                 max_position_embeddings=64)
+
+
 def _model(job):
     """The job's model: the small GPT (``model``: GPTConfig overrides), or
-    with ``bert`` a tiny BERT."""
+    with ``bert`` a tiny BERT (``model``: BertConfig overrides)."""
     if job.get("bert"):
         from deepspeed_tpu_torch.models import bert as tbert
 
         return tbert.BertForPreTraining(tbert.BertConfig(
-            vocab_size=128, hidden_size=32, num_hidden_layers=2,
-            num_attention_heads=2, intermediate_size=64,
-            max_position_embeddings=64, dtype=torch.float32))
+            **{**BERT_TINY, **job.get("model", {})}, dtype=torch.float32))
     from deepspeed_tpu_torch.models import transformer_lm as tlm
 
     return tlm.GPT(tlm.GPTConfig(**{**SMALL, **job.get("model", {})},
@@ -416,12 +419,11 @@ def port_runs(start, tmp_path_factory):
             dataset=[{"input_ids": np.zeros(SEQ, np.int32)}] * 8),
         job("bf16_exchange", config(1, communication_data_type="bf16"),
             MATRIX_STEPS[1], init=init),
-        job("stage3", config(3), [], raises=True, bert=True),
+        # stage 3 runs a GPT and a BERT (test_torch_zero3.py,
+        # test_torch_bert_dp.py); a mixture of experts is still refused
+        job("stage3", config(3), [], raises=True,
+            model={"moe_num_experts": 2, "moe_top_k": 1}),
         job("tp2", config(1, tpu={"mesh": {"tp": 2}}), [], raises=True),
-        # the int8 exchange is ported for a GPT (test_torch_grad_exchange.py);
-        # over a BERT's layout it is still refused
-        job("int8", config(0, communication_data_type="int8"), [],
-            raises=True, bert=True),
         job("bad_rows", config(1), [[{k: v[:MICRO] for k, v in
                                       MATRIX_STEPS[1][0][0].items()}]],
             init=init, raises=True),
@@ -576,7 +578,6 @@ def test_bf16_exchange(port_runs):
 @pytest.mark.parametrize("name,kind,words", [
     ("stage3", "NotImplementedError", "ROADMAP A.3"),
     ("tp2", "NotImplementedError", "ROADMAP A.9"),
-    ("int8", "NotImplementedError", "ROADMAP A.4"),
     ("bad_rows", "ValueError", "must be the global micro batch"),
 ])
 def test_refusals(name, kind, words, port_runs):
