@@ -208,7 +208,8 @@ Phases, each printing one JSON line:
   config (``MISTRAL_7B``: RMSNorm, gated SiLU MLP, no biases, rotary, 32
   query heads over 8 KV heads, an untied head; ``n_positions`` cut to its
   4096-token sliding window), random weights from seed 0, bf16. Serving
-  at all 32 layers through ``init_inference``: ``forward`` on [2, 4096]
+  at ``MISTRAL_SERVE_LAYERS`` (8) of its 32 layers (the ``serving`` phase
+  serves all 32) through ``init_inference``: ``forward`` on [2, 4096]
   through B1 against the einsum path (relative L2 of the logits,
   ``MISTRAL_LOGITS_REL_L2``), ``generate(32)`` for 4 left-padded prompts of
   37-512 tokens with the decode graphs against eager decode (tokens, and
@@ -230,20 +231,23 @@ Phases, each printing one JSON line:
   which the next two phases share.
 * ``neox`` (the parallel residual, the embedding LayerNorm and ALiBi):
   Pythia-6.9B's config (``PYTHIA_6P9B``: parallel residual, rotary on 25%
-  of each head, exact GELU, biases, an untied head), served at all 32
-  layers as ``mistral`` serves (``forward`` [2, 2048] through B1 against
-  einsum, decode graphs against eager, cached decode against the forward)
+  of each head, exact GELU, biases, an untied head), served at
+  ``PYTHIA_SERVE_LAYERS`` (16) of its 32 layers as ``mistral`` serves
+  (``forward`` [2, 2048] through B1 against einsum, decode graphs against
+  eager, cached decode against the forward)
   and trained at 8 layers at micro [4, 2048] (one einsum step against the
   flash step, 12 captured steps against 12 uncaptured ones, the loss
   falling, B1 16 / B2 8 / B3 8 / B4 1 per step, a traced replay); then
   BLOOM-7b1's (``BLOOM_7B1``: ALiBi, the embedding LayerNorm, a tied head,
-  vocab 250880) served at all 30 layers, its ``forward`` [1, 2048] with
+  vocab 250880) served at ``BLOOM_SERVE_LAYERS`` (15) of its 30 layers,
+  its ``forward`` [1, 2048] with
   ``use_flash_attention=True`` launching B1 0 times (JAX's gate: ALiBi
   takes the einsum path), decode against eager and against the forward.
 * ``moe`` (mixture of experts): Mixtral-8x7B-v0.1's config
   (``MIXTRAL_8X7B``: the Mistral trunk, 8 gated-SiLU experts, top-2,
   capacity factors 2.0 and 4.0, rotary theta 1e6; ``n_positions`` cut to
-  4096) served at 16 layers (``forward`` [1, 4096] through B1 against
+  4096) served at ``MIXTRAL_SERVE_LAYERS`` (8) layers (``forward`` [1,
+  4096] through B1 against
   einsum, each layer's tokens per expert, the first layer's spread over
   every expert; decode graphs against eager; cached decode against the
   forward) and trained at 2 layers at micro [2, 4096] with the engine's
@@ -284,7 +288,8 @@ Phases, each printing one JSON line:
   against flash.
 * ``sparse_gpt`` (the GPT block-sparse route and the ring KV cache):
   Mistral-7B's sliding window at ``n_positions`` 32768 on B5-B7, served at
-  ``SPARSE_GPT_SERVE_LAYERS`` (16) of its 32 layers from the ring cache
+  ``SPARSE_GPT_SERVE_LAYERS`` (8) of its 32 layers from the ring cache
+  (the ``serving`` phase serves all 32 from the int8 ring)
   and trained at 8 on [1, 16384] (``--only sparse_gpt``).
 * ``bert_options`` (BERT breadth, ROADMAP A.7; ``--only bert_options``):
   BERT-Large at full width and depth (24 layers) under BigBird (block 128,
@@ -302,6 +307,29 @@ Phases, each printing one JSON line:
   before every step, the layers each eager step dropped against the
   schedule's expectation; a dense BERT-Large at [8, 512] with dropout 0.1
   (the einsum path, B4 only) captured against eager.
+* ``serving`` (serving breadth, ROADMAP A.8; ``--only serving``):
+  Mistral-7B-v0.1 at all 32 layers under ``sparse_gpt``'s window with one
+  slack block, int8 weights and int8 KV cache (``init_inference(dtype=
+  "int8", config={"kv_cache": "int8"})``), through the continuous-batching
+  scheduler (8 lanes, bucket 128, a ``PrefixCache``): 24 requests from
+  seed 0 (prompts of 64-3000 tokens, half sharing a 1024-token prefix,
+  16-48 new tokens, an EOS on every third, 4 submitted from a stream
+  callback while ``run`` goes), held against each request's solo
+  ``generate`` on the same engine; the first wave through the graphs and
+  through the eager twin (tokens and the lanes' cache bit for bit); the
+  shared-prefix requests without the prefix cache (hits against cold
+  admissions); ``kv_cache_stats``' bytes against ``memory_allocated``
+  around the lanes' allocation, int8 and bf16; the 8-lane decode step,
+  int8 against bf16 weights, timed and traced. Streams may part only at a
+  near-tie: the reference's top-1 minus top-2 gap under ``gap_bound``.
+  Then GPT-2 1.3B: the ``forward`` graph against eager ``forward`` at [4,
+  1024] (bit for bit, B1 24 per replay; counts set to 0 just before the
+  replay), the prefill graphs against eager prefill per bucket (logits and
+  cache bit for bit, TTFT), speculative decoding (k 4) with a
+  GPT-2-125M-shaped draft and with the target's own weights against the
+  scheduler without a draft, and int8 against bf16 decode at 125M and
+  1.3B. The scheduler run's counts are set to 0 just before it (no kernel
+  runs on the cache path).
 
 Then the kernels line, nvidia-smi's line and, last, ``{"ok": true, ...}``.
 A failed check raises, and the script exits nonzero. It imports neither jax
@@ -314,10 +342,10 @@ line (on a machine with four cards, the four-card measurement);
 the ``mistral`` phase, ``--only neox`` with ``neox``, ``--only moe``
 with ``moe``, ``--only train_options`` with the sweep and
 ``train_options``, ``--only sparse_gpt`` with the window kernel case, its
-timing and ``sparse_gpt``, and ``--only bert_options`` with
-``bert_options``. Every phase line carries ``seconds`` (since its phase
-began), and the full run prints each phase's wall seconds
-(``phase_seconds``) before the kernels line.
+timing and ``sparse_gpt``, ``--only bert_options`` with
+``bert_options``, and ``--only serving`` with ``serving``. Every phase
+line carries ``seconds`` (since its phase began), and the full run prints
+each phase's wall seconds (``phase_seconds``) before the kernels line.
 
 ``python3 chip_smoke.py --against DIR`` runs only the A/B of the backward
 kernels and of the fused AdamW: DIR holds another checkout's
@@ -3174,6 +3202,10 @@ MISTRAL_7B = dict(vocab_size=32000, n_positions=4096, n_embd=4096,
 MISTRAL_SOURCE = ("https://huggingface.co/mistralai/Mistral-7B-v0.1/blob/"
                   "main/config.json")
 MISTRAL_SEQ = 4096
+# serving's depth cut (PERF.md section 4): the serving phase serves all 32
+# layers (int8, through the scheduler), and every check here is per layer
+# or on the stack's output
+MISTRAL_SERVE_LAYERS = 8
 # training keeps the full width and cuts the depth: ZeRO-1 bf16 holds ~12
 # bytes per parameter, 2.01 B parameters at 8 layers (~24 GB, and the
 # eager twin of captured_against_eager after it); every layer is alike
@@ -3228,11 +3260,12 @@ def mistral_decode_logits(engine, prompts, mask, k=MISTRAL_LOGIT_STEPS):
     logits equal the eager ones bit for bit."""
     import torch
 
-    from deepspeed_tpu_torch.models.transformer_lm import kv_cache
     from deepspeed_tpu_torch.runtime.compiled_step import CompiledStep
 
     model = engine.module
-    cache = kv_cache(model.config, prompts.shape[0], engine.device)
+    # the engine's own cache for this batch size (its prefill graphs write
+    # it)
+    cache = engine._decoder(prompts.shape[0]).cache
 
     def steps(k, tok):
         out = []
@@ -3247,12 +3280,11 @@ def mistral_decode_logits(engine, prompts, mask, k=MISTRAL_LOGIT_STEPS):
     with torch.inference_mode():
         for call in ("eager", "warmup", "capture", "replay"):
             # one pass, or the ring cache's block-aligned spans
-            first = engine._chunked_prefill(prompts, mask, cache.reset())
-            first = first[:, -1]
-            length = cache.length
+            first, _ = engine._chunked_prefill(prompts, mask)
+            lengths = cache.lengths.copy()
             run = runs.eager if call == "eager" else runs
             results.append(run({"tok": first.argmax(-1)}, k))
-            cache.length = length + k
+            cache.lengths[:] = lengths + k
     same = [bool(torch.equal(r, results[0])) for r in results[1:]]
     logits = torch.cat([first[:, None], results[0]], dim=1)   # [B, k + 1, V]
     del cache, runs
@@ -3402,15 +3434,20 @@ def serve_lm(phase, make_config, *, model, source, config, reduced, batch,
 
 
 def mistral_serve():
-    """Mistral-7B, all 32 layers, bf16, through ``init_inference``: the
+    """Mistral-7B, ``MISTRAL_SERVE_LAYERS`` layers, bf16, through
+    ``init_inference``: the
     flash forward against the einsum path, the decode graphs against eager
     decode (tokens over ``generate``, logits over a captured decode run),
     cached decode against the full forward, and the serving times."""
     return serve_lm(
-        "mistral", mistral_config, model="mistral-7b-v0.1",
+        "mistral", functools.partial(mistral_config,
+                                     n_layer=MISTRAL_SERVE_LAYERS),
+        model=f"mistral-7b-v0.1, {MISTRAL_SERVE_LAYERS} layers",
         source=MISTRAL_SOURCE, config=MISTRAL_7B,
         reduced={"n_positions": "32768 -> 4096 (the sliding window; the "
-                 "policy attends over the whole context)"},
+                 "policy attends over the whole context)",
+                 "n_layer": f"32 -> {MISTRAL_SERVE_LAYERS} (the serving "
+                 "phase serves 32)"},
         batch=2, seq=MISTRAL_SEQ, prompt_lengths=MISTRAL_PROMPT_LENGTHS,
         logits_rel_l2=MISTRAL_LOGITS_REL_L2)
 
@@ -3535,7 +3572,7 @@ def mistral_kernels():
 
 def phase_mistral():
     """Mistral-7B-v0.1's LLaMA-shaped trunk (RMSNorm, SwiGLU, rotary, GQA,
-    bias-free, untied head): serving at all 32 layers, training at 8,
+    bias-free, untied head): serving and training at 8 layers,
     one packed batch, and B1-B3 at its attention shape. Returns the
     launch counts of the serve and train runs and the kernels' times at
     the Mistral shape."""
@@ -3605,6 +3642,11 @@ PYTHIA_PER_STEP = {"flash_attention_fwd": 2 * PYTHIA_TRAIN_LAYERS,
                    "fused_adamw": 1}
 # serving prompts within BLOOM's and Pythia's 2048 positions
 NEOX_PROMPT_LENGTHS = (37, 128, 300, 512)
+# serving's depth cuts (PERF.md section 4): each check is per layer or on
+# the stack's output, and the serving phase runs the engine's paths at a
+# whole model's depth
+PYTHIA_SERVE_LAYERS = 16
+BLOOM_SERVE_LAYERS = 15
 
 
 def neox_config(fields, **over):
@@ -3725,17 +3767,20 @@ def pythia_engine(seed=0, flash=True):
 
 def phase_neox():
     """The parallel residual, partial rotary, ALiBi and the embedding
-    LayerNorm: Pythia-6.9B served at all 32 layers and trained at 8,
-    BLOOM-7b1 served at all 30 (ALiBi keeps it off B1). Returns the launch
+    LayerNorm: Pythia-6.9B served at 16 layers and trained at 8,
+    BLOOM-7b1 served at 15 (ALiBi keeps it off B1). Returns the launch
     counts by path."""
     import torch
 
     t0 = time.perf_counter()
     smi = nvidia_smi_line()
     pythia = serve_lm(
-        "neox", functools.partial(neox_config, PYTHIA_6P9B),
-        model="pythia-6.9b", source=PYTHIA_SOURCE, config=PYTHIA_6P9B,
-        reduced={}, batch=2, seq=NEOX_SEQ,
+        "neox", functools.partial(neox_config, PYTHIA_6P9B,
+                                  n_layer=PYTHIA_SERVE_LAYERS),
+        model=f"pythia-6.9b, {PYTHIA_SERVE_LAYERS} layers",
+        source=PYTHIA_SOURCE, config=PYTHIA_6P9B,
+        reduced={"n_layer": f"32 -> {PYTHIA_SERVE_LAYERS}"}, batch=2,
+        seq=NEOX_SEQ,
         prompt_lengths=NEOX_PROMPT_LENGTHS,
         logits_rel_l2=MISTRAL_LOGITS_REL_L2, part="pythia_serve")
     train, _ = lm_train(
@@ -3746,9 +3791,12 @@ def phase_neox():
         flops=lambda cfg: {"model_6n_plus_attention":
                            gpt_flops_per_token(cfg, NEOX_SEQ)})
     bloom = serve_lm(
-        "neox", functools.partial(neox_config, BLOOM_7B1),
-        model="bloom-7b1", source=BLOOM_SOURCE, config=BLOOM_7B1,
-        reduced={}, batch=1, seq=NEOX_SEQ,
+        "neox", functools.partial(neox_config, BLOOM_7B1,
+                                  n_layer=BLOOM_SERVE_LAYERS),
+        model=f"bloom-7b1, {BLOOM_SERVE_LAYERS} layers",
+        source=BLOOM_SOURCE, config=BLOOM_7B1,
+        reduced={"n_layer": f"30 -> {BLOOM_SERVE_LAYERS}"}, batch=1,
+        seq=NEOX_SEQ,
         prompt_lengths=NEOX_PROMPT_LENGTHS,
         logits_rel_l2=MISTRAL_LOGITS_REL_L2, flash_layers=False,
         part="bloom_serve")
@@ -3776,8 +3824,9 @@ MIXTRAL_8X7B = dict(vocab_size=32000, n_positions=4096, n_embd=4096,
 MIXTRAL_SOURCE = ("https://huggingface.co/mistralai/Mixtral-8x7B-v0.1/blob/"
                   "main/config.json")
 # 1,451,270,144 parameters a layer (2.9 GB in bf16): 16 layers serve in
-# ~47 GB of one card, all 32 would take 93 GB
-MIXTRAL_SERVE_LAYERS = 16
+# ~47 GB of one card, all 32 would take 93 GB; the depth is cut to 8
+# (PERF.md section 4): each check is per layer or on the stack's output
+MIXTRAL_SERVE_LAYERS = 8
 # 3,164,688,384 parameters at 2 layers, ~38 GB of ZeRO-1 state at 12 bytes
 # a parameter; every layer is alike
 MIXTRAL_TRAIN_LAYERS = 2
@@ -4061,7 +4110,7 @@ def moe_small():
 
 
 def phase_moe():
-    """Mixtral-8x7B: serving at 16 layers, training at 2 with the engine's
+    """Mixtral-8x7B: serving at 8 layers, training at 2 with the engine's
     gating noise, the index dispatch/combine against the dense products,
     and the small model's checkpoint and ZeRO paths. Returns the launch
     counts by path."""
@@ -4074,8 +4123,8 @@ def phase_moe():
                                  n_layer=MIXTRAL_SERVE_LAYERS),
         model=f"mixtral-8x7b-v0.1, {MIXTRAL_SERVE_LAYERS} layers",
         source=MIXTRAL_SOURCE, config=MIXTRAL_8X7B,
-        reduced={"n_layer": f"32 -> {MIXTRAL_SERVE_LAYERS} (one card's "
-                 "memory; all 32 need ep over cards, ROADMAP A.9)",
+        reduced={"n_layer": f"32 -> {MIXTRAL_SERVE_LAYERS} (all 32 need ep "
+                 "over cards, ROADMAP A.9; 16 fit one card)",
                  "n_positions": "32768 -> 4096"},
         batch=1, seq=MISTRAL_SEQ, prompt_lengths=MISTRAL_PROMPT_LENGTHS,
         logits_rel_l2=MISTRAL_LOGITS_REL_L2, extra=mixtral_exp_counts)
@@ -7121,7 +7170,7 @@ SPARSE_GPT_BLOCK = {"mode": "local_sliding_window", "block": 128,
 SPARSE_GPT_POSITIONS = 32768
 # serving's depth cut (from 32 layers; PERF.md section 4): every check of
 # the serving part is per layer or on the whole stack's output
-SPARSE_GPT_SERVE_LAYERS = 16
+SPARSE_GPT_SERVE_LAYERS = 8
 SPARSE_GPT_SEQ = 16384
 # ring_engaged: (past window blocks, leading global tokens, block)
 SPARSE_GPT_RING = (32, 0, 128)
@@ -7797,6 +7846,508 @@ def phase_bert_options():
     return paths
 
 
+# Serving breadth (ROADMAP A.8): int8 weights, the int8 KV cache, the
+# engine's entry points as CUDA graphs, the continuous-batching scheduler
+# with the prefix cache and speculative decoding. Mistral-7B-v0.1 at all 32
+# layers and its published widths under the sparse_gpt phase's window
+# (SPARSE_GPT_BLOCK, n_positions 32768) with one slack block, int8 weights
+# and KV, served through the scheduler; GPT-2 1.3B (dense cache) for the
+# graphs against eager and for speculative decoding with a GPT-2
+# 125M-shaped draft
+SERVING_SLOTS = 8
+SERVING_BUCKET = 128
+SERVING_REQUESTS = 24
+SERVING_PREFIX = 1024
+SERVING_PROMPTS = (64, 3000)
+SERVING_NEW = (16, 48)
+# submitted from a stream callback while run() is going
+SERVING_LATE = 4
+# the shared-prefix prompts' lengths are 1024 + 37 + 128 j: one pad offset
+# in the bucket, so their padded prefixes are the same cache
+SERVING_PREFIX_PHASE = 37
+SPEC_K = 4
+SPEC_REQUESTS = 16
+SPEC_PROMPTS = (32, 600)
+SPEC_NEW = 32
+GPT2_DRAFT = "gpt2-125m"
+TTFT_BUCKETS = (128, 256, 512, 1024)
+# near-ties: two paths of different GEMM shapes round each layer's bf16
+# activations differently, at most one bf16 ulp (2^-8 relative) per layer,
+# independent across layers: the logits part by about sqrt(L) 2^-8 of
+# their RMS. Two logits part by sqrt(2) of that, and a greedy pick may flip
+# where the reference's top-1 minus top-2 gap is under GAP_SIGMAS times
+# it. A part above the bound fails the run
+GAP_SIGMAS = 4.0
+
+
+def gap_bound(logits, n_layer):
+    """The gap under which two paths' greedy picks may part at one position
+    (``GAP_SIGMAS`` sqrt(2) sqrt(L) 2^-8 times the logits' RMS)."""
+    rms = float(logits.float().pow(2).mean().sqrt())
+    return GAP_SIGMAS * math.sqrt(2.0 * n_layer) * 2.0 ** -8 * rms
+
+
+def padded_prompt(prompt, bucket, device):
+    """``prompt`` left-padded to its bucket: ids and mask ``[1, Lp]``."""
+    import torch
+
+    Lp = -(-len(prompt) // bucket) * bucket
+    ids = torch.zeros((1, Lp), dtype=torch.long)
+    mask = torch.zeros((1, Lp), dtype=torch.bool)
+    ids[0, Lp - len(prompt):] = torch.tensor(prompt)
+    mask[0, Lp - len(prompt):] = True
+    return ids.to(device), mask.to(device)
+
+
+def next_logits(engine, prompt, bucket):
+    """The logits after ``prompt`` by an uncaptured prefill at its bucket
+    (the reference's logits at a position where two streams part)."""
+    ids, mask = padded_prompt(prompt, bucket, engine.device)
+    logits, _ = engine._chunked_prefill(ids, mask, eager=True)
+    return logits[0]
+
+
+def token_parts(engine, prompts, got, want, bucket, eos=None):
+    """Each pair of streams (``got`` against the reference ``want``): equal,
+    or parting at a near-tie. Returns the parts (request, position, the
+    reference's top-1 minus top-2 gap there, the bound) and the problems:
+    a part above its bound, or streams of other lengths that do not part."""
+    n_layer = engine.module.config.n_layer
+    parts, problems = [], []
+    for i, (p, g, w) in enumerate(zip(prompts, got, want)):
+        if eos is not None and eos[i] is not None and eos[i] in w:
+            w = w[:w.index(eos[i]) + 1]
+        j = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is None:
+            if len(g) != len(w):
+                problems.append(f"request {i}: {len(g)} tokens, want "
+                                f"{len(w)}")
+            continue
+        logits = next_logits(engine, list(p) + list(w[:j]), bucket)
+        top = logits.float().topk(2).values
+        gap = float(top[0] - top[1])
+        bound = gap_bound(logits, n_layer)
+        parts.append({"request": i, "position": j, "gap": gap,
+                      "bound": bound})
+        if gap > bound:
+            problems.append(f"request {i} parts at {j} with gap {gap} > "
+                            f"bound {bound}")
+    return parts, problems
+
+
+def serve_requests(sched, requests, late=0):
+    """Submit ``requests`` (prompt, max_new_tokens, eos) to ``sched``, the
+    last ``late`` of them from the first completions' stream callbacks
+    while ``run`` is going; run; return the tokens in request order and
+    the stats."""
+    pending = list(range(len(requests) - late, len(requests)))
+    ids = {}
+
+    def submit(i, cb=None):
+        prompt, new, eos = requests[i]
+        ids[sched.submit(prompt, max_new_tokens=new, eos_token_id=eos,
+                         stream_callback=cb)] = i
+
+    def on_token(rid, token, done):
+        if done and pending:
+            submit(pending.pop(0))
+
+    for i in range(len(requests) - late):
+        submit(i, on_token)
+    stats = sched.run()
+    if pending:
+        raise AssertionError(f"{len(pending)} late requests never submitted")
+    out = [None] * len(requests)
+    for c in stats.completions:
+        out[ids[c.request_id]] = c.tokens
+    return out, stats
+
+
+def serving_requests(vocab, seed=0):
+    """``SERVING_REQUESTS`` prompts from ``seed``: half of them the shared
+    ``SERVING_PREFIX``-token prefix and a suffix (one pad offset), half of
+    64-3000 random tokens; max_new_tokens 16-48."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    prefix = rng.randint(0, vocab, SERVING_PREFIX).tolist()
+    out = []
+    for i in range(SERVING_REQUESTS):
+        if i % 2 == 0:
+            j = rng.randint(1, 16)
+            n = SERVING_PREFIX_PHASE + SERVING_BUCKET * j
+            prompt = prefix + rng.randint(0, vocab, n).tolist()
+        else:
+            prompt = rng.randint(0, vocab,
+                                 rng.randint(*SERVING_PROMPTS)).tolist()
+        out.append((prompt, int(rng.randint(SERVING_NEW[0],
+                                            SERVING_NEW[1] + 1))))
+    return out
+
+
+def decode_step_ms(engine, reps=20):
+    """One ``[slots, 1]`` greedy decode step of the lanes' graph, fenced,
+    median of ``reps`` after two uncounted calls, and one traced step (the
+    card's time by kernel)."""
+    import torch
+
+    entry = engine._decoder(SERVING_SLOTS)
+    tok = torch.zeros(SERVING_SLOTS, dtype=torch.long, device=engine.device)
+
+    def step():
+        engine._decode_run(entry.decode, entry.cache, tok, 1, False)
+
+    step()    # the warm-up call (the capture is wall_ms's first)
+    return wall_ms(step, reps=reps), _trace(step)[0]
+
+
+def serving_mistral():
+    """Mistral-7B with int8 weights and KV through the scheduler: the
+    requests' solo ``generate`` (the reference), then the scheduler with a
+    prefix cache (graphs), the first wave through the graphs and through
+    the eager twin (bit for bit: tokens and the lanes' cache), the
+    shared-prefix requests without the prefix cache (hits against cold
+    admissions); resident bytes, decode ms per step int8 against bf16
+    weights."""
+    import dataclasses
+
+    import torch
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.scheduler import \
+        ContinuousBatchingScheduler
+    from deepspeed_tpu_torch.models.transformer_lm import kv_cache
+    from deepspeed_tpu_torch.serving import PrefixCache, PrefixCacheConfig
+
+    problems = []
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    # decode runs of at most 8 steps: fewer run lengths to warm up and
+    # capture for the solo references (the scheduler decodes one step)
+    engine = init_inference(sparse_gpt_model(kv_cache_slack_blocks=1),
+                            dtype="int8",
+                            config={"kv_cache": "int8", "decode_chunk": 8},
+                            seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
+    weights_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    cfg = engine.module.config
+    reqs = serving_requests(cfg.vocab_size)
+    prompts = [p for p, _ in reqs]
+    bucket = SERVING_BUCKET
+
+    # the reference: each request alone through generate, at its bucket
+    t1 = time.perf_counter()
+    solo = []
+    for prompt, new in reqs:
+        ids, mask = padded_prompt(prompt, bucket, engine.device)
+        solo.append(engine.generate(ids, max_new_tokens=new,
+                                    attention_mask=mask)[0].tolist())
+    solo_s = time.perf_counter() - t1
+    # an EOS on every third request: its solo token halfway
+    eos = [solo[i][len(solo[i]) // 2] if i % 3 == 0 else None
+           for i in range(len(reqs))]
+    requests = [(p, n, e) for (p, n), e in zip(reqs, eos)]
+
+    # the lanes' cache: its bytes against the allocator's
+    m0 = torch.cuda.memory_allocated()
+    lanes = engine._decoder(SERVING_SLOTS).cache
+    lanes_alloc = torch.cuda.memory_allocated() - m0
+    m0 = torch.cuda.memory_allocated()
+    bf16_lanes = kv_cache(dataclasses.replace(cfg, kv_cache_dtype=None),
+                          SERVING_SLOTS, engine.device)
+    bf16_alloc = torch.cuda.memory_allocated() - m0
+    del bf16_lanes
+
+    def scheduler(prefix=True, eager=False):
+        pc = (PrefixCache(PrefixCacheConfig(align=bucket))
+              if prefix else None)
+        sched = ContinuousBatchingScheduler(
+            engine, slots=SERVING_SLOTS, prompt_bucket=bucket,
+            prefix_cache=pc)
+        sched.eager = eager
+        return sched
+
+    sched = scheduler()
+    reset_launches()
+    torch.cuda.synchronize()
+    got, stats = serve_requests(sched, requests, late=SERVING_LATE)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    summary = stats.summary()
+    prefix_stats = sched.prefix_cache.stats()
+    kv = sched.kv_cache_stats()
+    parts, probs = token_parts(engine, prompts, got, solo, bucket, eos)
+    problems += probs
+
+    # the graphs against their eager twin: the first wave (one request per
+    # lane, nothing queued behind it) served twice, bit for bit in the
+    # tokens and in the lanes' whole cache after
+    wave = requests[:SERVING_SLOTS]
+    twin_got = []
+    for eager in (False, True):
+        toks, _ = serve_requests(scheduler(eager=eager), wave)
+        twin_got.append((toks, lanes.clone()))
+    twin_same = twin_got[0][0] == twin_got[1][0] and all(
+        torch.equal(a, b) for a, b in zip(twin_got[0][1].tensors(),
+                                          twin_got[1][1].tensors()))
+    twin_tokens_as_main = twin_got[0][0] == got[:SERVING_SLOTS]
+    del twin_got
+    if not twin_same:
+        problems.append("the scheduler's graphs and its eager twin differ")
+    # prefix-cache hits against cold admissions: the shared-prefix requests
+    # again, without the prefix cache
+    hit = [i for i in range(len(reqs)) if i % 2 == 0]
+    cold_got, cold_stats = serve_requests(scheduler(prefix=False),
+                                          [requests[i] for i in hit])
+    cold_parts, probs = token_parts(
+        engine, [prompts[i] for i in hit], [got[i] for i in hit], cold_got,
+        bucket)
+    problems += probs
+    if prefix_stats["hits"] < len(hit) - 2:
+        problems.append(f"prefix cache: {prefix_stats}")
+    if launches["flash_attention_fwd"] or launches["block_sparse_fwd"]:
+        problems.append(f"the cache path launched a kernel: {launches}")
+    # the allocator rounds each tensor up and may keep a block's remainder
+    # under 1 MiB unsplit: allocated = resident + at most 1 MiB a tensor
+    n_tensors = len(lanes.tensors())
+    for name, want, alloc in (("resident_bytes", kv["resident_bytes"],
+                               lanes_alloc),
+                              ("unquantized_bytes", kv["unquantized_bytes"],
+                               bf16_alloc)):
+        if not 0 <= alloc - want <= n_tensors << 20:
+            problems.append(f"{name} {want} against {alloc} allocated")
+    if kv["resident_bytes"] != lanes.nbytes():
+        problems.append(f"resident_bytes {kv['resident_bytes']} against "
+                        f"the lanes' {lanes.nbytes()}")
+    finite = all(len(t) >= 1 and all(0 <= x < cfg.vocab_size for x in t)
+                 for t in got)
+    if not finite:
+        problems.append("tokens out of the vocabulary")
+    int8_step_ms, int8_trace = decode_step_ms(engine)
+    del engine, sched, lanes
+    free_cuda()
+    # the same weights in bf16 (the dense twin's draw), the KV cache int8
+    bf16 = init_inference(sparse_gpt_model(kv_cache_slack_blocks=1),
+                          dtype="bf16", config={"kv_cache": "int8"},
+                          seed=0)
+    bf16_step_ms, bf16_trace = decode_step_ms(bf16)
+    del bf16
+    free_cuda()
+    line = {"phase": "serving", "part": "mistral",
+            "model": "mistral-7b-v0.1", "source": MISTRAL_SOURCE,
+            "config": dict(MISTRAL_7B, n_positions=SPARSE_GPT_POSITIONS,
+                           kv_cache_slack_blocks=1),
+            "sparse_attention": SPARSE_GPT_BLOCK, "reduced": {},
+            "dtype": "int8", "kv_cache": "int8", "init_s": init_s,
+            "weights_gb": weights_gb, "init_peak_gb": init_peak_gb,
+            "slots": SERVING_SLOTS, "prompt_bucket": bucket,
+            "requests": len(reqs), "late_requests": SERVING_LATE,
+            "prompt_lengths": [len(p) for p in prompts],
+            "max_new_tokens": [n for _, n in reqs],
+            "eos_requests": [i for i, e in enumerate(eos) if e is not None],
+            "solo_generate_s": solo_s, "summary": summary,
+            "cold_summary": cold_stats.summary(),
+            "tokens_per_s": summary["aggregate_tokens_per_s"],
+            "launches": launches, "prefix_cache": prefix_stats,
+            "kv_cache_stats": kv, "lanes_allocated_bytes": lanes_alloc,
+            "bf16_lanes_allocated_bytes": bf16_alloc,
+            "scheduler_vs_solo_parts": parts,
+            "prefix_hits_vs_cold_parts": cold_parts,
+            "graphs_vs_eager_twin_identical": twin_same,
+            "twin_wave_tokens_as_in_the_full_run": twin_tokens_as_main,
+            "decode_step_ms_8_lanes": {"int8_weights": int8_step_ms,
+                                       "bf16_weights": bf16_step_ms},
+            "decode_step_trace": {"int8_weights": int8_trace,
+                                  "bf16_weights": bf16_trace},
+            "gap_sigmas": GAP_SIGMAS,
+            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(line)
+    if problems:
+        raise AssertionError(f"serving mistral: {problems}")
+    return launches, line
+
+
+def gpt2_serving_engine(name="gpt2-1.3b", dtype="bf16", seed=0, kv=None):
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.transformer_lm import GPT, gpt2_config
+
+    return init_inference(GPT(gpt2_config(name, use_flash_attention=True)),
+                          dtype=dtype, seed=seed,
+                          config={"kv_cache": kv} if kv else None)
+
+
+def timed_pair(graph, eager, reps=5):
+    """Median fenced ms of ``graph`` and of ``eager``, in turns."""
+    import torch
+
+    g, e = [], []
+    graph()
+    eager()
+    for _ in range(reps):
+        for fn, out in ((graph, g), (eager, e)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(g), statistics.median(e)
+
+
+def serving_gpt2():
+    """GPT-2 1.3B: the forward graph against eager forward at [4, 1024]
+    (bit for bit, B1 24 per forward), the prefill graphs against eager
+    prefill per bucket (logits and cache bit for bit; TTFT), speculative
+    decoding with a 125M-shaped draft and with a self-draft against the
+    scheduler without one; int8 against bf16 decode at 125M and 1.3B."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.inference.scheduler import \
+        ContinuousBatchingScheduler
+
+    problems = []
+    free_cuda()
+    engine = gpt2_serving_engine()
+    cfg = engine.module.config
+    gen = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (4, 1024), generator=gen).cuda()
+    with torch.inference_mode():
+        eager = engine.forward(ids, eager=True)
+        calls = [engine(ids) for _ in range(2)]    # warm-up, capture
+        reset_launches()
+        calls.append(engine(ids))                  # a replay
+        torch.cuda.synchronize()
+        forward_launches = read_launches()
+    forward_same = [bool(torch.equal(c, eager)) for c in calls]
+    del calls, eager
+    fwd_ms, fwd_eager_ms = timed_pair(lambda: engine(ids),
+                                      lambda: engine.forward(ids, eager=True))
+    if not all(forward_same):
+        problems.append(f"forward graph against eager: {forward_same}")
+    if forward_launches["flash_attention_fwd"] != cfg.n_layer:
+        problems.append(f"forward graph launched B1 "
+                        f"{forward_launches['flash_attention_fwd']} times")
+
+    prefill = {}
+    for L in TTFT_BUCKETS:
+        p_ids = torch.randint(0, cfg.vocab_size, (1, L),
+                              generator=gen).cuda()
+        mask = torch.ones_like(p_ids, dtype=torch.bool)
+        want, cache = engine._chunked_prefill(p_ids, mask, eager=True)
+        want_cache = cache.clone()
+        same = []
+        for _ in range(3):    # warm-up, capture, replay
+            got, cache = engine._chunked_prefill(p_ids, mask)
+            same.append(bool(torch.equal(got, want)) and all(
+                torch.equal(a, b) for a, b in zip(cache.tensors(),
+                                                  want_cache.tensors())))
+        # time to the first token on the host: the prefill and its argmax
+        g_ms, e_ms = timed_pair(
+            lambda: int(engine._chunked_prefill(p_ids, mask)[0].argmax()),
+            lambda: int(engine._chunked_prefill(p_ids, mask,
+                                                eager=True)[0].argmax()))
+        prefill[L] = {"identical": same, "ttft_ms": g_ms,
+                      "eager_ttft_ms": e_ms}
+        if not all(same):
+            problems.append(f"prefill graph at {L} against eager: {same}")
+        del want_cache
+
+    # speculative decoding: a 125M-shaped draft (random weights: nearly
+    # every proposal is rejected), and the target's own weights as the
+    # draft (every proposal accepted); both against no draft
+    rng = np.random.RandomState(2)
+    requests = [(rng.randint(0, cfg.vocab_size,
+                             rng.randint(*SPEC_PROMPTS)).tolist(),
+                 SPEC_NEW, None) for _ in range(SPEC_REQUESTS)]
+    prompts = [p for p, _, _ in requests]
+
+    def spec_run(draft):
+        sched = ContinuousBatchingScheduler(
+            engine, slots=SERVING_SLOTS, prompt_bucket=64,
+            draft_engine=draft, spec_k=SPEC_K if draft is not None else 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, stats = serve_requests(sched, requests)
+        torch.cuda.synchronize()
+        out = {"wall_s": time.perf_counter() - t0,
+               "decode_steps": stats.decode_steps,
+               "tokens_per_s": stats.summary()["aggregate_tokens_per_s"]}
+        if draft is not None:
+            out.update(proposed=sched.spec_proposed,
+                       accepted=sched.spec_accepted,
+                       accept_rate=sched.spec_accepted / sched.spec_proposed)
+        return toks, out
+
+    base, base_line = spec_run(None)
+    spec = {"none": base_line}
+    for name, draft in (("gpt2-125m", lambda: gpt2_serving_engine(
+            GPT2_DRAFT, seed=5)), ("self", lambda: gpt2_serving_engine())):
+        d = draft()
+        toks, spec[name] = spec_run(d)
+        del d
+        free_cuda()
+        parts, probs = token_parts(engine, prompts, toks, base, 64)
+        spec[name]["parts_vs_no_draft"] = parts
+        problems += probs
+    del engine
+    free_cuda()
+
+    # int8 against bf16 decode (the int8 warning's numbers); at 1.3B also
+    # each KV cache dtype under each weights dtype
+    decode = {}
+    for name, dtype, kv in (("gpt2-125m", "bf16", None),
+                            ("gpt2-125m", "int8", None),
+                            ("gpt2-1.3b", "bf16", None),
+                            ("gpt2-1.3b", "int8", None),
+                            ("gpt2-1.3b", "bf16", "int8"),
+                            ("gpt2-1.3b", "int8", "int8")):
+        eng = gpt2_serving_engine(name, dtype, kv=kv)
+        row = {}
+        for b in (1, SERVING_SLOTS):
+            prompt = torch.randint(0, 50257, (b, 128), generator=gen).cuda()
+            # a run length's first call is its warm-up and the next its
+            # capture: time replays only
+            one = wall_ms(lambda: eng.generate(prompt, max_new_tokens=1),
+                          reps=3)
+            eng.generate(prompt, max_new_tokens=33)
+            many = wall_ms(lambda: eng.generate(prompt, max_new_tokens=33),
+                           reps=3)
+            row[f"batch_{b}_ms_per_token"] = (many - one) / 32
+        decode[f"{name}_{dtype}_kv_{kv or 'bf16'}"] = row
+        del eng
+        free_cuda()
+    line = {"phase": "serving", "part": "gpt2", "model": "gpt2-1.3b",
+            "dtype": "bf16", "forward_shape": [4, 1024],
+            "forward_graph_vs_eager_identical": forward_same,
+            "forward_launches_per_replay": forward_launches,
+            "forward_ms": fwd_ms, "eager_forward_ms": fwd_eager_ms,
+            "prefill_by_bucket": prefill, "spec_k": SPEC_K,
+            "spec_requests": SPEC_REQUESTS, "spec": spec,
+            "int8_vs_bf16_decode": decode}
+    emit(line)
+    if problems:
+        raise AssertionError(f"serving gpt2: {problems}")
+    return forward_launches, line
+
+
+def phase_serving():
+    """Serving breadth (ROADMAP A.8): Mistral-7B through the scheduler,
+    then GPT-2 1.3B's graphs and speculative decoding. Returns the launch
+    counts of the scheduler run and of one forward graph replay."""
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    scheduler, _ = serving_mistral()
+    t_mistral = time.perf_counter() - t0
+    forward, _ = serving_gpt2()
+    emit({"phase": "serving", "part": "done", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0, "mistral_seconds": t_mistral})
+    return {"serving_scheduler": scheduler, "serving_forward": forward}
+
+
 def main(argv):
     import torch
 
@@ -7807,12 +8358,13 @@ def main(argv):
                                                 "neox", "moe",
                                                 "train_options",
                                                 "sparse_gpt",
-                                                "bert_options")))
+                                                "bert_options",
+                                                "serving")))
              or (len(argv) == 6 and argv[1] == "--zero-rank"))
     if not usage:
         print(f"usage: {argv[0]} [--against OTHER_CHECKOUT | "
               "--only zero|data|mistral|neox|moe|train_options|sparse_gpt"
-              "|bert_options]", file=sys.stderr)
+              "|bert_options|serving]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -7860,6 +8412,8 @@ def main(argv):
             emit({"sparse_gpt_launches_by_path": phase_sparse_gpt()})
         elif argv[2] == "bert_options":
             emit({"bert_options_launches_by_path": phase_bert_options()})
+        elif argv[2] == "serving":
+            emit({"serving_launches_by_path": phase_serving()})
         else:
             emit({"data_launches": phase_data()[0]})
         print(smi, flush=True)
@@ -7897,13 +8451,14 @@ def main(argv):
     option_paths = run("train_options", phase_train_options)
     sparse_gpt_paths = run("sparse_gpt", phase_sparse_gpt)
     bert_paths = run("bert_options", phase_bert_options)
+    serving_paths = run("serving", phase_serving)
     emit({"phase_seconds": phase_seconds,
           "total_seconds": time.perf_counter() - started})
     paths = {"serve": serve_launches, "train": launches,
              "checkpoint": ckpt_launches, "sparse_train": sparse_launches,
              **zero_paths, "data": data_launches, **mistral_paths,
              **neox_paths, **moe_paths, **option_paths, **sparse_gpt_paths,
-             **bert_paths}
+             **bert_paths, **serving_paths}
     for entry in kernels:
         # each slice's main path, its counts set to 0 just before it: serving
         # runs B1, GPT training, the checkpoint path, ZeRO (stages 0-2, and
@@ -7915,11 +8470,13 @@ def main(argv):
         # fused head, chunked attention), Mistral's sliding window on the
         # GPT block-sparse route (B5-B7, B4), and BERT-Large's training
         # options (each remat policy under dropout, PLD: B5-B7, B4; the
-        # dense BERT: B4). "launches" is the count on the newest path that
-        # runs the kernel
+        # dense BERT: B4), and serving's forward graph (B1 per layer in
+        # each replay) and scheduler (its cache path runs no kernel).
+        # "launches" is the count on the newest path that runs the kernel
         name = entry["name"]
         entry["launches_by_path"] = {p: counts[name] for p, counts in paths.items()}
-        entry["launches"] = (bert_paths["bert_selective"][name]
+        entry["launches"] = (serving_paths["serving_forward"][name]
+                             or bert_paths["bert_selective"][name]
                              or sparse_gpt_paths["sparse_gpt_train"][name]
                              or option_paths["remat_selective"][name]
                              or option_paths["pld"][name]

@@ -13,9 +13,27 @@ the card, captured as one CUDA graph per (batch size, run length, greedy or
 sampled) and replayed (a CUDA graph has no ``lax.cond``, so greedy and
 sampled decoding are two graphs). The engine keeps one KV cache per batch
 size, reset at each prefill, whose buffers the graphs read and write; the
-host advances the cache's ``length`` by k after each run. Sampling draws
-from the engine's own generator, registered with each graph. Prefill and
-``forward`` run eagerly.
+host advances the cache's per-row ``lengths`` after each call. Sampling
+draws from the engine's own generator, registered with each graph.
+
+The JAX engine's other jitted entry points are graphs too, captured by
+``CompiledStep`` once per input signature (after one uncaptured warm-up
+call) and kept in LRUs: ``forward`` (``_fwd_fn``, :425-434; B1 inside it
+when ``use_flash_attention`` routes there), per batch size the prefill
+pass (``_prefill_fn``, :527, one graph per prompt length), the
+continuation pass (``_prefill_more_fn``, :463) and the ``[B, k+1]``
+speculative verify pass (``_verify_greedy_fn``, :510), which the
+continuous-batching scheduler (``inference/scheduler.py``) drives. A graph
+that fails to capture or replay raises; nothing falls back to eager.
+
+``dtype="int8"`` serves the model with ``quantized_weights`` (JAX
+:189-226): every block's Dense weight int8 with per-output f32 scales,
+dequantized in the compute dtype at its product (plain PyTorch: in JAX an
+XLA fusion, no Pallas kernel). ``config["kv_cache"] = "int8"`` stores the
+decode cache int8 (``kv_cache_dtype``, JAX :228-244). JAX's engine-level
+fallback for models without the config field (``_cast``/``_dequant``,
+:286-319) has no counterpart: this engine serves only a ``GPT``, which
+has the field.
 
 A model whose ``sparse_attention`` layout is a causal window (+ leading
 globals) decodes from the ring KV cache (``ring_engaged``;
@@ -39,16 +57,18 @@ when torch sees no card. Pass ``device="cpu"`` to run on the host.
 """
 
 import collections
+import dataclasses
 import functools
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.models.transformer_lm import (GPT, KVCache,
                                                        kv_cache,
-                                                       materialize_gpt)
+                                                       materialize_gpt,
+                                                       num_params)
 from deepspeed_tpu_torch.ops.sparse_attention.sparse_attention_utils import (
     ring_engaged, ring_storage_len)
 from deepspeed_tpu_torch.runtime import checkpoint_manifest as ckpt_manifest
@@ -60,7 +80,21 @@ from deepspeed_tpu_torch.utils.logging import log_dist, warning_once
 
 _DTYPES = {None: None, "fp16": torch.float16, "float16": torch.float16,
            "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
-           "fp32": torch.float32, "float32": torch.float32}
+           "fp32": torch.float32, "float32": torch.float32,
+           "int8": torch.int8}
+
+# dtype="int8" warns once below this many parameters (JAX :207-226 warns
+# below 200M, from its own chip). chip_smoke.py's serving phase on an
+# NVIDIA H100 80GB HBM3 at 700 W: int8 weights decode slower than bf16 at
+# every size measured, GPT-2 125M (1.44x at batch 1, 1.25x at 8) and 1.3B
+# (2.34x, 1.55x) and Mistral-7B's 7.24B (1.78x at 8 lanes), so the warning
+# covers every size up to the largest measured
+INT8_WARN_BELOW_PARAMS = 8e9
+INT8_DECODE_NOTE = (
+    "int8 weights decode slower than bf16 at every size measured on an "
+    "NVIDIA H100 (125M to 7.2B parameters, 1.2-2.5x): each product "
+    "dequantizes its weight in the compute dtype first. They halve the "
+    "weights' memory")
 
 
 def prefill_chunk_spans(model_cfg, T: int):
@@ -160,29 +194,53 @@ def load_checkpoint_weights(path: str):
     return state.get("module", state)
 
 
+class _Decoder(NamedTuple):
+    """What the engine keeps for one batch size: the KV cache and the
+    captured steps that read and write its buffers (one memory pool)."""
+
+    cache: KVCache
+    decode: CompiledStep    # runs of k decode steps (JAX _decode_k_fn)
+    prefill: CompiledStep   # one prefill pass, fresh or continuing
+    verify: CompiledStep    # the [B, k+1] greedy verify pass
+
+
 class InferenceEngine:
-    # batch sizes whose KV cache and decode graphs are kept
+    # batch sizes whose KV cache and graphs are kept, and forward shapes
     MAX_BATCH_SIZES = 4
+    # prefill graphs kept per batch size (one per prompt length)
+    MAX_PREFILL_GRAPHS = 32
 
     def __init__(self, model, config: Dict[str, Any], seed: int = 0,
                  device=None, state_dict=None):
         if not isinstance(model, GPT):
             raise NotImplementedError(
                 f"the port serves deepspeed_tpu_torch GPT models; "
-                f"{type(model).__name__} (HF import included) is not ported")
+                f"{type(model).__name__} (HF import included) is not "
+                "ported (ROADMAP A.12)")
         tp_size = int(config.get("tensor_parallel", {}).get("tp_size", 1))
         ep_size = int(config.get("moe", {}).get("ep_size", 1))
         for what, unported in (
                 ("tensor parallelism (tp_size > 1)", tp_size != 1),
-                ("expert parallelism (ep_size > 1, ROADMAP A.9)",
-                 ep_size != 1),
-                ("dtype='int8'", config.get("dtype") == "int8"),
-                ("the int8 KV cache ('kv_cache')",
-                 config.get("kv_cache") is not None)):
+                ("expert parallelism (ep_size > 1)", ep_size != 1)):
             if unported:
-                raise NotImplementedError(f"{what} is not ported yet")
+                raise NotImplementedError(
+                    f"{what} is not ported yet (ROADMAP A.9)")
         if config.get("dtype") not in _DTYPES:
             raise ValueError(f"unknown dtype {config.get('dtype')!r}")
+        cfg = model.config
+        if config.get("dtype") == "int8":
+            # the model stores its own int8 blocks (JAX :197-205)
+            cfg = dataclasses.replace(cfg, quantized_weights=True)
+            n = num_params(cfg)
+            if n < INT8_WARN_BELOW_PARAMS:
+                warning_once(
+                    f"dtype=int8 on a ~{n / 1e6:.0f}M-param model: "
+                    f"{INT8_DECODE_NOTE}")
+        if config.get("kv_cache") is not None:
+            # JAX :228-244; GPTConfig refuses a value other than "int8"
+            cfg = dataclasses.replace(cfg, kv_cache_dtype=config["kv_cache"])
+        if cfg is not model.config:
+            model = GPT(cfg)
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -197,8 +255,11 @@ class InferenceEngine:
         # the sampling temperature, a device scalar the decode graphs read
         self._temperature = torch.ones((), dtype=torch.float32,
                                        device=self.device)
-        # batch size -> (KV cache, its decode runs), least recently used first
+        # batch size -> _Decoder, least recently used first
         self._decoders = collections.OrderedDict()
+        self._forward = CompiledStep(self._forward_step, self.device,
+                                     warmup=1,
+                                     max_graphs=self.MAX_BATCH_SIZES)
         if config.get("checkpoint"):
             if state_dict is not None:
                 raise ValueError("pass checkpoint or state_dict, not both")
@@ -209,20 +270,31 @@ class InferenceEngine:
 
     def _materialize(self, state_dict):
         """Place the weights on the device in the serving dtype (the model's
-        ``param_dtype`` unless fp16/bf16 serving asks to cast)."""
-        half = self.dtype in (torch.float16, torch.bfloat16)
+        ``param_dtype`` unless fp16/bf16 serving asks to cast; under int8
+        the blocks' weights int8 and every other floating leaf in the
+        compute dtype, as JAX places imported weights, :379-387)."""
+        cast = None
+        if self.dtype in (torch.float16, torch.bfloat16):
+            cast = self.dtype
+        elif self.dtype == torch.int8:
+            cast = self.module.config.dtype
         materialize_gpt(self.module, self.device, self._generator,
-                        state_dict=state_dict,
-                        dtype=self.dtype if half else None)
+                        state_dict=state_dict, dtype=cast)
         self.module.eval()
 
     def _ids(self, input_ids):
         return torch.as_tensor(input_ids).to(self.device, torch.long)
 
+    def _forward_step(self, ids):
+        return self.module(ids)
+
     @torch.inference_mode()
-    def forward(self, input_ids):
-        """f32 logits ``[B, T, vocab]`` of a full forward."""
-        return self.module(self._ids(input_ids))
+    def forward(self, input_ids, eager: bool = False):
+        """f32 logits ``[B, T, vocab]`` of a full forward, through one
+        graph per ``[B, T]`` (``eager``: the uncaptured step, a reference
+        for the graphs)."""
+        run = self._forward.eager if eager else self._forward
+        return run({"ids": self._ids(input_ids)})
 
     __call__ = forward
 
@@ -295,12 +367,12 @@ class InferenceEngine:
             attention_mask = torch.ones(ids.shape, dtype=torch.bool,
                                         device=self.device)
 
-        cache, decode = self._decoder(ids.shape[0])
-        logits = self._chunked_prefill(ids, attention_mask, cache.reset())
+        logits, cache = self._chunked_prefill(ids, attention_mask, eager)
+        decode = self._decoder(ids.shape[0]).decode
         sampled = temperature > 0
         if sampled:
             self._temperature.fill_(temperature)
-        tok = self._next_token(logits[:, -1], sampled)
+        tok = self._next_token(logits, sampled)
         out = [tok[:, None]]
         chunk = self.decode_chunk
         if chunk & (chunk - 1):
@@ -318,50 +390,121 @@ class InferenceEngine:
             remaining -= k
         return torch.cat(out, dim=1)
 
-    def _chunked_prefill(self, ids, attention_mask, cache: KVCache):
-        """Prefill ``ids`` into ``cache`` exactly (JAX :533-550): one pass
-        when that is exact, else block-aligned passes of at most one layout
-        block (``prefill_chunk_spans``). Returns the last pass's logits;
-        with left-padded prompts its last column is every row's last real
-        token. ``attention_mask`` [B, T] is required (``generate`` makes
-        one of ones when it is given none)."""
+    @torch.inference_mode()
+    def _chunked_prefill(self, ids, attention_mask, eager: bool = False):
+        """Prefill ``ids`` into the batch size's cache exactly (JAX
+        :533-550): one pass when that is exact, else block-aligned passes of
+        at most one layout block (``prefill_chunk_spans``). Returns the
+        last pass's last-column logits ([B, V]; with left-padded prompts
+        every row's last real token) and the cache. ``attention_mask`` [B,
+        T] is required (``generate`` makes one of ones when it is given
+        none)."""
+        entry = self._decoder(int(ids.shape[0]))
         spans = prefill_chunk_spans(self.module.config, int(ids.shape[1]))
-        for s, e in spans or [(0, ids.shape[1])]:
-            logits, _ = self.module(ids[:, s:e],
-                                    attention_mask=attention_mask[:, s:e],
-                                    decode=True, cache=cache)
-        return logits
+        for i, (s, e) in enumerate(spans or [(0, ids.shape[1])]):
+            logits = self._pass(entry, entry.prefill, i == 0, eager,
+                                ids=ids[:, s:e],
+                                mask=attention_mask[:, s:e])
+        return logits, entry.cache
 
-    def _decoder(self, batch: int):
+    @torch.inference_mode()
+    def _prefill_more(self, ids, attention_mask, cache: KVCache,
+                      eager: bool = False):
+        """One continuation pass (JAX ``_prefill_more_fn``): ``ids`` appended
+        to ``cache``, which must be the engine's cache for its batch size.
+        Returns the last-column logits and the cache."""
+        entry = self._entry_of(cache)
+        return self._pass(entry, entry.prefill, False, eager, ids=ids,
+                          mask=attention_mask), cache
+
+    @torch.inference_mode()
+    def _verify_greedy(self, toks, cache: KVCache, eager: bool = False):
+        """The speculative verify pass (JAX ``_verify_greedy_fn``): the
+        columns ``toks`` [B, k+1] through ``cache`` in one call; returns
+        each column's argmax [B, k+1]."""
+        entry = self._entry_of(cache)
+        return self._pass(entry, entry.verify, None, eager, toks=toks)
+
+    def _pass(self, entry: "_Decoder", step: CompiledStep, fresh, eager,
+              **inputs):
+        """One call of a prefill or verify step on ``entry``'s cache, the
+        host clocks kept: checked against the capacity first (a replay runs
+        no Python), advanced by the call's width after. ``fresh`` (prefill
+        only) starts from an empty cache."""
+        cache = entry.cache
+        T = int(next(iter(inputs.values())).shape[1])
+        if fresh:
+            cache.lengths[:] = 0
+        cache.check(self.module.config, T)
+        lengths = cache.lengths.copy()
+        static = () if fresh is None else (bool(fresh),)
+        out = (step.eager if eager else step)(inputs, *static)
+        cache.lengths[:] = lengths + T
+        return out
+
+    def _entry_of(self, cache: KVCache) -> "_Decoder":
+        entry = self._decoder(int(cache.valid.shape[0]))
+        if entry.cache is not cache:
+            raise ValueError("the cache is not this engine's cache for its "
+                             "batch size (graphs read the engine's own)")
+        return entry
+
+    def _decoder(self, batch: int) -> "_Decoder":
         """The KV cache (dense, or the ring of a window layout) and the
-        decode runs kept for ``batch``."""
+        steps kept for ``batch``."""
         entry = self._decoders.get(batch)
         if entry is None:
             cache = kv_cache(self.module.config, batch, self.device)
             gens = (self._generator,) if self.device.type == "cuda" else ()
-            runs = CompiledStep(
-                functools.partial(self._decode_steps, cache), self.device,
-                warmup=1, max_graphs=2 * self.decode_chunk.bit_length(),
-                generators=gens)
-            entry = self._decoders[batch] = (cache, runs)
+            pool = (torch.cuda.graph_pool_handle()
+                    if self.device.type == "cuda" else None)
+
+            def step(fn, max_graphs, **kw):
+                return CompiledStep(functools.partial(fn, cache), self.device,
+                                    warmup=1, max_graphs=max_graphs,
+                                    pool=pool, **kw)
+
+            entry = self._decoders[batch] = _Decoder(
+                cache,
+                step(self._decode_steps, 2 * self.decode_chunk.bit_length(),
+                     generators=gens),
+                step(self._prefill_pass, self.MAX_PREFILL_GRAPHS),
+                step(self._verify_pass, self.MAX_BATCH_SIZES))
             while len(self._decoders) > self.MAX_BATCH_SIZES:
-                _, (_, old) = self._decoders.popitem(last=False)
-                for graph in old.graphs.values():
-                    graph.graph.reset()
+                _, old = self._decoders.popitem(last=False)
+                for run in old[1:]:
+                    for graph in run.graphs.values():
+                        graph.graph.reset()
         else:
             self._decoders.move_to_end(batch)
         return entry
 
+    @torch.inference_mode()
     def _decode_run(self, decode: CompiledStep, cache: KVCache, tok, k: int,
                     sampled: bool, eager: bool = False):
         """``k`` decode steps after ``tok`` ([B]): their tokens [B, k]. The
-        cache's ``length`` is the host's, advanced here by k (a replay runs
-        no Python)."""
-        length = cache.length
+        cache's ``lengths`` are the host's, checked and advanced here by k
+        (a replay runs no Python)."""
+        cache.check(self.module.config, 1, calls=k)
+        lengths = cache.lengths.copy()
         run = decode.eager if eager else decode
         toks = run({"tok": tok}, k, sampled)
-        cache.length = length + k
+        cache.lengths[:] = lengths + k
         return toks
+
+    def _prefill_pass(self, cache: KVCache, fresh: bool, ids, mask):
+        """The step function of one prefill pass: the last column's
+        logits."""
+        if fresh:
+            cache.reset()
+        logits, _ = self.module(ids, attention_mask=mask, decode=True,
+                                cache=cache)
+        return logits[:, -1]
+
+    def _verify_pass(self, cache: KVCache, toks):
+        logits, _ = self.module(toks, decode=True, cache=cache)
+        # first index among equal maxima, as jnp.argmax
+        return torch.argmax(logits, dim=-1)
 
     def _decode_steps(self, cache: KVCache, k: int, sampled: bool, tok):
         """The step function of one run: ``k`` decode steps through the

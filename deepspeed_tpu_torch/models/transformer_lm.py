@@ -26,9 +26,11 @@ and the training path (``labels`` -> mean next-token cross entropy, or the
 fused head + CE, plus the experts' load-balancing loss; packed
 ``segment_ids``/``positions``; activation recomputation under JAX's four
 ``remat_policy`` values; dropout at JAX's sites and stochastic depth, both
-drawn from a generator the caller passes). Config fields of features not
-ported yet raise ``NotImplementedError`` when set away from their
-defaults.
+drawn from a generator the caller passes), and the serving options
+``quantized_weights`` (int8 block weights, ``QuantizedDense``) and
+``kv_cache_dtype="int8"`` (the int8 decode cache). Config fields of
+features not ported yet raise ``NotImplementedError`` when set away from
+their defaults.
 """
 
 import dataclasses
@@ -47,8 +49,6 @@ _UNPORTED = {
     "flash_autotune": (False, "the flash block autotuner", "A.12"),
     "param_offload": (False, "parameter offload", "A.10"),
     "sequence_parallel": ("none", "sequence parallelism", "A.9"),
-    "quantized_weights": (False, "int8 weights", "A.8"),
-    "kv_cache_dtype": (None, "the int8 KV cache", "A.8"),
 }
 
 
@@ -104,7 +104,12 @@ class GPTConfig:
     fused_head_ce: Any = "auto"
     sparse_attention: Any = None
     sparse_kv_cache: Any = "auto"
+    # serving only (init_inference(dtype="int8") sets it): every block's
+    # Dense weight stored int8 with one f32 scale per output
+    # (QuantizedDense), dequantized at its product
     quantized_weights: bool = False
+    # "int8": the decode cache stores keys and values int8 with one f32
+    # scale per (row, slot, KV head), dequantized on read (KVCache)
     kv_cache_dtype: Any = None
     kv_cache_slack_blocks: int = 0
     stochastic_mode: bool = False
@@ -143,6 +148,10 @@ class GPTConfig:
             raise ValueError(
                 f"attention_chunk must be a positive int or None; got "
                 f"{self.attention_chunk!r}")
+        if self.kv_cache_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_cache_dtype must be None or 'int8'; got "
+                f"{self.kv_cache_dtype!r}")
         if not isinstance(self.kv_cache_slack_blocks, int) or \
                 self.kv_cache_slack_blocks < 0:
             raise ValueError(
@@ -399,6 +408,92 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
+class QuantizedDense(nn.Module):
+    """A block's ``Dense`` under ``quantized_weights`` (JAX
+    ``quantize_block_params`` :872, ``dequantize_block_params`` :902 and
+    ``_maybe_quantized_block`` :921): the weight stored int8, ``weight_q``
+    ``[out, in]`` (the JAX kernel's ``q`` transposed), with one f32 scale
+    per output, ``weight_scale`` (the kernel's per-column ``scale``). Each
+    call dequantizes it as JAX does inside the layer scan, ``q.to(dtype) *
+    scale.to(dtype)`` in the model's compute dtype (``dequant_dtype``),
+    then computes as the ``Dense`` it replaces (in its ``compute_dtype``:
+    the MoE gate's is f32). So only the weight in use is ever held
+    dequantized. ``quantize_`` fills the storage from a dense weight."""
+
+    def __init__(self, dense: "Dense", dequant_dtype):
+        super().__init__()
+        self.in_features = dense.in_features
+        self.out_features = dense.out_features
+        self.compute_dtype = dense.compute_dtype
+        self.dequant_dtype = dequant_dtype
+        # the dtype the dense twin draws its weight in
+        self.param_dtype = dense.weight.dtype
+        dev = dense.weight.device
+        self.register_buffer("weight_q", torch.empty(
+            (self.out_features, self.in_features), dtype=torch.int8,
+            device=dev))
+        self.register_buffer("weight_scale", torch.empty(
+            self.out_features, dtype=torch.float32, device=dev))
+        self.bias = dense.bias
+        if getattr(dense, "keep_param_dtype", False):
+            self.keep_param_dtype = True
+
+    @torch.no_grad()
+    def quantize_(self, weight: torch.Tensor) -> None:
+        """Store ``weight`` (``[out, in]``, floating) as int8 and scales,
+        bit for bit what JAX's ``quantize_weight_per_column`` gives for its
+        ``[in, out]`` transpose."""
+        q, scale = _quantize_rows(weight)
+        self.weight_q.copy_(q)
+        self.weight_scale.copy_(scale)
+
+    def dense_weight(self) -> torch.Tensor:
+        # one pass: int8 times the compute-dtype scale promotes to the
+        # compute dtype, each product rounded once, as JAX's convert and
+        # multiply (a q is exact in bf16, and the product of two bf16
+        # values exact in f32)
+        scale = self.weight_scale.to(self.dequant_dtype)
+        return self.weight_q * scale[:, None]
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.dense_weight().to(dt), bias)
+
+
+def quantize_blocks(model: nn.Module, dequant_dtype) -> None:
+    """Replace every ``Dense`` under ``model.h`` (the attention's and the
+    MLP's, and the MoE gate's; not the experts' stacks, which JAX keeps
+    dense) by a ``QuantizedDense`` on the same device: the leaves JAX's
+    ``quantize_block_params`` turns into ``{q, scale}``."""
+    for block in model.h:
+        for parent in list(block.modules()):
+            for name, child in list(parent.named_children()):
+                if isinstance(child, Dense):
+                    setattr(parent, name, QuantizedDense(child, dequant_dtype))
+
+
+def quantize_state_dict(model: nn.Module, state_dict):
+    """``state_dict`` with each dense ``weight`` of a ``QuantizedDense``
+    of ``model`` replaced by its ``weight_q`` and ``weight_scale``, one
+    layer at a time on the tensors' own device (a copy of the dict; a state
+    that already holds ``weight_q`` passes as it is)."""
+    sd = dict(state_dict)
+    for name, mod in model.named_modules():
+        key = f"{name}.weight"
+        if isinstance(mod, QuantizedDense) and key in sd:
+            q, scale = _quantize_rows(sd.pop(key))
+            sd[f"{name}.weight_q"], sd[f"{name}.weight_scale"] = q, scale
+    return sd
+
+
+def _quantize_rows(weight):
+    from deepspeed_tpu_torch.ops.quantizer import quantize_weight_per_column
+
+    q, scale = quantize_weight_per_column(weight.t())
+    return q.t().contiguous(), scale
+
+
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm`` (the ``_norm`` layernorm branch): statistics and
     the affine map in f32, the result cast to the compute dtype. ``width``
@@ -462,22 +557,29 @@ class VocabEmbed(nn.Embedding):
 @dataclasses.dataclass
 class KVCache:
     """The dense decode cache (flax's ``cache`` collection,
-    ``transformer_lm.py:565-612``, plus the position counter at :1114).
+    ``transformer_lm.py:566-612``, plus the position counter at :1114).
 
     ``key``/``value`` hold one ``[B, n_positions, Hkv, D]`` buffer per layer:
     the KV heads, not repeated to the query heads (grouped-query attention
     reads each one for its group of queries). Keys are stored rotated when
-    the model is rotary. ``valid`` ([B, n_positions]) marks written real
-    tokens, ``index`` ([B]) is each row's next write slot and ``position``
-    ([B]) each row's next learned position (None for a model without a
-    position table). The flax model keeps a copy of ``valid`` and ``index``
-    in every layer; all copies are equal, so one serves here. The buffers
-    are updated in place.
+    the model is rotary. Under ``kv_cache_dtype="int8"`` (JAX :423-445) they
+    are int8, and ``key_scale``/``value_scale`` hold one f32 scale per (row,
+    slot, KV head), ``[B, S, Hkv]``: ``ops/quantizer.quantize_blockwise``
+    over D at the write, dequantized to the compute dtype on read.
+    ``valid`` ([B, n_positions]) marks written real tokens, ``index`` ([B])
+    is each row's next write slot and ``position`` ([B]) each row's next
+    learned position (None for a model without a position table). The flax
+    model keeps a copy of ``valid`` and ``index`` in every layer; all
+    copies are equal, so one serves here. The buffers are updated in
+    place, and nothing here ever swaps a buffer for a new tensor: captured
+    decode steps read their addresses.
 
-    Every call appends its T columns to every row, so ``length``, a host
-    int, bounds all rows' ``index``: a call that would write past the cache
-    raises, where flax's ``mode="drop"`` writes would silently drop tokens.
-    Knowing that on the host keeps the writes free of device syncs.
+    ``lengths`` ([B], a host array) bounds each row's ``index``: a call that
+    would write past the cache raises, where flax's ``mode="drop"`` writes
+    would silently drop tokens. Knowing that on the host keeps the writes
+    free of device syncs. Rows keep their own clocks (the continuous-batching
+    scheduler splices, rewinds and recycles one row while the others run
+    on); ``length`` is the largest.
     """
 
     key: List[torch.Tensor]
@@ -485,7 +587,17 @@ class KVCache:
     valid: torch.Tensor
     index: torch.Tensor
     position: Optional[torch.Tensor]
-    length: int = 0
+    key_scale: Optional[List[torch.Tensor]] = None
+    value_scale: Optional[List[torch.Tensor]] = None
+    lengths: Optional[np.ndarray] = None
+
+    def __post_init__(self):
+        if self.lengths is None:
+            self.lengths = np.zeros(self.valid.shape[0], np.int64)
+
+    @property
+    def length(self) -> int:
+        return int(self.lengths.max())
 
     @classmethod
     def empty(cls, cfg: GPTConfig, batch: int, device, slots=None,
@@ -494,29 +606,129 @@ class KVCache:
         ``n_positions``)."""
         slots = cfg.n_positions if slots is None else slots
         shape = (batch, slots, cfg.kv_heads, cfg.head_dim)
+        int8 = cfg.kv_cache_dtype == "int8"
 
-        def zeros():
-            return torch.zeros(shape, dtype=cfg.dtype, device=device)
+        def zeros(shape, dtype):
+            return [torch.zeros(shape, dtype=dtype, device=device)
+                    for _ in range(cfg.n_layer)]
 
+        store = torch.int8 if int8 else cfg.dtype
+        scales = (lambda: zeros(shape[:3], torch.float32)) if int8 else \
+            (lambda: None)
         return cls(
-            key=[zeros() for _ in range(cfg.n_layer)],
-            value=[zeros() for _ in range(cfg.n_layer)],
+            key=zeros(shape, store), value=zeros(shape, store),
             valid=torch.zeros((batch, slots), dtype=torch.bool,
                               device=device),
             index=torch.zeros(batch, dtype=torch.long, device=device),
             position=(torch.zeros(batch, dtype=torch.long, device=device)
-                      if cfg.learned_positions else None), **fields)
+                      if cfg.learned_positions else None),
+            key_scale=scales(), value_scale=scales(), **fields)
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every device buffer of the cache, in a fixed order."""
+        out = [*self.key, *self.value, *(self.key_scale or []),
+               *(self.value_scale or [])]
+        return out + [t for t in (self.valid, self.index, self.position,
+                                  getattr(self, "slot_pos", None))
+                      if t is not None]
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.tensors())
 
     def reset(self) -> "KVCache":
         """Empty again, in place: the buffers keep their addresses (a
         captured decode step reads and writes them) and hold what
         ``empty`` makes."""
-        for buf in (*self.key, *self.value, self.valid, self.index,
-                    self.position):
-            if buf is not None:
-                buf.zero_()
-        self.length = 0
+        for buf in self.tensors():
+            buf.zero_()
+        self.lengths[:] = 0
         return self
+
+    def reset_rows(self, rows) -> None:
+        """Empty the rows ``rows`` (a list of row numbers) only: their
+        clocks back to 0 and nothing in them visible (the keys and values
+        stay, unread)."""
+        for r in rows:
+            self.valid[r].zero_()
+            self.index[r] = 0
+            if self.position is not None:
+                self.position[r] = 0
+            self.lengths[r] = 0
+
+    def clone(self) -> "KVCache":
+        """A copy in new buffers (a prefix-cache entry, a snapshot)."""
+        new = dataclasses.replace(self, lengths=self.lengths.copy())
+        for name in ("key", "value", "key_scale", "value_scale"):
+            group = getattr(self, name)
+            if group is not None:
+                setattr(new, name, [t.clone() for t in group])
+        for name in ("valid", "index", "position", "slot_pos"):
+            t = getattr(self, name, None)
+            if t is not None:
+                setattr(new, name, t.clone())
+        return new
+
+    def copy_(self, other: "KVCache") -> "KVCache":
+        """Take ``other``'s contents (the same geometry) into this cache's
+        own buffers."""
+        for dst, src in zip(self.tensors(), other.tensors(), strict=True):
+            dst.copy_(src)
+        self.lengths[:] = other.lengths
+        return self
+
+    def splice(self, sub: "KVCache", lane: int) -> None:
+        """Write the one-row cache ``sub`` into row ``lane`` (the
+        scheduler's ``_splice``, JAX ``inference/scheduler.py:563``), in
+        place."""
+        for dst, src in zip(self.tensors(), sub.tensors(), strict=True):
+            dst[lane].copy_(src[0])
+        self.lengths[lane] = sub.lengths[0]
+
+    def _stale(self, new_index: torch.Tensor) -> torch.Tensor:
+        """[B, S]: the slots a rewind to ``new_index`` restores: those at a
+        storage position at or past each row's new clock (on the dense
+        cache the storage index is the position)."""
+        S = self.valid.shape[1]
+        pos = torch.arange(S, device=self.index.device)
+        return pos[None, :] >= new_index[:, None]
+
+    def rewind(self, snapshot: "KVCache", delta) -> None:
+        """Step every row's clock back by ``delta[b]`` rejected tokens and
+        restore from ``snapshot`` (taken before the speculative pass) each
+        entry those writes changed (JAX ``_rewind``, scheduler.py:596): a
+        selective per-slot restore, so the accepted writes stay. In
+        place."""
+        delta = np.asarray(delta, np.int64)
+        d = torch.from_numpy(delta).to(self.index.device)
+        new_index = self.index - d
+        stale = self._stale(new_index)
+        for live, snap in zip(self.tensors(), snapshot.tensors(),
+                              strict=True):
+            if live is self.index or live is self.position:
+                continue
+            mask = stale.view(stale.shape + (1,) * (live.dim() - 2))
+            live.copy_(torch.where(mask, snap, live))
+        self.index.copy_(new_index)
+        if self.position is not None:
+            self.position.sub_(d)
+        self.lengths -= delta
+
+    def read(self, layer: int, dtype):
+        """Layer ``layer``'s keys and values in ``dtype`` (dequantized when
+        the cache is int8: JAX ``read_kv``)."""
+        k, v = self.key[layer], self.value[layer]
+        if self.key_scale is None:
+            return k, v
+        return (_dequantize_kv(k, self.key_scale[layer], dtype),
+                _dequantize_kv(v, self.value_scale[layer], dtype))
+
+    def check(self, cfg: GPTConfig, T: int, calls: int = 1) -> None:
+        """Raise if ``calls`` calls of ``T`` tokens would pass the cache's
+        capacity."""
+        if (self.lengths + T * calls > cfg.n_positions).any():
+            raise ValueError(
+                f"{T * calls} more tokens overflow the KV cache "
+                f"({self.length} of n_positions={cfg.n_positions} written)")
 
     def step(self, cfg: GPTConfig, written: torch.Tensor) -> "_DecodeStep":
         """The next call's slots ([B, T]: each row's next T), its validity
@@ -524,10 +736,7 @@ class KVCache:
         each query may not see: later ones and those holding no real token
         (JAX :589-633)."""
         B, T = written.shape
-        if self.length + T > cfg.n_positions:
-            raise ValueError(
-                f"{T} more tokens overflow the KV cache ({self.length} "
-                f"of n_positions={cfg.n_positions} written)")
+        self.check(cfg, T)
         dev = written.device
         slots = self.index[:, None] + torch.arange(T, device=dev)
         rows = torch.arange(B, device=dev)[:, None]
@@ -537,6 +746,14 @@ class KVCache:
             & self.valid[:, None, :]                            # [B,T,S]
         return _DecodeStep(self, rows, slots, (slots,),
                            ~visible[:, None, None])
+
+
+def _dequantize_kv(q, scale, dtype):
+    """``ops/quantizer.dequantize_blockwise`` with one scale per D (the KV
+    cache's block) in one pass: the f32 product of each code and its scale,
+    rounded to ``dtype`` as it is stored."""
+    out = torch.empty(q.shape, dtype=dtype, device=q.device)
+    return torch.mul(q, scale[..., None], out=out)
 
 
 @dataclasses.dataclass
@@ -550,7 +767,8 @@ class RingKVCache(KVCache):
     the ring's storage (``ring_storage_len``): each buffer holds ``g_tok +
     ring_len`` slots, the first ``g_tok`` for the leading global tokens.
     Position p is written to slot ``g_tok + p % ring_len``, and a global
-    token also to slot p. ``slot_pos`` ([B, S], -1 = empty) holds each
+    token also to slot p (its int8 scales too, JAX :512-523).
+    ``slot_pos`` ([B, S], -1 = empty) holds each
     slot's position, from which visibility is computed on the device:
     ``0 <= slot_pos <= q_pos`` and either a global slot or a ring slot whose
     block lies within ``w_blk`` blocks of the query's. A pass of more than
@@ -570,20 +788,29 @@ class RingKVCache(KVCache):
 
         ring_len = ring_storage_len(cfg, ring)
         slots = ring[1] + ring_len
-        return super().empty(
+        cache = super().empty(
             cfg, batch, device, slots=slots, ring=tuple(ring),
             ring_len=ring_len,
-            slot_pos=torch.full((batch, slots), -1, dtype=torch.long,
-                                device=device))
+            slot_pos=torch.empty((batch, slots), dtype=torch.long,
+                                 device=device))
+        cache.slot_pos.fill_(-1)
+        return cache
 
     def reset(self) -> "RingKVCache":
         super().reset()
         self.slot_pos.fill_(-1)
         return self
 
-    def step(self, cfg: GPTConfig, written: torch.Tensor) -> "_DecodeStep":
-        B, T = written.shape
-        w_blk, g_tok, blk = self.ring
+    def reset_rows(self, rows) -> None:
+        super().reset_rows(rows)
+        for r in rows:
+            self.slot_pos[r] = -1
+
+    def _stale(self, new_index: torch.Tensor) -> torch.Tensor:
+        # a ring slot holds the position slot_pos (JAX: slot_pos >= clock)
+        return self.slot_pos >= new_index[:, None]
+
+    def check(self, cfg: GPTConfig, T: int, calls: int = 1) -> None:
         if T > self.ring_len:
             raise ValueError(
                 f"ring KV prefill got {T} tokens in one pass but "
@@ -596,10 +823,16 @@ class RingKVCache(KVCache):
                 "InferenceEngine.generate and the continuous-"
                 "batching scheduler do this automatically "
                 "(inference/engine.py prefill_chunk_spans).")
-        if cfg.learned_positions and self.length + T > cfg.n_positions:
+        if cfg.learned_positions and (
+                self.lengths + T * calls > cfg.n_positions).any():
             raise ValueError(
-                f"{T} more tokens overflow the position table ({self.length} "
-                f"of n_positions={cfg.n_positions} written)")
+                f"{T * calls} more tokens overflow the position table "
+                f"({self.length} of n_positions={cfg.n_positions} written)")
+
+    def step(self, cfg: GPTConfig, written: torch.Tensor) -> "_DecodeStep":
+        B, T = written.shape
+        w_blk, g_tok, blk = self.ring
+        self.check(cfg, T)
         dev = written.device
         pos = self.index[:, None] + torch.arange(T, device=dev)   # [B, T]
         slots = (g_tok + pos % self.ring_len,)
@@ -649,12 +882,26 @@ class _DecodeStep:
     slots: tuple
     hidden: torch.Tensor
 
-    def write(self, buf, vals):
+    def _put(self, buf, vals):
         """``buf[b, slots[b, t]] = vals[b, t]`` for each slot set
         (``.at[rows, slots].set``)."""
-        vals = vals.to(buf.dtype)
         for slots in self.slots:
             buf[self.rows, slots] = vals
+
+    def write(self, layer: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        """Store this call's keys and values of layer ``layer``: in the
+        cache's dtype, or int8 with their scales (JAX ``quantize_kv``)."""
+        cache = self.cache
+        for bufs, scales, t in ((cache.key, cache.key_scale, k),
+                                (cache.value, cache.value_scale, v)):
+            if scales is None:
+                self._put(bufs[layer], t.to(bufs[layer].dtype))
+                continue
+            from deepspeed_tpu_torch.ops.quantizer import quantize_blockwise
+
+            q, scale = quantize_blockwise(t, t.shape[-1])
+            self._put(bufs[layer], q)
+            self._put(scales[layer], scale[..., 0])
 
 
 def einsum_attention(q, k, v, *, causal=True, mask=None, segment_ids=None,
@@ -742,9 +989,8 @@ class CausalSelfAttention(nn.Module):
                 # keys hold their phase (JAX :589-594)
                 q, k = (self._rope(q, step.positions),
                         self._rope(k, step.positions))
-            k_all, v_all = step.cache.key[layer], step.cache.value[layer]
-            step.write(k_all, k)
-            step.write(v_all, v)
+            step.write(layer, k, v)
+            k_all, v_all = step.cache.read(layer, cfg.dtype)
             # grouped attention against the un-repeated cache (JAX
             # :619-633, bqhgd,bkhd->bhgqk): query head h = g_kv * G + g
             qg = q.view(B, T, Hkv, G, D).permute(0, 2, 3, 1, 4)
@@ -928,6 +1174,8 @@ class GPT(nn.Module):
             self.lm_head_bias = (nn.Parameter(torch.empty(
                 config.vocab_size, dtype=config.param_dtype))
                 if config.lm_head_bias else None)
+            if config.quantized_weights:
+                quantize_blocks(self, config.dtype)
         # ``block_hook(block, *args, **kwargs)``, when set, runs each block
         # in place of ``block(*args, **kwargs)``: ZeRO stage 3 gathers the
         # block's parameters there (runtime/zero/stage3.py)
@@ -1106,7 +1354,7 @@ class GPT(nn.Module):
             logits = logits + self.lm_head_bias.float()
         if decode:
             cache.index += T
-            cache.length += T
+            cache.lengths += T
             return logits, cache
         return logits
 
@@ -1123,11 +1371,17 @@ def materialize_gpt(model: GPT, device, generator: torch.Generator,
     is cast on the host, so full precision never moves. Under the default
     dtype a module marked ``keep_param_dtype`` (the MoE gate, f32 in JAX
     whatever the model's ``param_dtype``) keeps its own; a serving dtype
-    casts everything, as the JAX serving engine casts every leaf."""
+    casts everything, as the JAX serving engine casts every leaf. A model
+    with ``quantized_weights`` is built from its dense twin, as JAX's
+    ``InferenceEngine._materialize`` does: each ``QuantizedDense`` draws the
+    dense weight the twin would and is quantized at once, and a dense
+    ``state_dict`` is quantized layer by layer (``quantize_state_dict``), so
+    the whole model is never held dense beside its int8 copy."""
     keep = dtype is None
     dtype = dtype or model.config.param_dtype
     if state_dict is not None:
-        model.load_state_dict(state_dict, assign=True)
+        model.load_state_dict(quantize_state_dict(model, state_dict),
+                              assign=True)
         _cast_params(model, dtype, keep)
         model.to(device)
         return
@@ -1154,6 +1408,16 @@ def materialize_gpt(model: GPT, device, generator: torch.Generator,
                 lecun_(mod.weight, mod.in_features)
                 if mod.bias is not None:
                     mod.bias.zero_()
+            elif isinstance(mod, QuantizedDense):
+                # the dense twin's draw, quantized at once: one layer's
+                # weight is ever held dense
+                w = torch.empty((mod.out_features, mod.in_features),
+                                dtype=mod.param_dtype, device=device)
+                lecun_(w, mod.in_features)
+                mod.quantize_(w)
+                del w
+                if mod.bias is not None:
+                    mod.bias.zero_()
             elif isinstance(mod, StackedExperts):
                 for name in ("wi", "wg", "wo"):
                     if getattr(mod, name) is not None:
@@ -1171,9 +1435,14 @@ def materialize_gpt(model: GPT, device, generator: torch.Generator,
 
 def _cast_params(model, dtype, keep: bool):
     """Every floating parameter to ``dtype``, but, with ``keep``, those of a
-    module marked ``keep_param_dtype``."""
+    module marked ``keep_param_dtype``, and never a ``QuantizedDense``'s
+    f32 scales."""
     for mod in model.modules():
         if keep and getattr(mod, "keep_param_dtype", False):
+            continue
+        if isinstance(mod, QuantizedDense):
+            if mod.bias is not None:
+                mod.bias.data = mod.bias.data.to(dtype)
             continue
         mod._apply(lambda t: t.to(dtype) if t.is_floating_point() else t,
                    recurse=False)

@@ -49,7 +49,10 @@ def gpt_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tens
     experts the gate's kernel ``[M, E]`` becomes ``mlp.gate.weight``
     ``[E, M]`` and the experts' leaves keep the JAX layout, expert axis
     first (``mlp.experts.wi`` / ``wg`` ``[E, M, H]``, ``wo`` ``[E, H,
-    M]``, ``bi`` ``[E, H]``, ``bo`` ``[E, M]``).
+    M]``, ``bi`` ``[E, H]``, ``bo`` ``[E, M]``). A quantized tree (JAX's
+    ``quantized_weights``: a block kernel is ``{"q", "scale"}``) gives the
+    int8 ``weight_q`` (transposed) and the f32 ``weight_scale`` of the
+    port's ``QuantizedDense``, bit for bit.
     """
     if "h" in params:
         stacked = params["h"]["block"]
@@ -135,7 +138,15 @@ def adam_state_from_jax(opt_state, cfg) -> Dict[str, Any]:
 
 
 def _dense(sd, name, dense):
-    sd[f"{name}.weight"] = _tensor(dense["kernel"]).T.contiguous()
+    kernel = dense["kernel"]
+    if isinstance(kernel, dict) or hasattr(kernel, "items"):
+        # quantized_weights: {"q": int8 [in, out], "scale": f32 [out]} ->
+        # QuantizedDense's weight_q [out, in] and weight_scale
+        q = torch.from_numpy(np.array(kernel["q"], dtype=np.int8))
+        sd[f"{name}.weight_q"] = q.T.contiguous()
+        sd[f"{name}.weight_scale"] = _tensor(kernel["scale"])
+    else:
+        sd[f"{name}.weight"] = _tensor(kernel).T.contiguous()
     if "bias" in dense:
         sd[f"{name}.bias"] = _tensor(dense["bias"])
 

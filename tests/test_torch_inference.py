@@ -131,9 +131,9 @@ def test_decode_chunk_defaults_to_32_and_reuses_the_cache(engines):
     _, teng, ids, _ = engines
     assert teng.decode_chunk == 32
     first = teng.generate(ids, max_new_tokens=7)
-    cache, _ = teng._decoders[ids.shape[0]]
+    cache = teng._decoders[ids.shape[0]].cache
     second = teng.generate(ids, max_new_tokens=7)
-    assert teng._decoders[ids.shape[0]][0] is cache
+    assert teng._decoders[ids.shape[0]].cache is cache
     assert torch.equal(first, second)
 
 
@@ -173,13 +173,54 @@ def test_default_device_is_the_card():
                                 {"dtype": "int8"},
                                 {"config": {"kv_cache": "int8"}}])
 def test_unported_engine_options_raise(kw):
+    """tp and ep (ROADMAP A.9) stay refused; int8 weights and the int8 KV
+    cache are served, as the JAX engine serves them (its config gains
+    ``quantized_weights`` / ``kv_cache_dtype``)."""
     kw = {"dtype": "fp32", **kw}
-    with pytest.raises(NotImplementedError):
-        deepspeed_tpu_torch.init_inference(
-            tlm.GPT(tlm.GPTConfig(**SMALL)), device="cpu", **kw)
+    model = tlm.GPT(tlm.GPTConfig(**SMALL))
+    if "mp_size" in kw or "ep_size" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+            deepspeed_tpu_torch.init_inference(model, device="cpu", **kw)
+        return
+    eng = deepspeed_tpu_torch.init_inference(model, device="cpu", **kw)
+    cfg = eng.module.config
+    assert (cfg.quantized_weights, cfg.kv_cache_dtype) == (
+        (True, None) if kw["dtype"] == "int8" else (False, "int8"))
+
+
+@pytest.mark.parametrize("case", ["engine_config", "model_config"])
+def test_kv_cache_dtype_validation_follows_jax(case):
+    """A KV cache dtype other than int8 is JAX's ValueError
+    (``GPTConfig.__post_init__``, :207-210), from the config field and from
+    the engine's ``"kv_cache"`` key alike."""
+    with pytest.raises(ValueError, match="kv_cache_dtype") as terr:
+        if case == "engine_config":
+            deepspeed_tpu_torch.init_inference(
+                tlm.GPT(tlm.GPTConfig(**SMALL)), dtype="fp32", device="cpu",
+                config={"kv_cache": "fp8"})
+        else:
+            tlm.GPTConfig(**SMALL, kv_cache_dtype="fp8")
+    with pytest.raises(ValueError) as jerr:
+        jlm.GPTConfig(**SMALL, kv_cache_dtype="fp8")
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_foreign_models_are_refused():
     with pytest.raises(NotImplementedError, match="not ported"):
         deepspeed_tpu_torch.init_inference(torch.nn.Linear(2, 2),
                                            device="cpu")
+
+
+@pytest.mark.parametrize("case", ["tp", "ep", "foreign"])
+def test_serving_refusals_name_their_roadmap_item(case):
+    """Every refusal left on the serving path names the ROADMAP item that
+    ports it: tp and ep A.9, a foreign (HF) model A.12."""
+    model = tlm.GPT(tlm.GPTConfig(**SMALL))
+    kw = {"tp": {"mp_size": 2}, "ep": {"ep_size": 2}, "foreign": {}}[case]
+    if case == "foreign":
+        model = torch.nn.Linear(2, 2)
+    with pytest.raises(NotImplementedError) as err:
+        deepspeed_tpu_torch.init_inference(model, dtype="fp32", device="cpu",
+                                           **kw)
+    item = {"tp": "A.9", "ep": "A.9", "foreign": "A.12"}[case]
+    assert f"ROADMAP {item}" in str(err.value)

@@ -32,6 +32,15 @@ llama = deepspeed_tpu_torch.init_inference(GPT(lcfg), dtype="fp32",
                                            device="cpu")
 assert llama(ids).shape == (1, 128, 64)
 assert llama.generate(ids[:, :9], max_new_tokens=3).shape == (1, 3)
+from deepspeed_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                        PrefixCache)
+int8 = deepspeed_tpu_torch.init_inference(
+    GPT(cfg), dtype="int8", config=dict(kv_cache="int8"), device="cpu")
+sched = ContinuousBatchingScheduler(int8, slots=2, prompt_bucket=16,
+                                    prefix_cache=PrefixCache())
+sched.submit(list(range(1, 20)), max_new_tokens=3)
+sched.submit(list(range(1, 9)), max_new_tokens=2)
+assert len(sched.run().completions) == 2
 from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
 tcfg = GPTConfig(vocab_size=64, n_positions=256, n_embd=64, n_layer=1,
                  n_head=2, dtype=torch.float32, use_flash_attention=True,

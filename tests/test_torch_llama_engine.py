@@ -85,7 +85,7 @@ def test_greedy_generate_is_token_identical(engines, ragged):
                         else torch.from_numpy(mask))
     assert got.shape == (3, 6)
     np.testing.assert_array_equal(got.numpy(), want)
-    cache, _ = teng._decoders[3]
+    cache = teng._decoders[3].cache
     assert tuple(cache.key[0].shape) == (3, 64, teng.module.config.kv_heads,
                                          64)
     assert cache.position is None

@@ -141,12 +141,29 @@ def test_bf16_logits_track_jax(flash):
 
 @pytest.mark.parametrize("field,value", [
     ("flash_autotune", True), ("sequence_parallel", "ulysses"),
-    ("sequence_parallel", "ring"), ("quantized_weights", True),
-    ("kv_cache_dtype", "int8"), ("param_offload", True),
+    ("sequence_parallel", "ring"), ("param_offload", True),
 ])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         tlm.GPTConfig(**{field: value})
+
+
+@pytest.mark.parametrize("field,value,error", [
+    ("quantized_weights", True, None), ("kv_cache_dtype", "int8", None),
+    ("kv_cache_dtype", "fp8", ValueError),
+])
+def test_serving_config_fields_follow_jax(field, value, error):
+    """``quantized_weights`` and ``kv_cache_dtype`` are ported: accepted as
+    JAX's ``GPTConfig`` accepts them, and a KV cache dtype other than int8
+    refused with its ValueError (:207-210)."""
+    if error is None:
+        assert getattr(tlm.GPTConfig(**{field: value}), field) == value
+        return
+    with pytest.raises(error) as terr:
+        tlm.GPTConfig(**{field: value})
+    with pytest.raises(error) as jerr:
+        jlm.GPTConfig(**{field: value})
+    assert str(terr.value) == str(jerr.value)
 
 
 _OPAQUE_LAYOUT = object()
