@@ -327,9 +327,38 @@ Phases, each printing one JSON line:
   replay), the prefill graphs against eager prefill per bucket (logits and
   cache bit for bit, TTFT), speculative decoding (k 4) with a
   GPT-2-125M-shaped draft and with the target's own weights against the
-  scheduler without a draft, and int8 against bf16 decode at 125M and
-  1.3B. The scheduler run's counts are set to 0 just before it (no kernel
-  runs on the cache path).
+  scheduler without a draft (one ``serve.spec_accept`` event per
+  speculative step), and int8 against bf16 decode at 125M and 1.3B. The
+  scheduler run's counts are set to 0 just before it (no kernel runs on the
+  cache path). Its ``disagg`` part, on the same Mistral-7B engine:
+  ``DisaggServer`` with one ``PrefillWorker`` over 12 of the requests, all
+  submitted before ``run``, against the co-located scheduler on the same
+  requests (tokens bit for bit), one ``serve.kv_transfer`` per request,
+  each hand-off's bytes ``lane_kv_bytes``' resident bytes, int8 against
+  bf16, and the hand-off's copy timed.
+* ``frontdoor`` (the serving front door, ROADMAP A.8; ``--only
+  frontdoor``): GPT-2 1.3B at full width and depth, bf16, dense cache.
+  ``build_serving`` (``FRONTDOOR_SERVING``) against a scheduler built by
+  hand from the same parts (bit for bit), and an unknown key refused; 24
+  requests from seed 0 (prompts of 64-960 tokens, half sharing a 512-token
+  prefix, 32 new tokens each) through it in this process are the
+  reference. A burst (the first wave, then 20 at once from a stream
+  callback) without admission, then with an SLO of half the first wave's
+  p95 TTFT: the controller enters shedding and, after its samples age
+  out, leaves it; typed rejections, ``serve.shed`` events and reject
+  callbacks agree. ``GracefulDrain`` and a SIGTERM from a stream callback:
+  admission closes, the lanes finish, the queue's replay specs complete on
+  a fresh scheduler. The bus's counts against the schedulers' counters.
+  Then ``FRONTDOOR_REPLICAS`` replica processes (``ReplicaFleet``, spawned
+  at the phase's start, built while the parent serves) serve the trace
+  behind a ``FleetCoordinator``: a warm-up run, the baseline, and the
+  chaos run, which SIGKILLs the most-loaded replica after 6 delivered
+  tokens: no request lost, one ``serve.failover`` per migrated request,
+  one ``serve.replica_down``, p95 TTFT with failover and without (the
+  counterfactual), each replay's seconds. Every stream is held against the
+  reference and may part only at a near-tie (``gap_bound``); the parent's
+  and each replica's launch counts stay 0 (the cache path runs no
+  kernel).
 
 Then the kernels line, nvidia-smi's line and, last, ``{"ok": true, ...}``.
 A failed check raises, and the script exits nonzero. It imports neither jax
@@ -343,7 +372,8 @@ the ``mistral`` phase, ``--only neox`` with ``neox``, ``--only moe``
 with ``moe``, ``--only train_options`` with the sweep and
 ``train_options``, ``--only sparse_gpt`` with the window kernel case, its
 timing and ``sparse_gpt``, ``--only bert_options`` with
-``bert_options``, and ``--only serving`` with ``serving``. Every phase
+``bert_options``, ``--only serving`` with ``serving``, and ``--only
+frontdoor`` with ``frontdoor``. Every phase
 line carries ``seconds`` (since its phase began), and the full run prints
 each phase's wall seconds (``phase_seconds``) before the kernels line.
 
@@ -367,6 +397,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -8128,6 +8159,9 @@ def serving_mistral():
     if not finite:
         problems.append("tokens out of the vocabulary")
     int8_step_ms, int8_trace = decode_step_ms(engine)
+    disagg, probs = serving_disagg(engine, prompts[:DISAGG_REQUESTS])
+    problems += probs
+    emit(disagg)
     del engine, sched, lanes
     free_cuda()
     # the same weights in bf16 (the dense twin's draw), the KV cache int8
@@ -8208,6 +8242,7 @@ def serving_gpt2():
 
     from deepspeed_tpu_torch.inference.scheduler import \
         ContinuousBatchingScheduler
+    from deepspeed_tpu_torch.telemetry import telemetry_bus
 
     problems = []
     free_cuda()
@@ -8269,17 +8304,27 @@ def serving_gpt2():
         sched = ContinuousBatchingScheduler(
             engine, slots=SERVING_SLOTS, prompt_bucket=64,
             draft_engine=draft, spec_k=SPEC_K if draft is not None else 0)
+        events = []
+        telemetry_bus.subscribe(events.append)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         toks, stats = serve_requests(sched, requests)
         torch.cuda.synchronize()
+        telemetry_bus.unsubscribe(events.append)
+        accepts = [e for e in events if e["kind"] == "serve.spec_accept"]
+        if draft is not None and (
+                len(accepts) != stats.decode_steps or
+                sum(e["accepted"] for e in accepts) != sched.spec_accepted):
+            problems.append(f"serve.spec_accept: {len(accepts)} events for "
+                            f"{stats.decode_steps} spec steps")
         out = {"wall_s": time.perf_counter() - t0,
                "decode_steps": stats.decode_steps,
                "tokens_per_s": stats.summary()["aggregate_tokens_per_s"]}
         if draft is not None:
             out.update(proposed=sched.spec_proposed,
                        accepted=sched.spec_accepted,
-                       accept_rate=sched.spec_accepted / sched.spec_proposed)
+                       accept_rate=sched.spec_accepted / sched.spec_proposed,
+                       spec_accept_events=len(accepts))
         return toks, out
 
     base, base_line = spec_run(None)
@@ -8348,6 +8393,813 @@ def phase_serving():
     return {"serving_scheduler": scheduler, "serving_forward": forward}
 
 
+# The serving front door (ROADMAP A.8, second half): ``build_serving``, a
+# fleet of replica processes with exact failover, SLO admission under a
+# burst, graceful drain. GPT-2 1.3B at its published widths and all 24
+# layers, bf16, dense cache. Its n_positions is 1024, so prompts run to
+# 960 tokens: the bucketed prompt and 32 new tokens must fit
+FRONTDOOR_MODEL = "gpt2-1.3b"
+# the replicas' and the parent's engine (``replica_engine``)
+FRONTDOOR_SPEC = {"gpt2": FRONTDOOR_MODEL, "dtype": "bf16", "seed": 0}
+FRONTDOOR_SERVING = {"slots": 4, "prompt_bucket": 64, "max_pending": 64,
+                     "prefix_cache": {"promote_after": 2},
+                     "admission": {"slo_ttft_p95_s": 30.0},
+                     "journal": True}
+FRONTDOOR_REQUESTS = 24
+FRONTDOOR_PREFIX = 512
+# the shared-prefix prompts' lengths are 512 + 21 + 64 j: one pad offset in
+# the bucket, so their padded prefixes are the same cache
+FRONTDOOR_PREFIX_PHASE = 21
+FRONTDOOR_PROMPTS = (64, 960)
+FRONTDOOR_NEW = 32
+FRONTDOOR_REPLICAS = 3
+FRONTDOOR_KILL_AFTER = 6
+# the burst's controller: 4 samples make a p95, and a sample older than
+# BURST_AGE_S no longer counts, so a pause of that length lets it recover
+BURST_ADMISSION = {"window": 8, "min_samples": 4}
+BURST_AGE_S = 1.0
+DRAIN_REQUESTS = 12
+# silence never marks a replica down here: a death is the pipe's EOF
+FLEET_HEALTH = {"suspect_after_s": 60.0, "down_after_s": 600.0}
+# a fleet run that goes on past this raises (a hang: a death is an EOF)
+FLEET_RUN_LIMIT_S = 300.0
+# disaggregated prefill on the serving phase's Mistral-7B int8 engine
+DISAGG_REQUESTS = 12
+DISAGG_NEW = 16
+
+
+def replica_engine(spec):
+    """The engine of a replica (and of the parent's reference) from
+    ``spec``: ``{"gpt2": name}`` (random weights from ``seed`` drawn on the
+    engine's device) or ``{"gpt": GPTConfig fields with the dtype by name,
+    "sparse_attention": a block or None, "state_dict": {name: numpy
+    array}}``; with ``dtype``, ``seed``, ``device`` (None: the card)."""
+    import torch
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.transformer_lm import (GPT, GPTConfig,
+                                                           gpt2_config)
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_attention_utils \
+        import apply_sparse_attention
+
+    if "gpt2" in spec:
+        model = GPT(gpt2_config(spec["gpt2"], use_flash_attention=True))
+    else:
+        fields = dict(spec["gpt"])
+        fields["dtype"] = getattr(torch, fields["dtype"])
+        model = GPT(GPTConfig(**fields))
+    if spec.get("sparse_attention"):
+        model = apply_sparse_attention(model, spec["sparse_attention"])
+    sd = spec.get("state_dict")
+    if sd is not None:
+        sd = {k: torch.as_tensor(v) for k, v in sd.items()}
+    return init_inference(model, dtype=spec.get("dtype", "bf16"),
+                          seed=spec.get("seed", 0),
+                          device=spec.get("device"), state_dict=sd)
+
+
+def replica_main(conn, spec, serving):
+    """One scheduler replica process (JAX ``examples/serve_router.py``
+    ``replica_main``): ``build_serving(replica_engine(spec), serving)``,
+    serving what the front door streams in until ("quit",) or the pipe dies.
+
+    Protocol, parent -> child: ("submit", rid, prompt, max_new, replay or
+    None), ("reset",) (a fresh scheduler on the same engine, the launch
+    counts to 0), ("stats",), ("quit",); child -> parent: ("hello", pid,
+    info) once the engine is built, ("tok", rid, token, done) per delivered
+    token, ("shed", rid, reason), ("idle", pending) when ``run`` has drained
+    its queue, ("ready",) after a reset, ("stats", launches). The pipe is
+    pumped between decode steps (``run(poll_fn=...)``), so a failover replay
+    lands in a free lane while this replica decodes its own work."""
+    # a process group of its own (setsid): the parent kills the child's
+    # whole group, never its own
+    os.setsid()
+    t0 = time.perf_counter()
+    import torch
+
+    if spec.get("threads"):
+        torch.set_num_threads(int(spec["threads"]))
+    from deepspeed_tpu_torch.runtime import compiled_step
+    from deepspeed_tpu_torch.serving import AdmissionRejected, build_serving
+
+    t_import = time.perf_counter() - t0
+    engine = replica_engine(spec)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0 - t_import
+    state = {"quit": False, "reset": False,
+             "sched": build_serving(engine, dict(serving))}
+    compiled_step.reset_launch_counts()
+
+    def handle(msg):
+        if msg[0] == "submit":
+            _, rid, prompt, max_new, replay = msg
+
+            def cb(_local_rid, token, done, _rid=rid):
+                conn.send(("tok", _rid, int(token), bool(done)))
+
+            try:
+                state["sched"].submit(prompt, max_new_tokens=max_new,
+                                      stream_callback=cb,
+                                      replay_tokens=replay)
+            except AdmissionRejected as e:
+                conn.send(("shed", rid, e.reason))
+        elif msg[0] == "stats":
+            conn.send(("stats", compiled_step.launch_counts()))
+        elif msg[0] == "reset":
+            state["reset"] = True    # served once run() has returned
+        elif msg[0] == "quit":
+            state["quit"] = True
+
+    def pump():
+        while conn.poll(0):
+            handle(conn.recv())
+
+    conn.send(("hello", os.getpid(), {"import_s": t_import,
+                                      "build_s": t_build}))
+    try:
+        while not state["quit"]:
+            handle(conn.recv())
+            while not state["quit"]:
+                if state["reset"]:
+                    state["reset"] = False
+                    state["sched"] = build_serving(engine, dict(serving))
+                    compiled_step.reset_launch_counts()
+                    conn.send(("ready",))
+                elif state["sched"]._pending:
+                    state["sched"].run(poll_fn=pump)
+                    conn.send(("idle", len(state["sched"]._pending)))
+                else:
+                    break
+    except (EOFError, OSError):
+        pass    # the front door died: nothing left to serve
+    conn.close()
+
+
+def p95(xs):
+    """The p95 of ``xs`` (None entries left out) as the scheduler's
+    ``summary`` takes it, or None."""
+    xs = sorted(x for x in xs if x is not None)
+    if not xs:
+        return None
+    return xs[min(len(xs) - 1, int(0.95 * len(xs)))]
+
+
+class ReplicaFleet:
+    """``n`` replica processes (``replica_main``) behind a
+    ``FleetCoordinator`` (JAX ``examples/serve_router.py`` ``run_fleet``).
+
+    The children start with the spawn method (the parent may hold a CUDA
+    context, which a forked child cannot use) and each calls ``os.setsid``.
+    A child's death shows as EOF on its pipe, never as a timeout: the parent
+    closes its copy of each child's end. ``close`` asks the live children
+    to quit, then kills and reaps every child's process group, so no orphan
+    keeps the card's memory; call it in a ``finally``."""
+
+    def __init__(self, spec, n, serving):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.n = int(n)
+        self.serving = dict(serving)
+        self.conns, self.procs = [], []
+        self.alive = [True] * self.n
+        self.t_start = time.perf_counter()
+        try:
+            for _ in range(self.n):
+                parent_c, child_c = ctx.Pipe()
+                p = ctx.Process(target=replica_main,
+                                args=(child_c, spec, self.serving),
+                                daemon=True)
+                p.start()
+                # the parent's copy of the child's end would keep the pipe
+                # open after the child dies: no EOF
+                child_c.close()
+                self.conns.append(parent_c)
+                self.procs.append(p)
+        except BaseException:
+            self.close()
+            raise
+
+    def wait_ready(self, limit_s=FLEET_RUN_LIMIT_S):
+        """Each child's hello: its import and build seconds, and the seconds
+        from the fleet's start to its hello (an EOF if a child died)."""
+        out = []
+        limit = time.monotonic() + limit_s
+        for c in self.conns:
+            if not c.poll(max(0.0, limit - time.monotonic())):
+                raise AssertionError(f"no hello within {limit_s} s")
+            msg = c.recv()
+            if msg[0] != "hello":
+                raise AssertionError(f"replica said {msg!r} before hello")
+            out.append(dict(msg[2], ready_s=time.perf_counter() -
+                            self.t_start))
+        return out
+
+    def _ask(self, i, msg, answer):
+        """Send ``msg`` to replica ``i`` and read until ``answer``."""
+        self.conns[i].send(msg)
+        while True:
+            got = self.conns[i].recv()
+            if got[0] == answer:
+                return got
+
+    def launches(self):
+        """Each live replica's launch counts since its last reset (None for
+        a dead one)."""
+        return [self._ask(i, ("stats",), "stats")[1] if self.alive[i]
+                else None for i in range(self.n)]
+
+    def reset(self):
+        """A fresh scheduler (prefix cache, admission, journal) in every
+        live replica, over its engine and its graphs."""
+        for i in range(self.n):
+            if self.alive[i]:
+                self._ask(i, ("reset",), "ready")
+
+    def serve(self, prompts, max_new, kill=None, kill_after=6, align=64,
+              limit_s=FLEET_RUN_LIMIT_S):
+        """Place every prompt through a fresh coordinator (hash-affine over
+        the live replicas) and pump the pipes until every request is done.
+        ``kill`` (a replica or "auto": the one holding the most requests)
+        is SIGKILLed once it has delivered ``kill_after`` tokens; its
+        in-flight requests are replayed on survivors. Returns the delivered
+        tokens, per-request TTFT, the migrated requests with their replay
+        seconds (from the death to the first new token) and the stats."""
+        from multiprocessing import connection as mpc
+
+        from deepspeed_tpu_torch.serving import (FleetCoordinator,
+                                                 FleetHealth, HealthConfig,
+                                                 PrefixRouter)
+
+        if not all(self.alive):
+            raise AssertionError("a fleet run starts with every replica up")
+        router = PrefixRouter(self.n, align=align, spill_slack=2)
+        coord = FleetCoordinator(router, health=FleetHealth(
+            self.n, HealthConfig(**FLEET_HEALTH)))
+        for i in range(self.n):
+            coord.health.heartbeat(i)
+        t0 = time.perf_counter()
+        placements = []
+        for rid, prompt in enumerate(prompts):
+            r, how = coord.place(rid, list(prompt), max_new)
+            self.conns[r].send(("submit", rid, list(prompt), max_new, None))
+            placements.append(r)
+        if kill == "auto":
+            kill = max(range(self.n), key=placements.count)
+        killed = t_dead = None
+        tokens_from = [0] * self.n
+        moved, replay_s, sheds = {}, {}, []
+        limit = time.monotonic() + limit_s
+        while coord.journal.stats()["inflight"] > 0:
+            if time.monotonic() > limit:
+                raise AssertionError(
+                    f"fleet run past {limit_s} s: "
+                    f"{coord.journal.stats()}")
+            live = [c for i, c in enumerate(self.conns) if self.alive[i]]
+            if not live:
+                raise AssertionError("every replica died with work left")
+            for c in mpc.wait(live, timeout=1.0):
+                i = self.conns.index(c)
+                try:
+                    msg = c.recv()
+                except (EOFError, OSError):
+                    # recv hands over what the child wrote before it died,
+                    # so every delivered token is journaled: the replay
+                    # starts from exactly the delivered prefix
+                    self.alive[i] = False
+                    t_dead = time.perf_counter()
+                    for rid, target, spec in coord.replica_dead(i, "eof"):
+                        self.conns[target].send(
+                            ("submit", rid, spec["prompt"],
+                             spec["max_new_tokens"], spec["replay_tokens"]))
+                        moved[rid] = {"from": i, "to": target,
+                                      "emitted": len(spec["replay_tokens"])}
+                    continue
+                coord.health.heartbeat(i)
+                if msg[0] == "tok":
+                    _, rid, token, done = msg
+                    coord.on_token(rid, token, done=done)
+                    tokens_from[i] += 1
+                    if rid in moved and rid not in replay_s:
+                        replay_s[rid] = time.perf_counter() - t_dead
+                    if (killed is None and kill == i
+                            and tokens_from[i] >= kill_after):
+                        killed = i
+                        os.killpg(self.procs[i].pid, signal.SIGKILL)
+                elif msg[0] == "shed":
+                    coord.journal.record_shed(msg[1])
+                    sheds.append(msg[1:])
+        wall_s = time.perf_counter() - t0
+        entries = [coord.journal.entry(rid) for rid in range(len(prompts))]
+        for rid, m in moved.items():
+            m["replay_s"] = replay_s.get(rid)
+        return {
+            "tokens": [list(e.emitted) for e in entries],
+            "ttft_s": [None if e.t_first_token is None
+                       else e.t_first_token - e.t_submit for e in entries],
+            "lost": [rid for rid, e in enumerate(entries)
+                     if not e.done or e.shed
+                     or len(e.emitted) != e.max_new_tokens],
+            "placements": placements, "killed": killed, "migrated": moved,
+            "sheds": sheds, "wall_s": wall_s, "router": router.stats(),
+            "journal": coord.journal.stats(),
+            "health_transitions": [(i, a, b) for _, i, a, b in
+                                   coord.health.transitions],
+        }
+
+    def close(self):
+        for i, c in enumerate(self.conns):
+            if self.alive[i]:
+                try:
+                    c.send(("quit",))
+                except (BrokenPipeError, OSError):
+                    pass
+        for p in self.procs:
+            p.join(timeout=20)
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except (ProcessLookupError, PermissionError):
+                pass
+            p.join(timeout=20)
+        for c in self.conns:
+            c.close()
+        self.alive = [False] * self.n
+
+
+def frontdoor_requests(vocab, seed=0):
+    """``FRONTDOOR_REQUESTS`` prompts from ``seed``: the even ones the
+    shared ``FRONTDOOR_PREFIX``-token prefix and a suffix (one pad offset),
+    the odd ones 64-960 random tokens."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    prefix = rng.randint(0, vocab, FRONTDOOR_PREFIX).tolist()
+    out = []
+    for i in range(FRONTDOOR_REQUESTS):
+        if i % 2 == 0:
+            n = FRONTDOOR_PREFIX_PHASE + 64 * rng.randint(0, 7)
+            out.append(prefix + rng.randint(0, vocab, n).tolist())
+        else:
+            out.append(rng.randint(0, vocab, rng.randint(
+                FRONTDOOR_PROMPTS[0], FRONTDOOR_PROMPTS[1] + 1)).tolist())
+    return out
+
+
+def serve_prompts(sched, prompts, new, on_token=None):
+    """Submit ``prompts`` (``on_token(i, rid, token, done)`` as each one's
+    stream callback when given), run, and return the tokens by prompt, the
+    TTFTs and the stats."""
+    ids = {}
+    for i, p in enumerate(prompts):
+        cb = None if on_token is None else functools.partial(on_token, i)
+        ids[sched.submit(p, max_new_tokens=new, stream_callback=cb)] = i
+    stats = sched.run()
+    toks, ttft = [None] * len(prompts), [None] * len(prompts)
+    for c in stats.completions:
+        toks[ids[c.request_id]] = c.tokens
+        ttft[ids[c.request_id]] = c.ttft_s
+    return toks, ttft, stats
+
+
+def frontdoor_parent(engine, prompts, problems, schedulers):
+    """The parent's front-door runs on ``engine``: the reference trace
+    through ``build_serving`` against a hand-built scheduler (bit for bit),
+    the burst without and with admission, graceful drain. Appends every
+    scheduler and its runs' stats to ``schedulers``; returns the reference
+    tokens and the parts' lines."""
+    import torch
+
+    from deepspeed_tpu_torch.serving import (
+        AdmissionConfig, ContinuousBatchingScheduler, DrainingError,
+        GracefulDrain, PrefixCache, PrefixCacheConfig, RequestJournal,
+        RequestShedError, SLOAdmissionController, build_serving)
+    from deepspeed_tpu_torch.telemetry import telemetry_bus
+
+    cfg = FRONTDOOR_SERVING
+    bucket = cfg["prompt_bucket"]
+    new = FRONTDOOR_NEW
+    out = {}
+
+    def check(name, idx, got, want):
+        parts, probs = token_parts(engine, [prompts[i] for i in idx], got,
+                                   [want[i] for i in idx], bucket)
+        problems.extend(f"{name}: {p}" for p in probs)
+        out[f"{name}_parts"] = parts
+
+    # the reference trace through build_serving, and through a scheduler
+    # built by hand from the same parts: bit for bit
+    t0 = time.perf_counter()
+    sched = build_serving(engine, dict(cfg))
+    want, ttft, stats = serve_prompts(sched, prompts, new)
+    schedulers.append((sched, [stats]))
+    out["reference_s"] = time.perf_counter() - t0
+    out["reference_summary"] = stats.summary()
+    parts = {"prefix_align": sched.prefix_cache.config.align,
+             "slo": sched.admission_controller.config.slo_ttft_p95_s,
+             "journal": type(sched.journal).__name__,
+             "max_pending": sched.max_pending}
+    if parts != {"prefix_align": bucket, "slo": 30.0,
+                 "journal": "RequestJournal", "max_pending": 64}:
+        problems.append(f"build_serving's parts: {parts}")
+    hand = ContinuousBatchingScheduler(
+        engine, slots=cfg["slots"], prompt_bucket=bucket,
+        max_pending=cfg["max_pending"],
+        prefix_cache=PrefixCache(PrefixCacheConfig(promote_after=2,
+                                                   align=bucket)),
+        admission_controller=SLOAdmissionController(
+            AdmissionConfig(slo_ttft_p95_s=30.0)),
+        journal=RequestJournal())
+    t0 = time.perf_counter()
+    hand_got, _, hand_stats = serve_prompts(hand, prompts, new)
+    schedulers.append((hand, [hand_stats]))
+    out["hand_built_s"] = time.perf_counter() - t0
+    out["build_serving_vs_hand_built_identical"] = hand_got == want
+    if hand_got != want:
+        problems.append("build_serving and the hand-built scheduler differ")
+    try:
+        build_serving(engine, dict(cfg, prefix_cahce=True))
+        problems.append("build_serving took an unknown key")
+    except ValueError as e:
+        out["unknown_key_error"] = str(e)
+
+    # the burst: the first wave (one request per lane), and from the 4th
+    # first token's callback the other 20 at once. Without admission (all
+    # queue: the SLO comes from this run's first wave), then with it
+    first = list(range(cfg["slots"]))
+    rest = list(range(cfg["slots"], len(prompts)))
+
+    def burst(sched):
+        """The first wave, then ``rest`` from the callback of the wave's
+        last first token; each submit's (request, admitted, shedding)."""
+        toks, ttfts, ids = {}, {}, {}
+        rejected, firsts, decisions = [], [], []
+
+        def submit(i, cb):
+            try:
+                ids[sched.submit(prompts[i], max_new_tokens=new,
+                                 stream_callback=cb)] = i
+            except RequestShedError:
+                rejected.append(i)
+            shedding = sched.admission_controller is not None and \
+                sched.admission_controller.stats()["shedding"]
+            decisions.append((i, i not in rejected, shedding))
+
+        def on_token(rid, token, done):
+            if len(firsts) < len(first) and rid not in firsts:
+                firsts.append(rid)
+                if len(firsts) == len(first):
+                    for i in rest:
+                        submit(i, None)
+
+        for i in first:
+            submit(i, on_token)
+        stats = sched.run()
+        for c in stats.completions:
+            toks[ids[c.request_id]] = c.tokens
+            ttfts[ids[c.request_id]] = c.ttft_s
+        return toks, ttfts, rejected, decisions, stats
+
+    no_adm = build_serving(engine, {k: v for k, v in cfg.items()
+                                    if k != "admission"})
+    toks, ttfts, _, _, stats = burst(no_adm)
+    schedulers.append((no_adm, [stats]))
+    check("burst_without_admission", sorted(toks),
+          [toks[i] for i in sorted(toks)], want)
+    slo = 0.5 * p95([ttfts[i] for i in first])
+    out["burst_without_admission"] = {
+        "admitted": len(toks), "ttft_p95_s": p95(ttfts.values()),
+        "first_wave_ttft_p95_s": p95([ttfts[i] for i in first])}
+    events = []
+    telemetry_bus.subscribe(events.append)
+    callbacks = []
+    adm = build_serving(engine, dict(cfg, admission=dict(
+        BURST_ADMISSION, slo_ttft_p95_s=slo, sample_max_age_s=BURST_AGE_S)),
+        reject_callback=lambda rid, reason: callbacks.append(reason))
+    toks, ttfts, rejected, decisions, stats = burst(adm)
+    entered = any(s for _, _, s in decisions)
+    # the retries after a pause in which the window's samples age out
+    time.sleep(BURST_AGE_S * 1.2)
+    retry_ids, retry_decisions = {}, []
+    for i in rejected:
+        try:
+            retry_ids[adm.submit(prompts[i], max_new_tokens=new)] = i
+        except RequestShedError:
+            retry_decisions.append((i, False))
+            continue
+        retry_decisions.append(
+            (i, adm.admission_controller.stats()["shedding"]))
+    retry_stats = adm.run()
+    schedulers.append((adm, [stats, retry_stats]))
+    telemetry_bus.unsubscribe(events.append)
+    left = entered and retry_decisions and not any(
+        s for _, s in retry_decisions) and len(retry_ids) == len(rejected)
+    for c in retry_stats.completions:
+        toks[retry_ids[c.request_id]] = c.tokens
+    check("burst_with_admission", sorted(toks),
+          [toks[i] for i in sorted(toks)], want)
+    sheds = sum(1 for e in events if e["kind"] == "serve.shed")
+    out["burst_with_admission"] = {
+        "slo_ttft_p95_s": slo, "admitted_first": len(ttfts),
+        "shed": len(rejected), "shed_events": sheds,
+        "reject_callbacks": len(callbacks), "entered_shedding": entered,
+        "left_shedding": bool(left), "decisions": decisions,
+        "retries_admitted": len(retry_ids),
+        "ttft_p95_s": p95(ttfts.values()),
+        "controller": adm.admission_controller.stats()}
+    if not (entered and left):
+        problems.append(f"admission did not enter and leave shedding: "
+                        f"{decisions} then {retry_decisions}")
+    if not len(rejected) == sheds == len(callbacks) > 0:
+        problems.append(f"sheds: {len(rejected)} errors, {sheds} events, "
+                        f"{len(callbacks)} callbacks")
+    if len(toks) != len(prompts):
+        problems.append(f"burst: {len(toks)} of {len(prompts)} served")
+    adm.admission_controller.close()
+
+    # graceful drain: SIGTERM from a stream callback; admission closes, the
+    # lanes finish, the queue is handed off and served by a fresh scheduler
+    drain_sched = build_serving(engine, dict(cfg))
+    drain = GracefulDrain(drain_sched)
+    uninstall = drain.install()
+    after_term = []
+    idx = list(range(DRAIN_REQUESTS))
+    try:
+        def on_token(i, rid, token, done):
+            if i == 0 and not after_term and \
+                    len(drain_sched.journal.entry(rid).emitted) == 3:
+                os.kill(os.getpid(), signal.SIGTERM)
+                try:
+                    drain_sched.submit(prompts[0], max_new_tokens=new)
+                    after_term.append("admitted")
+                except DrainingError as e:
+                    after_term.append(e.reason)
+
+        got, _, stats = serve_prompts(drain_sched, [prompts[i] for i in idx],
+                                      new, on_token)
+    finally:
+        uninstall()
+    specs = drain.complete()
+    done = [i for i in idx if got[i] is not None]
+    fresh = build_serving(engine, dict(cfg))
+    rids = [fresh.submit(s["prompt"], max_new_tokens=s["max_new_tokens"],
+                         replay_tokens=s["replay_tokens"]) for s in specs]
+    fresh_stats = fresh.run()
+    by_rid = {c.request_id: c.tokens for c in fresh_stats.completions}
+    handed = [prompts.index(s["prompt"]) for s in specs]
+    for i, rid in zip(handed, rids):
+        got[i] = by_rid.get(rid)
+    schedulers.append((drain_sched, [stats]))
+    schedulers.append((fresh, [fresh_stats]))
+    check("drain", idx, [got[i] for i in idx], want)
+    out["drain"] = {"after_sigterm": after_term, "lanes_finished": done,
+                    "handed_off": handed, "draining": drain_sched.draining,
+                    "drain_reason": drain_sched.drain_reason}
+    if after_term != ["draining"] or len(done) != cfg["slots"] or \
+            sorted(done + handed) != idx or not drain.drained:
+        problems.append(f"drain: {out['drain']}")
+    torch.cuda.synchronize()
+    return want, ttft, out
+
+
+def phase_frontdoor():
+    """The serving front door (ROADMAP A.8) on GPT-2 1.3B: ``build_serving``
+    and the parent's runs (``frontdoor_parent``) while FRONTDOOR_REPLICAS
+    replica processes build their engines, then the fleet: a warm-up run,
+    the baseline, and the chaos run that SIGKILLs the most-loaded replica
+    after FRONTDOOR_KILL_AFTER delivered tokens. Returns the launch counts
+    of the parent's runs (the cache path: no kernel)."""
+    import torch
+
+    from deepspeed_tpu_torch.telemetry import telemetry_bus
+
+    problems = []
+    t_phase = time.perf_counter()
+    free_cuda()
+    spec = FRONTDOOR_SPEC
+    timeline = {}
+    fleet = ReplicaFleet(spec, FRONTDOOR_REPLICAS, FRONTDOOR_SERVING)
+    try:
+        t0 = time.perf_counter()
+        engine = replica_engine(spec)
+        torch.cuda.synchronize()
+        timeline["parent_init_s"] = time.perf_counter() - t0
+        # the weights a replica would take from shared tensors: the load
+        # alone, without the transport (a lower bound for sharing)
+        sd = {k: v.clone() for k, v in engine.module.state_dict().items()}
+        t0 = time.perf_counter()
+        twin = replica_engine(dict(spec, state_dict=sd))
+        torch.cuda.synchronize()
+        timeline["state_dict_init_s"] = time.perf_counter() - t0
+        del twin, sd
+        free_cuda()
+        prompts = frontdoor_requests(engine.module.config.vocab_size)
+        counts0 = telemetry_bus.counts()
+        schedulers = []
+        reset_launches()
+        t0 = time.perf_counter()
+        want, ref_ttft, parent = frontdoor_parent(engine, prompts, problems,
+                                                  schedulers)
+        parent_launches = read_launches()
+        timeline["parent_runs_s"] = time.perf_counter() - t0
+        counts = telemetry_bus.counts()
+        delta = {k: counts.get(k, 0) - counts0.get(k, 0)
+                 for k in set(counts) | set(counts0)}
+        admits = sum(len(s.completions) for _, runs in schedulers
+                     for s in runs)
+        shed = sum(sch.shed_count for sch, _ in schedulers)
+        bus = {"serve.admit": (delta.get("serve.admit", 0), admits),
+               "serve.first_token": (delta.get("serve.first_token", 0),
+                                     admits),
+               "serve.shed+deadline_shed": (
+                   delta.get("serve.shed", 0)
+                   + delta.get("serve.deadline_shed", 0), shed),
+               "serve.drain": (delta.get("serve.drain", 0), 2)}
+        for k, (events, counters) in bus.items():
+            if events != counters:
+                problems.append(f"bus {k}: {events} events against "
+                                f"{counters} from the counters")
+
+        t0 = time.perf_counter()
+        hello = fleet.wait_ready()
+        timeline["wait_for_replicas_s"] = time.perf_counter() - t0
+        runs = {}
+        events = []
+        for name in ("warm", "baseline", "chaos"):
+            if name != "warm":
+                fleet.reset()
+            if name == "chaos":
+                telemetry_bus.subscribe(events.append)
+            run = fleet.serve(prompts, FRONTDOOR_NEW,
+                              kill="auto" if name == "chaos" else None,
+                              kill_after=FRONTDOOR_KILL_AFTER,
+                              align=FRONTDOOR_SERVING["prompt_bucket"])
+            if name == "chaos":
+                telemetry_bus.unsubscribe(events.append)
+            run["launches"] = fleet.launches()
+            timeline[f"fleet_{name}_s"] = run["wall_s"]
+            parts, probs = token_parts(engine, prompts, run["tokens"], want,
+                                       FRONTDOOR_SERVING["prompt_bucket"])
+            problems.extend(f"fleet {name}: {p}" for p in probs)
+            run["parts"] = parts
+            if run["lost"]:
+                problems.append(f"fleet {name} lost {run['lost']}")
+            runs[name] = run
+        chaos = runs["chaos"]
+        migrated = sorted(chaos["migrated"])
+        fo = sorted(e["request_id"] for e in events
+                    if e["kind"] == "serve.failover")
+        downs = [e["replica"] for e in events
+                 if e["kind"] == "serve.replica_down"]
+        if chaos["killed"] is None or not migrated:
+            problems.append(f"chaos: killed {chaos['killed']}, migrated "
+                            f"{migrated}")
+        if fo != migrated:
+            problems.append(f"serve.failover {fo} against migrated "
+                            f"{migrated}")
+        if downs != [chaos["killed"]]:
+            problems.append(f"serve.replica_down {downs}, killed "
+                            f"{chaos['killed']}")
+        for name, run in runs.items():
+            for i, counts in enumerate(run["launches"]):
+                if counts is not None and any(counts.values()):
+                    problems.append(f"fleet {name}: replica {i} launched "
+                                    f"{counts}")
+    finally:
+        fleet.close()
+    if any(parent_launches.values()):
+        problems.append(f"the parent's cache path launched {parent_launches}")
+    ttft = chaos["ttft_s"]
+    result = {
+        "phase": "frontdoor", "model": FRONTDOOR_MODEL, "dtype": "bf16",
+        "reduced": {}, "serving": FRONTDOOR_SERVING,
+        "requests": len(prompts), "max_new_tokens": FRONTDOOR_NEW,
+        "prompt_lengths": [len(p) for p in prompts],
+        "replicas": FRONTDOOR_REPLICAS, "replica_start": hello,
+        "timeline": timeline, "parent": parent, "bus_vs_counters": bus,
+        "parent_launches": parent_launches,
+        "fleet": {name: {k: run[k] for k in (
+            "killed", "migrated", "lost", "wall_s", "router", "journal",
+            "parts", "placements", "health_transitions")}
+            for name, run in runs.items()},
+        "ttft_p95_s": {
+            "reference_in_process": p95(ref_ttft),
+            "fleet_warm_up": p95(runs["warm"]["ttft_s"]),
+            "baseline_no_kill": p95(runs["baseline"]["ttft_s"]),
+            "chaos_with_failover": p95(ttft),
+            "chaos_migrated_only": p95(ttft[r] for r in migrated),
+            "no_failover_counterfactual": p95(
+                v for r, v in enumerate(ttft) if r not in migrated)},
+        "no_failover_lost_requests": len(migrated),
+        "failover_events": len(fo), "replica_down_events": downs,
+        "near_tie_parts": {name: len(run["parts"])
+                           for name, run in runs.items()},
+        "gap_sigmas": GAP_SIGMAS, "problems": problems,
+        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "seconds": time.perf_counter() - t_phase}
+    emit(result)
+    del engine
+    free_cuda()
+    if problems:
+        raise AssertionError(f"frontdoor: {problems}")
+    return {"frontdoor": parent_launches}
+
+
+def serving_disagg(engine, prompts):
+    """Disaggregated prefill on the serving phase's engine:
+    ``DisaggServer(scheduler, [PrefillWorker(engine)])`` with every prompt
+    submitted before ``run`` (each hand-off owns a copy of the batch-1
+    cache, which the next prefill overwrites), against the co-located
+    scheduler on the same requests: tokens bit for bit, one
+    ``serve.kv_transfer`` per request, each hand-off's bytes
+    ``lane_kv_bytes``' resident bytes, with its seconds (prefill and copy;
+    the copy alone timed beside them). Returns the line and its
+    problems."""
+    import dataclasses
+
+    import torch
+
+    from deepspeed_tpu_torch.inference.scheduler import \
+        ContinuousBatchingScheduler
+    from deepspeed_tpu_torch.models.transformer_lm import GPT
+    from deepspeed_tpu_torch.serving import (ROLE_DECODE, ROLE_PREFILL,
+                                             DisaggServer, FleetCoordinator,
+                                             PrefillWorker, PrefixRouter,
+                                             lane_kv_bytes)
+    from deepspeed_tpu_torch.telemetry import telemetry_bus
+
+    problems = []
+    t0 = time.perf_counter()
+
+    def scheduler():
+        return ContinuousBatchingScheduler(engine, slots=SERVING_SLOTS,
+                                           prompt_bucket=SERVING_BUCKET)
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want, _, _ = serve_prompts(scheduler(), prompts, DISAGG_NEW)
+    torch.cuda.synchronize()
+    colocated_s = time.perf_counter() - t1
+    events = []
+    telemetry_bus.subscribe(events.append)
+    try:
+        # a coordinator with one prefill and one decode replica: it
+        # accounts each hand-off with its seconds (prefill and copy)
+        server = DisaggServer(scheduler(), [PrefillWorker(
+            engine, prompt_bucket=SERVING_BUCKET, replica=0)],
+            coordinator=FleetCoordinator(PrefixRouter(2), roles=[
+                ROLE_PREFILL, ROLE_DECODE]))
+        t1 = time.perf_counter()
+        rids = [server.submit(p, max_new_tokens=DISAGG_NEW)
+                for p in prompts]
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+        stats = server.run()
+        torch.cuda.synchronize()
+        disagg_s = time.perf_counter() - t1
+    finally:
+        telemetry_bus.unsubscribe(events.append)
+    by_rid = {c.request_id: c.tokens for c in stats.completions}
+    got = [by_rid.get(r) for r in rids]
+    transfers = [e for e in events if e["kind"] == "serve.kv_transfer"]
+    lane = lane_kv_bytes(engine.module)
+    bf16 = lane_kv_bytes(GPT(dataclasses.replace(engine.module.config,
+                                                 kv_cache_dtype=None)))
+    # the hand-off copy: one batch-1 cache, device to device
+    cache = engine._decoder(1).cache
+    copy_ms = wall_ms(lambda: cache.clone())
+    # what the port keeps once per row (flax: valid and index per layer)
+    bookkeeping = sum(t.numel() * t.element_size() for t in (
+        cache.valid, cache.index, cache.position,
+        getattr(cache, "slot_pos", None)) if t is not None)
+    if got != want:
+        problems.append("disaggregated tokens differ from the co-located "
+                        "scheduler's")
+    if [e["request_id"] for e in transfers] != rids:
+        problems.append(f"serve.kv_transfer for {len(transfers)} of "
+                        f"{len(rids)} requests")
+    sizes = sorted({e["bytes"] for e in transfers})
+    if sizes != [lane["resident_bytes"]]:
+        problems.append(f"hand-off bytes {sizes} against lane_kv_bytes "
+                        f"{lane}")
+    line = {"phase": "serving", "part": "disagg", "requests": len(prompts),
+            "max_new_tokens": DISAGG_NEW, "identical_to_colocated":
+            got == want, "kv_transfer_events": len(transfers),
+            "handoff_bytes": sizes, "lane_kv_bytes": lane,
+            "lane_kv_bytes_bf16": bf16,
+            "bf16_over_int8": bf16["resident_bytes"] / lane["resident_bytes"],
+            "port_bookkeeping_bytes": bookkeeping,
+            "kv_and_scale_bytes": lane["resident_bytes"] - bookkeeping,
+            "transfer_s": [e.get("transfer_s") for e in transfers],
+            "handoff_copy_ms": copy_ms,
+            "handoff_copy_gb_per_s": lane["resident_bytes"] / copy_ms / 1e6,
+            "colocated_s": colocated_s, "prefill_all_s": prefill_s,
+            "disagg_s": disagg_s, "server": {
+                k: v for k, v in server.stats().items() if k != "frontdoor"},
+            "seconds": time.perf_counter() - t0, "problems": problems}
+    return line, problems
+
+
 def main(argv):
     import torch
 
@@ -8359,12 +9211,12 @@ def main(argv):
                                                 "train_options",
                                                 "sparse_gpt",
                                                 "bert_options",
-                                                "serving")))
+                                                "serving", "frontdoor")))
              or (len(argv) == 6 and argv[1] == "--zero-rank"))
     if not usage:
         print(f"usage: {argv[0]} [--against OTHER_CHECKOUT | "
               "--only zero|data|mistral|neox|moe|train_options|sparse_gpt"
-              "|bert_options|serving]", file=sys.stderr)
+              "|bert_options|serving|frontdoor]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -8414,6 +9266,8 @@ def main(argv):
             emit({"bert_options_launches_by_path": phase_bert_options()})
         elif argv[2] == "serving":
             emit({"serving_launches_by_path": phase_serving()})
+        elif argv[2] == "frontdoor":
+            emit({"frontdoor_launches_by_path": phase_frontdoor()})
         else:
             emit({"data_launches": phase_data()[0]})
         print(smi, flush=True)
@@ -8452,13 +9306,14 @@ def main(argv):
     sparse_gpt_paths = run("sparse_gpt", phase_sparse_gpt)
     bert_paths = run("bert_options", phase_bert_options)
     serving_paths = run("serving", phase_serving)
+    frontdoor_paths = run("frontdoor", phase_frontdoor)
     emit({"phase_seconds": phase_seconds,
           "total_seconds": time.perf_counter() - started})
     paths = {"serve": serve_launches, "train": launches,
              "checkpoint": ckpt_launches, "sparse_train": sparse_launches,
              **zero_paths, "data": data_launches, **mistral_paths,
              **neox_paths, **moe_paths, **option_paths, **sparse_gpt_paths,
-             **bert_paths, **serving_paths}
+             **bert_paths, **serving_paths, **frontdoor_paths}
     for entry in kernels:
         # each slice's main path, its counts set to 0 just before it: serving
         # runs B1, GPT training, the checkpoint path, ZeRO (stages 0-2, and
@@ -8471,7 +9326,8 @@ def main(argv):
         # GPT block-sparse route (B5-B7, B4), and BERT-Large's training
         # options (each remat policy under dropout, PLD: B5-B7, B4; the
         # dense BERT: B4), and serving's forward graph (B1 per layer in
-        # each replay) and scheduler (its cache path runs no kernel).
+        # each replay) and scheduler (its cache path runs no kernel), and
+        # the front door's runs (none either).
         # "launches" is the count on the newest path that runs the kernel
         name = entry["name"]
         entry["launches_by_path"] = {p: counts[name] for p, counts in paths.items()}

@@ -15,9 +15,9 @@ batch after the one the consumer saw. ``reseed`` and ``load_state_dict``
 halt the worker first, so the wrapped loader is never touched from two
 threads; a finite loader ends the iteration; a worker's exception reaches
 the consumer. ``counters()`` reports gets, starved gets (the consumer found
-the queue empty) and the mean and maximum queue depth. (The JAX module also
-publishes a starvation event to its telemetry bus; the port keeps the
-counter and leaves the event to the port of ``telemetry/``.)
+the queue empty) and the mean and maximum queue depth; each starved get
+also publishes ``data.prefetch_starved`` on the telemetry bus, as in JAX
+(the admission controller reads it as backpressure).
 
 The card's side of the transfer is ``CopyStream``, the engine's ``put_fn``
 on a CUDA device: the worker copies each array into a pinned host tensor
@@ -42,6 +42,8 @@ import threading
 from typing import Any, Callable, Dict, Optional
 
 import torch
+
+from deepspeed_tpu_torch.telemetry.bus import KIND_PREFETCH_STARVED, publish
 
 _END = object()  # worker→consumer: wrapped loader raised StopIteration
 
@@ -199,6 +201,8 @@ class DevicePrefetcher:
         if depth == 0:
             # the consumer is about to block on the producer
             self._starved_gets += 1
+            publish(KIND_PREFETCH_STARVED, severity="warning",
+                    starved_gets=self._starved_gets, gets=self._gets)
         got = self._queue.get()
         if got is _END:
             self._thread = None

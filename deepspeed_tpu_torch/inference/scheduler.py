@@ -39,15 +39,18 @@ per-slot restore from a snapshot taken before the pass). Every emitted
 token is a target argmax given the emitted prefix, so the stream is
 exactly sequential greedy.
 
-The JAX scheduler publishes telemetry events (``serve.admit``,
-``serve.first_token``, ``serve.evict``, ``serve.stats``, ``serve.shed``,
-``serve.deadline_shed``, ``serve.drain``, ``serve.spec_accept``); the
-port's telemetry is ROADMAP A.11, so it keeps every counter those events
-carry (``shed_count``, ``deadline_shed_count``, ``spec_proposed``,
-``spec_accepted``, ``ServingStats.decode_steps``, ``_lanes_active``) and
-publishes nothing. The front-door hooks (``prefix_cache``,
-``admission_controller``, ``reject_callback``, ``journal``,
-``health_provider``) are duck-typed, as in JAX.
+The scheduler publishes JAX's telemetry events on the process-global bus
+(``telemetry/bus.py``), with JAX's payload keys: ``serve.admit`` per
+admission, ``serve.first_token`` per request that is not a replay (the
+admission controller's TTFT samples), ``serve.evict`` per completion,
+``serve.stats`` per loop iteration, ``serve.shed`` and
+``serve.deadline_shed`` per rejection, ``serve.drain`` when admission
+closes and ``serve.spec_accept`` per speculative step. The counters those
+events carry (``shed_count``, ``deadline_shed_count``, ``spec_proposed``,
+``spec_accepted``, ``ServingStats.decode_steps``, ``_lanes_active``) stay.
+The front-door hooks (``prefix_cache``, ``admission_controller``,
+``reject_callback``, ``journal``, ``health_provider``) are duck-typed, as
+in JAX.
 """
 
 import time
@@ -61,6 +64,10 @@ import torch
 from deepspeed_tpu_torch.inference.engine import continuation_chunk_spans
 from deepspeed_tpu_torch.ops.sparse_attention.sparse_attention_utils import \
     ring_engaged
+from deepspeed_tpu_torch.telemetry.bus import (
+    KIND_SERVE_ADMIT, KIND_SERVE_DEADLINE_SHED, KIND_SERVE_DRAIN,
+    KIND_SERVE_EVICT, KIND_SERVE_FIRST_TOKEN, KIND_SERVE_SHED,
+    KIND_SERVE_SPEC_ACCEPT, KIND_SERVE_STATS, publish)
 
 
 class AdmissionRejected(RuntimeError):
@@ -365,20 +372,21 @@ class ContinuousBatchingScheduler:
         if self._draining:
             self._reject(DrainingError(
                 "admission is closed: the scheduler is draining "
-                f"({self.drain_reason})"))
+                f"({self.drain_reason})"), depth)
         if deadline_s is not None and deadline_s <= 0:
             self._reject(DeadlineExceededError(
-                f"deadline_s={deadline_s} already expired at submit"))
+                f"deadline_s={deadline_s} already expired at submit"),
+                depth, kind=KIND_SERVE_DEADLINE_SHED)
         if self.max_pending is not None and depth >= self.max_pending:
             self._reject(QueueFullError(
                 f"admission queue is full ({depth}/{self.max_pending} "
-                "pending); retry after the scheduler drains"))
+                "pending); retry after the scheduler drains"), depth)
         if self.admission_controller is not None:
             admit, reason = self.admission_controller.decide(
                 queue_depth=depth, slots=self.slots)
             if not admit:
                 self._reject(RequestShedError(
-                    f"request shed by admission control: {reason}"))
+                    f"request shed by admission control: {reason}"), depth)
         bucketed = self._bucketed_len(len(prompt))
         if not self._streaming and \
                 bucketed + max_new_tokens > self._max_pos:
@@ -413,11 +421,15 @@ class ContinuousBatchingScheduler:
         self._pending.append((req, now))
         return rid
 
-    def _reject(self, exc: AdmissionRejected):
-        """Count the shed, fire the 429 callback, raise ``exc``."""
+    def _reject(self, exc: AdmissionRejected, depth: int, kind=None):
+        """Count the shed, publish ``serve.shed`` (or ``kind``), fire the
+        429 callback, raise ``exc``."""
         self.shed_count += 1
         if isinstance(exc, DeadlineExceededError):
             self.deadline_shed_count += 1
+        publish(kind or KIND_SERVE_SHED, severity="warning",
+                reason=exc.reason, queue_depth=depth,
+                shed_total=self.shed_count)
         if self.reject_callback is not None:
             try:
                 self.reject_callback(None, exc.reason)
@@ -426,22 +438,32 @@ class ContinuousBatchingScheduler:
         raise exc
 
     def begin_drain(self, reason: str = "drain") -> None:
-        """Close admission. Safe from a signal handler: sets a flag.
-        ``run()`` finishes the lanes already decoding and returns with the
-        queue intact for the journal's hand-off."""
+        """Close admission. Safe from a signal handler: sets a flag and
+        publishes one ``serve.drain``. ``run()`` finishes the lanes already
+        decoding and returns with the queue intact for the journal's
+        hand-off."""
         if self._draining:
             return
         self._draining = True
         self.drain_reason = str(reason)
+        publish(KIND_SERVE_DRAIN, severity="warning", phase="begin",
+                reason=self.drain_reason, queue_depth=len(self._pending),
+                lanes_active=self._lanes_active)
 
     @property
     def draining(self) -> bool:
         return self._draining
 
-    def _shed_expired(self, req: Request) -> None:
+    def _shed_expired(self, req: Request, t_submit: float) -> None:
         """Drop one queue entry whose deadline passed before a lane freed
         up: it never occupies a lane or runs a prefill."""
+        now = time.monotonic()
         self.deadline_shed_count += 1
+        publish(KIND_SERVE_DEADLINE_SHED, severity="warning",
+                request_id=req.request_id, waited_s=now - t_submit,
+                late_s=now - req.t_deadline,
+                queue_depth=len(self._pending),
+                deadline_shed_total=self.deadline_shed_count)
         if self.journal is not None:
             self.journal.record_shed(req.request_id)
         if self.reject_callback is not None:
@@ -598,6 +620,18 @@ class ContinuousBatchingScheduler:
         bytes differ from JAX's; the keys, values and scales are the same.
         With the card's memory (or ``hbm_override_gib``),
         ``lanes_at_hbm_budget`` is how many lanes of this footprint fit."""
+        out = dict(self._kv_static())
+        hbm, source = hbm_bytes(self.engine.device, hbm_override_gib)
+        if hbm:
+            out["hbm_bytes"] = int(hbm)
+            out["hbm_source"] = source
+            per_lane = out["bytes_per_lane"]
+            out["lanes_at_hbm_budget"] = (int(hbm // per_lane)
+                                          if per_lane else 0)
+        return out
+
+    def _kv_static(self) -> Dict[str, Any]:
+        """The lanes' cache geometry part of ``kv_cache_stats``, once."""
         if self._kv_stats_static is None:
             cache = self.engine._decoder(self.slots).cache
             compute = torch.finfo(self._mcfg.dtype).bits // 8
@@ -617,15 +651,7 @@ class ContinuousBatchingScheduler:
                 "compression_ratio": (float(unquant) / float(resident)
                                       if resident else 1.0),
             }
-        out = dict(self._kv_stats_static)
-        hbm, source = hbm_bytes(self.engine.device, hbm_override_gib)
-        if hbm:
-            out["hbm_bytes"] = int(hbm)
-            out["hbm_source"] = source
-            per_lane = out["bytes_per_lane"]
-            out["lanes_at_hbm_budget"] = (int(hbm // per_lane)
-                                          if per_lane else 0)
-        return out
+        return self._kv_stats_static
 
     def frontdoor_stats(self) -> Dict[str, Any]:
         """Shed, prefix-cache and health counters for servers."""
@@ -654,6 +680,30 @@ class ContinuousBatchingScheduler:
         if self._kv_stats_static is not None:
             out["kv_cache"] = self.kv_cache_stats()
         return out
+
+    def _publish_stats(self, stats: ServingStats, lanes) -> None:
+        """One ``serve.stats`` per loop iteration: queue depth, lane
+        occupancy, shed counters, prefix hit rate, fleet health and the
+        lanes' KV bytes."""
+        self._lanes_active = sum(1 for ln in lanes if ln is not None)
+        payload: Dict[str, Any] = {
+            "queue_depth": len(self._pending),
+            "lanes_active": self._lanes_active,
+            "shed": self.shed_count,
+            "deadline_shed": self.deadline_shed_count,
+            "decode_steps": stats.decode_steps,
+            "draining": self._draining,
+        }
+        if self.prefix_cache is not None:
+            payload["prefix_hit_rate"] = \
+                self.prefix_cache.stats().get("hit_rate", 0.0)
+        if self.health_provider is not None and \
+                hasattr(self.health_provider, "states"):
+            payload["health"] = dict(self.health_provider.states())
+        kv = self._kv_static()
+        payload["kv_resident_bytes"] = kv["resident_bytes"]
+        payload["kv_unquantized_bytes"] = kv["unquantized_bytes"]
+        publish(KIND_SERVE_STATS, **payload)
 
     # ------------------------------------------------------------------
     def _recycle(self, lanes, cache, cfg, cols: int) -> None:
@@ -702,6 +752,9 @@ class ContinuousBatchingScheduler:
                 lane.comp.t_done = time.monotonic()
                 stats.completions.append(lane.comp)
                 lanes[lane_no] = None
+                publish(KIND_SERVE_EVICT, request_id=lane.req.request_id,
+                        lane=lane_no, tokens=lane.emitted,
+                        queue_depth=len(self._pending))
 
             def emit(lane_no: int, lane: _Lane, token: int) -> bool:
                 """Record one token; True when the sequence is done."""
@@ -710,6 +763,13 @@ class ContinuousBatchingScheduler:
                 lane.emitted += 1
                 if lane.comp.t_first_token == 0.0:
                     lane.comp.t_first_token = now
+                    # a replay does not publish it again: the client saw its
+                    # first token on the replica that died, and a replay's
+                    # sample would bias the admission p95 window
+                    if lane.req.replay_tokens is None:
+                        publish(KIND_SERVE_FIRST_TOKEN,
+                                request_id=lane.req.request_id, lane=lane_no,
+                                ttft_s=now - lane.comp.t_submit)
                 done = (lane.emitted >= lane.req.max_new_tokens
                         or (lane.req.eos_token_id is not None
                             and token == lane.req.eos_token_id))
@@ -740,7 +800,7 @@ class ContinuousBatchingScheduler:
                         req, t_submit = self._pending.popleft()
                         if req.t_deadline is not None and \
                                 time.monotonic() > req.t_deadline:
-                            self._shed_expired(req)
+                            self._shed_expired(req, t_submit)
                             continue
                         replayed = len(req.replay_tokens or ())
                         comp = Completion(
@@ -748,6 +808,11 @@ class ContinuousBatchingScheduler:
                             tokens=list(req.replay_tokens or ()),
                             prompt_len=len(req.prompt), t_submit=t_submit)
                         comp.t_admit = time.monotonic()
+                        publish(KIND_SERVE_ADMIT, request_id=req.request_id,
+                                lane=lane_no, prompt_len=len(req.prompt),
+                                replayed=replayed,
+                                queue_wait_s=comp.t_admit - t_submit,
+                                queue_depth=len(self._pending))
                         first_tok = self._admit_prefill(req, lane_no, cache,
                                                         draft_cache)
                         tok[lane_no] = first_tok
@@ -756,7 +821,7 @@ class ContinuousBatchingScheduler:
                         if emit(lane_no, lane, first_tok):
                             finish(lane_no, lane)
 
-                self._lanes_active = sum(1 for ln in lanes if ln is not None)
+                self._publish_stats(stats, lanes)
                 if not self._lanes_active:
                     continue  # everything admitted finished at token 1
 
@@ -788,8 +853,12 @@ class ContinuousBatchingScheduler:
                     live = [ln for ln in range(self.slots)
                             if lanes[ln] is not None]
                     self.spec_proposed += k * len(live)
-                    self.spec_accepted += int(sum(int(m_eff[ln])
-                                                  for ln in live))
+                    accepted_now = int(sum(int(m_eff[ln]) for ln in live))
+                    self.spec_accepted += accepted_now
+                    publish(KIND_SERVE_SPEC_ACCEPT, k=k, lanes=len(live),
+                            proposed=k * len(live), accepted=accepted_now,
+                            proposed_total=self.spec_proposed,
+                            accepted_total=self.spec_accepted)
                     for lane_no in live:
                         lane = lanes[lane_no]
                         for j in range(int(m_eff[lane_no]) + 1):

@@ -12,9 +12,8 @@ rebuilt with that field populated, and ``deepspeed_tpu_torch.initialize``
 calls it when the DeepSpeed config has a ``sparse_attention`` block. The
 ring helpers decide whether a GPT decodes from the layout-aware ring cache
 (``models/transformer_lm.py`` ``RingKVCache``). A declined demand for the
-ring warns and is recorded in ``RING_DECLINES``; the JAX helper also
-publishes it on its telemetry bus, which the port does not have until
-ROADMAP A.11.
+ring warns, is recorded in ``RING_DECLINES`` and is published on the
+telemetry bus (``ring.decline``), as in JAX.
 """
 
 import dataclasses
@@ -231,7 +230,10 @@ def _decline_demanded_ring(reason: str) -> None:
     """``sparse_kv_cache=True`` is a demand: record and warn rather than
     decode densely in silence (dense decode sees more keys than the sparse
     training did)."""
+    from deepspeed_tpu_torch.telemetry.bus import KIND_RING_DECLINE, publish
+
     RING_DECLINES.append(reason)
+    publish(KIND_RING_DECLINE, severity="warning", reason=reason)
     warnings.warn(
         "sparse_kv_cache=True but the ring KV cache is NOT engaged; decode "
         f"falls back to DENSE attention: {reason}", RuntimeWarning,

@@ -326,6 +326,11 @@ class DeepSpeedEngine:
         if not isinstance(config, DeepSpeedConfig):
             config = DeepSpeedConfig(config)
         self._distributed = comm.is_initialized()
+        if config.telemetry.enabled:
+            # events carry the process group's rank (JAX: process_index)
+            from deepspeed_tpu_torch.telemetry import telemetry_bus
+
+            telemetry_bus.set_rank(comm.get_rank())
         # a compressed gradient exchange is checked first, with the JAX
         # engine's words (runtime/compressed_exchange.py)
         self._cx_mode = self._select_exchange(config, model)

@@ -22,14 +22,20 @@ scheduler's admission prefill resumes mid-prompt instead of starting cold.
 Eviction is LRU over a byte budget: explicit bytes win, else a share of
 the card's memory (``torch.cuda.get_device_properties``), else a small
 fallback on the CPU. An entry being copied into a lane holds a reference
-and is never evicted. Single-threaded, like the scheduler it serves. The
-JAX module publishes ``serve.prefix_hit``/``_miss``/``_evict`` telemetry;
-the port counts them (``stats``) and publishes nothing (ROADMAP A.11).
+and is never evicted. Single-threaded, like the scheduler it serves. Each
+hit, miss and eviction is counted (``stats``) and published on the
+telemetry bus (``serve.prefix_hit``/``_miss``/``_evict``, JAX's payload
+keys).
 """
 
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
+
+from deepspeed_tpu_torch.telemetry.bus import (KIND_SERVE_PREFIX_EVICT,
+                                               KIND_SERVE_PREFIX_HIT,
+                                               KIND_SERVE_PREFIX_MISS,
+                                               publish)
 
 Key = Tuple[int, ...]
 
@@ -152,8 +158,12 @@ class PrefixCache:
                 entry.refs += 1
                 self._entries.move_to_end(entry.key)
                 self.hits += 1
+                publish(KIND_SERVE_PREFIX_HIT, request_id=request_id,
+                        prefix_len=entry.length, nbytes=entry.nbytes)
                 return entry
         self.misses += 1
+        publish(KIND_SERVE_PREFIX_MISS, request_id=request_id,
+                prompt_cols=len(cols))
         return None
 
     def release(self, entry: _Entry) -> None:
@@ -206,6 +216,8 @@ class PrefixCache:
             del self._entries[victim.key]
             self.bytes_used -= victim.nbytes
             self.evictions += 1
+            publish(KIND_SERVE_PREFIX_EVICT, prefix_len=victim.length,
+                    nbytes=victim.nbytes, bytes_used=self.bytes_used)
         return True
 
     # -- introspection ------------------------------------------------

@@ -41,6 +41,25 @@ sched = ContinuousBatchingScheduler(int8, slots=2, prompt_bucket=16,
 sched.submit(list(range(1, 20)), max_new_tokens=3)
 sched.submit(list(range(1, 9)), max_new_tokens=2)
 assert len(sched.run().completions) == 2
+from deepspeed_tpu_torch.serving import (DisaggServer, FleetCoordinator,
+                                        PrefillWorker, PrefixRouter,
+                                        build_serving, lane_kv_bytes)
+from deepspeed_tpu_torch.serving import admission, disagg, fleet, router
+from deepspeed_tpu_torch.telemetry import telemetry_bus
+from deepspeed_tpu_torch.utils import health_state
+events = []
+telemetry_bus.subscribe(events.append)
+front = build_serving(int8, dict(slots=2, prompt_bucket=16,
+                                 prefix_cache=True, admission=True,
+                                 journal=True))
+server = DisaggServer(front, [PrefillWorker(int8, prompt_bucket=16)],
+                      coordinator=FleetCoordinator(
+                          PrefixRouter(2), roles=["prefill", "decode"]))
+server.submit(list(range(1, 20)), max_new_tokens=2)
+assert len(server.run().completions) == 1
+assert lane_kv_bytes(int8.module)["resident_bytes"] > 0
+assert set(["serve.kv_transfer", "serve.admit"]) <= set(
+    e["kind"] for e in events)
 from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
 tcfg = GPTConfig(vocab_size=64, n_positions=256, n_embd=64, n_layer=1,
                  n_head=2, dtype=torch.float32, use_flash_attention=True,

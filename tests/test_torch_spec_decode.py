@@ -5,8 +5,10 @@ and :383-470 (an independent draft exact, a self-draft accepting k-1 of k
 per step, a dense target and draft, EOS inside an accepted run, the int8
 KV cache with speculation). Every emitted token is a target argmax given
 the emitted prefix, so the stream equals the scheduler's without a draft;
-the weights come from the JAX engines (f32 on the CPU) and the tokens must
-be the JAX scheduler's.
+the targets' weights come from the JAX engines (f32 on the CPU) and the
+tokens must be the JAX scheduler's. The stream does not depend on a
+draft's weights: an independent draft takes the port's own seeded draw, a
+self-draft the target's weights.
 """
 
 import jax
@@ -48,19 +50,33 @@ def _engines(ring, seed, kv=None, **fields):
     if ring:
         fields = {**RING_FIELDS, **fields}
     jm = jlm.GPT(jlm.GPTConfig(**BASE, dtype=jnp.float32, **fields))
-    tm = tlm.GPT(tlm.GPTConfig(**BASE, dtype=torch.float32, **fields))
     if ring:
-        jm, tm = jax_sparse(jm, WINDOW), apply_sparse_attention(tm, WINDOW)
+        jm = jax_sparse(jm, WINDOW)
     config = {"dtype": "fp32"}
     if kv is not None:
         config["kv_cache"] = kv
     jeng = JaxEngine(jm, dict(config), seed=seed)
     # the weights alone (its init at a length the window's layout takes)
     jeng._materialize(jnp.zeros((1, 48), jnp.int32))
-    sd = gpt_state_dict_from_jax(jax.device_get(jeng.params), tm.config)
-    port = deepspeed_tpu_torch.init_inference(tm, config=dict(config),
-                                              device="cpu", state_dict=sd)
-    return jeng, port
+    sd = gpt_state_dict_from_jax(jax.device_get(jeng.params),
+                                 _port_model(ring, **fields).config)
+    return jeng, _port(ring, sd, kv, **fields)
+
+
+def _port_model(ring, **fields):
+    tm = tlm.GPT(tlm.GPTConfig(**BASE, dtype=torch.float32, **fields))
+    return apply_sparse_attention(tm, WINDOW) if ring else tm
+
+
+def _port(ring, sd=None, kv=None, seed=0, **fields):
+    """The port's engine on the weights ``sd``, or on its own draw from
+    ``seed``."""
+    config = {"dtype": "fp32"}
+    if kv is not None:
+        config["kv_cache"] = kv
+    return deepspeed_tpu_torch.init_inference(
+        _port_model(ring, **fields), config=config, device="cpu",
+        state_dict=sd, seed=seed)
 
 
 def _run(sched, prompts, new=NEW, **kw):
@@ -78,8 +94,11 @@ def ring():
     tokens (its stream with a draft is its stream without one: every
     emitted token is a target argmax)."""
     jt, target = _engines(True, 0, kv_cache_slack_blocks=1)
-    _, draft = _engines(True, 7)
-    _, self_draft = _engines(True, 0)
+    draft = _port(True, seed=7, **RING_FIELDS)
+    # the target's weights (a slack block changes no parameter)
+    self_draft = _port(True, {k: v.clone() for k, v in
+                              target.module.state_dict().items()},
+                       **RING_FIELDS)
     prompts = _prompts()
     _, base = _run(JaxScheduler(jt, slots=3), prompts)
     return dict(target=target, draft=draft, self_draft=self_draft,
@@ -149,7 +168,7 @@ def test_int8_kv_composes_with_spec(ring):
 def test_dense_target_and_draft():
     prompts = _prompts(seed=1)
     jt, target = _engines(False, 0)
-    _, draft = _engines(False, 7)
+    draft = _port(False, seed=7)
     _, base = _run(JaxScheduler(jt, slots=3, prompt_bucket=16), prompts)
     sched = ContinuousBatchingScheduler(target, slots=3, prompt_bucket=16,
                                         draft_engine=draft, spec_k=3)
