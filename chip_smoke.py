@@ -795,6 +795,18 @@ def phase_kernel():
           "tflops_per_s": flops / ms / 1e9})
     entries = ([entry] + check_flash_backward(cases, sdpa_bwd)
                + check_fused_adamw() + check_block_sparse())
+    # B1-B3 at one rank's share of Mistral-7B's attention under tp 4 (the
+    # parallel phase): 8 query heads reading 2 KV heads
+    rank_shape = gqa_kernels("kernel", MISTRAL_MICRO, MISTRAL_SEQ,
+                             MISTRAL_7B["n_head"] // PARALLEL_TP,
+                             MISTRAL_7B["n_kv_head"] // PARALLEL_TP,
+                             MISTRAL_7B["n_embd"] // MISTRAL_7B["n_head"])
+    for e in entries:
+        if e["name"] in rank_shape:
+            e["tp4_rank_shape"] = {
+                k: rank_shape[e["name"]][k]
+                for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms", "library")}
     flash_auto_sweep()
     return entries
 
@@ -3513,8 +3525,16 @@ def mistral_train():
 
 
 def mistral_kernels():
-    """B1, B2 and B3 at the Mistral training shape [2, 4096, 32, 128],
-    bf16, causal: q as the rotary hands it over, k and v repeated from 8
+    """B1, B2 and B3 at the Mistral training shape [2, 4096, 32, 128]
+    (``gqa_kernels``)."""
+    return gqa_kernels("mistral", MISTRAL_MICRO, MISTRAL_SEQ,
+                       MISTRAL_7B["n_head"], MISTRAL_7B["n_kv_head"],
+                       MISTRAL_7B["n_embd"] // MISTRAL_7B["n_head"])
+
+
+def gqa_kernels(phase, b, t, h, h_kv, d):
+    """B1, B2 and B3 at a grouped-query training shape [b, t, h, d], bf16,
+    causal: q as the rotary hands it over, k and v repeated from ``h_kv``
     KV heads. Each against its plain version on a slice (batch 1, heads
     0-7), then timed (device time) against its bound, its plain version at
     the full shape and SDPA's backends on the same tensors."""
@@ -3522,9 +3542,7 @@ def mistral_kernels():
 
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 
-    b, t, h = MISTRAL_MICRO, MISTRAL_SEQ, MISTRAL_7B["n_head"]
-    d = MISTRAL_7B["n_embd"] // h
-    group = h // MISTRAL_7B["n_kv_head"]
+    group = h // h_kv
     gen = torch.Generator().manual_seed(50)
     q = torch.randn((b, t, h, d), generator=gen).to("cuda", torch.bfloat16)
     k, v = (torch.randn((b, t, h // group, d), generator=gen)
@@ -3588,8 +3606,8 @@ def mistral_kernels():
                      "library_ms": (sdpa_fwd if fwd else sdpa_bwd)[1],
                      "library": (sdpa_fwd if fwd else sdpa_bwd)[0],
                      "cudnn_ms": None if cudnn is None else cudnn["ms"]}
-    emit({"phase": "mistral", "part": "kernels", "shape": [b, t, h, d],
-          "kv_heads_repeated_from": MISTRAL_7B["n_kv_head"],
+    emit({"phase": phase, "part": "kernels", "shape": [b, t, h, d],
+          "kv_heads_repeated_from": h_kv,
           "plain_slice": {"batch": sb, "heads": sh}, "errors": errs,
           "tolerance": tol, "timing": out, "sdpa_by_backend": sdpa,
           "note": "plain_ms and library_ms of B2/B3 compute dq, dk and dv "
@@ -3597,7 +3615,7 @@ def mistral_kernels():
     del q, k, v, do, o, lse, delta, args
     free_cuda()
     if not ok:
-        raise AssertionError(f"mistral kernels: {errs} over {tol}")
+        raise AssertionError(f"{phase} kernels: {errs} over {tol}")
     return out
 
 
@@ -9200,6 +9218,735 @@ def serving_disagg(engine, prompts):
     return line, problems
 
 
+# ---------------------------------------------------------------------------
+# parallel (ROADMAP A.9 part 1): the tp and ep mesh axes, one rank per card
+# ---------------------------------------------------------------------------
+PARALLEL_DIR = os.path.join("build", "chip_smoke_parallel")
+PARALLEL_RANK_TIMEOUT_S = 560
+PARALLEL_GROUP_TIMEOUT_S = 540
+# the multi-card parts need this many cards (tp 4 and ep 4)
+PARALLEL_MIN_WORLD = 4
+PARALLEL_TP = 4
+PARALLEL_EP = 4
+# tp 4 against one card on the same weights: each layer's two row-parallel
+# products reach the residual stream as four bf16 partial sums added by
+# NCCL in bf16 (one more rounding of 2^-8 relative per element, twice a
+# layer), where one card rounds the whole product once. Independent over
+# the 64 sums of 32 layers, that adds up in quadrature to sqrt(64) 2^-8 =
+# 3.1e-2 of the logits; the bound is twice that. The same bound holds the
+# Mixtral runs under ep 4 (the experts' batched products at E/ep experts
+# against E: other GEMM shapes, the same bf16 rounding points)
+PARALLEL_LOGITS_REL_L2 = 6.4e-2
+# the 8-layer tp runs and the 2-layer ep run against one card: the zero
+# phase's bounds (within_zero_bounds), on 12 distinct batches, but for the
+# first step's grad norm. The zero phase's first step differs from one
+# card's only in the exchange; a tp run's forward rounds each row-parallel
+# product through bf16 partial sums too, so its first step, from the same
+# weights, differs like two forward paths do. On four H100s (80GB HBM3,
+# 700 W, one repeated batch) the first step's grad norm lay 5.9e-5 (tp 4),
+# 7.0e-5 (tp 2 x dp 2) and 2.7e-5 (Mixtral at ep 4) off; the bound is about
+# 3x the largest. (The zero phase's control, a run that lost one rank's
+# rows, lay 0.105 off at its first step.) On one batch repeated 12 times the
+# runs memorize it (the loss falls from 11.2 to ~1.5) and their late steps
+# part far past the zero bounds (losses 0.17-0.30 apart, the ep run's
+# routing flips): distinct batches keep the comparison at its rounding
+PARALLEL_GNORM_FIRST_REL_TOL = 2.5e-4
+# Mixtral at ep 4 against one card, 12 distinct batches: the losses lay
+# 8.6e-5 apart, the grad norms 2.4e-5 at the first step and 1.4e-2 at most,
+# yet the 12-step update 0.126 (over the zero phase's 0.12): Adam turns the
+# rounding of the gradients of leaves that take few tokens into steps of
+# +-lr. The update is held to twice that reading, split by expert leaves
+# and the rest in the line; a fault that mixed experts or lost a rank's
+# rows moves the first step's grad norm and the losses first (the zero
+# phase's control: 0.105 and 7.0e-2 off, its update 0.74)
+PARALLEL_MOE_UPDATE_REL_L2 = 0.25
+PARALLEL_PROMPT_BUCKET = 512
+PARALLEL_NEW_TOKENS = 32
+# the 32-layer tp 4 training run: captured against eager over this many
+# steps (2 warm-ups, the capture, 2 replays); every layer is alike
+PARALLEL_FULL_STEPS = 5
+PARALLEL_FULL_PER_STEP = {"flash_attention_fwd": 64,
+                          "flash_attention_bwd_dq": 32,
+                          "flash_attention_bwd_dkv": 32, "fused_adamw": 1}
+# a tag saved at tp 4 and served on one card: Mistral's widths at 1 layer
+# (0.48 B parameters, ~5 GB of tag with the optimizer's moments)
+PARALLEL_TAG_LAYERS = 1
+PARALLEL_TAG_STEPS = 2
+# Mixtral-8x7B under ep 4: against one card at 16 layers (47 GB there),
+# alone at all 32 (~26 GB a rank: a quarter of the experts, all the rest)
+PARALLEL_MIXTRAL_CMP_LAYERS = 16
+# ep 4 training at 2 layers, one [1, 4096] row per rank, against one card
+# at the global micro batch of 4 rows (one draw of the gating noise over
+# the global batch, sliced by rank, is what one card draws at micro 4; at
+# gas 4 it would draw it micro batch by micro batch, in another order),
+# with no token dropped (top-2 capacity 2 x 4 / 8 = the tokens) and the
+# load-balancing loss off (each ep rank balances its own rows, as
+# reference DeepSpeed; one card the global batch)
+PARALLEL_MIXTRAL_TRAIN = dict(moe_capacity_factor=4.0, moe_aux_loss_coef=0.0)
+PARALLEL_MIXTRAL_ROWS = 1
+PARALLEL_MIXTRAL_PER_STEP = MIXTRAL_PER_STEP
+# the world-1 run (a one-card run): the tp path at tp 1 at Mistral's
+# widths and the ep path at ep 1 at Mixtral's, in process on one-rank groups
+PARALLEL_ONE_CARD_TP_LAYERS = 2
+PARALLEL_ONE_CARD_EP_LAYERS = 1
+
+
+def parallel_tp_engine(tp, layers, stage=1, micro=MISTRAL_MICRO, seed=0,
+                       one_card=False):
+    """Mistral-7B's widths at ``layers`` through ``initialize`` with
+    ``GPT_PRETRAIN_CONFIG`` (full remat) under ``tpu.mesh`` tp, the rest
+    dp, ZeRO ``stage``, ``micro`` rows of each global micro batch of 2 a
+    rank. ``one_card``: the group-less engine (built before any group)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import GPT
+    from deepspeed_tpu_torch.parallel.tensor import ParallelLayout
+
+    config = dict(GPT_PRETRAIN_CONFIG, train_micro_batch_size_per_gpu=micro,
+                  zero_optimization={"stage": stage})
+    if not one_card:
+        config["tpu"] = dict(config["tpu"], mesh={"tp": tp, "dp": -1})
+    cfg = mistral_config(n_layer=layers, remat=True)
+    # the tp code path at every tp, 1 included
+    model = GPT(cfg) if one_card else GPT(cfg, parallel=ParallelLayout())
+    return deepspeed_tpu_torch.initialize(model=model, config=config,
+                                          seed=seed)[0]
+
+
+def parallel_ep_engine(ep, layers, micro, seed=0, one_card=False, **over):
+    """Mixtral-8x7B's widths at ``layers`` through ``initialize`` (full
+    remat) under ``tpu.mesh`` ep, ``micro`` rows a rank."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer_lm import GPT
+    from deepspeed_tpu_torch.parallel.tensor import ParallelLayout
+
+    config = dict(GPT_PRETRAIN_CONFIG, train_micro_batch_size_per_gpu=micro)
+    if not one_card:
+        config["tpu"] = dict(config["tpu"], mesh={"ep": ep, "dp": -1})
+    cfg = mixtral_config(n_layer=layers, remat=True, **over)
+    model = GPT(cfg) if one_card else GPT(cfg, parallel=ParallelLayout())
+    return deepspeed_tpu_torch.initialize(model=model, config=config,
+                                          seed=seed)[0]
+
+
+def parallel_batch(rows, vocab=32000, seed=1):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, size=(rows, MISTRAL_SEQ)).astype(np.int64)
+    return {"input_ids": ids, "labels": ids}
+
+
+def parallel_path(make, batch, steps, per_step, *, phase, part,
+                  problems):
+    """``make()``'s engine: ``steps`` captured steps against as many eager
+    ones (``captured_against_eager``), the launches per step and the loss.
+    Returns the line and the captured run's launches."""
+    import numpy as np
+
+    check, launches, losses, norms, times, e_losses, e_times = \
+        captured_against_eager(make, [batch], steps)
+    ms = statistics.median(times[CAPTURE_WARMUP + 1:])
+    line = {"phase": phase, "part": part, "steps": steps, "losses": losses,
+            "grad_norms": norms, "eager_losses": e_losses,
+            "captured_vs_eager": check, "launches": launches,
+            "step_ms_median": ms, "step_ms": times,
+            "peak_allocated_gb": check["peak_allocated_gb"]}
+    emit(line)
+    if not all(np.isfinite(losses)):
+        problems.append(f"{part}: non-finite loss")
+    if not check["identical"]:
+        problems.append(f"{part}: captured and eager steps differ")
+    for name, per in {**per_step, **UNSEGMENTED}.items():
+        if launches[name] != per * steps:
+            problems.append(f"{part}: {name} {launches[name]} launches, "
+                            f"want {per} x {steps}")
+    return line, launches
+
+
+def parallel_one_card():
+    """The world-1 run: Mistral's widths at 2 layers through the tp code
+    path at tp 1 and Mixtral's at 1 layer through the ep path at ep 1
+    (each captured against eager, with its launches), in process on a
+    one-rank NCCL group. Returns the launches by path."""
+    import torch
+
+    from deepspeed_tpu_torch import comm
+
+    problems = []
+    comm.init_distributed()
+    try:
+        tp_line, tp_launches = parallel_path(
+            lambda: parallel_tp_engine(1, PARALLEL_ONE_CARD_TP_LAYERS),
+            parallel_batch(MISTRAL_MICRO), STEPS,
+            {"flash_attention_fwd": 2 * PARALLEL_ONE_CARD_TP_LAYERS,
+             "flash_attention_bwd_dq": PARALLEL_ONE_CARD_TP_LAYERS,
+             "flash_attention_bwd_dkv": PARALLEL_ONE_CARD_TP_LAYERS,
+             "fused_adamw": 1},
+            phase="parallel", part="tp1_train", problems=problems)
+        free_cuda()
+        ep_line, ep_launches = parallel_path(
+            lambda: parallel_ep_engine(1, PARALLEL_ONE_CARD_EP_LAYERS, 1),
+            parallel_batch(1), STEPS,
+            {"flash_attention_fwd": 2 * PARALLEL_ONE_CARD_EP_LAYERS,
+             "flash_attention_bwd_dq": PARALLEL_ONE_CARD_EP_LAYERS,
+             "flash_attention_bwd_dkv": PARALLEL_ONE_CARD_EP_LAYERS,
+             "fused_adamw": 2},
+            phase="parallel", part="ep1_train", problems=problems)
+    finally:
+        free_cuda()
+        comm.destroy_distributed()
+    del tp_line, ep_line
+    torch.cuda.synchronize()
+    if problems:
+        raise AssertionError(f"parallel (world 1): {problems}")
+    return {"parallel_tp_train": tp_launches,
+            "parallel_ep_train": ep_launches}
+
+
+# -- the multi-card run: one process per card (--parallel-rank) -------------
+def parallel_train_references():
+    """Rank 0's group-less references, made before the group: Mistral's 8
+    layers at micro 2 (``STEPS`` captured steps: losses, grad norms, start
+    and final parameters on the host) and Mixtral's 2 layers at the global
+    micro batch of the ep run."""
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    out = {}
+    for key, make, batches in (
+            ("mistral", lambda: parallel_tp_engine(
+                1, MISTRAL_TRAIN_LAYERS, one_card=True),
+             parallel_train_batches(MISTRAL_MICRO, 100)),
+            ("mixtral", lambda: parallel_ep_engine(
+                1, MIXTRAL_TRAIN_LAYERS, PARALLEL_EP * PARALLEL_MIXTRAL_ROWS,
+                one_card=True, **PARALLEL_MIXTRAL_TRAIN),
+             parallel_train_batches(PARALLEL_EP * PARALLEL_MIXTRAL_ROWS,
+                                    200))):
+        free_cuda()
+        eng = make()
+        start = {k: v.cpu() for k, v in eng.module.state_dict().items()}
+        losses, norms, times = train_steps(
+            eng, iter(RepeatingLoader(batches)), STEPS)
+        out[key] = {"losses": [float(x) for x in losses],
+                    "grad_norms": [float(x) for x in norms],
+                    "step_ms": times, "start": start,
+                    "final": {k: v.cpu() for k, v in
+                              eng.module.state_dict().items()}}
+        del eng
+        free_cuda()
+    return out
+
+
+def parallel_train_batches(rows, seed):
+    """``STEPS`` distinct [rows, 4096] batches."""
+    return [parallel_batch(rows, seed=seed + i) for i in range(STEPS)]
+
+
+def parallel_within_bounds(vs):
+    """``within_zero_bounds`` with the tp forward's first-step bound."""
+    return within_zero_bounds(dict(
+        vs, grad_norm_rel_err_by_step=[0.0] + vs[
+            "grad_norm_rel_err_by_step"][1:])) and vs[
+        "grad_norm_rel_err_by_step"][0] <= PARALLEL_GNORM_FIRST_REL_TOL
+
+
+def parallel_vs(losses, norms, params, ref):
+    """A run against a reference: the zero phase's measures
+    (``within_zero_bounds``)."""
+    by_step = rel_errs(norms, ref["grad_norms"])
+    return {"loss_rel_err": max(rel_errs(losses, ref["losses"])),
+            "grad_norm_rel_err": max(by_step),
+            "grad_norm_rel_err_by_step": by_step,
+            "update_rel_l2": update_rel_l2(params, ref["final"],
+                                           ref["start"])}
+
+
+def parallel_prompts(vocab=32000, seed=3):
+    """The 4 ragged prompts (``MISTRAL_PROMPT_LENGTHS``), as lists and as
+    one left-padded [4, 512] batch with its mask."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, vocab, size=n).tolist()
+               for n in MISTRAL_PROMPT_LENGTHS]
+    T = PARALLEL_PROMPT_BUCKET
+    ids = torch.zeros((len(prompts), T), dtype=torch.long)
+    mask = torch.zeros((len(prompts), T), dtype=torch.bool)
+    for i, p in enumerate(prompts):
+        ids[i, T - len(p):] = torch.tensor(p)
+        mask[i, T - len(p):] = True
+    return prompts, ids.cuda(), mask.cuda()
+
+
+def parallel_serve(rank, world, dtype):
+    """Mistral-7B at 32 layers served at tp ``world`` in ``dtype`` against
+    the one-card engine (rank 0 builds it) on the same random weights:
+    ``forward`` [2, 4096] within ``PARALLEL_LOGITS_REL_L2``, the decode
+    graphs against eager decode bit for bit, greedy tokens of 4 ragged
+    prompts against the one-card engine's under the near-tie rule, ms per
+    decode step of 8 lanes against one card's, B1 launches per forward."""
+    import torch
+
+    from deepspeed_tpu_torch import comm, init_inference
+    from deepspeed_tpu_torch.models.transformer_lm import GPT
+
+    cfg = mistral_config()
+    ids = torch.from_numpy(parallel_batch(2, seed=4)["input_ids"]).cuda()
+    prompts, pids, pmask = parallel_prompts()
+    out, ref = {"dtype": dtype}, None
+    if rank == 0:
+        ref = init_inference(GPT(cfg), dtype=dtype, seed=0)
+        ref_logits = ref.forward(ids, eager=True)
+        ref_tokens = ref.generate(pids, PARALLEL_NEW_TOKENS,
+                                  attention_mask=pmask).tolist()
+        out["one_card_decode_step_ms"] = decode_step_ms(ref, reps=10)[0]
+    comm.barrier()
+    eng = init_inference(GPT(cfg), dtype=dtype, mp_size=world, seed=0)
+    out["state_gb"] = torch.cuda.memory_allocated() / 1e9
+    eng.forward(ids)                              # the warm-up
+    reset_launches()
+    logits = eng.forward(ids)                     # the captured graph
+    out["forward_launches"] = read_launches()
+    out["decode_graphs"] = compare_decode(eng, pids, pmask,
+                                          n=PARALLEL_NEW_TOKENS)
+    tokens = eng.generate(pids, PARALLEL_NEW_TOKENS,
+                          attention_mask=pmask).tolist()
+    out["decode_step_ms"] = decode_step_ms(eng, reps=10)[0]
+    out["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if rank == 0:
+        out["logits_rel_l2"] = _rel_l2(logits, ref_logits)
+        out["logits_finite"] = bool(torch.isfinite(logits).all())
+        out["parts"], out["token_problems"] = token_parts(
+            ref, prompts, tokens, ref_tokens, PARALLEL_PROMPT_BUCKET)
+        out["tokens_equal"] = sum(a == b for a, b in zip(tokens, ref_tokens))
+        out["speedup_vs_one_card"] = (out["one_card_decode_step_ms"]
+                                      / out["decode_step_ms"])
+        del ref_logits
+    del eng, ref, logits
+    free_cuda()
+    comm.barrier()
+    return out
+
+
+def parallel_mistral_train(rank, world, refs, tag_dir):
+    """Mistral-7B's widths under tp: 8 layers at tp ``world`` (12 captured
+    steps against 12 eager ones, and against the one-card reference within
+    the zero bounds), tp 2 x dp 2 at stages 1 and 3 against both, a tag
+    saved at tp ``world`` (1 layer) served on one card bit for bit the
+    gathered state, and all 32 layers at tp ``world`` captured against
+    eager with its launches, step time, TFLOP/s and peak memory."""
+    import torch
+
+    from deepspeed_tpu_torch import comm, init_inference
+    from deepspeed_tpu_torch.models.transformer_lm import GPT
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    problems, out = [], {}
+    batch = parallel_batch(MISTRAL_MICRO)
+    batches = parallel_train_batches(MISTRAL_MICRO, 100)
+    kept = {}
+
+    def keep(engine):
+        params = engine.params                     # gathered: collective
+        if rank == 0:
+            kept["vs"] = params
+        del params
+
+    line, launches = parallel_path(
+        lambda: parallel_tp_engine(world, MISTRAL_TRAIN_LAYERS), batch,
+        STEPS, MISTRAL_PER_STEP, phase="parallel", part=f"tp{world}_train",
+        problems=problems)
+    del line
+    # the same run again, captured only, for the comparison with the
+    # reference (captured_against_eager keeps no parameters)
+    runs = {}
+    for name, tp, stage in ((f"tp{world}", world, 1),
+                            ("tp2_dp2_stage1", 2, 1),
+                            ("tp2_dp2_stage3", 2, 3)):
+        free_cuda()
+        dp = world // tp
+        eng = parallel_tp_engine(tp, MISTRAL_TRAIN_LAYERS, stage=stage,
+                                 micro=MISTRAL_MICRO // dp)
+        losses, norms, times = train_steps(
+            eng, iter(RepeatingLoader(batches)), STEPS)
+        keep(eng)
+        del eng
+        free_cuda()
+        if rank == 0:
+            params = {k: v.cuda() for k, v in kept.pop("vs").items()}
+            run = {"losses": [float(x) for x in losses],
+                   "grad_norms": [float(x) for x in norms],
+                   "step_ms_median": statistics.median(
+                       times[CAPTURE_WARMUP + 1:]),
+                   "vs_one_card": parallel_vs(
+                       [float(x) for x in losses], [float(x) for x in norms],
+                       params, refs["mistral"])}
+            if runs:
+                first = runs[f"tp{world}"]
+                run["vs_tp"] = parallel_vs(
+                    run["losses"], run["grad_norms"], params,
+                    {"losses": first["losses"],
+                     "grad_norms": first["grad_norms"],
+                     "start": refs["mistral"]["start"],
+                     "final": first["final"]})
+            run["final"] = {k: v.cpu() for k, v in params.items()}
+            del params
+            runs[name] = run
+            for key in ("vs_one_card", "vs_tp"):
+                if key in run and not parallel_within_bounds(run[key]):
+                    problems.append(f"{name} {key} outside the zero bounds: "
+                                    f"{run[key]}")
+    if rank == 0:
+        out["runs"] = {k: {kk: vv for kk, vv in v.items() if kk != "final"}
+                       for k, v in runs.items()}
+    runs.clear()
+    free_cuda()
+
+    # a tag at tp `world`, served on one card
+    eng = parallel_tp_engine(world, PARALLEL_TAG_LAYERS)
+    it = iter(RepeatingLoader([batch]))
+    for _ in range(PARALLEL_TAG_STEPS):
+        eng.train_batch(it)
+    t0 = time.perf_counter()
+    eng.save_checkpoint(tag_dir)
+    out["tag_save_s"] = time.perf_counter() - t0
+    whole = eng.params
+    del eng
+    free_cuda()
+    if rank == 0:
+        tag = os.path.join(tag_dir, f"global_step{PARALLEL_TAG_STEPS}")
+        one = init_inference(GPT(mistral_config(n_layer=PARALLEL_TAG_LAYERS)),
+                             dtype="bf16", checkpoint=tag)
+        diff = first_difference(whole, one.params)
+        ids = torch.from_numpy(batch["input_ids"]).cuda()
+        served = bool(torch.isfinite(one.forward(ids)).all())
+        out["tag"] = {"served_bit_for_bit": diff is None,
+                      "first_difference": diff, "forward_finite": served}
+        if diff is not None or not served:
+            problems.append(f"the tp tag on one card: {out['tag']}")
+        del one
+    del whole
+    free_cuda()
+    comm.barrier()
+
+    # all 32 layers at tp `world`
+    torch.cuda.reset_peak_memory_stats()
+    full, full_launches = parallel_full_run(world, batch, problems)
+    out["full"] = full
+    return out, launches, full_launches, problems
+
+
+def parallel_full_run(world, batch, problems):
+    """All 32 layers of Mistral-7B at tp ``world``: ``PARALLEL_FULL_STEPS``
+    captured steps against as many eager ones, each rank's shard compared
+    (no rank holds the gathered 14.5 GB twice), the loss falling."""
+    import torch
+
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    steps = PARALLEL_FULL_STEPS
+    runs = []
+    for eager in (False, True):
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        eng = parallel_tp_engine(world, MISTRAL_7B["n_layer"])
+        state_gb = torch.cuda.memory_allocated() / 1e9
+        losses, norms, times = train_steps(
+            eng, iter(RepeatingLoader([batch])), steps, eager=eager)
+        launches = read_launches()
+        shard = {k: v.clone() for k, v in eng.module.state_dict().items()}
+        runs.append({"losses": losses, "norms": norms, "times": times,
+                     "launches": launches, "shard": shard,
+                     "state_gb": state_gb,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del eng
+        if not eager:
+            runs[0]["shard"] = {k: v.cpu() for k, v in shard.items()}
+        del shard
+    cap, eag = runs
+    diff = first_difference({k: v.cuda() for k, v in cap["shard"].items()},
+                            eag["shard"])
+    identical = (diff is None and identical_floats(cap, eag))
+    ms = statistics.median(cap["times"][CAPTURE_WARMUP + 1:])
+    tokens = batch["input_ids"].size
+    cfg = mistral_config()
+    tflops = tokens * gpt_flops_per_token(cfg, MISTRAL_SEQ) / ms / 1e9
+    line = {"phase": "parallel", "part": f"tp{world}_train_32_layers",
+            "steps": steps, "losses": [float(x) for x in cap["losses"]],
+            "eager_losses": [float(x) for x in eag["losses"]],
+            "captured_identical_to_eager": identical,
+            "first_difference": diff, "launches": cap["launches"],
+            "step_ms_median": ms, "step_ms": cap["times"],
+            "eager_step_ms_median": statistics.median(
+                eag["times"][CAPTURE_WARMUP + 1:]),
+            "model_tflops_per_s": tflops,
+            "model_tflops_per_s_per_card": tflops / world,
+            "state_gb_per_rank": cap["state_gb"],
+            "peak_allocated_gb_per_rank": cap["peak_gb"],
+            "eager_peak_allocated_gb_per_rank": eag["peak_gb"]}
+    emit(line)
+    losses = line["losses"]
+    if not identical:
+        problems.append("32 layers: captured and eager steps differ")
+    if not losses[-1] < losses[0]:
+        problems.append(f"32 layers: the loss did not fall: {losses}")
+    for name, per in {**PARALLEL_FULL_PER_STEP, **UNSEGMENTED}.items():
+        if cap["launches"][name] != per * steps:
+            problems.append(f"32 layers: {name} {cap['launches'][name]} "
+                            f"launches, want {per} x {steps}")
+    runs.clear()
+    free_cuda()
+    return line, cap["launches"]
+
+
+def identical_floats(a, b):
+    """Whether two runs' losses and grad norms are equal bit for bit."""
+    return (identical(a["losses"], b["losses"])
+            and identical(a["norms"], b["norms"]))
+
+
+def parallel_mixtral(rank, world, refs):
+    """Mixtral-8x7B under ep ``world``: ``forward`` [1, 4096] at 16 layers
+    against the one-card engine (rank 0), all 32 layers served (``forward``
+    and the decode graphs against eager), and 2 layers trained against the
+    one-card reference."""
+    import torch
+
+    from deepspeed_tpu_torch import comm, init_inference
+    from deepspeed_tpu_torch.models.transformer_lm import GPT
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    problems, out = [], {}
+    ids = torch.from_numpy(parallel_batch(1, seed=5)["input_ids"]).cuda()
+    cfg16 = mixtral_config(n_layer=PARALLEL_MIXTRAL_CMP_LAYERS)
+    ref_logits = None
+    if rank == 0:
+        ref = init_inference(GPT(cfg16), dtype="bf16", seed=0)
+        ref_logits = ref.forward(ids, eager=True).cpu()
+        del ref
+        free_cuda()
+    comm.barrier()
+    eng = init_inference(GPT(cfg16), dtype="bf16", ep_size=world, seed=0)
+    logits = eng.forward(ids, eager=True)
+    if rank == 0:
+        out["cmp_16_layers_logits_rel_l2"] = _rel_l2(logits.cpu(), ref_logits)
+        if not out["cmp_16_layers_logits_rel_l2"] <= PARALLEL_LOGITS_REL_L2:
+            problems.append(f"Mixtral 16 layers at ep {world} against one "
+                            f"card: {out['cmp_16_layers_logits_rel_l2']}")
+    del eng, logits, ref_logits
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+
+    eng = init_inference(GPT(mixtral_config()), dtype="bf16", ep_size=world,
+                         seed=0)
+    out["serve_32_layers_state_gb_per_rank"] = \
+        torch.cuda.memory_allocated() / 1e9
+    eng.forward(ids)
+    reset_launches()
+    logits = eng.forward(ids)
+    out["serve_32_layers_forward_launches"] = read_launches()
+    out["serve_32_layers_logits_finite"] = bool(torch.isfinite(logits).all())
+    _, pids, pmask = parallel_prompts()
+    _, _, same = mistral_decode_logits(eng, pids[:2], pmask[:2])
+    out["serve_32_layers_decode_graphs_identical"] = same
+    out["serve_32_layers_peak_gb_per_rank"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    if not (all(same) and out["serve_32_layers_logits_finite"]):
+        problems.append(f"Mixtral 32 layers at ep {world}: decode graphs "
+                        f"{same}, finite {out['serve_32_layers_logits_finite']}")
+    if out["serve_32_layers_forward_launches"]["flash_attention_fwd"] != 32:
+        problems.append("Mixtral 32 layers: B1 launches per forward "
+                        f"{out['serve_32_layers_forward_launches']}")
+    del eng, logits
+    free_cuda()
+    comm.barrier()
+
+    batches = parallel_train_batches(world * PARALLEL_MIXTRAL_ROWS, 200)
+    reset_launches()
+    eng = parallel_ep_engine(world, MIXTRAL_TRAIN_LAYERS,
+                             PARALLEL_MIXTRAL_ROWS, **PARALLEL_MIXTRAL_TRAIN)
+    losses, norms, times = train_steps(
+        eng, iter(RepeatingLoader(batches)), STEPS)
+    launches = read_launches()
+    params = eng.params
+    out["train_launches"] = launches
+    out["train_step_ms_median"] = statistics.median(
+        times[CAPTURE_WARMUP + 1:])
+    out["train_peak_gb_per_rank"] = torch.cuda.max_memory_allocated() / 1e9
+    for name, per in {**PARALLEL_MIXTRAL_PER_STEP, **UNSEGMENTED}.items():
+        if launches[name] != per * STEPS:
+            problems.append(f"Mixtral ep train: {name} {launches[name]} "
+                            f"launches, want {per} x {STEPS}")
+    if rank == 0:
+        vs = parallel_vs([float(x) for x in losses],
+                         [float(x) for x in norms], params, refs["mixtral"])
+        ref = refs["mixtral"]
+        for part, keep in (("experts", lambda k: ".experts." in k),
+                           ("other", lambda k: ".experts." not in k)):
+            vs[f"update_rel_l2_{part}"] = update_rel_l2(
+                {k: v for k, v in params.items() if keep(k)}, ref["final"],
+                ref["start"])
+        out["train_vs_one_card"] = vs
+        out["train_losses"] = [float(x) for x in losses]
+        if not (parallel_within_bounds(dict(vs, update_rel_l2=0.0))
+                and vs["update_rel_l2"] <= PARALLEL_MOE_UPDATE_REL_L2):
+            problems.append(f"Mixtral ep train outside the bounds: {vs}")
+    del eng, params
+    free_cuda()
+    return out, launches, problems
+
+
+def parallel_rank(rank, world, url):
+    """One rank of the multi-card run: rank 0's group-less references
+    first, then every rank joins the NCCL group and runs the parts."""
+    from datetime import timedelta
+
+    import torch
+
+    from deepspeed_tpu_torch import comm
+
+    torch.cuda.set_device(rank)
+    t0 = time.perf_counter()
+    refs = parallel_train_references() if rank == 0 else None
+    ref_s = time.perf_counter() - t0
+    comm.init_distributed(init_method=url, rank=rank, world_size=world,
+                          timeout=timedelta(seconds=PARALLEL_GROUP_TIMEOUT_S))
+    out = {"rank": rank, "references_s": ref_s, "seconds": {}}
+    problems = []
+    try:
+        for dtype in ("bf16", "int8"):
+            t = time.perf_counter()
+            out[f"serve_{dtype}"] = parallel_serve(rank, world, dtype)
+            out["seconds"][f"serve_{dtype}"] = time.perf_counter() - t
+        t = time.perf_counter()
+        train, launches, full_launches, p = parallel_mistral_train(
+            rank, world, refs, os.path.join(PARALLEL_DIR, "tag"))
+        out["seconds"]["train"] = time.perf_counter() - t
+        out["train"], out["train_launches"] = train, launches
+        out["full_launches"] = full_launches
+        problems += p
+        t = time.perf_counter()
+        out["mixtral"], out["mixtral_launches"], p = parallel_mixtral(
+            rank, world, refs)
+        out["seconds"]["mixtral"] = time.perf_counter() - t
+        problems += p
+    finally:
+        comm.destroy_distributed()
+    for dtype in ("bf16", "int8"):
+        s = out[f"serve_{dtype}"]
+        if rank == 0:
+            if not (s["logits_finite"]
+                    and s["logits_rel_l2"] <= PARALLEL_LOGITS_REL_L2):
+                problems.append(f"serve {dtype}: logits {s['logits_rel_l2']}")
+            problems += [f"serve {dtype}: {x}" for x in s["token_problems"]]
+        if not s["decode_graphs"]["identical"]:
+            problems.append(f"serve {dtype}: decode graphs differ from eager")
+        if s["forward_launches"]["flash_attention_fwd"] != MISTRAL_7B[
+                "n_layer"]:
+            problems.append(f"serve {dtype}: B1 launches per forward "
+                            f"{s['forward_launches']}")
+    out["problems"] = problems
+    return out
+
+
+def parallel_rank_main(argv):
+    """``chip_smoke.py --parallel-rank RANK WORLD URL OUT``: one rank's
+    process; its results go to OUT as JSON."""
+    rank, world, url, out = argv
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    result = parallel_rank(int(rank), int(world), url)
+    with open(out, "w") as f:
+        json.dump(result, f, default=str)
+    return 0
+
+
+def parallel_spawn(world):
+    """One process per card (``--parallel-rank``), a file rendezvous under
+    build/; every process is waited for or killed."""
+    rdv = os.path.join(os.path.abspath(PARALLEL_DIR), "rendezvous")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    procs, outs, logs = [], [], []
+    for r in range(world):
+        outs.append(os.path.join(PARALLEL_DIR, f"rank{r}.json"))
+        logs.append(open(os.path.join(PARALLEL_DIR, f"rank{r}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+             str(r), str(world), f"file://{rdv}", outs[-1]],
+            stdout=logs[-1], stderr=subprocess.STDOUT,
+            env=dict(os.environ, LOCAL_RANK=str(r))))
+    deadline = time.monotonic() + PARALLEL_RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        for r in failed:
+            with open(os.path.join(PARALLEL_DIR, f"rank{r}.log")) as f:
+                print(f"--- parallel rank {r} log (tail) ---\n"
+                      f"{f.read()[-3000:]}", flush=True)
+        raise AssertionError(f"parallel: ranks {failed} failed")
+    results = []
+    for path in outs:
+        with open(path) as f:
+            results.append(json.load(f))
+    return results
+
+
+def phase_parallel():
+    """Tensor and expert parallelism (ROADMAP A.9 part 1) over NCCL: at
+    world >= ``PARALLEL_MIN_WORLD`` one process per card serving and
+    training Mistral-7B at tp 4 and Mixtral-8x7B at ep 4 (the first
+    ``PARALLEL_MIN_WORLD`` cards); always, in process on one card, the tp
+    path at tp 1 and the ep path at ep 1. Returns the launches by path."""
+    import shutil
+
+    import torch
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    world = torch.cuda.device_count()
+    paths = parallel_one_card()
+    if world >= PARALLEL_MIN_WORLD:
+        if os.path.exists(PARALLEL_DIR):
+            shutil.rmtree(PARALLEL_DIR)
+        os.makedirs(PARALLEL_DIR)
+        free_cuda()
+        try:
+            results = parallel_spawn(PARALLEL_MIN_WORLD)
+        finally:
+            shutil.rmtree(os.path.join(PARALLEL_DIR, "tag"),
+                          ignore_errors=True)
+        r0 = results[0]
+        emit({"phase": "parallel", "part": "ranks", "world":
+              PARALLEL_MIN_WORLD, "rank0": r0,
+              "others": [{k: r.get(k) for k in ("rank", "seconds",
+                                                "problems")}
+                         for r in results[1:]]})
+        problems = [f"rank {r['rank']}: {p}" for r in results
+                    for p in r["problems"]]
+        if problems:
+            raise AssertionError(f"parallel: {problems}")
+        paths.update({f"parallel_tp{PARALLEL_TP}_train": r0["train_launches"],
+                      f"parallel_tp{PARALLEL_TP}_train_32_layers":
+                          r0["full_launches"],
+                      f"parallel_ep{PARALLEL_EP}_train":
+                          r0["mixtral_launches"]})
+    emit({"phase": "parallel", "part": "done", "nvidia_smi": smi,
+          "world": world, "seconds": time.perf_counter() - t0})
+    return paths
+
+
 def main(argv):
     import torch
 
@@ -9211,12 +9958,14 @@ def main(argv):
                                                 "train_options",
                                                 "sparse_gpt",
                                                 "bert_options",
-                                                "serving", "frontdoor")))
-             or (len(argv) == 6 and argv[1] == "--zero-rank"))
+                                                "serving", "frontdoor",
+                                                "parallel")))
+             or (len(argv) == 6 and argv[1] in ("--zero-rank",
+                                                "--parallel-rank")))
     if not usage:
         print(f"usage: {argv[0]} [--against OTHER_CHECKOUT | "
               "--only zero|data|mistral|neox|moe|train_options|sparse_gpt"
-              "|bert_options|serving|frontdoor]", file=sys.stderr)
+              "|bert_options|serving|frontdoor|parallel]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -9230,6 +9979,8 @@ def main(argv):
         return 1
     if argv[1:2] == ["--zero-rank"]:
         return zero_rank_main(argv[2:])
+    if argv[1:2] == ["--parallel-rank"]:
+        return parallel_rank_main(argv[2:])
     if argv[1:2] == ["--against"]:
         ok = phase_against(argv[2])
         print(nvidia_smi_line(), flush=True)
@@ -9268,6 +10019,8 @@ def main(argv):
             emit({"serving_launches_by_path": phase_serving()})
         elif argv[2] == "frontdoor":
             emit({"frontdoor_launches_by_path": phase_frontdoor()})
+        elif argv[2] == "parallel":
+            emit({"parallel_launches_by_path": phase_parallel()})
         else:
             emit({"data_launches": phase_data()[0]})
         print(smi, flush=True)
@@ -9307,13 +10060,15 @@ def main(argv):
     bert_paths = run("bert_options", phase_bert_options)
     serving_paths = run("serving", phase_serving)
     frontdoor_paths = run("frontdoor", phase_frontdoor)
+    parallel_paths = run("parallel", phase_parallel)
     emit({"phase_seconds": phase_seconds,
           "total_seconds": time.perf_counter() - started})
     paths = {"serve": serve_launches, "train": launches,
              "checkpoint": ckpt_launches, "sparse_train": sparse_launches,
              **zero_paths, "data": data_launches, **mistral_paths,
              **neox_paths, **moe_paths, **option_paths, **sparse_gpt_paths,
-             **bert_paths, **serving_paths, **frontdoor_paths}
+             **bert_paths, **serving_paths, **frontdoor_paths,
+             **parallel_paths}
     for entry in kernels:
         # each slice's main path, its counts set to 0 just before it: serving
         # runs B1, GPT training, the checkpoint path, ZeRO (stages 0-2, and
@@ -9327,11 +10082,15 @@ def main(argv):
         # options (each remat policy under dropout, PLD: B5-B7, B4; the
         # dense BERT: B4), and serving's forward graph (B1 per layer in
         # each replay) and scheduler (its cache path runs no kernel), and
-        # the front door's runs (none either).
+        # the front door's runs (none either), and the parallel phase's
+        # tp path (Mistral's widths at tp 1: B1-B4) and ep path (Mixtral's
+        # at ep 1: B1-B4).
         # "launches" is the count on the newest path that runs the kernel
         name = entry["name"]
         entry["launches_by_path"] = {p: counts[name] for p, counts in paths.items()}
-        entry["launches"] = (serving_paths["serving_forward"][name]
+        entry["launches"] = (parallel_paths["parallel_tp_train"][name]
+                             or parallel_paths["parallel_ep_train"][name]
+                             or serving_paths["serving_forward"][name]
                              or bert_paths["bert_selective"][name]
                              or sparse_gpt_paths["sparse_gpt_train"][name]
                              or option_paths["remat_selective"][name]

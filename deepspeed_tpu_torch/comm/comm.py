@@ -17,9 +17,11 @@ Two layers, as in the JAX package:
    collective on a one-rank axis still runs through its group (at world 1
    a one-rank NCCL group), so the path is the same at every size.
    ``ReduceOp.AVG`` is a SUM and a division (gloo's AVG depends on the
-   torch version). ``all_to_all_single`` (JAX :97) runs over a data
-   axis; over tp, pp, ep or sp it raises until those axes are ported
-   (ROADMAP A.9), as ``ppermute`` does.
+   torch version). ``all_to_all_single`` (JAX :97) runs over any axis but
+   pp and sp, which raise until those axes are ported (ROADMAP A.9 parts
+   2-3), as ``ppermute`` does. A set of several axes of size > 1 that do not
+   span the world resolves to the group of this rank's slice over them
+   (``MeshTopology.group``).
 
    ``axis_index_groups`` (the JAX ``lax`` collectives' argument, which the
    compressed and hierarchical exchanges pass) splits the axis into
@@ -94,9 +96,7 @@ def _resolve(axis: Axis):
         return dist.group.WORLD, size
     active = [a for a in axes if topo.size(a) > 1]
     if len(active) > 1:
-        raise NotImplementedError(
-            f"a collective over several mesh axes {axes} that do not span "
-            "the world is not ported yet (ROADMAP A.9)")
+        return topo.group(tuple(active)), size
     return topo.group(active[0] if active else axes[0]), size
 
 
@@ -240,14 +240,13 @@ def all_to_all_single(x: torch.Tensor, axis: Axis, split_dim: int = 0,
     """JAX :97 (``lax.all_to_all(tiled=True)``): ``x`` split into ``w``
     equal blocks along ``split_dim``, block j sent to the axis's rank j,
     and the ``w`` blocks received concatenated along ``concat_dim`` in rank
-    order (a new tensor). Over the data axes; tp, pp, ep and sp raise
-    (ROADMAP A.9)."""
+    order (a new tensor). pp and sp raise (ROADMAP A.9 parts 2-3)."""
     axes = (axis,) if isinstance(axis, str) else tuple(axis or ())
-    unported = [a for a in axes if a not in ("dp", "fsdp")]
+    unported = [a for a in axes if a in ("pp", "sp")]
     if unported:
         raise NotImplementedError(
-            f"all_to_all_single over {unported} waits for the other mesh "
-            "axes (ROADMAP A.9)")
+            f"all_to_all_single over {unported} waits for the pipeline and "
+            "sequence axes (ROADMAP A.9 parts 2-3)")
     group, world = _group_of(axis, axis_index_groups)
     split_dim %= x.dim()
     if x.shape[split_dim] % world:
@@ -267,7 +266,8 @@ def all_to_all_single(x: torch.Tensor, axis: Axis, split_dim: int = 0,
 
 def ppermute(x, axis: str, perm):
     raise NotImplementedError(
-        "ppermute waits for the pipeline and sequence axes (ROADMAP A.9)")
+        "ppermute waits for the pipeline and sequence axes (ROADMAP A.9 "
+        "parts 2-3)")
 
 
 def send_recv_next(x, axis: str, axis_size: int):
@@ -359,11 +359,13 @@ def init_distributed(dist_backend: Optional[str] = None,
 
 def destroy_distributed() -> None:
     """Tear the default process group down (and the default topology)."""
-    from deepspeed_tpu_torch.parallel.mesh import reset_default_topology
+    from deepspeed_tpu_torch.parallel.mesh import (clear_group_cache,
+                                                   reset_default_topology)
 
     if is_initialized():
         dist.destroy_process_group()
     _index_groups.clear()
+    clear_group_cache()
     reset_default_topology()
 
 

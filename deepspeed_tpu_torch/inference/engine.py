@@ -52,8 +52,25 @@ A mixture-of-experts model serves at its eval capacity factor (the module
 is in eval mode) with every expert on the card; its gating reads nothing
 back to the host, so the decode runs capture like a dense model's.
 
-Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
-when torch sees no card. Pass ``device="cpu"`` to run on the host.
+Tensor and expert parallelism (``tensor_parallel.tp_size`` or ``mp_size``,
+``ep_size``; JAX :151-167 builds one ``MeshTopology(tp=, ep=, dp=)``): under
+a process group of one process per card, the engine registers that mesh and
+serves the rank's shard of the model (``GPT(config, parallel=...)``,
+``parallel/tensor.py``): attention on the rank's heads with the per-layer
+all-reduces inside every graph, the vocab-parallel head's logits gathered
+over tp, so every rank picks the same token (sampling draws from a
+generator seeded alike on every rank), the KV cache of the rank's KV heads
+(int8 included), and under ep the rank's experts on the slots of rows that
+every rank holds, their outputs gathered over ep. Weights given whole (a
+``state_dict``, a checkpoint of any layout, or random from ``seed``) are
+cut to the rank's shard as they are placed; int8 quantizes the whole weight
+first, so the codes and scales are the one-card engine's. The
+continuous-batching scheduler and the serving front door stay on one card
+(ROADMAP A.9 part 2).
+
+Entry points run on the card: ``device=None`` means ``"cuda"`` (under a
+group ``cuda:{local_rank}``) and raises when torch sees no card. Pass
+``device="cpu"`` to run on the host.
 """
 
 import collections
@@ -65,6 +82,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.models.transformer_lm import (GPT, KVCache,
                                                        kv_cache,
                                                        materialize_gpt,
@@ -219,12 +237,7 @@ class InferenceEngine:
                 "ported (ROADMAP A.12)")
         tp_size = int(config.get("tensor_parallel", {}).get("tp_size", 1))
         ep_size = int(config.get("moe", {}).get("ep_size", 1))
-        for what, unported in (
-                ("tensor parallelism (tp_size > 1)", tp_size != 1),
-                ("expert parallelism (ep_size > 1)", ep_size != 1)):
-            if unported:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP A.9)")
+        layout = self._layout(model, tp_size, ep_size)
         if config.get("dtype") not in _DTYPES:
             raise ValueError(f"unknown dtype {config.get('dtype')!r}")
         cfg = model.config
@@ -239,14 +252,15 @@ class InferenceEngine:
         if config.get("kv_cache") is not None:
             # JAX :228-244; GPTConfig refuses a value other than "int8"
             cfg = dataclasses.replace(cfg, kv_cache_dtype=config["kv_cache"])
-        if cfg is not model.config:
-            model = GPT(cfg)
+        if cfg is not model.config or layout is not None:
+            model = GPT(cfg, parallel=layout)
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
                     "init_inference runs on a CUDA card by default and torch "
                     "sees none; pass device='cpu' to serve on the host")
-            device = "cuda"
+            device = (f"cuda:{comm.get_local_rank()}"
+                      if comm.is_initialized() else "cuda")
         self.device = torch.device(device)
         self.module = model
         self.dtype = _DTYPES[config.get("dtype")]
@@ -265,8 +279,33 @@ class InferenceEngine:
                 raise ValueError("pass checkpoint or state_dict, not both")
             state_dict = load_checkpoint_weights(config["checkpoint"])
         self._materialize(state_dict)
-        log_dist(f"InferenceEngine: device={self.device}, dtype={self.dtype}",
-                 ranks=[0])
+        if layout is not None:
+            # NCCL's communicators before any capture
+            comm.warm_up(["tp", "ep"], self.device)
+        log_dist(f"InferenceEngine: device={self.device}, dtype={self.dtype}"
+                 + ("" if layout is None else
+                    f", tp={layout.tp}, ep={layout.ep}"), ranks=[0])
+
+    @staticmethod
+    def _layout(model, tp_size: int, ep_size: int):
+        """The rank's ``ParallelLayout`` (rows shared by every ep rank) when
+        tp or ep > 1 or the model was built with a layout (the tp path at
+        size 1), after registering the mesh over the process group; None
+        for the one-card engine."""
+        if tp_size == 1 and ep_size == 1 and model.parallel is None:
+            return None
+        if not comm.is_initialized():
+            raise ValueError(
+                f"tp_size={tp_size}, ep_size={ep_size} serve over a process "
+                "group of one process per card: call deepspeed_tpu_torch."
+                "comm.init_distributed in every rank's process first")
+        from deepspeed_tpu_torch.parallel.mesh import (MeshTopology,
+                                                       set_default_topology)
+        from deepspeed_tpu_torch.parallel.tensor import ParallelLayout
+
+        topo = MeshTopology(tp=tp_size, ep=ep_size, dp=-1)
+        set_default_topology(topo)
+        return ParallelLayout.from_topology(topo, rows_split=False)
 
     def _materialize(self, state_dict):
         """Place the weights on the device in the serving dtype (the model's
@@ -454,7 +493,7 @@ class InferenceEngine:
         steps kept for ``batch``."""
         entry = self._decoders.get(batch)
         if entry is None:
-            cache = kv_cache(self.module.config, batch, self.device)
+            cache = kv_cache(self.module.cache_config, batch, self.device)
             gens = (self._generator,) if self.device.type == "cuda" else ()
             pool = (torch.cuda.graph_pool_handle()
                     if self.device.type == "cuda" else None)
@@ -526,4 +565,12 @@ class InferenceEngine:
 
     @property
     def params(self):
-        return self.module.state_dict()
+        """The model's ``state_dict``, whole (under a layout gathered over
+        tp and ep: a collective, every rank reads it)."""
+        sd = self.module.state_dict()
+        if self.module.parallel is not None:
+            from deepspeed_tpu_torch.parallel.tensor import gather_state_dict
+
+            sd = gather_state_dict(sd, self.module.config,
+                                   self.module.parallel)
+        return sd

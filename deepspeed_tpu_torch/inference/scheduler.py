@@ -236,6 +236,13 @@ class ContinuousBatchingScheduler:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if max_pending is not None and max_pending < 1:
             raise ValueError(f"max_pending must be >= 1, got {max_pending}")
+        for eng in (engine, draft_engine):
+            par = getattr(getattr(eng, "module", None), "parallel", None)
+            if par is not None and (par.tp > 1 or par.ep > 1):
+                raise NotImplementedError(
+                    "the continuous-batching scheduler over an engine with "
+                    "tp or ep > 1 is not ported yet (ROADMAP A.9 part 2); "
+                    "it serves a one-card engine")
         self.engine = engine
         self.slots = int(slots)
         self.temperature = float(temperature)

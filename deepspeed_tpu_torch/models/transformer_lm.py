@@ -31,6 +31,15 @@ drawn from a generator the caller passes), and the serving options
 ``kv_cache_dtype="int8"`` (the int8 decode cache). Config fields of
 features not ported yet raise ``NotImplementedError`` when set away from
 their defaults.
+
+``GPT(config, parallel=ParallelLayout(...))`` builds one rank's shard of
+the model under tensor and expert parallelism (``parallel/tensor.py``,
+ROADMAP A.9 part 1): attention on the rank's heads, the MLP and the
+experts' hidden dimension split column then row, the vocab-parallel
+embedding and head, the rank's experts; the collectives run inside the
+forward. ``gpt_tp_rules`` is JAX's rule (``parallel/tensor.py``), and the
+leaves' local layout is ``parallel.tensor.leaf_spec``'s. Without a layout
+the model is the whole, one-card model.
 """
 
 import dataclasses
@@ -395,17 +404,31 @@ class Dropout(nn.Module):
 class Dense(nn.Linear):
     """flax ``nn.Dense``: weight and bias cast to the compute dtype at use.
     The weight is torch's ``[out, in]``; the JAX kernel is its transpose.
-    ``bias=False`` is ``use_bias=False``: no bias parameter."""
+    ``bias=False`` is ``use_bias=False``: no bias parameter. ``tp_reduce``
+    makes it row parallel: the product of the rank's input columns is
+    all-reduced over tp (``reduce_from_tp``) before the whole bias is
+    added."""
 
-    def __init__(self, in_features, out_features, cfg, bias=True):
+    def __init__(self, in_features, out_features, cfg, bias=True,
+                 tp_reduce=False):
         super().__init__(in_features, out_features, bias=bias,
                          dtype=cfg.param_dtype)
         self.compute_dtype = cfg.dtype
+        self.tp_reduce = tp_reduce
 
     def forward(self, x):
-        dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        return _linear(self, x, self.weight)
+
+
+def _linear(mod, x, weight):
+    dt = mod.compute_dtype
+    bias = None if mod.bias is None else mod.bias.to(dt)
+    if not mod.tp_reduce:
+        return F.linear(x.to(dt), weight.to(dt), bias)
+    from deepspeed_tpu_torch.parallel.tensor import reduce_from_tp
+
+    y = reduce_from_tp(F.linear(x.to(dt), weight.to(dt)))
+    return y if bias is None else y + bias
 
 
 class QuantizedDense(nn.Module):
@@ -435,6 +458,7 @@ class QuantizedDense(nn.Module):
         self.register_buffer("weight_scale", torch.empty(
             self.out_features, dtype=torch.float32, device=dev))
         self.bias = dense.bias
+        self.tp_reduce = dense.tp_reduce
         if getattr(dense, "keep_param_dtype", False):
             self.keep_param_dtype = True
 
@@ -456,9 +480,7 @@ class QuantizedDense(nn.Module):
         return self.weight_q * scale[:, None]
 
     def forward(self, x):
-        dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.dense_weight().to(dt), bias)
+        return _linear(self, x, self.dense_weight())
 
 
 def quantize_blocks(model: nn.Module, dequant_dtype) -> None:
@@ -916,8 +938,11 @@ def einsum_attention(q, k, v, *, causal=True, mask=None, segment_ids=None,
     att = torch.matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1)
                        ).float() * (1.0 / math.sqrt(D))         # [B,H,T,T]
     if alibi:
-        # slopes[h] * key position (JAX :736-742)
-        att = att + alibi_bias(H, T, att.dtype, q.device)[None, :, None, :]
+        # slopes[h] * key position (JAX :736-742); a callable gives the
+        # bias of a tensor-parallel rank's heads
+        bias = (alibi(T, att.dtype, q.device) if callable(alibi)
+                else alibi_bias(H, T, att.dtype, q.device))
+        att = att + bias[None, :, None, :]
     if causal:
         tri = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
         att = att.masked_fill(~tri, torch.finfo(att.dtype).min)
@@ -936,13 +961,21 @@ def einsum_attention(q, k, v, *, causal=True, mask=None, segment_ids=None,
 
 
 class CausalSelfAttention(nn.Module):
-    def __init__(self, cfg: GPTConfig):
+    """Self-attention over the config's heads, or under a ``parallel``
+    layout over the rank's: ``c_attn`` column parallel (the rank's q, k
+    and v heads), ``c_proj`` row parallel."""
+
+    def __init__(self, cfg: GPTConfig, parallel=None):
         super().__init__()
         self.cfg = cfg
+        self.parallel = parallel
+        self.n_head, self.n_kv = (cfg.n_head, cfg.kv_heads) if \
+            parallel is None else parallel.heads(cfg)
         bias = cfg.use_bias if cfg.attn_bias is None else cfg.attn_bias
-        width = (cfg.n_head + 2 * cfg.kv_heads) * cfg.head_dim
+        width = (self.n_head + 2 * self.n_kv) * cfg.head_dim
         self.c_attn = Dense(cfg.n_embd, width, cfg, bias=bias)
-        self.c_proj = Dense(cfg.n_embd, cfg.n_embd, cfg, bias=bias)
+        self.c_proj = Dense(self.n_head * cfg.head_dim, cfg.n_embd, cfg,
+                            bias=bias, tp_reduce=parallel is not None)
         # the probabilities' and the output's dropout (JAX :756, :761)
         self.dropout = Dropout(cfg.dropout)
         # the block-sparse route (JAX :649-667): its layouts, and through
@@ -963,6 +996,14 @@ class CausalSelfAttention(nn.Module):
                                     rotary_dim=cfg.rotary_dim,
                                     interleaved=cfg.rotary_interleaved)
 
+    def _alibi(self, length, dtype, device):
+        """The ALiBi bias of this module's heads (``[H, length]``)."""
+        bias = alibi_bias(self.cfg.n_head, length, dtype, device)
+        if self.parallel is None:
+            return bias
+        return bias.narrow(0, self.parallel.tp_rank * self.n_head,
+                           self.n_head)
+
     def forward(self, x, mask=None, step=None, layer=0, segment_ids=None,
                 positions=None, rng=None):
         """Full forward when ``step`` is None; otherwise the decode path:
@@ -973,9 +1014,14 @@ class CausalSelfAttention(nn.Module):
         (default ``arange(T)``; packed documents restart them); ``rng`` is
         the generator of the dropout masks (training only)."""
         cfg = self.cfg
-        B, T, C = x.shape
-        H, Hkv, D = cfg.n_head, cfg.kv_heads, cfg.head_dim
+        B, T, _ = x.shape
+        H, Hkv, D = self.n_head, self.n_kv, cfg.head_dim
+        C = H * D
         G = H // Hkv
+        if self.parallel is not None:
+            from deepspeed_tpu_torch.parallel.tensor import copy_to_tp
+
+            x = copy_to_tp(x)
         qkv = self.c_attn(x)
         # views into the fused projection, split q | k | v (JAX :399-404):
         # the flash kernel reads them through their strides
@@ -999,8 +1045,8 @@ class CausalSelfAttention(nn.Module):
             att = att.view(B, Hkv, G, T, -1)                    # [B,h,g,T,S]
             if cfg.alibi:
                 # slopes[h] times the absolute cache slot (JAX :624-627)
-                att = att + alibi_bias(H, cfg.n_positions, att.dtype,
-                                       x.device).view(Hkv, G, 1, -1)
+                att = att + self._alibi(cfg.n_positions, att.dtype,
+                                        x.device).view(Hkv, G, 1, -1)
             att = att.masked_fill(step.hidden, torch.finfo(att.dtype).min)
             att = torch.softmax(att.float(), dim=-1)
             # a query that sees nothing gets no weight (JAX's
@@ -1058,7 +1104,8 @@ class CausalSelfAttention(nn.Module):
                                 segment_ids=segment_ids)
         else:
             y = einsum_attention(q, k, v, causal=cfg.causal, mask=mask,
-                                 segment_ids=segment_ids, alibi=cfg.alibi,
+                                 segment_ids=segment_ids,
+                                 alibi=cfg.alibi and self._alibi,
                                  dropout=self.dropout, generator=rng)
         return self.dropout(self.c_proj(y.reshape(B, T, C)), rng)
 
@@ -1067,16 +1114,26 @@ class MLP(nn.Module):
     """``c_proj(act(c_fc(x)))``, or with ``gated_mlp`` (SwiGLU, JAX
     :774-778) ``c_proj(act(c_gate(x)) * c_fc(x))`` in the compute dtype."""
 
-    def __init__(self, cfg: GPTConfig):
+    def __init__(self, cfg: GPTConfig, parallel=None):
         super().__init__()
-        self.c_fc = Dense(cfg.n_embd, cfg.ffn_dim, cfg, bias=cfg.use_bias)
-        self.c_gate = (Dense(cfg.n_embd, cfg.ffn_dim, cfg, bias=cfg.use_bias)
+        # under a layout that splits the hidden dimension: c_fc and c_gate
+        # column parallel, c_proj row parallel (else replicated whole)
+        split = parallel is not None and parallel.splits(cfg.ffn_dim)
+        self.tp = split
+        F_ = cfg.ffn_dim // parallel.tp if split else cfg.ffn_dim
+        self.c_fc = Dense(cfg.n_embd, F_, cfg, bias=cfg.use_bias)
+        self.c_gate = (Dense(cfg.n_embd, F_, cfg, bias=cfg.use_bias)
                        if cfg.gated_mlp else None)
-        self.c_proj = Dense(cfg.ffn_dim, cfg.n_embd, cfg, bias=cfg.use_bias)
+        self.c_proj = Dense(F_, cfg.n_embd, cfg, bias=cfg.use_bias,
+                            tp_reduce=split)
         self.act = _ACTIVATIONS[cfg.activation]
         self.dropout = Dropout(cfg.dropout)  # JAX :783
 
     def forward(self, x, rng=None):
+        if self.tp:
+            from deepspeed_tpu_torch.parallel.tensor import copy_to_tp
+
+            x = copy_to_tp(x)
         h = self.c_fc(x)
         if self.c_gate is not None:
             h = self.act(self.c_gate(x)) * h
@@ -1096,11 +1153,11 @@ class Block(nn.Module):
     input, and ``l_aux`` with it: the block always runs, so the shapes and
     the launches stay what a captured step recorded."""
 
-    def __init__(self, cfg: GPTConfig):
+    def __init__(self, cfg: GPTConfig, parallel=None):
         super().__init__()
         self.parallel_residual = cfg.parallel_residual
         self.ln_1 = _norm(cfg)
-        self.attn = CausalSelfAttention(cfg)
+        self.attn = CausalSelfAttention(cfg, parallel)
         self.ln_2 = _norm(cfg)
         if cfg.is_moe:
             from deepspeed_tpu_torch.moe.layer import MoE
@@ -1113,9 +1170,9 @@ class Block(nn.Module):
                 noisy_gate_policy=cfg.moe_noisy_gate_policy,
                 drop_tokens=cfg.moe_drop_tokens, use_rts=cfg.moe_use_rts,
                 gated_experts=cfg.moe_gated_experts, dtype=cfg.dtype,
-                param_dtype=cfg.param_dtype)
+                param_dtype=cfg.param_dtype, parallel=parallel)
         else:
-            self.mlp = MLP(cfg)
+            self.mlp = MLP(cfg, parallel)
 
     def forward(self, x, mask=None, step=None, layer=0, segment_ids=None,
                 positions=None, noise=None, rng=None, gate=None):
@@ -1154,25 +1211,35 @@ class GPT(nn.Module):
     ``learned_positions``; an untied model has ``lm_head`` (``[n_embd,
     vocab]``, JAX's layout) and ``lm_head_bias`` is ``[vocab]``."""
 
-    def __init__(self, config: GPTConfig):
+    def __init__(self, config: GPTConfig, parallel=None):
         super().__init__()
         self.config = config
+        # the rank's ParallelLayout (parallel/tensor.py), or None: the whole
+        # model
+        self.parallel = parallel
+        vocab = config.vocab_size
+        self._vocab_tp = False
+        if parallel is not None:
+            parallel.check(config)
+            self._vocab_tp = parallel.vocab_parallel(config)
+            if self._vocab_tp:
+                vocab //= parallel.tp
         with torch.device("meta"):
-            self.wte = VocabEmbed(config.vocab_size, config.n_embd, config)
+            self.wte = VocabEmbed(vocab, config.n_embd, config)
             # BLOOM's word_embeddings_layernorm (JAX :1104-1105)
             self.ln_embed = _norm(config) if config.embed_layernorm else None
             self.wpe = (VocabEmbed(config.n_positions, config.n_embd, config)
                         if config.learned_positions else None)
             self.drop = Dropout(config.dropout)  # the embedding's, JAX :1130
-            self.h = nn.ModuleList(Block(config)
+            self.h = nn.ModuleList(Block(config, parallel)
                                    for _ in range(config.n_layer))
             self.ln_f = _norm(config)
             self.lm_head = (None if config.tie_word_embeddings
                             else nn.Parameter(torch.empty(
-                                (config.n_embd, config.vocab_size),
+                                (config.n_embd, vocab),
                                 dtype=config.param_dtype)))
             self.lm_head_bias = (nn.Parameter(torch.empty(
-                config.vocab_size, dtype=config.param_dtype))
+                vocab, dtype=config.param_dtype))
                 if config.lm_head_bias else None)
             if config.quantized_weights:
                 quantize_blocks(self, config.dtype)
@@ -1187,6 +1254,37 @@ class GPT(nn.Module):
     @property
     def blocks(self) -> nn.ModuleList:
         return self.h
+
+    @property
+    def cache_config(self) -> GPTConfig:
+        """The config the decode cache is laid out by: the model's, or
+        under a layout its rank's heads (the KV cache holds the local KV
+        heads)."""
+        if self.parallel is None:
+            return self.config
+        H, Hkv = self.parallel.heads(self.config)
+        return dataclasses.replace(self.config, n_head=H, n_kv_head=Hkv,
+                                   n_embd=H * self.config.head_dim)
+
+    def _embed(self, ids):
+        if self._vocab_tp:
+            from deepspeed_tpu_torch.parallel.tensor import \
+                vocab_parallel_lookup
+
+            return vocab_parallel_lookup(
+                ids, self.wte.weight,
+                self.parallel.vocab_start(self.config), self.config.dtype)
+        return self.wte(ids)
+
+    def _head_input(self, x):
+        """The head's input: under a vocab-parallel head, through
+        ``copy_to_tp`` (each rank's vocabulary slice adds its part of the
+        input's gradient)."""
+        if not self._vocab_tp:
+            return x
+        from deepspeed_tpu_torch.parallel.tensor import copy_to_tp
+
+        return copy_to_tp(x)
 
     def loss_weight_sum(self, input_ids=None, labels=None,
                         attention_mask=None, segment_ids=None, **_):
@@ -1253,7 +1351,7 @@ class GPT(nn.Module):
                 "ALiBi's absolute-position bias is not segment-aware; "
                 "packed batches require rotary or learned positions")
         if decode and cache is None:
-            cache = kv_cache(cfg, B, dev)
+            cache = kv_cache(self.cache_config, B, dev)
         pos = None
         if decode:
             step = cache.step(cfg, attention_mask.bool()
@@ -1272,7 +1370,7 @@ class GPT(nn.Module):
         elif cfg.learned_positions:
             pos = (positions if positions is not None
                    else torch.arange(T, device=dev)[None, :])
-        x = self.wte(input_ids)
+        x = self._embed(input_ids)
         if self.ln_embed is not None:
             x = self.ln_embed(x)
         if self.wpe is not None:
@@ -1320,6 +1418,11 @@ class GPT(nn.Module):
             if decode:
                 raise ValueError("labels and decode=True do not combine")
             chunk = fused_head_engages(cfg, B, T)
+            if chunk and self._vocab_tp and self.parallel.tp > 1:
+                raise NotImplementedError(
+                    "fused_head_ce over a vocab-parallel head (tp > 1) is "
+                    "not ported yet (ROADMAP A.9 part 2); set "
+                    "fused_head_ce=False")
             if chunk:
                 # the fused head + CE (JAX :1199-1213): the [B*T, V] logits
                 # exist one token chunk at a time
@@ -1338,20 +1441,36 @@ class GPT(nn.Module):
             else:
                 # compute-dtype logits (the unfused training head,
                 # :1217-1218), the bias added after the product as in JAX
-                logits = F.linear(x.to(cfg.dtype),
+                logits = F.linear(self._head_input(x).to(cfg.dtype),
                                   self._head_weight(cfg.dtype))
                 if self.lm_head_bias is not None:
                     logits = logits + self.lm_head_bias.to(cfg.dtype)
-                loss = cross_entropy_loss(logits, labels, attention_mask,
-                                          segment_ids)
+                if self._vocab_tp:
+                    from deepspeed_tpu_torch.parallel.tensor import \
+                        vocab_parallel_cross_entropy
+
+                    targets, w = _shifted_targets(labels, attention_mask,
+                                                  segment_ids)
+                    loss = vocab_parallel_cross_entropy(
+                        logits.reshape(B * T, -1), targets.reshape(-1).long(),
+                        w.reshape(-1), self.parallel.vocab_start(cfg))
+                else:
+                    loss = cross_entropy_loss(logits, labels, attention_mask,
+                                              segment_ids)
             if cfg.is_moe:
                 # the layers' mean load-balancing loss, with its coefficient
                 loss = loss + cfg.moe_aux_loss_coef * torch.stack(
                     l_aux).sum() / cfg.n_layer
             return loss
-        logits = _tied_head(x, self._head_weight(cfg.dtype))
+        logits = _tied_head(self._head_input(x), self._head_weight(cfg.dtype))
         if self.lm_head_bias is not None:
             logits = logits + self.lm_head_bias.float()
+        if self._vocab_tp:
+            # every rank gets the whole vocabulary's logits (so greedy and
+            # sampled tokens agree across the ranks)
+            from deepspeed_tpu_torch.parallel.tensor import gather_from_tp
+
+            logits = gather_from_tp(logits, self.parallel, dim=-1)
         if decode:
             cache.index += T
             cache.lengths += T
@@ -1379,15 +1498,38 @@ def materialize_gpt(model: GPT, device, generator: torch.Generator,
     the whole model is never held dense beside its int8 copy."""
     keep = dtype is None
     dtype = dtype or model.config.param_dtype
+    par = getattr(model, "parallel", None)
     if state_dict is not None:
-        model.load_state_dict(quantize_state_dict(model, state_dict),
-                              assign=True)
+        state_dict = quantize_state_dict(model, state_dict)
+        if par is not None:
+            # whole (and quantized whole: the codes and scales are the
+            # one-card model's), then the rank's shard
+            from deepspeed_tpu_torch.parallel.tensor import shard_state_dict
+
+            state_dict = shard_state_dict(state_dict, model.config, par)
+        model.load_state_dict(state_dict, assign=True)
         _cast_params(model, dtype, keep)
         model.to(device)
         return
     from deepspeed_tpu_torch.moe.experts import StackedExperts
 
     model.to_empty(device=device)
+    shapes = None
+    if par is not None:
+        from deepspeed_tpu_torch.parallel.tensor import (shard_tensor,
+                                                         whole_shapes)
+
+        shapes = whole_shapes(model.config)
+
+    def whole(prefix, leaf, t, dtype=None):
+        """``(draw target, commit)``: under a layout each leaf is drawn
+        whole (the one-card model's numbers, one leaf at a time) and its
+        shard copied into ``t``."""
+        if par is None:
+            return t, lambda: None
+        name = f"{prefix}.{leaf}" if prefix else leaf
+        w = torch.empty(shapes[name], dtype=dtype or t.dtype, device=device)
+        return w, lambda: t.copy_(shard_tensor(name, w, model.config, par))
 
     def lecun_(w, fan_in):
         # lecun_normal: cut at 2 std, std corrected for the cut
@@ -1396,38 +1538,57 @@ def materialize_gpt(model: GPT, device, generator: torch.Generator,
                                     generator=generator)
 
     with torch.no_grad():
-        for mod in model.modules():
+        for prefix, mod in model.named_modules():
             if isinstance(mod, (LayerNorm, RMSNorm)):
                 mod.weight.fill_(1.0)
                 if getattr(mod, "bias", None) is not None:
                     mod.bias.zero_()
             elif isinstance(mod, VocabEmbed):
-                mod.weight.normal_(0.0, mod.weight.shape[1] ** -0.5,
-                                   generator=generator)
+                w, commit = whole(prefix, "weight", mod.weight)
+                w.normal_(0.0, mod.weight.shape[1] ** -0.5,
+                          generator=generator)
+                commit()
             elif isinstance(mod, Dense):
-                lecun_(mod.weight, mod.in_features)
+                w, commit = whole(prefix, "weight", mod.weight)
+                lecun_(w, w.shape[1])
+                commit()
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, QuantizedDense):
                 # the dense twin's draw, quantized at once: one layer's
-                # weight is ever held dense
-                w = torch.empty((mod.out_features, mod.in_features),
-                                dtype=mod.param_dtype, device=device)
-                lecun_(w, mod.in_features)
-                mod.quantize_(w)
+                # weight is ever held dense (under a layout: whole, then
+                # the shard of its codes and scales)
+                shape = (mod.out_features, mod.in_features)
+                if par is not None:
+                    shape = shapes[f"{prefix}.weight_q"]
+                w = torch.empty(shape, dtype=mod.param_dtype, device=device)
+                lecun_(w, shape[1])
+                if par is None:
+                    mod.quantize_(w)
+                else:
+                    q, scale = _quantize_rows(w)
+                    for leaf, t, buf in (("weight_q", q, mod.weight_q),
+                                         ("weight_scale", scale,
+                                          mod.weight_scale)):
+                        buf.copy_(shard_tensor(f"{prefix}.{leaf}", t,
+                                               model.config, par))
                 del w
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, StackedExperts):
                 for name in ("wi", "wg", "wo"):
                     if getattr(mod, name) is not None:
-                        lecun_(getattr(mod, name), mod.fan_in(name))
+                        w, commit = whole(prefix, name, getattr(mod, name))
+                        lecun_(w, mod.fan_in(name))
+                        commit()
                 for bias in (mod.bi, mod.bo):
                     if bias is not None:
                         bias.zero_()
         # a GPT's untied head (BERT's model comes here too, and has none)
         if getattr(model, "lm_head", None) is not None:
-            model.lm_head.normal_(0.0, 0.02, generator=generator)
+            w, commit = whole("", "lm_head", model.lm_head)
+            w.normal_(0.0, 0.02, generator=generator)
+            commit()
         if getattr(model, "lm_head_bias", None) is not None:
             model.lm_head_bias.zero_()
     _cast_params(model, dtype, keep)

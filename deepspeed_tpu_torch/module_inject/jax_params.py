@@ -468,3 +468,24 @@ def compressed_state_from_jax(opt_state, cfg, mode: str, rank: int,
         out["grad_exchange"] = {"worker_error": rows(opt_state[1]),
                                 "server_error": rows(opt_state[2])}
     return out
+
+
+def shard_state_dict(state: Dict[str, Any], cfg, topo) -> Dict[str, Any]:
+    """This process's tp/ep shard (its coordinates on the ``MeshTopology``
+    ``topo``) of a whole ``state_dict`` in JAX's layout
+    (``gpt_state_dict_from_jax``'s output). ``c_attn`` takes the
+    head-aligned permutation of JAX's columns (``parallel/tensor.py``)."""
+    from deepspeed_tpu_torch.parallel.tensor import (ParallelLayout,
+                                                     shard_state_dict)
+
+    return shard_state_dict(state, cfg, ParallelLayout.from_topology(topo))
+
+
+def gather_state_dict(state: Dict[str, Any], cfg, topo) -> Dict[str, Any]:
+    """The reverse of ``shard_state_dict``: every rank's shards gathered
+    whole, ``c_attn`` back in JAX's ``[q | k | v]`` order (a collective over
+    tp and ep: every rank calls it)."""
+    from deepspeed_tpu_torch.parallel.tensor import (ParallelLayout,
+                                                     gather_state_dict)
+
+    return gather_state_dict(state, cfg, ParallelLayout.from_topology(topo))

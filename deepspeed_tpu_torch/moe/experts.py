@@ -4,8 +4,15 @@
 One parameter tensor per weight with the expert axis first (``wi``/``wg``
 ``[E, M, H]``, ``wo`` ``[E, H, M]``, ``bi`` ``[E, H]``, ``bo`` ``[E, M]``),
 the JAX layout, so a checkpoint splits along axis 0 and the expert-parallel
-layout (ROADMAP A.9) addresses the same axis. The per-expert loop is one
-batched product over the expert axis in the compute dtype.
+layout addresses the same axis. The per-expert loop is one batched product
+over the expert axis in the compute dtype.
+
+Under a ``parallel`` layout (``parallel/tensor.py``) the module holds the
+rank's ``E / ep`` experts, and with tp > 1 (when tp divides the hidden
+width) each expert's hidden dimension split Megatron-style inside it, as
+JAX's ``moe_param_spec`` lays ``wi``/``wg`` column and ``wo`` row parallel:
+the input goes through ``copy_to_tp``, ``wo``'s product through
+``reduce_from_tp`` before ``bo``.
 """
 
 import torch
@@ -28,10 +35,17 @@ class StackedExperts(nn.Module):
 
     def __init__(self, num_experts, d_model, d_hidden, dtype=torch.bfloat16,
                  param_dtype=torch.float32, activation=None, gated=False,
-                 use_bias=True):
+                 use_bias=True, parallel=None):
         super().__init__()
+        # the whole model's widths (the init's fan-in), then the rank's
+        self.num_experts, self.d_model, self.d_hidden = (
+            num_experts, d_model, d_hidden)
         E, M, H = num_experts, d_model, d_hidden
-        self.num_experts, self.d_model, self.d_hidden = E, M, H
+        self.tp = parallel is not None and parallel.splits(d_hidden)
+        if parallel is not None:
+            E //= parallel.ep
+            if parallel.splits(d_hidden):
+                H //= parallel.tp
         self.compute_dtype = dtype
         self.gated = gated
         self.activation = activation or (F.silu if gated else _gelu_tanh)
@@ -55,6 +69,10 @@ class StackedExperts(nn.Module):
     def forward(self, x):
         dt = self.compute_dtype
         x = x.to(dt)
+        if self.tp:
+            from deepspeed_tpu_torch.parallel.tensor import copy_to_tp
+
+            x = copy_to_tp(x)
         h = torch.bmm(x, self.wi.to(dt))
         if self.bi is not None:
             h = h + self.bi[:, None, :].to(dt)
@@ -64,6 +82,10 @@ class StackedExperts(nn.Module):
         else:
             h = self.activation(h)
         y = torch.bmm(h, self.wo.to(dt))
+        if self.tp:
+            from deepspeed_tpu_torch.parallel.tensor import reduce_from_tp
+
+            y = reduce_from_tp(y)
         if self.bo is not None:
             y = y + self.bo[:, None, :].to(dt)
         return y

@@ -1,5 +1,5 @@
 """The MoE layer (counterpart of ``deepspeed_tpu/moe/layer.py``: ``MoE``
-:49 and ``expert_axis`` :114).
+:49, ``expert_axis`` :114 and ``moe_param_spec`` :132).
 
 The gate is an f32 ``[M, E]`` dense layer on f32 input (a parameter that
 stays f32 when the model's ``param_dtype`` is bf16, as JAX's
@@ -14,8 +14,20 @@ Tokens reach the experts by index (``dispatch_by_index`` /
 products compute (``dispatch_tokens`` / ``combine_tokens``, the plain
 version the tests hold it against). The gating noise comes in with the call (``noise``: one ``[T, E]`` tensor per
 kind that ``noise_kinds`` names, stacked), never from a generator inside
-the layer. Expert parallelism (the ``ep`` mesh axis, ``moe_param_spec``
-and the all-to-all) is ROADMAP A.9: here every expert lives on the card.
+the layer.
+
+Expert parallelism (a ``parallel`` layout, ``parallel/tensor.py``; JAX's
+``_ep_constraint`` on the dispatched ``[E, C, M]`` tokens, :35-47, and
+``moe_param_spec``, :132-154): each rank holds ``E / ep`` experts. When
+the rows are split over ``ep`` (training: ep is a batch axis, as in JAX),
+each rank routes its own rows (capacity and ``l_aux`` per rank, as
+reference DeepSpeed; JAX routes the global batch under GSPMD, so the two
+agree when no token is dropped and the aux loss is off), all-to-alls the
+dispatch so that each rank gets its experts' slots from every rank, runs
+its experts and all-to-alls the outputs back. When every rank holds the
+same rows (serving), each rank runs its experts on their slots of the
+shared dispatch and an all-gather over ``ep`` hands every rank all the
+experts' outputs, so the combine is the one-card combine.
 """
 
 import types
@@ -69,8 +81,9 @@ class MoE(nn.Module):
                  min_capacity=4, noisy_gate_policy=None, drop_tokens=True,
                  use_rts=True, dtype=torch.bfloat16,
                  param_dtype=torch.float32, gated_experts=False,
-                 expert_activation=None):
+                 expert_activation=None, parallel=None):
         super().__init__()
+        self.parallel = parallel
         self.num_experts, self.k = num_experts, k
         self.capacity_factor = capacity_factor
         self.eval_capacity_factor = eval_capacity_factor
@@ -83,7 +96,8 @@ class MoE(nn.Module):
         self.experts = StackedExperts(
             num_experts, d_model, d_hidden, dtype=dtype,
             param_dtype=param_dtype, activation=expert_activation,
-            gated=gated_experts, use_bias=not gated_experts)
+            gated=gated_experts, use_bias=not gated_experts,
+            parallel=parallel)
 
     def noise_kinds(self) -> Tuple[str, ...]:
         return gating_noise_kinds(self.k, self.noisy_gate_policy,
@@ -109,9 +123,26 @@ class MoE(nn.Module):
                              else self.eval_capacity_factor),
             min_capacity=self.min_capacity, **gating)
         dispatched = dispatch_by_index(gout.routing, tokens)
-        y = combine_by_index(gout.routing, self.experts(dispatched),
+        y = combine_by_index(gout.routing, self._run_experts(dispatched),
                              dtype=x.dtype)
         return y.reshape(shape), gout.l_aux, gout.exp_counts
+
+    def _run_experts(self, dispatched):
+        """``[E, C, M]`` slots -> the experts' ``[E, C, M]`` outputs, over
+        the ``ep`` ranks under a layout."""
+        lay = self.parallel
+        if lay is None:
+            return self.experts(dispatched)
+        from deepspeed_tpu_torch.parallel import tensor as tpar
+
+        if lay.rows_split:
+            # [E, C, M] -> this rank's experts' slots from every rank,
+            # [E/ep, ep * C, M], and back
+            mine = tpar.all_to_all_ep(dispatched, 0, 1)
+            return tpar.all_to_all_ep(self.experts(mine), 1, 0)
+        first, n = lay.local_experts_of(self.num_experts)
+        mine = tpar.copy_to_ep(dispatched)[first:first + n]
+        return tpar.gather_from_ep(self.experts(mine), lay)
 
 
 def expert_axis(path: str, ndim: int) -> Optional[int]:
@@ -129,3 +160,21 @@ def expert_axis(path: str, ndim: int) -> Optional[int]:
     else:
         return None
     return ax if ax >= 0 else None
+
+
+def moe_param_spec(path: str, shape) -> Optional[Tuple]:
+    """JAX ``moe_param_spec`` (``moe/layer.py:132-154``): the expert axis
+    over ``ep``, ``wi``/``wg``'s hidden dim and ``wo``'s over ``tp``
+    (``path`` with slashes or dots); None for any other leaf."""
+    path = path.replace(".", "/")
+    ndim = len(shape)
+    ep_ax = expert_axis(path, ndim)
+    if ep_ax is None:
+        return None
+    spec = [None] * ndim
+    spec[ep_ax] = "ep"
+    if path.endswith(("experts/wi", "experts/wg")):
+        spec[ndim - 1] = "tp"
+    elif path.endswith("experts/wo"):
+        spec[ndim - 2] = "tp"
+    return tuple(spec)

@@ -20,8 +20,16 @@ The global batch is split over (dp, fsdp, ep). The size and coordinate
 queries are pure and need no process group (a mesh over ``world_size``
 ranks), so they can be held against the JAX class on the virtual CPU
 devices; ``device_mesh`` and ``group`` need an initialised group of
-``num_devices`` ranks. Only dp and fsdp may exceed 1 in the port for now:
-the engine refuses the other axes (ROADMAP A.9).
+``num_devices`` ranks. dp, fsdp, ep and tp may exceed 1 in the port; pp
+and sp wait for ROADMAP A.9 parts 2-3 (the engine refuses them).
+
+``group`` takes one axis (that mesh dimension's group) or a tuple of axes:
+the group of the ranks that differ only on those axes, made with
+``new_group`` for every such slice in one order on every rank. Two such
+groups the engines use have names: ``EXPERT_DATA_AXES`` (dp, fsdp: the
+ranks that share a tp and an ep coordinate; expert leaves reduce their
+gradients over it) and ``BATCH_AXES`` (dp, fsdp, ep: every rank that takes
+its own rows; every other leaf reduces over it).
 """
 
 import math
@@ -29,6 +37,20 @@ from typing import Dict, List, Optional, Tuple
 
 AXIS_ORDER: Tuple[str, ...] = ("pp", "dp", "fsdp", "ep", "sp", "tp")
 BATCH_AXES: Tuple[str, ...] = ("dp", "fsdp", "ep")
+EXPERT_DATA_AXES: Tuple[str, ...] = ("dp", "fsdp")
+
+
+# (mesh shape, axis or axes) -> process group, and mesh shape -> DeviceMesh:
+# shared by every MeshTopology of one shape, so engines built one after
+# another reuse their groups (and NCCL its communicators); cleared by
+# comm.destroy_distributed
+_MESHES: Dict[Tuple[int, ...], object] = {}
+_GROUPS: Dict[tuple, object] = {}
+
+
+def clear_group_cache() -> None:
+    _MESHES.clear()
+    _GROUPS.clear()
 
 
 def _dist():
@@ -69,8 +91,6 @@ class MeshTopology:
             raise ValueError(f"Mesh axes {sizes} require {total} devices but "
                              f"{n} are available")
         self.axis_sizes = sizes
-        self._device_mesh = None
-        self._groups = {}
 
     # -- size queries -------------------------------------------------------
     def size(self, axis: str) -> int:
@@ -154,7 +174,7 @@ class MeshTopology:
     @property
     def device_mesh(self):
         """The ``DeviceMesh`` over the process group, made at first use."""
-        if self._device_mesh is None:
+        if self.shape not in _MESHES:
             dist = _dist()
             if dist is None:
                 raise RuntimeError("MeshTopology.device_mesh needs an "
@@ -167,15 +187,44 @@ class MeshTopology:
             from torch.distributed.device_mesh import init_device_mesh
 
             device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-            self._device_mesh = init_device_mesh(
+            _MESHES[self.shape] = init_device_mesh(
                 device_type, self.shape, mesh_dim_names=AXIS_ORDER)
-        return self._device_mesh
+        return _MESHES[self.shape]
 
-    def group(self, axis: str):
-        """The process group of this rank's slice along ``axis``."""
-        if axis not in self._groups:
-            self._groups[axis] = self.device_mesh.get_group(axis)
-        return self._groups[axis]
+    def group(self, axis):
+        """The process group of this rank's slice along ``axis``, or along
+        several axes (a tuple): the ranks whose other coordinates equal
+        this rank's. A tuple's groups are made at its first use, for every
+        slice, in one order (``new_group`` is a collective of the whole
+        world: every rank must ask for the same tuples in the same
+        order)."""
+        key = axis if isinstance(axis, str) else tuple(
+            a for a in AXIS_ORDER if a in tuple(axis))
+        if (self.shape, key) not in _GROUPS:
+            _GROUPS[self.shape, key] = (
+                self.device_mesh.get_group(key) if isinstance(key, str)
+                else self._slice_group(key))
+        return _GROUPS[self.shape, key]
+
+    def _slice_group(self, axes: Tuple[str, ...]):
+        dist = _dist()
+        if dist is None:
+            raise RuntimeError("MeshTopology.group needs an initialised "
+                               "process group (comm.init_distributed)")
+        self.device_mesh  # the same checks as a single axis
+        others = [a for a in AXIS_ORDER if a not in axes]
+        me, mine, seen = dist.get_rank(), None, set()
+        for r in range(self.num_devices):
+            c = self.coord_of(r)
+            fixed = tuple(c[a] for a in others)
+            if fixed in seen:
+                continue
+            seen.add(fixed)
+            ranks = self.filter_ranks(**{a: c[a] for a in others})
+            g = dist.new_group(ranks)
+            if me in ranks:
+                mine = g
+        return mine
 
     def __repr__(self):
         active = {a: s for a, s in self.axis_sizes.items() if s > 1}

@@ -627,13 +627,14 @@ class DeepSpeedConfig:
             ("csv_monitor (ROADMAP A.11)", self.csv_monitor.enabled),
             ("graceful_shutdown (ROADMAP A.11)",
              self.graceful_shutdown.enabled),
-            ("pipeline (ROADMAP A.9)",
+            ("pipeline (ROADMAP A.9 part 3)",
              self.pipeline.to_dict() != PipelineConfig().to_dict()),
             ("activation_checkpointing.cpu_checkpointing (activation "
              "offload, ROADMAP A.10)",
              bool(self.activation_checkpointing.cpu_checkpointing)),
-            ("tpu.mesh tp/pp/ep/sp > 1 (the other mesh axes, ROADMAP A.9)",
-             any(getattr(mesh, ax) != 1 for ax in ("tp", "pp", "ep", "sp"))),
+            ("tpu.mesh pp/sp > 1 (the pipeline and sequence axes, ROADMAP "
+             "A.9 parts 2-3)",
+             any(getattr(mesh, ax) != 1 for ax in ("pp", "sp"))),
             ("tpu.step_autotune (ROADMAP A.12)",
              self.tpu.step_autotune_config.enabled),
             ("tpu.cluster_health (ROADMAP A.11)",

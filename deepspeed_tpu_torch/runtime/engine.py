@@ -95,9 +95,25 @@ restore only the default generators' states); the generator is registered
 with every captured step, so each replay draws afresh, as an uncaptured
 step from the same state would, bit for bit; a checkpoint holds its state,
 so a resume draws what an unbroken run would. The expert leaves are plain
-parameters at ZeRO 0-2 (one card: ``ep`` is ROADMAP A.9), and a tag splits
-them and their moments into one file per expert
-(``runtime/moe_checkpoint.py``).
+parameters at ZeRO 0-2, and a tag splits them and their moments into one
+file per expert (``runtime/moe_checkpoint.py``).
+
+Tensor and expert parallelism (ROADMAP A.9 part 1; JAX engine :297-354
+with ``gpt_tp_rules``): ``tpu.mesh`` with ``tp`` and ``ep`` over the
+group's ranks, one card each. The engine rebuilds a ``GPT`` as the rank's
+shard (``GPT(config, parallel=ParallelLayout)``, ``parallel/tensor.py``;
+a model already built with a layout takes the engine's, which is how the
+tp-1 path is asked for), whose forward holds the tp all-reduces and the ep
+all-to-alls, so a captured step holds them in its graph. The batch is split
+over the batch axes (dp, fsdp, ep), and the tp ranks of a slice take the
+same rows. ZeRO 0-3 partition each rank's shard over its data-parallel
+group (the ranks that share its tp and ep coordinates); the expert leaves'
+gradients are reduced over that group only, the others' over ep too, and
+the gradient norm counts each replicated leaf once (``ZeroOptimizer``). A
+tag holds whole tensors in JAX's schema, gathered over tp and ep (the
+experts in their per-expert files), so it loads at any tp, ep and dp, and
+at one card; a load takes each rank's shard of the whole tensors. The
+compressed exchanges and a BERT under tp or ep are not ported yet.
 
 Dropout and stochastic depth (JAX engine :1284-1298: a ``dropout`` key
 per step, ``pld_theta`` from ``_pld_model_kwargs`` :1257-1271): a GPT or a BERT
@@ -137,7 +153,8 @@ from deepspeed_tpu_torch.data.prefetch import CopyStream, PlacedBatch
 from deepspeed_tpu_torch.models.bert import BertForPreTraining, materialize_bert
 from deepspeed_tpu_torch.models.transformer_lm import GPT, materialize_gpt
 from deepspeed_tpu_torch.moe.layer import draw_gating_noise
-from deepspeed_tpu_torch.parallel.mesh import (MeshTopology,
+from deepspeed_tpu_torch.parallel import tensor as tensor_parallel
+from deepspeed_tpu_torch.parallel.mesh import (BATCH_AXES, MeshTopology,
                                                set_default_topology)
 from deepspeed_tpu_torch.runtime import activation_checkpointing
 from deepspeed_tpu_torch.runtime.activation_checkpointing import \
@@ -364,6 +381,10 @@ class DeepSpeedEngine:
             log_dist(f"sparse attention enabled: "
                      f"{type(model.config.sparse_attention).__name__}",
                      ranks=[0])
+        # tensor and expert parallelism: the rank's shard of the model
+        self._parallel = self._layout(model)
+        if self._parallel is not None:
+            model = GPT(model.config, parallel=self._parallel)
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -461,12 +482,16 @@ class DeepSpeedEngine:
             rules = layout.build_sharding_rules(
                 self.topology, self.zero_stage,
                 config.zero_config.param_persistence_threshold)
+            par = (None if self._parallel is None
+                   else (model.config, self._parallel))
             if self.zero_stage >= 3:
                 self._zero = ZeroStage3Optimizer(
-                    model, rules, build, comm_dtype=config.communication_dtype)
+                    model, rules, build, comm_dtype=config.communication_dtype,
+                    parallel=par)
             else:
                 self._zero = ZeroOptimizer(
-                    named, rules, build, comm_dtype=config.communication_dtype)
+                    named, rules, build, comm_dtype=config.communication_dtype,
+                    parallel=par)
             self.optimizer = self._zero
         else:
             self.optimizer = build(self._params, [name for name, _ in named])
@@ -568,9 +593,11 @@ class DeepSpeedEngine:
         (what the collectives' axis names resolve against)."""
         if not self._distributed:
             mesh = config.tpu.mesh_config
-            if mesh.dp not in (1, -1) or mesh.fsdp != 1:
+            if (mesh.dp not in (1, -1) or mesh.fsdp != 1 or mesh.tp != 1
+                    or mesh.ep != 1):
                 raise ValueError(
-                    f"tpu.mesh asks for dp={mesh.dp}, fsdp={mesh.fsdp} but no "
+                    f"tpu.mesh asks for dp={mesh.dp}, fsdp={mesh.fsdp}, "
+                    f"tp={mesh.tp}, ep={mesh.ep} but no "
                     f"process group is initialised: call "
                     f"deepspeed_tpu_torch.comm.init_distributed in every "
                     f"rank's process before initialize")
@@ -585,13 +612,43 @@ class DeepSpeedEngine:
 
     def _exchange_axes(self):
         """The mesh axes whose groups the step's collectives use (at stage 3
-        the gathers and reduce-scatters run over fsdp too)."""
+        the gathers and reduce-scatters run over fsdp too; under a layout
+        tp, ep, every batch rank and the gradient norm's group)."""
         axes = [DATA_AXES]
         if self.zero_stage >= 1:
             axes.append("fsdp")
             if self.topology.size("dp") > 1:
                 axes.append("dp")
+        if self._parallel is not None:
+            axes += ["tp", "ep", BATCH_AXES, ("ep", "tp"),
+                     ("fsdp", "ep", "tp")]
         return axes
+
+    def _layout(self, model) -> Optional["tensor_parallel.ParallelLayout"]:
+        """The rank's ``ParallelLayout`` when the mesh has tp or ep > 1, or
+        the model was built with one (the tp code path at size 1); None
+        otherwise."""
+        topo = self.topology
+        wants = topo.size("tp") > 1 or topo.size("ep") > 1
+        if not wants and getattr(model, "parallel", None) is None:
+            return None
+        if not isinstance(model, GPT):
+            raise NotImplementedError(
+                f"tensor and expert parallelism of a "
+                f"{type(model).__name__} is not ported yet (ROADMAP A.9 "
+                "part 2); the port splits a GPT")
+        if self._cx_mode is not None:
+            raise NotImplementedError(
+                f"the {self._cx_mode} gradient exchange under tp or ep is not "
+                "ported yet (ROADMAP A.9 part 2); use ZeRO's exchange")
+        cfg = model.config
+        if cfg.kv_heads % topo.size("tp"):
+            raise NotImplementedError(
+                f"training with n_kv_head ({cfg.kv_heads}) below tp "
+                f"({topo.size('tp')}) replicates KV heads whose gradients "
+                "would need a reduction over their replicas: not ported yet "
+                "(ROADMAP A.9 part 2); serving takes it")
+        return tensor_parallel.ParallelLayout.from_topology(topo)
 
     def _configure_lr(self, lr_scheduler):
         cfg = self._config
@@ -1141,19 +1198,40 @@ class DeepSpeedEngine:
     @property
     def params(self):
         """The model's ``state_dict``, every tensor whole (at stage 3
-        gathered: a collective, every rank reads it)."""
-        if self._stage3:
-            return self._zero.gathered_state_dict()
-        return self.module.state_dict()
+        gathered, under a layout gathered over tp and ep: a collective,
+        every rank reads it)."""
+        sd = (self._zero.gathered_state_dict() if self._stage3
+              else self.module.state_dict())
+        if self._parallel is not None:
+            sd = tensor_parallel.gather_state_dict(sd, self.module.config,
+                                                   self._parallel)
+        return sd
 
     def _state_to_write(self):
         """The model state rank 0 writes, None on the other ranks; at stage
-        3 gathered to the host unit by unit (a collective: every rank
-        calls it)."""
+        3 gathered to the host unit by unit, under a layout gathered over
+        tp and ep leaf by leaf (a collective: every rank calls it)."""
         writer = comm.get_rank() == 0
+        if self._parallel is not None:
+            sd = (self._zero.gathered_state_dict() if self._stage3
+                  else self.module.state_dict())
+            sd = tensor_parallel.gather_state_dict(
+                sd, self.module.config, self._parallel, keep=writer,
+                to_host=True)
+            return sd if writer else None
         if self._stage3:
             return self._zero.gathered_state_dict(keep=writer, to_host=True)
         return self.module.state_dict() if writer else None
+
+    def _whole_leaf(self):
+        """Under a layout, the optimizer state's per-leaf gather over tp and
+        ep (a collective); None otherwise."""
+        if self._parallel is None:
+            return None
+        shapes = tensor_parallel.whole_shapes(self.module.config)
+        cfg, lay = self.module.config, self._parallel
+        return lambda name, t: tensor_parallel.gather_tensor(
+            name, t, shapes[name], cfg, lay)
 
     def set_lr(self, lr: float) -> None:
         """Write-through lr (what ``optimizer.param_groups[0]["lr"] = lr``
@@ -1227,7 +1305,8 @@ class DeepSpeedEngine:
         else:
             optim = {"optimizer": (
                 self.optimizer.state_dict() if self._zero is None
-                else self._zero.state_dict(keep=writer, to_host=True))}
+                else self._zero.state_dict(keep=writer, to_host=True,
+                                           whole=self._whole_leaf()))}
         if writer:
             self._save_sharded(
                 dict(optim, loss_scale=dataclasses.asdict(self._ls_state)),
@@ -1266,8 +1345,10 @@ class DeepSpeedEngine:
         under a process group, the flat partition."""
         specs = None
         if self._zero is not None:
+            shapes = (None if self._parallel is None
+                      else tensor_parallel.whole_shapes(self.module.config))
             specs = layout.describe_partition(self._zero.rules,
-                                              self._zero.groups)
+                                              self._zero.groups, shapes)
         return layout.topology_metadata(self.topology, self.zero_stage,
                                         partition_specs=specs)
 
@@ -1400,6 +1481,9 @@ class DeepSpeedEngine:
         module_sd = moe_ckpt.load_with_experts(load, tag_dir, MODEL_STATES,
                                                "model")["module"]
         reshard.verify_state_dict(module_sd, specs.get("params", {}), "model")
+        if self._parallel is not None:
+            module_sd = tensor_parallel.shard_state_dict(
+                module_sd, self.module.config, self._parallel)
         self._restore_module(module_sd)
         meta = load(self._tag_path(load_dir, tag, ENGINE_STATES))["meta"]
         self.global_steps = int(meta["global_steps"])
@@ -1424,6 +1508,13 @@ class DeepSpeedEngine:
                                                "optim")
             reshard.verify_state_dict(optim["optimizer"]["state"],
                                       specs.get("opt_state", {}), "optimizer")
+            if self._parallel is not None:
+                cfg = self.module.config
+                optim["optimizer"] = dict(optim["optimizer"], state={
+                    name: {k: tensor_parallel.shard_tensor(
+                        name, v, cfg, self._parallel)
+                        for k, v in st.items()}
+                    for name, st in optim["optimizer"]["state"].items()})
             if self._cx is not None:
                 self._cx.load_state(optim)
             else:

@@ -58,12 +58,17 @@ def build_sharding_rules(topology: MeshTopology, zero_stage: int,
             param_persistence_threshold if zero_stage >= 3 else 0))
 
 
-def describe_partition(rules: ZeroShardingRules, groups) -> Dict[str, Any]:
+def describe_partition(rules: ZeroShardingRules, groups,
+                       shapes: Optional[Dict[str, Any]] = None
+                       ) -> Dict[str, Any]:
     """The ``partition_specs`` record of a flat partition's groups (at
-    stage 3 the whole leaves' groups, then every unit's)."""
+    stage 3 the whole leaves' groups, then every unit's); ``shapes``: the
+    leaves' whole shapes where a rank holds tp/ep shards (a tag holds
+    whole tensors)."""
     params, opt = {}, {}
     for group in groups:
         for name, shape in zip(group.names, group.shapes):
+            shape = (shapes or {}).get(name, shape)
             params[name] = {"spec": list(rules.param_spec(name, shape)),
                             "shape": list(shape)}
             opt[name] = {"spec": list(rules.opt_state_spec(name, shape)),

@@ -184,7 +184,8 @@ class ZeroStage3Optimizer(ZeroOptimizer):
     engine calls the model through ``forward``."""
 
     def __init__(self, module: torch.nn.Module, rules: ZeroShardingRules,
-                 build, comm_dtype: Optional[torch.dtype] = None):
+                 build, comm_dtype: Optional[torch.dtype] = None,
+                 parallel=None):
         topo = rules.topo
         world, rank = topo.size("fsdp"), topo.axis_index("fsdp")
         named = list(module.named_parameters())
@@ -204,7 +205,8 @@ class ZeroStage3Optimizer(ZeroOptimizer):
                              if n.startswith(f"{prefix}.{i}.")})
                        for i, block in enumerate(module.blocks)]
         super().__init__([(n, p) for n, p in named if n not in split], rules,
-                         build, comm_dtype, units=[self.outer] + self.blocks)
+                         build, comm_dtype, units=[self.outer] + self.blocks,
+                         parallel=parallel)
         self.module = module
         self._unit_of = {id(u.module): u for u in self.blocks}
         self._where = {n: (g, i) for g, group in enumerate(self.groups)

@@ -43,6 +43,19 @@ data-parallel group and must be made by every rank in the same order.
 one-card engine, at any world); ``load_state_dict`` copies each rank's
 slice of each tensor into its live shard, so a load needs no new graph and
 reshards to any world or stage.
+
+Under tensor and expert parallelism (``parallel``: the model's config and
+its ``ParallelLayout``) the leaves are the rank's tp/ep shards, and the
+data-parallel group above is the ranks that share the rank's tp and ep
+coordinates. The loss weights are summed over every batch rank (dp, fsdp
+and ep: ``BATCH_AXES``). Expert leaves reduce their gradients over (dp,
+fsdp) only, never over ep, which would mix different experts; every other
+leaf also over ep: with ep > 1 the expert leaves lie last in each dtype's
+buffer, so the others' gradient is one prefix, all-reduced over ep before
+the exchange. The gradient norm weights each leaf's square by the inverse
+of the number of tp x ep ranks that hold the same copy (a leaf split over
+tp counts on every tp rank, a replicated one once), summed over (fsdp,)
+ep and tp: the single-device norm.
 """
 
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -50,6 +63,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.parallel.mesh import BATCH_AXES
 from deepspeed_tpu_torch.runtime.loss_scaler import has_overflow
 from deepspeed_tpu_torch.runtime.utils import clip_grad_norm_, get_global_norm
 from deepspeed_tpu_torch.runtime.zero.sharding import (FlatPartition,
@@ -79,14 +93,20 @@ class ZeroOptimizer:
 
     def __init__(self, named_params: Sequence[Tuple[str, torch.Tensor]],
                  rules: ZeroShardingRules, build: Callable,
-                 comm_dtype: Optional[torch.dtype] = None, units=()):
+                 comm_dtype: Optional[torch.dtype] = None, units=(),
+                 parallel=None):
         self.rules = rules
         self.topology = topology = rules.topo
         self.sharded = rules.shards_optimizer
+        self.parallel = parallel
         fsdp = topology.size("fsdp")
         world, rank = ((fsdp, topology.axis_index("fsdp")) if self.sharded
                        else (1, 0))
         named = list(named_params)
+        self._ep = parallel[1].ep if parallel is not None else 1
+        if self._ep > 1:
+            # the expert leaves last (a stable sort): the rest is a prefix
+            named.sort(key=lambda item: _is_expert(item[0]))
         self.params = [p for _, p in named]
         self.partition = FlatPartition(named, world, rank)
         whole = self.partition.groups
@@ -112,6 +132,12 @@ class ZeroOptimizer:
         # first micro step: a gas-1 engine never needs them)
         self.accumulators = None
         self.local_overflow = None
+        # where each dtype's expert leaves begin (ep > 1)
+        self._dense_end = [
+            next((o for n, o in zip(g.names, g.offsets) if _is_expert(n)),
+                 g.padded) for g in whole] if self._ep > 1 else []
+        if parallel is not None:
+            self._norm_plan()
         self.inner = build(self.shard_params,
                            [f"flat.{g.describe()['dtype']}" for g in whole]
                            + [f"{u.name}.flat.{g.describe()['dtype']}"
@@ -137,9 +163,9 @@ class ZeroOptimizer:
         return comm.all_reduce(x, "fsdp") if self.sharded else x
 
     def data_parallel_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum over the data-parallel ranks of a 0-dim value, in f32 (a
-        new tensor)."""
-        return comm.all_reduce(x.detach().float().clone(), DATA_AXES)
+        """The sum over the batch ranks (dp, fsdp, ep) of a 0-dim value, in
+        f32 (a new tensor)."""
+        return comm.all_reduce(x.detach().float().clone(), BATCH_AXES)
 
     def collect_grads(self):
         """Copy each whole parameter's ``.grad`` into the gradient buffer (0
@@ -159,7 +185,12 @@ class ZeroOptimizer:
         """The reduced gradient of every whole group: the full buffers
         summed over the data-parallel ranks, or (``shard``) this rank's
         shard of the sum; then the units' shards, which their backward
-        reduced already."""
+        reduced already. Under ep > 1 the non-expert prefix of each buffer
+        is first summed over ep."""
+        if self._ep > 1:
+            for flat, end in zip(self.flat_grads, self._dense_end):
+                if end:
+                    comm.all_reduce(flat[:end], "ep")
         if not shard:
             return [comm.all_reduce(f, DATA_AXES) for f in self.flat_grads]
         out = []
@@ -209,19 +240,60 @@ class ZeroOptimizer:
         at stage 0: every rank holds the whole reduced gradient)."""
         return "fsdp" if self.sharded else None
 
+    def _norm_plan(self):
+        """Under a layout: each leaf's run in this rank's part of every
+        group, and the weight of its square (1 / the copies of it over tp
+        x ep), a device constant made once."""
+        from deepspeed_tpu_torch.parallel.tensor import (replication,
+                                                         whole_shapes)
+
+        cfg, layout = self.parallel
+        shapes = whole_shapes(cfg)
+        runs, weights = [], []
+        for g, group in enumerate(self.groups):
+            if self.sharded:
+                parts = [(i, a, b) for i, a, b in group.shard_runs()
+                         if i < len(group.names)]
+            else:
+                parts = [(i, o, o + n) for i, (o, n) in
+                         enumerate(zip(group.offsets, group.numels))]
+            for i, a, b in parts:
+                name = group.names[i]
+                runs.append((g, a, b))
+                weights.append(1.0 / replication(name, shapes[name], cfg,
+                                                 layout))
+        self._norm_runs = runs
+        self._norm_weights = torch.tensor(weights, dtype=torch.float32,
+                                          device=self.shard_params[0].device)
+        self._norm_axes = (("fsdp",) if self.sharded else ()) + ("ep", "tp")
+
     def global_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
         """The f32 2-norm of the whole gradient from this rank's part."""
-        return get_global_norm(grads, axis=self._shard_axis)
+        if self.parallel is None:
+            return get_global_norm(grads, axis=self._shard_axis)
+        views = [grads[g][a:b] for g, a, b in self._norm_runs]
+        norms = torch._foreach_norm(views, 2, dtype=torch.float32)
+        sq = (torch.stack(norms).square() * self._norm_weights).sum()
+        return comm.all_reduce(sq, self._norm_axes).sqrt()
 
     def clip(self, grads: Sequence[torch.Tensor], max_norm) -> torch.Tensor:
         """Clip this rank's part by the global norm; returns the norm."""
-        return clip_grad_norm_(grads, max_norm, axis=self._shard_axis)
+        if self.parallel is None:
+            return clip_grad_norm_(grads, max_norm, axis=self._shard_axis)
+        from deepspeed_tpu_torch.runtime.utils import clip_factor
+
+        norm = self.global_norm(grads)
+        torch._foreach_mul_(list(grads), clip_factor(norm, max_norm))
+        return norm
 
     def overflow(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
         """Whether any rank's part holds an inf or a NaN (a device bool).
         ``local_overflow`` keeps this rank's own flag, before the
         all-reduce (a diagnostic: in a captured step, the graph's tensor)."""
         self.local_overflow = has_overflow(grads)
+        if self.parallel is not None:
+            return comm.all_reduce(self.local_overflow.float(),
+                                   self._norm_axes) > 0
         if not self.sharded:
             return self.local_overflow
         return self._reduce_partition(self.local_overflow.float()) > 0
@@ -261,23 +333,26 @@ class ZeroOptimizer:
         return torch.cat([gathered[q * width:q * width + b - a]
                           for q, span in enumerate(spans) for a, b in span])
 
-    def state_dict(self, keep: bool = True, to_host: bool = False
-                   ) -> Dict[str, Any]:
+    def state_dict(self, keep: bool = True, to_host: bool = False,
+                   whole: Optional[Callable] = None) -> Dict[str, Any]:
         """``{"count", "state": {name: {key: tensor}}}`` by parameter name,
         each tensor the parameter's whole state, gathered from every rank
         (a collective: every rank calls it). ``keep=False`` drops the
         gathered tensors (a rank that does not write them);
         ``to_host`` copies each to the host as it arrives, so the card
-        holds one at a time."""
+        holds one at a time. ``whole(name, t)`` (a collective) makes each
+        leaf's tensor whole over tp and ep first, under a layout."""
         state: Dict[str, Dict[str, torch.Tensor]] = {}
         for key in self.inner.STATE:
             buffers = getattr(self.inner, key)
             for g, group in enumerate(self.groups):
                 for i, name in enumerate(group.names):
-                    t = self._gather_leaf(g, i, buffers[g])
+                    t = self._gather_leaf(g, i, buffers[g]).view(
+                        group.shapes[i])
+                    if whole is not None:
+                        t = whole(name, t)
                     if not keep:
                         continue
-                    t = t.view(group.shapes[i])
                     t = t.to("cpu", copy=True) if to_host else t.clone()
                     state.setdefault(name, {})[key] = t
         return {"count": self.inner.count, "state": state}
@@ -315,3 +390,7 @@ class ZeroOptimizer:
             if leaf == i:
                 buf[a - group.start:b - group.start].copy_(
                     src.reshape(-1)[a - o:b - o])
+
+
+def _is_expert(name: str) -> bool:
+    return ".experts." in f".{name}"

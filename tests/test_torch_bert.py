@@ -11,6 +11,8 @@ held to 1e-5 absolute plus 1e-4 relative.
 """
 
 import dataclasses
+import os
+import sys
 import warnings
 
 import jax
@@ -25,6 +27,9 @@ from deepspeed_tpu_torch.models import bert as tbert
 from deepspeed_tpu_torch.module_inject.jax_params import bert_state_dict_from_jax
 from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bsa
 from deepspeed_tpu_torch.ops.sparse_attention import sparse_attention_utils as tutils
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -67,7 +72,7 @@ def _batch(seed=0, b=2, masked=False):
 
 def _both(jcfg, tcfg, seed=0):
     jmodel = jbert.BertForPreTraining(jcfg)
-    params = jmodel.init(jax.random.PRNGKey(seed), jnp.zeros((1, T), jnp.int32))["params"]
+    params = cached_init(jmodel, seed, jnp.zeros((1, T), jnp.int32))["params"]
     params = jax.device_get(params)
     tmodel = tbert.BertForPreTraining(tcfg)
     tmodel.load_state_dict(bert_state_dict_from_jax(params, tcfg), assign=True)

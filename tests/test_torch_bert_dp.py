@@ -40,6 +40,7 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
 import test_torch_grad_exchange as tgx  # noqa: E402
 import test_torch_zero as tz  # noqa: E402
 
@@ -82,7 +83,7 @@ def jax_bert(scan_layers=True, **over):
     jmodel = jbert.BertForPreTraining(jbert.BertConfig(
         **{**tz.BERT_TINY, **over}, dtype=jnp.float32,
         param_dtype=jnp.float32, scan_layers=scan_layers))
-    params = jmodel.init(jax.random.PRNGKey(0),
+    params = cached_init(jmodel, 0,
                          jnp.zeros((1, tz.SEQ), jnp.int32))["params"]
     return jmodel, params
 
@@ -191,7 +192,7 @@ def runs(start, tmp_path_factory):
                     STEPS, init=init, bert=True, model={"remat": remat},
                     units=True)
              for remat in (False, True)]
-    return tz.run_ranks(jobs, tmp_path_factory.mktemp("bert_dp"))
+    return tz.start_ranks(jobs, tmp_path_factory.mktemp("bert_dp"))
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,8 @@ bound on logits of order 1).
 
 import dataclasses
 import math
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +43,9 @@ from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bsa
 from deepspeed_tpu_torch.ops.sparse_attention import \
     sparse_attention_utils as tutils
 from deepspeed_tpu_torch.runtime import activation_checkpointing as ac
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -88,8 +93,8 @@ def _configs(kernel=None, jax_over=None, **over):
 def _both(kernel=None, seed=0, jax_over=None, **over):
     jcfg, tcfg = _configs(kernel, jax_over, **over)
     jmodel = jbert.BertForPreTraining(jcfg)
-    params = jax.device_get(jmodel.init(
-        jax.random.PRNGKey(seed), jnp.zeros((1, T), jnp.int32))["params"])
+    params = jax.device_get(cached_init(
+        jmodel, seed, jnp.zeros((1, T), jnp.int32))["params"])
     tmodel = tbert.BertForPreTraining(tcfg)
     tmodel.load_state_dict(bert_state_dict_from_jax(params, tcfg),
                            assign=True)
@@ -393,8 +398,9 @@ def test_bert_exchange_layout_is_the_flax_flatten(scan, mlm_bias):
     jcfg = jbert.BertConfig(**dict(TINY, num_hidden_layers=3),
                             dtype=jnp.float32, scan_layers=scan,
                             use_mlm_bias=mlm_bias)
-    params = jax.device_get(jbert.BertForPreTraining(jcfg).init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"])
+    params = jax.device_get(cached_init(
+        jbert.BertForPreTraining(jcfg), 0,
+        jnp.zeros((1, 8), jnp.int32))["params"])
     rng = np.random.RandomState(1)
     params = jax.tree_util.tree_map(
         lambda x: rng.randn(*x.shape).astype(np.float32), params)

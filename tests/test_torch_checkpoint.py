@@ -21,6 +21,7 @@ the same weights to 1e-4 absolute (``test_torch_inference.py``'s bound).
 """
 
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +43,9 @@ from deepspeed_tpu_torch.module_inject.jax_params import (
 from deepspeed_tpu_torch.runtime import checkpoint_engine as tce
 from deepspeed_tpu_torch.runtime import checkpoint_manifest as tcm
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -123,7 +127,7 @@ def jax_run(tmp_path_factory):
     """The JAX engine: 2 steps, save, 2 steps (run 1), load, the same 2
     steps (run 2); and the state after the first 2 steps."""
     jmodel = jlm.GPT(jlm.GPTConfig(**SMALL, dtype=jnp.float32))
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+    params = cached_init(jmodel, 0, jnp.zeros((1, 8), jnp.int32),
                          deterministic=True)["params"]
     jeng, *_ = deepspeed_tpu.initialize(
         model=jmodel, config=_config(), model_parameters=params,

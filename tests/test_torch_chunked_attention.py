@@ -11,6 +11,8 @@ and chunked functions replaced by recorders).
 """
 
 import importlib
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +24,9 @@ from deepspeed_tpu.models import transformer_lm as jlm
 from deepspeed_tpu_torch.models import transformer_lm as tlm
 from deepspeed_tpu_torch.module_inject.jax_params import gpt_state_dict_from_jax
 from deepspeed_tpu_torch.ops.chunked_attention import chunked_attention
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
 
 # the modules (the pallas package exports a function of the same name)
 jflash = importlib.import_module("deepspeed_tpu.ops.pallas.flash_attention")
@@ -85,7 +90,7 @@ def test_refuses_an_undivided_length():
 def _pair(**over):
     jcfg = jlm.GPTConfig(**SMALL, dtype=jnp.float32, **over)
     jmodel = jlm.GPT(jcfg)
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+    params = cached_init(jmodel, 0, jnp.zeros((1, 8), jnp.int32),
                          deterministic=True)["params"]
     tcfg = tlm.GPTConfig(**SMALL, dtype=torch.float32, **over)
     tmodel = tlm.GPT(tcfg)

@@ -88,8 +88,10 @@ def _all_to_all_and_groups(rank):
                                           axis_index_groups=[[0], [1]])
     out["group_size"] = torch.tensor(
         comm.index_group("fsdp", [[0], [1]])[1])
+    # tp is ported: on this mesh its group is the rank alone
+    out["a2a_tp"] = comm.all_to_all_single(x, "tp")
     for key, call in (
-            ("a2a_tp", lambda: comm.all_to_all_single(x, "tp")),
+            ("a2a_sp", lambda: comm.all_to_all_single(x, "sp")),
             ("unequal", lambda: comm.all_reduce(
                 y.clone(), "fsdp", axis_index_groups=[[0, 1], []]))):
         try:
@@ -204,7 +206,8 @@ def test_all_to_all_and_sub_groups(two_ranks):
         np.testing.assert_array_equal(got["gather_alone"],
                                       np.full(3, rank + 1.0))
         assert int(got["group_size"]) == 1
-        assert "ROADMAP A.9" in got["a2a_tp"]
+        np.testing.assert_array_equal(got["a2a_tp"], x[rank])
+        assert "ROADMAP A.9" in got["a2a_sp"]
         assert "equal-size" in got["unequal"]
 
 

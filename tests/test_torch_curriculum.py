@@ -8,12 +8,18 @@ holds the JAX engine's losses to 1e-5 relative (``test_torch_engine.py``'s
 tolerance: f32, the order of sums).
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 from deepspeed_tpu_torch.runtime.data_pipeline import (
     CurriculumScheduler, truncate_batch_to_difficulty)
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
 
 SCHEDULES = {
     "fixed_linear": {"min_difficulty": 8, "max_difficulty": 1024,
@@ -170,7 +176,7 @@ def test_engine_curriculum_without_the_pipeline_matches_jax():
         ids = rng.randint(0, 128, size=(2, 64)).astype(np.int32)
         batches.append({"input_ids": ids, "labels": ids})
     jmodel = jlm.GPT(jlm.GPTConfig(**small, dtype=jnp.float32))
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+    params = cached_init(jmodel, 0, jnp.zeros((1, 8), jnp.int32),
                          deterministic=True)["params"]
     jeng = deepspeed_tpu.initialize(
         model=jmodel, config=ds, model_parameters=params,

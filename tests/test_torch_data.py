@@ -33,6 +33,9 @@ from deepspeed_tpu_torch.data import (  # noqa: E402
     pack_documents)
 from deepspeed_tpu_torch.data.prefetch import CopyStream, PlacedBatch  # noqa: E402
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
+
 SMALL = dict(vocab_size=128, n_positions=128, n_embd=64, n_layer=2, n_head=2)
 LOSS_RTOL = 1e-5
 CHILD_TIMEOUT_S = 120
@@ -524,7 +527,7 @@ def jax_init():
     from deepspeed_tpu.models import transformer_lm as jlm
 
     jmodel = jlm.GPT(jlm.GPTConfig(**SMALL, dtype=jnp.float32))
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+    params = cached_init(jmodel, 0, jnp.zeros((1, 8), jnp.int32),
                          deterministic=True)["params"]
     return jmodel, params
 

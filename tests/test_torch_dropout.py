@@ -12,6 +12,8 @@ one generator state) are the port's own.
 
 import importlib
 import math
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +26,9 @@ from deepspeed_tpu_torch.models import transformer_lm as tlm
 from deepspeed_tpu_torch.module_inject.jax_params import gpt_state_dict_from_jax
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 from deepspeed_tpu_torch.runtime import activation_checkpointing as ac
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
 
 # the modules (the pallas package exports a function of the same name)
 jflash = importlib.import_module("deepspeed_tpu.ops.pallas.flash_attention")
@@ -44,7 +49,7 @@ def _pair(rate=RATE, scan_layers=False, **over):
     jcfg = jlm.GPTConfig(**SMALL, dropout=rate, scan_layers=scan_layers,
                          dtype=jnp.float32, **over)
     jmodel = jlm.GPT(jcfg)
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+    params = cached_init(jmodel, 0, jnp.zeros((1, 8), jnp.int32),
                          deterministic=True)["params"]
     tcfg = tlm.GPTConfig(**SMALL, dropout=rate, scan_layers=scan_layers,
                          dtype=torch.float32, **over)

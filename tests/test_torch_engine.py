@@ -12,7 +12,9 @@ sides hold only rounding noise there, and Adam normalizes that noise to
 steps of +-lr, so it is held to K * 2 * lr.
 """
 
+import os
 import re
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +35,9 @@ from deepspeed_tpu_torch.ops.cuda import fused_adam as fadam
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
                                                     RepeatingLoader)
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -80,7 +85,7 @@ def _train_both(ds, *, flash=False, dtype="f32", gas=1):
     tdt = {"f32": torch.float32, "f16": torch.float16}[dtype]
     batches = _batches(K * gas)
     jmodel = jlm.GPT(jlm.GPTConfig(**SMALL, dtype=jdt, use_flash_attention=flash))
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+    params = cached_init(jmodel, 0, jnp.zeros((1, 8), jnp.int32),
                          deterministic=True)["params"]
     jeng, *_ = deepspeed_tpu.initialize(
         model=jmodel, config=ds, model_parameters=params,
@@ -202,7 +207,9 @@ def test_gpt_pretrain_config_parses_as_in_jax():
     {"tensorboard": {"enabled": True}},
     {"wandb": {"enabled": True}},
     {"eigenvalue": {"enabled": True}},
-    {"tpu": {"mesh": {"tp": 2}}},
+    # tp and ep are ported (test_torch_tensor_parallel.py,
+    # test_torch_expert_parallel.py); sp stays refused (ROADMAP A.9 part 2)
+    {"tpu": {"mesh": {"sp": 2}}},
     {"activation_checkpointing": {"cpu_checkpointing": True}},
     {"flops_profiler": {"enabled": True}},
     {"graceful_shutdown": {"enabled": True, "save_dir": "ckpt"}},
@@ -241,7 +248,7 @@ def test_every_refusal_names_its_roadmap_item():
         zero_optimization={"stage": 2,
                            "offload_optimizer": {"device": "cpu"},
                            "offload_param": {"device": "cpu"}},
-        tpu={"mesh": {"tp": 2}, "step_autotune": {"enabled": True},
+        tpu={"mesh": {"sp": 2}, "step_autotune": {"enabled": True},
              "cluster_health": {"enabled": True}})
     names = DeepSpeedConfig(ds).unported_features()
     assert len(names) == 18, names
@@ -304,7 +311,7 @@ def test_eval_batch_and_padded_loader_match_jax():
         for key in a:
             np.testing.assert_array_equal(a[key], b[key])
     jmodel = jlm.GPT(jlm.GPTConfig(**SMALL, dtype=jnp.float32))
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+    params = cached_init(jmodel, 0, jnp.zeros((1, 8), jnp.int32),
                          deterministic=True)["params"]
     want = jmodel.apply({"params": params},
                         **{k: jnp.asarray(v) for k, v in tb[-1].items()})
@@ -371,7 +378,7 @@ def test_bert_bigbird_training_matches_jax(kernel):
                  sparse_attention=dict(BIGBIRD_16, kernel=kernel))
     jmodel = jbert.BertForPreTraining(jbert.BertConfig(
         **BERT_TINY, dtype=jnp.float32, param_dtype=jnp.float32))
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 64), jnp.int32))["params"]
+    params = cached_init(jmodel, 0, jnp.zeros((1, 64), jnp.int32))["params"]
     jeng, *_ = deepspeed_tpu.initialize(
         model=jmodel, config=ds, model_parameters=params,
         topology=MeshTopology(dp=1, devices=jax.devices()[:1]))

@@ -8,6 +8,9 @@ gradients under ``fused_head_ce`` 2048, True and a small chunk against
 JAX's; and the ``"auto"`` decision against JAX's formula.
 """
 
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +22,9 @@ from deepspeed_tpu.ops import cross_entropy as jce
 from deepspeed_tpu_torch.models import transformer_lm as tlm
 from deepspeed_tpu_torch.module_inject.jax_params import gpt_state_dict_from_jax
 from deepspeed_tpu_torch.ops import cross_entropy as tce
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -130,7 +136,7 @@ def _pair(fused, tied=True):
     jcfg = jlm.GPTConfig(**SMALL, fused_head_ce=fused, dtype=jnp.float32,
                          **over)
     jmodel = jlm.GPT(jcfg)
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+    params = cached_init(jmodel, 0, jnp.zeros((1, 8), jnp.int32),
                          deterministic=True)["params"]
     if not tied:
         # a bias that is not zero, so its gradient path is exercised

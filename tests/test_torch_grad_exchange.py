@@ -24,7 +24,6 @@ rounding boundary of the int8 grid.
 """
 
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -57,30 +56,10 @@ INT8_LEAF = {"communication_data_type": "int8"}
 
 
 def run_ranks(jobs, tmp_path, world=tz.WORLD):
-    """``tz.run_ranks`` with this file's worker."""
-    tmp_path = str(tmp_path)
-    spec = os.path.join(tmp_path, "jobs.pt")
-    torch.save(jobs, spec)
-    rdv = os.path.join(tmp_path, "rendezvous")
-    procs, outs = [], []
-    for rank in range(world):
-        outs.append(os.path.join(tmp_path, f"rank{rank}.pt"))
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--worker", spec,
-             str(rank), str(world), f"file://{rdv}", outs[-1]],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env=dict(os.environ, OMP_NUM_THREADS="1")))
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=CHILD_TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for rank, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {rank} failed:\n{log[-4000:]}"
-    return [torch.load(out, weights_only=False) for out in outs]
+    """``tz.start_ranks`` with this file's worker: each rank's results,
+    waited for at first use."""
+    return tz.start_ranks(jobs, tmp_path, world, worker=__file__,
+                          timeout=CHILD_TIMEOUT_S)
 
 
 # ---------------------------------------------------------------------------
@@ -319,8 +298,9 @@ def test_exchange_matches_jax(name, runs, jax_runs):
     same mode (scanned and unscanned layouts; unequal label counts across
     the ranks in the masked case, where each worker's loss is its own
     mean)."""
+    want = jax_runs(name)        # first: the ranks may still be running
     assert_ranks_agree(runs["ranks"], name)
-    got, want = runs["ranks"][0][name], jax_runs(name)
+    got = runs["ranks"][0][name]
     np.testing.assert_allclose(got["losses"], want["losses"],
                                rtol=tz.LOSS_RTOL)
     tz.assert_updates_close(got["params"], want["params"], want["start"],
@@ -487,13 +467,13 @@ def test_hierarchical_on_four_ranks(tmp_path):
     per_rank = run_ranks([tz.job("hier", hier, steps, init=init, comms=True),
                           tz.job("flat", flat, steps, init=init)],
                          tmp_path, world=4)
+    want = jax_run(hier, steps, dp=4)      # while the ranks run
     a = per_rank[0]["hier"]
     assert all(r["hier"]["losses"] == a["losses"] for r in per_rank)
     np.testing.assert_allclose(a["losses"], per_rank[0]["flat"]["losses"],
                                rtol=BF16_RTOL)
     assert a["level_bytes"]["ici"] > 0 and a["level_bytes"]["dcn"] > 0
     assert any(k.endswith(".dcn") for k in a["comms"])
-    want = jax_run(hier, steps, dp=4)
     np.testing.assert_allclose(a["losses"], want["losses"], rtol=BF16_RTOL)
 
 

@@ -173,13 +173,15 @@ def test_default_device_is_the_card():
                                 {"dtype": "int8"},
                                 {"config": {"kv_cache": "int8"}}])
 def test_unported_engine_options_raise(kw):
-    """tp and ep (ROADMAP A.9) stay refused; int8 weights and the int8 KV
-    cache are served, as the JAX engine serves them (its config gains
+    """tp and ep serve over a process group of one process per card
+    (test_torch_tensor_parallel.py, test_torch_expert_parallel.py): without
+    one they raise, naming ``init_distributed``; int8 weights and the int8
+    KV cache are served, as the JAX engine serves them (its config gains
     ``quantized_weights`` / ``kv_cache_dtype``)."""
     kw = {"dtype": "fp32", **kw}
     model = tlm.GPT(tlm.GPTConfig(**SMALL))
     if "mp_size" in kw or "ep_size" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+        with pytest.raises(ValueError, match="comm.init_distributed"):
             deepspeed_tpu_torch.init_inference(model, device="cpu", **kw)
         return
     eng = deepspeed_tpu_torch.init_inference(model, device="cpu", **kw)
@@ -214,13 +216,27 @@ def test_foreign_models_are_refused():
 @pytest.mark.parametrize("case", ["tp", "ep", "foreign"])
 def test_serving_refusals_name_their_roadmap_item(case):
     """Every refusal left on the serving path names the ROADMAP item that
-    ports it: tp and ep A.9, a foreign (HF) model A.12."""
-    model = tlm.GPT(tlm.GPTConfig(**SMALL))
-    kw = {"tp": {"mp_size": 2}, "ep": {"ep_size": 2}, "foreign": {}}[case]
-    if case == "foreign":
-        model = torch.nn.Linear(2, 2)
+    ports it: the continuous-batching scheduler over an engine with tp or
+    ep > 1 A.9 part 2 (the engines themselves serve:
+    test_torch_tensor_parallel.py, test_torch_expert_parallel.py), a
+    foreign (HF) model A.12."""
+    import types
+
+    from deepspeed_tpu_torch.inference.scheduler import \
+        ContinuousBatchingScheduler
+    from deepspeed_tpu_torch.parallel.tensor import ParallelLayout
+
+    item = {"tp": "A.9 part 2", "ep": "A.9 part 2", "foreign": "A.12"}[case]
     with pytest.raises(NotImplementedError) as err:
-        deepspeed_tpu_torch.init_inference(model, dtype="fp32", device="cpu",
-                                           **kw)
-    item = {"tp": "A.9", "ep": "A.9", "foreign": "A.12"}[case]
+        if case == "foreign":
+            deepspeed_tpu_torch.init_inference(torch.nn.Linear(2, 2),
+                                               dtype="fp32", device="cpu")
+        else:
+            # the rank's shard of a tp-2 / ep-2 model (meta: no weights)
+            layout = ParallelLayout(**{case: 2})
+            cfg = tlm.GPTConfig(**SMALL, **(
+                {"moe_num_experts": 2} if case == "ep" else {}))
+            engine = types.SimpleNamespace(
+                module=tlm.GPT(cfg, parallel=layout))
+            ContinuousBatchingScheduler(engine)
     assert f"ROADMAP {item}" in str(err.value)

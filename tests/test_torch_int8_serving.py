@@ -12,6 +12,8 @@ and greedy tokens are identical.
 """
 
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +34,9 @@ from deepspeed_tpu_torch.module_inject.jax_params import gpt_state_dict_from_jax
 from deepspeed_tpu_torch.ops import quantizer as tq
 from deepspeed_tpu_torch.ops.sparse_attention.sparse_attention_utils import \
     apply_sparse_attention
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -227,7 +232,7 @@ def test_int8_kv_every_position_matches_jax(ring):
     T, steps = 64, 4
     ids = _ids((2, T), seed=3)
     jm8, tm8 = models(kv_cache_dtype="int8")
-    params = jm8.init(jax.random.PRNGKey(0), jnp.asarray(ids, jnp.int32),
+    params = cached_init(jm8, 0, jnp.asarray(ids, jnp.int32),
                       deterministic=True)["params"]
     spans = prefill_chunk_spans(jm8.config, T) or [(0, T)]
     assert (len(spans) > 2) == ring

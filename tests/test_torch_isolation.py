@@ -85,6 +85,20 @@ bert, _, _, _ = deepspeed_tpu_torch.initialize(
 mlm = dict(input_ids=ids[:, :64].numpy(), labels=ids[:, :64].numpy())
 loss = bert.train_batch(iter(RepeatingLoader([mlm])))
 assert bool(torch.isfinite(loss)) and bert.global_steps == 1
+from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.parallel import tensor as tensor_parallel
+lay = tensor_parallel.ParallelLayout(tp=2, tp_rank=1)
+whole = GPT(lcfg).state_dict()
+local = tensor_parallel.shard_state_dict(whole, lcfg, lay)
+assert ({{k: tuple(v.shape) for k, v in local.items()}}
+        == {{k: tuple(v.shape) for k, v in GPT(lcfg, parallel=lay).state_dict(
+            ).items()}})
+comm.init_distributed(device_type="cpu")
+tp1 = deepspeed_tpu_torch.init_inference(
+    GPT(lcfg, parallel=tensor_parallel.ParallelLayout()), dtype="fp32",
+    device="cpu")
+assert tp1(ids).shape == (1, 128, 64)
+comm.destroy_distributed()
 print("loaded:" + ",".join(sorted(m for m in sys.modules
                                   if m.split(".")[0] in {forbidden!r})))
 """

@@ -29,6 +29,7 @@ from deepspeed_tpu_torch.module_inject.jax_params import (flatten_jax_tree,
                                                            gpt_state_dict_from_jax)
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
 from test_torch_transformer_lm import _packed  # noqa: E402
 
 torch.set_num_threads(2)
@@ -54,7 +55,7 @@ def _pair(flash=False, scan_layers=True, train=False, seed=0, **over):
     jmodel = jlm.GPT(jlm.GPTConfig(**fields, scan_layers=scan_layers,
                                    use_flash_attention=flash,
                                    dtype=jnp.float32))
-    params = jmodel.init(jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32),
+    params = cached_init(jmodel, seed, jnp.zeros((1, 8), jnp.int32),
                          deterministic=True)["params"]
     tcfg = tlm.GPTConfig(**fields, scan_layers=scan_layers,
                          use_flash_attention=flash, dtype=torch.float32)

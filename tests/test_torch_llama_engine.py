@@ -31,6 +31,7 @@ from deepspeed_tpu_torch.module_inject.jax_params import (adam_state_from_jax,
                                                            gpt_state_dict_from_jax)
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
 import test_torch_zero as tz  # noqa: E402
 from test_torch_llama import LLAMA  # noqa: E402
 
@@ -42,7 +43,7 @@ SERVE = dict(LLAMA, n_positions=64)
 
 def _jax_params(fields, seed=0):
     jmodel = jlm.GPT(jlm.GPTConfig(**fields, dtype=jnp.float32))
-    params = jmodel.init(jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32),
+    params = cached_init(jmodel, seed, jnp.zeros((1, 8), jnp.int32),
                          deterministic=True)["params"]
     return jmodel, params
 
@@ -123,7 +124,7 @@ def test_zero1_training_matches_jax(case):
     model = dict(LLAMA, use_flash_attention=case != "einsum",
                  remat=case != "einsum")
     jmodel = jlm.GPT(jlm.GPTConfig(**model, dtype=jnp.float32))
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+    params = cached_init(jmodel, 0, jnp.zeros((1, 8), jnp.int32),
                          deterministic=True)["params"]
     ds = _train_config()
     jeng, *_ = deepspeed_tpu.initialize(
@@ -180,7 +181,8 @@ def group_runs(tmp_path_factory):
                 "stage": 3, "stage3_param_persistence_threshold": threshold}))
         jobs.append(tz.job(name, ds, tz.MATRIX_STEPS[1], init=init,
                            model=STAGE3_MODEL, units=stage == 3))
-    ranks = tz.run_ranks(jobs, tmp_path_factory.mktemp("llama_zero"))
+    # the ranks run while the parent runs the one-process engine
+    ranks = tz.start_ranks(jobs, tmp_path_factory.mktemp("llama_zero"))
     ref = tz.one_process(tz.config(0, 2), tz.MATRIX_STEPS[1], init,
                          model=STAGE3_MODEL)
     return ranks, ref, init

@@ -16,6 +16,9 @@ copy (equal to the dense product bit for bit) and the index combine sums
 the same <= k products as the dense f32 one (1e-6).
 """
 
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +37,9 @@ from deepspeed_tpu_torch.module_inject.jax_params import (flatten_jax_tree,
                                                            gpt_state_dict_from_jax)
 from deepspeed_tpu_torch.moe import sharded_moe as tsm
 from deepspeed_tpu_torch.runtime import moe_checkpoint as tckpt
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -228,7 +234,7 @@ def test_stacked_experts_match_jax(gated):
                                    activation=jax.nn.silu if gated
                                    else jax.nn.gelu)
     x = np.random.RandomState(8).randn(E, 10, 32).astype(np.float32)
-    params = jmod.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    params = cached_init(jmod, 0, jnp.asarray(x))["params"]
     if not gated:
         params = dict(params, bi=jnp.full((E, 48), 0.1),
                       bo=jnp.full((E, 32), -0.2))
@@ -247,7 +253,7 @@ def _moe_pair(k, gated, **over):
               min_capacity=2, gated_experts=gated, **over)
     jmod = jlayer.MoE(**kw, dtype=jnp.float32)
     x = np.random.RandomState(10).randn(2, 24, 32).astype(np.float32)
-    params = jmod.init(jax.random.PRNGKey(2), jnp.asarray(x))["params"]
+    params = cached_init(jmod, 2, jnp.asarray(x))["params"]
     tmod = tmoe.MoE(**kw, dtype=torch.float32)
     sd = {"gate.weight": _t(params["gate"]["kernel"]).t()}
     sd.update({f"experts.{n}": _t(v) for n, v in params["experts"].items()})
@@ -353,8 +359,7 @@ def _pair(fields, scan_layers=True, flash=False, train=False, **over):
     jmodel = jlm.GPT(jlm.GPTConfig(**fields, scan_layers=scan_layers,
                                    use_flash_attention=flash,
                                    dtype=jnp.float32))
-    params = jax.device_get(jmodel.init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+    params = jax.device_get(cached_init(jmodel, 0, jnp.zeros((1, 8), jnp.int32),
         deterministic=True)["params"])
     tcfg = tlm.GPTConfig(**fields, scan_layers=scan_layers,
                          use_flash_attention=flash, dtype=torch.float32)

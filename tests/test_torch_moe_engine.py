@@ -36,6 +36,7 @@ from deepspeed_tpu_torch.module_inject.jax_params import gpt_state_dict_from_jax
 from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
 import test_torch_zero as tz  # noqa: E402
 
 torch.set_num_threads(2)
@@ -61,7 +62,7 @@ def _fields(moe, **over):
 
 def _jax_params(fields, seed=0):
     jmodel = jlm.GPT(jlm.GPTConfig(**fields, dtype=jnp.float32))
-    params = jmodel.init(jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32),
+    params = cached_init(jmodel, seed, jnp.zeros((1, 8), jnp.int32),
                          deterministic=True)["params"]
     return jmodel, params
 
@@ -106,10 +107,23 @@ def test_greedy_generate_is_token_identical(engines, ragged):
 
 
 def test_expert_parallel_serving_is_refused_naming_a9():
-    with pytest.raises(NotImplementedError, match="A.9"):
+    """ep serves over a process group (test_torch_expert_parallel.py):
+    without one ``ep_size`` > 1 raises naming ``init_distributed``, and the
+    scheduler over an ep engine stays refused (ROADMAP A.9 part 2)."""
+    import types
+
+    from deepspeed_tpu_torch.inference.scheduler import \
+        ContinuousBatchingScheduler
+    from deepspeed_tpu_torch.parallel.tensor import ParallelLayout
+
+    with pytest.raises(ValueError, match="comm.init_distributed"):
         deepspeed_tpu_torch.init_inference(
             tlm.GPT(tlm.GPTConfig(**_fields(SWITCH))), dtype="fp32",
             device="cpu", ep_size=2)
+    engine = types.SimpleNamespace(module=tlm.GPT(
+        tlm.GPTConfig(**_fields(SWITCH)), parallel=ParallelLayout(ep=2)))
+    with pytest.raises(NotImplementedError, match="A.9"):
+        ContinuousBatchingScheduler(engine)
 
 
 # ---------------------------------------------------------------------------
@@ -301,7 +315,8 @@ def group_runs(tmp_path_factory):
                        model=SWITCH, raises=True))
     jobs.append(tz.job("s1_noisy", tz.config(1), [steps[0]] * 3,
                        model=dict(NOISY), seed=4))
-    ranks = tz.run_ranks(jobs, tmp_path_factory.mktemp("moe_zero"))
+    # the ranks run while the parent runs JAX and the one-process engine
+    ranks = tz.start_ranks(jobs, tmp_path_factory.mktemp("moe_zero"))
     jax_by_stage = {stage: tz.jax_run(tz.config(stage), steps,
                                       model=SWITCH_GLOBAL)
                     for stage in GROUP_STAGES}

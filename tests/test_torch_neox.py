@@ -17,6 +17,8 @@ in interpret mode and the port its plain PyTorch version.
 """
 
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +32,9 @@ from deepspeed_tpu_torch.module_inject.jax_params import (flatten_jax_tree,
                                                            gpt_exchange_layout,
                                                            gpt_state_dict_from_jax)
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -61,7 +66,7 @@ FORMS = {"neox": NEOX, "gptj": GPTJ, "bloom": BLOOM,
 def _params(fields, seed=0, scan_layers=True):
     jmodel = jlm.GPT(jlm.GPTConfig(**fields, scan_layers=scan_layers,
                                    dtype=jnp.float32))
-    params = jmodel.init(jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32),
+    params = cached_init(jmodel, seed, jnp.zeros((1, 8), jnp.int32),
                          deterministic=True)["params"]
     params = jax.device_get(params)
     if fields is GPTJ:

@@ -17,6 +17,9 @@ update, so parameters after an override agree to f32 rounding, within the
 same bound.
 """
 
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +35,9 @@ from deepspeed_tpu_torch.models import transformer_lm as tlm
 from deepspeed_tpu_torch.module_inject.jax_params import gpt_state_dict_from_jax
 from deepspeed_tpu_torch.runtime import optimizer as topt
 from deepspeed_tpu_torch.utils import timer as ttimer
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -102,7 +108,7 @@ def _engines(ds):
     same weights; and the initial weights."""
     jmodel = jlm.GPT(jlm.GPTConfig(**SMALL, dtype=jnp.float32,
                                    scan_layers=False))
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+    params = cached_init(jmodel, 0, jnp.zeros((1, 8), jnp.int32),
                          deterministic=True)["params"]
     jeng, jopt, _, _ = deepspeed_tpu.initialize(
         model=jmodel, config=ds, model_parameters=params,

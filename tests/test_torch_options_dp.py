@@ -88,15 +88,16 @@ def _init(start, option):
 
 @pytest.fixture(scope="module")
 def stage_runs(start, tmp_path_factory):
-    """Every option at each stage: one spawn of 2 ranks per stage."""
-    runs = {}
-    for stage in STAGES:
-        jobs = [job(name, config(stage, **OPTIONS[name][1]), STEPS,
-                    init=_init(start, name), model=OPTIONS[name][0],
-                    record_masks=1 if name == "dropout" else 0)
-                for name in STAGE_OPTIONS[stage]]
-        runs[stage] = run_ranks(jobs, tmp_path_factory.mktemp(f"opt{stage}"))
-    return runs
+    """Every option at every stage: one spawn of 2 ranks (each rank's
+    results by stage, then by option)."""
+    jobs = [job(f"s{stage}/{name}", config(stage, **OPTIONS[name][1]),
+                STEPS, init=_init(start, name), model=OPTIONS[name][0],
+                record_masks=1 if name == "dropout" else 0)
+            for stage in STAGES for name in STAGE_OPTIONS[stage]]
+    ranks = run_ranks(jobs, tmp_path_factory.mktemp("opt"))
+    return {stage: [{name: r[f"s{stage}/{name}"]
+                     for name in STAGE_OPTIONS[stage]} for r in ranks]
+            for stage in STAGES}
 
 
 def _global_batch_engine(ds, steps, init, model):

@@ -11,6 +11,9 @@ Then ``runtime/activation_checkpointing``'s module API against
 inputs through both packages.
 """
 
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +26,9 @@ from deepspeed_tpu_torch.models import transformer_lm as tlm
 from deepspeed_tpu_torch.module_inject.jax_params import gpt_state_dict_from_jax
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 from deepspeed_tpu_torch.runtime import activation_checkpointing as ac
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -51,7 +57,7 @@ def _pair(policy, flash, remat=True, **over):
     jcfg = jlm.GPTConfig(**SMALL, use_flash_attention=flash, remat=remat,
                          remat_policy=policy, dtype=jnp.float32, **over)
     jmodel = jlm.GPT(jcfg)
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+    params = cached_init(jmodel, 0, jnp.zeros((1, 8), jnp.int32),
                          deterministic=True)["params"]
     tcfg = tlm.GPTConfig(**SMALL, use_flash_attention=flash, remat=remat,
                          remat_policy=policy, dtype=torch.float32, **over)
@@ -315,7 +321,7 @@ def test_options_leave_the_parameter_tree_as_it_is(over):
     too, and the bridge carries the tree over under either config."""
     def jax_tree(**o):
         model = jlm.GPT(jlm.GPTConfig(**SMALL, dtype=jnp.float32, **o))
-        params = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+        params = cached_init(model, 0, jnp.zeros((1, 8), jnp.int32),
                             deterministic=True)["params"]
         return {jax.tree_util.keystr(path): leaf.shape for path, leaf in
                 jax.tree_util.tree_leaves_with_path(params)}, params

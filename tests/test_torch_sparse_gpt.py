@@ -21,6 +21,8 @@ and training steps.
 """
 
 import dataclasses
+import os
+import sys
 import logging
 import warnings
 
@@ -43,6 +45,9 @@ from deepspeed_tpu_torch.module_inject.jax_params import (flatten_jax_tree,
 from deepspeed_tpu_torch.ops.sparse_attention import sparse_attention_utils as tutils
 from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as tssa
 from deepspeed_tpu_torch.utils import logging as tlog
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -81,8 +86,7 @@ def _pair(sparse, kernel=None, train=False, seed=0, **over):
     """(jax model, jax params, port model) on one set of weights."""
     jcfg, tcfg = _configs(sparse, kernel, **over)
     jmodel = jlm.GPT(jcfg)
-    params = jax.device_get(jmodel.init(
-        jax.random.PRNGKey(seed), jnp.zeros((1, T), jnp.int32),
+    params = jax.device_get(cached_init(jmodel, seed, jnp.zeros((1, T), jnp.int32),
         deterministic=True)["params"])
     tmodel = tlm.GPT(tcfg)
     tmodel.load_state_dict(gpt_state_dict_from_jax(params, tcfg), assign=True)
@@ -161,10 +165,10 @@ def test_bridge_carries_a_sparse_tree_unchanged():
     jcfg, tcfg = _configs(WINDOW, "pallas", **ROTARY)
     dense_j = dataclasses.replace(jcfg, sparse_attention=None)
     ids = jnp.zeros((1, T), jnp.int32)
-    sparse_p = jax.device_get(jlm.GPT(jcfg).init(
-        jax.random.PRNGKey(0), ids, deterministic=True)["params"])
-    dense_p = jax.device_get(jlm.GPT(dense_j).init(
-        jax.random.PRNGKey(0), ids, deterministic=True)["params"])
+    sparse_p = jax.device_get(cached_init(
+        jlm.GPT(jcfg), 0, ids, deterministic=True)["params"])
+    dense_p = jax.device_get(cached_init(
+        jlm.GPT(dense_j), 0, ids, deterministic=True)["params"])
     assert jax.tree.structure(sparse_p) == jax.tree.structure(dense_p)
     sd = gpt_state_dict_from_jax(sparse_p, tcfg)
     dense_sd = gpt_state_dict_from_jax(
@@ -518,7 +522,7 @@ def test_engine_training_matches_jax(kernel):
     reset_default_topology()
     jcfg = jlm.GPTConfig(**SMALL, dtype=jnp.float32)
     jmodel = jlm.GPT(jcfg)
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, T), jnp.int32),
+    params = cached_init(jmodel, 0, jnp.zeros((1, T), jnp.int32),
                          deterministic=True)["params"]
     jeng, *_ = deepspeed_tpu.initialize(
         model=jmodel, config=ds, model_parameters=params,

@@ -9,6 +9,8 @@ theta against its host schedule, through a resume.
 """
 
 import math
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +25,9 @@ from deepspeed_tpu_torch.models import transformer_lm as tlm
 from deepspeed_tpu_torch.module_inject.jax_params import gpt_state_dict_from_jax
 from deepspeed_tpu_torch.runtime.progressive_layer_drop import \
     ProgressiveLayerDrop
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -61,7 +66,7 @@ def _pair(n_layer=SMALL["n_layer"], **over):
     jcfg = jlm.GPTConfig(**small, stochastic_mode=True, scan_layers=False,
                          dtype=jnp.float32, **over)
     jmodel = jlm.GPT(jcfg)
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+    params = cached_init(jmodel, 0, jnp.zeros((1, 8), jnp.int32),
                          deterministic=True)["params"]
     tcfg = tlm.GPTConfig(**small, stochastic_mode=True, scan_layers=False,
                          dtype=torch.float32, **over)

@@ -10,6 +10,8 @@ gradient tree carried over by the same bridge.
 """
 
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +22,9 @@ import torch
 from deepspeed_tpu.models import transformer_lm as jlm
 from deepspeed_tpu_torch.models import transformer_lm as tlm
 from deepspeed_tpu_torch.module_inject.jax_params import gpt_state_dict_from_jax
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from jax_init_cache import cached_init  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -34,7 +39,7 @@ def _pair(scan_layers=True, flash=False, bf16=False, seed=0):
                          dtype=jnp.bfloat16 if bf16 else jnp.float32)
     jmodel = jlm.GPT(jcfg)
     ids = jnp.zeros((1, 8), jnp.int32)
-    params = jmodel.init(jax.random.PRNGKey(seed), ids,
+    params = cached_init(jmodel, seed, ids,
                          deterministic=True)["params"]
     tcfg = tlm.GPTConfig(**SMALL, scan_layers=scan_layers,
                          use_flash_attention=flash,
@@ -243,7 +248,7 @@ def _train_pair(flash=False, remat=False, bf16=False, seed=0):
     dt = dict(dtype=jnp.bfloat16 if bf16 else jnp.float32)
     jmodel = jlm.GPT(jlm.GPTConfig(**SMALL, use_flash_attention=flash,
                                    remat=remat, **dt))
-    params = jmodel.init(jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32),
+    params = cached_init(jmodel, seed, jnp.zeros((1, 8), jnp.int32),
                          deterministic=True)["params"]
     tcfg = tlm.GPTConfig(**SMALL, use_flash_attention=flash, remat=remat,
                          dtype=torch.bfloat16 if bf16 else torch.float32)
