@@ -1154,9 +1154,17 @@ def check_block_sparse():
     del path
     free_cuda()
     window = time_block_sparse_gpt()
+    # and at one tp-4 rank's share of it (the parallel phase's window)
+    rank = time_block_sparse_gpt(
+        MISTRAL_7B["n_head"] // PARALLEL_TP,
+        MISTRAL_7B["n_kv_head"] // PARALLEL_TP,
+        case="gpt_window_tp4_rank_16384_timing",
+        plain={"fwd": window["block_sparse_fwd"]["plain_ms_4_heads"],
+               "bwd": window["block_sparse_dq"]["plain_ms_4_heads"]})
     for entry in entries:
         # B5-B7 at the GPT route's shape (Mistral-7B's causal window)
         entry["gpt_window_shape"] = window[entry["name"]]
+        entry["tp4_rank_window_shape"] = rank[entry["name"]]
     return entries
 
 
@@ -1228,9 +1236,14 @@ def check_sparse_case(case, gen, dev):
     return line, (q, k, v, do, o, lse, layout, tables, block)
 
 
-def time_block_sparse_gpt():
+def time_block_sparse_gpt(h=None, kv_heads=None,
+                          case="gpt_window_causal_16384_timing", plain=None):
     """B5, B6 and B7 at the GPT route's shape, Mistral-7B's causal window
-    at [1, 16384, 32, 128] bf16, block 128 (a layout shared by the heads):
+    at [1, 16384, 32, 128] bf16, block 128 (a layout shared by the heads),
+    or at ``h`` heads whose keys and values repeat ``kv_heads`` (one tp-4
+    rank's share, [1, 16384, 8, 128] from 2 KV heads; then each kernel is
+    first held against its plain version on the first 2 heads; ``plain``:
+    the plain versions' times at 4 heads, measured already):
     device time against the bound over the causal visible pairs, against
     F.scaled_dot_product_attention under the expanded [T, T] boolean mask
     (the library call: the same function, dense work under the mask), and
@@ -1245,7 +1258,9 @@ def time_block_sparse_gpt():
     from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 
-    b, t, h, d = 1, SPARSE_GPT_SEQ, MISTRAL_7B["n_head"], 128
+    b, t, d = 1, SPARSE_GPT_SEQ, 128
+    h = h or MISTRAL_7B["n_head"]
+    kv = kv_heads or h
     block = SPARSE_GPT_BLOCK["block"]
     layout = _sparse_config(
         "LocalSlidingWindowSparsityConfig", h, block,
@@ -1253,10 +1268,43 @@ def time_block_sparse_gpt():
     ).make_layout(t)
     tables = bsa.build_index_tables(layout, "cuda")
     gen = torch.Generator().manual_seed(60)
-    q, k, v, do = (torch.randn((b, t, h, d), generator=gen)
-                   .to("cuda", torch.bfloat16) for _ in range(4))
+    q, k, v, do = (torch.randn((b, t, n, d), generator=gen)
+                   .to("cuda", torch.bfloat16) for n in (h, kv, kv, h))
+    if kv != h:
+        # the GQA repeat the attention hands the kernels (contiguous)
+        k, v = (x.repeat_interleave(h // kv, dim=2) for x in (k, v))
     scale = d ** -0.5
     o, lse = bsa.block_sparse_fwd(q, k, v, tables, block=block, causal=True)
+    check = None
+    if kv_heads is not None:
+        # each kernel against its plain version on the first 2 heads (the
+        # plain versions hold [B, H, T, T] f32 scores)
+        got = bsa.block_sparse_bwd(q, k, v, o, lse, do, tables, block=block,
+                                   causal=True)
+        cut = [x[:, :, :2].contiguous() for x in (q, k, v, do)]
+        o_ref, lse_ref = bsa.block_sparse_attention_reference(
+            *cut[:3], layout[:1], block=block, causal=True)
+        want = bsa.block_sparse_attention_backward_reference(
+            *cut[:3], o_ref, lse_ref, cut[3], layout[:1], block=block,
+            causal=True)
+        torch.cuda.synchronize()
+        tol = TOLERANCE["bfloat16"]
+        check = {"o_max_abs_err": float((o[:, :, :2].float()
+                                         - o_ref.float()).abs().max()),
+                 "lse_max_abs_err": float((lse[:, :2] - lse_ref)
+                                          .abs().max()),
+                 "grad_rel_err": {n: _rel_err(g[:, :, :2], w) for n, g, w in
+                                  zip(("dq", "dk", "dv"), got, want)},
+                 "tol": tol, "grad_rel_tol": GRAD_REL_TOL["bfloat16"]}
+        del got, cut, o_ref, lse_ref, want
+        free_cuda()
+        if not (check["o_max_abs_err"] <= tol["o"]
+                and check["lse_max_abs_err"] <= tol["lse"]
+                and max(check["grad_rel_err"].values())
+                <= GRAD_REL_TOL["bfloat16"]):
+            emit({"phase": "kernel", "kernel": "block_sparse_attention",
+                  "case": case, "check": check})
+            raise AssertionError(f"block_sparse_attention {case}: {check}")
     delta = fa.bwd_delta(o, do)
     args = (q, k, v, lse, delta, do, tables, block, True, scale)
     times = {"block_sparse_fwd": device_ms(lambda: bsa._launch_fwd(
@@ -1274,17 +1322,20 @@ def time_block_sparse_gpt():
              "flash_attention_bwd_dkv": device_ms(
                  lambda: fa._launch_dkv(*fargs))["ms"]}
     del fo, flse, fdelta, fargs
-    # the plain versions at 4 heads
-    cut = [x[:, :, :4].contiguous() for x in (q, k, v, do)]
-    o4, lse4 = bsa.block_sparse_attention_reference(
-        *cut[:3], layout[:1], block=block, causal=True)
-    plain = {"fwd": device_ms(lambda: bsa.block_sparse_attention_reference(
-                 *cut[:3], layout[:1], block=block, causal=True), iters=3)["ms"],
-             "bwd": device_ms(lambda: bsa.block_sparse_attention_backward_reference(
-                 *cut[:3], o4, lse4, cut[3], layout[:1], block=block,
-                 causal=True), iters=3)["ms"]}
-    del cut, o4, lse4
-    free_cuda()
+    if plain is None:
+        # the plain versions at 4 heads
+        cut = [x[:, :, :4].contiguous() for x in (q, k, v, do)]
+        o4, lse4 = bsa.block_sparse_attention_reference(
+            *cut[:3], layout[:1], block=block, causal=True)
+        plain = {"fwd": device_ms(lambda: bsa.block_sparse_attention_reference(
+                     *cut[:3], layout[:1], block=block, causal=True),
+                     iters=3)["ms"],
+                 "bwd": device_ms(
+                     lambda: bsa.block_sparse_attention_backward_reference(
+                         *cut[:3], o4, lse4, cut[3], layout[:1], block=block,
+                         causal=True), iters=3)["ms"]}
+        del cut, o4, lse4
+        free_cuda()
     # the library call under the expanded boolean mask
     mask = bsa.keep_mask(layout, block, True, q.device)[0, 0]
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
@@ -1309,6 +1360,7 @@ def time_block_sparse_gpt():
                       "block_sparse_dq": "flash_attention_bwd_dq",
                       "block_sparse_dkv": "flash_attention_bwd_dkv"}[name]
         out[name] = {"shape": [b, t, h, d], "block": block, "causal": True,
+                     "kv_heads_repeated_from": kv,
                      "ms": ms, "device_time": times[name],
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "flops": n_ops, "bytes": nbytes,
@@ -1318,7 +1370,7 @@ def time_block_sparse_gpt():
                                 "expanded [T, T] boolean mask",
                      "full_causal_flash_ms": flash[flash_name]}
     emit({"phase": "kernel", "kernel": "block_sparse_attention",
-          "case": "gpt_window_causal_16384_timing", "shape": [b, t, h, d],
+          "case": case, "shape": [b, t, h, d], "check": check,
           "visible_pairs_per_head": pairs // (b * h),
           "full_causal_pairs_per_head": full_pairs // (b * h),
           "visible_share": pairs / full_pairs, "timing": out,
@@ -7936,11 +7988,13 @@ def gap_bound(logits, n_layer):
     return GAP_SIGMAS * math.sqrt(2.0 * n_layer) * 2.0 ** -8 * rms
 
 
-def padded_prompt(prompt, bucket, device):
-    """``prompt`` left-padded to its bucket: ids and mask ``[1, Lp]``."""
+def padded_prompt(prompt, bucket, device, pad=None):
+    """``prompt`` left-padded to its bucket (or by ``pad`` columns): ids and
+    mask ``[1, Lp]``."""
     import torch
 
-    Lp = -(-len(prompt) // bucket) * bucket
+    Lp = (-(-len(prompt) // bucket) * bucket if pad is None
+          else len(prompt) + pad)
     ids = torch.zeros((1, Lp), dtype=torch.long)
     mask = torch.zeros((1, Lp), dtype=torch.bool)
     ids[0, Lp - len(prompt):] = torch.tensor(prompt)
@@ -7948,19 +8002,23 @@ def padded_prompt(prompt, bucket, device):
     return ids.to(device), mask.to(device)
 
 
-def next_logits(engine, prompt, bucket):
-    """The logits after ``prompt`` by an uncaptured prefill at its bucket
-    (the reference's logits at a position where two streams part)."""
-    ids, mask = padded_prompt(prompt, bucket, engine.device)
+def next_logits(engine, prompt, bucket, pad=None):
+    """The logits after ``prompt`` by an uncaptured prefill at its bucket,
+    or left-padded by ``pad`` columns (the reference's logits at a
+    position where two streams part, in the streams' own context)."""
+    ids, mask = padded_prompt(prompt, bucket, engine.device, pad)
     logits, _ = engine._chunked_prefill(ids, mask, eager=True)
     return logits[0]
 
 
-def token_parts(engine, prompts, got, want, bucket, eos=None):
+def token_parts(engine, prompts, got, want, bucket, eos=None, pads=None):
     """Each pair of streams (``got`` against the reference ``want``): equal,
     or parting at a near-tie. Returns the parts (request, position, the
     reference's top-1 minus top-2 gap there, the bound) and the problems:
-    a part above its bound, or streams of other lengths that do not part."""
+    a part above its bound, or streams of other lengths that do not part.
+    ``pads``: each prompt's left pad in the streams (a batch of prompts
+    padded to one width; default: its bucket's), where a window layout's
+    blocks fall depends on it."""
     n_layer = engine.module.config.n_layer
     parts, problems = [], []
     for i, (p, g, w) in enumerate(zip(prompts, got, want)):
@@ -7972,7 +8030,8 @@ def token_parts(engine, prompts, got, want, bucket, eos=None):
                 problems.append(f"request {i}: {len(g)} tokens, want "
                                 f"{len(w)}")
             continue
-        logits = next_logits(engine, list(p) + list(w[:j]), bucket)
+        logits = next_logits(engine, list(p) + list(w[:j]), bucket,
+                             None if pads is None else pads[i])
         top = logits.float().topk(2).values
         gap = float(top[0] - top[1])
         bound = gap_bound(logits, n_layer)
@@ -7988,14 +8047,19 @@ def serve_requests(sched, requests, late=0):
     """Submit ``requests`` (prompt, max_new_tokens, eos) to ``sched``, the
     last ``late`` of them from the first completions' stream callbacks
     while ``run`` is going; run; return the tokens in request order and
-    the stats."""
+    the stats. Over a serving group every rank calls it: rank 0 numbers
+    the requests from its next id in this order (the late ones in order
+    too), and its completions reach every rank."""
     pending = list(range(len(requests) - late, len(requests)))
-    ids = {}
+    base = sched.decide(sched._next_id)
+    ids = {base + i: i for i in range(len(requests))}
 
     def submit(i, cb=None):
         prompt, new, eos = requests[i]
-        ids[sched.submit(prompt, max_new_tokens=new, eos_token_id=eos,
-                         stream_callback=cb)] = i
+        rid = sched.submit(prompt, max_new_tokens=new, eos_token_id=eos,
+                           stream_callback=cb)
+        if rid is not None:
+            ids[rid] = i
 
     def on_token(rid, token, done):
         if done and pending:
@@ -8004,7 +8068,7 @@ def serve_requests(sched, requests, late=0):
     for i in range(len(requests) - late):
         submit(i, on_token)
     stats = sched.run()
-    if pending:
+    if pending and sched.leader:
         raise AssertionError(f"{len(pending)} late requests never submitted")
     out = [None] * len(requests)
     for c in stats.completions:
@@ -8768,10 +8832,14 @@ def serve_prompts(sched, prompts, new, on_token=None):
     """Submit ``prompts`` (``on_token(i, rid, token, done)`` as each one's
     stream callback when given), run, and return the tokens by prompt, the
     TTFTs and the stats."""
+    # over a serving group the other ranks' submits return None: rank 0
+    # numbers the prompts from its next id
+    base = sched.decide(sched._next_id)
     ids = {}
     for i, p in enumerate(prompts):
         cb = None if on_token is None else functools.partial(on_token, i)
-        ids[sched.submit(p, max_new_tokens=new, stream_callback=cb)] = i
+        rid = sched.submit(p, max_new_tokens=new, stream_callback=cb)
+        ids[base + i if rid is None else rid] = i
     stats = sched.run()
     toks, ttft = [None] * len(prompts), [None] * len(prompts)
     for c in stats.completions:
@@ -9168,6 +9236,7 @@ def serving_disagg(engine, prompts):
             coordinator=FleetCoordinator(PrefixRouter(2), roles=[
                 ROLE_PREFILL, ROLE_DECODE]))
         t1 = time.perf_counter()
+        # a hand-off's id is rank 0's on every rank of a serving group
         rids = [server.submit(p, max_new_tokens=DISAGG_NEW)
                 for p in prompts]
         torch.cuda.synchronize()
@@ -9182,7 +9251,8 @@ def serving_disagg(engine, prompts):
     transfers = [e for e in events if e["kind"] == "serve.kv_transfer"]
     lane = lane_kv_bytes(engine.module)
     bf16 = lane_kv_bytes(GPT(dataclasses.replace(engine.module.config,
-                                                 kv_cache_dtype=None)))
+                                                 kv_cache_dtype=None),
+                             parallel=engine.module.parallel))
     # the hand-off copy: one batch-1 cache, device to device
     cache = engine._decoder(1).cache
     copy_ms = wall_ms(lambda: cache.clone())
@@ -9193,17 +9263,23 @@ def serving_disagg(engine, prompts):
     if got != want:
         problems.append("disaggregated tokens differ from the co-located "
                         "scheduler's")
-    if [e["request_id"] for e in transfers] != rids:
+    # only rank 0 of a serving group publishes; each rank hands off its
+    # own KV heads
+    leader = server.scheduler.leader
+    if leader and [e["request_id"] for e in transfers] != rids:
         problems.append(f"serve.kv_transfer for {len(transfers)} of "
                         f"{len(rids)} requests")
     sizes = sorted({e["bytes"] for e in transfers})
-    if sizes != [lane["resident_bytes"]]:
-        problems.append(f"hand-off bytes {sizes} against lane_kv_bytes "
-                        f"{lane}")
+    if (leader and sizes != [lane["resident_bytes"]]) or \
+            server.handoff_bytes != len(prompts) * lane["resident_bytes"]:
+        problems.append(f"hand-off bytes {sizes} ({server.handoff_bytes} "
+                        f"in all) against lane_kv_bytes {lane}")
     line = {"phase": "serving", "part": "disagg", "requests": len(prompts),
             "max_new_tokens": DISAGG_NEW, "identical_to_colocated":
             got == want, "kv_transfer_events": len(transfers),
-            "handoff_bytes": sizes, "lane_kv_bytes": lane,
+            "handoff_bytes": sizes,
+            "handoff_bytes_this_rank": server.handoff_bytes,
+            "lane_kv_bytes": lane,
             "lane_kv_bytes_bf16": bf16,
             "bf16_over_int8": bf16["resident_bytes"] / lane["resident_bytes"],
             "port_bookkeeping_bytes": bookkeeping,
@@ -9222,8 +9298,8 @@ def serving_disagg(engine, prompts):
 # parallel (ROADMAP A.9 part 1): the tp and ep mesh axes, one rank per card
 # ---------------------------------------------------------------------------
 PARALLEL_DIR = os.path.join("build", "chip_smoke_parallel")
-PARALLEL_RANK_TIMEOUT_S = 560
-PARALLEL_GROUP_TIMEOUT_S = 540
+PARALLEL_RANK_TIMEOUT_S = 1300
+PARALLEL_GROUP_TIMEOUT_S = 600
 # the multi-card parts need this many cards (tp 4 and ep 4)
 PARALLEL_MIN_WORLD = 4
 PARALLEL_TP = 4
@@ -9255,10 +9331,21 @@ PARALLEL_GNORM_FIRST_REL_TOL = 2.5e-4
 # 8.6e-5 apart, the grad norms 2.4e-5 at the first step and 1.4e-2 at most,
 # yet the 12-step update 0.126 (over the zero phase's 0.12): Adam turns the
 # rounding of the gradients of leaves that take few tokens into steps of
-# +-lr. The update is held to twice that reading, split by expert leaves
-# and the rest in the line; a fault that mixed experts or lost a rank's
-# rows moves the first step's grad norm and the losses first (the zero
-# phase's control: 0.105 and 7.0e-2 off, its update 0.74)
+# +-lr. The line splits the update by expert leaves and the rest; a fault
+# that mixed experts or lost a rank's rows moves the first step's grad
+# norm and the losses first (the zero phase's control: 0.105 and 7.0e-2
+# off, its update 0.74). The update is held against a witness read in the
+# same call (the constant below was twice that one reading): the
+# one-card engine against itself with the rows of each global micro batch
+# reversed, the gating noise reversed with them (each token keeps its
+# draw, so the routing is the same and only the order of the sums
+# changes), as BERT_WITNESS_FACTOR holds BERT's stage 3. The bound is
+# MOE_WITNESS_FACTOR times the witness's update, and never looser than
+# PARALLEL_MOE_UPDATE_REL_L2. The ep run only reorders sums as the witness
+# does (it read 0.92 of the witness's update on an H100): 1.5 leaves room
+# for the spread of the two readings and keeps the witness, not the cap,
+# the limit (1.5 x 0.1365 = 0.205 at that reading)
+MOE_WITNESS_FACTOR = 1.5
 PARALLEL_MOE_UPDATE_REL_L2 = 0.25
 PARALLEL_PROMPT_BUCKET = 512
 PARALLEL_NEW_TOKENS = 32
@@ -9289,14 +9376,52 @@ PARALLEL_MIXTRAL_PER_STEP = MIXTRAL_PER_STEP
 # widths and the ep path at ep 1 at Mixtral's, in process on one-rank groups
 PARALLEL_ONE_CARD_TP_LAYERS = 2
 PARALLEL_ONE_CARD_EP_LAYERS = 1
+# the scheduler over a tp engine (ROADMAP A.9 part 2a): the serving phase's
+# Mistral-7B int8 engine (weights and KV, the window's ring) and its
+# 24-request mix at tp 4; at one card the tp path at tp 1, 2 layers, the
+# mix's first 16 requests
+PARALLEL_SCHED_ONE_CARD_REQUESTS = 16
+# the one-card comparisons of the tp-1 path against the path without a
+# layout (the window's training, the fused head) run this many distinct
+# batches (each path's captured run against eager keeps STEPS)
+PARALLEL_ONE_CARD_CMP_STEPS = 4
+# build_serving under a burst (the first wave, one request a lane, then the
+# rest at once from a stream callback) and DisaggServer: the mix's first 16
+# prompts, 16 new tokens each, through 4 lanes (the controller sheds only
+# from a queue of a lane count: 12 queue behind the first wave)
+PARALLEL_BURST_REQUESTS = 16
+PARALLEL_BURST_SLOTS = 4
+PARALLEL_BURST_NEW = 16
+# an SLO no TTFT meets: the controller sheds every arrival once the queue
+# holds a lane count (the first wave's TTFTs set no usable SLO here: the
+# run without admission warms the prefill graphs the second run replays)
+PARALLEL_BURST_SLO_S = 1e-6
+# Mixtral-8x7B through the scheduler at ep 4 (at one card the ep path at ep
+# 1, one layer, 4 requests): the mix's first requests against each one's
+# solo generate on the same engine
+PARALLEL_MIXTRAL_SCHED_REQUESTS = 8
+PARALLEL_MIXTRAL_SCHED_ONE_CARD = 4
+# Mistral-7B's published window at tp 4: served at 32 layers against one
+# card, trained at 8 on [1, 16384] against one card on 12 distinct batches;
+# at one card the tp path at tp 1, 2 layers
+PARALLEL_WINDOW_SERVE_WIDTH = 47 * 128   # the prompts' block-aligned width
+# the fused head + CE over the vocab-parallel head: the 8-layer tp run's
+# batches at tp 4; at one card the tp path at tp 1, 2 layers
+# the C.6 check: attention-probability dropout at tp 4, 2 layers
+PARALLEL_C6_LAYERS = 2
+PARALLEL_C6_DROPOUT = 0.1
+PARALLEL_C6_PER_STEP = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+                        "flash_attention_bwd_dkv": 0, "fused_adamw": 1}
 
 
 def parallel_tp_engine(tp, layers, stage=1, micro=MISTRAL_MICRO, seed=0,
-                       one_card=False):
+                       one_card=False, **over):
     """Mistral-7B's widths at ``layers`` through ``initialize`` with
     ``GPT_PRETRAIN_CONFIG`` (full remat) under ``tpu.mesh`` tp, the rest
     dp, ZeRO ``stage``, ``micro`` rows of each global micro batch of 2 a
-    rank. ``one_card``: the group-less engine (built before any group)."""
+    rank; ``over``: config fields (the fused head, dropout, a window
+    layout). ``one_card``: the group-less engine (built before any
+    group)."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.transformer_lm import GPT
     from deepspeed_tpu_torch.parallel.tensor import ParallelLayout
@@ -9305,7 +9430,7 @@ def parallel_tp_engine(tp, layers, stage=1, micro=MISTRAL_MICRO, seed=0,
                   zero_optimization={"stage": stage})
     if not one_card:
         config["tpu"] = dict(config["tpu"], mesh={"tp": tp, "dp": -1})
-    cfg = mistral_config(n_layer=layers, remat=True)
+    cfg = mistral_config(n_layer=layers, remat=True, **over)
     # the tp code path at every tp, 1 included
     model = GPT(cfg) if one_card else GPT(cfg, parallel=ParallelLayout())
     return deepspeed_tpu_torch.initialize(model=model, config=config,
@@ -9367,20 +9492,32 @@ def parallel_one_card():
     """The world-1 run: Mistral's widths at 2 layers through the tp code
     path at tp 1 and Mixtral's at 1 layer through the ep path at ep 1
     (each captured against eager, with its launches), in process on a
-    one-rank NCCL group. Returns the launches by path."""
+    one-rank NCCL group; then the same paths under ROADMAP A.9 part 2a,
+    each against the path without a layout: the scheduler over the tp-1
+    engine (the int8 window engine at 2 layers, the mix's first 16
+    requests, with the burst and the disaggregated server) and over the
+    ep-1 engine (4 requests against the one-card engine's generate), the
+    window's training step through the tp path at tp 1 (2 layers, against
+    the one-card window engine), and the fused head + CE through the tp
+    path at tp 1 (against the one-card fused head); these two on
+    ``PARALLEL_ONE_CARD_CMP_STEPS`` distinct batches. The C.6 masks run at
+    four cards. Returns the launches by path."""
     import torch
 
-    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch import comm, init_inference
+    from deepspeed_tpu_torch.models.transformer_lm import GPT
+    from deepspeed_tpu_torch.parallel.tensor import ParallelLayout
 
     problems = []
+    L = PARALLEL_ONE_CARD_TP_LAYERS
     comm.init_distributed()
     try:
         tp_line, tp_launches = parallel_path(
-            lambda: parallel_tp_engine(1, PARALLEL_ONE_CARD_TP_LAYERS),
+            lambda: parallel_tp_engine(1, L),
             parallel_batch(MISTRAL_MICRO), STEPS,
-            {"flash_attention_fwd": 2 * PARALLEL_ONE_CARD_TP_LAYERS,
-             "flash_attention_bwd_dq": PARALLEL_ONE_CARD_TP_LAYERS,
-             "flash_attention_bwd_dkv": PARALLEL_ONE_CARD_TP_LAYERS,
+            {"flash_attention_fwd": 2 * L,
+             "flash_attention_bwd_dq": L,
+             "flash_attention_bwd_dkv": L,
              "fused_adamw": 1},
             phase="parallel", part="tp1_train", problems=problems)
         free_cuda()
@@ -9392,6 +9529,48 @@ def parallel_one_card():
              "flash_attention_bwd_dkv": PARALLEL_ONE_CARD_EP_LAYERS,
              "fused_adamw": 2},
             phase="parallel", part="ep1_train", problems=problems)
+        free_cuda()
+        t0 = time.perf_counter()
+        sched, sched_launches, p = parallel_scheduler(
+            0, 1, layers=L, n_requests=PARALLEL_SCHED_ONE_CARD_REQUESTS)
+        problems += p
+        emit(dict(sched, seconds=time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        cfg = mixtral_config(n_layer=PARALLEL_ONE_CARD_EP_LAYERS)
+        one = init_inference(GPT(cfg), dtype="bf16", seed=0)
+        ep1 = init_inference(GPT(cfg, parallel=ParallelLayout()),
+                             dtype="bf16", seed=0)
+        line, p = scheduler_vs_generate(
+            ep1, serving_requests(cfg.vocab_size)[
+                :PARALLEL_MIXTRAL_SCHED_ONE_CARD], reference=one)
+        problems += [f"ep1 scheduler: {x}" for x in p]
+        emit(dict(line, phase="parallel", part="ep1_scheduler",
+                  seconds=time.perf_counter() - t0))
+        del one, ep1
+        free_cuda()
+        t0 = time.perf_counter()
+        window_ref = one_card_run(
+            lambda: parallel_window_engine(1, L, one_card=True),
+            window_batches(PARALLEL_ONE_CARD_CMP_STEPS),
+            PARALLEL_ONE_CARD_CMP_STEPS)
+        window, window_launches, p = parallel_window_train(
+            0, 1, L, window_ref, captured=False)
+        problems += p
+        emit(dict(window, phase="parallel", part="tp1_window",
+                  seconds=time.perf_counter() - t0))
+        del window_ref
+        t0 = time.perf_counter()
+        batches = parallel_train_batches(MISTRAL_MICRO, 100)[
+            :PARALLEL_ONE_CARD_CMP_STEPS]
+        one_run = one_card_run(lambda: parallel_tp_engine(
+            1, L, one_card=True, fused_head_ce=True), batches, len(batches))
+        fused = tp_run_vs(0, lambda: parallel_tp_engine(
+            1, L, fused_head_ce=True), batches, {"one_card": one_run},
+            problems, "tp1 fused")
+        fused.pop("final", None)
+        emit({"phase": "parallel", "part": "tp1_fused_head", "fused": fused,
+              "seconds": time.perf_counter() - t0})
+        del one_run
     finally:
         free_cuda()
         comm.destroy_distributed()
@@ -9400,18 +9579,27 @@ def parallel_one_card():
     if problems:
         raise AssertionError(f"parallel (world 1): {problems}")
     return {"parallel_tp_train": tp_launches,
-            "parallel_ep_train": ep_launches}
+            "parallel_ep_train": ep_launches,
+            "parallel_tp_scheduler": sched_launches,
+            "parallel_tp_window_train": window_launches}
 
 
 # -- the multi-card run: one process per card (--parallel-rank) -------------
 def parallel_train_references():
     """Rank 0's group-less references, made before the group: Mistral's 8
     layers at micro 2 (``STEPS`` captured steps: losses, grad norms, start
-    and final parameters on the host) and Mixtral's 2 layers at the global
-    micro batch of the ep run."""
+    and final parameters on the host), Mixtral's 2 layers at the global
+    micro batch of the ep run and its witness (``mixtral_witness``), the
+    window's 8 layers at [1, 16384], and the digests of the dropout masks
+    of the C.6 check's first step."""
     from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
 
-    out = {}
+    out = {"window": one_card_run(
+               lambda: parallel_window_engine(1, MISTRAL_TRAIN_LAYERS,
+                                              one_card=True),
+               window_batches()),
+           "c6_digests": c6_masks(lambda: c6_engine(1, one_card=True),
+                                  PARALLEL_TP)}
     for key, make, batches in (
             ("mistral", lambda: parallel_tp_engine(
                 1, MISTRAL_TRAIN_LAYERS, one_card=True),
@@ -9433,6 +9621,18 @@ def parallel_train_references():
                               eng.module.state_dict().items()}}
         del eng
         free_cuda()
+    ref = out["mixtral"]
+    witness = mixtral_witness(parallel_train_batches(
+        PARALLEL_EP * PARALLEL_MIXTRAL_ROWS, 200))
+    ref["witness"] = {
+        "update_rel_l2": update_rel_l2(
+            {k: v.cuda() for k, v in witness["final"].items()},
+            ref["final"], ref["start"]),
+        "loss_rel_err": max(rel_errs(witness["losses"], ref["losses"])),
+        "grad_norm_rel_err_by_step": rel_errs(witness["grad_norms"],
+                                              ref["grad_norms"])}
+    del witness
+    free_cuda()
     return out
 
 
@@ -9531,7 +9731,8 @@ def parallel_serve(rank, world, dtype):
 def parallel_mistral_train(rank, world, refs, tag_dir):
     """Mistral-7B's widths under tp: 8 layers at tp ``world`` (12 captured
     steps against 12 eager ones, and against the one-card reference within
-    the zero bounds), tp 2 x dp 2 at stages 1 and 3 against both, a tag
+    the zero bounds), tp 2 x dp 2 at stages 1 and 3 and the fused head + CE
+    at tp ``world`` against both (each run's peak a rank), a tag
     saved at tp ``world`` (1 layer) served on one card bit for bit the
     gathered state, and all 32 layers at tp ``world`` captured against
     eager with its launches, step time, TFLOP/s and peak memory."""
@@ -9559,16 +9760,22 @@ def parallel_mistral_train(rank, world, refs, tag_dir):
     del line
     # the same run again, captured only, for the comparison with the
     # reference (captured_against_eager keeps no parameters)
+    # (and the fused head + CE over the vocab-parallel head at tp `world`,
+    # against the unfused tp run and one card, with each run's peak)
     runs = {}
-    for name, tp, stage in ((f"tp{world}", world, 1),
-                            ("tp2_dp2_stage1", 2, 1),
-                            ("tp2_dp2_stage3", 2, 3)):
+    for name, tp, stage, over in ((f"tp{world}", world, 1, {}),
+                                  ("tp2_dp2_stage1", 2, 1, {}),
+                                  ("tp2_dp2_stage3", 2, 3, {}),
+                                  (f"tp{world}_fused_head", world, 1,
+                                   {"fused_head_ce": True})):
         free_cuda()
+        torch.cuda.reset_peak_memory_stats()
         dp = world // tp
         eng = parallel_tp_engine(tp, MISTRAL_TRAIN_LAYERS, stage=stage,
-                                 micro=MISTRAL_MICRO // dp)
+                                 micro=MISTRAL_MICRO // dp, **over)
         losses, norms, times = train_steps(
             eng, iter(RepeatingLoader(batches)), STEPS)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         keep(eng)
         del eng
         free_cuda()
@@ -9578,6 +9785,7 @@ def parallel_mistral_train(rank, world, refs, tag_dir):
                    "grad_norms": [float(x) for x in norms],
                    "step_ms_median": statistics.median(
                        times[CAPTURE_WARMUP + 1:]),
+                   "peak_allocated_gb_per_rank": peak_gb,
                    "vs_one_card": parallel_vs(
                        [float(x) for x in losses], [float(x) for x in norms],
                        params, refs["mistral"])}
@@ -9709,8 +9917,9 @@ def identical_floats(a, b):
 def parallel_mixtral(rank, world, refs):
     """Mixtral-8x7B under ep ``world``: ``forward`` [1, 4096] at 16 layers
     against the one-card engine (rank 0), all 32 layers served (``forward``
-    and the decode graphs against eager), and 2 layers trained against the
-    one-card reference."""
+    and the decode graphs against eager, and the scheduler against each
+    request's solo generate), and 2 layers trained against the one-card
+    reference (the update within ``MOE_WITNESS_FACTOR`` of the witness's)."""
     import torch
 
     from deepspeed_tpu_torch import comm, init_inference
@@ -9758,6 +9967,12 @@ def parallel_mixtral(rank, world, refs):
     if out["serve_32_layers_forward_launches"]["flash_attention_fwd"] != 32:
         problems.append("Mixtral 32 layers: B1 launches per forward "
                         f"{out['serve_32_layers_forward_launches']}")
+    # the scheduler over the ep engine against each request's solo
+    # generate on it
+    out["scheduler"], p = scheduler_vs_generate(
+        eng, serving_requests(MIXTRAL_8X7B["vocab_size"])[
+            :PARALLEL_MIXTRAL_SCHED_REQUESTS])
+    problems += [f"Mixtral ep scheduler: {x}" for x in p]
     del eng, logits
     free_cuda()
     comm.barrier()
@@ -9787,14 +10002,578 @@ def parallel_mixtral(rank, world, refs):
             vs[f"update_rel_l2_{part}"] = update_rel_l2(
                 {k: v for k, v in params.items() if keep(k)}, ref["final"],
                 ref["start"])
+        witness = ref["witness"]
+        bound = min(MOE_WITNESS_FACTOR * witness["update_rel_l2"],
+                    PARALLEL_MOE_UPDATE_REL_L2)
         out["train_vs_one_card"] = vs
+        out["train_witness"] = dict(witness, update_bound=bound)
         out["train_losses"] = [float(x) for x in losses]
         if not (parallel_within_bounds(dict(vs, update_rel_l2=0.0))
-                and vs["update_rel_l2"] <= PARALLEL_MOE_UPDATE_REL_L2):
-            problems.append(f"Mixtral ep train outside the bounds: {vs}")
+                and vs["update_rel_l2"] <= bound):
+            problems.append(f"Mixtral ep train outside the bounds: {vs}, "
+                            f"update bound {bound}")
     del eng, params
     free_cuda()
     return out, launches, problems
+
+
+# -- ROADMAP A.9 part 2a: the scheduler, the window and the fused head
+# over the tp and ep paths, and C.6 ------------------------------------------
+def window_sparsity():
+    """``SPARSE_GPT_BLOCK`` as the config's ``sparse_attention`` (a model
+    built with it and a ``ParallelLayout`` keeps its tp path at tp 1, where
+    the engine's ``sparse_attention`` block would rebuild it without)."""
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_attention_utils \
+        import get_sparse_attention_config
+
+    return get_sparse_attention_config(dict(SPARSE_GPT_BLOCK),
+                                       MISTRAL_7B["n_head"])
+
+
+def parallel_serving_model(world, **over):
+    """Mistral-7B at n_positions 32768 under the window, as one rank's
+    shard: at world 1 built with a ``ParallelLayout`` (the tp path at tp
+    1), else as a plain model that ``init_inference(mp_size=world)``
+    splits."""
+    from deepspeed_tpu_torch.models.transformer_lm import GPT
+    from deepspeed_tpu_torch.parallel.tensor import ParallelLayout
+
+    cfg = mistral_config(n_positions=SPARSE_GPT_POSITIONS,
+                         sparse_attention=window_sparsity(), **over)
+    return GPT(cfg, parallel=ParallelLayout()) if world == 1 else GPT(cfg)
+
+
+def parallel_burst(engine, requests, one, problems):
+    """``build_serving`` over ``engine`` under a burst: the first wave (one
+    request a lane), then the rest at once from the stream callback of the
+    wave's last first token (rank 0's), without admission, then with an SLO
+    no request meets (``PARALLEL_BURST_SLO_S``, ``BURST_ADMISSION``), whose
+    shed requests are submitted again after a pause. Every request is served or
+    shed and then served (none lost), the decisions are rank 0's (the other
+    ranks' controllers decide nothing), and on rank 0 the streams hold to
+    ``one``'s (the one-card engine's ``want`` streams) under the near-tie
+    bound."""
+    from deepspeed_tpu_torch.inference.scheduler import RequestShedError
+    from deepspeed_tpu_torch.serving import build_serving
+
+    cfg = {"slots": PARALLEL_BURST_SLOTS, "prompt_bucket": SERVING_BUCKET,
+           "max_pending": 64}
+    first = list(range(PARALLEL_BURST_SLOTS))
+    rest = list(range(PARALLEL_BURST_SLOTS, len(requests)))
+
+    def burst(sched):
+        toks, ttfts, ids, rejected, firsts = {}, {}, {}, [], []
+
+        def submit(i, cb=None):
+            try:
+                rid = sched.submit(requests[i][0],
+                                   max_new_tokens=PARALLEL_BURST_NEW,
+                                   stream_callback=cb)
+                ids[rid] = i
+            except RequestShedError:
+                rejected.append(i)
+
+        def on_token(rid, token, done):
+            if rid not in firsts:
+                firsts.append(rid)
+                if len(firsts) == len(first):
+                    for i in rest:
+                        submit(i)
+
+        for i in first:
+            submit(i, on_token)
+        stats = sched.run()
+        for c in stats.completions:
+            if sched.leader:
+                toks[ids[c.request_id]] = c.tokens
+                ttfts[ids[c.request_id]] = c.ttft_s
+        return toks, ttfts, rejected, stats, ids
+
+    no_adm = build_serving(engine, dict(cfg))
+    toks, ttfts, _, stats, _ = burst(no_adm)
+    slo = PARALLEL_BURST_SLO_S
+    out = {"without_admission": {"served": len(stats.completions),
+                                 "ttft_p95_s": p95(ttfts.values())
+                                 if ttfts else None}}
+    adm = build_serving(engine, dict(cfg, admission=dict(
+        BURST_ADMISSION, slo_ttft_p95_s=slo, sample_max_age_s=BURST_AGE_S)))
+    toks2, ttfts2, rejected, stats, ids = burst(adm)
+    time.sleep(BURST_AGE_S * 1.2)
+    retry = {}
+    for i in rejected:
+        try:
+            retry[adm.submit(requests[i][0],
+                             max_new_tokens=PARALLEL_BURST_NEW)] = i
+        except RequestShedError:
+            problems.append(f"burst: request {i} shed again after the pause")
+    retry_stats = adm.run()
+    controller = adm.admission_controller.stats()
+    served = len(stats.completions) + len(retry_stats.completions)
+    for c in retry_stats.completions:
+        if adm.leader:
+            toks2[retry[c.request_id]] = c.tokens
+    out["with_admission"] = {
+        "slo_ttft_p95_s": slo, "shed": len(rejected), "served": served,
+        "ttft_p95_s": p95(ttfts2.values()) if ttfts2 else None,
+        "controller": controller}
+    adm.admission_controller.close()
+    decisions = controller["admit_decisions"] + controller["shed_decisions"]
+    n = len(requests)
+    if served != n or out["without_admission"]["served"] != n:
+        problems.append(f"burst: served {out['without_admission']['served']}"
+                        f" without admission and {served} with, of {n}")
+    if adm.leader:
+        if not rejected:
+            problems.append(f"burst: the SLO shed nothing: {controller}")
+        for name, got in (("without_admission", toks),
+                          ("with_admission", toks2)):
+            order = sorted(got)
+            parts, probs = token_parts(
+                one, [requests[i][0] for i in order],
+                [got[i] for i in order],
+                [one.want[i][:PARALLEL_BURST_NEW] for i in order],
+                SERVING_BUCKET)
+            out[name]["parts"] = parts
+            problems += [f"burst {name}: {x}" for x in probs]
+    elif decisions or rejected:
+        problems.append(f"burst: a rank other than 0 decided admission: "
+                        f"{controller}, {rejected}")
+    return out
+
+
+def parallel_scheduler(rank, world, layers=None, n_requests=SERVING_REQUESTS):
+    """Mistral-7B int8 (weights and KV) under the window's ring (the serving
+    phase's engine) at tp ``world`` through the scheduler: the serving
+    phase's request mix (seed 0, the last 4 submitted mid-run) against the
+    one-card scheduler's streams, run on rank 0 first, under the near-tie
+    bound; tokens/s, TTFT and the [8, 1] step against one card; then
+    ``build_serving`` over the same engine under a burst and
+    ``DisaggServer`` (bit for bit the co-located scheduler, each rank's
+    hand-off bytes). At world 1 the tp path at tp 1. Returns the line, the
+    scheduler run's launches and the problems."""
+    import torch
+
+    from deepspeed_tpu_torch import comm, init_inference
+    from deepspeed_tpu_torch.inference.scheduler import \
+        ContinuousBatchingScheduler
+    from deepspeed_tpu_torch.serving import PrefixCache, PrefixCacheConfig
+
+    over = {"kv_cache_slack_blocks": 1}
+    if layers is not None:
+        over["n_layer"] = layers
+    config = {"kv_cache": "int8", "decode_chunk": 8}
+    reqs = serving_requests(MISTRAL_7B["vocab_size"])[:n_requests]
+    requests = [(p, n, None) for p, n in reqs]
+    prompts = [p for p, _ in reqs]
+    late = min(SERVING_LATE, n_requests // 2)
+    bucket = SERVING_BUCKET
+    problems = []
+    out = {"phase": "parallel", "part": f"tp{world}_scheduler",
+           "layers": layers or MISTRAL_7B["n_layer"], "tp": world,
+           "requests": n_requests, "late_requests": late,
+           "dtype": "int8", "kv_cache": "int8", "slots": SERVING_SLOTS}
+
+    def scheduler(engine):
+        return ContinuousBatchingScheduler(
+            engine, slots=SERVING_SLOTS, prompt_bucket=bucket,
+            prefix_cache=PrefixCache(PrefixCacheConfig(align=bucket)))
+
+    one = None
+    if rank == 0:
+        # the one-card engine: no layout, on rank 0's card beside its shard
+        one = init_inference(sparse_gpt_model(**over), dtype="int8",
+                             config=config, seed=0)
+        one.want, one_stats = serve_requests(scheduler(one), requests,
+                                             late=late)
+        out["one_card"] = one_stats.summary()
+        out["one_card_decode_step_ms"] = decode_step_ms(one)[0]
+    comm.barrier()
+    t0 = time.perf_counter()
+    engine = init_inference(parallel_serving_model(world, **over),
+                            dtype="int8", config=config, mp_size=world,
+                            seed=0)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    sched = timed_host_syncs(scheduler(engine))
+    reset_launches()
+    got, stats = serve_requests(sched, requests, late=late)
+    torch.cuda.synchronize()
+    out["launches"] = launches = read_launches()
+    out["summary"] = stats.summary()
+    # this rank's host decisions: a stop/drain (with the token digests)
+    # each loop iteration, one take each admission, the prefix hits
+    out["host_syncs"] = dict(
+        sched.host_syncs, ms_per_decode_step=1e3 * sched.host_syncs["s"]
+        / max(1, stats.decode_steps), decode_steps=stats.decode_steps)
+    out["tokens_per_s"] = out["summary"]["aggregate_tokens_per_s"]
+    out["prefix_cache"] = sched.prefix_cache.stats()
+    out["kv_cache_stats"] = sched.kv_cache_stats()
+    out["decode_step_ms"], out["decode_step_trace"] = decode_step_ms(engine)
+    if launches["flash_attention_fwd"] or launches["block_sparse_fwd"]:
+        problems.append(f"the cache path launched a kernel: {launches}")
+    if rank == 0:
+        out["parts"], probs = token_parts(one, prompts, got, one.want, bucket)
+        problems += probs
+        out["tokens_per_s_one_card"] = out["one_card"][
+            "aggregate_tokens_per_s"]
+        out["decode_step_speedup"] = (out["one_card_decode_step_ms"]
+                                      / out["decode_step_ms"])
+    out["burst"] = parallel_burst(
+        engine, requests[:PARALLEL_BURST_REQUESTS], one, problems)
+    disagg, probs = serving_disagg(engine, prompts[:DISAGG_REQUESTS])
+    problems += probs
+    out["disagg"] = {k: disagg[k] for k in (
+        "identical_to_colocated", "kv_transfer_events", "handoff_bytes",
+        "handoff_bytes_this_rank", "lane_kv_bytes", "handoff_copy_ms",
+        "disagg_s", "colocated_s")}
+    out["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del engine, sched, one
+    free_cuda()
+    comm.barrier()
+    return out, launches, problems
+
+
+def timed_host_syncs(sched):
+    """``sched`` with its host decisions over the serving group
+    (``decide``, ``_agree``: gloo on the host) counted and their seconds
+    summed in ``sched.host_syncs``, waits for the slowest rank
+    included."""
+    sched.host_syncs = {"calls": 0, "s": 0.0}
+    for name in ("decide", "_agree"):
+        def timed(*args, _fn=getattr(sched, name)):
+            t = time.perf_counter()
+            try:
+                return _fn(*args)
+            finally:
+                sched.host_syncs["calls"] += 1
+                sched.host_syncs["s"] += time.perf_counter() - t
+        setattr(sched, name, timed)
+    return sched
+
+
+def scheduler_vs_generate(engine, reqs, reference=None):
+    """The scheduler's streams of ``reqs`` (prompt, new) against each
+    request's solo ``generate`` at its bucket on ``reference`` (default
+    ``engine`` itself), under the near-tie bound. Every rank of a serving
+    group calls it. Returns the line's fields and the problems."""
+    from deepspeed_tpu_torch.inference.scheduler import \
+        ContinuousBatchingScheduler
+
+    reference = engine if reference is None else reference
+    bucket = SERVING_BUCKET
+    want = []
+    for prompt, new in reqs:
+        ids, mask = padded_prompt(prompt, bucket, reference.device)
+        want.append(reference.generate(ids, max_new_tokens=new,
+                                       attention_mask=mask)[0].tolist())
+    sched = ContinuousBatchingScheduler(engine, slots=SERVING_SLOTS,
+                                        prompt_bucket=bucket)
+    reset_launches()
+    got, stats = serve_requests(sched, [(p, n, None) for p, n in reqs])
+    launches = read_launches()
+    parts, problems = token_parts(reference, [p for p, _ in reqs], got, want,
+                                  bucket)
+    return {"requests": len(reqs), "summary": stats.summary(),
+            "parts": parts, "launches": launches}, problems
+
+
+def parallel_window_serve(rank, world, layers=None):
+    """Mistral-7B's window at tp ``world``, bf16, served against the
+    one-card window engine (rank 0) on the same seeded weights: ``forward``
+    [1, 16384] on B5 within ``PARALLEL_LOGITS_REL_L2``, greedy streams of 4
+    left-padded prompts of 4500-6000 tokens (block-aligned width, 128-token
+    prefill spans over the 4224-slot ring) under the near-tie bound, the
+    decode graphs against eager decode bit for bit, the ring's bytes a
+    rank. Returns the line and the problems."""
+    import torch
+
+    from deepspeed_tpu_torch import comm, init_inference
+
+    over = {} if layers is None else {"n_layer": layers}
+    n_layer = layers or MISTRAL_7B["n_layer"]
+    gen = torch.Generator().manual_seed(3)
+    ids = torch.randint(0, MISTRAL_7B["vocab_size"], (1, SPARSE_GPT_SEQ),
+                        generator=gen)
+    lens = SPARSE_GPT_PROMPT_LENGTHS
+    width = PARALLEL_WINDOW_SERVE_WIDTH
+    prompt_lists = [torch.randint(0, MISTRAL_7B["vocab_size"], (n,),
+                                  generator=gen).tolist() for n in lens]
+    prompts = torch.zeros((len(lens), width), dtype=torch.long)
+    mask = torch.zeros((len(lens), width), dtype=torch.bool)
+    for i, p in enumerate(prompt_lists):
+        prompts[i, width - len(p):] = torch.tensor(p)
+        mask[i, width - len(p):] = True
+    ids, prompts, mask = ids.cuda(), prompts.cuda(), mask.cuda()
+    out = {"phase": "parallel", "part": f"tp{world}_window_serve",
+           "layers": n_layer, "tp": world, "dtype": "bf16",
+           "forward_shape": [1, SPARSE_GPT_SEQ], "prompt_lengths": list(lens),
+           "prompt_width": width}
+    problems, one, ref_logits, ref_tokens = [], None, None, None
+    if rank == 0:
+        one = init_inference(sparse_gpt_model(**over), dtype="bf16", seed=0)
+        ref_logits = one.forward(ids, eager=True)
+        ref_tokens = one.generate(prompts, MISTRAL_NEW_TOKENS,
+                                  attention_mask=mask).tolist()
+    comm.barrier()
+    engine = init_inference(parallel_serving_model(world, **over),
+                            dtype="bf16", mp_size=world, seed=0)
+    engine.forward(ids)                         # the warm-up
+    reset_launches()
+    logits = engine.forward(ids)                # the captured graph
+    out["forward_launches"] = read_launches()
+    out["forward_ms"] = wall_ms(lambda: engine.forward(ids), reps=3)
+    tokens = engine.generate(prompts, MISTRAL_NEW_TOKENS,
+                             attention_mask=mask).tolist()
+    out["decode_graphs"] = compare_decode(
+        engine, prompts, mask, n=MISTRAL_NEW_TOKENS,
+        temperatures=(("greedy", 0.0),))
+    cache = engine._decoder(len(lens)).cache
+    out["ring_slots"] = int(cache.key[0].shape[1])
+    out["ring_kv_heads_per_rank"] = int(cache.key[0].shape[2])
+    out["ring_gb_per_rank"] = _cache_bytes(cache) / 1e9
+    if out["forward_launches"]["block_sparse_fwd"] != n_layer or \
+            out["forward_launches"]["flash_attention_fwd"]:
+        problems.append(f"window forward launches {out['forward_launches']}")
+    if not out["decode_graphs"]["identical"]:
+        problems.append("window decode graphs differ from eager decode")
+    if out["ring_slots"] != SPARSE_GPT_RING_SLOTS:
+        problems.append(f"ring of {out['ring_slots']} slots")
+    if rank == 0:
+        out["logits_rel_l2"] = _rel_l2(logits, ref_logits)
+        out["logits_finite"] = bool(torch.isfinite(logits).all())
+        out["parts"], probs = token_parts(
+            one, prompt_lists, tokens, ref_tokens,
+            SPARSE_GPT_BLOCK["block"], pads=[width - n for n in lens])
+        problems += probs
+        if not (out["logits_finite"]
+                and out["logits_rel_l2"] <= PARALLEL_LOGITS_REL_L2):
+            problems.append(f"window logits {out['logits_rel_l2']}")
+    out["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del engine, one, logits, ref_logits, cache
+    free_cuda()
+    comm.barrier()
+    return out, problems
+
+
+def parallel_window_engine(tp, layers, one_card=False, seed=0):
+    """The window's training engine: Mistral-7B at ``layers`` and n_positions
+    32768, micro [1, 16384] (``parallel_tp_engine``)."""
+    return parallel_tp_engine(tp, layers, micro=1, seed=seed,
+                              one_card=one_card,
+                              n_positions=SPARSE_GPT_POSITIONS,
+                              sparse_attention=window_sparsity())
+
+
+def window_batches(n=STEPS, seed=300):
+    return [lm_batch(MISTRAL_7B["vocab_size"], 1, SPARSE_GPT_SEQ,
+                     seed=seed + i) for i in range(n)]
+
+
+def one_card_run(make, batches, steps=STEPS):
+    """A reference run: losses, grad norms, start and final parameters on
+    the host."""
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    free_cuda()
+    eng = make()
+    start = {k: v.cpu() for k, v in eng.module.state_dict().items()}
+    losses, norms, times = train_steps(eng, iter(RepeatingLoader(batches)),
+                                       steps)
+    out = {"losses": [float(x) for x in losses],
+           "grad_norms": [float(x) for x in norms], "step_ms": times,
+           "start": start,
+           "final": {k: v.cpu() for k, v in eng.module.state_dict().items()}}
+    del eng
+    free_cuda()
+    return out
+
+
+def tp_run_vs(rank, make, batches, refs, problems, name):
+    """``make()``'s tp engine over ``batches`` (captured), its gathered
+    parameters against each reference in ``refs`` (name -> reference run)
+    within the parallel bounds (rank 0). Returns the run's line."""
+    import torch
+
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    eng = make()
+    losses, norms, times = train_steps(eng, iter(RepeatingLoader(batches)),
+                                       len(batches))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    params = eng.params                      # gathered: collective
+    del eng
+    run = {"losses": [float(x) for x in losses],
+           "grad_norms": [float(x) for x in norms],
+           "step_ms_median": statistics.median(times[CAPTURE_WARMUP + 1:]),
+           "peak_allocated_gb_per_rank": peak}
+    if rank == 0:
+        params = {k: v.cuda() for k, v in params.items()}
+        for key, ref in refs.items():
+            run[f"vs_{key}"] = vs = parallel_vs(run["losses"],
+                                                run["grad_norms"], params,
+                                                ref)
+            if not parallel_within_bounds(vs):
+                problems.append(f"{name} vs {key} outside the bounds: {vs}")
+        run["final"] = {k: v.cpu() for k, v in params.items()}
+    del params
+    free_cuda()
+    return run
+
+
+def parallel_window_train(rank, world, layers, ref, captured=True):
+    """The window at tp ``world``, ``layers`` layers, micro [1, 16384]:
+    captured against eager (``captured``; the one-card run leaves it to
+    the ``sparse_gpt`` phase) with B5 2L / B6 L / B7 L / B4 1 launches
+    per step, and against the one-card run ``ref`` on its distinct
+    batches (``window_batches``) within the parallel bounds. Returns the
+    line, the launches (of the captured-against-eager run, else of the
+    comparison) and the problems."""
+    problems = []
+    per_step = {"block_sparse_fwd": 2 * layers, "block_sparse_dq": layers,
+                "block_sparse_dkv": layers, "fused_adamw": 1,
+                "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+                "flash_attention_bwd_dkv": 0}
+    out = {"per_step": per_step}
+    if captured:
+        line, launches = parallel_path(
+            lambda: parallel_window_engine(world, layers),
+            lm_batch(MISTRAL_7B["vocab_size"], 1, SPARSE_GPT_SEQ), STEPS,
+            per_step, phase="parallel", part=f"tp{world}_window_train",
+            problems=problems)
+        out.update(captured_vs_eager=line["captured_vs_eager"],
+                   step_ms_median=line["step_ms_median"])
+    batches = window_batches(len(ref["losses"]) if ref else STEPS)
+    reset_launches()
+    run = tp_run_vs(rank, lambda: parallel_window_engine(world, layers),
+                    batches, {"one_card": ref} if ref else {}, problems,
+                    f"tp{world} window")
+    if not captured:
+        launches = read_launches()
+        for name, per in {**per_step, **UNSEGMENTED}.items():
+            if launches[name] != per * len(batches):
+                problems.append(f"tp{world} window: {name} {launches[name]} "
+                                f"launches, want {per} x {len(batches)}")
+    run.pop("final", None)
+    out["vs_one_card_run"] = run
+    return out, launches, problems
+
+
+def mask_digests(masks, world):
+    """Each dropout mask's digest: a 4-d (probability) mask's as each of
+    ``world`` tp ranks keeps it (its heads' slice), a whole-activation
+    mask's once."""
+    out = []
+    for m in masks:
+        if m.dim() == 4:
+            h = m.shape[1] // world
+            out.append([_digest(m[:, r * h:(r + 1) * h]) for r in range(world)])
+        else:
+            out.append(_digest(m))
+    return out
+
+
+def _digest(t):
+    import hashlib
+
+    return hashlib.blake2b(t.contiguous().cpu().numpy().tobytes(),
+                           digest_size=16).hexdigest()
+
+
+def c6_masks(make, world):
+    """The digests of the dropout masks ``make()``'s engine draws in its
+    first step (each 4-d mask sliced for ``world`` tp ranks)."""
+    import deepspeed_tpu_torch.runtime.activation_checkpointing as ac
+
+    free_cuda()
+    eng = make()
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import \
+        checkpointing
+
+    real, digests = ac.bernoulli_mask, []
+
+    def recording(*args, **kw):
+        mask = real(*args, **kw)
+        # a recompute hands the forward's masks back: each counted once
+        draws = getattr(checkpointing._current, "draws", None)
+        if draws is None or not draws.replaying:
+            digests.extend(mask_digests([mask], world))
+        return mask
+
+    ac.bernoulli_mask = recording
+    try:
+        train_steps(eng, iter([lm_batch(MISTRAL_7B["vocab_size"],
+                                        MISTRAL_MICRO, MISTRAL_SEQ)]), 1)
+    finally:
+        ac.bernoulli_mask = real
+    del eng
+    free_cuda()
+    return digests
+
+
+def c6_engine(tp, one_card=False):
+    return parallel_tp_engine(tp, PARALLEL_C6_LAYERS, one_card=one_card,
+                              dropout=PARALLEL_C6_DROPOUT)
+
+
+def parallel_c6(rank, world, ref_digests):
+    """Attention-probability dropout under tp (ROADMAP C.6): each rank's
+    probability masks are its heads' slice of the one-card engine's at the
+    same generator seed (``ref_digests``, one card's masks sliced for
+    ``world`` ranks), so the ranks' masks differ; the other masks are one
+    card's; the step captured against eager. Returns the line, the
+    launches and the problems."""
+    from deepspeed_tpu_torch import comm
+
+    problems = []
+    mine = c6_masks(lambda: c6_engine(world), 1)
+    everyone = comm.all_gather_object(mine)
+    probs = [i for i, d in enumerate(ref_digests) if isinstance(d, list)]
+    for r, theirs in enumerate(everyone):
+        for i, want in enumerate(ref_digests):
+            got = theirs[i][0] if isinstance(want, list) else theirs[i]
+            if got != (want[r] if isinstance(want, list) else want):
+                problems.append(f"rank {r}'s mask {i} is not one card's")
+    distinct = all(len({everyone[r][i][0] for r in range(world)}) == world
+                   for i in probs)
+    if world > 1 and not distinct:
+        problems.append("the ranks' probability masks are not distinct")
+    line, launches = parallel_path(
+        lambda: c6_engine(world), parallel_batch(MISTRAL_MICRO), STEPS,
+        PARALLEL_C6_PER_STEP, phase="parallel", part=f"tp{world}_c6",
+        problems=problems)
+    return {"masks": len(mine), "probability_masks": len(probs),
+            "ranks_masks_distinct": distinct,
+            "captured_vs_eager": line["captured_vs_eager"]}, launches, problems
+
+
+def mixtral_witness(batches):
+    """Mixtral's one-card reference run again with the rows of each global
+    micro batch reversed and its gating noise reversed with them (each
+    token keeps its draw and its route; only the order of the sums
+    changes): how far rounding alone moves the 12-step update."""
+    import numpy as np
+
+    def make():
+        eng = parallel_ep_engine(
+            1, MIXTRAL_TRAIN_LAYERS, PARALLEL_EP * PARALLEL_MIXTRAL_ROWS,
+            one_card=True, **PARALLEL_MIXTRAL_TRAIN)
+        draw = eng._gating
+
+        def reversed_noise(batch):
+            noise = draw(batch)["gating_noise"]
+            L, K, n, E = noise.shape
+            rows = batch["input_ids"].shape[0]
+            return {"gating_noise": noise.view(L, K, rows, n // rows, E)
+                    .flip(2).reshape(L, K, n, E)}
+
+        eng._gating = reversed_noise
+        return eng
+
+    flipped = [{k: np.ascontiguousarray(v[::-1]) for k, v in b.items()}
+               for b in batches]
+    return one_card_run(make, flipped)
 
 
 def parallel_rank(rank, world, url):
@@ -9815,6 +10594,26 @@ def parallel_rank(rank, world, url):
     out = {"rank": rank, "references_s": ref_s, "seconds": {}}
     problems = []
     try:
+        # ROADMAP A.9 part 2a and C.6
+        t = time.perf_counter()
+        out["scheduler"], out["scheduler_launches"], p = parallel_scheduler(
+            rank, world)
+        out["seconds"]["scheduler"] = time.perf_counter() - t
+        problems += p
+        t = time.perf_counter()
+        out["window_serve"], p = parallel_window_serve(rank, world)
+        problems += p
+        out["window_train"], out["window_launches"], p = \
+            parallel_window_train(rank, world, MISTRAL_TRAIN_LAYERS,
+                                  refs["window"] if rank == 0 else None)
+        out["seconds"]["window"] = time.perf_counter() - t
+        problems += p
+        t = time.perf_counter()
+        out["c6"], out["c6_launches"], p = parallel_c6(
+            rank, world, comm.broadcast_object(
+                refs["c6_digests"] if rank == 0 else None))
+        out["seconds"]["c6"] = time.perf_counter() - t
+        problems += p
         for dtype in ("bf16", "int8"):
             t = time.perf_counter()
             out[f"serve_{dtype}"] = parallel_serve(rank, world, dtype)
@@ -9878,10 +10677,12 @@ def parallel_spawn(world):
             env=dict(os.environ, LOCAL_RANK=str(r))))
     deadline = time.monotonic() + PARALLEL_RANK_TIMEOUT_S
     try:
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        pass
+        # a rank that fails leaves the others waiting in a collective: stop
+        # them at once
+        while time.monotonic() < deadline and any(
+                p.poll() is None for p in procs) and not any(
+                p.poll() not in (None, 0) for p in procs):
+            time.sleep(1.0)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -9904,11 +10705,14 @@ def parallel_spawn(world):
 
 
 def phase_parallel():
-    """Tensor and expert parallelism (ROADMAP A.9 part 1) over NCCL: at
-    world >= ``PARALLEL_MIN_WORLD`` one process per card serving and
-    training Mistral-7B at tp 4 and Mixtral-8x7B at ep 4 (the first
-    ``PARALLEL_MIN_WORLD`` cards); always, in process on one card, the tp
-    path at tp 1 and the ep path at ep 1. Returns the launches by path."""
+    """Tensor and expert parallelism (ROADMAP A.9 parts 1 and 2a) over
+    NCCL: at world >= ``PARALLEL_MIN_WORLD`` one process per card serving
+    and training Mistral-7B at tp 4 and Mixtral-8x7B at ep 4 (the first
+    ``PARALLEL_MIN_WORLD`` cards), through the scheduler and the front door
+    too, Mistral's window at tp 4, the fused head over the vocab-parallel
+    head and the C.6 masks; always, in process on one card, the tp path at
+    tp 1 and the ep path at ep 1 (``parallel_one_card``). Returns the
+    launches by path."""
     import shutil
 
     import torch
@@ -9941,7 +10745,12 @@ def phase_parallel():
                       f"parallel_tp{PARALLEL_TP}_train_32_layers":
                           r0["full_launches"],
                       f"parallel_ep{PARALLEL_EP}_train":
-                          r0["mixtral_launches"]})
+                          r0["mixtral_launches"],
+                      f"parallel_tp{PARALLEL_TP}_scheduler":
+                          r0["scheduler_launches"],
+                      f"parallel_tp{PARALLEL_TP}_window_train":
+                          r0["window_launches"],
+                      f"parallel_tp{PARALLEL_TP}_c6": r0["c6_launches"]})
     emit({"phase": "parallel", "part": "done", "nvidia_smi": smi,
           "world": world, "seconds": time.perf_counter() - t0})
     return paths
@@ -10084,11 +10893,14 @@ def main(argv):
         # each replay) and scheduler (its cache path runs no kernel), and
         # the front door's runs (none either), and the parallel phase's
         # tp path (Mistral's widths at tp 1: B1-B4) and ep path (Mixtral's
-        # at ep 1: B1-B4).
+        # at ep 1: B1-B4), and its window through the tp path at tp 1
+        # (B5-B7, B4), its scheduler (no kernel on the cache path) and the
+        # C.6 check's steps (B4: dropout keeps attention on einsum).
         # "launches" is the count on the newest path that runs the kernel
         name = entry["name"]
         entry["launches_by_path"] = {p: counts[name] for p, counts in paths.items()}
-        entry["launches"] = (parallel_paths["parallel_tp_train"][name]
+        entry["launches"] = (parallel_paths["parallel_tp_window_train"][name]
+                             or parallel_paths["parallel_tp_train"][name]
                              or parallel_paths["parallel_ep_train"][name]
                              or serving_paths["serving_forward"][name]
                              or bert_paths["bert_selective"][name]

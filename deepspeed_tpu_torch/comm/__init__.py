@@ -10,12 +10,14 @@ from deepspeed_tpu_torch.comm.comm import (  # noqa: F401
     axis_index,
     barrier,
     broadcast,
+    broadcast_object,
     destroy_distributed,
     get_backend,
     get_local_device_count,
     get_local_rank,
     get_rank,
     get_world_size,
+    host_group,
     index_group,
     init_distributed,
     is_initialized,

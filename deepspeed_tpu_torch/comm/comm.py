@@ -39,7 +39,10 @@ Two layers, as in the JAX package:
    with no rendezvous given, a one-rank group on an in-memory store.
    ``get_rank``, ``get_world_size``, ``get_local_rank``,
    ``get_local_device_count``, ``barrier`` and ``is_initialized`` (JAX
-   :280-311).
+   :280-311). ``broadcast_object`` and ``all_gather_object`` move small
+   host objects over an axis's gloo group (``host_group``), outside every
+   CUDA graph: the serving scheduler's plan from rank 0 of a tp or ep
+   group to the others.
 
 NCCL creates a communicator at the first collective on a group (and its
 point-to-point connections at the first all-to-all), which must not happen
@@ -57,7 +60,7 @@ import torch
 import torch.distributed as dist
 
 from deepspeed_tpu_torch.comm.logging import comms_logger
-from deepspeed_tpu_torch.parallel.mesh import get_default_topology
+from deepspeed_tpu_torch.parallel.mesh import AXIS_ORDER, get_default_topology
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 Axis = Union[None, str, Sequence[str]]
@@ -365,6 +368,7 @@ def destroy_distributed() -> None:
     if is_initialized():
         dist.destroy_process_group()
     _index_groups.clear()
+    _host_groups.clear()
     clear_group_cache()
     reset_default_topology()
 
@@ -405,14 +409,70 @@ def barrier() -> None:
         dist.barrier()
 
 
-def all_gather_object(obj) -> list:
+def all_gather_object(obj, axis: Axis = None) -> list:
     """Every rank's ``obj`` (picklable), in rank order: a collective on the
-    host's side, outside any captured step (``[obj]`` without a group)."""
+    host's side, outside any captured step (``[obj]`` without a group).
+    With an ``axis`` it runs over that axis's ranks, on their host group
+    (``host_group``)."""
     if not is_initialized():
         return [obj]
+    if axis is not None:
+        group, world = host_group(axis)
+        out = [None] * world
+        dist.all_gather_object(out, obj, group=group)
+        return out
     out = [None] * dist.get_world_size()
     dist.all_gather_object(out, obj)
     return out
+
+
+# (axes, mesh shape) -> this rank's gloo group over them, and its size
+_host_groups = {}
+
+
+def host_group(axis: Axis):
+    """``(group, size)``: a gloo group over this rank's slice along
+    ``axis`` (None: every rank), for small objects on the host (a serving
+    plan, a digest) that must not wait on the card's stream: the axis's own
+    group when the backend is gloo already, else made once for every slice
+    of the mesh, in one order on every rank (``new_group`` is a collective
+    of the whole world)."""
+    group, world = _resolve(axis)
+    if dist.get_backend(group) == "gloo":
+        return group, world
+    topo = get_default_topology()
+    named = AXIS_ORDER if axis is None else (
+        (axis,) if isinstance(axis, str) else tuple(axis))
+    axes = tuple(a for a in AXIS_ORDER if a in named)
+    key = (axes, topo.shape)
+    if key not in _host_groups:
+        others = [a for a in AXIS_ORDER if a not in axes]
+        me, mine, seen = dist.get_rank(), None, set()
+        for r in range(topo.num_devices):
+            c = topo.coord_of(r)
+            fixed = tuple(c[a] for a in others)
+            if fixed in seen:
+                continue
+            seen.add(fixed)
+            ranks = topo.filter_ranks(**{a: c[a] for a in others})
+            g = dist.new_group(ranks, backend="gloo")
+            if me in ranks:
+                mine = g
+        _host_groups[key] = (mine, world)
+    return _host_groups[key]
+
+
+def broadcast_object(obj, axis: Axis = None, root: int = 0):
+    """Root's ``obj`` (picklable) on every rank of ``axis`` (``root`` is
+    the rank's index within the axis), over the axis's host group: one
+    rank's decision made every rank's, outside any captured step."""
+    if not is_initialized():
+        return obj
+    group, _ = host_group(axis)
+    box = [obj]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, root),
+                               group=group)
+    return box[0]
 
 
 def log_summary():

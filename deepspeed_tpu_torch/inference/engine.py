@@ -60,13 +60,14 @@ serves the rank's shard of the model (``GPT(config, parallel=...)``,
 all-reduces inside every graph, the vocab-parallel head's logits gathered
 over tp, so every rank picks the same token (sampling draws from a
 generator seeded alike on every rank), the KV cache of the rank's KV heads
-(int8 included), and under ep the rank's experts on the slots of rows that
-every rank holds, their outputs gathered over ep. Weights given whole (a
-``state_dict``, a checkpoint of any layout, or random from ``seed``) are
-cut to the rank's shard as they are placed; int8 quantizes the whole weight
-first, so the codes and scales are the one-card engine's. The
-continuous-batching scheduler and the serving front door stay on one card
-(ROADMAP A.9 part 2).
+(int8 included; the ring cache of a window layout too), and under ep the
+rank's experts on the slots of rows that every rank holds, their outputs
+gathered over ep. Weights given whole (a ``state_dict``, a checkpoint of
+any layout, or random from ``seed``) are cut to the rank's shard as they
+are placed; int8 quantizes the whole weight first, so the codes and scales
+are the one-card engine's. The continuous-batching scheduler and the
+serving front door run over such an engine with rank 0 deciding for the
+group (``inference/scheduler.py``).
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` (under a
 group ``cuda:{local_rank}``) and raises when torch sees no card. Pass

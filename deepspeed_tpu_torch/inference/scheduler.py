@@ -51,8 +51,28 @@ events carry (``shed_count``, ``deadline_shed_count``, ``spec_proposed``,
 The front-door hooks (``prefix_cache``, ``admission_controller``,
 ``reject_callback``, ``journal``, ``health_provider``) are duck-typed, as
 in JAX.
+
+Over a tensor- or expert-parallel engine (one process per card; JAX serves
+any engine under its topology from one controller) the collectives inside
+the prefill and decode graphs meet only if every rank makes the same
+engine calls in the same order. So rank 0 of the engine's tp x ep group
+decides and every rank executes: rank 0 owns the queue, the clock,
+admission, deadlines and the prefix cache's lookups and promotions; each
+host decision the engine calls depend on is broadcast from it over the
+group's gloo group (``decide``, ``comm.broadcast_object``): once per loop
+iteration the stop and drain state, and once per admission the request
+taken (or none). The tokens every rank computes from the gathered logits
+are equal, so each rank uses its own; each hashes them, and the digests
+ride on the iteration's stop decision (``_agree``), so a divergence raises
+on every rank one step after it. Every rank builds the scheduler and calls
+``run`` alike. A plain ``submit`` on the other ranks only checks its
+arguments and returns None (rank 0's stream callbacks submit on rank 0
+alone); a ``kv_handoff`` is submitted on every rank (each holds its own KV
+heads), and rank 0's outcome, its id or its rejection, is the group's.
+Only rank 0 streams tokens, journals and publishes events.
 """
 
+import hashlib
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -61,6 +81,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.inference.engine import continuation_chunk_spans
 from deepspeed_tpu_torch.ops.sparse_attention.sparse_attention_utils import \
     ring_engaged
@@ -236,13 +257,20 @@ class ContinuousBatchingScheduler:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if max_pending is not None and max_pending < 1:
             raise ValueError(f"max_pending must be >= 1, got {max_pending}")
-        for eng in (engine, draft_engine):
-            par = getattr(getattr(eng, "module", None), "parallel", None)
-            if par is not None and (par.tp > 1 or par.ep > 1):
-                raise NotImplementedError(
-                    "the continuous-batching scheduler over an engine with "
-                    "tp or ep > 1 is not ported yet (ROADMAP A.9 part 2); "
-                    "it serves a one-card engine")
+        # the serving group: the tp x ep ranks of a parallel engine, whose
+        # rank 0 decides (None: one card)
+        par, dpar = (getattr(getattr(eng, "module", None), "parallel", None)
+                     for eng in (engine, draft_engine))
+        if draft_engine is not None and (par is None) != (dpar is None) or (
+                par is not None and dpar is not None
+                and (par.tp, par.ep) != (dpar.tp, dpar.ep)):
+            raise ValueError("the draft_engine must run at the target's tp "
+                             "and ep (the same serving group)")
+        self._axes = None if par is None else ("ep", "tp")
+        self.leader = par is None or (par.tp_rank == 0 and par.ep_rank == 0)
+        # the other ranks' hand-offs, by rank 0's request id
+        self._handoffs: Dict[int, Any] = {}
+        self._digest = hashlib.blake2b(digest_size=16)
         self.engine = engine
         self.slots = int(slots)
         self.temperature = float(temperature)
@@ -335,6 +363,48 @@ class ContinuousBatchingScheduler:
         self._pending: deque = deque()
         self._next_id = 0
         self._kv_stats_static = None
+        if prefix_cache is not None and self._axes is not None:
+            # every rank's cache holds the same keys: rank 0's budget, and
+            # only rank 0 publishes
+            prefix_cache.budget_bytes = self.decide(prefix_cache.budget_bytes)
+            prefix_cache.events = self.leader
+
+    # ------------------------------------------------------------------
+    def decide(self, value):
+        """Rank 0's ``value`` on every rank of the serving group
+        (``value`` itself on one card): each host decision that the engine
+        calls depend on goes through here, so every rank makes the same
+        calls in the same order and the collectives inside them meet."""
+        if self._axes is None:
+            return value
+        return comm.broadcast_object(value if self.leader else None,
+                                     self._axes)
+
+    def _publish(self, kind, **payload):
+        if self.leader:
+            publish(kind, **payload)
+
+    def _hash(self, tokens: np.ndarray) -> np.ndarray:
+        """``tokens`` (this rank's), hashed into the run's digest over a
+        serving group (``_agree``)."""
+        if self._axes is not None:
+            self._digest.update(np.asarray(tokens, np.int64).tobytes())
+        return tokens
+
+    def _agree(self, stop: bool):
+        """Rank 0's ``(stop, draining)`` on every rank, once per loop
+        iteration. Each rank's digest of the tokens it computed so far
+        rides along: a divergence raises on every rank at the next
+        iteration, before the ranks' lanes can part."""
+        if self._axes is None:
+            return stop, self._draining
+        states = comm.all_gather_object(
+            (stop, self._draining, self._digest.hexdigest()), self._axes)
+        if len({d for _, _, d in states}) > 1:
+            raise RuntimeError(
+                "the serving group's ranks computed different tokens "
+                f"(digests {[d for _, _, d in states]})")
+        return states[0][:2]
 
     # ------------------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
@@ -375,6 +445,33 @@ class ContinuousBatchingScheduler:
                 f"replay of {len(replay)} tokens exhausts the "
                 f"max_new_tokens budget ({max_new_tokens}) — the request "
                 "already finished; do not replay it")
+        if self._axes is not None and kv_handoff is not None:
+            # a hand-off is submitted on every rank of the serving group
+            # (each holds its own KV heads): rank 0's outcome, its request
+            # id or its rejection, is every rank's
+            rid = err = None
+            if self.leader:
+                try:
+                    rid = self._enqueue(prompt, max_new_tokens, eos_token_id,
+                                        stream_callback, deadline_s, replay,
+                                        kv_handoff)
+                except (AdmissionRejected, ValueError) as exc:
+                    err = exc
+            rid, err = self.decide((rid, err))
+            if err is not None:
+                raise err
+            if not self.leader:
+                self._handoffs[rid] = kv_handoff
+            return rid
+        if not self.leader:
+            self._check_capacity(len(prompt), max_new_tokens)
+            return None
+        return self._enqueue(prompt, max_new_tokens, eos_token_id,
+                             stream_callback, deadline_s, replay, kv_handoff)
+
+    def _enqueue(self, prompt, max_new_tokens, eos_token_id, stream_callback,
+                 deadline_s, replay, kv_handoff) -> int:
+        """``submit``'s admission checks and queueing (rank 0's)."""
         depth = len(self._pending)
         if self._draining:
             self._reject(DrainingError(
@@ -394,22 +491,7 @@ class ContinuousBatchingScheduler:
             if not admit:
                 self._reject(RequestShedError(
                     f"request shed by admission control: {reason}"), depth)
-        bucketed = self._bucketed_len(len(prompt))
-        if not self._streaming and \
-                bucketed + max_new_tokens > self._max_pos:
-            raise ValueError(
-                f"bucketed prompt ({bucketed}) + max_new_tokens "
-                f"({max_new_tokens}) exceeds the KV cache capacity "
-                f"(n_positions={self._max_pos})")
-        if self.spec_k and not self._streaming and \
-                bucketed + max_new_tokens + self.spec_k > self._max_pos:
-            # a verify pass writes spec_k columns past the last token kept;
-            # JAX drops writes past the cache (mode="drop"), the port's
-            # would be out of bounds
-            raise ValueError(
-                f"bucketed prompt ({bucketed}) + max_new_tokens "
-                f"({max_new_tokens}) + spec_k ({self.spec_k}) exceeds the "
-                f"KV cache capacity (n_positions={self._max_pos})")
+        self._check_capacity(len(prompt), max_new_tokens)
         rid = self._next_id
         self._next_id += 1
         now = time.monotonic()
@@ -428,15 +510,35 @@ class ContinuousBatchingScheduler:
         self._pending.append((req, now))
         return rid
 
+    def _check_capacity(self, n_prompt: int, max_new_tokens: int) -> None:
+        """The prompt's bucket and its new tokens fit the cache (checked
+        on every rank)."""
+        bucketed = self._bucketed_len(n_prompt)
+        if not self._streaming and \
+                bucketed + max_new_tokens > self._max_pos:
+            raise ValueError(
+                f"bucketed prompt ({bucketed}) + max_new_tokens "
+                f"({max_new_tokens}) exceeds the KV cache capacity "
+                f"(n_positions={self._max_pos})")
+        if self.spec_k and not self._streaming and \
+                bucketed + max_new_tokens + self.spec_k > self._max_pos:
+            # a verify pass writes spec_k columns past the last token kept;
+            # JAX drops writes past the cache (mode="drop"), the port's
+            # would be out of bounds
+            raise ValueError(
+                f"bucketed prompt ({bucketed}) + max_new_tokens "
+                f"({max_new_tokens}) + spec_k ({self.spec_k}) exceeds the "
+                f"KV cache capacity (n_positions={self._max_pos})")
+
     def _reject(self, exc: AdmissionRejected, depth: int, kind=None):
         """Count the shed, publish ``serve.shed`` (or ``kind``), fire the
         429 callback, raise ``exc``."""
         self.shed_count += 1
         if isinstance(exc, DeadlineExceededError):
             self.deadline_shed_count += 1
-        publish(kind or KIND_SERVE_SHED, severity="warning",
-                reason=exc.reason, queue_depth=depth,
-                shed_total=self.shed_count)
+        self._publish(kind or KIND_SERVE_SHED, severity="warning",
+                      reason=exc.reason, queue_depth=depth,
+                      shed_total=self.shed_count)
         if self.reject_callback is not None:
             try:
                 self.reject_callback(None, exc.reason)
@@ -453,9 +555,10 @@ class ContinuousBatchingScheduler:
             return
         self._draining = True
         self.drain_reason = str(reason)
-        publish(KIND_SERVE_DRAIN, severity="warning", phase="begin",
-                reason=self.drain_reason, queue_depth=len(self._pending),
-                lanes_active=self._lanes_active)
+        self._publish(KIND_SERVE_DRAIN, severity="warning", phase="begin",
+                      reason=self.drain_reason,
+                      queue_depth=len(self._pending),
+                      lanes_active=self._lanes_active)
 
     @property
     def draining(self) -> bool:
@@ -466,11 +569,11 @@ class ContinuousBatchingScheduler:
         up: it never occupies a lane or runs a prefill."""
         now = time.monotonic()
         self.deadline_shed_count += 1
-        publish(KIND_SERVE_DEADLINE_SHED, severity="warning",
-                request_id=req.request_id, waited_s=now - t_submit,
-                late_s=now - req.t_deadline,
-                queue_depth=len(self._pending),
-                deadline_shed_total=self.deadline_shed_count)
+        self._publish(KIND_SERVE_DEADLINE_SHED, severity="warning",
+                      request_id=req.request_id, waited_s=now - t_submit,
+                      late_s=now - req.t_deadline,
+                      queue_depth=len(self._pending),
+                      deadline_shed_total=self.deadline_shed_count)
         if self.journal is not None:
             self.journal.record_shed(req.request_id)
         if self.reject_callback is not None:
@@ -587,14 +690,20 @@ class ContinuousBatchingScheduler:
         cols = tuple(int(t) if m else -1 for t, m in zip(ids[0], mask[0]))
         # limit Lp-1 keeps >= 1 column for the continuation pass, so the
         # last pass always gives the last token's logits
-        entry = pc.lookup(cols, limit=Lp - 1, request_id=request_id)
-        start = 0
+        entry = start = target = None
+        if self.leader:
+            entry = pc.lookup(cols, limit=Lp - 1, request_id=request_id)
+            start = 0 if entry is None else entry.length
+            target = pc.promotion_target(cols, limit=Lp - 1, have=start)
+        # rank 0's hit and promotion; the other ranks' caches hold the same
+        # keys (the same inserts and evictions, in the same order)
+        start, target = self.decide((start, target))
+        if not self.leader and start:
+            entry = pc.follow(cols[:start])
         cache = None
         if entry is not None:
-            start = entry.length
             cache = eng._decoder(1).cache.copy_(entry.cache)
             pc.release(entry)
-        target = pc.promotion_target(cols, limit=Lp - 1, have=start)
 
         logits = None
         if cache is None:
@@ -707,6 +816,8 @@ class ContinuousBatchingScheduler:
         if self.health_provider is not None and \
                 hasattr(self.health_provider, "states"):
             payload["health"] = dict(self.health_provider.states())
+        if not self.leader:
+            return
         kv = self._kv_static()
         payload["kv_resident_bytes"] = kv["resident_bytes"]
         payload["kv_unquantized_bytes"] = kv["unquantized_bytes"]
@@ -725,19 +836,54 @@ class ContinuousBatchingScheduler:
         if full:
             cache.reset_rows(full)
 
+    def _take(self) -> Optional[tuple]:
+        """The next admission, ``(request, t_submit)``, or None when the
+        queue is empty; expired requests are shed first. Over a serving
+        group rank 0's, the same on every rank (the other ranks drop the
+        hand-offs of the requests it shed)."""
+        taken, shed = None, []
+        while self.leader and self._pending:
+            req, t_submit = self._pending.popleft()
+            if req.t_deadline is not None and \
+                    time.monotonic() > req.t_deadline:
+                self._shed_expired(req, t_submit)
+                shed.append(req.request_id)
+                continue
+            taken = (req, t_submit)
+            break
+        if self._axes is None:
+            return taken
+        spec = None if taken is None else (
+            taken[0].request_id, taken[0].prompt, taken[0].max_new_tokens,
+            taken[0].eos_token_id, taken[0].replay_tokens)
+        spec, shed = self.decide((spec, shed))
+        if self.leader:
+            return taken
+        for rid in shed:
+            self._handoffs.pop(rid, None)
+        if spec is None:
+            return None
+        rid, prompt, n, eos, replay = spec
+        return (Request(prompt=prompt, max_new_tokens=n, eos_token_id=eos,
+                        request_id=rid, replay_tokens=replay,
+                        kv_handoff=self._handoffs.pop(rid, None)),
+                time.monotonic())
+
     def run(self, poll_fn: Optional[Callable[[], None]] = None
             ) -> ServingStats:
         """Serve the queue to completion; returns stats and completions.
 
         ``poll_fn`` (optional) is called once per loop iteration, between
-        decode steps (a replica pumps its control pipe there). While
-        draining (``begin_drain``): no new admissions, the lanes decoding
-        finish, and the loop returns with the queue intact.
+        decode steps (a replica pumps its control pipe there; over a
+        serving group on rank 0 only). While draining (``begin_drain``): no
+        new admissions, the lanes decoding finish, and the loop returns
+        with the queue intact.
         """
         eng = self.engine
         stats = ServingStats()
         lanes: List[Optional[_Lane]] = [None] * self.slots
         sampled = self.temperature > 0
+        self._digest = hashlib.blake2b(digest_size=16)
         if sampled:
             eng._temperature.fill_(self.temperature)
         with torch.inference_mode():
@@ -759,9 +905,10 @@ class ContinuousBatchingScheduler:
                 lane.comp.t_done = time.monotonic()
                 stats.completions.append(lane.comp)
                 lanes[lane_no] = None
-                publish(KIND_SERVE_EVICT, request_id=lane.req.request_id,
-                        lane=lane_no, tokens=lane.emitted,
-                        queue_depth=len(self._pending))
+                self._publish(KIND_SERVE_EVICT,
+                              request_id=lane.req.request_id, lane=lane_no,
+                              tokens=lane.emitted,
+                              queue_depth=len(self._pending))
 
             def emit(lane_no: int, lane: _Lane, token: int) -> bool:
                 """Record one token; True when the sequence is done."""
@@ -774,12 +921,15 @@ class ContinuousBatchingScheduler:
                     # first token on the replica that died, and a replay's
                     # sample would bias the admission p95 window
                     if lane.req.replay_tokens is None:
-                        publish(KIND_SERVE_FIRST_TOKEN,
-                                request_id=lane.req.request_id, lane=lane_no,
-                                ttft_s=now - lane.comp.t_submit)
+                        self._publish(KIND_SERVE_FIRST_TOKEN,
+                                      request_id=lane.req.request_id,
+                                      lane=lane_no,
+                                      ttft_s=now - lane.comp.t_submit)
                 done = (lane.emitted >= lane.req.max_new_tokens
                         or (lane.req.eos_token_id is not None
                             and token == lane.req.eos_token_id))
+                if not self.leader:
+                    return done
                 if self.journal is not None:
                     self.journal.record_token(
                         lane.req.request_id, token, done=done)
@@ -789,44 +939,48 @@ class ContinuousBatchingScheduler:
                 return done
 
             while True:
-                if poll_fn is not None:
+                if poll_fn is not None and self.leader:
                     poll_fn()
                 active = any(ln is not None for ln in lanes)
-                if self._draining:
-                    if not active:
-                        break  # the queue stays for the journal hand-off
-                elif not (self._pending or active):
-                    break
+                stop = (not active if self._draining
+                        else not (self._pending or active))
+                stop, self._draining = self._agree(stop)
+                if stop:
+                    break  # a drain leaves the queue for the journal
                 # admissions: fill every free lane from the queue; a request
                 # done at admission (max_new_tokens 1, or EOS first) frees
                 # its lane for the next at once, and an expired deadline
-                # sheds before the prefill
+                # sheds before the prefill. The first empty take ends the
+                # round: nothing is submitted before the next token.
                 for lane_no in range(self.slots if not self._draining
                                      else 0):
-                    while lanes[lane_no] is None and self._pending:
-                        req, t_submit = self._pending.popleft()
-                        if req.t_deadline is not None and \
-                                time.monotonic() > req.t_deadline:
-                            self._shed_expired(req, t_submit)
-                            continue
+                    while lanes[lane_no] is None:
+                        taken = self._take()
+                        if taken is None:
+                            break
+                        req, t_submit = taken
                         replayed = len(req.replay_tokens or ())
                         comp = Completion(
                             request_id=req.request_id,
                             tokens=list(req.replay_tokens or ()),
                             prompt_len=len(req.prompt), t_submit=t_submit)
                         comp.t_admit = time.monotonic()
-                        publish(KIND_SERVE_ADMIT, request_id=req.request_id,
-                                lane=lane_no, prompt_len=len(req.prompt),
-                                replayed=replayed,
-                                queue_wait_s=comp.t_admit - t_submit,
-                                queue_depth=len(self._pending))
-                        first_tok = self._admit_prefill(req, lane_no, cache,
-                                                        draft_cache)
+                        self._publish(KIND_SERVE_ADMIT,
+                                      request_id=req.request_id,
+                                      lane=lane_no,
+                                      prompt_len=len(req.prompt),
+                                      replayed=replayed,
+                                      queue_wait_s=comp.t_admit - t_submit,
+                                      queue_depth=len(self._pending))
+                        first_tok = int(self._hash(self._admit_prefill(
+                            req, lane_no, cache, draft_cache)))
                         tok[lane_no] = first_tok
                         lane = _Lane(req=req, comp=comp, emitted=replayed)
                         lanes[lane_no] = lane
                         if emit(lane_no, lane, first_tok):
                             finish(lane_no, lane)
+                    if lanes[lane_no] is None:
+                        break
 
                 self._publish_stats(stats, lanes)
                 if not self._lanes_active:
@@ -849,8 +1003,8 @@ class ContinuousBatchingScheduler:
                     cols = torch.cat([tok[:, None], props], dim=1)
                     g = eng._verify_greedy(cols, cache, eager=self.eager)
                     stats.decode_steps += 1
-                    g_np = g.cpu().numpy()
-                    props_np = props.cpu().numpy()
+                    g_np = self._hash(g.cpu().numpy())
+                    props_np = self._hash(props.cpu().numpy())
                     matches = props_np == g_np[:, :k]
                     m = np.where(matches.all(axis=1), k,
                                  matches.argmin(axis=1))
@@ -862,10 +1016,11 @@ class ContinuousBatchingScheduler:
                     self.spec_proposed += k * len(live)
                     accepted_now = int(sum(int(m_eff[ln]) for ln in live))
                     self.spec_accepted += accepted_now
-                    publish(KIND_SERVE_SPEC_ACCEPT, k=k, lanes=len(live),
-                            proposed=k * len(live), accepted=accepted_now,
-                            proposed_total=self.spec_proposed,
-                            accepted_total=self.spec_accepted)
+                    self._publish(KIND_SERVE_SPEC_ACCEPT, k=k,
+                                  lanes=len(live), proposed=k * len(live),
+                                  accepted=accepted_now,
+                                  proposed_total=self.spec_proposed,
+                                  accepted_total=self.spec_accepted)
                     for lane_no in live:
                         lane = lanes[lane_no]
                         for j in range(int(m_eff[lane_no]) + 1):
@@ -881,7 +1036,7 @@ class ContinuousBatchingScheduler:
                     tok = eng._decode_run(decode, cache, tok, 1, sampled,
                                           self.eager)[:, 0]
                     stats.decode_steps += 1
-                    tok_np = tok.cpu().numpy()
+                    tok_np = self._hash(tok.cpu().numpy())
                     for lane_no in range(self.slots):
                         lane = lanes[lane_no]
                         if lane is None:

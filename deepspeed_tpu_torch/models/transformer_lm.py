@@ -329,16 +329,20 @@ def attention_route(cfg: "GPTConfig", t: int, *, mask=False, segments=False,
     return "einsum", None
 
 
-def fused_head_engages(cfg: "GPTConfig", batch: int, seq: int):
+def fused_head_engages(cfg: "GPTConfig", batch: int, seq: int,
+                       vocab: Optional[int] = None):
     """The token chunk of the fused head + CE for a ``[batch, seq]`` call,
     or 0 for the unfused head (JAX :1188-1213): ``"auto"`` fuses once the
     compute-dtype logits of the call reach ``FUSED_HEAD_CE_AUTO_BYTES``;
     ``True`` means ``FUSED_HEAD_CE_CHUNK``; an int is the chunk (bool is
-    tested first: True is an int)."""
+    tested first: True is an int). ``vocab``: the logits' width this rank
+    holds (default the config's): under a vocab-parallel head the port
+    counts the rank's ``V/tp`` columns where JAX, one program under GSPMD,
+    counts the whole vocabulary."""
     fused = cfg.fused_head_ce
     if fused == "auto":
         itemsize = torch.finfo(cfg.dtype).bits // 8
-        fused = (batch * seq * cfg.vocab_size * itemsize
+        fused = (batch * seq * (vocab or cfg.vocab_size) * itemsize
                  >= FUSED_HEAD_CE_AUTO_BYTES)
     if isinstance(fused, bool):
         return FUSED_HEAD_CE_CHUNK if fused else 0
@@ -985,8 +989,12 @@ class CausalSelfAttention(nn.Module):
             from deepspeed_tpu_torch.ops.sparse_attention import \
                 SparseSelfAttention
 
+            # under a layout the rank's heads' layouts (the per-head
+            # layouts' slice, or the shared one's)
             self.sparse = SparseSelfAttention(
-                cfg.sparse_attention, max_seq_length=cfg.n_positions)
+                cfg.sparse_attention, max_seq_length=cfg.n_positions,
+                heads=None if parallel is None else (
+                    parallel.head_start(cfg), self.n_head))
 
     def _rope(self, t, positions):
         from deepspeed_tpu_torch.ops.rotary import apply_rotary_pos_emb
@@ -1001,7 +1009,7 @@ class CausalSelfAttention(nn.Module):
         bias = alibi_bias(self.cfg.n_head, length, dtype, device)
         if self.parallel is None:
             return bias
-        return bias.narrow(0, self.parallel.tp_rank * self.n_head,
+        return bias.narrow(0, self.parallel.head_start(self.cfg),
                            self.n_head)
 
     def forward(self, x, mask=None, step=None, layer=0, segment_ids=None,
@@ -1103,10 +1111,21 @@ class CausalSelfAttention(nn.Module):
             y = flash_attention(q, k, v, causal=cfg.causal,
                                 segment_ids=segment_ids)
         else:
+            probs_rng = rng
+            if self.parallel is not None and self.training \
+                    and cfg.dropout > 0.0:
+                # the probabilities' mask is drawn over all heads and this
+                # rank keeps its heads' slice, as the one-card draw lays
+                # them (the other masks act on whole activations)
+                from deepspeed_tpu_torch.runtime.activation_checkpointing \
+                    import head_draws
+
+                probs_rng = head_draws(rng, self.parallel.head_start(cfg),
+                                       cfg.n_head)
             y = einsum_attention(q, k, v, causal=cfg.causal, mask=mask,
                                  segment_ids=segment_ids,
                                  alibi=cfg.alibi and self._alibi,
-                                 dropout=self.dropout, generator=rng)
+                                 dropout=self.dropout, generator=probs_rng)
         return self.dropout(self.c_proj(y.reshape(B, T, C)), rng)
 
 
@@ -1417,15 +1436,14 @@ class GPT(nn.Module):
         if labels is not None:
             if decode:
                 raise ValueError("labels and decode=True do not combine")
-            chunk = fused_head_engages(cfg, B, T)
-            if chunk and self._vocab_tp and self.parallel.tp > 1:
-                raise NotImplementedError(
-                    "fused_head_ce over a vocab-parallel head (tp > 1) is "
-                    "not ported yet (ROADMAP A.9 part 2); set "
-                    "fused_head_ce=False")
+            chunk = fused_head_engages(
+                cfg, B, T, cfg.vocab_size // self.parallel.tp
+                if self._vocab_tp else None)
             if chunk:
                 # the fused head + CE (JAX :1199-1213): the [B*T, V] logits
-                # exist one token chunk at a time
+                # exist one token chunk at a time; over a vocab-parallel
+                # head each rank's V/tp of them, merged by three
+                # all-reduces (ops/cross_entropy.py)
                 from deepspeed_tpu_torch.ops.cross_entropy import \
                     fused_linear_cross_entropy
 
@@ -1435,9 +1453,12 @@ class GPT(nn.Module):
                 head = (self.wte.weight if tied else self.lm_head).to(
                     cfg.dtype)
                 loss = fused_linear_cross_entropy(
-                    tied, chunk, x.to(cfg.dtype).reshape(-1, cfg.n_embd),
+                    tied, chunk,
+                    self._head_input(x).to(cfg.dtype).reshape(-1, cfg.n_embd),
                     head, self.lm_head_bias, targets.reshape(-1),
-                    w.reshape(-1))
+                    w.reshape(-1),
+                    self.parallel.vocab_start(cfg) if self._vocab_tp
+                    else None)
             else:
                 # compute-dtype logits (the unfused training head,
                 # :1217-1218), the bias added after the product as in JAX

@@ -11,9 +11,15 @@ two vocabulary-sized matmuls behind it stay in bf16.
 the ``[N, V]`` logits exist one token chunk at a time, in the forward and
 again in the backward, which recomputes them. Its products are plain
 matmuls (cuBLAS), as in JAX, where they run outside any Pallas kernel.
+Over a vocab-parallel head (tensor parallelism) it is Megatron's
+vocab-parallel loss over token chunks (JAX runs the same function under
+GSPMD at any tp).
 """
 
 import torch
+
+from deepspeed_tpu_torch.parallel.tensor import (vocab_onehot_sub_,
+                                                 vocab_owned_target)
 
 
 def _ce_fwd_math(logits, targets):
@@ -81,22 +87,51 @@ class FusedLinearCrossEntropy(torch.autograd.Function):
     weights [N] f32. The forward keeps x, w, bias, the targets, the weights
     and the per-token lse; the backward recomputes each chunk's logits and
     forms ``dl = (p - onehot) * w * g / denom`` in the compute dtype, dx per
-    chunk and dw (and db) summed in f32."""
+    chunk and dw (and db) summed in f32.
+
+    ``vocab_start`` (not None) makes it Megatron's vocab-parallel loss over
+    a tensor-parallel rank's head rows ``[vocab_start, vocab_start + V/tp)``
+    (``w`` and ``bias`` the rank's shard): each chunk keeps its rows'
+    local max, sum of exponentials under that max and target logit
+    (``vocab_owned_target``), and after the last chunk three all-reduces
+    over tp (MAX of the maxima, SUM of the sums rescaled to it, SUM of the
+    target logits) give every token's lse and nll over the whole
+    vocabulary. The backward is local: this rank's slice of ``p - onehot``, its ``dw`` rows
+    and its part of ``dx`` (the caller's ``copy_to_tp`` all-reduces
+    ``dx``)."""
 
     @staticmethod
-    def forward(ctx, vocab_major, chunk, x, w, bias, targets, weights):
+    def forward(ctx, vocab_major, chunk, x, w, bias, targets, weights,
+                vocab_start=None):
         n = x.shape[0]
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         lse = torch.empty(n, dtype=torch.float32, device=x.device)
+        if vocab_start is not None:
+            m = torch.empty(n, dtype=torch.float32, device=x.device)
+            tgt = torch.empty(n, dtype=torch.float32, device=x.device)
         for start in range(0, n, chunk):
             sl = slice(start, start + chunk)
-            nll, lse_c = _ce_fwd_math(_head_logits(x[sl], w, bias,
-                                                   vocab_major), targets[sl])
-            total = total + (nll * weights[sl]).sum()
-            lse[sl] = lse_c
+            logits = _head_logits(x[sl], w, bias, vocab_major)
+            if vocab_start is None:
+                nll, lse_c = _ce_fwd_math(logits, targets[sl])
+                total = total + (nll * weights[sl]).sum()
+                lse[sl] = lse_c
+                continue
+            lf = logits.float()
+            m[sl] = lf.max(dim=-1).values
+            lse[sl] = torch.exp(lf - m[sl, None]).sum(dim=-1)
+            tgt[sl] = vocab_owned_target(logits, targets[sl], vocab_start)
+        if vocab_start is not None:
+            from deepspeed_tpu_torch import comm
+
+            m_all = comm.all_reduce(m.clone(), "tp", comm.ReduceOp.MAX)
+            sumexp = comm.all_reduce(lse * torch.exp(m - m_all), "tp")
+            lse = torch.log(sumexp) + m_all
+            total = ((lse - comm.all_reduce(tgt, "tp")) * weights).sum()
         denom = torch.clamp(weights.sum(), min=1.0)
         ctx.save_for_backward(x, w, bias, targets, weights, lse, denom)
         ctx.vocab_major, ctx.chunk = vocab_major, chunk
+        ctx.vocab_start = vocab_start
         return total / denom
 
     @staticmethod
@@ -114,7 +149,10 @@ class FusedLinearCrossEntropy(torch.autograd.Function):
             x_c = x[sl]
             p = torch.exp(_head_logits(x_c, w, bias, vocab_major).float()
                           - lse[sl, None])
-            p[rows, targets[sl]] -= 1.0                       # p - onehot
+            if ctx.vocab_start is None:
+                p[rows, targets[sl]] -= 1.0                   # p - onehot
+            else:
+                vocab_onehot_sub_(p, targets[sl], ctx.vocab_start)
             dl = p.mul_((weights[sl] * gscale)[:, None]).to(x.dtype)
             if vocab_major:
                 # dl [n, V], w [V, E]: dx = dl w, dw [V, E] = dl^T x
@@ -127,15 +165,18 @@ class FusedLinearCrossEntropy(torch.autograd.Function):
             if db is not None:
                 db += dl.float().sum(dim=0)
         return (None, None, dx, dw.to(w.dtype),
-                None if bias is None else db.to(bias.dtype), None, None)
+                None if bias is None else db.to(bias.dtype), None, None,
+                None)
 
 
 def fused_linear_cross_entropy(vocab_major, chunk, x, w, bias, targets,
-                               weights):
+                               weights, vocab_start=None):
     """Weighted-mean nll of ``softmax(x @ w + bias)`` without the [N, V]
     logits. x: [N, E] compute dtype; w: [E, V] ([V, E] when ``vocab_major``);
     targets: [N] int; weights: [N] f32. N is padded up to a multiple of the
-    chunk (target 0, weight 0)."""
+    chunk (target 0, weight 0). ``vocab_start``: ``w`` and ``bias`` are a
+    tensor-parallel rank's vocabulary rows from there (the vocab-parallel
+    head; ``FusedLinearCrossEntropy``)."""
     n = x.shape[0]
     c = min(max(1, chunk), n)
     pad = (-n) % c
@@ -144,4 +185,4 @@ def fused_linear_cross_entropy(vocab_major, chunk, x, w, bias, targets,
         targets = torch.nn.functional.pad(targets, (0, pad))
         weights = torch.nn.functional.pad(weights, (0, pad))
     return FusedLinearCrossEntropy.apply(vocab_major, c, x, w, bias,
-                                         targets, weights)
+                                         targets, weights, vocab_start)

@@ -338,8 +338,11 @@ class SparseSelfAttention:
 
     def __init__(self, sparsity_config, key_padding_mask_mode: str = "add",
                  attn_mask_mode: str = "mul", max_seq_length: int = 2048,
-                 impl: str = None):
+                 impl: str = None, heads=None):
         self.sparsity_config = sparsity_config
+        # (first head, count): a tensor-parallel rank's heads, whose
+        # layouts are the rows of the whole layout it keeps
+        self.heads = heads
         if key_padding_mask_mode not in ("add", "mul"):
             raise ValueError("key_padding_mask_mode must be 'add' or 'mul'")
         if attn_mask_mode not in ("add", "mul"):
@@ -360,8 +363,11 @@ class SparseSelfAttention:
                 f"seq_len {seq_len} exceeds max_seq_length "
                 f"{self.max_seq_length}")
         if seq_len not in self._layouts:
-            self._layouts[seq_len] = \
-                self.sparsity_config.make_layout(seq_len)
+            layout = self.sparsity_config.make_layout(seq_len)
+            if self.heads is not None:
+                start, n = self.heads
+                layout = np.ascontiguousarray(layout[start:start + n])
+            self._layouts[seq_len] = layout
         return self._layouts[seq_len]
 
     def __call__(self, query, key, value, key_padding_mask=None,

@@ -90,10 +90,6 @@ class ParallelLayout:
         if self.ep > 1 and not cfg.is_moe:
             raise ValueError("ep > 1 needs a mixture-of-experts model "
                              "(moe_num_experts > 0)")
-        if tp > 1 and cfg.sparse_attention is not None:
-            raise NotImplementedError(
-                "a sparse_attention layout (and the ring KV cache) under "
-                "tp > 1 is not ported yet (ROADMAP A.9 part 2)")
 
     # -- the local widths -------------------------------------------------
     def heads(self, cfg) -> Tuple[int, int]:
@@ -101,6 +97,12 @@ class ParallelLayout:
         Hkv = cfg.kv_heads
         return cfg.n_head // self.tp, (Hkv // self.tp if Hkv % self.tp == 0
                                        else 1)
+
+    def head_start(self, cfg) -> int:
+        """The first query head this rank holds (its heads are
+        ``head_start .. + heads(cfg)[0]``, as ``c_attn``'s shard takes
+        them)."""
+        return self.tp_rank * (cfg.n_head // self.tp)
 
     def kv_head_start(self, cfg) -> int:
         """The first KV head this rank holds."""
@@ -176,7 +178,8 @@ def _qkv_index(cfg, layout: ParallelLayout, rank: int, device=None
     lay = dataclasses.replace(layout, tp_rank=rank)
     Hl, Hkvl = lay.heads(cfg)
     k0 = lay.kv_head_start(cfg)
-    q = torch.arange(rank * Hl * D, (rank + 1) * Hl * D)
+    q0 = lay.head_start(cfg)
+    q = torch.arange(q0 * D, (q0 + Hl) * D)
     k = H * D + torch.arange(k0 * D, (k0 + Hkvl) * D)
     v = (H + Hkv) * D + torch.arange(k0 * D, (k0 + Hkvl) * D)
     return torch.cat([q, k, v]).to(device)
@@ -375,11 +378,34 @@ def vocab_parallel_lookup(ids, weight, start: int, dtype):
     return reduce_from_tp(rows)
 
 
+def vocab_owned_target(logits, targets, start: int):
+    """Each row's target logit from ``[n, V/tp]`` logit shards (this rank's
+    vocabulary from ``start``), f32 ``[n]``: 0 where another rank owns the
+    target, so a SUM over tp gives every row's."""
+    local = targets - start
+    mine = (local >= 0) & (local < logits.shape[-1])
+    tgt = logits.gather(-1, torch.where(mine, local, 0)[:, None])[:, 0]
+    return torch.where(mine, tgt.float(), 0.0)
+
+
+def vocab_onehot_sub_(p, targets, start: int):
+    """``p - onehot`` in place on a rank's ``[n, V/tp]`` slice from
+    ``start``: the target's column changes only on the rank that owns
+    it."""
+    local = targets - start
+    mine = (local >= 0) & (local < p.shape[-1])
+    rows = torch.arange(p.shape[0], device=p.device)
+    p[rows, torch.where(mine, local, 0)] -= mine.float()
+    return p
+
+
 class VocabParallelCrossEntropy(torch.autograd.Function):
     """The weighted mean nll of ``[N, V/tp]`` logit shards (compute dtype;
     this rank's vocabulary from ``start``), ``ops/cross_entropy``'s
     ``SoftmaxCrossEntropy`` over the whole vocabulary: the row max, the sum
-    of exponentials and the target logit each all-reduced over tp. The
+    of exponentials under it and the target logit each all-reduced over tp
+    (the fused head, which sees the logits a chunk at a time, rescales
+    each chunk's sums to the global max after its last chunk instead). The
     backward is this rank's slice of ``scale * (softmax - onehot)`` in the
     logits' dtype."""
 
@@ -393,22 +419,19 @@ class VocabParallelCrossEntropy(torch.autograd.Function):
         sumexp = comm.all_reduce(torch.exp(lf - m[:, None]).sum(dim=-1),
                                  "tp")
         lse = torch.log(sumexp) + m
-        local = targets - start
-        mine = (local >= 0) & (local < logits.shape[-1])
-        idx = torch.where(mine, local, 0)
-        tgt = logits.gather(-1, idx[:, None])[:, 0].float()
-        tgt = comm.all_reduce(torch.where(mine, tgt, 0.0), "tp")
+        tgt = comm.all_reduce(vocab_owned_target(logits, targets, start),
+                              "tp")
         denom = torch.clamp(weights.sum(), min=1.0)
-        ctx.save_for_backward(logits, idx, mine, weights, lse, denom)
+        ctx.save_for_backward(logits, targets, weights, lse, denom)
+        ctx.start = start
         return ((lse - tgt) * weights).sum() / denom
 
     @staticmethod
     def backward(ctx, g):
-        logits, idx, mine, weights, lse, denom = ctx.saved_tensors
+        logits, targets, weights, lse, denom = ctx.saved_tensors
         scale = (g * weights / denom).float()[:, None]
-        p = torch.exp(logits.float() - lse[:, None])
-        rows = torch.arange(p.shape[0], device=p.device)
-        p[rows, idx] -= mine.float()
+        p = vocab_onehot_sub_(torch.exp(logits.float() - lse[:, None]),
+                              targets, ctx.start)
         return p.mul_(scale).to(logits.dtype), None, None, None
 
 

@@ -212,17 +212,34 @@ def _drawing(draws: _Draws, replay: bool):
 
 @dataclasses.dataclass(frozen=True)
 class GlobalBatchDraws:
-    """A mask generator under data parallelism: ``bernoulli_mask`` draws
-    each mask over the global micro batch (``world`` times the rank's rows
-    on dim 0) from ``generator`` and keeps this rank's rows, ``rank * b ..
-    (rank + 1) * b``, as the JAX engine draws one mask over the global
-    batch. Every rank draws alike, so the generators stay equal; draws that
-    are not per row (the stochastic-depth gates, ``base_generator``) are
-    equal on every rank."""
+    """A mask generator under data or tensor parallelism:
+    ``bernoulli_mask`` draws each mask over the global micro batch
+    (``world`` times the rank's rows on dim 0) from ``generator`` and keeps
+    this rank's rows, ``rank * b .. (rank + 1) * b``, as the JAX engine
+    draws one mask over the global batch. With ``heads`` (the model's head
+    count) the mask's dim 1 is a tensor-parallel rank's heads: the draw
+    covers all ``heads`` and keeps ``head_start .. head_start + h`` too, so
+    each rank's attention probabilities take their heads' slice of the one
+    whole-head draw (``head_draws``). Every rank draws alike, so the
+    generators stay equal; draws that are not per row (the stochastic-depth
+    gates, ``base_generator``) are equal on every rank."""
 
     generator: torch.Generator
-    rank: int
-    world: int
+    rank: int = 0
+    world: int = 1
+    head_start: int = 0
+    heads: int = 0
+
+
+def head_draws(generator, start: int, heads: int):
+    """``generator`` (a ``torch.Generator`` or a ``GlobalBatchDraws``)
+    drawing masks whose dim 1 is the heads ``start ..`` of ``heads`` (a
+    tensor-parallel rank's attention probabilities); None stays None."""
+    if generator is None:
+        return None
+    if not isinstance(generator, GlobalBatchDraws):
+        generator = GlobalBatchDraws(generator)
+    return dataclasses.replace(generator, head_start=start, heads=heads)
 
 
 def base_generator(generator):
@@ -234,21 +251,28 @@ def base_generator(generator):
 def bernoulli_mask(shape, p: float, generator, device) -> torch.Tensor:
     """A ``bool`` tensor of ``shape`` whose entries are True with probability
     ``p``, drawn from ``generator`` (``jax.random.bernoulli``'s meaning; a
-    ``GlobalBatchDraws`` draws the global batch's mask and keeps this
-    rank's rows). Inside a checkpointed call the forward's draw is recorded
-    and its recompute gets the same tensor back without drawing."""
+    ``GlobalBatchDraws`` draws the global batch's mask, over all heads when
+    it names them, and keeps this rank's rows and heads). Inside a
+    checkpointed call the forward's draw is recorded and its recompute gets
+    the same tensor back without drawing."""
     draws = getattr(_current, "draws", None)
     if draws is not None and draws.replaying:
         mask = draws.masks[draws.next]
         draws.next += 1
         return mask
     if isinstance(generator, GlobalBatchDraws):
-        rows = shape[0]
-        full = torch.empty((rows * generator.world, *shape[1:]),
+        rows, rest = shape[0], tuple(shape[1:])
+        heads = rest[0] if generator.heads else None
+        if heads is not None:
+            rest = (generator.heads,) + rest[1:]
+        full = torch.empty((rows * generator.world, *rest),
                            dtype=torch.bool, device=device).bernoulli_(
             p, generator=generator.generator)
-        # a copy of the rank's rows: the global draw is freed at once
-        mask = full[generator.rank * rows:(generator.rank + 1) * rows].clone()
+        mask = full[generator.rank * rows:(generator.rank + 1) * rows]
+        if heads is not None:
+            mask = mask[:, generator.head_start:generator.head_start + heads]
+        # a copy of the rank's part: the global draw is freed at once
+        mask = mask.clone()
     else:
         mask = torch.empty(shape, dtype=torch.bool, device=device).bernoulli_(
             p, generator=generator)

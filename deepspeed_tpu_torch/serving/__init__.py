@@ -135,6 +135,11 @@ def build_serving(engine, config: Optional[Dict[str, Any]] = None,
     get missed. ``draft_engine`` (parameter, not a config key — it is a
     live engine, not a knob) plus ``spec_k`` turn on exact-greedy
     speculative decoding in the scheduler.
+
+    A tensor- or expert-parallel engine serves with the same contract:
+    every rank calls ``build_serving`` with the same config, and rank 0 of
+    the engine's tp x ep group decides (admission, the prefix cache, the
+    tokens) while the others follow (``ContinuousBatchingScheduler``).
     """
     cfg = dict(config or {})
     slots = int(cfg.pop("slots", 8))

@@ -31,6 +31,12 @@ graphs read its buffers). A JAX cache is an immutable tree; here
 hand-offs queued before ``run`` do not all alias the last prefill, and
 ``nbytes`` counts that copy.
 
+Over a tensor-parallel engine every rank builds the same server and calls
+``submit`` and ``run`` alike: rank 0 places each prompt, every rank
+prefills it and hands off its own KV heads in process (``handoff_bytes``
+counts this rank's, 1/tp of one card's), and only rank 0 accounts the
+transfer on the bus.
+
 The int8 KV cache (``{"kv_cache": "int8"}``) shrinks both the resident
 lane bytes (:func:`lane_kv_bytes`) and the hand-off payload by ~2x against
 bf16. Producer and consumer must agree on ``prompt_bucket`` (the cache
@@ -59,8 +65,8 @@ __all__ = ["KVHandoff", "PrefillWorker", "DisaggServer", "lane_kv_bytes",
 
 def lane_kv_bytes(model, slots: int = 1) -> Dict[str, int]:
     """Per-lane decode KV-cache bytes of ``model`` (a GPT; an engine's
-    ``module``), from a cache built on the ``meta`` device: nothing is
-    allocated.
+    ``module``, under tensor parallelism the rank's KV heads), from a cache
+    built on the ``meta`` device: nothing is allocated.
 
     ``resident_bytes`` is what the cache stores (int8 codes plus f32 scales
     under ``kv_cache_dtype="int8"``), ``unquantized_bytes`` the same cache
@@ -71,7 +77,8 @@ def lane_kv_bytes(model, slots: int = 1) -> Dict[str, int]:
     where flax keeps ``valid`` and ``index`` in every layer."""
     from deepspeed_tpu_torch.models.transformer_lm import kv_cache
 
-    mcfg = model.config
+    # a tensor-parallel rank's cache holds its KV heads
+    mcfg = getattr(model, "cache_config", model.config)
     cache = kv_cache(mcfg, int(slots), torch.device("meta"))
     compute = torch.finfo(mcfg.dtype).bits // 8
     kv = [*cache.key, *cache.value]
@@ -213,14 +220,19 @@ class DisaggServer:
                **submit_kw) -> int:
         """Prefill on a worker, hand off, queue on the decode scheduler.
         Returns the decode scheduler's request id."""
-        idx = self._pick_worker(prompt)
+        sched = self.scheduler
+        # over a serving group rank 0 places the prefill and every rank
+        # runs it, handing off its own KV heads
+        idx = sched.decide(self._pick_worker(prompt) if sched.leader
+                           else None)
         worker = self.workers[idx]
         h = worker.prefill(prompt)
         self.handoffs += 1
         self.handoff_bytes += h.nbytes
-        rid = self.scheduler.submit(prompt, max_new_tokens=max_new_tokens,
-                                    kv_handoff=h.as_submit_arg(),
-                                    **submit_kw)
+        rid = sched.submit(prompt, max_new_tokens=max_new_tokens,
+                           kv_handoff=h.as_submit_arg(), **submit_kw)
+        if not sched.leader:
+            return rid
         if self.coordinator is not None:
             self.coordinator.record_kv_transfer(
                 rid, from_replica=worker.replica, to_replica=-1,

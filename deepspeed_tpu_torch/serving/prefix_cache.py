@@ -25,7 +25,9 @@ fallback on the CPU. An entry being copied into a lane holds a reference
 and is never evicted. Single-threaded, like the scheduler it serves. Each
 hit, miss and eviction is counted (``stats``) and published on the
 telemetry bus (``serve.prefix_hit``/``_miss``/``_evict``, JAX's payload
-keys).
+keys). Over a tensor- or expert-parallel engine each rank keeps its own
+cache of its KV heads under the same keys: rank 0 looks up and promotes,
+and the others ``follow`` its decisions (``inference/scheduler.py``).
 """
 
 from collections import OrderedDict
@@ -108,6 +110,9 @@ class PrefixCache:
         self.insertions = 0
         self.evictions = 0
         self.insert_skips = 0
+        # False on the ranks that follow rank 0 of a serving group: their
+        # copy of the cache publishes nothing
+        self.events = True
 
     def _resolve_budget(self, device) -> int:
         """``budget_bytes``, else ``budget_frac_hbm`` of the card's memory
@@ -166,6 +171,16 @@ class PrefixCache:
                 prompt_cols=len(cols))
         return None
 
+    def follow(self, key: Key) -> _Entry:
+        """The entry rank 0's ``lookup`` found, on a rank that follows it
+        (a tp or ep group's other ranks hold the same keys, each with its
+        own KV heads): pinned and made most recent as ``lookup`` does."""
+        entry = self._entries[key]
+        entry.refs += 1
+        self._entries.move_to_end(key)
+        self.hits += 1
+        return entry
+
     def release(self, entry: _Entry) -> None:
         entry.refs = max(0, entry.refs - 1)
 
@@ -216,8 +231,9 @@ class PrefixCache:
             del self._entries[victim.key]
             self.bytes_used -= victim.nbytes
             self.evictions += 1
-            publish(KIND_SERVE_PREFIX_EVICT, prefix_len=victim.length,
-                    nbytes=victim.nbytes, bytes_used=self.bytes_used)
+            if self.events:
+                publish(KIND_SERVE_PREFIX_EVICT, prefix_len=victim.length,
+                        nbytes=victim.nbytes, bytes_used=self.bytes_used)
         return True
 
     # -- introspection ------------------------------------------------

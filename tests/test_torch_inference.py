@@ -216,27 +216,28 @@ def test_foreign_models_are_refused():
 @pytest.mark.parametrize("case", ["tp", "ep", "foreign"])
 def test_serving_refusals_name_their_roadmap_item(case):
     """Every refusal left on the serving path names the ROADMAP item that
-    ports it: the continuous-batching scheduler over an engine with tp or
-    ep > 1 A.9 part 2 (the engines themselves serve:
-    test_torch_tensor_parallel.py, test_torch_expert_parallel.py), a
-    foreign (HF) model A.12."""
+    ports it: a foreign (HF) model A.12. The continuous-batching
+    scheduler's refusal of an engine with tp or ep > 1 (A.9 part 2) is
+    lifted: it takes the rank's shard, and rank 0 of the engine's tp x ep
+    group decides for the others (test_torch_tp_serving.py serves over 2
+    ranks)."""
     import types
 
     from deepspeed_tpu_torch.inference.scheduler import \
         ContinuousBatchingScheduler
     from deepspeed_tpu_torch.parallel.tensor import ParallelLayout
 
-    item = {"tp": "A.9 part 2", "ep": "A.9 part 2", "foreign": "A.12"}[case]
-    with pytest.raises(NotImplementedError) as err:
-        if case == "foreign":
+    if case == "foreign":
+        with pytest.raises(NotImplementedError) as err:
             deepspeed_tpu_torch.init_inference(torch.nn.Linear(2, 2),
                                                dtype="fp32", device="cpu")
-        else:
-            # the rank's shard of a tp-2 / ep-2 model (meta: no weights)
-            layout = ParallelLayout(**{case: 2})
-            cfg = tlm.GPTConfig(**SMALL, **(
-                {"moe_num_experts": 2} if case == "ep" else {}))
-            engine = types.SimpleNamespace(
-                module=tlm.GPT(cfg, parallel=layout))
-            ContinuousBatchingScheduler(engine)
-    assert f"ROADMAP {item}" in str(err.value)
+        assert "ROADMAP A.12" in str(err.value)
+        return
+    # each rank's shard of a tp-2 / ep-2 model (meta: no weights)
+    cfg = tlm.GPTConfig(**SMALL, **(
+        {"moe_num_experts": 2} if case == "ep" else {}))
+    for rank in (0, 1):
+        layout = ParallelLayout(**{case: 2, f"{case}_rank": rank})
+        engine = types.SimpleNamespace(module=tlm.GPT(cfg, parallel=layout))
+        sched = ContinuousBatchingScheduler(engine)
+        assert sched.leader == (rank == 0)

@@ -108,8 +108,9 @@ def test_greedy_generate_is_token_identical(engines, ragged):
 
 def test_expert_parallel_serving_is_refused_naming_a9():
     """ep serves over a process group (test_torch_expert_parallel.py):
-    without one ``ep_size`` > 1 raises naming ``init_distributed``, and the
-    scheduler over an ep engine stays refused (ROADMAP A.9 part 2)."""
+    without one ``ep_size`` > 1 raises naming ``init_distributed``. The
+    scheduler's refusal of an ep engine (ROADMAP A.9 part 2) is lifted:
+    rank 0 of the ep group leads it (test_torch_tp_serving.py)."""
     import types
 
     from deepspeed_tpu_torch.inference.scheduler import \
@@ -122,8 +123,7 @@ def test_expert_parallel_serving_is_refused_naming_a9():
             device="cpu", ep_size=2)
     engine = types.SimpleNamespace(module=tlm.GPT(
         tlm.GPTConfig(**_fields(SWITCH)), parallel=ParallelLayout(ep=2)))
-    with pytest.raises(NotImplementedError, match="A.9"):
-        ContinuousBatchingScheduler(engine)
+    assert ContinuousBatchingScheduler(engine).leader
 
 
 # ---------------------------------------------------------------------------

@@ -453,12 +453,18 @@ def test_layout_refusals_name_their_constraint():
         tlm.GPT(tlm.GPTConfig(**dict(LLAMA, n_head=12, n_kv_head=3,
                                      n_embd=96)),
                 parallel=ParallelLayout(tp=4))
-    with pytest.raises(NotImplementedError, match="A.9 part 2"):
-        from deepspeed_tpu_torch.ops.sparse_attention import \
-            FixedSparsityConfig
+    # a sparse_attention layout under tp (refused until ROADMAP A.9 part
+    # 2a): each rank's attention keeps its heads' layouts
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
 
-        tlm.GPT(tlm.GPTConfig(**LLAMA, sparse_attention=FixedSparsityConfig(
-            num_heads=4, block=16)), parallel=ParallelLayout(tp=2))
+    sparse = FixedSparsityConfig(num_heads=4, block=16,
+                                 different_layout_per_head=True)
+    whole = sparse.make_layout(64)
+    for r in (0, 1):
+        attn = tlm.GPT(tlm.GPTConfig(**LLAMA, sparse_attention=sparse),
+                       parallel=ParallelLayout(tp=2, tp_rank=r)).h[0].attn
+        np.testing.assert_array_equal(attn.sparse.get_layout(64),
+                                      whole[2 * r:2 * r + 2])
 
 
 # -- 2 ranks, tp 2 -----------------------------------------------------------
